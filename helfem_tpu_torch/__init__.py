@@ -1,9 +1,11 @@
 """helfem_tpu_torch: the PyTorch/CUDA port of helfem_tpu.
 
-The atomic restricted Hartree-Fock path of helfem_tpu, carried to PyTorch
-with hand-written CUDA kernels for the radial Coulomb and exchange builds
-(`kernels/`, sources in `csrc/`). helfem_tpu stays the reference the port is
-tested against; this package imports torch and never jax or helfem_tpu.
+Two paths of helfem_tpu carried to PyTorch with hand-written CUDA kernels
+(`kernels/`, sources in `csrc/`): atomic restricted Hartree-Fock (radial
+Coulomb and exchange kernels) and diatomic restricted LDA/GGA DFT (diatomic
+radial Coulomb, XC grid fields and XC Fock kernels). helfem_tpu stays the
+reference the port is tested against; this package imports torch and never
+jax or helfem_tpu.
 
 Conventions: every tensor is torch.float64 (gidx int32), every function that
 creates tensors takes an explicit `device`, and no global default dtype is

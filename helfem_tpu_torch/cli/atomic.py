@@ -10,6 +10,8 @@ per-iteration and final-energy lines match the JAX CLI's.
 import argparse
 import time
 
+from helfem_tpu_torch.cli._common import open_device, parse_nela_nelb, reject_unported
+
 # helfem_tpu.cli.atomic flags outside this slice
 _UNPORTED_FLAGS = (
     "Zl", "Zr", "Rmid", "nela", "nelb", "Q", "M", "nquad", "nelem0", "grid0",
@@ -19,28 +21,6 @@ _UNPORTED_FLAGS = (
     "dampfock", "dampthr", "diag", "eigiter", "diisthr", "ldft", "mdft",
     "angstrom", "x_pars", "c_pars", "zeroder", "trace", "ndev", "taylor_order",
 )
-
-
-def parse_nela_nelb(Z: int, Q: int, M: int, nela: int, nelb: int):
-    """(reference: scf::parse_nela_nelb)."""
-    if nela or nelb:
-        return nela, nelb
-    nel = Z - Q
-    if M == 0:
-        M = 1 if nel % 2 == 0 else 2
-    na = (nel + M - 1) // 2
-    return na, nel - na
-
-
-def _reject_unported(extra: list[str]) -> None:
-    for arg in extra:
-        name = arg[2:].split("=", 1)[0] if arg.startswith("--") else ""
-        if name in _UNPORTED_FLAGS:
-            raise NotImplementedError(
-                f"--{name} is not ported to helfem_tpu_torch yet (see ROADMAP.md)"
-            )
-    if extra:
-        raise SystemExit(f"helfem_tpu_torch atomic: unrecognized arguments: {' '.join(extra)}")
 
 
 def main(argv=None):
@@ -69,20 +49,17 @@ def main(argv=None):
                    help="torch device: cuda runs the CUDA kernels, cpu their "
                         "plain PyTorch versions")
     args, extra = p.parse_known_args(argv)
-    _reject_unported(extra)
+    reject_unported(extra, _UNPORTED_FLAGS, p.prog)
 
     import torch
 
     from helfem_tpu_torch.models.atomic import AtomicBasis
-    from helfem_tpu_torch.ops.xc import parse_method_rs
-    from helfem_tpu_torch.scf.atomic_scf import scf_atom
+    from helfem_tpu_torch.scf.atomic_scf import hf_kfrac, scf_atom
     from helfem_tpu_torch.utils.elements import HARTREE_IN_EV, get_Z
     from helfem_tpu_torch.utils.timer import Timer
 
-    device = torch.device(args.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("--device cuda: no CUDA device is available")
-    parse_method_rs(args.method)  # raises for methods that are not ported
+    device = open_device(args.device)
+    hf_kfrac(args.method)  # raises for methods that are not ported
     Z = get_Z(args.Z)
     nela, nelb = parse_nela_nelb(Z, 0, 0, 0, 0)
     guess = {0: "core", 1: "GSZ", 2: "SAP", 3: "TF"}[args.iguess]

@@ -1,10 +1,11 @@
 """Build and load the port's CUDA kernels.
 
-The sources in helfem_tpu_torch/csrc/ have a plain C interface. They are
-compiled by nvcc for sm_90a into one shared library under
-helfem_tpu_torch/_build/ at first use, and again whenever a source is newer
-than the library, then loaded with ctypes. Nothing here runs at import time,
-so importing the kernels needs neither nvcc nor a GPU.
+The sources in helfem_tpu_torch/csrc/ have a plain C interface. Each is
+compiled by its own nvcc process for sm_90a, all started together, and the
+objects are linked into one shared library under helfem_tpu_torch/_build/
+at first use, and again whenever a source is newer than the library, then
+loaded with ctypes. Nothing here runs at import time, so importing the
+kernels needs neither nvcc nor a GPU.
 """
 
 import ctypes
@@ -20,8 +21,8 @@ _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 LIBRARY = BUILD_DIR / "libhelfem_kernels.so"
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC"]
+ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
+NVCC_FLAGS = [*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # entry point -> argument types (pointers and the stream as c_void_p: a plain
@@ -29,6 +30,9 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     "radial_exchange_launch": [_P] * 7 + [_I] * 6 + [_P],
     "radial_coulomb_launch": [_P] * 10 + [_I] * 6 + [_P],
+    "radial_coulomb_dia_launch": [_P] * 16 + [_I] * 5 + [_P],
+    "dia_xc_fields_launch": [_P] * 13 + [_I] * 7 + [_P],
+    "dia_xc_fock_launch": [_P] * 10 + [_I] * 7 + [_P],
 }
 
 _lib = None
@@ -51,21 +55,43 @@ def _stale() -> bool:
 
 
 def build(ptxas_verbose: bool = False) -> tuple[float, str]:
-    """Compile every csrc/*.cu into the shared library; returns (seconds,
-    compiler messages). ptxas_verbose adds each kernel's register, shared
-    memory and spill counts to the messages."""
+    """Compile every csrc/*.cu (one nvcc each, in parallel) and link the
+    shared library; returns (seconds, compiler messages). ptxas_verbose adds
+    each kernel's register, shared memory and spill counts to the
+    messages."""
     global _lib
     BUILD_DIR.mkdir(exist_ok=True)
-    tmp = BUILD_DIR / f"{LIBRARY.stem}.{os.getpid()}.so"
-    cmd = [_nvcc(), *NVCC_FLAGS, *(["-Xptxas=-v"] if ptxas_verbose else []),
-           "-o", str(tmp), *sorted(str(s) for s in CSRC.glob("*.cu"))]
+    nvcc = _nvcc()
+    tag = os.getpid()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-    os.replace(tmp, LIBRARY)  # atomic: a concurrent loader sees old or new
+    procs = []
+    for src in sorted(CSRC.glob("*.cu")):
+        obj = BUILD_DIR / f"{src.stem}.{tag}.o"
+        cmd = [nvcc, *NVCC_FLAGS, "-c", *(["-Xptxas=-v"] if ptxas_verbose else []),
+               "-o", str(obj), str(src)]
+        procs.append((src, obj, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                                 stderr=subprocess.STDOUT, text=True)))
+    log, failed = [], []
+    for src, _, proc in procs:
+        out, _ = proc.communicate()
+        log.append(out)
+        if proc.returncode != 0:
+            failed.append(f"{src.name} ({proc.returncode}):\n{out}")
+    objs = [obj for _, obj, _ in procs]
+    try:
+        if failed:
+            raise RuntimeError("nvcc failed: " + "\n".join(failed))
+        tmp = BUILD_DIR / f"{LIBRARY.stem}.{tag}.so"
+        link = subprocess.run([nvcc, *ARCH, "-shared", "-o", str(tmp), *map(str, objs)],
+                              capture_output=True, text=True)
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({link.returncode}):\n{link.stderr}")
+        os.replace(tmp, LIBRARY)  # atomic: a concurrent loader sees old or new
+    finally:
+        for obj in objs:
+            obj.unlink(missing_ok=True)
     _lib = None
-    return time.perf_counter() - t0, proc.stdout + proc.stderr
+    return time.perf_counter() - t0, "".join(log)
 
 
 def lib() -> ctypes.CDLL:

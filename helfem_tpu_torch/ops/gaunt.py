@@ -1,6 +1,7 @@
 """Gaunt coefficients (L4), carried over from helfem_tpu/ops/gaunt.py: the
-exact 3j symbols and the dense table of the Coulomb/exchange builds. The
-cos^k, sin^2 and modified (diatomic) couplings are not ported yet.
+exact 3j symbols, the dense table of the atomic Coulomb/exchange builds, and
+the cos^k and modified (cos^2) couplings of the diatomic operators. The
+sin^2 couplings (diatomic magnetic field) are not ported yet.
 
 The reference computes Wigner-3j symbols with GSL and caches dense cubes
 (src/general/gaunt.{cpp,h}). Here 3j symbols are evaluated EXACTLY in integer
@@ -19,7 +20,8 @@ from functools import lru_cache
 
 import numpy as np
 
-__all__ = ["wigner3j", "gaunt_coefficient", "gaunt_table"]
+__all__ = ["wigner3j", "gaunt_coefficient", "gaunt_table", "modified_gaunt_coefficient",
+           "cosk_coupling"]
 
 
 @lru_cache(maxsize=None)
@@ -73,6 +75,57 @@ def gaunt_coefficient(L: int, M: int, l: int, m: int, lp: int, mp: int) -> float
     res *= wigner3j(L, l, lp, 0, 0, 0)
     res *= wigner3j(L, l, lp, -M, m, mp)
     return res * (-1.0) ** M
+
+
+@lru_cache(maxsize=None)
+def modified_gaunt_coefficient(la: int, ma: int, L: int, M: int, lb: int, mb: int) -> float:
+    """Coupling of Y_LM through cos^2(theta):
+    <Y_la,ma | cos^2 Y_LM | Y_lb,mb>, via cos^2 = (2/3)sqrt(pi) Y00 +
+    (4/15)sqrt(5 pi) Y20 (reference: modified_gaunt_coefficient,
+    src/general/gaunt.cpp:55-68)."""
+    c0 = 2.0 / 3.0 * math.sqrt(math.pi)
+    c2 = 4.0 / 15.0 * math.sqrt(5.0 * math.pi)
+    cpl0 = gaunt_coefficient(L, M, 0, 0, L, M) * gaunt_coefficient(la, ma, lb, mb, L, M)
+    cpl2 = 0.0
+    for Lp in range(max(L - 2, abs(M), 0), L + 3):
+        cpl2 += gaunt_coefficient(Lp, M, 2, 0, L, M) * gaunt_coefficient(la, ma, lb, mb, Lp, M)
+    return c0 * cpl0 + c2 * cpl2
+
+
+@lru_cache(maxsize=None)
+def _cosk_legendre_coeffs(k: int):
+    """Exact expansion x^k = sum_n c_n P_n(x): c_n = (2n+1)/2 int x^k P_n dx."""
+    # Legendre coefficients as exact Fractions via the recurrence
+    polys = [[Fraction(1)], [Fraction(0), Fraction(1)]]  # coefficient lists
+    for n in range(1, k + 1):
+        a = [Fraction(0)] + [Fraction(2 * n + 1, n + 1) * c for c in polys[n]]
+        b = [Fraction(n, n + 1) * c for c in polys[n - 1]] + [Fraction(0)] * 2
+        polys.append([x - y for x, y in zip(a, b + [Fraction(0)] * (len(a) - len(b)))])
+    out = {}
+    for n in range(k + 1):
+        # c_n = (2n+1)/2 * sum_j p_j * int x^{k+j}
+        tot = Fraction(0)
+        for j, pj in enumerate(polys[n]):
+            if (k + j) % 2 == 0:
+                tot += pj * Fraction(2, k + j + 1)
+        c = Fraction(2 * n + 1, 2) * tot
+        if c != 0:
+            out[n] = float(c)
+    return out
+
+
+@lru_cache(maxsize=None)
+def cosk_coupling(k: int, la: int, ma: int, lb: int, mb: int) -> float:
+    """<Y_la,ma | cos^k(theta) | Y_lb,mb> (reference: gaunt.h cosine/cosine2/
+    .../cosine5_coupling helpers)."""
+    if ma != mb:
+        return 0.0
+    val = 0.0
+    for n, c in _cosk_legendre_coeffs(k).items():
+        val += c * math.sqrt(4.0 * math.pi / (2 * n + 1)) * gaunt_coefficient(
+            la, ma, n, 0, lb, mb
+        )
+    return val
 
 
 def gaunt_table(lval: np.ndarray, mval: np.ndarray, Lmax: int) -> np.ndarray:

@@ -29,6 +29,13 @@ from helfem_tpu_torch.models.atomic import (
     exchange_bd,
 )
 from helfem_tpu_torch.ops.xc import parse_method_rs
+from helfem_tpu_torch.scf.common import (
+    aufbau_blocks,
+    diis_error_blocks,
+    full_sinvh,
+    reject_unported,
+    vdot,
+)
 from helfem_tpu_torch.scf.diis import DIIS, device_diis_step
 from helfem_tpu_torch.scf.guess import potential
 from helfem_tpu_torch.utils.linalg import (
@@ -41,7 +48,7 @@ from helfem_tpu_torch.utils.linalg import (
     scatter_blocks,
 )
 
-__all__ = ["scf_atom", "SCFResult", "aufbau_blocks"]
+__all__ = ["scf_atom", "SCFResult", "aufbau_blocks", "hf_kfrac"]
 
 
 @dataclass
@@ -70,52 +77,10 @@ class SCFResult:
     walls: dict = field(default_factory=dict)  # phase -> seconds (CLI)
 
 
-def aufbau_blocks(E: np.ndarray, nel: float) -> np.ndarray:
-    """Occupations [nblk, blen] over globally sorted block eigenvalues with
-    degeneracy averaging (keeps open shells spherical / pi_+- symmetric)."""
-    nblk, blen = E.shape
-    occ = np.zeros(nblk * blen)
-    flat = E.ravel()
-    order = np.argsort(flat, kind="stable")
-    left = float(nel)
-    i = 0
-    while left > 1e-12 and i < len(order):
-        if flat[order[i]] > _BIG / 2:
-            break
-        j = i
-        while j + 1 < len(order) and flat[order[j + 1]] - flat[order[i]] < 1e-8:
-            j += 1
-        ndeg = j - i + 1
-        fill = min(left, float(ndeg))
-        for k in range(i, j + 1):
-            occ[order[k]] = fill / ndeg
-        left -= fill
-        i = j + 1
-    if left > 1e-12:
-        raise ValueError(
-            f"aufbau could not place {left:g} electrons: only "
-            f"{int((flat < _BIG / 2).sum())} usable eigenvalues"
-        )
-    return occ.reshape(nblk, blen)
-
-
-def _vdot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    return torch.dot(a.reshape(-1), b.reshape(-1))
-
-
 def _diis_error(F, P, S, Sinvh):
     FPS = F @ P @ S
     e = Sinvh.T @ (FPS - FPS.T) @ Sinvh
     return e.reshape(-1)
-
-
-def _diis_error_blocks(Fb, Pb, Sb, blk_sinvh):
-    """DIIS error Sinvh^T ([F,P]S-commutator) Sinvh per SYMMETRY BLOCK, from
-    block-coordinate matrices [nblk, blen, blen]: the reference's error
-    metric under --symmetry (helfem_tpu atomic_scf.py:133-145)."""
-    FPS = torch.einsum("bpq,bqr,brs->bps", Fb, Pb, Sb)
-    M = FPS - FPS.transpose(1, 2)
-    return torch.einsum("bpi,bps,bsj->bij", blk_sinvh, M, blk_sinvh).reshape(-1)
 
 
 def make_fock(kfrac: float, nrad: int):
@@ -129,10 +94,10 @@ def make_fock(kfrac: float, nrad: int):
         nang = ops.G.shape[-1]
         Ka = kfrac * exchange_bd(ops, channel_diag(Pa, nang, nrad))
         Fa = ops.H0 + J + Ka
-        Exx = 0.5 * (_vdot(Pa, Ka) + _vdot(Pa, Ka))
-        Ekin = _vdot(P, ops.T)
-        Enuc = _vdot(P, ops.Vnuc)
-        Ecoul = 0.5 * _vdot(P, J)
+        Exx = 0.5 * (vdot(Pa, Ka) + vdot(Pa, Ka))
+        Ekin = vdot(P, ops.T)
+        Enuc = vdot(P, ops.Vnuc)
+        Ecoul = 0.5 * vdot(P, J)
         return Fa, Ekin, Enuc, Ecoul, Exx
 
     return fock
@@ -151,7 +116,7 @@ def make_fused_step(kfrac: float, nrad: int):
         Fa, Ekin, Enuc, Ecoul, Exx = fock(ops, Pa)
         Etot = Ekin + Enuc + Ecoul + Exx
         Fab = gather_blocks(Fa, blk_idx)
-        err = _diis_error_blocks(Fab, Pab, Sb, blk_sinvh)
+        err = diis_error_blocks(Fab, Pab, Sb, blk_sinvh)
         errmax = torch.max(torch.abs(err))
         Fuse, count = device_diis_step(histF, histE, count, Fab, err)
         E, Cn = eig_blocks_b(Fuse, blk_idx, blk_sinvh, nbf)
@@ -205,17 +170,16 @@ _UNPORTED = {
 }
 
 
-def _reject_unported(options: dict) -> None:
-    for name, value in options.items():
-        if name not in _UNPORTED:
-            raise TypeError(f"scf_atom() got an unexpected keyword argument '{name}'")
-        default = _UNPORTED[name]
-        changed = (value is not None) if default is None else (value != default)
-        if changed:
-            raise NotImplementedError(
-                f"scf_atom option {name}={value!r} is not ported to "
-                "helfem_tpu_torch yet (see ROADMAP.md)"
-            )
+def hf_kfrac(method: str) -> float:
+    """Exact-exchange fraction of a method this slice runs on atoms: HF
+    only; every functional raises (atomic DFT is not ported yet)."""
+    spec = parse_method_rs(method)
+    if spec.funcs or spec.kshort:
+        raise NotImplementedError(
+            f"method '{method}': atomic DFT is not ported to helfem_tpu_torch "
+            "yet; only HF runs on atoms (see ROADMAP.md)"
+        )
+    return spec.kfull
 
 
 def scf_atom(
@@ -238,9 +202,8 @@ def scf_atom(
     """Closed-shell restricted HF (helfem_tpu's scf_atom for nela == nelb,
     method 'HF', symmetry 2). The operators are built on `device` unless
     `ops` is given, in which case the SCF runs on ops' device."""
-    _reject_unported(unported)
-    spec = parse_method_rs(method)
-    kfrac = spec.kfull
+    reject_unported(unported, _UNPORTED, "scf_atom")
+    kfrac = hf_kfrac(method)
     if nela != nelb or restricted == 0:
         raise NotImplementedError("unrestricted and ROHF SCF are not ported to "
                                   "helfem_tpu_torch yet; only closed-shell RHF")
@@ -268,7 +231,7 @@ def scf_atom(
     Ea, Ca = eig_blocks(Hg, blk_idx, blk_sinvh)
     Ea = Ea.cpu().numpy()
 
-    Sinvh_np = _full_sinvh(blk_idx_np, blk_sinvh_np, basis.nbf)
+    Sinvh_np = full_sinvh(blk_idx_np, blk_sinvh_np, basis.nbf)
     Sinvh_dev = as_dev(Sinvh_np)
     diis = DIIS(S_np, Sinvh_np, max_hist=diisorder, diis_eps=diiseps,
                 blocks=(blk_idx_np, blk_sinvh_np))
@@ -371,10 +334,3 @@ def scf_atom(
         symm_used=symm,
     )
 
-
-def _full_sinvh(blk_idx: np.ndarray, blk_sinvh: np.ndarray, nbf: int) -> np.ndarray:
-    out = np.zeros((nbf + 1, nbf + 1))
-    for b in range(blk_idx.shape[0]):
-        idx = blk_idx[b]
-        out[np.ix_(idx, idx)] += blk_sinvh[b]
-    return out[:nbf, :nbf]

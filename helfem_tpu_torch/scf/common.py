@@ -1,0 +1,78 @@
+"""Helpers shared by the atomic and diatomic SCF drivers: aufbau occupations
+over symmetry blocks, the block-coordinate DIIS error, the full-matrix
+whitening from its blocks, and the rejection of unported options."""
+
+import numpy as np
+import torch
+
+from helfem_tpu_torch.utils.linalg import _BIG
+
+__all__ = ["aufbau_blocks", "diis_error_blocks", "full_sinvh", "reject_unported", "vdot"]
+
+
+def aufbau_blocks(E: np.ndarray, nel: float) -> np.ndarray:
+    """Occupations [nblk, blen] over globally sorted block eigenvalues with
+    degeneracy averaging (keeps open shells spherical / pi_+- symmetric)."""
+    nblk, blen = E.shape
+    occ = np.zeros(nblk * blen)
+    flat = E.ravel()
+    order = np.argsort(flat, kind="stable")
+    left = float(nel)
+    i = 0
+    while left > 1e-12 and i < len(order):
+        if flat[order[i]] > _BIG / 2:
+            break
+        j = i
+        while j + 1 < len(order) and flat[order[j + 1]] - flat[order[i]] < 1e-8:
+            j += 1
+        ndeg = j - i + 1
+        fill = min(left, float(ndeg))
+        for k in range(i, j + 1):
+            occ[order[k]] = fill / ndeg
+        left -= fill
+        i = j + 1
+    if left > 1e-12:
+        raise ValueError(
+            f"aufbau could not place {left:g} electrons: only "
+            f"{int((flat < _BIG / 2).sum())} usable eigenvalues"
+        )
+    return occ.reshape(nblk, blen)
+
+
+def vdot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return torch.dot(a.reshape(-1), b.reshape(-1))
+
+
+def diis_error_blocks(Fb, Pb, Sb, blk_sinvh):
+    """DIIS error Sinvh^T ([F,P]S-commutator) Sinvh per SYMMETRY BLOCK, from
+    block-coordinate matrices [nblk, blen, blen]: the reference's error
+    metric under --symmetry (helfem_tpu atomic_scf.py:133-145)."""
+    FPS = torch.einsum("bpq,bqr,brs->bps", Fb, Pb, Sb)
+    M = FPS - FPS.transpose(1, 2)
+    return torch.einsum("bpi,bps,bsj->bij", blk_sinvh, M, blk_sinvh).reshape(-1)
+
+
+def full_sinvh(blk_idx: np.ndarray, blk_sinvh: np.ndarray, nbf: int) -> np.ndarray:
+    """The [nbf, nbf] whitening matrix assembled from its symmetry blocks
+    (blk_idx pads with the trash index nbf)."""
+    out = np.zeros((nbf + 1, nbf + 1))
+    for b in range(blk_idx.shape[0]):
+        idx = blk_idx[b]
+        out[np.ix_(idx, idx)] += blk_sinvh[b]
+    return out[:nbf, :nbf]
+
+
+def reject_unported(options: dict, unported: dict, fn: str) -> None:
+    """Raise for an option of helfem_tpu's `fn` that is set away from the
+    default under which it is inert (`unported`: name -> default), and for
+    an unknown keyword."""
+    for name, value in options.items():
+        if name not in unported:
+            raise TypeError(f"{fn}() got an unexpected keyword argument '{name}'")
+        default = unported[name]
+        changed = (value is not None) if default is None else (value != default)
+        if changed:
+            raise NotImplementedError(
+                f"{fn} option {name}={value!r} is not ported to "
+                "helfem_tpu_torch yet (see ROADMAP.md)"
+            )

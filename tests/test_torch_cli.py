@@ -52,8 +52,13 @@ def _run(code: str, env=None) -> subprocess.CompletedProcess:
 def test_port_never_imports_jax():
     code = (
         "import sys\n"
-        "import helfem_tpu_torch, helfem_tpu_torch.cli.atomic, helfem_tpu_torch.kernels\n"
-        "import helfem_tpu_torch.models.atomic, helfem_tpu_torch.scf.atomic_scf\n"
+        "import pkgutil, importlib, helfem_tpu_torch\n"
+        "names = [m.name for m in pkgutil.walk_packages(helfem_tpu_torch.__path__, 'helfem_tpu_torch.')]\n"
+        "for name in names:\n"
+        "    importlib.import_module(name)\n"
+        "for name in ('models.diatomic', 'models.diatomic_dft', 'scf.diatomic_scf',\n"
+        "             'cli.diatomic', 'ops.xc', 'ops.legendreq', 'ops.spherical'):\n"
+        "    assert 'helfem_tpu_torch.' + name in names, name\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'helfem_tpu'))\n"
         "assert not bad, bad\n"
     )
@@ -88,6 +93,8 @@ def test_kernels_import_and_cpu_path_need_no_nvcc():
 def _inputs(name):
     from helfem_tpu_torch.models.atomic import AtomicBasis
 
+    if name in _DIA:
+        return _dia_inputs(name)
     basis = AtomicBasis(Z=4, lmax=1, mmax=0, rmax=20.0, nelem=3, nnodes=5)
     ops = basis.build_operators("cpu")
     X = np.random.default_rng(31).standard_normal((basis.nang, basis.nrad, basis.nrad))
@@ -98,21 +105,48 @@ def _inputs(name):
     return (Paux, ops.tei, ops.disjL, ops.disjm1L, ops.Lfac, ops.gidx)
 
 
-@pytest.mark.parametrize("name", ["radial_exchange", "radial_coulomb"])
+_DIA = ["radial_coulomb_dia", "dia_xc_fields", "dia_xc_fock"]
+_ALL = ["radial_exchange", "radial_coulomb"] + _DIA
+
+
+def _dia_inputs(name):
+    from helfem_tpu_torch.models.diatomic import DiatomicBasis
+    from helfem_tpu_torch.models.diatomic_dft import build_dia_grid
+
+    basis = DiatomicBasis(Z1=3, Z2=1, Rbond=3.0, lmax=(2, 1), rmax=12.0, nelem=2, nnodes=4)
+    ops = basis.build_operators("cpu")
+    g = build_dia_grid(basis, "cpu")
+    rng = np.random.default_rng(32)
+    X = rng.standard_normal((basis.nbf, basis.nbf))
+    if name == "dia_xc_fields":
+        return (torch.tensor(X + X.T), g.gidx, g.Bg, g.dBg, g.TT, g.dTT, g.invh, g.sqeta)
+    if name == "dia_xc_fock":
+        return (g.w, g.w * 0.5, g.w * 0.25, g.gidx, g.Bg, g.dBg, g.TT, g.dTT, basis.nrad)
+    shape = (ops.LM_ilm.shape[0], basis.nrad, basis.nrad)
+    Paux0, Paux2 = (torch.tensor(rng.standard_normal(shape)) for _ in range(2))
+    return (Paux0, Paux2, ops.teiJ3, ops.dP0, ops.dP2, ops.dQ0, ops.dQ2, ops.LMfac,
+            ops.LM_ilm, ops.gidx)
+
+
+def _tensors(out):
+    return out if isinstance(out, tuple) else (out,)
+
+
+@pytest.mark.parametrize("name", _ALL)
 def test_wrapper_routes_cpu_to_plain(name):
     args = _inputs(name)
     before = dict(kernels.launches)
     out = getattr(kernels, name)(*args)
     ref = getattr(kernels, name + "_plain")(*args)
-    assert torch.equal(out, ref)
+    assert all(torch.equal(o, r) for o, r in zip(_tensors(out), _tensors(ref)))
     assert kernels.launches == before
 
 
-@pytest.mark.parametrize("name", ["radial_exchange", "radial_coulomb"])
+@pytest.mark.parametrize("name", _ALL)
 def test_wrapper_rejects_other_devices(name):
     args = _inputs(name)
     with pytest.raises(ValueError, match="no kernel"):
-        getattr(kernels, name)(*(a.to("meta") for a in args))
+        getattr(kernels, name)(*(a.to("meta") if torch.is_tensor(a) else a for a in args))
     mixed = (args[0].to("meta"),) + args[1:]
     with pytest.raises(ValueError, match="several devices"):
         getattr(kernels, name)(*mixed)

@@ -1,0 +1,86 @@
+"""The port's diatomic PBE SCF against helfem_tpu's scf_diatomic on the same
+basis (core guess, converged energies within 1e-9 Eh, orbital energies
+within 1e-7), and the port's diatomic CLI on the CPU with its rejection of
+unported flags, methods and options."""
+
+import numpy as np
+import pytest
+
+from helfem_tpu.models.diatomic import DiatomicBasis as JaxBasis
+from helfem_tpu.scf import diatomic_scf as jax_scf
+from helfem_tpu_torch.cli.diatomic import main
+from helfem_tpu_torch.models.diatomic import DiatomicBasis
+from helfem_tpu_torch.scf import diatomic_scf
+
+CASES = {
+    "H2": (dict(Z1=1, Z2=1, Rbond=1.4, lmax=(4,), rmax=15.0, nelem=3, nnodes=5), 1),
+    "N2": (dict(Z1=7, Z2=7, Rbond=2.0743, lmax=(2, 2), rmax=15.0, nelem=3, nnodes=5), 7),
+}
+N2_CLI = ["--Z1", "N", "--Z2", "N", "--Rbond", "2.0743", "--lmax", "2,2", "--nelem", "3",
+          "--nnodes", "5", "--Rmax", "15", "--method", "PBE", "--convthr", "1e-9"]
+N2_JAX = -79.449353410152  # helfem_tpu scf_diatomic on the same basis
+
+
+@pytest.mark.parametrize("molecule", list(CASES))
+def test_pbe_energy_matches_jax(molecule):
+    cfg, nel = CASES[molecule]
+    ref = jax_scf.scf_diatomic(JaxBasis(**cfg), nel, nel, method="PBE", convthr=1e-9)
+    got = diatomic_scf.scf_diatomic(DiatomicBasis(**cfg), nel, nel, method="PBE",
+                                    convthr=1e-9, device="cpu")
+    assert ref.converged and got.converged
+    assert abs(got.E - ref.E) < 1e-9
+    assert np.abs(got.orbE_a[:nel + 2] - ref.orbE_a[:nel + 2]).max() < 1e-7
+    # degenerate pi(+m)/pi(-m) levels may come in either order
+    assert sorted(got.orbsym_a[:nel]) == sorted(ref.orbsym_a[:nel])
+    for comp in ("Ekin", "Enucattr", "Ecoul", "Exc"):
+        assert abs(getattr(got, comp) - getattr(ref, comp)) < 1e-7, comp
+    assert abs(got.Nelgrid - 2 * nel) < 1e-6
+
+
+def test_cli_runs_on_cpu(capsys):
+    res = main(N2_CLI + ["--device", "cpu"])
+    out = capsys.readouterr().out
+    assert res.converged and abs(res.E - N2_JAX) < 1e-9
+    assert "(fused)" in out
+    assert "Total                 energy: -79.4493534101" in out
+    assert "piu" in out and "occ" in out
+
+
+@pytest.mark.parametrize("extra, match", [
+    (["--method", "HF"], "exchange"),
+    (["--method", "PBE0"], "PBE0"),
+    (["--method", "TPSS"], "TPSS"),
+    (["--iguess", "2"], "SAP"),
+    (["--guess", "TF"], "TF"),
+    (["--Q", "1"], "open-shell"),
+    (["--Ez", "0.01"], "--Ez"),
+    (["--ndev", "2"], "--ndev"),
+    (["--restricted", "0"], "--restricted"),
+], ids=["hf", "hybrid", "mgga", "sap", "tf", "open_shell", "field_flag", "ndev_flag",
+        "uhf_flag"])
+def test_cli_unported_raises(extra, match):
+    with pytest.raises(NotImplementedError, match=match):
+        main(N2_CLI + extra + ["--device", "cpu"])
+
+
+def test_cli_unknown_flag_exits():
+    with pytest.raises(SystemExit):
+        main(N2_CLI + ["--device", "cpu", "--no-such-flag"])
+
+
+@pytest.mark.parametrize("kwargs", [
+    {"Ez": 0.01}, {"Bz": 0.1}, {"shift": 0.1}, {"restricted": 0}, {"maverage": True},
+    {"diag": False}, {"ndev": 1}, {"diisthr": 1e-3}, {"perturb": 0.1},
+], ids=lambda kw: next(iter(kw)))
+def test_unported_options_raise(kwargs):
+    cfg, nel = CASES["H2"]
+    with pytest.raises(NotImplementedError):
+        diatomic_scf.scf_diatomic(DiatomicBasis(**cfg), nel, nel, method="PBE",
+                                  device="cpu", **kwargs)
+
+
+def test_unported_basis_paths_raise():
+    basis = DiatomicBasis(**CASES["H2"][0])
+    for call in (basis.dipole_z, basis.quadrupole_zz, lambda: basis.Bz_field(0.1)):
+        with pytest.raises(NotImplementedError):
+            call()

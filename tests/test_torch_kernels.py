@@ -13,7 +13,10 @@ import torch
 
 from helfem_tpu_torch import kernels
 from helfem_tpu_torch.models.atomic import AtomicBasis
+from helfem_tpu_torch.models.diatomic import DiatomicBasis, _to4
+from helfem_tpu_torch.models.diatomic_dft import build_dia_grid
 from helfem_tpu_torch.scf.atomic_scf import scf_atom
+from helfem_tpu_torch.scf.diatomic_scf import scf_diatomic
 
 TOL = 1e-12
 CONFIGS = {
@@ -155,4 +158,87 @@ def test_scf_on_card_matches_cpu(cuda_device):
     before = dict(kernels.launches)
     gpu = scf_atom(AtomicBasis(**cfg), 5, 5, convthr=1e-10, device=cuda_device)
     assert gpu.converged and abs(gpu.E - cpu.E) < 1e-10
-    assert all(kernels.launches[k] > before[k] for k in before)
+    assert all(kernels.launches[k] > before[k] for k in ("radial_exchange", "radial_coulomb"))
+
+
+DIA_CONFIGS = {
+    # the N2 bench shapes, and a heteronuclear CO where odd-L channels live
+    "n2_bench": dict(Z1=7, Z2=7, Rbond=2.0743, lmax=(6, 6), rmax=25.0, nelem=5, nnodes=8),
+    "co_l4": dict(Z1=6, Z2=8, Rbond=2.132, lmax=(4, 4), rmax=25.0, nelem=4, nnodes=8),
+    # nprim^2 = 25 and nq = 25: blocks that are not a whole number of warps
+    "lih_np5": dict(Z1=3, Z2=1, Rbond=3.015, lmax=(3, 2, 1), rmax=20.0, nelem=3, nnodes=5),
+}
+DIA_KERNELS = ["radial_coulomb_dia", "dia_xc_fields", "dia_xc_fock"]
+
+
+@pytest.fixture(scope="module", params=list(DIA_CONFIGS), ids=list(DIA_CONFIGS))
+def dia_basis(request):
+    return DiatomicBasis(**DIA_CONFIGS[request.param])
+
+
+def _dia_inputs(basis, dev, seed=43):
+    """Each diatomic kernel's inputs for a random symmetric
+    symmetry-block-diagonal density and random grid potentials."""
+    ops = basis.build_operators(dev)
+    g = build_dia_grid(basis, dev)
+    rng = np.random.default_rng(seed)
+    P = np.zeros((basis.nbf, basis.nbf))
+    for idx in basis.sym_blocks():
+        X = rng.standard_normal((len(idx), len(idx)))
+        P[np.ix_(idx, idx)] = X + X.T
+    P = torch.tensor(P, device=dev)
+    P4 = _to4(P, basis.nang, basis.nrad)
+    nj = basis.njbd
+    Paux0 = torch.einsum("sab,abIJ->sIJ", ops.GmLM[:nj], P4).contiguous()
+    Paux2 = torch.einsum("sab,abIJ->sIJ", ops.GpLM[:nj], P4).contiguous()
+    wvr, wgu, wgv = (torch.tensor(rng.standard_normal(tuple(g.w.shape)), device=dev)
+                     for _ in range(3))
+    return {
+        "radial_coulomb_dia": (Paux0, Paux2, ops.teiJ3, ops.dP0, ops.dP2, ops.dQ0, ops.dQ2,
+                               ops.LMfac, ops.LM_ilm[:nj], ops.gidx),
+        "dia_xc_fields": (P, g.gidx, g.Bg, g.dBg, g.TT, g.dTT, g.invh, g.sqeta),
+        "dia_xc_fock": (wvr, wgu, wgv, g.gidx, g.Bg, g.dBg, g.TT, g.dTT, basis.nrad),
+    }
+
+
+def _as_tuple(out):
+    return out if isinstance(out, tuple) else (out,)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", DIA_KERNELS)
+def test_dia_kernel_matches_plain_on_card(dia_basis, cuda_device, name):
+    args = _dia_inputs(dia_basis, cuda_device)[name]
+    before = kernels.launches[name]
+    out = _as_tuple(getattr(kernels, name)(*args))
+    again = _as_tuple(getattr(kernels, name)(*args))
+    torch.cuda.synchronize()
+    assert kernels.launches[name] == before + 2
+    ref = _as_tuple(getattr(kernels, name + "_plain")(*args))
+    for o, a, r in zip(out, again, ref):
+        assert torch.equal(o, a)  # fixed-order sums: deterministic
+        assert float((o - r).abs().max()) <= TOL * float(r.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", DIA_KERNELS)
+def test_dia_kernel_rejects_bad_inputs_on_card(dia_basis, cuda_device, name):
+    args = list(_dia_inputs(dia_basis, cuda_device)[name])
+    fn = getattr(kernels, name)
+    with pytest.raises(TypeError):
+        fn(*([args[0].float()] + args[1:]))
+    with pytest.raises(ValueError, match="contiguous"):
+        fn(*([args[0].transpose(-1, -2)] + args[1:]))
+    with pytest.raises(ValueError, match="shape"):
+        fn(*([args[0][..., :-1].contiguous()] + args[1:]))
+
+
+@pytest.mark.cuda
+def test_dia_scf_on_card_matches_cpu(cuda_device):
+    cfg = dict(Z1=7, Z2=7, Rbond=2.0743, lmax=(2, 2), rmax=15.0, nelem=3, nnodes=5)
+    cpu = scf_diatomic(DiatomicBasis(**cfg), 7, 7, method="PBE", convthr=1e-9, device="cpu")
+    before = dict(kernels.launches)
+    gpu = scf_diatomic(DiatomicBasis(**cfg), 7, 7, method="PBE", convthr=1e-9,
+                       device=cuda_device)
+    assert gpu.converged and abs(gpu.E - cpu.E) < 1e-9
+    assert all(kernels.launches[k] > before[k] for k in DIA_KERNELS)

@@ -9,9 +9,10 @@ import torch
 
 from helfem_tpu.models.atomic import AtomicBasis as JaxBasis
 from helfem_tpu.scf import atomic_scf as jax_scf
+from helfem_tpu.scf.diatomic_scf import _aufbau_blocks as jax_dia_aufbau
 from helfem_tpu.scf.diis import device_diis_step as jax_diis_step
 from helfem_tpu_torch.models.atomic import AtomicBasis
-from helfem_tpu_torch.scf import atomic_scf
+from helfem_tpu_torch.scf import atomic_scf, common
 from helfem_tpu_torch.scf.diis import device_diis_step
 
 CASES = {
@@ -38,14 +39,18 @@ def test_aufbau_matches_jax():
     E = np.sort(rng.standard_normal((4, 6)), axis=1)
     E[1, 0] = E[2, 0] = E[3, 0] = E[0, 1]  # a degenerate p-like shell
     for nel in (1, 2, 3.5, 5, 9):
-        assert np.array_equal(atomic_scf.aufbau_blocks(E, nel), jax_scf.aufbau_blocks(E, nel))
+        got = common.aufbau_blocks(E, nel)
+        # one aufbau serves both drivers: it matches helfem_tpu's atomic and
+        # diatomic ones, degenerate levels included
+        assert np.array_equal(got, jax_scf.aufbau_blocks(E, nel))
+        assert np.array_equal(got, jax_dia_aufbau(E, nel))
 
 
 def test_diis_error_blocks_matches_jax():
     rng = np.random.default_rng(22)
     Fb, Pb, Sb, Sh = (rng.standard_normal((3, 5, 5)) for _ in range(4))
     ref = np.asarray(jax_scf._diis_error_blocks(*(jnp.asarray(x) for x in (Fb, Pb, Sb, Sh))))
-    got = atomic_scf._diis_error_blocks(*(torch.tensor(x) for x in (Fb, Pb, Sb, Sh))).numpy()
+    got = common.diis_error_blocks(*(torch.tensor(x) for x in (Fb, Pb, Sb, Sh))).numpy()
     assert np.abs(got - ref).max() <= 1e-12 * np.abs(ref).max()
 
 
