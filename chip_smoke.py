@@ -14,9 +14,13 @@ Phases, any failure raises and exits non-zero:
   3. each kernel against its plain PyTorch version on the card, on random
      symmetric block-diagonal densities (numpy seed): the atomic kernels at
      the Ar and Xe bench shapes, the diatomic ones at the N2 bench shapes
-     and a heteronuclear CO shape (random grid potentials for the XC Fock):
-     max-abs error <= 1e-12 x max-abs of the result; CUDA-event times of
-     both, in turns;
+     and a heteronuclear CO shape (random grid potentials for the XC Fock,
+     random occupied columns for the exchange), the two exchange kernels
+     also at the N2 lmax=12 shapes on random tables: max-abs error <= 1e-12
+     x max-abs of the result; the matmul probes at n = 2048 and 4096, both
+     precisions, within 1e-5 x max-abs of their plain versions (f32 sums in
+     another order); CUDA-event times of both, in turns, and of
+     torch.matmul beside the probes;
   4. Ar HF (the bench config) through the port's atomic CLI on the card:
      within 1e-6 Eh of the numerical HF limit, and both atomic kernels'
      launch counters must rise during the SCF;
@@ -25,7 +29,16 @@ Phases, any failure raises and exits non-zero:
   6. N2 PBE (the bench config) through the port's diatomic CLI on the card:
      within 1e-6 Eh of the JAX package's f64 value, and the three diatomic
      kernels' launch counters must rise during the SCF;
-  7. three warm N2 PBE SCF walls and the profiler breakdown of one more.
+  7. three warm N2 PBE SCF walls and the profiler breakdown of one more;
+  8. N2 HF through the diatomic CLI on the card: within 1e-6 Eh of the JAX
+     package's pinned value, with the Coulomb and the occupied-orbital
+     exchange kernels launched and the dense exchange kernel not; then the
+     dense exchange_dia on the converged density, which must agree with
+     exchange_dia_occ on the converged orbitals;
+  9. three warm N2 HF SCF walls and the profiler breakdown of one more, then
+     N2 PBE0 once through the CLI: converged, with the XC and the exchange
+     kernels launched;
+ 10. the f64-ablation tool's JSON line at n = 2048 through its main.
 The last two lines are the kernels' JSON record and {"ok": true, ...}.
 """
 
@@ -51,11 +64,22 @@ DIA_SHAPES = {  # DiatomicBasis arguments: the N2 bench config, and CO
     "n2": dict(Z1=7, Z2=7, Rbond=2.0743, lmax=(6, 6), rmax=25.0, nelem=5, nnodes=8),
     "co": dict(Z1=6, Z2=8, Rbond=2.132, lmax=(4, 4), rmax=25.0, nelem=4, nnodes=8),
 }
+N2_HF_REF = -108.5312159188  # helfem_tpu's pinned HF value at this basis
+N2_HF_CLI = ["--Z1", "N", "--Z2", "N", "--Rbond", "2.068", "--lmax", "6,6", "--Rmax", "25",
+             "--nelem", "5", "--nnodes", "8", "--method", "HF", "--convthr", "1e-7",
+             "--guess", "core"]
+N2_HF_SHAPE = dict(Z1=7, Z2=7, Rbond=2.068, lmax=(6, 6), rmax=25.0, nelem=5, nnodes=8)
+# the N2 HF lmax=12 bench basis (lmax (12,12,12), rmax 40, nelem 5, nnodes 15)
+# by its sizes alone: the exchange kernels run on random tables of its shapes
+LMAX12 = dict(nang=59, nprim=15, nelem=5, nlm=125, no=9)
 REL_TOL = 1e-12
+MATMUL_TOL = 1e-5  # probes against plain: both are f32 sums, in different orders
 # H100 SXM peaks (NVIDIA data sheet): HBM3 3.35 TB/s; FP64 on the tensor
 # cores 67 TFLOP/s, the most any f64 kernel could reach
 HBM_BYTES_S = 3.35e12
 FP64_FLOP_S = 67e12
+# same data sheet: 67 TFLOP/s f32 outside the tensor cores, 495 TFLOP/s TF32
+PROBE_FLOP_S = {"full": 67e12, "reduced": 495e12}
 KERNELS = {  # name -> (source, replaces, shape of its record)
     "radial_exchange": ("helfem_tpu_torch/csrc/radial_exchange.cu",
                         "helfem_tpu/models/atomic.py:499", "ar"),
@@ -67,6 +91,18 @@ KERNELS = {  # name -> (source, replaces, shape of its record)
                       "helfem_tpu/models/diatomic_dft.py:95", "n2"),
     "dia_xc_fock": ("helfem_tpu_torch/csrc/dia_xc_fock.cu",
                     "helfem_tpu/models/diatomic_dft.py:155", "n2"),
+    "radial_exchange_dia_occ": ("helfem_tpu_torch/csrc/radial_exchange_dia.cu",
+                                "helfem_tpu/models/diatomic.py:944", "n2"),
+    "radial_exchange_dia": ("helfem_tpu_torch/csrc/radial_exchange_dia.cu",
+                            "helfem_tpu/models/diatomic.py:799", "n2"),
+}
+PROBES = {  # name -> (source, {precision: replaces})
+    "matmul_f32": ("helfem_tpu_torch/csrc/matmul_probe.cu",
+                   {"full": "scripts/pallas_f64_ablation.py:50",
+                    "reduced": "scripts/perf_campaign.py:101"}),
+    "matmul_dd": ("helfem_tpu_torch/csrc/matmul_probe.cu",
+                  {"full": "scripts/pallas_f64_ablation.py:82",
+                   "reduced": "scripts/perf_campaign.py:130"}),
 }
 
 
@@ -211,11 +247,120 @@ def dia_kernel_inputs(cfg: dict, dev, seed: int = 11):
     }
 
 
+def exchange_work(S, kdepth, nang, nelem, npr, nrad, gidx):
+    """(K6 flop, K7 flop, table bytes, K4 bytes, window entries of one [nrad,
+    nrad] block of R that K7 needs) of one exchange call over S channels
+    whose rank factors hold kdepth = sum over channels of (live t slots x
+    no) columns in all: the in-element term on the b <= c shell pairs, the
+    cross term on every pair and the (e > f) element pairs."""
+    np2, npair, epairs = npr * npr, nang * (nang + 1) // 2, nelem * (nelem - 1) // 2
+    tei = S * nelem * npair * 4 * 2 * np2 * np2
+    k6 = (tei + kdepth * nelem * npair * 4 * 2 * np2  # window rank products
+          + 2 * kdepth * 2 * nelem * nang * 2 * np2  # ud and vd
+          + epairs * (nang * npr) ** 2 * 2 * kdepth)  # X = ud^T vd
+    k7 = tei + S * nang * nang * epairs * 4 * 4 * npr**3
+    tables = 8 * S * (3 * nelem * np2 * np2 + 4 * nelem * np2)
+    return k6, k7, tables, 8 * nang * nang * nrad * nrad, \
+        window_entries(gidx, nrad) + epairs * np2
+
+
+def dense_R(Uw, V):
+    """The dense R families [S, 4, nang, nang, nrad, nrad] of rank factors
+    (for the random tables, which have no Gaunt tables to transform a P)."""
+    sign = torch.tensor([[1.0, -1.0], [-1.0, 1.0]], dtype=Uw.dtype, device=Uw.device)
+    R = torch.einsum("qr,sqtbno,srtcmo->sqrbcnm", sign, Uw[:, :, :, :, :-1], V[:, :, :, :, :-1])
+    return R.reshape(R.shape[0], 4, *R.shape[3:]).contiguous()
+
+
+def dia_exchange_inputs(cfg: dict, dev, no: int = 7, seed: int = 13):
+    """The two exchange kernels' inputs at a diatomic basis, for `no` random
+    occupied columns (and the dense R of the same density), with bytes and
+    operations counted as kernel_inputs counts them."""
+    from helfem_tpu_torch.models.diatomic import (DiatomicBasis, exchange_factors,
+                                                  exchange_weights)
+
+    basis = DiatomicBasis(**cfg)
+    ops = basis.build_operators(dev)
+    nang, nrad = basis.nang, basis.nrad
+    nelem, npr = ops.gidx.shape
+    Co = torch.tensor(np.random.default_rng(seed).standard_normal((basis.nbf, no)), device=dev)
+    Uw, V = exchange_factors(ops, Co)
+    R = exchange_weights(ops, Co @ Co.T)
+    S = Uw.shape[0]
+    kdepth = no * int((1 + ops.step_wm).sum())
+    k6f, k7f, tables, out, win = exchange_work(S, kdepth, nang, nelem, npr, nrad, ops.gidx)
+    small = nbytes(ops.step_ilm, ops.gidx)
+    tabs = (ops.teiJ3, ops.dP0, ops.dP2, ops.dQ0, ops.dQ2, ops.step_ilm, ops.gidx)
+    return {
+        "radial_exchange_dia_occ": ((Uw, V, *tabs), nbytes(Uw, V) + tables + small + out, k6f),
+        "radial_exchange_dia": ((R, *tabs), 8 * S * 4 * nang * nang * win + tables + small + out,
+                                k7f),
+    }
+
+
+def lmax12_exchange_inputs(dev, seed: int = 17, dense_channels: int = 3):
+    """The exchange kernels' inputs at the N2 lmax=12 shapes (LMAX12) on
+    random tables with the symmetries of the real ones: the TEI blocks under
+    i<->j, k<->l and, for families (0,0) and (2,2), (ij)<->(kl); symmetric
+    moment blocks, the P moments growing and the Q moments falling by two
+    orders per element; V = U and Uw = w U. The dense kernel gets the first
+    `dense_channels` channels (a batch of the size exchange_dia gives it)."""
+    nang, npr, nelem, nlm, no = (LMAX12[k] for k in ("nang", "nprim", "nelem", "nlm", "no"))
+    nrad = nelem * (npr - 1)
+    rng = np.random.default_rng(seed)
+
+    def normal(*shape):
+        return torch.tensor(rng.standard_normal(shape), device=dev)
+
+    T = normal(nlm, 3, nelem, npr, npr, npr, npr)
+    T = T + T.transpose(3, 4)
+    T = T + T.transpose(5, 6)
+    T[:, 0] = T[:, 0] + T[:, 0].permute(0, 1, 4, 5, 2, 3)
+    T[:, 2] = T[:, 2] + T[:, 2].permute(0, 1, 4, 5, 2, 3)
+    teiJ3 = T.reshape(nlm, 3, nelem, npr * npr, npr * npr)
+    del T
+    grow = 100.0 ** torch.arange(nelem, dtype=torch.float64, device=dev)[None, :, None, None]
+
+    def moments(scale):
+        d = normal(nlm, nelem, npr, npr)
+        return ((d + d.transpose(2, 3)) * scale).contiguous()
+
+    dP0, dP2, dQ0, dQ2 = moments(grow), moments(grow), moments(1 / grow), moments(1 / grow)
+    gidx = torch.arange(nelem, device=dev)[:, None] * (npr - 1) + torch.arange(npr, device=dev)
+    gidx = gidx.to(torch.int32).contiguous()  # last slot of the last element = nrad
+    ilm = torch.arange(nlm, dtype=torch.int32, device=dev)
+    U = normal(nlm, 2, 2, nang, nrad + 1, no)
+    U[:, :, :, :, nrad] = 0.0
+    w = torch.tensor(rng.uniform(0.5, 1.5, (nlm, 2)), device=dev)
+    Uw = (w[:, None, :, None, None, None] * U).contiguous()
+    Sd = dense_channels
+    R = dense_R(Uw[:Sd], U[:Sd])
+    k6f, _, tables, out, _ = exchange_work(nlm, 2 * no * nlm, nang, nelem, npr, nrad, gidx)
+    _, k7f, tables7, _, win = exchange_work(Sd, 2 * no * Sd, nang, nelem, npr, nrad, gidx)
+    small = nbytes(ilm, gidx)
+    tabs = (teiJ3, dP0, dP2, dQ0, dQ2)
+    return {
+        "radial_exchange_dia_occ": ((Uw, U, *tabs, ilm, gidx),
+                                    nbytes(Uw, U) + tables + small + out, k6f),
+        "radial_exchange_dia": ((R, *tabs, ilm[:Sd].contiguous(), gidx),
+                                8 * Sd * 4 * nang * nang * win + tables7 + small + out, k7f),
+    }
+
+
+def report(shape: str, name: str, r: dict) -> dict:
+    print(f"{shape} {name}: max-abs err {r['max_abs_err']:.3e} (scale "
+          f"{r['scale']:.3e}), kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
+          f"bound {r['bound_ms']:.5f} ms by {r['bound_by']} ({r['bytes']} B, "
+          f"{r['flops']} flop)")
+    return r
+
+
 def _outputs(out):
     return out if isinstance(out, tuple) else (out,)
 
 
-def compare(name: str, args, bytes_moved: int, flops: int) -> dict:
+def compare(name: str, args, bytes_moved: int, flops: int, warmup: int = 5,
+            reps: int = 50) -> dict:
     """The kernel against its plain version on the same card inputs: gate
     each output at 1e-12 x its max-abs; CUDA-event times in turns (plain,
     kernel, kernel, plain), and the least time the card could take."""
@@ -231,10 +376,10 @@ def compare(name: str, args, bytes_moved: int, flops: int) -> dict:
         if not np.isfinite(err) or err > REL_TOL * scale:
             raise RuntimeError(f"{name}: kernel disagrees with plain: max-abs err "
                                f"{err:.3e} > {REL_TOL:g} x {scale:.3e}")
-    p1 = cuda_ms(lambda: plain(*args))
-    k1 = cuda_ms(lambda: kern(*args))
-    k2 = cuda_ms(lambda: kern(*args))
-    p2 = cuda_ms(lambda: plain(*args))
+    p1 = cuda_ms(lambda: plain(*args), warmup, reps)
+    k1 = cuda_ms(lambda: kern(*args), warmup, reps)
+    k2 = cuda_ms(lambda: kern(*args), warmup, reps)
+    p2 = cuda_ms(lambda: plain(*args), warmup, reps)
     t_bytes, t_ops = bytes_moved / HBM_BYTES_S, flops / FP64_FLOP_S
     return {"max_abs_err": max(errs), "scale": min(scales), "ms": 0.5 * (k1 + k2),
             "plain_ms": 0.5 * (p1 + p2), "bound_ms": 1e3 * max(t_bytes, t_ops),
@@ -242,34 +387,49 @@ def compare(name: str, args, bytes_moved: int, flops: int) -> dict:
             "bytes": bytes_moved, "flops": flops}
 
 
-def profile_scf(label: str, run, rows: int = 20) -> None:
-    """Warm SCF walls (min of three) of run() -> result, and the device time
-    of one more SCF by kernel, from torch.profiler."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+def compare_probes(n: int, dev, seed: int = 0) -> dict:
+    """Both matmul probes at n x n and both precisions against their plain
+    versions (true-f32 torch.matmul, torch.backends.cuda.matmul.allow_tf32
+    False; inputs rounded to TF32 for "reduced"): gate at 1e-5 x max-abs;
+    times in turns, and torch.matmul in f32 (one call, three for the
+    double-word product) as the library's."""
+    from helfem_tpu_torch import kernels
+    from helfem_tpu_torch.kernels.matmul_probe import split_dd
 
-    walls = []
-    for _ in range(3):
-        t0 = time.perf_counter()
-        res = run()
-        torch.cuda.synchronize()
-        walls.append(time.perf_counter() - t0)
-    if not res.converged:
-        raise RuntimeError(f"warm {label} SCF did not converge")
-    print(f"warm {label} SCF walls: {[round(w, 4) for w in walls]} s, {res.niter} "
-          f"iterations, min {min(walls) / res.niter * 1e3:.2f} ms per iteration")
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        run()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    events = prof.key_averages()
-    key = "self_device_time_total"
-    # device kernels only: operator rows repeat the time of their kernels
-    busy = sum(getattr(e, key) for e in events if e.device_type == DeviceType.CUDA) * 1e-6
-    print(f"profiled {label} SCF: wall {wall:.4f} s (profiler on), device busy "
-          f"{busy:.4f} s = {100 * busy / wall:.1f} % of the wall")
-    print(events.table(sort_by=key, row_limit=rows))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(seed)
+    a64 = torch.tensor(rng.standard_normal((n, n)), device=dev)
+    b64 = torch.tensor(rng.standard_normal((n, n)), device=dev)
+    args = {"matmul_f32": (a64.float(), b64.float()),
+            "matmul_dd": (*split_dd(a64), *split_dd(b64))}
+    a32, b32 = args["matmul_f32"]
+    ah, al, bh, bl = args["matmul_dd"]
+    library = {"matmul_f32": lambda: a32 @ b32,
+               "matmul_dd": lambda: (ah @ bh, ah @ bl, al @ bh)}
+    out = {}
+    for name, xs in args.items():
+        kern, plain = getattr(kernels, name), getattr(kernels, name + "_plain")
+        terms = 3 if name == "matmul_dd" else 1
+        for prec in ("full", "reduced"):
+            got = kern(*xs, prec)
+            torch.cuda.synchronize()
+            ref = plain(*xs, prec)
+            err, scale = float((got - ref).abs().max()), float(ref.abs().max())
+            if not np.isfinite(err) or err > MATMUL_TOL * scale:
+                raise RuntimeError(f"{name} {prec} n={n}: kernel disagrees with plain: "
+                                   f"max-abs err {err:.3e} > {MATMUL_TOL:g} x {scale:.3e}")
+            p1 = cuda_ms(lambda: plain(*xs, prec), 3, 10)
+            k1 = cuda_ms(lambda: kern(*xs, prec), 3, 10)
+            k2 = cuda_ms(lambda: kern(*xs, prec), 3, 10)
+            p2 = cuda_ms(lambda: plain(*xs, prec), 3, 10)
+            flops, moved = terms * 2 * n**3, 4 * n * n * (len(xs) + 1)
+            t_bytes, t_ops = moved / HBM_BYTES_S, flops / PROBE_FLOP_S[prec]
+            out[(name, prec)] = {
+                "max_abs_err": err, "scale": scale, "ms": 0.5 * (k1 + k2),
+                "plain_ms": 0.5 * (p1 + p2), "bound_ms": 1e3 * max(t_bytes, t_ops),
+                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                "library_ms": cuda_ms(library[name], 3, 10), "bytes": moved, "flops": flops}
+    return out
 
 
 def run_cli(main, argv, label: str, names: list[str], check) -> dict:
@@ -329,12 +489,25 @@ def main() -> None:
         inputs = make(cfg, dev)
         print(f"{shape}: operators built in {time.perf_counter() - t0:.2f} s")
         for name, (args, moved, flops) in inputs.items():
-            r = compare(name, args, moved, flops)
-            results[(name, shape)] = r
-            print(f"{shape} {name}: max-abs err {r['max_abs_err']:.3e} (scale "
-                  f"{r['scale']:.3e}), kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
-                  f"bound {r['bound_ms']:.5f} ms by {r['bound_by']} ({r['bytes']} B, "
-                  f"{r['flops']} flop)")
+            results[(name, shape)] = report(shape, name, compare(name, args, moved, flops))
+    for shape, cfg in DIA_SHAPES.items():
+        for name, (args, moved, flops) in dia_exchange_inputs(cfg, dev).items():
+            results[(name, shape)] = report(shape, name, compare(name, args, moved, flops))
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    inputs = lmax12_exchange_inputs(dev)
+    torch.cuda.synchronize()
+    print(f"lmax12: random tables of {LMAX12} made in {time.perf_counter() - t0:.2f} s")
+    for name, (args, moved, flops) in inputs.items():
+        results[(name, "lmax12")] = report("lmax12", name,
+                                           compare(name, args, moved, flops, warmup=1, reps=3))
+    del inputs, args
+    torch.cuda.empty_cache()
+    probes = {}
+    for n in (2048, 4096):
+        for (name, prec), r in compare_probes(n, dev).items():
+            probes[(name, prec, n)] = report(f"n={n} {prec}", name, r)
+            print(f"    torch.matmul f32: {r['library_ms']:.4f} ms")
 
     from helfem_tpu_torch.cli.atomic import main as atomic_main
     from helfem_tpu_torch.cli.diatomic import main as diatomic_main
@@ -351,6 +524,8 @@ def main() -> None:
                      ar_check)
 
     phase("5. warm Ar HF SCF walls and profile")
+    from helfem_tpu_torch.utils.profiling import profile_scf
+
     from helfem_tpu_torch.models.atomic import AtomicBasis
     from helfem_tpu_torch.scf.atomic_scf import scf_atom
 
@@ -379,18 +554,105 @@ def main() -> None:
     profile_scf("N2 PBE", lambda: scf_diatomic(n2_basis, 7, 7, method="PBE", convthr=1e-7,
                                                maxit=50, ops=n2_ops))
 
+    phase("8. N2 HF through the port's diatomic CLI on the card")
+    from helfem_tpu_torch import kernels
+    from helfem_tpu_torch.models.diatomic import exchange_dia, exchange_dia_occ
+    from helfem_tpu_torch.scf.diatomic_scf import occ_select, occupied_dia
+    from helfem_tpu_torch.utils.linalg import density_blocks
+
+    def hf_check(res):
+        dE = res.E - N2_HF_REF
+        print(f"N2 HF: E - reference = {dE:+.3e}, Exx = {res.Exx:.10f}")
+        ok = res.converged and abs(dE) < 1e-6 and np.isfinite(res.E)
+        if kernels.launches["radial_exchange_dia"]:
+            return "the SCF launched the dense exchange kernel"
+        return "" if ok else "did not converge to the reference within 1e-6 Eh"
+
+    kept = {}
+
+    def hf_main(argv):
+        kept["res"] = diatomic_main(argv)
+        return kept["res"]
+
+    counts.update(run_cli(hf_main, N2_HF_CLI, "N2 HF",
+                          ["radial_coulomb_dia", "radial_exchange_dia_occ"], hf_check))
+    # the P-only entry point on the converged density against the occupied-
+    # orbital one on the converged orbitals
+    hf_basis = DiatomicBasis(**N2_HF_SHAPE)
+    hf_ops = hf_basis.build_operators(dev)
+    res = kept["res"]
+    Ca = torch.tensor(res.orbs_a, device=dev)
+    occ = torch.tensor(res.occ_a, device=dev)
+    Pa = density_blocks(Ca, occ, hf_ops.blk_idx, hf_ops.S)
+    Co = occupied_dia(hf_ops, Ca, occ_select(res.occ_a, dev))
+    kernels.reset_launches()
+    Kd = exchange_dia(hf_ops, Pa)
+    torch.cuda.synchronize()
+    counts["radial_exchange_dia"] = kernels.launches["radial_exchange_dia"]
+    Ko = exchange_dia_occ(hf_ops, Co)
+    err, scale = float((Kd - Ko).abs().max()), float(Ko.abs().max())
+    print(f"exchange_dia(P) vs exchange_dia_occ(Co) on the converged N2 HF state: max-abs "
+          f"diff {err:.3e} (scale {scale:.3e}); dense-kernel launches "
+          f"{counts['radial_exchange_dia']}")
+    if counts["radial_exchange_dia"] == 0 or not err <= REL_TOL * scale:
+        raise RuntimeError("exchange_dia disagrees with exchange_dia_occ or never launched")
+
+    phase("9. warm N2 HF SCF walls and profile; N2 PBE0 once")
+    profile_scf("N2 HF", lambda: scf_diatomic(hf_basis, 7, 7, method="HF", convthr=1e-7,
+                                              maxit=50, ops=hf_ops))
+
+    def pbe0_check(res):
+        print(f"N2 PBE0: E = {res.E:.12f}, Exx = {res.Exx:.10f}, Exc = {res.Exc:.10f}, "
+              f"Nel on the grid {res.Nelgrid:.12f}")
+        ok = res.converged and np.isfinite(res.E) and abs(res.Nelgrid - 14.0) < 1e-5
+        return "" if ok else "did not converge"
+
+    pbe0_cli = [a if a != "PBE" else "PBE0" for a in N2_CLI]
+    run_cli(diatomic_main, pbe0_cli, "N2 PBE0",
+            ["radial_coulomb_dia", "dia_xc_fields", "dia_xc_fock", "radial_exchange_dia_occ"],
+            pbe0_check)
+
+    phase("10. the f64-ablation tool at n = 2048")
+    from helfem_tpu_torch.tools.f64_ablation import main as ablation_main
+
+    kernels.reset_launches()
+    ablation = ablation_main(["2048", "--device", "cuda"])
+    torch.cuda.synchronize()
+    for name in PROBES:
+        counts[name] = kernels.launches[name]
+        if counts[name] == 0:
+            raise RuntimeError(f"the ablation tool never launched {name}")
+    if not all(np.isfinite(v) for v in ablation.values() if isinstance(v, float)):
+        raise RuntimeError("the ablation tool printed a non-finite number")
+
     record = []
     for name, (source, replaces, shape) in KERNELS.items():
         r = results[(name, shape)]
         other = results[(name, {"ar": "xe", "n2": "co"}[shape])]
+        big = results.get((name, "lmax12"))
+        extra = {} if big is None else {
+            "lmax12_max_abs_err": big["max_abs_err"], "lmax12_ms": big["ms"],
+            "lmax12_plain_ms": big["plain_ms"], "lmax12_bound_ms": big["bound_ms"]}
         record.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": counts[name], "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": None, "shape": shape, "other_shape_max_abs_err": other["max_abs_err"],
             "other_shape_ms": other["ms"], "other_shape_plain_ms": other["plain_ms"],
-            "other_shape_bound_ms": other["bound_ms"],
+            "other_shape_bound_ms": other["bound_ms"], **extra,
         })
+    for name, (source, replaces) in PROBES.items():
+        r = probes[(name, "full", 2048)]
+        rec = {"name": name, "route": "cuda", "source": source, "replaces": replaces["full"],
+               "launches": counts[name], "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+               "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+               "library_ms": r["library_ms"], "shape": "n=2048 full",
+               "reduced_replaces": replaces["reduced"]}
+        for prec, n in (("reduced", 2048), ("full", 4096), ("reduced", 4096)):
+            o = probes[(name, prec, n)]
+            rec.update({f"n{n}_{prec}_{k}": o[k] for k in
+                        ("max_abs_err", "ms", "plain_ms", "bound_ms", "library_ms")})
+        record.append(rec)
     print()
     print(smi)
     print(json.dumps({"kernels": record}))

@@ -1,11 +1,13 @@
 """helfem_tpu_torch: the PyTorch/CUDA port of helfem_tpu.
 
-Two paths of helfem_tpu carried to PyTorch with hand-written CUDA kernels
-(`kernels/`, sources in `csrc/`): atomic restricted Hartree-Fock (radial
-Coulomb and exchange kernels) and diatomic restricted LDA/GGA DFT (diatomic
-radial Coulomb, XC grid fields and XC Fock kernels). helfem_tpu stays the
-reference the port is tested against; this package imports torch and never
-jax or helfem_tpu.
+The paths of helfem_tpu carried to PyTorch so far, with hand-written CUDA
+kernels (`kernels/`, sources in `csrc/`): atomic restricted Hartree-Fock
+(radial Coulomb and exchange kernels); diatomic restricted LDA/GGA DFT
+(diatomic radial Coulomb, XC grid fields and XC Fock kernels); diatomic
+restricted Hartree-Fock and the PBE0 hybrid (the occupied-orbital and the
+dense diatomic exchange kernels); and the f64-ablation matmul probes
+(`tools/f64_ablation.py`). helfem_tpu stays the reference the port is tested
+against; this package imports torch and never jax or helfem_tpu.
 
 Conventions: every tensor is torch.float64 (gidx int32), every function that
 creates tensors takes an explicit `device`, and no global default dtype is

@@ -1,10 +1,10 @@
-"""`python -m helfem_tpu_torch.cli.diatomic`: diatomic DFT SCF driver of the
-PyTorch/CUDA port.
+"""`python -m helfem_tpu_torch.cli.diatomic`: diatomic HF/DFT SCF program of
+the PyTorch/CUDA port.
 
 A subset of helfem_tpu.cli.diatomic (flag names mirror the reference
-`diatomic` program, src/diatomic/main.cpp:89-143), plus --device. This
-slice runs closed-shell LDA/GGA from the core guess; flags of the JAX CLI
-that it does not cover are rejected with NotImplementedError. The
+`diatomic` program, src/diatomic/main.cpp:89-143), plus --device. The port
+runs closed-shell HF, LDA/GGA and PBE0 from the core guess; flags of the JAX
+CLI that it does not cover are rejected with NotImplementedError. The
 per-iteration and final-energy lines match the JAX CLI's.
 """
 
@@ -45,8 +45,8 @@ def main(argv=None):
     p.add_argument("--maxit", type=int, default=50)
     p.add_argument("--convthr", type=float, default=1e-7)
     p.add_argument("--method", default="HF",
-                   help="LDA, SVWN, PBE, revPBE, PBEsol or an 'x,c' pair (HF and "
-                        "hybrids need the diatomic exchange: not ported yet)")
+                   help="HF, LDA, SVWN, PBE, revPBE, PBEsol, PBE0 or an 'x,c' pair "
+                        "(meta-GGAs, other hybrids, range separation: not ported yet)")
     p.add_argument("--guess", default="core", help="core (SAP, TF, GSZ: not ported yet)")
     p.add_argument("--iguess", type=int, default=None,
                    help="guess by reference id: 0 core (1 GSZ, 2 SAP, 3 TF: not "

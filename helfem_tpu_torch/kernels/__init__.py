@@ -10,14 +10,29 @@ launches. The kernels are built from csrc/ at first use (_build.py).
 from helfem_tpu_torch.kernels._common import check_gidx, launches, reset_launches
 from helfem_tpu_torch.kernels.dia_xc_fields import dia_xc_fields, dia_xc_fields_plain
 from helfem_tpu_torch.kernels.dia_xc_fock import dia_xc_fock, dia_xc_fock_plain
+from helfem_tpu_torch.kernels.matmul_probe import (
+    matmul_dd,
+    matmul_dd_plain,
+    matmul_f32,
+    matmul_f32_plain,
+)
 from helfem_tpu_torch.kernels.radial_coulomb import radial_coulomb, radial_coulomb_plain
 from helfem_tpu_torch.kernels.radial_coulomb_dia import (
     radial_coulomb_dia,
     radial_coulomb_dia_plain,
 )
 from helfem_tpu_torch.kernels.radial_exchange import radial_exchange, radial_exchange_plain
+from helfem_tpu_torch.kernels.radial_exchange_dia import (
+    radial_exchange_dia,
+    radial_exchange_dia_occ,
+    radial_exchange_dia_occ_plain,
+    radial_exchange_dia_plain,
+)
 
 __all__ = ["check_gidx", "launches", "reset_launches", "radial_coulomb",
            "radial_coulomb_plain", "radial_exchange", "radial_exchange_plain",
            "radial_coulomb_dia", "radial_coulomb_dia_plain", "dia_xc_fields",
-           "dia_xc_fields_plain", "dia_xc_fock", "dia_xc_fock_plain"]
+           "dia_xc_fields_plain", "dia_xc_fock", "dia_xc_fock_plain",
+           "radial_exchange_dia_occ", "radial_exchange_dia_occ_plain",
+           "radial_exchange_dia", "radial_exchange_dia_plain", "matmul_f32",
+           "matmul_f32_plain", "matmul_dd", "matmul_dd_plain"]

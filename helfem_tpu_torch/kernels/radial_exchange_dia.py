@@ -1,0 +1,249 @@
+"""K6 radial_exchange_dia_occ and K7 radial_exchange_dia: the radial core of
+the diatomic exchange build, as hand-written CUDA kernels
+(csrc/radial_exchange_dia.cu) and their plain PyTorch versions.
+
+They replace the radial parts of helfem_tpu/models/diatomic.py:
+exchange_dia_occ (diatomic.py:1061-1113) and exchange_dia (:912-928). Per
+(L,|M|) channel and radial family F = (q, r) in {(0,0), (0,2), (2,0), (2,2)}
+there is a weight tensor R_F[b, c, n, m] over shell pairs and global radial
+indices; the core contracts its element windows with the in-element TEI
+table in the exchange index order, and its (e > f) element-pair windows with
+the disjoint Q moments on the left and the P moments on the right, assembles
+both, and adds the upper cross-element triangle as the (b<->c, n<->m)
+transpose of the lower one. K7 takes the dense R; K6 takes its rank factors
+U, V and never forms R outside shared memory. The Gaunt transforms that make
+R or U, V stay torch.einsum (models/diatomic.py).
+
+Both read the reduced table teiJ3 directly: helfem_tpu's teiK is the index
+permutation (ij|kl) -> rows (jk), columns (il) of teiJ, and family (2,0) is
+the transpose of (0,2). The cross-element terms are formed pairwise, element
+window by element window, so no prefix sum over elements is taken (the P
+moments grow and the Q moments fall by orders of magnitude from element to
+element, and helfem_tpu's inclusive-sum-minus-self loses those digits).
+"""
+
+import torch
+import torch.nn.functional as F
+
+from helfem_tpu_torch.kernels import _build
+from helfem_tpu_torch.kernels._common import (
+    check_kernel_inputs, expect_shape, launches, on_cpu,
+)
+
+__all__ = ["radial_exchange_dia_occ", "radial_exchange_dia_occ_plain",
+           "radial_exchange_dia", "radial_exchange_dia_plain"]
+
+# blocks the in-element GEMM should offer the card's 132 multiprocessors
+_TARGET_BLOCKS = 528
+_TILE = 8  # shell-pair tile edge of the kernel (XT in the source)
+
+
+def _channel_groups(S: int, nang: int, nelem: int, nprim: int) -> int:
+    """Channel groups of the in-element GEMM: enough parallel blocks at
+    small bases, one group once the shell-pair tiles alone fill the card."""
+    ntile = -(-nang // _TILE)
+    mtiles = 1 if nprim * nprim <= 64 else -(-nprim * nprim // 128)
+    blocks = mtiles * nelem * ntile * (ntile + 1) // 2
+    return max(1, min(S, -(-_TARGET_BLOCKS // blocks)))
+
+
+def _check_tables(name, teiJ3, dP0, dP2, dQ0, dQ2, ilm, gidx, S):
+    nelem, nprim = gidx.shape
+    nlm = teiJ3.shape[0]
+    expect_shape(name, "teiJ3", teiJ3, (nlm, 3, nelem, nprim * nprim, nprim * nprim))
+    for arg, t in (("dP0", dP0), ("dP2", dP2), ("dQ0", dQ0), ("dQ2", dQ2)):
+        expect_shape(name, arg, t, (nlm, nelem, nprim, nprim))
+    expect_shape(name, "ilm", ilm, (S,))
+    if nprim > 32:
+        raise ValueError(f"{name}: nprim={nprim} exceeds the kernel's 32")
+
+
+def radial_exchange_dia_occ(Uw: torch.Tensor, V: torch.Tensor, teiJ3: torch.Tensor,
+                            dP0: torch.Tensor, dP2: torch.Tensor, dQ0: torch.Tensor,
+                            dQ2: torch.Tensor, ilm: torch.Tensor,
+                            gidx: torch.Tensor) -> torch.Tensor:
+    """K4 [nang, nang, nrad, nrad] (positive; the caller negates) from the
+    rank factors of S exchange channels: R_qr[b,c,n,m] = s_q s_r sum_{t,o}
+    Uw[s,q,t,b,n,o] V[s,r,t,c,m,o] with s = (+1, -1).
+
+    Uw, V [S, 2(q), 2(t), nang, nrad+1, no], row nrad zero (the trash slot).
+    Uw = w[s,t] U and V = U diag(sgn) for one U, and the tables have the
+    real ones' symmetries ((ij|kl) under i<->j and k<->l, symmetric moment
+    blocks): the kernel computes the shell pairs b <= c and takes the rest,
+    like the upper cross-element triangle, by R_qr[b,c,n,m] = R_rq[c,b,m,n].
+    teiJ3 [nlm, 3, nelem, np^2, np^2], dP0/dP2/dQ0/dQ2 [nlm, nelem, np, np],
+    ilm [S] int32 (table row of each channel), gidx [nelem, np] int32. CPU
+    inputs run the plain version; CUDA inputs launch the kernel. ilm's and gidx's values are not checked: pass
+    those of operators made by DiatomicBasis.build_operators or
+    from_jax_operators."""
+    name = "radial_exchange_dia_occ"
+    args = (Uw, V, teiJ3, dP0, dP2, dQ0, dQ2, ilm, gidx)
+    if on_cpu(name, *args):
+        return radial_exchange_dia_occ_plain(*args)
+    check_kernel_inputs(
+        name, {"Uw": Uw, "V": V, "teiJ3": teiJ3, "dP0": dP0, "dP2": dP2, "dQ0": dQ0,
+               "dQ2": dQ2}, {"ilm": ilm, "gidx": gidx})
+    if Uw.dim() != 6:
+        raise ValueError(f"{name}: Uw has shape {tuple(Uw.shape)}, expected 6 axes")
+    S, _, _, nang, n1, no = Uw.shape
+    nelem, nprim = gidx.shape
+    expect_shape(name, "Uw", Uw, (S, 2, 2, nang, n1, no))
+    expect_shape(name, "V", V, (S, 2, 2, nang, n1, no))
+    _check_tables(name, teiJ3, dP0, dP2, dQ0, dQ2, ilm, gidx, S)
+    nrad = n1 - 1
+    G = _channel_groups(S, nang, nelem, nprim)
+    smem = 8 * (16 * 129 + 16 * 65 + 4 * _TILE * ((nprim * 2 * no) | 1))
+    if smem > 232448:
+        raise ValueError(f"{name}: no={no} occupied columns at nprim={nprim} need "
+                         f"{smem} bytes of shared memory, above the card's 232448")
+    dev = Uw.device
+    # scratch and output come from PyTorch's stream-ordered allocator and the
+    # launches go on the current stream, so the scratch may be freed on return
+    opts = dict(dtype=torch.float64, device=dev)
+    npairs = nelem * (nelem - 1) // 2
+    part = torch.empty((G, nelem, nang, nang, nprim * nprim), **opts)
+    ud = torch.empty((nelem, S * 2 * no, nang * nprim), **opts)
+    vd = torch.empty((nelem, S * 2 * no, nang * nprim), **opts)
+    X = torch.empty((npairs, nang * nprim, nang * nprim), **opts)
+    K4 = torch.empty((nang, nang, nrad, nrad), **opts)
+    err = _build.lib().radial_exchange_dia_occ_launch(
+        *(t.data_ptr() for t in (*args, part, ud, vd, X, K4)),
+        S, nelem, nprim, nang, nrad, no, G, dev.index,
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    if err:
+        raise RuntimeError(f"{name}: kernel launch failed with cudaError_t {err}")
+    launches[name] += 1
+    return K4
+
+
+def radial_exchange_dia(R: torch.Tensor, teiJ3: torch.Tensor, dP0: torch.Tensor,
+                        dP2: torch.Tensor, dQ0: torch.Tensor, dQ2: torch.Tensor,
+                        ilm: torch.Tensor, gidx: torch.Tensor) -> torch.Tensor:
+    """K4 [nang, nang, nrad, nrad] (positive) from the dense weights R [S,
+    4, nang, nang, nrad, nrad] of S exchange channels, families in the order
+    (0,0), (0,2), (2,0), (2,2) with their signs included. The upper
+    cross-element triangle is the transpose of the lower one, which is K
+    only when R_qr[b,c,n,m] = R_rq[c,b,m,n], as it is for a symmetric
+    density. Tables, routing and unchecked index values as
+    radial_exchange_dia_occ."""
+    name = "radial_exchange_dia"
+    args = (R, teiJ3, dP0, dP2, dQ0, dQ2, ilm, gidx)
+    if on_cpu(name, *args):
+        return radial_exchange_dia_plain(*args)
+    check_kernel_inputs(
+        name, {"R": R, "teiJ3": teiJ3, "dP0": dP0, "dP2": dP2, "dQ0": dQ0, "dQ2": dQ2},
+        {"ilm": ilm, "gidx": gidx})
+    if R.dim() != 6:
+        raise ValueError(f"{name}: R has shape {tuple(R.shape)}, expected 6 axes")
+    S, _, nang, _, nrad, _ = R.shape
+    nelem, nprim = gidx.shape
+    expect_shape(name, "R", R, (S, 4, nang, nang, nrad, nrad))
+    _check_tables(name, teiJ3, dP0, dP2, dQ0, dQ2, ilm, gidx, S)
+    G = _channel_groups(S, nang, nelem, nprim)
+    dev = R.device
+    opts = dict(dtype=torch.float64, device=dev)
+    npairs = nelem * (nelem - 1) // 2
+    part = torch.empty((G, nelem, nang, nang, nprim * nprim), **opts)
+    X = torch.empty((npairs, nang * nprim, nang * nprim), **opts)
+    K4 = torch.empty((nang, nang, nrad, nrad), **opts)
+    err = _build.lib().radial_exchange_dia_launch(
+        *(t.data_ptr() for t in (*args, part, X, K4)),
+        S, nelem, nprim, nang, nrad, G, dev.index,
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    if err:
+        raise RuntimeError(f"{name}: kernel launch failed with cudaError_t {err}")
+    launches[name] += 1
+    return K4
+
+
+# ----------------------------------------------------------------------------
+# plain PyTorch versions
+# ----------------------------------------------------------------------------
+
+
+def _tei4(t3: torch.Tensor, nprim: int) -> torch.Tensor:
+    """One channel's table rows [3, nelem, np^2, np^2] as T[q, r, e, i, j, k,
+    l] = (ij|kl) of family (q, r); (2,0) is (0,2) with (ij) and (kl)
+    swapped."""
+    T = torch.stack([torch.stack([t3[0], t3[1]]),
+                     torch.stack([t3[1].transpose(-1, -2), t3[2]])])
+    return T.reshape(2, 2, t3.shape[1], nprim, nprim, nprim, nprim)
+
+
+def _assemble(Kd: torch.Tensor, X: torch.Tensor, gi: torch.Tensor,
+              nrad: int) -> torch.Tensor:
+    """K4 from the in-element blocks Kd [b, c, e, j, k] and the element-pair
+    blocks X [e, f, b, i, c, x], of which only e > f is used: scatter-add
+    through gi, then the upper cross triangle as the transpose."""
+    nang, nelem = Kd.shape[0], Kd.shape[2]
+    n1 = nrad + 1
+    out = torch.zeros((nang, nang, n1 * n1), dtype=Kd.dtype, device=Kd.device)
+    lin_in = (gi[:, :, None] * n1 + gi[:, None, :]).reshape(-1)  # (e, j, k)
+    out.index_add_(2, lin_in, Kd.reshape(nang, nang, -1))
+    low = torch.tril(torch.ones((nelem, nelem), dtype=Kd.dtype, device=Kd.device), -1)
+    Xl = (X * low[:, :, None, None, None, None]).permute(2, 4, 0, 3, 1, 5)  # b c e i f x
+    lin_x = (gi[:, :, None, None] * n1 + gi[None, None, :, :]).reshape(-1)  # (e, i, f, x)
+    cr = torch.zeros_like(out)
+    cr.index_add_(2, lin_x, Xl.reshape(nang, nang, -1))
+    out = out.reshape(nang, nang, n1, n1)
+    cr = cr.reshape(nang, nang, n1, n1)
+    return (out + cr + cr.permute(1, 0, 3, 2))[:, :, :nrad, :nrad].contiguous()
+
+
+_SIGN = ((1.0, -1.0), (-1.0, 1.0))
+
+
+def radial_exchange_dia_occ_plain(Uw, V, teiJ3, dP0, dP2, dQ0, dQ2, ilm,
+                                  gidx) -> torch.Tensor:
+    """Plain PyTorch version of radial_exchange_dia_occ: per channel, the
+    element windows of U and V through gidx, the rank product over the full
+    shell-pair grid, the TEI contraction in the exchange index order, the
+    pairwise cross factors, and the scatter-add assembly."""
+    S, _, _, nang, n1, no = Uw.shape
+    nelem, nprim = gidx.shape
+    gi = gidx.long()
+    opts = dict(dtype=Uw.dtype, device=Uw.device)
+    sign = torch.tensor(_SIGN, **opts)
+    s2 = sign[0]
+    Kd = torch.zeros((nang, nang, nelem, nprim, nprim), **opts)
+    X = torch.zeros((nelem, nelem, nang, nprim, nang, nprim), **opts)
+    for s in range(S):
+        c = int(ilm[s])
+        Ue = Uw[s][:, :, :, gi]  # [q, t, b, e, i, o]
+        Ve = V[s][:, :, :, gi]
+        T4 = _tei4(teiJ3[c], nprim) * sign[:, :, None, None, None, None, None]
+        Rg = torch.einsum("qtbeio,rtcelo->qrebcil", Ue, Ve)
+        Kd += torch.einsum("qreijkl,qrebcil->bcejk", T4, Rg)
+        dQ = torch.stack([dQ0[c], dQ2[c]]) * s2[:, None, None, None]
+        dP = torch.stack([dP0[c], dP2[c]]) * s2[:, None, None, None]
+        ud = torch.einsum("qeip,qtbepo->tebio", dQ, Ue)
+        vd = torch.einsum("rfxm,rtcfmo->tfcxo", dP, Ve)
+        X += torch.einsum("tebio,tfcxo->efbicx", ud, vd)
+    return _assemble(Kd, X, gi, n1 - 1)
+
+
+def radial_exchange_dia_plain(R, teiJ3, dP0, dP2, dQ0, dQ2, ilm, gidx) -> torch.Tensor:
+    """Plain PyTorch version of radial_exchange_dia: per channel, the
+    diagonal and the element-pair windows of the dense R through gidx (trash
+    slot read as zero), contracted as radial_exchange_dia_occ_plain
+    contracts its rank products."""
+    S, _, nang, _, nrad, _ = R.shape
+    nelem, nprim = gidx.shape
+    gi = gidx.long()
+    opts = dict(dtype=R.dtype, device=R.device)
+    Kd = torch.zeros((nang, nang, nelem, nprim, nprim), **opts)
+    X = torch.zeros((nelem, nelem, nang, nprim, nang, nprim), **opts)
+    for s in range(S):
+        c = int(ilm[s])
+        Rp = F.pad(R[s], (0, 1, 0, 1))  # [4, b, c, nrad+1, nrad+1]
+        Rg = Rp[:, :, :, gi[:, :, None], gi[:, None, :]]  # [4, b, c, e, i, l]
+        T4 = _tei4(teiJ3[c], nprim).reshape(4, nelem, nprim, nprim, nprim, nprim)
+        Kd += torch.einsum("Feijkl,Fbceil->bcejk", T4, Rg)
+        Rw = Rp[:, :, :, gi[:, None, :, None], gi[None, :, None, :]]  # [4,b,c,e,f,p,m]
+        dQ = torch.stack([dQ0[c], dQ0[c], dQ2[c], dQ2[c]])
+        dP = torch.stack([dP0[c], dP2[c], dP0[c], dP2[c]])
+        Y = torch.einsum("Feip,Fbcefpm->Fbcefim", dQ, Rw)
+        X += torch.einsum("Fbcefim,Ffxm->efbicx", Y, dP)
+    return _assemble(Kd, X, gi, nrad)

@@ -17,9 +17,14 @@ masked (shell_mask).
   device; helfem_tpu's fourth family (2,0) is the per-block transpose of
   (0,2) and the kernel reads it so.
 
-Not ported yet: exchange (exchange_dia, exchange_dia_occ), electric and
-magnetic fields, multipoles, explicit element boundaries (bval) and
-inverse-Cholesky whitening.
+* The exchange build (exchange_dia_occ from occupied orbitals, the path of
+  the SCF, and exchange_dia from a symmetric density) forms its Gaunt
+  transforms in torch.einsum and hands the radial core to the CUDA kernels
+  radial_exchange_dia_occ and radial_exchange_dia (kernels/), which read
+  the same teiJ3 table through the exchange index permutation.
+
+Not ported yet: electric and magnetic fields, multipoles, explicit element
+boundaries (bval) and inverse-Cholesky whitening.
 """
 
 from collections.abc import Mapping
@@ -29,8 +34,14 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
-from helfem_tpu_torch.kernels import check_gidx, radial_coulomb_dia
+from helfem_tpu_torch.kernels import (
+    check_gidx,
+    radial_coulomb_dia,
+    radial_exchange_dia,
+    radial_exchange_dia_occ,
+)
 from helfem_tpu_torch.ops.fem import FEMBasis
 from helfem_tpu_torch.ops.gaunt import (
     cosk_coupling,
@@ -44,6 +55,7 @@ from helfem_tpu_torch.ops.quadrature import chebyshev
 from helfem_tpu_torch.utils.linalg import build_blocks
 
 __all__ = ["lm_to_l_m", "DiatomicBasis", "DiatomicOperators", "coulomb_dia",
+           "exchange_dia", "exchange_dia_occ", "exchange_factors", "exchange_weights",
            "from_jax_operators"]
 
 
@@ -62,9 +74,13 @@ def lm_to_l_m(lmax_per_m):
 
 
 class DiatomicOperators(NamedTuple):
-    """Device constants of the diatomic SCF (helfem_tpu's DiatomicOperators
-    without the exchange tables teiK and step_*; teiJ holds the reduced
-    family axis (0,0), (0,2), (2,2) as teiJ3)."""
+    """Device constants of the diatomic SCF: helfem_tpu's DiatomicOperators
+    with the in-element table kept in its reduced form teiJ3 (family axis
+    (0,0), (0,2), (2,2)) and without teiK. helfem_tpu's teiK is the fixed
+    index permutation (i,j,k,l) -> (j,k,i,l) of teiJ, materialised there
+    only so that the exchange contraction is a matmul; the exchange kernels
+    and their plain versions read teiJ3 through that permutation, and
+    family (2,0) as the transpose of (0,2), as radial_coulomb_dia does."""
 
     gidx: torch.Tensor  # [nelem, nprim] int32, trash slot = nrad
     shellmask: torch.Tensor  # [nang, nrad]
@@ -81,6 +97,10 @@ class DiatomicOperators(NamedTuple):
     dP2: torch.Tensor
     dQ0: torch.Tensor
     dQ2: torch.Tensor
+    step_ilm: torch.Tensor  # [nlm] int32: exchange channel -> (L,|M|) table row
+    step_sp: torch.Tensor  # [nlm] int32: its (L, +|M|) row of GmLM/GpLM
+    step_sm: torch.Tensor  # [nlm] int32: its (L, -|M|) row (= step_sp if none)
+    step_wm: torch.Tensor  # [nlm] weight of the -|M| term: 1 if it exists, else 0
     blk_idx: torch.Tensor  # [nblk, blen] int32 global indices (padded with nbf)
     blk_sinvh: torch.Tensor  # [nblk, blen, blen]
 
@@ -92,7 +112,7 @@ class DiatomicOperators(NamedTuple):
         return DiatomicOperators(*(t.to(device) for t in self))
 
 
-_INT_FIELDS = ("gidx", "LM_ilm", "blk_idx")
+_INT_FIELDS = ("gidx", "LM_ilm", "step_ilm", "step_sp", "step_sm", "blk_idx")
 
 
 def _operators(arrays: Mapping[str, np.ndarray], device) -> DiatomicOperators:
@@ -108,8 +128,9 @@ def _operators(arrays: Mapping[str, np.ndarray], device) -> DiatomicOperators:
 def from_jax_operators(arrays: Mapping[str, np.ndarray], device) -> DiatomicOperators:
     """The port's operators from helfem_tpu's DiatomicOperators fields given
     as numpy arrays (e.g. {k: np.asarray(v) for k, v in ops._asdict().items()}):
-    the 4-family teiJ [(0,0), (0,2), (2,0), (2,2)] keeps families 0, 1 and 3;
-    the exchange tables are not carried."""
+    the 4-family teiJ [(0,0), (0,2), (2,0), (2,2)] keeps families 0, 1 and 3
+    and the exchange step tables are carried; teiK, a permuted copy of teiJ,
+    is not (see DiatomicOperators)."""
     arrays = dict(arrays)
     arrays["teiJ3"] = np.asarray(arrays["teiJ"])[:, [0, 1, 3]]
     return _operators(arrays, device)
@@ -435,6 +456,14 @@ class DiatomicBasis:
         dP0, dP2 = dP0 * a4, dP2 * a4
         dQ0, dQ2 = dQ0 / a4, dQ2 / a4
 
+        # exchange channels: one per (L,|M|), with the rows of its signed
+        # (L, +|M|) and (L, -|M|) Gaunt tables
+        LM_pos = {p: i for i, p in enumerate(self.LM_map)}
+        step_sp = [LM_pos[(L, Ma)] for (L, Ma) in self.lm_map]
+        has_m = [Ma > 0 and (L, -Ma) in LM_pos for (L, Ma) in self.lm_map]
+        step_sm = [LM_pos[(L, -Ma)] if h else LM_pos[(L, Ma)]
+                   for (L, Ma), h in zip(self.lm_map, has_m)]
+
         S = self.overlap()
         blk_idx, blk_sinvh = build_blocks(S, self.sym_blocks(parity))
         T = self.kinetic()
@@ -446,7 +475,12 @@ class DiatomicBasis:
         return dict(
             gidx=self.fem.gidx, shellmask=mask, S=S, H0=T + V, T=T, Vnuc=V,
             GmLM=GmLM, GpLM=GpLM, LM_ilm=LM_ilm, LMfac=LMfac, teiJ3=teiJ3,
-            dP0=dP0, dP2=dP2, dQ0=dQ0, dQ2=dQ2, blk_idx=blk_idx, blk_sinvh=blk_sinvh,
+            dP0=dP0, dP2=dP2, dQ0=dQ0, dQ2=dQ2,
+            step_ilm=np.arange(len(self.lm_map), dtype=np.int32),
+            step_sp=np.array(step_sp, dtype=np.int32),
+            step_sm=np.array(step_sm, dtype=np.int32),
+            step_wm=np.array(has_m, dtype=np.float64),
+            blk_idx=blk_idx, blk_sinvh=blk_sinvh,
         )
 
     def build_operators(self, device, parity: bool = True) -> DiatomicOperators:
@@ -491,9 +525,101 @@ def coulomb_dia(ops: DiatomicOperators, P: torch.Tensor,
     return _from4(J4, nang, nrad) * m2[:, None] * m2[None, :]
 
 
-def exchange_dia(ops: DiatomicOperators, P: torch.Tensor):
-    raise NotImplementedError("diatomic exact exchange is not ported to "
-                              "helfem_tpu_torch yet (see ROADMAP.md)")
+# --------------------------------------------------------------------------------
+# Exchange build (reference: src/diatomic/basis.cpp:1532-1734)
+# --------------------------------------------------------------------------------
 
 
-exchange_dia_occ = exchange_dia
+def _step_tables(ops: DiatomicOperators):
+    """Per exchange channel: Gq [nlm, 2(q: Gm, Gp), 2(t: +|M|, -|M|), nang,
+    nang] and the weights w2 [nlm, 2(t)] = LMfac * (1, step_wm)."""
+    s2 = torch.stack([ops.step_sp, ops.step_sm], dim=1).long()  # [nlm, 2]
+    Gq = torch.stack([ops.GmLM[s2], ops.GpLM[s2]], dim=1)
+    fac = ops.LMfac[ops.step_ilm.long()]
+    w2 = fac[:, None] * torch.stack([torch.ones_like(ops.step_wm), ops.step_wm], dim=1)
+    return Gq, w2
+
+
+def _finish_K(ops: DiatomicOperators, K4: torch.Tensor) -> torch.Tensor:
+    nang, nrad = ops.shellmask.shape
+    m2 = ops.shellmask.reshape(-1)
+    return -_from4(K4, nang, nrad) * m2[:, None] * m2[None, :]
+
+
+def exchange_factors(ops: DiatomicOperators, Co: torch.Tensor,
+                     sgn: torch.Tensor | None = None) -> tuple[torch.Tensor, torch.Tensor]:
+    """The rank factors (Uw, V) [nlm, 2(q), 2(t), nang, nrad+1, no] of
+    P = Co diag(sgn) Co^T for the kernel radial_exchange_dia_occ: the Gaunt
+    transform U[s,q,t,b,n,o] = sum_a Gq[s,q,t,b,a] Co[(a,n),o] with a zero
+    trash row nrad, Uw = w2[s,t] U and V = U diag(sgn)
+    (diatomic.py:1056-1060)."""
+    nang, nrad = ops.shellmask.shape
+    no = Co.shape[-1]
+    C4p = F.pad(Co.reshape(nang, nrad, no), (0, 0, 0, 1))  # [a, nrad+1, o]
+    Gq, w2 = _step_tables(ops)
+    U = torch.einsum("sqtba,ano->sqtbno", Gq, C4p)
+    V = U if sgn is None else U * sgn
+    return (w2[:, None, :, None, None, None] * U).contiguous(), V.contiguous()
+
+
+def exchange_dia_occ(ops: DiatomicOperators, Co: torch.Tensor,
+                     sgn: torch.Tensor | None = None) -> torch.Tensor:
+    """K(P) for P = Co diag(sgn) Co^T, the occupied-orbital factorised
+    exchange (diatomic.py:944-1115; negative contribution, like
+    helfem_tpu's). Co [nbf, no] holds sqrt(f)-weighted occupied columns; a
+    zero column is an exact no-op. sgn [no] (default +1) admits an
+    indefinite symmetric P through a signed eigenfactorisation.
+
+    K is linear in P and P has rank no << nbf, so per (L,|M|) channel the
+    four R families factor as R_qr[b,c,n,m] = +-sum_{t,o} U[q,t,b,n,o]
+    V[r,t,c,m,o]. The two Gaunt transforms (exchange_factors: U weighted by
+    LMfac and the +-|M| weights, and V) are torch.einsum; the radial core
+    (window rank products, the in-element TEI contraction, the
+    cross-element Q x R x P terms and the assembly) is the kernel
+    radial_exchange_dia_occ, launched once for all channels. The dense R
+    never exists in device memory."""
+    Uw, V = exchange_factors(ops, Co, sgn)
+    K4 = radial_exchange_dia_occ(Uw, V, ops.teiJ3, ops.dP0, ops.dP2, ops.dQ0, ops.dQ2,
+                                 ops.step_ilm, ops.gidx)
+    return _finish_K(ops, K4)
+
+
+# device memory that exchange_dia lets one batch of dense R families take
+_R_BATCH_BYTES = 2**31
+
+
+def exchange_weights(ops: DiatomicOperators, P: torch.Tensor,
+                     channels: slice = slice(None)) -> torch.Tensor:
+    """The dense weights R [S, 4, nang, nang, nrad, nrad] of the exchange
+    channels in `channels` for the kernel radial_exchange_dia: the
+    two-sided Gaunt transforms of P, families (0,0), (0,2), (2,0), (2,2)
+    with their signs and channel weights (diatomic.py:900-911)."""
+    nang, nrad = ops.shellmask.shape
+    P4 = _to4(P, nang, nrad)
+    Gq, w2 = _step_tables(ops)
+    Gq, w2 = Gq[channels], w2[channels]
+    sign = torch.tensor([[1.0, -1.0], [-1.0, 1.0]], dtype=P.dtype, device=P.device)
+    half = torch.einsum("sqtba,adIJ->sqtbdIJ", w2[:, None, :, None, None] * Gq, P4)
+    R = torch.einsum("qr,srtcd,sqtbdIJ->sqrbcIJ", sign, Gq, half)
+    return R.reshape(R.shape[0], 4, nang, nang, nrad, nrad).contiguous()
+
+
+def exchange_dia(ops: DiatomicOperators, P: torch.Tensor) -> torch.Tensor:
+    """K(P) for a SYMMETRIC P (diatomic.py:799-941; negative contribution):
+    the upper cross-element triangle is taken as the transpose of the lower
+    one, which needs P = P^T, as every SCF density is. A caller with a
+    non-symmetric P symmetrises it first. For callers that have only P;
+    the SCF has the occupied orbitals and calls exchange_dia_occ.
+
+    Per (L,|M|) channel the dense R families (exchange_weights,
+    torch.einsum) go to the kernel radial_exchange_dia, in batches of
+    channels that keep R below 2 GiB."""
+    nang, nrad = ops.shellmask.shape
+    nlm = ops.step_ilm.shape[0]
+    batch = max(1, _R_BATCH_BYTES // (8 * 4 * nang * nang * nrad * nrad))
+    K4 = torch.zeros((nang, nang, nrad, nrad), dtype=P.dtype, device=P.device)
+    for s0 in range(0, nlm, batch):
+        sl = slice(s0, min(s0 + batch, nlm))
+        K4 = K4 + radial_exchange_dia(exchange_weights(ops, P, sl), ops.teiJ3, ops.dP0,
+                                      ops.dP2, ops.dQ0, ops.dQ2, ops.step_ilm[sl], ops.gidx)
+    return _finish_K(ops, K4)

@@ -188,17 +188,20 @@ _ALIASES = {
     "revpbe": (0.0, [(1.0, "gga_x_pbe", {"kappa": 1.245}), (1.0, "gga_c_pbe", {})]),
     "pbesol": (0.0, [(1.0, "gga_x_pbe", {"mu": 10.0 / 81.0}),
                      (1.0, "gga_c_pbe", {"beta": 0.046})]),
+    # PBE0 (Adamo-Barone): 25 % exact exchange
+    "pbe0": (0.25, [(0.75, "gga_x_pbe", {}), (1.0, "gga_c_pbe", {})]),
+    "pbeh": (0.25, [(0.75, "gga_x_pbe", {}), (1.0, "gga_c_pbe", {})]),
 }
 
-# helfem_tpu aliases outside this port's slice: hybrids, meta-GGAs, other
-# GGAs and the range-separated methods
-_UNPORTED_METHODS = ("blyp", "tpss", "scan", "rscan", "pbe0", "pbeh", "tpssh", "b3lyp5",
+# helfem_tpu aliases outside this port's slice: meta-GGAs and their hybrids,
+# other GGAs and their hybrids, and the range-separated methods
+_UNPORTED_METHODS = ("blyp", "tpss", "scan", "rscan", "tpssh", "b3lyp5",
                      "rpbe", "lc-lda", "ldaerf", "lcy-lda", "sr-pbe0")
 
 
 def _unported(what: str) -> NotImplementedError:
     return NotImplementedError(f"{what} is not ported to helfem_tpu_torch yet; "
-                               "ported: HF, LDA, SVWN, PBE, revPBE, PBEsol (see ROADMAP.md)")
+                               "ported: HF, LDA, SVWN, PBE, revPBE, PBEsol, PBE0 (see ROADMAP.md)")
 
 
 def get_functional(name: str) -> Functional:
@@ -255,8 +258,9 @@ def _parse_part(part: str) -> Functional:
 
 class MethodSpec(NamedTuple):
     """Parsed method: semilocal functionals plus the exact-exchange mixing
-    kfull * K + kshort * K_sr(omega) (same fields as helfem_tpu's; this
-    slice only produces kfull 1 for HF and 0 for pure functionals)."""
+    kfull * K + kshort * K_sr(omega) (same fields as helfem_tpu's; the port
+    produces kfull 1 for HF, 0.25 for PBE0 and 0 for pure functionals, and
+    never a short-range part)."""
 
     funcs: tuple
     kfull: float

@@ -91,9 +91,11 @@ class DIIS:
             Pp = np.pad(np.asarray(P), ((0, 1), (0, 1)))
             Fb = Fp[bi[:, :, None], bi[:, None, :]]
             Pb = Pp[bi[:, :, None], bi[:, None, :]]
-            FPS = np.einsum("bpq,bqr,brs->bps", Fb, Pb, Sb, optimize=True)
+            # np.matmul: batched BLAS. np.einsum keeps a batch axis out of
+            # BLAS (0.64 s a product at 10 blocks of 490 against milliseconds)
+            FPS = Fb @ Pb @ Sb
             M = FPS - FPS.transpose(0, 2, 1)
-            return np.einsum("bpi,bps,bsj->bij", bs, M, bs, optimize=True)
+            return bs.transpose(0, 2, 1) @ M @ bs
         FPS = F @ P @ self.S
         comm = FPS - FPS.T
         return self.Sinvh.T @ comm @ self.Sinvh

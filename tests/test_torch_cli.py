@@ -12,6 +12,7 @@ import torch
 
 from helfem_tpu_torch import kernels
 from helfem_tpu_torch.cli.atomic import main
+from helfem_tpu_torch.kernels.matmul_probe import split_dd
 
 REPO = Path(__file__).resolve().parents[1]
 HE = ["--Z", "He", "--lmax", "0", "--mmax", "0", "--nelem", "5", "--nnodes", "8",
@@ -57,7 +58,9 @@ def test_port_never_imports_jax():
         "for name in names:\n"
         "    importlib.import_module(name)\n"
         "for name in ('models.diatomic', 'models.diatomic_dft', 'scf.diatomic_scf',\n"
-        "             'cli.diatomic', 'ops.xc', 'ops.legendreq', 'ops.spherical'):\n"
+        "             'cli.diatomic', 'ops.xc', 'ops.legendreq', 'ops.spherical',\n"
+        "             'kernels.radial_exchange_dia', 'kernels.matmul_probe',\n"
+        "             'tools.f64_ablation', 'tools.profile_dia_scf', 'utils.profiling'):\n"
         "    assert 'helfem_tpu_torch.' + name in names, name\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'helfem_tpu'))\n"
         "assert not bad, bad\n"
@@ -95,6 +98,12 @@ def _inputs(name):
 
     if name in _DIA:
         return _dia_inputs(name)
+    if name in _PROBES:
+        rng = np.random.default_rng(33)
+        a, b = (torch.tensor(rng.standard_normal((128, 128))) for _ in range(2))
+        if name == "matmul_f32":
+            return (a.float(), b.float())
+        return (*split_dd(a), *split_dd(b))
     basis = AtomicBasis(Z=4, lmax=1, mmax=0, rmax=20.0, nelem=3, nnodes=5)
     ops = basis.build_operators("cpu")
     X = np.random.default_rng(31).standard_normal((basis.nang, basis.nrad, basis.nrad))
@@ -105,8 +114,10 @@ def _inputs(name):
     return (Paux, ops.tei, ops.disjL, ops.disjm1L, ops.Lfac, ops.gidx)
 
 
-_DIA = ["radial_coulomb_dia", "dia_xc_fields", "dia_xc_fock"]
-_ALL = ["radial_exchange", "radial_coulomb"] + _DIA
+_DIA = ["radial_coulomb_dia", "dia_xc_fields", "dia_xc_fock", "radial_exchange_dia_occ",
+        "radial_exchange_dia"]
+_PROBES = ["matmul_f32", "matmul_dd"]
+_ALL = ["radial_exchange", "radial_coulomb"] + _DIA + _PROBES
 
 
 def _dia_inputs(name):
@@ -122,6 +133,16 @@ def _dia_inputs(name):
         return (torch.tensor(X + X.T), g.gidx, g.Bg, g.dBg, g.TT, g.dTT, g.invh, g.sqeta)
     if name == "dia_xc_fock":
         return (g.w, g.w * 0.5, g.w * 0.25, g.gidx, g.Bg, g.dBg, g.TT, g.dTT, basis.nrad)
+    if name.startswith("radial_exchange_dia"):
+        U = torch.tensor(rng.standard_normal((ops.step_ilm.shape[0], 2, 2, basis.nang,
+                                              basis.nrad + 1, 3)))
+        U[:, :, :, :, -1] = 0.0
+        tables = (ops.teiJ3, ops.dP0, ops.dP2, ops.dQ0, ops.dQ2, ops.step_ilm, ops.gidx)
+        if name == "radial_exchange_dia_occ":
+            return (0.5 * U, U, *tables)
+        sign = torch.tensor([[1.0, -1.0], [-1.0, 1.0]], dtype=torch.float64)
+        R = torch.einsum("qr,sqtbno,srtcmo->sqrbcnm", sign, U[..., :-1, :], U[..., :-1, :])
+        return (R.reshape(R.shape[0], 4, *R.shape[3:]).contiguous(), *tables)
     shape = (ops.LM_ilm.shape[0], basis.nrad, basis.nrad)
     Paux0, Paux2 = (torch.tensor(rng.standard_normal(shape)) for _ in range(2))
     return (Paux0, Paux2, ops.teiJ3, ops.dP0, ops.dP2, ops.dQ0, ops.dQ2, ops.LMfac,

@@ -209,7 +209,7 @@ def test_xc_eval_potentials_finite_at_tiny_spin_density():
     assert all(torch.isfinite(x).all() for x in out)
 
 
-@pytest.mark.parametrize("method", ["PBE0", "B3LYP5", "TPSS", "SCAN", "LC-LDA", "BLYP",
+@pytest.mark.parametrize("method", ["TPSSh", "B3LYP5", "TPSS", "SCAN", "LC-LDA", "BLYP",
                                     "gga_x_b88,gga_c_lyp"])
 def test_unported_methods_raise(method):
     with pytest.raises(NotImplementedError):
@@ -217,7 +217,7 @@ def test_unported_methods_raise(method):
 
 
 def test_ported_methods_parse_like_jax():
-    for method in ["HF", "LDA", "SVWN", "SVWN5", "PBE", "revPBE", "PBEsol",
+    for method in ["HF", "LDA", "SVWN", "SVWN5", "PBE", "revPBE", "PBEsol", "PBE0", "PBEh",
                    "lda_x,lda_c_vwn", "gga_x_pbe-gga_c_pbe", "gga_x_pbe[kappa=1.0],gga_c_pbe"]:
         got, ref = xc.parse_method_rs(method), jxc.parse_method_rs(method)
         assert [f.name for f in got.funcs] == [f.name for f in ref.funcs]

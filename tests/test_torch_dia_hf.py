@@ -1,0 +1,122 @@
+"""The port's diatomic Hartree-Fock and PBE0 SCF against helfem_tpu's
+scf_diatomic on the same basis (core guess; total energy and exact-exchange
+energy within 1e-9 Eh), the two exchange routes of make_dia_fock, the selector
+of the occupied columns, and the port's diatomic CLI with --method HF on the
+CPU."""
+
+import numpy as np
+import pytest
+import torch
+
+from helfem_tpu.models.diatomic import DiatomicBasis as JaxBasis
+from helfem_tpu.scf import diatomic_scf as jax_scf
+from helfem_tpu_torch.cli.diatomic import main
+from helfem_tpu_torch.models.diatomic import DiatomicBasis
+from helfem_tpu_torch.scf import diatomic_scf
+from helfem_tpu_torch.utils.linalg import density_blocks, eig_blocks
+
+CASES = {
+    "H2": (dict(Z1=1, Z2=1, Rbond=1.4, lmax=(4,), rmax=15.0, nelem=3, nnodes=5), 1),
+    "N2": (dict(Z1=7, Z2=7, Rbond=2.0743, lmax=(2, 2), rmax=15.0, nelem=3, nnodes=5), 7),
+}
+N2_CLI = ["--Z1", "N", "--Z2", "N", "--Rbond", "2.0743", "--lmax", "2,2", "--nelem", "3",
+          "--nnodes", "5", "--Rmax", "15", "--convthr", "1e-9"]
+
+
+@pytest.fixture(scope="module")
+def references():
+    """helfem_tpu's converged results, one SCF per (method, molecule)."""
+    cache = {}
+
+    def get(method, molecule):
+        if (method, molecule) not in cache:
+            cfg, nel = CASES[molecule]
+            cache[method, molecule] = jax_scf.scf_diatomic(
+                JaxBasis(**cfg), nel, nel, method=method, convthr=1e-9, guess="core")
+        return cache[method, molecule]
+
+    return get
+
+
+@pytest.mark.parametrize("molecule", list(CASES))
+@pytest.mark.parametrize("method", ["HF", "PBE0"])
+def test_energy_matches_jax(references, method, molecule):
+    cfg, nel = CASES[molecule]
+    ref = references(method, molecule)
+    got = diatomic_scf.scf_diatomic(DiatomicBasis(**cfg), nel, nel, method=method,
+                                    convthr=1e-9, device="cpu")
+    assert ref.converged and got.converged
+    assert abs(got.E - ref.E) < 1e-9
+    assert abs(got.Exx - ref.Exx) < 1e-9 and got.Exx < 0.0
+    for comp in ("Ekin", "Enucattr", "Ecoul", "Exc"):
+        assert abs(getattr(got, comp) - getattr(ref, comp)) < 1e-7, comp
+    assert np.abs(got.orbE_a[:nel + 2] - ref.orbE_a[:nel + 2]).max() < 1e-7
+    if method == "HF":  # pure HF builds no grid
+        assert got.Exc == 0.0 and got.Nelgrid == 0.0
+    else:
+        assert abs(got.Nelgrid - 2 * nel) < 1e-6
+
+
+def test_cli_hf_is_the_default_and_runs_on_cpu(references, capsys):
+    res = main(N2_CLI + ["--device", "cpu"])  # --method defaults to HF
+    out = capsys.readouterr().out
+    ref = references("HF", "N2")
+    assert res.converged and abs(res.E - ref.E) < 1e-9
+    assert "Running HF" in out and "(fused)" in out
+    assert f"Exact exchange        energy: {res.Exx: .16f}"[:45] in out
+    explicit = main(N2_CLI + ["--method", "HF", "--device", "cpu"])
+    assert abs(explicit.E - res.E) < 1e-12
+
+
+def test_cli_pbe0_runs_on_cpu(references):
+    res = main(N2_CLI + ["--method", "PBE0", "--device", "cpu"])
+    assert res.converged and abs(res.E - references("PBE0", "N2").E) < 1e-9
+
+
+@pytest.fixture(scope="module")
+def core_state():
+    cfg, nel = CASES["N2"]
+    basis = DiatomicBasis(**cfg)
+    ops = basis.build_operators("cpu")
+    E, C = eig_blocks(ops.H0, ops.blk_idx, ops.blk_sinvh)
+    occ = diatomic_scf.aufbau_blocks(E.numpy(), nel)
+    return basis, ops, C, occ
+
+
+def test_occupied_columns_reproduce_the_density(core_state):
+    _, ops, C, occ = core_state
+    sel = diatomic_scf.occ_select(occ, "cpu")
+    assert sel[2].shape[0] == int((occ > 0).sum())  # the exact count, no padding
+    Co = diatomic_scf.occupied_dia(ops, C, sel)
+    Pa = density_blocks(C, torch.tensor(occ), ops.blk_idx, ops.S)
+    assert float((Co @ Co.T - Pa).abs().max()) < 1e-13 * float(Pa.abs().max())
+
+
+@pytest.mark.parametrize("kfrac", [1.0, 0.25])
+def test_fock_exchange_routes_agree(core_state, kfrac):
+    """make_dia_fock with the occupied columns and with the density alone."""
+    basis, ops, C, occ = core_state
+    Co = diatomic_scf.occupied_dia(ops, C, diatomic_scf.occ_select(occ, "cpu"))
+    Pa = density_blocks(C, torch.tensor(occ), ops.blk_idx, ops.S)
+    fock = diatomic_scf.make_dia_fock((), kfrac, njbd=basis.njbd)
+    a = fock(ops, None, Pa, Co)
+    b = fock(ops, None, Pa)
+    assert float((a[0] - b[0]).abs().max()) < 1e-12 * float(b[0].abs().max())
+    assert abs(float(a[4]) - float(b[4])) < 1e-12 * abs(float(b[4]))
+    assert float(a[4]) < 0.0 and float(a[5]) == 0.0 and float(a[6]) == 0.0
+    # Exx = <Pa, Ka> with Ka = kfrac K(Pa)
+    J_only = diatomic_scf.make_dia_fock((), 0.0, njbd=basis.njbd)(ops, None, Pa)
+    assert abs(float(a[4]) - float(((a[0] - J_only[0]) * Pa).sum())) < 1e-12
+
+
+@pytest.mark.parametrize("method", ["LC-LDA", "sr-PBE0"])
+def test_range_separated_methods_raise(method):
+    cfg, nel = CASES["H2"]
+    with pytest.raises(NotImplementedError):
+        diatomic_scf.scf_diatomic(DiatomicBasis(**cfg), nel, nel, method=method, device="cpu")
+
+
+def test_open_shell_hf_raises():
+    cfg, _ = CASES["H2"]
+    with pytest.raises(NotImplementedError, match="open-shell"):
+        diatomic_scf.scf_diatomic(DiatomicBasis(**cfg), 1, 0, method="HF", device="cpu")

@@ -47,8 +47,8 @@ def test_cli_runs_on_cpu(capsys):
 
 
 @pytest.mark.parametrize("extra, match", [
-    (["--method", "HF"], "exchange"),
-    (["--method", "PBE0"], "PBE0"),
+    (["--method", "LC-LDA"], "LC-LDA"),
+    (["--method", "B3LYP5"], "B3LYP5"),
     (["--method", "TPSS"], "TPSS"),
     (["--iguess", "2"], "SAP"),
     (["--guess", "TF"], "TF"),
@@ -56,7 +56,7 @@ def test_cli_runs_on_cpu(capsys):
     (["--Ez", "0.01"], "--Ez"),
     (["--ndev", "2"], "--ndev"),
     (["--restricted", "0"], "--restricted"),
-], ids=["hf", "hybrid", "mgga", "sap", "tf", "open_shell", "field_flag", "ndev_flag",
+], ids=["range_separated", "hybrid", "mgga", "sap", "tf", "open_shell", "field_flag", "ndev_flag",
         "uhf_flag"])
 def test_cli_unported_raises(extra, match):
     with pytest.raises(NotImplementedError, match=match):

@@ -13,7 +13,10 @@ import torch
 
 from helfem_tpu_torch import kernels
 from helfem_tpu_torch.models.atomic import AtomicBasis
-from helfem_tpu_torch.models.diatomic import DiatomicBasis, _to4
+from helfem_tpu_torch.kernels.matmul_probe import split_dd
+from helfem_tpu_torch.models.diatomic import (
+    DiatomicBasis, _to4, exchange_factors, exchange_weights,
+)
 from helfem_tpu_torch.models.diatomic_dft import build_dia_grid
 from helfem_tpu_torch.scf.atomic_scf import scf_atom
 from helfem_tpu_torch.scf.diatomic_scf import scf_diatomic
@@ -168,7 +171,8 @@ DIA_CONFIGS = {
     # nprim^2 = 25 and nq = 25: blocks that are not a whole number of warps
     "lih_np5": dict(Z1=3, Z2=1, Rbond=3.015, lmax=(3, 2, 1), rmax=20.0, nelem=3, nnodes=5),
 }
-DIA_KERNELS = ["radial_coulomb_dia", "dia_xc_fields", "dia_xc_fock"]
+DIA_KERNELS = ["radial_coulomb_dia", "dia_xc_fields", "dia_xc_fock",
+               "radial_exchange_dia_occ", "radial_exchange_dia"]
 
 
 @pytest.fixture(scope="module", params=list(DIA_CONFIGS), ids=list(DIA_CONFIGS))
@@ -193,7 +197,15 @@ def _dia_inputs(basis, dev, seed=43):
     Paux2 = torch.einsum("sab,abIJ->sIJ", ops.GpLM[:nj], P4).contiguous()
     wvr, wgu, wgv = (torch.tensor(rng.standard_normal(tuple(g.w.shape)), device=dev)
                      for _ in range(3))
+    # rank factors of 7 random occupied columns, and the dense R of the same
+    # density, as exchange_dia_occ and exchange_dia form them
+    Co = torch.tensor(rng.standard_normal((basis.nbf, 7)), device=dev)
+    Uw, U = exchange_factors(ops, Co)
+    R = exchange_weights(ops, Co @ Co.T)
+    xtabs = (ops.teiJ3, ops.dP0, ops.dP2, ops.dQ0, ops.dQ2, ops.step_ilm, ops.gidx)
     return {
+        "radial_exchange_dia_occ": (Uw, U, *xtabs),
+        "radial_exchange_dia": (R, *xtabs),
         "radial_coulomb_dia": (Paux0, Paux2, ops.teiJ3, ops.dP0, ops.dP2, ops.dQ0, ops.dQ2,
                                ops.LMfac, ops.LM_ilm[:nj], ops.gidx),
         "dia_xc_fields": (P, g.gidx, g.Bg, g.dBg, g.TT, g.dTT, g.invh, g.sqeta),
@@ -241,4 +253,59 @@ def test_dia_scf_on_card_matches_cpu(cuda_device):
     gpu = scf_diatomic(DiatomicBasis(**cfg), 7, 7, method="PBE", convthr=1e-9,
                        device=cuda_device)
     assert gpu.converged and abs(gpu.E - cpu.E) < 1e-9
-    assert all(kernels.launches[k] > before[k] for k in DIA_KERNELS)
+    assert all(kernels.launches[k] > before[k] for k in DIA_KERNELS[:3])
+    assert all(kernels.launches[k] == before[k] for k in DIA_KERNELS[3:])  # no exchange in PBE
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["radial_exchange_dia_occ", "radial_exchange_dia"])
+def test_exchange_kernel_matches_plain_at_lmax12_shapes(cuda_device, name):
+    """The N2 lmax=12 bench shapes (nang 59, nprim 15, nelem 5, 125 channels,
+    no 9) on chip_smoke.py's random tables."""
+    from chip_smoke import lmax12_exchange_inputs
+
+    args = lmax12_exchange_inputs(cuda_device)[name][0]
+    out = getattr(kernels, name)(*args)
+    again = getattr(kernels, name)(*args)
+    torch.cuda.synchronize()
+    ref = getattr(kernels, name + "_plain")(*args)
+    assert torch.equal(out, again)
+    assert float((out - ref).abs().max()) <= TOL * float(ref.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", ["full", "reduced"])
+@pytest.mark.parametrize("n", [2048, 4096])
+@pytest.mark.parametrize("name", ["matmul_f32", "matmul_dd"])
+def test_matmul_probe_matches_plain_on_card(cuda_device, name, n, precision):
+    """1e-5 x max-abs: kernel and plain version are both f32 sums over K = n,
+    in different orders (the plain version runs torch.matmul with
+    torch.backends.cuda.matmul.allow_tf32 False, on TF32-rounded inputs for
+    "reduced")."""
+    rng = np.random.default_rng(0)
+    a64, b64 = (torch.tensor(rng.standard_normal((n, n)), device=cuda_device) for _ in range(2))
+    args = ((a64.float(), b64.float()) if name == "matmul_f32"
+            else (*split_dd(a64), *split_dd(b64)))
+    before = kernels.launches[name]
+    out = getattr(kernels, name)(*args, precision)
+    again = getattr(kernels, name)(*args, precision)
+    torch.cuda.synchronize()
+    assert kernels.launches[name] == before + 2
+    ref = getattr(kernels, name + "_plain")(*args, precision)
+    assert torch.equal(out, again)
+    assert float((out - ref).abs().max()) <= 1e-5 * float(ref.abs().max())
+    with pytest.raises(ValueError, match="multiples"):
+        getattr(kernels, name)(*(x[:100, :100].contiguous() for x in args), precision)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method", ["HF", "PBE0"])
+def test_dia_hf_scf_on_card_matches_cpu(cuda_device, method):
+    cfg = dict(Z1=7, Z2=7, Rbond=2.0743, lmax=(2, 2), rmax=15.0, nelem=3, nnodes=5)
+    cpu = scf_diatomic(DiatomicBasis(**cfg), 7, 7, method=method, convthr=1e-9, device="cpu")
+    before = dict(kernels.launches)
+    gpu = scf_diatomic(DiatomicBasis(**cfg), 7, 7, method=method, convthr=1e-9,
+                       device=cuda_device)
+    assert gpu.converged and abs(gpu.E - cpu.E) < 1e-9 and abs(gpu.Exx - cpu.Exx) < 1e-9
+    assert kernels.launches["radial_exchange_dia_occ"] > before["radial_exchange_dia_occ"]
+    assert kernels.launches["radial_exchange_dia"] == before["radial_exchange_dia"]
