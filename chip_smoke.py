@@ -10,17 +10,19 @@ Phases, any failure raises and exits non-zero:
      -> exit non-zero with no result;
   2. build the CUDA kernels from helfem_tpu_torch/csrc/ (nvcc, sm_90a, one
      process per source, in parallel), timed against one nvcc call for all
-     sources;
+     sources; cuobjdump's SASS must show DMMA in the exchange in-element
+     kernel;
   3. each kernel against its plain PyTorch version on the card, on random
      symmetric block-diagonal densities (numpy seed): the atomic kernels at
      the Ar and Xe bench shapes, the diatomic ones at the N2 bench shapes
      and a heteronuclear CO shape (random grid potentials for the XC Fock,
      random occupied columns for the exchange), the two exchange kernels
-     also at the N2 lmax=12 shapes on random tables: max-abs error <= 1e-12
+     also at a LiH shape and at the N2 lmax=12 shapes on random tables:
+     max-abs error <= 1e-12
      x max-abs of the result; the matmul probes at n = 2048 and 4096, both
      precisions, within 1e-5 x max-abs of their plain versions (f32 sums in
-     another order); CUDA-event times of both, in turns, and of
-     torch.matmul beside the probes;
+     another order); CUDA-event times of both, in turns, achieved TFLOP/s,
+     and torch.matmul beside the probes;
   4. Ar HF (the bench config) through the port's atomic CLI on the card:
      within 1e-6 Eh of the numerical HF limit, and both atomic kernels'
      launch counters must rise during the SCF;
@@ -38,7 +40,11 @@ Phases, any failure raises and exits non-zero:
   9. three warm N2 HF SCF walls and the profiler breakdown of one more, then
      N2 PBE0 once through the CLI: converged, with the XC and the exchange
      kernels launched;
- 10. the f64-ablation tool's JSON line at n = 2048 through its main.
+ 10. the f64-ablation tool's JSON line at n = 2048 through its main;
+ 11. N2 HF at the lmax=12 basis (tools/profile_dia_scf.py's) from the core
+     guess, cold then warm: within 2e-5 Eh of the bench reference and 1e-8
+     Eh of the value the exchange kernels' first, CUDA-core version gave,
+     with the occupied-orbital exchange kernel launched; the warm wall.
 The last two lines are the kernels' JSON record and {"ok": true, ...}.
 """
 
@@ -69,6 +75,13 @@ N2_HF_CLI = ["--Z1", "N", "--Z2", "N", "--Rbond", "2.068", "--lmax", "6,6", "--R
              "--nelem", "5", "--nnodes", "8", "--method", "HF", "--convthr", "1e-7",
              "--guess", "core"]
 N2_HF_SHAPE = dict(Z1=7, Z2=7, Rbond=2.068, lmax=(6, 6), rmax=25.0, nelem=5, nnodes=8)
+# the N2 HF lmax=12 bench basis of tools/profile_dia_scf.py (README); the
+# JAX package's bench gate, and the value converged from the core guess by
+# the exchange kernels' first, CUDA-core version (the tensor-core version
+# changes only the order of the sums)
+N2_L12_SHAPE = dict(Z1=7, Z2=7, Rbond=2.068, lmax=(12, 12, 12), rmax=40.0, nelem=5, nnodes=15)
+N2_L12_REF = -108.9938255
+N2_L12_CUDA_CORES = -108.9938178652
 # the N2 HF lmax=12 bench basis (lmax (12,12,12), rmax 40, nelem 5, nnodes 15)
 # by its sizes alone: the exchange kernels run on random tables of its shapes
 LMAX12 = dict(nang=59, nprim=15, nelem=5, nlm=125, no=9)
@@ -96,6 +109,7 @@ KERNELS = {  # name -> (source, replaces, shape of its record)
     "radial_exchange_dia": ("helfem_tpu_torch/csrc/radial_exchange_dia.cu",
                             "helfem_tpu/models/diatomic.py:799", "n2"),
 }
+INELEM = "exdia_inelem_kernel"  # the in-element GEMM core of K6 and K7
 PROBES = {  # name -> (source, {precision: replaces})
     "matmul_f32": ("helfem_tpu_torch/csrc/matmul_probe.cu",
                    {"full": "scripts/pallas_f64_ablation.py:50",
@@ -104,6 +118,24 @@ PROBES = {  # name -> (source, {precision: replaces})
                   {"full": "scripts/pallas_f64_ablation.py:82",
                    "reduced": "scripts/perf_campaign.py:130"}),
 }
+
+
+def dmma_check(build) -> str:
+    """cuobjdump's SASS of the built library: every instance of the exchange
+    in-element kernel must issue DMMA (FP64 tensor-core) instructions."""
+    from pathlib import Path
+
+    cuobjdump = Path(build._nvcc()).with_name("cuobjdump")
+    sass = subprocess.run([str(cuobjdump), "--dump-sass", str(build.LIBRARY)],
+                          capture_output=True, text=True, timeout=300, check=True).stdout
+    counts = {}
+    for section in sass.split("Function : ")[1:]:
+        name = section.split(None, 1)[0]
+        if INELEM in name:
+            counts[name] = sum("DMMA" in line for line in section.splitlines())
+    if not counts or not all(counts.values()):
+        raise RuntimeError(f"{INELEM}: no DMMA instruction in its SASS: {counts}")
+    return f"SASS: DMMA instructions per {INELEM} instance {counts}"
 
 
 def phase(title: str) -> None:
@@ -298,14 +330,15 @@ def dia_exchange_inputs(cfg: dict, dev, no: int = 7, seed: int = 13):
     }
 
 
-def lmax12_exchange_inputs(dev, seed: int = 17, dense_channels: int = 3):
-    """The exchange kernels' inputs at the N2 lmax=12 shapes (LMAX12) on
-    random tables with the symmetries of the real ones: the TEI blocks under
-    i<->j, k<->l and, for families (0,0) and (2,2), (ij)<->(kl); symmetric
-    moment blocks, the P moments growing and the Q moments falling by two
-    orders per element; V = U and Uw = w U. The dense kernel gets the first
-    `dense_channels` channels (a batch of the size exchange_dia gives it)."""
-    nang, npr, nelem, nlm, no = (LMAX12[k] for k in ("nang", "nprim", "nelem", "nlm", "no"))
+def random_exchange_inputs(dev, nang: int, nprim: int, nelem: int, nlm: int, no: int,
+                           dense_channels: int, seed: int = 17):
+    """The exchange kernels' inputs at the given sizes on random tables with
+    the symmetries of the real ones: the TEI blocks under i<->j, k<->l and,
+    for families (0,0) and (2,2), (ij)<->(kl); symmetric moment blocks, the
+    P moments growing and the Q moments falling by two orders per element;
+    V = U and Uw = w U, one channel per table row. The dense kernel gets the
+    first `dense_channels` channels."""
+    npr = nprim
     nrad = nelem * (npr - 1)
     rng = np.random.default_rng(seed)
 
@@ -347,11 +380,17 @@ def lmax12_exchange_inputs(dev, seed: int = 17, dense_channels: int = 3):
     }
 
 
+def lmax12_exchange_inputs(dev, seed: int = 17, dense_channels: int = 3):
+    """random_exchange_inputs at the N2 lmax=12 shapes (LMAX12); the dense
+    kernel gets a batch of the size exchange_dia gives it."""
+    return random_exchange_inputs(dev, dense_channels=dense_channels, seed=seed, **LMAX12)
+
+
 def report(shape: str, name: str, r: dict) -> dict:
     print(f"{shape} {name}: max-abs err {r['max_abs_err']:.3e} (scale "
           f"{r['scale']:.3e}), kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
           f"bound {r['bound_ms']:.5f} ms by {r['bound_by']} ({r['bytes']} B, "
-          f"{r['flops']} flop)")
+          f"{r['flops']} flop); achieved {r['flops'] / r['ms'] / 1e9:.3f} TFLOP/s")
     return r
 
 
@@ -479,6 +518,7 @@ def main() -> None:
     print("\n".join(line for line in log.splitlines()
                     if "registers" in line or "spill" in line or "Compiling entry" in line))
     _build.lib()
+    print(dmma_check(_build))
 
     phase("3. kernels vs plain PyTorch on the card")
     results = {}
@@ -490,7 +530,9 @@ def main() -> None:
         print(f"{shape}: operators built in {time.perf_counter() - t0:.2f} s")
         for name, (args, moved, flops) in inputs.items():
             results[(name, shape)] = report(shape, name, compare(name, args, moved, flops))
-    for shape, cfg in DIA_SHAPES.items():
+    from helfem_tpu_torch.tools.exchange_timing import LIH
+
+    for shape, cfg in {**DIA_SHAPES, "lih": LIH}.items():
         for name, (args, moved, flops) in dia_exchange_inputs(cfg, dev).items():
             results[(name, shape)] = report(shape, name, compare(name, args, moved, flops))
         torch.cuda.empty_cache()
@@ -624,6 +666,28 @@ def main() -> None:
             raise RuntimeError(f"the ablation tool never launched {name}")
     if not all(np.isfinite(v) for v in ablation.values() if isinstance(v, float)):
         raise RuntimeError("the ablation tool printed a non-finite number")
+
+    phase("11. N2 HF at the lmax=12 basis, cold and warm, from the core guess")
+    t0 = time.perf_counter()
+    big = DiatomicBasis(**N2_L12_SHAPE)
+    big_ops = big.build_operators(dev)
+    torch.cuda.synchronize()
+    print(f"N2 HF lmax=12: nbf {big.nbf}, basis and operators {time.perf_counter() - t0:.3f} s")
+    for label in ("cold", "warm"):
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        res = scf_diatomic(big, 7, 7, method="HF", convthr=1e-7, maxit=50, ops=big_ops)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        k6 = kernels.launches["radial_exchange_dia_occ"]
+        dE, dcc = res.E - N2_L12_REF, res.E - N2_L12_CUDA_CORES
+        print(f"N2 HF lmax=12 {label} SCF: E = {res.E:.12f} in {res.niter} iterations, "
+              f"converged {res.converged}; wall {wall:.3f} s; radial_exchange_dia_occ "
+              f"launches {k6}; E - reference {dE:+.3e}, E - CUDA-core value {dcc:+.3e}")
+        if not (res.converged and abs(dE) < 2e-5 and abs(dcc) < 1e-8 and k6 > 0):
+            raise RuntimeError(f"N2 HF lmax=12 {label}: not converged to the reference "
+                               "(2e-5) and the CUDA-core value (1e-8), or K6 never launched")
+    del big_ops
 
     record = []
     for name, (source, replaces, shape) in KERNELS.items():

@@ -24,173 +24,428 @@
 //                  the e<f half being the (b<->c', n<->m) transpose of X
 //
 // T_F are the [np^2, np^2] blocks of the reduced table teiJ3 (families
-// (0,0), (0,2), (2,2); (2,0) is read as (0,2) transposed), indexed in the
-// exchange order (ij|kl) -> rows (jk), columns (il): helfem_tpu's teiK, a
-// permuted copy of the table, is not needed.
+// (0,0), (0,2), (2,2); (2,0) is read from (0,2)), indexed in the exchange
+// order (ij|kl) -> rows (jk), columns (il): helfem_tpu's teiK, a permuted
+// copy of the table, is not needed. Like the b <= c' trick below, the
+// kernels rely on the tables' symmetries under i<->j and k<->l.
 //
 // Design. The cross-element terms are formed pairwise, one (e>f) window
 // pair at a time, so there is no prefix sum over elements and none of its
-// cancellation. The in-element term is a tiled GEMM per element, M = (jk),
-// N = shell pairs in 8x8 tiles with only the tiles that hold some b <= c'
-// computed (Kd[b,c',j,k] = Kd[c',b,k,j]), K = (channel, F, il); the R tile
-// is gathered (K7) or formed from U/V windows staged in shared memory (K6)
-// on the fly. Channel groups run in parallel blocks into partial sums that
-// the assembly adds in a fixed order. K6's cross term factors completely,
-// X = ud^T vd with ud = sum_q s_q dQ_q U_q and vd = sum_r s_r dP_r V_r (one
-// transform launch, then one tiled GEMM per element pair); K7's contracts
-// each R window with its two moment blocks. The assembly is owner-computes
+// cancellation. K6's cross term factors completely, X = ud^T vd with
+// ud = sum_q s_q dQ_q U_q and vd = sum_r s_r dP_r V_r (one transform
+// launch, then one tiled GEMM per element pair); K7's contracts each R
+// window with its two moment blocks. The assembly is owner-computes
 // (fem_owners.cuh): no atomics, the same bits on every run.
+//
+// The in-element term is one GEMM per element and shell-pair tile:
+// M = (jk) rows, N = an 8 x 8 tile of shell pairs (only tiles holding some
+// b <= c' are computed; Kd[b,c',j,k] = Kd[c',b,k,j]), depth (channel, F,
+// and the two inner indices) in chunks of one table slab: for fixed i,
+// A[jk][l] = T_F[(i j),(k l)] is the contiguous slab T[i np^3 + jk np + l]
+// of np^3 doubles; family (2,0) runs as a second pass over l, on slab l of
+// the (0,2) table, T_20[(i j),(k l)] = T_02[(l k),(j i)] = rows (k j),
+// columns i, and its rows are written back as (j k).
 //
 // Bound on the H100: operations. At the N2 lmax=12 shapes (nang 59, np 15,
 // 125 channels, no 9) K6 does 0.52 TFLOP per call against 1.2 GB of tables;
-// at the N2 (6,6) bench shapes 1.8 GFLOP in four launches. Plain DFMA
-// tiles with single-buffered loads, no tensor cores: DMMA, TMA staging and
-// a register-blocked R formation are later work (PERF.md has the times).
+// at the N2 (6,6) bench shapes 1.8 GFLOP in four launches. The FP64 tensor
+// cores (67 TFLOP/s) are twice the CUDA cores' FP64 rate, so a DFMA kernel
+// can come no closer than 2x to that bound. What the design does about the
+// four limits of the first, DFMA version:
+//  1. FP64 tensor cores: the GEMM is mma.sync m16n8k8 f64 (DMMA), fragments
+//     read with 64-bit LDS (ldmatrix has no 64-bit form, wgmma no f64 one).
+//     Products stay IEEE f64; only the order of the sums changes.
+//  2. Staging: warp-specialized. A producer thread moves each chunk's slab
+//     with one bulk copy (TMA, cp.async.bulk) from the 16-byte boundary
+//     below it, since at odd np the slabs are not 16-byte aligned, and the
+//     759 MB table is not padded; the slab keeps its row stride np, and an
+//     m16 tile takes every 4th row (odd np), so its fragment loads still
+//     hit 16 distinct bank pairs. Up to three stages; the producers run two
+//     chunks ahead of the eight DMMA warps.
+//  3. R once per tile: one block holds all np^2 rows of the element (a row
+//     loop over blocks only for np > 16), and the producer warps form each
+//     chunk's R tile [kpad x 64] once, as an [8 kpad x 2no] x [2no x 8]
+//     product on DMMA (m16n8k4), from the tile's U/V windows.
+//  4. Blocks and determinism: channel groups (grid z) write partial sums,
+//     two per group (one per pass), that the assembly adds in a fixed
+//     order; the wrapper picks the group count that fills the card's block
+//     slots in the fewest waves.
+// The 8 x 8 shell-pair tiles stay: at nang 59 they compute 2304 columns
+// for 1770 pairs b <= c'.
 
 #include <cuda_runtime.h>
 
 #include "fem_owners.cuh"
 
-#define XT 8    // shell-pair tile edge: 8 x 8 pairs = 64 GEMM columns
-#define XBN 64  // GEMM columns per block
-#define XBK 16  // GEMM depth per step
-#define XRS 65  // row stride of the R tile in shared memory
-// resident blocks per multiprocessor asked of ptxas for the in-element GEMM
-// (128 registers a thread; unconstrained it takes 166-174 and one block)
-#define EXDIA_MIN_BLOCKS 2
+#define XT 8           // shell-pair tile edge: 8 x 8 pairs = 64 GEMM columns
+#define XBN 64         // GEMM columns per block
+#define XBK 16         // GEMM depth per step of the cross GEMM
+#define XCS (XBN + 4)  // row stride of an R stage: 68 = 4 mod 16 doubles
+// in-element GEMM: 8 DMMA warps (4 along M x 2 along N) and 4 producer
+// warps; named barriers 1-3 "stage full", 4-6 "stage empty", 7 among the
+// producers
+#define EX_MMA_THREADS 256
+#define EX_PRODUCER_WARPS 4
+#define EX_PRODUCERS (32 * EX_PRODUCER_WARPS)
+#define EX_THREADS (EX_MMA_THREADS + EX_PRODUCERS)
+#define EX_MAX_STAGES 3
+#define EX_BAR_FULL 1
+#define EX_BAR_EMPTY 4
+#define EX_BAR_PRODUCERS 7
 
-// In-element GEMM. grid (mtiles * ntile^2, nelem, G), 256 threads as 16 x 16
-// with a TM x 4 register tile each: rows ty TM .. ty TM + TM - 1 and the
-// interleaved columns tx, tx + 16, tx + 32, tx + 48, so that a half-warp
-// reads 16 neighbouring doubles of the R tile (no bank conflict); BM = 16 TM
-// rows (jk). Dynamic shared
-// memory: T tile, R tile, and for K6 the U and V windows of the block's
-// shells.
+// Shared-memory geometry of the in-element GEMM (kernels/radial_exchange_dia.py
+// mirrors it): kpad depth columns per chunk; ns stages of the A slab
+// (astage doubles: rows of np, as the table stores them, plus the 16-byte
+// alignment slack of the bulk copy) and of R (kpad rows of XCS); wbuf
+// buffers of the U/V windows, kpad rows of xp doubles (xk = 2 no padded to
+// 4, xp = 4 mod 8), ws apart.
+struct ExdiaGeom {
+  int kpad, astage, xk, xp, ws;
+};
+
+__host__ __device__ inline int exdia_tm(int nprim) {
+  const int np2 = nprim * nprim;
+  return np2 <= 64 ? 1 : (np2 <= 128 || nprim > 16 ? 2 : 4);
+}
+
+__host__ __device__ inline ExdiaGeom exdia_geom(int nprim, int no, int bm) {
+  ExdiaGeom q;
+  q.kpad = (nprim + 7) / 8 * 8;
+  const int rows = (nprim * nprim + 63) / 64 * 64;
+  q.astage = ((rows < bm ? rows : bm) * nprim + q.kpad + 3) / 2 * 2;
+  q.xk = (2 * no + 3) / 4 * 4;
+  q.xp = q.xk % 8 ? q.xk : q.xk + 4;
+  q.ws = q.kpad * q.xp + 4;  // 4 mod 16
+  return q;
+}
+
+__host__ __device__ inline size_t exdia_smem_doubles(const ExdiaGeom& q, bool occ, int ns,
+                                                     int wbuf) {
+  return (size_t)ns * (q.astage + (size_t)q.kpad * XCS) +
+         (occ ? (size_t)wbuf * 2 * XT * q.ws : 0);
+}
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
+__device__ __forceinline__ void cp_async8(double* dst, const double* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(smem_addr(dst)), "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait_prior() {  // all groups but the newest
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+__device__ __forceinline__ void bar_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+__device__ __forceinline__ void bar_arrive(int id, int count) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+// the bulk copy engine (TMA): one thread moves a 16-byte-aligned range
+// into shared memory and the transaction count completes an mbarrier phase
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, unsigned bytes,
+                                          unsigned long long* bar) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, "
+      "[%3];\n" ::"r"(smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+__device__ __forceinline__ void mbar_wait(unsigned long long* bar, int parity) {
+  asm volatile(
+      "{\n .reg .pred P1;\nLAB_WAIT:\n"
+      " mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
+      " @P1 bra DONE;\n bra LAB_WAIT;\nDONE:\n}\n" ::"r"(smem_addr(bar)),
+      "r"(parity)
+      : "memory");
+}
+
+// c[16x8] += a[16x8] b[8x8]: a0 (g, t), a1 (g+8, t), a2 (g, t+4), a3 (g+8, t+4);
+// b0 (t, g), b1 (t+4, g); c0,c1 (g, 2t+h), c2,c3 (g+8, 2t+h); g = lane/4, t = lane%4
+__device__ __forceinline__ void dmma16x8x8(double* c, const double* a, const double* b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f64.f64.f64.f64 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
+      "{%8,%9}, {%0,%1,%2,%3};\n"
+      : "+d"(c[0]), "+d"(c[1]), "+d"(c[2]), "+d"(c[3])
+      : "d"(a[0]), "d"(a[1]), "d"(a[2]), "d"(a[3]), "d"(b[0]), "d"(b[1]));
+}
+// c[16x8] += a[16x4] b[4x8]: a0 (g, t), a1 (g+8, t); b (t, g); c as above
+__device__ __forceinline__ void dmma16x8x4(double* c, double a0, double a1, double b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k4.row.col.f64.f64.f64.f64 {%0,%1,%2,%3}, {%4,%5}, {%6}, "
+      "{%0,%1,%2,%3};\n"
+      : "+d"(c[0]), "+d"(c[1]), "+d"(c[2]), "+d"(c[3])
+      : "d"(a0), "d"(a1), "d"(b));
+}
+
+// Chunk ch of a channel group: pass 0 runs families (0,0), (0,2), (2,2) at
+// depth index i (slab i of the family's table, rows (j k), columns l);
+// pass 1 runs family (2,0) at depth index l on slab l of the (0,2) table,
+// T_20[(i j),(k l)] = T_02[(l k),(j i)] (rows (k j), columns i).
+struct ExdiaChunk {
+  int s, F, fam, idx, p;
+};
+__device__ __forceinline__ ExdiaChunk exdia_chunk(int ch, int np, int nchan, int s0) {
+  ExdiaChunk c;
+  const int na = 3 * np * nchan;
+  if (ch < na) {
+    const int p = ch / np, f = p % 3;
+    c = {s0 + p / 3, f == 2 ? 3 : f, f, ch - p * np, p};
+  } else {
+    const int q = (ch - na) / np;
+    c = {s0 + q, 2, 1, ch - na - q * np, 3 * nchan + q};
+  }
+  return c;
+}
+
+// K6: the U_q windows of the tile's eight b shells and the V_r windows of
+// its eight c' shells for channel s, W[w][shell][n][x] with x = (t, o);
+// shells past nang, rows past np and x past 2 no stay zero.
+__device__ __forceinline__ void exdia_stage_windows(double* W, const double* Uw,
+                                                    const double* V, const int* gs, int s,
+                                                    int q, int r, int bt, int ct, int np,
+                                                    int nang, int nrad1, int no,
+                                                    const ExdiaGeom& g, int pt) {
+  const int no2 = 2 * no;
+  for (int x = pt; x < 2 * XT * np * no2; x += EX_PRODUCERS) {
+    const int o2 = x % no2, rest = x / no2;
+    const int i = rest % np, sl = (rest / np) % XT, w = rest / (np * XT);
+    const int b = (w ? ct : bt) * XT + sl;
+    if (b < nang) {
+      const int t = o2 / no, o = o2 - t * no;
+      const size_t row = (((size_t)s * 2 + (w ? r : q)) * 2 + t) * nang + b;
+      cp_async8(W + (w * XT + sl) * g.ws + i * g.xp + o2,
+                (w ? V : Uw) + (row * nrad1 + gs[i]) * no + o);
+    }
+  }
+}
+
+// K6: one chunk's R tile Rst[k][b*8 + c'] = sign sum_x M[shell][k][x]
+// N[n][idx][x] on DMMA m16n8k4, as the transposed product (shell, k) x n;
+// pass 0: M = the V windows (shell c', k = l), N = the U rows (n = b) at i
+// = idx; pass 1: M = the U windows (shell b, k = i), N = the V rows (n =
+// c') at l = idx. Producer warp pw takes m16 tiles pw, pw + 4, ...; rows
+// past kpad read row kpad - 1 and are dropped.
+__device__ __forceinline__ void exdia_form_r(double* Rst, const double* W, int pass, int idx,
+                                             double sign, int kpad, const ExdiaGeom& g,
+                                             int pt) {
+  const int lane = pt & 31, pw = pt >> 5, lg = lane >> 2, lt = lane & 3;
+  const double* Wm = W + (pass ? 0 : XT) * g.ws;
+  const double* np_ = W + (pass ? XT : 0) * g.ws + lg * g.ws + idx * g.xp + lt;
+  for (int tile = pw; tile < XT * ((kpad + 15) / 16); tile += EX_PRODUCER_WARPS) {
+    const int sh = tile % XT, k0 = tile / XT * 16;
+    const double* v0 = Wm + sh * g.ws + min(k0 + lg, kpad - 1) * g.xp + lt;
+    const double* v1 = Wm + sh * g.ws + min(k0 + lg + 8, kpad - 1) * g.xp + lt;
+    double c[4] = {0.0, 0.0, 0.0, 0.0};
+    for (int x = 0; x < g.xk; x += 4) dmma16x8x4(c, v0[x], v1[x], np_[x]);
+#pragma unroll
+    for (int h = 0; h < 4; ++h) {
+      const int k = k0 + lg + 8 * (h >> 1), n = 2 * lt + (h & 1);
+      if (k < kpad) Rst[k * XCS + (pass ? sh * XT + n : n * XT + sh)] = sign * c[h];
+    }
+  }
+}
+
+// K7: one chunk's R tile from the dense R, Rst[k][b*8 + c'] =
+// R[s,F,b,c',g(i),g(l)] with (i, l) = (idx, k) in pass 0 and (k, idx) in
+// pass 1, zero at the trash slot; entries outside the tile or past np stay
+// zero from the start.
+__device__ __forceinline__ void exdia_stage_dense_r(double* Rst, const double* R,
+                                                    const int* gs, int s, int F, int pass,
+                                                    int idx, int bt, int ct, int np, int nang,
+                                                    int nrad, int pt) {
+  const int fixed = gs[idx];
+  for (int x = pt; x < XBN * np; x += EX_PRODUCERS) {
+    const int col = x / np, k = x - col * np, moving = gs[k];
+    const int b = bt * XT + col / XT, cc = ct * XT + col % XT;
+    if (b >= nang || cc >= nang || moving >= nrad) continue;
+    double* dst = Rst + k * XCS + col;
+    if (fixed < nrad) {
+      const size_t n = pass ? moving : fixed, m = pass ? fixed : moving;
+      cp_async8(dst, R + ((((size_t)s * 4 + F) * nang + b) * nang + cc) * nrad * nrad +
+                         n * nrad + m);
+    } else {
+      *dst = 0.0;
+    }
+  }
+}
+
+// In-element GEMM. grid (mtiles * ntile (ntile + 1) / 2, nelem, G): the
+// row block, the shell-pair tile (bt <= ct), the element, the channel
+// group; it writes the partial sums 2 grp (pass 0) and 2 grp + 1 (pass 1).
+// Per chunk one producer thread issues the bulk copy of the A slab (rows
+// of this block, from the 16-byte boundary below them) into one of ns
+// stages; the producer warps copy K7's R tile with cp.async or form K6's
+// from the windows, and arrive on the stage's "full" barrier once the next
+// chunk's copies are issued and this one's have landed. The eight DMMA
+// warps, each a TM x 4 grid of m16n8 tiles (BM = 64 TM rows by 64 columns),
+// wait on that barrier and the stage's mbarrier, multiply, and arrive on
+// the stage's "empty" barrier. The slab keeps the table's row stride np;
+// an m16 tile takes every d-th row (d = 4 at odd np, 2 at np = 2 mod 4),
+// so that its fragment loads hit 16 distinct bank pairs. K6's U/V windows
+// of the next (channel, F) load while the current one's chunks are formed
+// (wbuf = 2, np >= 2), or in place where they change (wbuf = 1).
 template <bool OCC, int TM>
-__global__ void __launch_bounds__(256, EXDIA_MIN_BLOCKS) exdia_inelem_kernel(
+__global__ void __launch_bounds__(EX_THREADS, TM == 1 ? 2 : 1) exdia_inelem_kernel(
     const double* __restrict__ A, const double* __restrict__ B,
     const double* __restrict__ teiJ3, const int* __restrict__ ilm,
     const int* __restrict__ gidx, double* __restrict__ part, int S, int nelem,
-    int nprim, int nang, int nrad, int no, int cpg) {
-  constexpr int BM = 16 * TM;
-  constexpr int TS = BM + 1;
-  extern __shared__ double sm[];
-  __shared__ int gs[32];
-  double* Tsh = sm;
-  double* Rsh = Tsh + XBK * TS;
-  double* Ush = Rsh + XBK * XRS;
-  const int no2 = 2 * no;
-  // one shell's window [nprim][2 no], padded to an odd count of doubles so
-  // that the eight shells of a tile start in different banks
-  const int wst = (nprim * no2) | 1;
-  const int wsz = 2 * XT * wst;  // U (or V) windows of one block
-  double* Vsh = Ush + wsz;
+    int nprim, int nang, int nrad, int no, int cpg, int ns, int wbuf) {
+  constexpr int BM = 64 * TM;
+  extern __shared__ __align__(16) double sm[];
+  __shared__ int gs[32], aoff[EX_MAX_STAGES];
+  __shared__ unsigned long long mbar[EX_MAX_STAGES];
+  const ExdiaGeom q = exdia_geom(nprim, no, BM);
+  const int np = nprim, np2 = np * np, np3 = np2 * np;
+  const int rsz = q.kpad * XCS;
+  double* As = sm;
+  double* Rs = As + ns * q.astage;
+  double* Ws = Rs + ns * rsz;
 
-  const int np2 = nprim * nprim;
   const int mtiles = (np2 + BM - 1) / BM;
-  const int ntile = (nang + XT - 1) / XT;
-  const int mt = blockIdx.x % mtiles;
-  const int bt = (blockIdx.x / mtiles) / ntile, ct = (blockIdx.x / mtiles) % ntile;
-  if (bt > ct) return;  // no b <= c' in this tile
-  const int e = blockIdx.y, g = blockIdx.z;
-  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
-  if (tid < nprim) gs[tid] = gidx[e * nprim + tid];
+  const int mb = blockIdx.x % mtiles;
+  int ct = 0, bt = blockIdx.x / mtiles;  // upper-triangle tile index -> (bt <= ct)
+  while (bt > ct) bt -= ++ct;
+  const int e = blockIdx.y, grp = blockIdx.z, tid = threadIdx.x;
+  const int row0 = mb * BM, nrows = min(BM, np2 - row0);
+  if (tid < np) gs[tid] = gidx[e * np + tid];
+  if (tid < ns)
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_addr(mbar + tid)));
+  const size_t nsm = exdia_smem_doubles(q, OCC, ns, wbuf);
+  for (size_t x = tid; x < nsm; x += EX_THREADS) sm[x] = 0.0;  // every pad reads as 0
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");  // zeros before bulk copies
   __syncthreads();
+  const int nchan = max(0, min(S, (grp + 1) * cpg) - grp * cpg), s0 = grp * cpg;
+  const int nch = 4 * np * nchan, na = 3 * np * nchan;
 
-  double acc[TM][4];
-#pragma unroll
-  for (int a = 0; a < TM; ++a)
-#pragma unroll
-    for (int b = 0; b < 4; ++b) acc[a][b] = 0.0;
-
-  const int s_end = min(S, (g + 1) * cpg);
-  const size_t blk = (size_t)np2 * np2;
-  const int nrad1 = nrad + 1;
-  for (int s = g * cpg; s < s_end; ++s) {
-    const int c = ilm[s];
-    if (OCC) {
-      for (int idx = tid; idx < 2 * XT * nprim * no2; idx += 256) {
-        const int o2 = idx % no2, i = (idx / no2) % nprim;
-        const int sl = (idx / (no2 * nprim)) % XT, q = idx / (no2 * nprim * XT);
-        const int t = o2 / no, o = o2 % no, n = gs[i];
-        const int b = bt * XT + sl, cc = ct * XT + sl;
-        const size_t qt = ((size_t)s * 2 + q) * 2 + t;
-        const int dst = (q * XT + sl) * wst + i * no2 + o2;
-        Ush[dst] = b < nang ? A[((qt * nang + b) * nrad1 + n) * no + o] : 0.0;
-        Vsh[dst] = cc < nang ? B[((qt * nang + cc) * nrad1 + n) * no + o] : 0.0;
+  if (tid >= EX_MMA_THREADS) {  // producers: chunk ch's copies fly while ch-1's land
+    const int pt = tid - EX_MMA_THREADS;
+    const size_t blk = (size_t)np2 * np2;
+    const int nrad1 = nrad + 1;
+    for (int ch = 0; ch <= nch; ++ch) {
+      const int st = ch % ns;
+      const ExdiaChunk c = exdia_chunk(ch, np, nchan, s0);  // past the end at ch = nch
+      const int pass = c.F == 2;
+      if (ch < nch) {
+        if (ch >= ns) bar_sync(EX_BAR_EMPTY + st, EX_THREADS);  // the DMMA warps freed it
+        if (pt == 0) {
+          const double* src = teiJ3 + ((size_t)(ilm[c.s] * 3 + c.fam) * nelem + e) * blk +
+                              (size_t)c.idx * np3 + (size_t)row0 * np;
+          const int o = (int)(((size_t)src >> 3) & 1);
+          aoff[st] = o;
+          bulk_load(As + st * q.astage, src - o, (unsigned)((o + nrows * np + 1) / 2 * 16),
+                    mbar + st);
+        }
+        if (!OCC)
+          exdia_stage_dense_r(Rs + st * rsz, A, gs, c.s, c.F, pass, c.idx, bt, ct, np, nang,
+                              nrad, pt);
       }
-      __syncthreads();
-    }
-    for (int F = 0; F < 4; ++F) {
-      const int q = F >> 1, r = F & 1;
-      const int fam = F == 3 ? 2 : (F == 0 ? 0 : 1);
-      const bool tr = F == 2;  // (2,0) = (0,2) transposed
-      const double* T = teiJ3 + ((size_t)(c * 3 + fam) * nelem + e) * blk;
-      const double sign = (OCC && q != r) ? -1.0 : 1.0;
-      for (int k0 = 0; k0 < np2; k0 += XBK) {
-        for (int idx = tid; idx < XBK * BM; idx += 256) {
-          const int kk = idx % XBK, row = idx / XBK;
-          const int jk = mt * BM + row, il = k0 + kk;
-          double v = 0.0;
-          if (jk < np2 && il < np2) {
-            const int j = jk / nprim, k = jk % nprim, i = il / nprim, l = il % nprim;
-            const size_t ij = i * nprim + j, kl = k * nprim + l;
-            v = tr ? T[kl * np2 + ij] : T[ij * np2 + kl];
-          }
-          Tsh[kk * TS + row] = v;
-        }
-        for (int idx = tid; idx < XBK * XBN; idx += 256) {
-          double v = 0.0;
-          if (OCC) {
-            const int kk = idx / XBN, col = idx % XBN, il = k0 + kk;
-            if (il < np2) {
-              const int i = il / nprim, l = il % nprim;
-              const double* up = Ush + (q * XT + col / XT) * wst + i * no2;
-              const double* vp = Vsh + (r * XT + col % XT) * wst + l * no2;
-              for (int x = 0; x < no2; ++x) v += up[x] * vp[x];
-              v *= sign;
-            }
-            Rsh[kk * XRS + col] = v;
-          } else {
-            const int kk = idx % XBK, col = idx / XBK, il = k0 + kk;
-            const int b = bt * XT + col / XT, cc = ct * XT + col % XT;
-            if (il < np2 && b < nang && cc < nang) {
-              const int n = gs[il / nprim], m = gs[il % nprim];
-              if (n < nrad && m < nrad)
-                v = A[((((size_t)s * 4 + F) * nang + b) * nang + cc) * nrad * nrad +
-                      (size_t)n * nrad + m];
-            }
-            Rsh[kk * XRS + col] = v;
-          }
-        }
-        __syncthreads();
-#pragma unroll
-        for (int kk = 0; kk < XBK; ++kk) {
-          double a[TM], b[4];
-#pragma unroll
-          for (int u = 0; u < TM; ++u) a[u] = Tsh[kk * TS + ty * TM + u];
-#pragma unroll
-          for (int v = 0; v < 4; ++v) b[v] = Rsh[kk * XRS + tx + 16 * v];
-#pragma unroll
-          for (int u = 0; u < TM; ++u)
-#pragma unroll
-            for (int v = 0; v < 4; ++v) acc[u][v] += a[u] * b[v];
-        }
-        __syncthreads();
+      cp_async_commit();
+      if (ch > 0) {
+        cp_async_wait_prior();
+        bar_sync(EX_BAR_PRODUCERS, EX_PRODUCERS);  // every producer's part of ch-1 is in
+        bar_arrive(EX_BAR_FULL + (ch - 1) % ns, EX_THREADS);
+      }
+      if (ch == nch || !OCC) continue;
+      const int i = c.idx;
+      const int wb = wbuf == 2 ? (c.p & 1) : 0;
+      if (i == 0 && (wbuf == 1 || ch == 0)) {  // this (channel, F)'s windows, now
+        exdia_stage_windows(Ws + wb * 2 * XT * q.ws, A, B, gs, c.s, c.F >> 1, c.F & 1, bt, ct,
+                            np, nang, nrad1, no, q, pt);
+        cp_async_commit();
+        cp_async_wait_all();
+        bar_sync(EX_BAR_PRODUCERS, EX_PRODUCERS);
+      }
+      exdia_form_r(Rs + st * rsz, Ws + wb * 2 * XT * q.ws, pass, i,
+                   (c.F == 1 || c.F == 2) ? -1.0 : 1.0, q.kpad, q, pt);
+      if (wbuf == 2 && i == 0 && ch + np < nch) {  // the next (channel, F)'s, in chunk
+        const ExdiaChunk n = exdia_chunk(ch + np, np, nchan, s0);  // ch+1's copy group
+        exdia_stage_windows(Ws + (n.p & 1) * 2 * XT * q.ws, A, B, gs, n.s, n.F >> 1, n.F & 1,
+                            bt, ct, np, nang, nrad1, no, q, pt);
       }
     }
+    return;
   }
+
+  const int lane = tid & 31, warp = tid >> 5;
+  const int lg = lane >> 2, lt = lane & 3, wm = warp >> 1, wn = warp & 1;
+  const int d = np & 1 ? 4 : (np & 2 ? 2 : 1);  // row interleave of an m16 tile
+  double acc[TM][4][4];
+  auto first_row = [&](int u) {
+    const int m = wm * TM + u;
+    return 16 * d * (m / d) + m % d;
+  };
+  auto clear = [&]() {
 #pragma unroll
-  for (int u = 0; u < TM; ++u) {
-    const int jk = mt * BM + ty * TM + u;
+    for (int u = 0; u < TM; ++u)
 #pragma unroll
-    for (int v = 0; v < 4; ++v) {
-      const int col = tx + 16 * v;
-      const int b = bt * XT + col / XT, cc = ct * XT + col % XT;
-      if (jk < np2 && b < nang && cc < nang)
-        part[((((size_t)g * nelem + e) * nang + b) * nang + cc) * np2 + jk] = acc[u][v];
+      for (int v = 0; v < 4; ++v)
+#pragma unroll
+        for (int h = 0; h < 4; ++h) acc[u][v][h] = 0.0;
+  };
+  auto write = [&](int pass) {  // pass 1 rows are (k j): write them at (j k)
+#pragma unroll
+    for (int u = 0; u < TM; ++u)
+#pragma unroll
+      for (int v = 0; v < 4; ++v)
+#pragma unroll
+        for (int h = 0; h < 4; ++h) {
+          const int rho = row0 + first_row(u) + d * (lg + 8 * (h >> 1));
+          const int col = (wn * 4 + v) * 8 + 2 * lt + (h & 1);
+          const int b = bt * XT + col / XT, cc = ct * XT + col % XT;
+          const int jk = pass ? (rho % np) * np + rho / np : rho;
+          if (rho < np2 && b < nang && cc < nang)
+            part[((((size_t)(2 * grp + pass) * nelem + e) * nang + b) * nang + cc) * np2 + jk] =
+                acc[u][v][h];
+        }
+  };
+  clear();
+  for (int ch = 0; ch < nch; ++ch) {
+    const int st = ch % ns;
+    if (ch == na) {
+      write(0);
+      clear();
     }
+    bar_sync(EX_BAR_FULL + st, EX_THREADS);
+    mbar_wait(mbar + st, (ch / ns) & 1);
+    const double* Ast = As + st * q.astage + aoff[st];
+    const double* Rst = Rs + st * rsz;
+    for (int kk = 0; kk < q.kpad / 8; ++kk) {  // all fragments of a step, then its DMMA
+      double a[TM][4], b[4][2];
+#pragma unroll
+      for (int v = 0; v < 4; ++v) {
+        const double* bp = Rst + (kk * 8 + lt) * XCS + (wn * 4 + v) * 8 + lg;
+        b[v][0] = bp[0];
+        b[v][1] = bp[4 * XCS];
+      }
+#pragma unroll
+      for (int u = 0; u < TM; ++u) {
+        const double* ap = Ast + (first_row(u) + d * lg) * np + kk * 8 + lt;
+        a[u][0] = ap[0];
+        a[u][1] = ap[8 * d * np];
+        a[u][2] = ap[4];
+        a[u][3] = ap[8 * d * np + 4];
+      }
+#pragma unroll
+      for (int u = 0; u < TM; ++u)
+        if (first_row(u) < nrows)
+#pragma unroll
+          for (int v = 0; v < 4; ++v) dmma16x8x8(acc[u][v], a[u], b[v]);
+    }
+    if (ch + ns < nch) bar_arrive(EX_BAR_EMPTY + st, EX_THREADS);
   }
+  if (nchan == 0) write(0);  // an empty group still writes its zero slices
+  write(1);
 }
 
 // K6 cross factors. grid (nang, nelem, S), 128 threads.
@@ -411,24 +666,40 @@ __global__ void exdia_assemble_kernel(const double* __restrict__ part,
 }
 
 template <bool OCC, int TM>
-static cudaError_t launch_inelem(const double* A, const double* B,
-                                 const double* teiJ3, const int* ilm,
-                                 const int* gidx, double* part, int S, int nelem,
-                                 int nprim, int nang, int nrad, int no, int G,
-                                 cudaStream_t st) {
-  constexpr int BM = 16 * TM;
-  const int np2 = nprim * nprim;
-  size_t smem = (size_t)(XBK * (BM + 1) + XBK * XRS) * sizeof(double);
-  if (OCC) smem += 2 * (size_t)(2 * XT * ((nprim * 2 * no) | 1)) * sizeof(double);
+static cudaError_t launch_inelem_tm(const double* A, const double* B, const double* teiJ3,
+                                    const int* ilm, const int* gidx, double* part, int S,
+                                    int nelem, int nprim, int nang, int nrad, int no, int G,
+                                    int ns, int wbuf, cudaStream_t st) {
+  const ExdiaGeom q = exdia_geom(nprim, no, 64 * TM);
+  const size_t smem = exdia_smem_doubles(q, OCC, ns, wbuf) * sizeof(double);
   cudaError_t err = cudaFuncSetAttribute(exdia_inelem_kernel<OCC, TM>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)smem);
   if (err != cudaSuccess) return err;
-  const int mtiles = (np2 + BM - 1) / BM, ntile = (nang + XT - 1) / XT;
+  const int mtiles = (nprim * nprim + 64 * TM - 1) / (64 * TM), ntile = (nang + XT - 1) / XT;
   const int cpg = (S + G - 1) / G;
-  exdia_inelem_kernel<OCC, TM><<<dim3(mtiles * ntile * ntile, nelem, G), 256, smem, st>>>(
-      A, B, teiJ3, ilm, gidx, part, S, nelem, nprim, nang, nrad, no, cpg);
+  exdia_inelem_kernel<OCC, TM>
+      <<<dim3(mtiles * ntile * (ntile + 1) / 2, nelem, G), EX_THREADS, smem, st>>>(
+          A, B, teiJ3, ilm, gidx, part, S, nelem, nprim, nang, nrad, no, cpg, ns, wbuf);
   return cudaGetLastError();
+}
+
+template <bool OCC>
+static cudaError_t launch_inelem(const double* A, const double* B, const double* teiJ3,
+                                 const int* ilm, const int* gidx, double* part, int S,
+                                 int nelem, int nprim, int nang, int nrad, int no, int G,
+                                 int ns, int wbuf, cudaStream_t st) {
+  switch (exdia_tm(nprim)) {
+    case 1:
+      return launch_inelem_tm<OCC, 1>(A, B, teiJ3, ilm, gidx, part, S, nelem, nprim, nang,
+                                      nrad, no, G, ns, wbuf, st);
+    case 2:
+      return launch_inelem_tm<OCC, 2>(A, B, teiJ3, ilm, gidx, part, S, nelem, nprim, nang,
+                                      nrad, no, G, ns, wbuf, st);
+    default:
+      return launch_inelem_tm<OCC, 4>(A, B, teiJ3, ilm, gidx, part, S, nelem, nprim, nang,
+                                      nrad, no, G, ns, wbuf, st);
+  }
 }
 
 static cudaError_t launch_assemble(const double* part, const double* X,
@@ -442,24 +713,22 @@ static cudaError_t launch_assemble(const double* part, const double* X,
   return cudaGetLastError();
 }
 
-// Caller-allocated scratch: part [G, nelem, nang, nang, np^2] (G = channel
-// groups of the in-element GEMM), ud and vd [nelem, S*2*no, nang*np], X [nelem*(nelem-1)/2,
+// Caller-allocated scratch: part [2 G, nelem, nang, nang, np^2] (G = channel
+// groups of the in-element GEMM, two passes each; ns stages and wbuf
+// window buffers, as the wrapper sized the shared memory), ud and vd [nelem, S*2*no, nang*np], X [nelem*(nelem-1)/2,
 // nang*np, nang*np]. Output K4 [nang, nang, nrad, nrad]. Returns a
 // cudaError_t.
 extern "C" int radial_exchange_dia_occ_launch(
     const double* Uw, const double* V, const double* teiJ3, const double* dP0,
     const double* dP2, const double* dQ0, const double* dQ2, const int* ilm,
     const int* gidx, double* part, double* ud, double* vd, double* X, double* K4,
-    int S, int nelem, int nprim, int nang, int nrad, int no, int G, int device,
-    void* stream) {
+    int S, int nelem, int nprim, int nang, int nrad, int no, int G, int ns, int wbuf,
+    int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t st = (cudaStream_t)stream;
-  err = nprim * nprim <= 64
-            ? launch_inelem<true, 4>(Uw, V, teiJ3, ilm, gidx, part, S, nelem, nprim,
-                                     nang, nrad, no, G, st)
-            : launch_inelem<true, 8>(Uw, V, teiJ3, ilm, gidx, part, S, nelem, nprim,
-                                     nang, nrad, no, G, st);
+  err = launch_inelem<true>(Uw, V, teiJ3, ilm, gidx, part, S, nelem, nprim, nang, nrad, no, G,
+                            ns, wbuf, st);
   if (err != cudaSuccess) return (int)err;
   const int npairs = nelem * (nelem - 1) / 2;
   if (npairs > 0) {
@@ -473,7 +742,7 @@ extern "C" int radial_exchange_dia_occ_launch(
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }
-  return (int)launch_assemble(part, X, gidx, K4, G, nelem, nprim, nang, nrad, st);
+  return (int)launch_assemble(part, X, gidx, K4, 2 * G, nelem, nprim, nang, nrad, st);
 }
 
 // Scratch part and X as above; R [S, 4, nang, nang, nrad, nrad].
@@ -481,15 +750,12 @@ extern "C" int radial_exchange_dia_launch(
     const double* R, const double* teiJ3, const double* dP0, const double* dP2,
     const double* dQ0, const double* dQ2, const int* ilm, const int* gidx,
     double* part, double* X, double* K4, int S, int nelem, int nprim, int nang,
-    int nrad, int G, int device, void* stream) {
+    int nrad, int G, int ns, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t st = (cudaStream_t)stream;
-  err = nprim * nprim <= 64
-            ? launch_inelem<false, 4>(R, nullptr, teiJ3, ilm, gidx, part, S, nelem,
-                                      nprim, nang, nrad, 0, G, st)
-            : launch_inelem<false, 8>(R, nullptr, teiJ3, ilm, gidx, part, S, nelem,
-                                      nprim, nang, nrad, 0, G, st);
+  err = launch_inelem<false>(R, nullptr, teiJ3, ilm, gidx, part, S, nelem, nprim, nang, nrad,
+                             0, G, ns, 0, st);
   if (err != cudaSuccess) return (int)err;
   const int npairs = nelem * (nelem - 1) / 2;
   if (npairs > 0) {
@@ -502,5 +768,5 @@ extern "C" int radial_exchange_dia_launch(
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }
-  return (int)launch_assemble(part, X, gidx, K4, G, nelem, nprim, nang, nrad, st);
+  return (int)launch_assemble(part, X, gidx, K4, 2 * G, nelem, nprim, nang, nrad, st);
 }

@@ -20,6 +20,13 @@ the transpose of (0,2). The cross-element terms are formed pairwise, element
 window by element window, so no prefix sum over elements is taken (the P
 moments grow and the Q moments fall by orders of magnitude from element to
 element, and helfem_tpu's inclusive-sum-minus-self loses those digits).
+
+The in-element term, one GEMM per element and 8 x 8 tile of shell pairs,
+runs on the H100's FP64 tensor cores (mma.sync DMMA): producer warps bulk-
+copy one contiguous table slab per depth chunk (TMA) and form K6's R tile
+from the U/V windows on DMMA, three stages ahead of eight DMMA warps
+(csrc/radial_exchange_dia.cu has the design). _inelem_plan mirrors its
+shared-memory sizing, _channel_groups picks its grid.
 """
 
 import torch
@@ -33,18 +40,50 @@ from helfem_tpu_torch.kernels._common import (
 __all__ = ["radial_exchange_dia_occ", "radial_exchange_dia_occ_plain",
            "radial_exchange_dia", "radial_exchange_dia_plain"]
 
-# blocks the in-element GEMM should offer the card's 132 multiprocessors
-_TARGET_BLOCKS = 528
 _TILE = 8  # shell-pair tile edge of the kernel (XT in the source)
+_SMEM = 232448 - 256  # one block's on the H100, less the kernel's static shared memory
+_SM_SMEM = 233472  # shared memory of one multiprocessor, for resident blocks
 
 
-def _channel_groups(S: int, nang: int, nelem: int, nprim: int) -> int:
-    """Channel groups of the in-element GEMM: enough parallel blocks at
-    small bases, one group once the shell-pair tiles alone fill the card."""
+def _inelem_plan(name: str, nprim: int, no: int | None) -> tuple[int, int, int, int]:
+    """(TM, shared-memory bytes, stages, window buffers) of the in-element
+    GEMM, as csrc/radial_exchange_dia.cu sizes them (exdia_tm, exdia_geom,
+    exdia_smem_doubles): three stages of the A slab and the R tile and two
+    U/V window buffers where they fit, then fewer; no is None for the dense
+    kernel, which stages no windows. Raises ValueError when two stages and
+    one window buffer do not fit."""
+    np2 = nprim * nprim
+    tm = 1 if np2 <= 64 else (2 if np2 <= 128 or nprim > 16 else 4)
+    kpad = -(-nprim // 8) * 8
+    rows = min(64 * tm, -(-np2 // 64) * 64)
+    stage = (rows * nprim + kpad + 3) // 2 * 2 + kpad * (8 * _TILE + 4)
+    if no is None:
+        ns = 3 if 8 * 3 * stage <= _SMEM else 2
+        return tm, 8 * ns * stage, ns, 0
+    xk = -(-2 * no // 4) * 4
+    window = 2 * _TILE * (kpad * (xk if xk % 8 else xk + 4) + 4)
+    # the next windows land two chunks after they are issued
+    for ns, wbuf in ((3, 2), (3, 1), (2, 2), (2, 1)) if nprim >= 2 else ((3, 1), (2, 1)):
+        smem = 8 * (ns * stage + wbuf * window)
+        if smem <= _SMEM:
+            return tm, smem, ns, wbuf
+    raise ValueError(f"{name}: no={no} occupied columns at nprim={nprim} need {smem} bytes "
+                     f"of shared memory, above the card's {_SMEM}")
+
+
+def _channel_groups(S: int, nang: int, nelem: int, nprim: int, tm: int, smem: int,
+                    sms: int) -> int:
+    """Channel groups G of the in-element GEMM: the G that finishes in the
+    fewest block waves on `sms` multiprocessors, each wave as long as one
+    group's chunks (4 nprim per channel, plus about eight for the zeroing,
+    the prologue and the two partial-sum writes), with the 2 G partial sums
+    within 512 MiB; the smallest such G."""
     ntile = -(-nang // _TILE)
-    mtiles = 1 if nprim * nprim <= 64 else -(-nprim * nprim // 128)
-    blocks = mtiles * nelem * ntile * (ntile + 1) // 2
-    return max(1, min(S, -(-_TARGET_BLOCKS // blocks)))
+    blocks = -(-nprim * nprim // (64 * tm)) * nelem * ntile * (ntile + 1) // 2
+    slots = sms * max(1, min(1 if tm == 4 else 2, _SM_SMEM // (smem + 1024)))
+    gmax = max(1, min(S, 2**25 // (nelem * nang * nang * nprim * nprim)))
+    return min(range(1, gmax + 1),
+               key=lambda G: (-(-blocks * G // slots) * (-(-S // G) * 4 * nprim + 8), G))
 
 
 def _check_tables(name, teiJ3, dP0, dP2, dQ0, dQ2, ilm, gidx, S):
@@ -91,24 +130,22 @@ def radial_exchange_dia_occ(Uw: torch.Tensor, V: torch.Tensor, teiJ3: torch.Tens
     expect_shape(name, "V", V, (S, 2, 2, nang, n1, no))
     _check_tables(name, teiJ3, dP0, dP2, dQ0, dQ2, ilm, gidx, S)
     nrad = n1 - 1
-    G = _channel_groups(S, nang, nelem, nprim)
-    smem = 8 * (16 * 129 + 16 * 65 + 4 * _TILE * ((nprim * 2 * no) | 1))
-    if smem > 232448:
-        raise ValueError(f"{name}: no={no} occupied columns at nprim={nprim} need "
-                         f"{smem} bytes of shared memory, above the card's 232448")
+    tm, smem, ns, wbuf = _inelem_plan(name, nprim, no)
     dev = Uw.device
+    G = _channel_groups(S, nang, nelem, nprim, tm, smem,
+                        torch.cuda.get_device_properties(dev).multi_processor_count)
     # scratch and output come from PyTorch's stream-ordered allocator and the
     # launches go on the current stream, so the scratch may be freed on return
     opts = dict(dtype=torch.float64, device=dev)
     npairs = nelem * (nelem - 1) // 2
-    part = torch.empty((G, nelem, nang, nang, nprim * nprim), **opts)
+    part = torch.empty((2 * G, nelem, nang, nang, nprim * nprim), **opts)
     ud = torch.empty((nelem, S * 2 * no, nang * nprim), **opts)
     vd = torch.empty((nelem, S * 2 * no, nang * nprim), **opts)
     X = torch.empty((npairs, nang * nprim, nang * nprim), **opts)
     K4 = torch.empty((nang, nang, nrad, nrad), **opts)
     err = _build.lib().radial_exchange_dia_occ_launch(
         *(t.data_ptr() for t in (*args, part, ud, vd, X, K4)),
-        S, nelem, nprim, nang, nrad, no, G, dev.index,
+        S, nelem, nprim, nang, nrad, no, G, ns, wbuf, dev.index,
         torch.cuda.current_stream(dev).cuda_stream,
     )
     if err:
@@ -140,16 +177,18 @@ def radial_exchange_dia(R: torch.Tensor, teiJ3: torch.Tensor, dP0: torch.Tensor,
     nelem, nprim = gidx.shape
     expect_shape(name, "R", R, (S, 4, nang, nang, nrad, nrad))
     _check_tables(name, teiJ3, dP0, dP2, dQ0, dQ2, ilm, gidx, S)
-    G = _channel_groups(S, nang, nelem, nprim)
+    tm, smem, ns, _ = _inelem_plan(name, nprim, None)
     dev = R.device
+    G = _channel_groups(S, nang, nelem, nprim, tm, smem,
+                        torch.cuda.get_device_properties(dev).multi_processor_count)
     opts = dict(dtype=torch.float64, device=dev)
     npairs = nelem * (nelem - 1) // 2
-    part = torch.empty((G, nelem, nang, nang, nprim * nprim), **opts)
+    part = torch.empty((2 * G, nelem, nang, nang, nprim * nprim), **opts)
     X = torch.empty((npairs, nang * nprim, nang * nprim), **opts)
     K4 = torch.empty((nang, nang, nrad, nrad), **opts)
     err = _build.lib().radial_exchange_dia_launch(
         *(t.data_ptr() for t in (*args, part, X, K4)),
-        S, nelem, nprim, nang, nrad, G, dev.index,
+        S, nelem, nprim, nang, nrad, G, ns, dev.index,
         torch.cuda.current_stream(dev).cuda_stream,
     )
     if err:

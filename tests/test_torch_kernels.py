@@ -273,6 +273,83 @@ def test_exchange_kernel_matches_plain_at_lmax12_shapes(cuda_device, name):
     assert float((out - ref).abs().max()) <= TOL * float(ref.abs().max())
 
 
+# (nang, nprim, nelem, S, no) at the edges of the exchange core's tiling:
+# one element (no cross pairs), one and nine shells (ragged 8 x 8 tiles),
+# nprim from 2 to the wrappers' 32 (row blocks past 16), one occupied column
+# and the most that the shared-memory plan admits ("max"), one channel
+EXCHANGE_EDGES = {
+    "nelem1": (9, 5, 1, 3, 3),
+    "nang1": (1, 5, 3, 2, 2),
+    "nang9": (9, 8, 3, 3, 4),
+    "np2": (9, 2, 4, 2, 2),
+    "np5": (9, 5, 3, 2, 3),
+    "np15": (9, 15, 2, 2, 3),
+    "np32": (3, 32, 2, 1, 2),
+    "no1": (9, 8, 3, 2, 1),
+    "no_max_np15": (9, 15, 2, 1, "max"),
+    "no_max_np32": (3, 32, 2, 1, "max"),
+    "S1": (9, 8, 3, 1, 3),
+}
+
+
+def _largest_no(nprim):
+    """The most occupied columns the exchange wrappers admit at nprim."""
+    from helfem_tpu_torch.kernels.radial_exchange_dia import _inelem_plan
+
+    no = 1
+    while True:
+        try:
+            _inelem_plan("radial_exchange_dia_occ", nprim, no + 1)
+        except ValueError:
+            return no
+        no += 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(EXCHANGE_EDGES))
+@pytest.mark.parametrize("name", ["radial_exchange_dia_occ", "radial_exchange_dia"])
+def test_exchange_kernel_matches_plain_at_tiling_edges(cuda_device, name, case):
+    """chip_smoke.py's random tables at the tiling's edges: 1e-12 x max-abs
+    against the plain version, and the same bits from two calls."""
+    from chip_smoke import random_exchange_inputs
+
+    nang, nprim, nelem, S, no = EXCHANGE_EDGES[case]
+    no = _largest_no(nprim) if no == "max" else no
+    args = random_exchange_inputs(cuda_device, nang=nang, nprim=nprim, nelem=nelem, nlm=S,
+                                  no=no, dense_channels=S, seed=19)[name][0]
+    out = getattr(kernels, name)(*args)
+    again = getattr(kernels, name)(*args)
+    torch.cuda.synchronize()
+    ref = getattr(kernels, name + "_plain")(*args)
+    assert torch.equal(out, again)
+    assert float((out - ref).abs().max()) <= TOL * float(ref.abs().max())
+
+
+@pytest.mark.parametrize("nprim, largest", [(2, 106), (8, 102), (15, 34), (32, 14)])
+def test_exchange_plan_raises_past_shared_memory(nprim, largest):
+    """The occupied-orbital wrapper's shared-memory plan: the largest no it
+    admits at nprim, and the ValueError naming the limit one column later."""
+    from helfem_tpu_torch.kernels.radial_exchange_dia import _SMEM, _inelem_plan
+
+    assert _largest_no(nprim) == largest
+    assert _inelem_plan("radial_exchange_dia_occ", nprim, largest)[1] <= _SMEM
+    with pytest.raises(ValueError, match=f"no={largest + 1} .* nprim={nprim} need"):
+        _inelem_plan("radial_exchange_dia_occ", nprim, largest + 1)
+
+
+def test_exchange_plan_at_lmax12_and_channel_groups():
+    """Three stages and two window buffers at the N2 lmax=12 shapes (np 15,
+    no 9); the channel groups stay within the channels and 512 MiB of
+    partial sums."""
+    from helfem_tpu_torch.kernels.radial_exchange_dia import _channel_groups, _inelem_plan
+
+    tm, smem, ns, wbuf = _inelem_plan("radial_exchange_dia_occ", 15, 9)
+    assert (tm, ns, wbuf) == (4, 3, 2)
+    for S, nang, nelem, nprim in ((125, 59, 5, 15), (42, 19, 5, 8), (1, 9, 3, 8)):
+        G = _channel_groups(S, nang, nelem, nprim, tm, smem, 132)
+        assert 1 <= G <= S and 16 * G * nelem * (nang * nprim) ** 2 <= 2**29
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("precision", ["full", "reduced"])
 @pytest.mark.parametrize("n", [2048, 4096])
