@@ -10,8 +10,10 @@ Phases, any failure raises and exits non-zero:
      -> exit non-zero with no result;
   2. build the CUDA kernels from helfem_tpu_torch/csrc/ (nvcc, sm_90a, one
      process per source, in parallel), timed against one nvcc call for all
-     sources; cuobjdump's SASS must show DMMA in the exchange in-element
-     kernel;
+     sources, with each kernel's registers and spills from ptxas;
+     cuobjdump's SASS must show DMMA in every exchange in-element instance,
+     HGMMA with TF32 operands in every "reduced" matmul probe instance, and
+     FFMA with no HMMA or HGMMA in every "full" one;
   3. each kernel against its plain PyTorch version on the card, on random
      symmetric block-diagonal densities (numpy seed): the atomic kernels at
      the Ar and Xe bench shapes, the diatomic ones at the N2 bench shapes
@@ -22,7 +24,9 @@ Phases, any failure raises and exits non-zero:
      x max-abs of the result; the matmul probes at n = 2048 and 4096, both
      precisions, within 1e-5 x max-abs of their plain versions (f32 sums in
      another order); CUDA-event times of both, in turns, achieved TFLOP/s,
-     and torch.matmul beside the probes;
+     and beside the probes their one-call library counterpart, torch.matmul
+     in true f32 for "full" and in TF32 for "reduced" (three calls for
+     matmul_dd);
   4. Ar HF (the bench config) through the port's atomic CLI on the card:
      within 1e-6 Eh of the numerical HF limit, and both atomic kernels'
      launch counters must rise during the SCF;
@@ -93,6 +97,7 @@ HBM_BYTES_S = 3.35e12
 FP64_FLOP_S = 67e12
 # same data sheet: 67 TFLOP/s f32 outside the tensor cores, 495 TFLOP/s TF32
 PROBE_FLOP_S = {"full": 67e12, "reduced": 495e12}
+LIBRARY_LABEL = {"full": "true f32", "reduced": "TF32 (allow_tf32 True)"}
 KERNELS = {  # name -> (source, replaces, shape of its record)
     "radial_exchange": ("helfem_tpu_torch/csrc/radial_exchange.cu",
                         "helfem_tpu/models/atomic.py:499", "ar"),
@@ -110,6 +115,7 @@ KERNELS = {  # name -> (source, replaces, shape of its record)
                             "helfem_tpu/models/diatomic.py:799", "n2"),
 }
 INELEM = "exdia_inelem_kernel"  # the in-element GEMM core of K6 and K7
+PROBE_TF32, PROBE_FULL = "matmul_tf32_kernel", "matmul_full_kernel"  # K8/K9 instances
 PROBES = {  # name -> (source, {precision: replaces})
     "matmul_f32": ("helfem_tpu_torch/csrc/matmul_probe.cu",
                    {"full": "scripts/pallas_f64_ablation.py:50",
@@ -120,22 +126,41 @@ PROBES = {  # name -> (source, {precision: replaces})
 }
 
 
-def dmma_check(build) -> str:
-    """cuobjdump's SASS of the built library: every instance of the exchange
-    in-element kernel must issue DMMA (FP64 tensor-core) instructions."""
+def sass_check(build) -> str:
+    """cuobjdump's SASS of the built library, instance by instance: the
+    exchange in-element kernel must issue DMMA (FP64 tensor-core)
+    instructions; every "reduced" probe kernel HGMMA (wgmma) with TF32
+    operands; every "full" probe kernel FFMA and no HMMA or HGMMA, since a
+    "full" kernel gone to TF32 would pass the 1e-5 gate at small K and be
+    another function."""
     from pathlib import Path
 
     cuobjdump = Path(build._nvcc()).with_name("cuobjdump")
     sass = subprocess.run([str(cuobjdump), "--dump-sass", str(build.LIBRARY)],
                           capture_output=True, text=True, timeout=300, check=True).stdout
-    counts = {}
+    counts, bad = {}, []
     for section in sass.split("Function : ")[1:]:
         name = section.split(None, 1)[0]
+        lines = section.splitlines()
+
+        def n_op(op, also=""):
+            return sum(op in line and also in line for line in lines)
+
         if INELEM in name:
-            counts[name] = sum("DMMA" in line for line in section.splitlines())
-    if not counts or not all(counts.values()):
-        raise RuntimeError(f"{INELEM}: no DMMA instruction in its SASS: {counts}")
-    return f"SASS: DMMA instructions per {INELEM} instance {counts}"
+            counts[name] = {"DMMA": n_op("DMMA")}
+            bad += [name] if not counts[name]["DMMA"] else []
+        elif PROBE_TF32 in name:
+            counts[name] = {"HGMMA": n_op("HGMMA"), "HGMMA TF32": n_op("HGMMA", "TF32")}
+            bad += [name] if not counts[name]["HGMMA TF32"] else []
+        elif PROBE_FULL in name:
+            counts[name] = {"FFMA": n_op("FFMA"), "HMMA": n_op("HMMA"), "HGMMA": n_op("HGMMA")}
+            c = counts[name]
+            bad += [name] if not c["FFMA"] or c["HMMA"] or c["HGMMA"] else []
+    missing = [k for k in (INELEM, PROBE_TF32, PROBE_FULL) if not any(k in n for n in counts)]
+    if bad or missing:
+        raise RuntimeError(f"SASS check failed for {bad or missing}: {counts}")
+    return "SASS instructions per instance:\n" + "\n".join(f"  {k}: {v}"
+                                                         for k, v in counts.items())
 
 
 def phase(title: str) -> None:
@@ -426,12 +451,26 @@ def compare(name: str, args, bytes_moved: int, flops: int, warmup: int = 5,
             "bytes": bytes_moved, "flops": flops}
 
 
+def library_ms(fn, precision: str) -> float:
+    """CUDA-event ms of the one-call PyTorch counterpart of a probe:
+    torch.matmul in true f32 for "full" and with TF32 allowed for "reduced"
+    (torch.backends.cuda.matmul.allow_tf32 set only around these calls, then
+    restored)."""
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = precision == "reduced"
+    try:
+        return cuda_ms(fn, 3, 10)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+
+
 def compare_probes(n: int, dev, seed: int = 0) -> dict:
     """Both matmul probes at n x n and both precisions against their plain
     versions (true-f32 torch.matmul, torch.backends.cuda.matmul.allow_tf32
     False; inputs rounded to TF32 for "reduced"): gate at 1e-5 x max-abs;
-    times in turns, and torch.matmul in f32 (one call, three for the
-    double-word product) as the library's."""
+    times in turns, and as the library's time torch.matmul (one call, three
+    for the double-word product) in true f32 for "full" and in TF32 for
+    "reduced"."""
     from helfem_tpu_torch import kernels
     from helfem_tpu_torch.kernels.matmul_probe import split_dd
 
@@ -467,7 +506,7 @@ def compare_probes(n: int, dev, seed: int = 0) -> dict:
                 "max_abs_err": err, "scale": scale, "ms": 0.5 * (k1 + k2),
                 "plain_ms": 0.5 * (p1 + p2), "bound_ms": 1e3 * max(t_bytes, t_ops),
                 "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-                "library_ms": cuda_ms(library[name], 3, 10), "bytes": moved, "flops": flops}
+                "library_ms": library_ms(library[name], prec), "bytes": moved, "flops": flops}
     return out
 
 
@@ -518,7 +557,7 @@ def main() -> None:
     print("\n".join(line for line in log.splitlines()
                     if "registers" in line or "spill" in line or "Compiling entry" in line))
     _build.lib()
-    print(dmma_check(_build))
+    print(sass_check(_build))
 
     phase("3. kernels vs plain PyTorch on the card")
     results = {}
@@ -549,7 +588,8 @@ def main() -> None:
     for n in (2048, 4096):
         for (name, prec), r in compare_probes(n, dev).items():
             probes[(name, prec, n)] = report(f"n={n} {prec}", name, r)
-            print(f"    torch.matmul f32: {r['library_ms']:.4f} ms")
+            print(f"    library, torch.matmul {LIBRARY_LABEL[prec]}"
+                  f"{' (three calls)' if name == 'matmul_dd' else ''}: {r['library_ms']:.4f} ms")
 
     from helfem_tpu_torch.cli.atomic import main as atomic_main
     from helfem_tpu_torch.cli.diatomic import main as diatomic_main

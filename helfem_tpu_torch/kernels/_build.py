@@ -36,6 +36,7 @@ _SIGNATURES = {
     "radial_exchange_dia_occ_launch": [_P] * 14 + [_I] * 10 + [_P],
     "radial_exchange_dia_launch": [_P] * 11 + [_I] * 8 + [_P],
     "matmul_probe_launch": [_P] * 5 + [_I] * 5 + [_P],
+    "matmul_probe_smem": [_I] * 2,
 }
 
 _lib = None

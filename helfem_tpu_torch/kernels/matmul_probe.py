@@ -23,6 +23,31 @@ __all__ = ["matmul_f32", "matmul_f32_plain", "matmul_dd", "matmul_dd_plain", "sp
 
 TILE = (128, 128, 16)  # (m, n, k) must be multiples of these
 _PRECISIONS = ("full", "reduced")
+_TILE_BYTES = 128 * 32 * 4  # one TF32 operand tile
+
+
+def _plan(m: int, n: int, k: int, precision: str, dd: bool) -> dict:
+    """The launch csrc/matmul_probe.cu makes for these shapes: threads, ring
+    stages, k-tile depth, dynamic shared memory (bytes) and grid; raises
+    ValueError where the kernel would refuse to launch. "full": 256 threads,
+    k-tiles of 16 through a cp.async ring of 4 stages (3 for matmul_dd) of
+    transposed-A rows padded to 132 floats and B rows; "reduced": 384
+    threads, k-tiles of 32 (the last one may be ragged) through a TMA ring
+    of 192 KB, 6 stages of two 16 KB tiles or 3 of four, three mbarriers a
+    stage and 1024 bytes of alignment slack."""
+    if min(m, n, k) <= 0 or m % TILE[0] or n % TILE[1] or k % TILE[2]:
+        raise ValueError(f"(m, n, k) = ({m}, {n}, {k}) must be positive multiples of {TILE}")
+    if m // TILE[0] > 65535:
+        raise ValueError(f"m = {m}: more than 65535 row tiles of {TILE[0]}")
+    if precision == "full":
+        stages = 3 if dd else 4
+        plan = dict(threads=256, stages=stages, ktile=16,
+                    smem=stages * (2 if dd else 1) * 16 * (132 + 128) * 4)
+    else:
+        stages = 3 if dd else 6
+        plan = dict(threads=384, stages=stages, ktile=32,
+                    smem=stages * (4 if dd else 2) * _TILE_BYTES + 3 * 8 * stages + 1024)
+    return {**plan, "grid": (n // TILE[1], m // TILE[0])}
 
 
 def split_dd(x64: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -52,8 +77,10 @@ def _check(name: str, precision: str, *mats: torch.Tensor) -> tuple[int, int, in
         if not t.is_contiguous():
             raise ValueError(f"{name}: {arg} must be contiguous")
         expect_shape(name, arg, t, (m, k) if arg.startswith("a") else (k, n))
-    if m % TILE[0] or n % TILE[1] or k % TILE[2]:
-        raise ValueError(f"{name}: (m, n, k) = ({m}, {n}, {k}) must be multiples of {TILE}")
+    try:
+        _plan(m, n, k, precision, len(mats) == 4)
+    except ValueError as e:
+        raise ValueError(f"{name}: {e}") from None
     return m, n, k
 
 

@@ -350,17 +350,27 @@ def test_exchange_plan_at_lmax12_and_channel_groups():
         assert 1 <= G <= S and 16 * G * nelem * (nang * nprim) ** 2 <= 2**29
 
 
+# (m, n, k): the n = 2048 and 4096 squares of chip_smoke.py (K = 4096 is
+# where one accumulator's truncation shows), m != n != k shapes that a wrong
+# stride or a transposition would fail, the smallest k (one ragged 32-deep
+# TF32 k-tile) and a ragged last k-tile after whole ones
+PROBE_SHAPES = [(2048, 2048, 2048), (4096, 4096, 4096), (384, 256, 1024), (128, 640, 16),
+                (256, 384, 4096), (256, 256, 48)]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("precision", ["full", "reduced"])
-@pytest.mark.parametrize("n", [2048, 4096])
+@pytest.mark.parametrize("shape", PROBE_SHAPES, ids=["x".join(map(str, s)) for s in PROBE_SHAPES])
 @pytest.mark.parametrize("name", ["matmul_f32", "matmul_dd"])
-def test_matmul_probe_matches_plain_on_card(cuda_device, name, n, precision):
-    """1e-5 x max-abs: kernel and plain version are both f32 sums over K = n,
+def test_matmul_probe_matches_plain_on_card(cuda_device, name, shape, precision):
+    """1e-5 x max-abs: kernel and plain version are both f32 sums over K,
     in different orders (the plain version runs torch.matmul with
     torch.backends.cuda.matmul.allow_tf32 False, on TF32-rounded inputs for
     "reduced")."""
+    m, n, k = shape
     rng = np.random.default_rng(0)
-    a64, b64 = (torch.tensor(rng.standard_normal((n, n)), device=cuda_device) for _ in range(2))
+    a64 = torch.tensor(rng.standard_normal((m, k)), device=cuda_device)
+    b64 = torch.tensor(rng.standard_normal((k, n)), device=cuda_device)
     args = ((a64.float(), b64.float()) if name == "matmul_f32"
             else (*split_dd(a64), *split_dd(b64)))
     before = kernels.launches[name]
@@ -373,6 +383,46 @@ def test_matmul_probe_matches_plain_on_card(cuda_device, name, n, precision):
     assert float((out - ref).abs().max()) <= 1e-5 * float(ref.abs().max())
     with pytest.raises(ValueError, match="multiples"):
         getattr(kernels, name)(*(x[:100, :100].contiguous() for x in args), precision)
+
+
+@pytest.mark.cuda
+def test_matmul_probe_plan_matches_kernel_smem(cuda_device):
+    """The wrapper's plan asks for the shared memory the kernel launches with."""
+    from helfem_tpu_torch.kernels import _build
+    from helfem_tpu_torch.kernels.matmul_probe import _plan
+
+    lib = _build.lib()
+    for precision in ("full", "reduced"):
+        for dd in (False, True):
+            assert _plan(128, 128, 16, precision, dd)["smem"] == \
+                lib.matmul_probe_smem(int(precision == "reduced"), int(dd))
+
+
+@pytest.mark.parametrize("precision", ["full", "reduced"])
+def test_matmul_probe_plan_covers_tile_shapes(precision):
+    """Every shape TILE admits gets a launch within the card's 227 KB of
+    shared memory, whose grid covers m x n and whose k-tiles cover k."""
+    from helfem_tpu_torch.kernels.matmul_probe import TILE, _plan
+
+    smem_limit = 232448  # bytes one block may have on the H100 (227 KB)
+
+    for dd in (False, True):
+        for m, n, k in ((128, 128, 16), (384, 256, 1024), (128, 640, 16), (256, 256, 48),
+                        (4096, 4096, 4096), (65535 * 128, 128, 32)):
+            p = _plan(m, n, k, precision, dd)
+            assert p["smem"] <= smem_limit and p["threads"] in (256, 384)
+            assert (p["grid"][0] * TILE[1], p["grid"][1] * TILE[0]) == (n, m)
+            assert 0 <= -k % p["ktile"] < p["ktile"] and p["ktile"] % TILE[2] == 0
+
+
+@pytest.mark.parametrize("shape", [(0, 128, 16), (100, 128, 16), (128, 200, 16), (128, 128, 8),
+                                   (128, 128, 0), (65536 * 128, 128, 16)])
+def test_matmul_probe_plan_raises_where_the_kernel_would_refuse(shape):
+    from helfem_tpu_torch.kernels.matmul_probe import _plan
+
+    for precision in ("full", "reduced"):
+        with pytest.raises(ValueError):
+            _plan(*shape, precision, False)
 
 
 @pytest.mark.cuda
