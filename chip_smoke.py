@@ -11,31 +11,35 @@ Phases, any failure raises and exits non-zero:
   2. build the CUDA kernels from helfem_tpu_torch/csrc/ (nvcc, sm_90a, one
      process per source, in parallel), timed against one nvcc call for all
      sources, with each kernel's registers and spills from ptxas;
-     cuobjdump's SASS must show DMMA in every exchange in-element instance,
-     HGMMA with TF32 operands in every "reduced" matmul probe instance, and
-     FFMA with no HMMA or HGMMA in every "full" one;
+     cuobjdump's SASS must show DMMA in every exchange in-element instance
+     and in both XC kernels, HGMMA with TF32 operands in every "reduced"
+     matmul probe instance, and FFMA with no HMMA or HGMMA in every "full"
+     one;
   3. each kernel against its plain PyTorch version on the card, on random
      symmetric block-diagonal densities (numpy seed): the atomic kernels at
      the Ar and Xe bench shapes, the diatomic ones at the N2 bench shapes
      and a heteronuclear CO shape (random grid potentials for the XC Fock,
-     random occupied columns for the exchange), the two exchange kernels
-     also at a LiH shape and at the N2 lmax=12 shapes on random tables:
-     max-abs error <= 1e-12
-     x max-abs of the result; the matmul probes at n = 2048 and 4096, both
-     precisions, within 1e-5 x max-abs of their plain versions (f32 sums in
-     another order); CUDA-event times of both, in turns, achieved TFLOP/s,
-     and beside the probes their one-call library counterpart, torch.matmul
-     in true f32 for "full" and in TF32 for "reduced" (three calls for
-     matmul_dd);
+     random occupied columns for the exchange; both spins for the XC
+     kernels), the two exchange kernels also at a LiH shape and at the N2
+     lmax=12 shapes on random tables, the XC kernels at the N2 lmax=12
+     basis for one spin: max-abs error <= 1e-12 x max-abs of the result;
+     beside each call time the kernel's device time (torch.profiler); the
+     matmul probes at n = 2048 and 4096, both precisions, within 1e-5 x
+     max-abs of their plain versions (f32 sums in another order);
+     CUDA-event times of both, in turns, achieved TFLOP/s, and beside the
+     probes their one-call library counterpart, torch.matmul in true f32
+     for "full" and in TF32 for "reduced" (three calls for matmul_dd);
   4. Ar HF (the bench config) through the port's atomic CLI on the card:
      within 1e-6 Eh of the numerical HF limit, and both atomic kernels'
      launch counters must rise during the SCF;
   5. three warm Ar HF SCF walls and a torch.profiler breakdown of the device
      time of one more SCF, by kernel;
   6. N2 PBE (the bench config) through the port's diatomic CLI on the card:
-     within 1e-6 Eh of the JAX package's f64 value, and the three diatomic
-     kernels' launch counters must rise during the SCF;
-  7. three warm N2 PBE SCF walls and the profiler breakdown of one more;
+     within 1e-6 Eh of the JAX package's f64 value, the three diatomic
+     kernels' launch counters must rise during the SCF, the XC kernels'
+     once per iteration;
+  7. three warm N2 PBE SCF walls and the profiler breakdown of one more,
+     each SCF with the XC kernels once per iteration;
   8. N2 HF through the diatomic CLI on the card: within 1e-6 Eh of the JAX
      package's pinned value, with the Coulomb and the occupied-orbital
      exchange kernels launched and the dense exchange kernel not; then the
@@ -43,12 +47,15 @@ Phases, any failure raises and exits non-zero:
      exchange_dia_occ on the converged orbitals;
   9. three warm N2 HF SCF walls and the profiler breakdown of one more, then
      N2 PBE0 once through the CLI: converged, with the XC and the exchange
-     kernels launched;
+     kernels launched, the XC kernels once per iteration;
  10. the f64-ablation tool's JSON line at n = 2048 through its main;
  11. N2 HF at the lmax=12 basis (tools/profile_dia_scf.py's) from the core
      guess, cold then warm: within 2e-5 Eh of the bench reference and 1e-8
      Eh of the value the exchange kernels' first, CUDA-core version gave,
-     with the occupied-orbital exchange kernel launched; the warm wall.
+     with the occupied-orbital exchange kernel launched; the warm wall. Then
+     N2 PBE at the same basis and the PBE bench geometry, cold (converged,
+     Nel on the grid within 1e-6 of 14, within 1e-8 Eh of the pinned value,
+     the XC kernels once per iteration), then warm with its profile.
 The last two lines are the kernels' JSON record and {"ok": true, ...}.
 """
 
@@ -86,6 +93,11 @@ N2_HF_SHAPE = dict(Z1=7, Z2=7, Rbond=2.068, lmax=(6, 6), rmax=25.0, nelem=5, nno
 N2_L12_SHAPE = dict(Z1=7, Z2=7, Rbond=2.068, lmax=(12, 12, 12), rmax=40.0, nelem=5, nnodes=15)
 N2_L12_REF = -108.9938255
 N2_L12_CUDA_CORES = -108.9938178652
+# N2 PBE at the same basis and the PBE bench geometry, from the core guess
+N2_PBE_L12_SHAPE = dict(N2_L12_SHAPE, Rbond=2.0743)
+# the port's converged value on an H100 (the first run of this phase), a
+# regression gate: no f64 value of the JAX package is pinned at this size
+N2_PBE_L12_REF = -109.460234908363
 # the N2 HF lmax=12 bench basis (lmax (12,12,12), rmax 40, nelem 5, nnodes 15)
 # by its sizes alone: the exchange kernels run on random tables of its shapes
 LMAX12 = dict(nang=59, nprim=15, nelem=5, nlm=125, no=9)
@@ -114,7 +126,9 @@ KERNELS = {  # name -> (source, replaces, shape of its record)
     "radial_exchange_dia": ("helfem_tpu_torch/csrc/radial_exchange_dia.cu",
                             "helfem_tpu/models/diatomic.py:799", "n2"),
 }
+XC = ("dia_xc_fields", "dia_xc_fock")  # one launch each per SCF iteration
 INELEM = "exdia_inelem_kernel"  # the in-element GEMM core of K6 and K7
+XC_SASS = ("xc_fields_kernel", "xc_fock_kernel")  # K4 and K5, both on DMMA
 PROBE_TF32, PROBE_FULL = "matmul_tf32_kernel", "matmul_full_kernel"  # K8/K9 instances
 PROBES = {  # name -> (source, {precision: replaces})
     "matmul_f32": ("helfem_tpu_torch/csrc/matmul_probe.cu",
@@ -128,8 +142,8 @@ PROBES = {  # name -> (source, {precision: replaces})
 
 def sass_check(build) -> str:
     """cuobjdump's SASS of the built library, instance by instance: the
-    exchange in-element kernel must issue DMMA (FP64 tensor-core)
-    instructions; every "reduced" probe kernel HGMMA (wgmma) with TF32
+    exchange in-element kernel and the two XC kernels must issue DMMA (FP64
+    tensor-core) instructions; every "reduced" probe kernel HGMMA (wgmma) with TF32
     operands; every "full" probe kernel FFMA and no HMMA or HGMMA, since a
     "full" kernel gone to TF32 would pass the 1e-5 gate at small K and be
     another function."""
@@ -146,7 +160,7 @@ def sass_check(build) -> str:
         def n_op(op, also=""):
             return sum(op in line and also in line for line in lines)
 
-        if INELEM in name:
+        if INELEM in name or any(k in name for k in XC_SASS):
             counts[name] = {"DMMA": n_op("DMMA")}
             bad += [name] if not counts[name]["DMMA"] else []
         elif PROBE_TF32 in name:
@@ -156,7 +170,8 @@ def sass_check(build) -> str:
             counts[name] = {"FFMA": n_op("FFMA"), "HMMA": n_op("HMMA"), "HGMMA": n_op("HGMMA")}
             c = counts[name]
             bad += [name] if not c["FFMA"] or c["HMMA"] or c["HGMMA"] else []
-    missing = [k for k in (INELEM, PROBE_TF32, PROBE_FULL) if not any(k in n for n in counts)]
+    missing = [k for k in (INELEM, *XC_SASS, PROBE_TF32, PROBE_FULL)
+               if not any(k in n for n in counts)]
     if bad or missing:
         raise RuntimeError(f"SASS check failed for {bad or missing}: {counts}")
     return "SASS instructions per instance:\n" + "\n".join(f"  {k}: {v}"
@@ -248,17 +263,55 @@ def kernel_inputs(cfg: dict, dev, seed: int = 7):
     }
 
 
-def dia_kernel_inputs(cfg: dict, dev, seed: int = 11):
+def xc_kernel_inputs(basis, dev, ns: int = 2, seed: int = 11):
+    """The XC kernels' inputs at a diatomic basis: ns random symmetric
+    symmetry-block-diagonal densities for K4, random grid potentials and the
+    basis's shell mask for K5, with bytes and operations counted as
+    kernel_inputs counts them: per spin, K4 reads the windows of the live
+    ordered shell pairs (the only ones it needs) and writes three fields,
+    K5 writes the dense F; the operations are the folded ones the kernels
+    do (one window or element block per unordered live pair)."""
+    from helfem_tpu_torch.models.diatomic_dft import build_dia_grid
+
+    g = build_dia_grid(basis, dev)
+    rng = np.random.default_rng(seed)
+    P = np.zeros((ns, basis.nbf, basis.nbf))
+    for s in range(ns):
+        for idx in basis.sym_blocks():
+            X = rng.standard_normal((len(idx), len(idx)))
+            P[s][np.ix_(idx, idx)] = X + X.T
+    P = torch.tensor(P, device=dev)
+    shape = (ns, *g.w.shape)
+    wvr, wgu, wgv = (torch.tensor(rng.standard_normal(shape), device=dev) for _ in range(3))
+    mask = torch.tensor(basis.shell_mask().reshape(-1), device=dev)
+    nelem, nq, npr = g.Bg.shape
+    nt, npl = g.sqeta.shape[0], g.pairs.shape[0]
+    ordered = 2 * npl - int((g.pairs[:, 0] == g.pairs[:, 1]).sum())
+    win = window_entries(g.gidx, basis.nrad)
+    pair_rows = nbytes(g.pairs, g.TTp, g.dTTp)
+    k4_bytes = (8 * ns * ordered * win + pair_rows + nbytes(g.gidx, g.Bg, g.dBg, g.invh, g.sqeta)
+                + 3 * nbytes(wvr))
+    k5_bytes = (nbytes(wvr, wgu, wgv, mask, g.owners, g.band, g.ijs, g.BBs, g.SSs)
+                + pair_rows
+                + 8 * ns * basis.nbf ** 2)
+    nij = npr * (npr + 1) // 2
+    return {
+        "dia_xc_fields": ((P, g), k4_bytes,
+                          ns * npl * nelem * nq * (2 * npr * npr + 4 * npr + 6 * nt)),
+        "dia_xc_fock": ((wvr, wgu, wgv, g, mask), k5_bytes,
+                        ns * npl * nelem * nq * (6 * nt + 4 * nij)),
+    }
+
+
+def dia_kernel_inputs(cfg: dict, dev, seed: int = 11, ns: int = 2):
     """Operators and grid of a diatomic basis, and per kernel (its inputs,
     bytes, operations) for a random symmetric symmetry-block-diagonal
-    density and random grid potentials; bytes counted as kernel_inputs
-    counts them."""
+    density (the Coulomb kernel), and xc_kernel_inputs's inputs for the XC
+    kernels at ns spins; bytes counted as kernel_inputs counts them."""
     from helfem_tpu_torch.models.diatomic import DiatomicBasis, _to4
-    from helfem_tpu_torch.models.diatomic_dft import build_dia_grid
 
     basis = DiatomicBasis(**cfg)
     ops = basis.build_operators(dev)
-    g = build_dia_grid(basis, dev)
     rng = np.random.default_rng(seed)
     P = np.zeros((basis.nbf, basis.nbf))
     for idx in basis.sym_blocks():
@@ -271,36 +324,20 @@ def dia_kernel_inputs(cfg: dict, dev, seed: int = 11):
     Paux2 = torch.einsum("sab,abIJ->sIJ", ops.GpLM[:njbd], P4).contiguous()
     ilm = ops.LM_ilm[:njbd]
     nelem, npr = ops.gidx.shape
-    nq, nt = g.w.shape[1:]
-    shape = g.w.shape
-    wvr, wgu, wgv = (torch.tensor(rng.standard_normal(shape), device=dev) for _ in range(3))
-    # the rows of the channel tables this call reads, the shell pairs whose
-    # angular tables do not vanish (the only ones K4 and K5 need), and the
-    # entries of an [nrad, nrad] block that the element windows cover
+    # the rows of the channel tables this call reads, and the entries of an
+    # [nrad, nrad] block that the element windows cover
     rows = len(set(ilm.tolist()))
-    live = int(((g.TT != 0) | (g.dTT != 0)).any(dim=-1).sum())
     win = window_entries(ops.gidx, nrad)
     np2 = npr * npr
     # inputs: the windows of Paux0 and Paux2, ilm, gidx, the table rows;
     # outputs Jr0, Jr2
     k3_bytes = (8 * 2 * njbd * win + nbytes(Paux0, Paux2) + nbytes(ilm, ops.gidx)
                 + 8 * rows * (3 * nelem * np2 * np2 + 4 * nelem * np2 + 1))
-    # inputs: the live pairs' windows of P and rows of TT and dTT, the rest
-    # whole; outputs rho, drho_u, drho_v
-    k4_bytes = (8 * live * (win + 2 * nt) + nbytes(g.gidx, g.Bg, g.dBg, g.invh, g.sqeta)
-                + 3 * nbytes(g.w))
-    # inputs: the three potentials, the live rows of TT and dTT, the rest
-    # whole; output F [nbf, nbf]
-    k5_bytes = (nbytes(wvr, wgu, wgv, g.gidx, g.Bg, g.dBg) + 8 * live * 2 * nt
-                + 8 * (nang * nrad) ** 2)
     k3 = (Paux0, Paux2, ops.teiJ3, ops.dP0, ops.dP2, ops.dQ0, ops.dQ2, ops.LMfac, ilm,
           ops.gidx)
-    k4 = (P, g.gidx, g.Bg, g.dBg, g.TT, g.dTT, g.invh, g.sqeta)
-    k5 = (wvr, wgu, wgv, g.gidx, g.Bg, g.dBg, g.TT, g.dTT, nrad)
     return {
         "radial_coulomb_dia": (k3, k3_bytes, njbd * nelem * (8 * np2 * np2 + 16 * np2)),
-        "dia_xc_fields": (k4, k4_bytes, live * nelem * nq * (2 * np2 + 4 * npr + 6 * nt)),
-        "dia_xc_fock": (k5, k5_bytes, live * nelem * (8 * nq * nt + 10 * np2 * nq)),
+        **xc_kernel_inputs(basis, dev, ns, seed + 1),
     }
 
 
@@ -412,8 +449,9 @@ def lmax12_exchange_inputs(dev, seed: int = 17, dense_channels: int = 3):
 
 
 def report(shape: str, name: str, r: dict) -> dict:
+    device = f" (device {r['device_ms']:.4f})" if "device_ms" in r else ""
     print(f"{shape} {name}: max-abs err {r['max_abs_err']:.3e} (scale "
-          f"{r['scale']:.3e}), kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
+          f"{r['scale']:.3e}), kernel {r['ms']:.4f} ms{device}, plain {r['plain_ms']:.4f} ms, "
           f"bound {r['bound_ms']:.5f} ms by {r['bound_by']} ({r['bytes']} B, "
           f"{r['flops']} flop); achieved {r['flops'] / r['ms'] / 1e9:.3f} TFLOP/s")
     return r
@@ -427,8 +465,11 @@ def compare(name: str, args, bytes_moved: int, flops: int, warmup: int = 5,
             reps: int = 50) -> dict:
     """The kernel against its plain version on the same card inputs: gate
     each output at 1e-12 x its max-abs; CUDA-event times in turns (plain,
-    kernel, kernel, plain), and the least time the card could take."""
+    kernel, kernel, plain), the kernel's device time per call from
+    torch.profiler (the call time less the host's dispatch), and the least
+    time the card could take."""
     from helfem_tpu_torch import kernels
+    from helfem_tpu_torch.utils.profiling import device_ms
 
     kern, plain = getattr(kernels, name), getattr(kernels, name + "_plain")
     out = _outputs(kern(*args))
@@ -446,6 +487,7 @@ def compare(name: str, args, bytes_moved: int, flops: int, warmup: int = 5,
     p2 = cuda_ms(lambda: plain(*args), warmup, reps)
     t_bytes, t_ops = bytes_moved / HBM_BYTES_S, flops / FP64_FLOP_S
     return {"max_abs_err": max(errs), "scale": min(scales), "ms": 0.5 * (k1 + k2),
+            "device_ms": device_ms(lambda: kern(*args), min(reps, 20)),
             "plain_ms": 0.5 * (p1 + p2), "bound_ms": 1e3 * max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "bytes": bytes_moved, "flops": flops}
@@ -510,9 +552,18 @@ def compare_probes(n: int, dev, seed: int = 0) -> dict:
     return out
 
 
-def run_cli(main, argv, label: str, names: list[str], check) -> dict:
+def check_per_iteration(label: str, res, counts: dict, names) -> None:
+    """Each kernel in names launched once per SCF iteration."""
+    wrong = {name: counts[name] for name in names if counts[name] != res.niter}
+    if wrong:
+        raise RuntimeError(f"{label}: launches {wrong}, not one per each of the "
+                           f"{res.niter} iterations")
+
+
+def run_cli(main, argv, label: str, names: list[str], check, per_iter=()) -> dict:
     """Drive one CLI on the card with every launch counter at 0 before it;
-    returns the counts read right after. check(res) -> error text or ''."""
+    returns the counts read right after. check(res) -> error text or '';
+    the kernels in per_iter must launch once per iteration."""
     from helfem_tpu_torch import kernels
 
     kernels.reset_launches()
@@ -530,6 +581,7 @@ def run_cli(main, argv, label: str, names: list[str], check) -> dict:
     missing = [name for name in names if counts[name] == 0]
     if missing:
         raise RuntimeError(f"{label}: the SCF never launched {missing}")
+    check_per_iteration(label, res, counts, per_iter)
     return {name: counts[name] for name in names}
 
 
@@ -584,6 +636,18 @@ def main() -> None:
                                            compare(name, args, moved, flops, warmup=1, reps=3))
     del inputs, args
     torch.cuda.empty_cache()
+    from helfem_tpu_torch.models.diatomic import DiatomicBasis
+
+    t0 = time.perf_counter()
+    inputs = xc_kernel_inputs(DiatomicBasis(**N2_L12_SHAPE), dev, ns=1)
+    torch.cuda.synchronize()
+    print(f"lmax12: the N2 lmax=12 basis, grid and XC inputs (one spin) made in "
+          f"{time.perf_counter() - t0:.2f} s")
+    for name, (args, moved, flops) in inputs.items():
+        results[(name, "lmax12")] = report("lmax12", name,
+                                           compare(name, args, moved, flops, warmup=2, reps=10))
+    del inputs, args
+    torch.cuda.empty_cache()
     probes = {}
     for n in (2048, 4096):
         for (name, prec), r in compare_probes(n, dev).items():
@@ -625,19 +689,29 @@ def main() -> None:
         return "" if ok else "did not converge to the reference within 1e-6 Eh"
 
     counts.update(run_cli(diatomic_main, N2_CLI, "N2 PBE",
-                          ["radial_coulomb_dia", "dia_xc_fields", "dia_xc_fock"], n2_check))
+                          ["radial_coulomb_dia", "dia_xc_fields", "dia_xc_fock"], n2_check,
+                          per_iter=XC))
 
     phase("7. warm N2 PBE SCF walls and profile")
-    from helfem_tpu_torch.models.diatomic import DiatomicBasis
+    from helfem_tpu_torch import kernels
     from helfem_tpu_torch.scf.diatomic_scf import scf_diatomic
+
+    def counted(label, scf):
+        """scf() with the launch counters reset before it and the XC
+        kernels held to one launch per iteration after it."""
+        def run():
+            kernels.reset_launches()
+            res = scf()
+            check_per_iteration(label, res, kernels.launches, XC)
+            return res
+        return run
 
     n2_basis = DiatomicBasis(**DIA_SHAPES["n2"])
     n2_ops = n2_basis.build_operators(dev)
-    profile_scf("N2 PBE", lambda: scf_diatomic(n2_basis, 7, 7, method="PBE", convthr=1e-7,
-                                               maxit=50, ops=n2_ops))
+    profile_scf("N2 PBE", counted("warm N2 PBE", lambda: scf_diatomic(
+        n2_basis, 7, 7, method="PBE", convthr=1e-7, maxit=50, ops=n2_ops)), kernels=XC_SASS)
 
     phase("8. N2 HF through the port's diatomic CLI on the card")
-    from helfem_tpu_torch import kernels
     from helfem_tpu_torch.models.diatomic import exchange_dia, exchange_dia_occ
     from helfem_tpu_torch.scf.diatomic_scf import occ_select, occupied_dia
     from helfem_tpu_torch.utils.linalg import density_blocks
@@ -692,7 +766,7 @@ def main() -> None:
     pbe0_cli = [a if a != "PBE" else "PBE0" for a in N2_CLI]
     run_cli(diatomic_main, pbe0_cli, "N2 PBE0",
             ["radial_coulomb_dia", "dia_xc_fields", "dia_xc_fock", "radial_exchange_dia_occ"],
-            pbe0_check)
+            pbe0_check, per_iter=XC)
 
     phase("10. the f64-ablation tool at n = 2048")
     from helfem_tpu_torch.tools.f64_ablation import main as ablation_main
@@ -707,7 +781,8 @@ def main() -> None:
     if not all(np.isfinite(v) for v in ablation.values() if isinstance(v, float)):
         raise RuntimeError("the ablation tool printed a non-finite number")
 
-    phase("11. N2 HF at the lmax=12 basis, cold and warm, from the core guess")
+    phase("11. N2 HF (cold and warm) and N2 PBE (cold, then warm with a profile) at the "
+          "lmax=12 basis, from the core guess")
     t0 = time.perf_counter()
     big = DiatomicBasis(**N2_L12_SHAPE)
     big_ops = big.build_operators(dev)
@@ -728,6 +803,27 @@ def main() -> None:
             raise RuntimeError(f"N2 HF lmax=12 {label}: not converged to the reference "
                                "(2e-5) and the CUDA-core value (1e-8), or K6 never launched")
     del big_ops
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    pbe = DiatomicBasis(**N2_PBE_L12_SHAPE)
+    pbe_ops = pbe.build_operators(dev)
+    torch.cuda.synchronize()
+    print(f"N2 PBE lmax=12: basis and operators {time.perf_counter() - t0:.3f} s")
+    run_pbe = counted("N2 PBE lmax=12", lambda: scf_diatomic(
+        pbe, 7, 7, method="PBE", convthr=1e-7, maxit=50, ops=pbe_ops))
+    t0 = time.perf_counter()
+    res = run_pbe()
+    torch.cuda.synchronize()
+    dE = res.E - N2_PBE_L12_REF
+    print(f"N2 PBE lmax=12 cold SCF: E = {res.E:.12f} in {res.niter} iterations, converged "
+          f"{res.converged}; wall {time.perf_counter() - t0:.3f} s; Nel on the grid "
+          f"{res.Nelgrid:.12f}; E - pinned value {dE:+.3e}; XC launches "
+          f"{[kernels.launches[n] for n in XC]}")
+    if not (res.converged and abs(res.Nelgrid - 14.0) < 1e-6 and abs(dE) < 1e-8):
+        raise RuntimeError("N2 PBE lmax=12: not converged, Nel off 14 by 1e-6, or E off the "
+                           "pinned value by 1e-8 Eh")
+    profile_scf("N2 PBE lmax=12", run_pbe, kernels=XC_SASS)
+    del pbe_ops
 
     record = []
     for name, (source, replaces, shape) in KERNELS.items():
@@ -736,13 +832,17 @@ def main() -> None:
         big = results.get((name, "lmax12"))
         extra = {} if big is None else {
             "lmax12_max_abs_err": big["max_abs_err"], "lmax12_ms": big["ms"],
-            "lmax12_plain_ms": big["plain_ms"], "lmax12_bound_ms": big["bound_ms"]}
+            "lmax12_device_ms": big["device_ms"], "lmax12_plain_ms": big["plain_ms"],
+            "lmax12_bound_ms": big["bound_ms"]}
+        if name in XC:
+            extra.update(spins=2, other_shape_spins=2, lmax12_spins=1)
         record.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": counts[name], "max_abs_err": r["max_abs_err"], "ms": r["ms"],
-            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-            "library_ms": None, "shape": shape, "other_shape_max_abs_err": other["max_abs_err"],
-            "other_shape_ms": other["ms"], "other_shape_plain_ms": other["plain_ms"],
+            "device_ms": r["device_ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": None, "shape": shape,
+            "other_shape_max_abs_err": other["max_abs_err"], "other_shape_ms": other["ms"],
+            "other_shape_device_ms": other["device_ms"], "other_shape_plain_ms": other["plain_ms"],
             "other_shape_bound_ms": other["bound_ms"], **extra,
         })
     for name, (source, replaces) in PROBES.items():

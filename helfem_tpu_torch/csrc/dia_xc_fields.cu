@@ -1,6 +1,7 @@
 // Diatomic XC field kernel K4: the density and its two gradient components
-// rho, drho_u, drho_v [nelem, nq, nt] on the prolate-spheroidal grid, from
-// the [nbf, nbf] density P (bf = a * nrad + n), in f64.
+// rho, drho_u, drho_v [ns, nelem, nq, nt] on the prolate-spheroidal grid,
+// from ns = 1 or 2 spin densities P [ns, nbf, nbf] (bf = a * nrad + n), in
+// f64.
 //
 // Replaces the LDA/GGA part of helfem_tpu/models/diatomic_dft.py:_fields_dia
 // (diatomic_dft.py:97-103), XLA einsums over a padded 4-index copy
@@ -12,126 +13,286 @@
 //   drho_u[e,q,t] = invh[e,q,t] sum_ab TT[a,b,t] Dmu[a,b,e,q]
 //   drho_v[e,q,t] = sqeta[t] invh[e,q,t] sum_ab dTT[a,b,t] D1[a,b,e,q]
 //
-// Here the element windows are read straight from P through gidx (trash
-// read as 0), with no padded copy. Shell pairs whose angular tables vanish
-// (TT = dTT = 0 exactly for m_a != m_b) are skipped, which is exact for any
-// P.
+// Work: only the live shell pairs count (TT or dTT not identically zero:
+// m_a = m_b), and TT, dTT are symmetric in (a, b) (both checked once when
+// the grid is built, models/diatomic_dft.py:pair_tables). So (a, b) and
+// (b, a) fold into one unordered pair p with the window S_p = W_ab + W_ba
+// (W_ab[i,j] = P[a gidx[e,i], b gidx[e,j]], trash slot read as 0; S_p = W_aa
+// for a = b): D1[a,b] + D1[b,a] = B^T S_p B and Dmu[a,b] + Dmu[b,a] =
+// 2 dB^T S_p B, exact for any P. That halves both stages, and dead pairs
+// cost nothing.
 //
-// Two launches: xc_fields_pair_kernel, one block per (shell pair, element),
-// stages the pair's window in shared memory and writes D1, Dmu at every
-// radial point; xc_fields_grid_kernel, one thread per grid point, contracts
-// over the shell pairs in a fixed order. Deterministic, no atomics.
+// One cooperative launch for all spins, two phases joined by a grid-wide
+// barrier, both on the FP64 tensor cores (mma.sync m8n8k4, csrc/dmma.cuh):
+//   1. items (spin, element, 8 pairs, up to 128 radial points): the pairs'
+//      windows and the element's B, dB (transposed, zero-padded, strides 4
+//      mod 16 so that fragment loads are conflict-free) are staged in shared
+//      memory, four loads in flight per thread; per pair and 8 points a warp
+//      forms U = B S_p (depth nprim), then D1f = sum_j U B and Dmuf =
+//      2 sum_j U dB, summed over its lanes by shuffles. The result [ns,
+//      nelem, 2, npl, nq] stays in L2 (0.2 MB at N2, 2.3 MB at lmax=12).
+//   2. items (spin, element, 8 points, 8 eta points): rho = D1f TT, u =
+//      Dmuf TT, v = D1f dTT over the live pairs (depth npl: 70 at N2, 379 at
+//      lmax=12), the pairs split over the block's eight warps and their
+//      partial tiles added in warp order through shared memory; invh and
+//      sqeta in the epilogue.
+// Every sum runs in a fixed order whatever block takes an item: two calls
+// give the same bits, and a spin's fields do not depend on ns.
 //
-// Bound on the H100: at the N2 bench shapes (nang=19, nelem=5, nq=40,
-// nprim=8, nt=24) a call needs 0.52 MB, of the density only the windows
-// of the 121 live shell pairs (301 entries each), and does about 7 MFLOP,
-// so it is latency-bound (two launches of small blocks).
+// Bound on the H100 (chip_smoke.py:xc_kernel_inputs): a call must read the
+// live pairs' windows of P (6.3 MB per spin at lmax=12, 0.45 MB at N2) and
+// does 0.1 GFLOP per spin at lmax=12, so it is bound by bytes: about 2 us
+// at lmax=12, under 0.3 us at N2, where it is bound by the launch and the
+// barrier. The window reads are scattered rows of nprim doubles, which the
+// staging takes at a fraction of the card's bandwidth.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
-// grid (nang*nang, nelem); block: max(np2, nq) rounded up to a warp;
-// dynamic shared memory np2 doubles.
-__global__ void xc_fields_pair_kernel(
-    const double* __restrict__ P, const int* __restrict__ gidx,
-    const double* __restrict__ Bg, const double* __restrict__ dBg,
-    const double* __restrict__ TT, const double* __restrict__ dTT,
-    double* __restrict__ D1, double* __restrict__ Dmu, int nang, int nelem,
-    int nq, int nprim, int nrad, int nt) {
-  extern __shared__ double W[];  // [i][j] window of the (a, b) block
-  __shared__ int live;
-  const int ab = blockIdx.x, e = blockIdx.y, t = threadIdx.x;
-  const int a = ab / nang, b = ab % nang, np2 = nprim * nprim;
-  const size_t nbf = (size_t)nang * nrad;
-  if (t == 0) live = 0;
-  __syncthreads();
-  for (int k = t; k < nt; k += blockDim.x)
-    if (TT[(size_t)ab * nt + k] != 0.0 || dTT[(size_t)ab * nt + k] != 0.0) live = 1;
-  __syncthreads();
-  double* d1 = D1 + ((size_t)ab * nelem + e) * nq;
-  double* dm = Dmu + ((size_t)ab * nelem + e) * nq;
-  if (!live) {
-    for (int q = t; q < nq; q += blockDim.x) {
-      d1[q] = 0.0;
-      dm[q] = 0.0;
+#include "dmma.cuh"
+
+namespace cg = cooperative_groups;
+
+#define XCF_THREADS 256
+#define XCF_WARPS (XCF_THREADS / 32)
+#define XCF_U 4  // staged entries per thread with their loads in flight together
+
+struct XcfGeom {
+  int ns, nang, nelem, nq, nprim, nrad, nt, npl;
+  int pc, qc;        // phase 1: pairs and radial points (a multiple of 8) per item
+  int mp, lda, ldq;  // nprim rounded up to 8; row strides of the staged S and B
+  int npc, nqc;
+};
+
+__global__ void __launch_bounds__(XCF_THREADS, 2)
+    xc_fields_kernel(const double* __restrict__ P, const int* __restrict__ pairs,
+                     const int* __restrict__ gidx, const double* __restrict__ Bg,
+                     const double* __restrict__ dBg, const double* __restrict__ TTp,
+                     const double* __restrict__ dTTp, const double* __restrict__ invh,
+                     const double* __restrict__ sqeta, double* D, double* __restrict__ out,
+                     XcfGeom g) {
+  extern __shared__ __align__(16) double sm[];
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int gq = lane >> 2, tq = lane & 3;  // DMMA fragment row / column group
+  const int np = g.nprim, mp = g.mp, qc = g.qc;
+  const size_t nbf = (size_t)g.nang * g.nrad;
+
+  // ---- phase 1: folded pair stage. Per pair p and 8 radial points,
+  // U = B S_p on DMMA (m8n8k4: rows q, columns j, depth i), then
+  // D1f[p,q] = sum_j U[q,j] B[q,j], Dmuf = 2 sum_j U[q,j] dB[q,j], the sum
+  // over the lanes' column groups by a butterfly of shuffles.
+  // D: [ns, nelem, 2, npl, nq] ----
+  const int n1 = g.ns * g.nelem * g.npc * g.nqc;
+  double* S = sm;                      // [pc][mp][lda] windows S_p = W_ab + W_ba, zero-padded
+  double* Bt = S + g.pc * mp * g.lda;  // [mp][ldq] B[q, j] transposed, zero-padded
+  double* dBt = Bt + mp * g.ldq;       // [mp][ldq]
+  int* rowoff = reinterpret_cast<int*>(dBt + mp * g.ldq);  // [pc][2]: a nrad, b nrad
+  int* gs = rowoff + 2 * g.pc;                             // [np]: gidx[e, :]
+  const int nS = g.pc * mp * g.lda, nB = mp * g.ldq;
+  for (int item = blockIdx.x; item < n1; item += gridDim.x) {
+    int r = item;
+    const int qx = r % g.nqc;
+    r /= g.nqc;
+    const int px = r % g.npc;
+    r /= g.npc;
+    const int e = r % g.nelem, s = r / g.nelem;
+    const int p0 = px * g.pc, q0 = qx * qc;
+    const int npx = min(g.pc, g.npl - p0), nqx = min(qc, g.nq - q0);
+    const double* Ps = P + (size_t)s * nbf * nbf;
+    __syncthreads();  // the previous item is consumed
+    for (int k = tid; k < 2 * npx; k += blockDim.x) rowoff[k] = pairs[2 * p0 + k] * g.nrad;
+    for (int k = tid; k < np; k += blockDim.x) gs[k] = gidx[e * np + k];
+    __syncthreads();
+    // the windows, XCF_U entries per thread with their loads in flight together
+    for (int base = tid; base < nS; base += XCF_U * blockDim.x) {
+      double v[XCF_U];
+#pragma unroll
+      for (int u = 0; u < XCF_U; ++u) {
+        const int idx = base + u * blockDim.x;
+        const int pl = idx / (mp * g.lda), rem = idx - pl * mp * g.lda;
+        const int i = rem / g.lda, j = rem - i * g.lda;
+        v[u] = 0.0;
+        if (idx < nS && pl < npx && i < np && j < np) {
+          const int gi = gs[i], gj = gs[j];
+          if (gi < g.nrad && gj < g.nrad) {
+            const int a = rowoff[2 * pl], b = rowoff[2 * pl + 1];
+            v[u] = Ps[(size_t)(a + gi) * nbf + b + gj];
+            if (a != b) v[u] += Ps[(size_t)(b + gi) * nbf + a + gj];
+          }
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < XCF_U; ++u)
+        if (base + u * blockDim.x < nS) S[base + u * blockDim.x] = v[u];
     }
-    return;
-  }
-  for (int idx = t; idx < np2; idx += blockDim.x) {
-    const int gi = gidx[e * nprim + idx / nprim];
-    const int gj = gidx[e * nprim + idx % nprim];
-    W[idx] = (gi < nrad && gj < nrad)
-                 ? P[((size_t)a * nrad + gi) * nbf + (size_t)b * nrad + gj]
-                 : 0.0;
-  }
-  __syncthreads();
-  for (int q = t; q < nq; q += blockDim.x) {
-    const double* Bq = Bg + ((size_t)e * nq + q) * nprim;
-    const double* dBq = dBg + ((size_t)e * nq + q) * nprim;
-    double s1 = 0.0, sm = 0.0;
-    for (int i = 0; i < nprim; ++i) {
-      double r = 0.0;
-      for (int j = 0; j < nprim; ++j) r += W[i * nprim + j] * Bq[j];
-      s1 += Bq[i] * r;
-      sm += dBq[i] * r;
+    for (int base = tid; base < nB; base += XCF_U * blockDim.x) {
+      double v[XCF_U], dv[XCF_U];
+#pragma unroll
+      for (int u = 0; u < XCF_U; ++u) {
+        const int idx = base + u * blockDim.x;
+        const int j = idx / g.ldq, ql = idx - j * g.ldq;
+        const bool in = idx < nB && j < np && ql < nqx;
+        const size_t src = in ? ((size_t)e * g.nq + q0 + ql) * np + j : 0;
+        v[u] = in ? Bg[src] : 0.0;
+        dv[u] = in ? dBg[src] : 0.0;
+      }
+#pragma unroll
+      for (int u = 0; u < XCF_U; ++u) {
+        if (base + u * blockDim.x < nB) {
+          Bt[base + u * blockDim.x] = v[u];
+          dBt[base + u * blockDim.x] = dv[u];
+        }
+      }
     }
-    d1[q] = s1;
-    dm[q] = 2.0 * sm;
+    __syncthreads();
+    const int ntile = (nqx + 7) / 8;
+    for (int task = warp; task < npx * ntile; task += XCF_WARPS) {
+      const int pl = task / ntile, qt = 8 * (task - pl * ntile);
+      const double* Sp = S + pl * mp * g.lda;
+      const int q = qt + gq;  // this lane's radial point (row of U)
+      double v1 = 0.0, vm = 0.0;
+      for (int n0 = 0; n0 < mp; n0 += 8) {  // U[q, j] = sum_i B[q, i] S_p[i, j]
+        double c0 = 0.0, c1 = 0.0;
+        for (int k = 0; k < np; k += 4)
+          dmma884(c0, c1, Bt[(k + tq) * g.ldq + q], Sp[(k + tq) * g.lda + n0 + gq]);
+        const int j = n0 + 2 * tq;  // this lane's columns j, j + 1 of U
+        v1 = fma(c0, Bt[j * g.ldq + q], v1);
+        v1 = fma(c1, Bt[(j + 1) * g.ldq + q], v1);
+        vm = fma(c0, dBt[j * g.ldq + q], vm);
+        vm = fma(c1, dBt[(j + 1) * g.ldq + q], vm);
+      }
+#pragma unroll
+      for (int k = 1; k < 4; k *= 2) {  // sum over the four column groups tq
+        v1 += __shfl_xor_sync(0xffffffffu, v1, k);
+        vm += __shfl_xor_sync(0xffffffffu, vm, k);
+      }
+      if (tq == 0 && q < nqx) {
+        double* d1o = D + (((size_t)s * g.nelem + e) * 2 * g.npl + p0 + pl) * g.nq + q0 + q;
+        d1o[0] = v1;
+        d1o[(size_t)g.npl * g.nq] = 2.0 * vm;
+      }
+    }
+  }
+
+  cg::this_grid().sync();
+
+  // ---- phase 2: grid contraction rho = D1f TT, u = Dmuf TT, v = D1f dTT
+  // over the live pairs on DMMA: one 8 x 8 (q, t) tile per block, its eight
+  // warps each a share of the pairs, their partial tiles added in warp order
+  // through shared memory ----
+  const int nqt = (g.nq + 7) / 8, ntt = (g.nt + 7) / 8, nks = (g.npl + 3) / 4;
+  const int n2 = g.ns * g.nelem * nqt * ntt;
+  const size_t nfield = (size_t)g.ns * g.nelem * g.nq * g.nt;
+  double* red = sm;  // [warps][3][64]
+  for (int item = blockIdx.x; item < n2; item += gridDim.x) {
+    const int tt = 8 * (item % ntt), qt = 8 * (item / ntt % nqt), es = item / (ntt * nqt);
+    const double* D1 = D + (size_t)es * 2 * g.npl * g.nq;
+    const double* Dm = D1 + (size_t)g.npl * g.nq;
+    const int q = qt + gq, t = tt + gq;
+    double r0 = 0.0, r1 = 0.0, u0 = 0.0, u1 = 0.0, w0 = 0.0, w1 = 0.0;
+#pragma unroll 4
+    for (int kk = warp; kk < nks; kk += XCF_WARPS) {
+      const int p = 4 * kk + tq;
+      const bool pa = p < g.npl;
+      const double a1 = pa && q < g.nq ? __ldcg(D1 + (size_t)p * g.nq + q) : 0.0;
+      const double am = pa && q < g.nq ? __ldcg(Dm + (size_t)p * g.nq + q) : 0.0;
+      const double bt = pa && t < g.nt ? __ldg(TTp + (size_t)p * g.nt + t) : 0.0;
+      const double bd = pa && t < g.nt ? __ldg(dTTp + (size_t)p * g.nt + t) : 0.0;
+      dmma884(r0, r1, a1, bt);
+      dmma884(u0, u1, am, bt);
+      dmma884(w0, w1, a1, bd);
+    }
+    __syncthreads();  // the previous item's partial tiles are consumed
+    double* rw = red + warp * 3 * 64 + gq * 8 + 2 * tq;
+    rw[0] = r0;
+    rw[1] = r1;
+    rw[64] = u0;
+    rw[65] = u1;
+    rw[128] = w0;
+    rw[129] = w1;
+    __syncthreads();
+    if (tid < 3 * 64) {
+      const int f = tid / 64, qq = qt + (tid % 64) / 8, t2 = tt + tid % 8;
+      double v = 0.0;
+      for (int w = 0; w < XCF_WARPS; ++w) v += red[w * 3 * 64 + tid];
+      if (qq < g.nq && t2 < g.nt) {
+        const int e = es % g.nelem;
+        const size_t o = ((size_t)es * g.nq + qq) * g.nt + t2;
+        const double h = invh[((size_t)e * g.nq + qq) * g.nt + t2];
+        out[f * nfield + o] = f == 0 ? v : (f == 1 ? v * h : v * (sqeta[t2] * h));
+      }
+    }
   }
 }
 
-// one thread per grid point (e, q, t)
-__global__ void xc_fields_grid_kernel(
-    const double* __restrict__ D1, const double* __restrict__ Dmu,
-    const double* __restrict__ TT, const double* __restrict__ dTT,
-    const double* __restrict__ invh, const double* __restrict__ sqeta,
-    double* __restrict__ rho, double* __restrict__ du,
-    double* __restrict__ dv, int npair, int nelem, int nq, int nt) {
-  const size_t total = (size_t)nelem * nq * nt;
-  for (size_t idx = (size_t)blockIdx.x * blockDim.x + threadIdx.x; idx < total;
-       idx += (size_t)gridDim.x * blockDim.x) {
-    const int t = (int)(idx % nt);
-    const size_t eq = idx / nt;
-    double r = 0.0, u = 0.0, v = 0.0;
-    for (int ab = 0; ab < npair; ++ab) {
-      const double tt = TT[(size_t)ab * nt + t];
-      const double dt = dTT[(size_t)ab * nt + t];
-      const double d1 = D1[(size_t)ab * nelem * nq + eq];
-      const double dm = Dmu[(size_t)ab * nelem * nq + eq];
-      r += tt * d1;
-      u += tt * dm;
-      v += dt * d1;
-    }
-    const double h = invh[idx];
-    rho[idx] = r;
-    du[idx] = u * h;
-    dv[idx] = v * (sqeta[t] * h);
+// Blocks of this kernel that one SM holds at `smem` bytes of dynamic shared
+// memory, cached per device and size. The kernel is first allowed the whole
+// 227 KB and the largest shared-memory carveout, once per device, so that
+// the occupancy computed here is the one a cooperative launch is held to.
+static int xcf_blocks_per_sm(int device, int smem) {
+  static bool ready[8] = {false};
+  static int cached_dev[8] = {-1, -1, -1, -1, -1, -1, -1, -1}, cached_smem[8], cached_n[8];
+  static int next = 0;
+  for (int k = 0; k < 8; ++k)
+    if (cached_dev[k] == device && cached_smem[k] == smem) return cached_n[k];
+  if (!ready[device]) {
+    if (cudaFuncSetAttribute(xc_fields_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             232448) != cudaSuccess ||
+        cudaFuncSetAttribute(xc_fields_kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                             (int)cudaSharedmemCarveoutMaxShared) != cudaSuccess)
+      return 0;
+    ready[device] = true;
   }
+  int n = 0;
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, xc_fields_kernel, XCF_THREADS, smem) !=
+      cudaSuccess)
+    return 0;
+  cached_dev[next] = device;
+  cached_smem[next] = smem;
+  cached_n[next] = n;
+  next = (next + 1) % 8;
+  return n;
 }
 
-// D1, Dmu [nang*nang, nelem, nq]: caller-allocated scratch; rho, du, dv:
-// outputs [nelem, nq, nt]. Returns a cudaError_t.
-extern "C" int dia_xc_fields_launch(
-    const double* P, const int* gidx, const double* Bg, const double* dBg,
-    const double* TT, const double* dTT, const double* invh,
-    const double* sqeta, double* D1, double* Dmu, double* rho, double* du,
-    double* dv, int nang, int nelem, int nq, int nprim, int nrad, int nt,
-    int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
-  cudaStream_t st = (cudaStream_t)stream;
-  const int np2 = nprim * nprim;
-  const int width = np2 > nq ? np2 : nq;
-  const int block1 = ((width + 31) / 32) * 32 > 1024 ? 1024 : ((width + 31) / 32) * 32;
-  xc_fields_pair_kernel<<<dim3(nang * nang, nelem), block1,
-                          (size_t)np2 * sizeof(double), st>>>(
-      P, gidx, Bg, dBg, TT, dTT, D1, Dmu, nang, nelem, nq, nprim, nrad, nt);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  const int block2 = 128;
-  const size_t total = (size_t)nelem * nq * nt;
-  int grid2 = (int)((total + block2 - 1) / block2);
-  if (grid2 > 4096) grid2 = 4096;
-  xc_fields_grid_kernel<<<grid2, block2, 0, st>>>(
-      D1, Dmu, TT, dTT, invh, sqeta, rho, du, dv, nang * nang, nelem, nq, nt);
-  return (int)cudaGetLastError();
+// The launch's arguments, as kernels/dia_xc_fields.py:_Launch lays them out:
+// the pointers first, then the sizes. D: scratch [ns, nelem, 2, npl, nq];
+// out: [3, ns, nelem, nq, nt] (rho, drho_u, drho_v). pc, qc (a multiple of 8)
+// and smem from the wrapper's plan (fields_plan).
+struct XcfLaunch {
+  const double* P;
+  const int *pairs, *gidx;
+  const double *Bg, *dBg, *TTp, *dTTp, *invh, *sqeta;
+  double *D, *out;
+  void* stream;
+  int ns, nang, nelem, nq, nprim, nrad, nt, npl, pc, qc, smem, device;
+};
+
+// Returns a cudaError_t.
+extern "C" int dia_xc_fields_launch(const XcfLaunch* a) {
+  const cudaError_t set = cudaSetDevice(a->device);
+  if (set != cudaSuccess) return (int)set;
+  if (a->pc < 1 || a->qc < 8 || a->qc % 8) return (int)cudaErrorInvalidValue;
+  static int sm_count[8] = {0};
+  if (a->device < 0 || a->device >= 8) return (int)cudaErrorInvalidDevice;
+  if (!sm_count[a->device]) {
+    const cudaError_t err =
+        cudaDeviceGetAttribute(&sm_count[a->device], cudaDevAttrMultiProcessorCount, a->device);
+    if (err != cudaSuccess) return (int)err;
+  }
+  const int per_sm = xcf_blocks_per_sm(a->device, a->smem);
+  if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+  const int mp = (a->nprim + 7) / 8 * 8;
+  XcfGeom g{a->ns, a->nang, a->nelem, a->nq, a->nprim, a->nrad, a->nt, a->npl, a->pc, a->qc, mp,
+            dmma_ld(mp), dmma_ld(a->qc), (a->npl + a->pc - 1) / a->pc,
+            (a->nq + a->qc - 1) / a->qc};
+  const long long n1 = (long long)g.ns * g.nelem * g.npc * g.nqc;
+  const long long n2 = (long long)g.ns * g.nelem * ((g.nq + 7) / 8) * ((g.nt + 7) / 8);
+  const long long want = n1 > n2 ? n1 : n2;
+  int grid = per_sm * sm_count[a->device];
+  if (want < grid) grid = (int)want;
+  void* args[] = {(void*)&a->P,   (void*)&a->pairs, (void*)&a->gidx, (void*)&a->Bg,
+                  (void*)&a->dBg, (void*)&a->TTp,   (void*)&a->dTTp, (void*)&a->invh,
+                  (void*)&a->sqeta, (void*)&a->D,   (void*)&a->out,  &g};
+  return (int)cudaLaunchCooperativeKernel((const void*)xc_fields_kernel, grid, XCF_THREADS,
+                                          args, (size_t)a->smem, (cudaStream_t)a->stream);
 }

@@ -1,151 +1,292 @@
-// Diatomic XC Fock kernel K5: the [nbf, nbf] XC Fock matrix (bf = a * nrad
-// + n) from the weighted potentials on the prolate-spheroidal grid, in f64.
+// Diatomic XC Fock kernel K5: the XC Fock matrices F [ns, nbf, nbf] (bf =
+// a * nrad + n) of ns = 1 or 2 spins from their weighted potentials on the
+// prolate-spheroidal grid, shell mask included, in f64.
 //
 // Replaces the LDA/GGA part of helfem_tpu/models/diatomic_dft.py:
-// eval_fxc_dia.fock (diatomic_dft.py:156-165) and its scatter-add into the
-// padded 4-index square (:197-200). Inputs are wvr = w vr, wgu = w gu invh
-// and wgv = w gv invh sqeta on the grid [nelem, nq, nt]:
+// eval_fxc_dia.fock (diatomic_dft.py:156-165), its scatter-add into the
+// padded 4-index square (:197-200) and the shell mask applied after it
+// (:206-208). Inputs are wvr = w vr, wgu = w gu invh and wgv = w gv invh
+// sqeta on the grid [ns, nelem, nq, nt]:
 //
 //   A1[a,b,e,q] = sum_t wvr TT[a,b,t],  B1 = sum_t wgu TT,  C1 = sum_t wgv dTT
 //   Fel[a,b,e,i,j] = sum_q (A1 + C1)[a,b,e,q] B_i B_j + B1[a,b,e,q] dB_i B_j
 //                          + B1[b,a,e,q] dB_j B_i        (B = B[e,q,:])
-//   F[a nrad + n, b nrad + m] = sum of Fel[a,b,e,i,j] over the elements e
-//                               with gidx[e,i] = n and gidx[e,j] = m
+//   F[a nrad + n, b nrad + m] = mask[a nrad + n] mask[b nrad + m] x the sum
+//       of Fel[a,b,e,i,j] over the elements e with gidx[e,i] = n, gidx[e,j] = m
 //
-// The shell mask stays outside, as in the JAX package. Shell pairs whose
-// angular tables vanish (TT = dTT = 0 exactly for m_a != m_b) get exact
-// zeros without work.
+// Work: TT and dTT are symmetric in (a, b) (checked once when the grid is
+// built, models/diatomic_dft.py:pair_tables), so A1, B1, C1 are, and
+// Fel[b,a] = Fel[a,b], symmetric in (i, j): one element block per live
+// unordered pair p, its i <= j half, X_p = A1 + C1 and Y_p = B1:
+//   Fel_p[i,j] = sum_q X_p[q] B_i B_j + Y_p[q] (dB_i B_j + B_i dB_j).
+// Dead pairs (m_a != m_b) get exact zeros and no work.
 //
-// Two launches: xc_fock_pair_kernel, one block per (shell pair, element),
-// contracts the grid potentials with the pair's angular tables into shared
-// memory and forms the element block Fel; xc_fock_assemble_kernel, one
-// block row per shell pair, assembles owner-computes (fem_owners.cuh) and
-// drops the trash slot: deterministic, no atomics.
+// One cooperative launch for all spins, three phases joined by grid-wide
+// barriers:
+//   A. X, Y [ns, nelem, 2, nq, npl] on the FP64 tensor cores (mma.sync
+//      m8n8k4, csrc/dmma.cuh), one 8 x 8 (point, pair) tile per warp task,
+//      depth nt.
+//   B. Fel [ns, nelem, npl, nprim^2] on the tensor cores against the
+//      products B_i B_j and dB_i B_j + B_i dB_j tabulated with the grid
+//      (element_tables), one 8 x 8 (pair, ij) tile per warp task, depth nq,
+//      written mirrored. Both scratches stay in L2.
+//      Phases A and B each also zero half of F with 16-byte stores, which
+//      overlap the warps still in their tiles.
+//   C. owner-computes assembly of the live pairs' element windows over the
+//      zeros: one warp per row segment (spin, pair, orientation (a, b) or
+//      (b, a), row n), its lanes over the columns that share an element
+//      with n (the grid's band table, at most 2 nprim - 1), each entry the
+//      sum of its (at most 2 x 2) element contributions in element order
+//      (the owner slots precomputed with the grid and staged in shared
+//      memory), times the mask, written once.
+// Fixed-order sums throughout: two calls give the same bits, and a spin's
+// matrix does not depend on ns.
 //
-// Bound on the H100: at the N2 bench shapes (nang=19, nelem=5, nq=40,
-// nprim=8, nt=24) a call writes the 3.5 MB Fock matrix and does about
-// 20 MFLOP, so it is bound by its writes and launch latency.
+// Bound on the H100 (chip_smoke.py:xc_kernel_inputs): a call writes the
+// dense F, 3.5 MB per spin at N2 and 136 MB at lmax=12 (about 41 us), far
+// more bytes than it reads or operations it does: it is bound by its
+// writes, and at N2 by the launch and the barriers.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
-#include "fem_owners.cuh"
+#include "dmma.cuh"
 
-// grid (nang*nang, nelem); block: max(np2, nq) rounded up to a warp;
-// dynamic shared memory 3*nq doubles.
-__global__ void xc_fock_pair_kernel(
-    const double* __restrict__ wvr, const double* __restrict__ wgu,
-    const double* __restrict__ wgv, const double* __restrict__ Bg,
-    const double* __restrict__ dBg, const double* __restrict__ TT,
-    const double* __restrict__ dTT, double* __restrict__ Fel, int nang,
-    int nelem, int nq, int nprim, int nt) {
-  extern __shared__ double sh[];
-  __shared__ int live;
-  double* X = sh;        // A1 + C1
-  double* Y = sh + nq;   // B1[a, b]
-  double* Yt = Y + nq;   // B1[b, a]
-  const int ab = blockIdx.x, e = blockIdx.y, t = threadIdx.x;
-  const int a = ab / nang, b = ab % nang, ba = b * nang + a;
-  const int np2 = nprim * nprim;
-  const double* tab = TT + (size_t)ab * nt;
-  const double* dtab = dTT + (size_t)ab * nt;
-  const double* tba = TT + (size_t)ba * nt;
-  if (t == 0) live = 0;
-  __syncthreads();
-  for (int k = t; k < nt; k += blockDim.x)
-    if (tab[k] != 0.0 || dtab[k] != 0.0 || tba[k] != 0.0) live = 1;
-  __syncthreads();
-  double* out = Fel + ((size_t)ab * nelem + e) * np2;
-  if (!live) {
-    for (int ij = t; ij < np2; ij += blockDim.x) out[ij] = 0.0;
-    return;
-  }
-  for (int q = t; q < nq; q += blockDim.x) {
-    const size_t base = ((size_t)e * nq + q) * nt;
-    double a1 = 0.0, c1 = 0.0, b1 = 0.0, b1t = 0.0;
-    for (int k = 0; k < nt; ++k) {
-      a1 += wvr[base + k] * tab[k];
-      c1 += wgv[base + k] * dtab[k];
-      b1 += wgu[base + k] * tab[k];
-      b1t += wgu[base + k] * tba[k];
-    }
-    X[q] = a1 + c1;
-    Y[q] = b1;
-    Yt[q] = b1t;
-  }
-  __syncthreads();
-  for (int ij = t; ij < np2; ij += blockDim.x) {
-    const int i = ij / nprim, j = ij % nprim;
-    double acc = 0.0;
-    for (int q = 0; q < nq; ++q) {
-      const size_t r = ((size_t)e * nq + q) * nprim;
-      const double Bi = Bg[r + i], Bj = Bg[r + j];
-      acc += X[q] * Bi * Bj + Y[q] * dBg[r + i] * Bj + Yt[q] * dBg[r + j] * Bi;
-    }
-    out[ij] = acc;
-  }
-}
+namespace cg = cooperative_groups;
 
-// grid (tiles, nang*nang); dynamic shared memory (nelem*nprim + 2*nrad) ints.
-__global__ void xc_fock_assemble_kernel(const double* __restrict__ Fel,
-                                        const int* __restrict__ gidx,
-                                        double* __restrict__ F, int nang,
-                                        int nelem, int nprim, int nrad) {
-  extern __shared__ int ism[];
-  int* gs = ism;
-  int* own = gs + nelem * nprim;
-  const int ab = blockIdx.y, a = ab / nang, b = ab % nang;
-  const int np2 = nprim * nprim;
-  for (int t = threadIdx.x; t < nelem * nprim; t += blockDim.x) gs[t] = gidx[t];
-  __syncthreads();
-  build_owners(gs, nelem, nprim, nrad, own);
-  __syncthreads();
-  const double* Fe = Fel + (size_t)ab * nelem * np2;
-  const size_t nbf = (size_t)nang * nrad;
-  const size_t total = (size_t)nrad * nrad;
-  for (size_t idx = (size_t)blockIdx.x * blockDim.x + threadIdx.x; idx < total;
-       idx += (size_t)gridDim.x * blockDim.x) {
-    const int n = (int)(idx / nrad), m = (int)(idx % nrad);
-    double acc = 0.0;
-    for (int u = 0; u < HELFEM_MAX_OWNERS; ++u) {
-      const int ei = own[2 * n + u];
-      if (ei < 0) break;
-      for (int v = 0; v < HELFEM_MAX_OWNERS; ++v) {
-        const int ej = own[2 * m + v];
-        if (ej < 0) break;
-        const int e = ei / nprim;
-        if (ej / nprim != e) continue;
-        acc += Fe[(size_t)e * np2 + (ei % nprim) * nprim + ej % nprim];
+#define XCK_THREADS 256
+
+struct XckGeom {
+  int ns, nang, nelem, nq, nprim, nrad, nt, npl, nij, nijp;
+};
+
+__global__ void __launch_bounds__(XCK_THREADS, 4)
+    xc_fock_kernel(const double* __restrict__ wvr, const double* __restrict__ wgu,
+                   const double* __restrict__ wgv, const int* __restrict__ pairs,
+                   const int* __restrict__ band, const int* __restrict__ owners,
+                   const double* __restrict__ TTp, const double* __restrict__ dTTp,
+                   const int* __restrict__ ijs, const double* __restrict__ BBs,
+                   const double* __restrict__ SSs, const double* __restrict__ mask, double* XY,
+                   double* Fel, double* __restrict__ F, XckGeom g) {
+  const int tid = threadIdx.x, lane = tid % 32;
+  const int gq = lane >> 2, tq = lane & 3;  // DMMA fragment row / column group
+  const int np = g.nprim, np2 = np * np, nt = g.nt;
+  const size_t gtid = (size_t)blockIdx.x * blockDim.x + tid;
+  const size_t nthr = (size_t)gridDim.x * blockDim.x;
+  const int gwarp = (int)(gtid / 32), nwarps = (int)(nthr / 32);
+  const size_t nbf = (size_t)g.nang * g.nrad;
+  extern __shared__ int tabs[];  // band [nrad][2], owners [nrad][2], pairs [npl][2]
+  int* sband = tabs;
+  int* sown = sband + 2 * g.nrad;
+  int* spair = sown + 2 * g.nrad;
+  for (int k = tid; k < 2 * g.nrad; k += blockDim.x) {
+    sband[k] = band[k];
+    sown[k] = owners[k];
+  }
+  for (int k = tid; k < 2 * g.npl; k += blockDim.x) spair[k] = pairs[k];
+  // (the grid-wide barriers below also order these shared stores)
+
+  // the dense zero fill of F, half after each warp's phase-A tiles and half
+  // after its phase-B tiles, so that its stores overlap the tiles still
+  // running; phase C then writes the live pairs' element windows over it
+  const size_t nF2 = (size_t)g.ns * nbf * nbf / 2;  // double2 stores
+  double2* F2 = reinterpret_cast<double2*>(F);
+
+  // ---- phase A: pair potentials X = A1 + C1, Y = B1 [ns, nelem, 2, nq, npl]
+  // on DMMA, one 8 x 8 (q, p) tile per warp task: X = wvr TT^T + wgv dTT^T,
+  // Y = wgu TT^T (depth t) ----
+  const int nqt = (g.nq + 7) / 8, npt = (g.npl + 7) / 8;
+  const int nA = g.ns * g.nelem * nqt * npt;
+  for (int task = gwarp; task < nA; task += nwarps) {
+    const int pt = 8 * (task % npt), qt = 8 * (task / npt % nqt), es = task / (npt * nqt);
+    const int q = qt + gq, p = pt + gq;
+    const size_t w = ((size_t)es * g.nq + q) * nt;
+    double x0 = 0.0, x1 = 0.0, y0 = 0.0, y1 = 0.0;
+#pragma unroll 3
+    for (int k = 0; k < nt; k += 4) {
+      const int t = k + tq;
+      const bool wa = q < g.nq && t < nt, pa = p < g.npl && t < nt;
+      const double av = wa ? wvr[w + t] : 0.0, ag = wa ? wgv[w + t] : 0.0;
+      const double au = wa ? wgu[w + t] : 0.0;
+      const double bt = pa ? TTp[(size_t)p * nt + t] : 0.0;
+      const double bd = pa ? dTTp[(size_t)p * nt + t] : 0.0;
+      dmma884(x0, x1, av, bt);
+      dmma884(x0, x1, ag, bd);
+      dmma884(y0, y1, au, bt);
+    }
+    const int pc = pt + 2 * tq;
+    if (q < g.nq) {
+      double* xo = XY + ((size_t)es * 2 * g.nq + q) * g.npl + pc;
+      double* yo = xo + (size_t)g.nq * g.npl;
+      if (pc < g.npl) {
+        xo[0] = x0;
+        yo[0] = y0;
+      }
+      if (pc + 1 < g.npl) {
+        xo[1] = x1;
+        yo[1] = y1;
       }
     }
-    F[((size_t)a * nrad + n) * nbf + (size_t)b * nrad + m] = acc;
+  }
+  for (size_t k = gtid; k < nF2 / 2; k += nthr) F2[k] = make_double2(0.0, 0.0);
+  cg::this_grid().sync();
+
+  // ---- phase B: element blocks Fel [ns, nelem, npl, np^2] of the live
+  // pairs on DMMA, one 8 x 8 (p, ij) tile per warp task, ij over i <= j:
+  // Fel = X^T BB + Y^T SS (depth q); written mirrored ----
+  const int njt = g.nijp / 8;
+  const int nB = g.ns * g.nelem * npt * njt;
+  for (int task = gwarp; task < nB; task += nwarps) {
+    const int jt = 8 * (task % njt), pt = 8 * (task / njt % npt), es = task / (njt * npt);
+    const int e = es % g.nelem, p = pt + gq;
+    const double* X = XY + (size_t)es * 2 * g.nq * g.npl;
+    const double* Y = X + (size_t)g.nq * g.npl;
+    const double* bb = BBs + (size_t)e * g.nq * g.nijp + jt + gq;
+    const double* ss = SSs + (size_t)e * g.nq * g.nijp + jt + gq;
+    double f0 = 0.0, f1 = 0.0;
+#pragma unroll 8
+    for (int k = 0; k < g.nq; k += 4) {
+      const int q = k + tq;
+      const bool qa = q < g.nq, xa = qa && p < g.npl;
+      const double ax = xa ? __ldcg(X + (size_t)q * g.npl + p) : 0.0;
+      const double ay = xa ? __ldcg(Y + (size_t)q * g.npl + p) : 0.0;
+      const double b1 = qa ? __ldg(bb + (size_t)q * g.nijp) : 0.0;
+      const double b2 = qa ? __ldg(ss + (size_t)q * g.nijp) : 0.0;
+      dmma884(f0, f1, ax, b1);
+      dmma884(f0, f1, ay, b2);
+    }
+    if (p < g.npl) {
+      double* out = Fel + ((size_t)es * g.npl + p) * np2;
+      const double v[2] = {f0, f1};
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        const int ij = jt + 2 * tq + u;
+        if (ij >= g.nij) break;
+        const int packed = __ldg(ijs + ij), i = packed >> 16, j = packed & 0xffff;
+        out[i * np + j] = v[u];
+        out[j * np + i] = v[u];
+      }
+    }
+  }
+  for (size_t k = nF2 / 2 + gtid; k < nF2; k += nthr) F2[k] = make_double2(0.0, 0.0);
+  if (gtid == 0 && (size_t)g.ns * nbf * nbf % 2) F[(size_t)g.ns * nbf * nbf - 1] = 0.0;
+
+  cg::this_grid().sync();
+
+  // ---- phase C: owner-computes assembly of the element windows of the live
+  // pairs, mask included: one warp per row segment (spin, live pair,
+  // orientation (a, b) or (b, a), row n), its lanes over the columns
+  // band[n] = the slots of the elements that cover n (at most 2 nprim - 1),
+  // each entry the sum of its (at most 2 x 2) element contributions in
+  // element order, written once ----
+  const int nC = g.ns * g.npl * 2 * g.nrad;
+  for (int task = gwarp; task < nC; task += nwarps) {
+    int r = task;
+    const int n = r % g.nrad;
+    r /= g.nrad;
+    const int flip = r % 2;
+    r /= 2;
+    const int p = r % g.npl, s = r / g.npl;
+    const int pa = spair[2 * p], pb = spair[2 * p + 1];
+    if (flip && pa == pb) continue;
+    const int mlo = sband[2 * n], mhi = sband[2 * n + 1];
+    const int own_u[2] = {sown[2 * n], sown[2 * n + 1]};
+    const int a = flip ? pb : pa, b = flip ? pa : pb;
+    const size_t row = (size_t)a * g.nrad + n;
+    const double mr = mask ? __ldg(mask + row) : 1.0;
+    const double* Fs = Fel + ((size_t)s * g.nelem * g.npl + p) * np2;
+    const size_t estride = (size_t)g.npl * np2;  // one element further
+    double* Frow = F + ((size_t)s * nbf + row) * nbf + (size_t)b * g.nrad;
+    for (int m = mlo + lane; m <= mhi; m += 32) {
+      const int own_w[2] = {sown[2 * m], sown[2 * m + 1]};
+      double acc = 0.0;
+#pragma unroll
+      for (int x = 0; x < 2; ++x) {
+        const int u = own_u[x];
+        if (u < 0) break;
+        const int e = u / np, i = u - e * np;
+#pragma unroll
+        for (int y = 0; y < 2; ++y) {
+          const int w = own_w[y];
+          if (w < 0) break;
+          if (w / np != e) continue;
+          acc += __ldcg(Fs + e * estride + i * np + (w - e * np));
+        }
+      }
+      Frow[m] = mask ? acc * mr * __ldg(mask + (size_t)b * g.nrad + m) : acc;
+    }
   }
 }
 
-// Fel [nang*nang, nelem, nprim^2]: caller-allocated scratch; F: output
-// [nang*nrad, nang*nrad]. Returns a cudaError_t.
-extern "C" int dia_xc_fock_launch(const double* wvr, const double* wgu,
-                                  const double* wgv, const int* gidx,
-                                  const double* Bg, const double* dBg,
-                                  const double* TT, const double* dTT,
-                                  double* Fel, double* F, int nang, int nelem,
-                                  int nq, int nprim, int nrad, int nt,
-                                  int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
+// Blocks of this kernel that one SM holds at `smem` bytes of dynamic shared
+// memory, cached per device and size. The kernel is first allowed the whole
+// 227 KB and the largest shared-memory carveout, once per device, so that
+// the occupancy computed here is the one a cooperative launch is held to.
+static int xck_blocks_per_sm(int device, int smem) {
+  static bool ready[8] = {false};
+  static int cached_dev[8] = {-1, -1, -1, -1, -1, -1, -1, -1}, cached_smem[8], cached_n[8];
+  static int next = 0;
+  for (int k = 0; k < 8; ++k)
+    if (cached_dev[k] == device && cached_smem[k] == smem) return cached_n[k];
+  if (!ready[device]) {
+    if (cudaFuncSetAttribute(xc_fock_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             232448) != cudaSuccess ||
+        cudaFuncSetAttribute(xc_fock_kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                             (int)cudaSharedmemCarveoutMaxShared) != cudaSuccess)
+      return 0;
+    ready[device] = true;
+  }
+  int n = 0;
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, xc_fock_kernel, XCK_THREADS, smem) !=
+      cudaSuccess)
+    return 0;
+  cached_dev[next] = device;
+  cached_smem[next] = smem;
+  cached_n[next] = n;
+  next = (next + 1) % 8;
+  return n;
+}
+
+// The launch's arguments, as kernels/dia_xc_fock.py:_Launch lays them out:
+// the pointers first, then the sizes. XY: scratch [ns, nelem, 2, nq, npl];
+// Fel: scratch [ns, nelem, npl, nprim^2]; F: output [ns, nbf, nbf]; mask
+// [nbf] or null (no mask). The grid tables come from
+// models/diatomic_dft.py (pair_tables, element_tables).
+struct XckLaunch {
+  const double *wvr, *wgu, *wgv;
+  const int *pairs, *band, *owners;
+  const double *TTp, *dTTp;
+  const int* ijs;
+  const double *BBs, *SSs, *mask;
+  double *XY, *Fel, *F;
+  void* stream;
+  int ns, nang, nelem, nq, nprim, nrad, nt, npl, device;
+};
+
+// Returns a cudaError_t.
+extern "C" int dia_xc_fock_launch(const XckLaunch* a) {
+  cudaError_t err = cudaSetDevice(a->device);
   if (err != cudaSuccess) return (int)err;
-  cudaStream_t st = (cudaStream_t)stream;
-  const int np2 = nprim * nprim;
-  const int width = np2 > nq ? np2 : nq;
-  const int block1 = ((width + 31) / 32) * 32 > 1024 ? 1024 : ((width + 31) / 32) * 32;
-  xc_fock_pair_kernel<<<dim3(nang * nang, nelem), block1,
-                        3 * (size_t)nq * sizeof(double), st>>>(
-      wvr, wgu, wgv, Bg, dBg, TT, dTT, Fel, nang, nelem, nq, nprim, nt);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  const int block = 256;
-  int tiles = (int)(((size_t)nrad * nrad + block - 1) / block);
-  if (tiles > 16) tiles = 16;
-  const size_t sm2 = (size_t)(nelem * nprim + 2 * nrad) * sizeof(int);
-  xc_fock_assemble_kernel<<<dim3(tiles, nang * nang), block, sm2, st>>>(
-      Fel, gidx, F, nang, nelem, nprim, nrad);
-  return (int)cudaGetLastError();
+  if (a->nprim > 0xffff) return (int)cudaErrorInvalidValue;
+  static int sm_count[8] = {0};
+  if (a->device < 0 || a->device >= 8) return (int)cudaErrorInvalidDevice;
+  if (!sm_count[a->device]) {
+    err = cudaDeviceGetAttribute(&sm_count[a->device], cudaDevAttrMultiProcessorCount,
+                                 a->device);
+    if (err != cudaSuccess) return (int)err;
+  }
+  const int smem = 4 * (4 * a->nrad + 2 * a->npl);
+  const int per_sm = xck_blocks_per_sm(a->device, smem);
+  if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+  const int nij = a->nprim * (a->nprim + 1) / 2;
+  XckGeom g{a->ns, a->nang, a->nelem, a->nq, a->nprim, a->nrad, a->nt, a->npl, nij,
+            (nij + 7) / 8 * 8};
+  void* args[] = {(void*)&a->wvr,  (void*)&a->wgu,  (void*)&a->wgv,    (void*)&a->pairs,
+                  (void*)&a->band, (void*)&a->owners, (void*)&a->TTp,
+                  (void*)&a->dTTp,
+                  (void*)&a->ijs,  (void*)&a->BBs,  (void*)&a->SSs,    (void*)&a->mask,
+                  (void*)&a->XY,   (void*)&a->Fel,  (void*)&a->F,      &g};
+  return (int)cudaLaunchCooperativeKernel((const void*)xc_fock_kernel,
+                                          per_sm * sm_count[a->device], XCK_THREADS, args,
+                                          (size_t)smem, (cudaStream_t)a->stream);
 }

@@ -31,8 +31,8 @@ _SIGNATURES = {
     "radial_exchange_launch": [_P] * 7 + [_I] * 6 + [_P],
     "radial_coulomb_launch": [_P] * 10 + [_I] * 6 + [_P],
     "radial_coulomb_dia_launch": [_P] * 16 + [_I] * 5 + [_P],
-    "dia_xc_fields_launch": [_P] * 13 + [_I] * 7 + [_P],
-    "dia_xc_fock_launch": [_P] * 10 + [_I] * 7 + [_P],
+    "dia_xc_fields_launch": [_P],
+    "dia_xc_fock_launch": [_P],
     "radial_exchange_dia_occ_launch": [_P] * 14 + [_I] * 10 + [_P],
     "radial_exchange_dia_launch": [_P] * 11 + [_I] * 8 + [_P],
     "matmul_probe_launch": [_P] * 5 + [_I] * 5 + [_P],

@@ -29,6 +29,22 @@ def check_gidx(gidx: np.ndarray, nrad: int) -> None:
                          "two element slots; the CUDA kernels assume two")
 
 
+def grid_template(cache: dict, g, ns: int, build):
+    """build() once per (grid, spin count): a wrapper's launch arguments that
+    depend only on the grid (a DiaGridOps, immutable), cached under the
+    grid's id with the grid itself held, so that the id stays its own; at
+    most 8 entries."""
+    key = (id(g), ns)
+    hit = cache.get(key)
+    if hit is not None and hit[0] is g:
+        return hit[1]
+    value = build()
+    if len(cache) >= 8:
+        cache.clear()
+    cache[key] = (g, value)
+    return value
+
+
 def on_cpu(name: str, *tensors: torch.Tensor) -> bool:
     """True when every input lies on the CPU (the plain version runs), False
     when every input lies on one CUDA device (the kernel runs); raises on a

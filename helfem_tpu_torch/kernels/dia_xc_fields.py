@@ -1,88 +1,134 @@
 """K4 dia_xc_fields: the density and its gradient components on the
-diatomic DFT grid, as a hand-written CUDA kernel (csrc/dia_xc_fields.cu) and
-its plain PyTorch version.
+diatomic DFT grid for one or two spin densities, as a hand-written CUDA
+kernel (csrc/dia_xc_fields.cu) and its plain PyTorch version.
 
 Replaces the LDA/GGA part of helfem_tpu/models/diatomic_dft.py:_fields_dia
 (diatomic_dft.py:97-103).
 """
 
+import ctypes
+
 import torch
 import torch.nn.functional as F
 
 from helfem_tpu_torch.kernels import _build
-from helfem_tpu_torch.kernels._common import (
-    check_kernel_inputs, expect_shape, launches, on_cpu,
-)
+from helfem_tpu_torch.kernels._common import grid_template, launches, on_cpu
 
 __all__ = ["dia_xc_fields", "dia_xc_fields_plain"]
 
+_SMEM = 232448  # one block's shared memory on the H100
 
-def dia_xc_fields(P: torch.Tensor, gidx: torch.Tensor, Bg: torch.Tensor,
-                  dBg: torch.Tensor, TT: torch.Tensor, dTT: torch.Tensor,
-                  invh: torch.Tensor, sqeta: torch.Tensor):
-    """(rho, drho_u, drho_v) [nelem, nq, nt] of the density P [nbf, nbf]
-    (bf = a * nrad + n).
 
-    gidx [nelem, np] int32 (nrad = trash slot), Bg/dBg [nelem, nq, np],
-    TT/dTT [nang, nang, nt], invh [nelem, nq, nt], sqeta [nt]. CPU inputs
-    run the plain version; CUDA inputs launch the kernel. The kernel does
-    not check gidx's values: pass the gidx of a grid made by build_dia_grid
-    or from_jax_grid."""
+class _Launch(ctypes.Structure):
+    """csrc/dia_xc_fields.cu:XcfLaunch: the pointers, then the sizes."""
+
+    _fields_ = ([(n, ctypes.c_void_p) for n in ("P", "pairs", "gidx", "Bg", "dBg", "TTp", "dTTp",
+                                                 "invh", "sqeta", "D", "out", "stream")]
+                + [(n, ctypes.c_int) for n in ("ns", "nang", "nelem", "nq", "nprim", "nrad", "nt",
+                                               "npl", "pc", "qc", "smem", "device")])
+
+
+def _ld(n: int) -> int:
+    """csrc/dmma.cuh:dmma_ld: a row stride >= n, 4 mod 16 (in doubles)."""
+    return n + (20 - n % 16) % 16
+
+
+def fields_plan(nprim: int, nq: int) -> tuple[int, int, int]:
+    """(pairs, radial points, dynamic shared-memory bytes) of one phase-1
+    item of the kernel (csrc/dia_xc_fields.cu takes them as given): the
+    windows of up to 8 pairs and the B tables of up to 128 points (a
+    multiple of 8), each within 64 KB, and at least phase 2's 12 KB of
+    partial tiles. Raises ValueError past the card's shared memory (nprim
+    above about 150)."""
+    mp = -(-nprim // 8) * 8
+    qc = min(-(-nq // 8) * 8, 128)
+    while qc > 8 and 2 * mp * _ld(qc) > 8192:
+        qc -= 8
+    pc = max(1, min(8, 8192 // (mp * _ld(mp))))
+    smem = max(8 * (pc * mp * _ld(mp) + 2 * mp * _ld(qc)) + 4 * (2 * pc + nprim), 8 * 3 * 8 * 64)
+    if smem > _SMEM:
+        raise ValueError(f"dia_xc_fields: nprim={nprim} needs {smem} bytes of shared memory, "
+                         f"above the card's {_SMEM}")
+    return pc, qc, smem
+
+
+_templates: dict = {}  # _common.grid_template's cache of _template
+
+
+def _template(g, ns: int, dev):
+    """The launch arguments that depend only on the grid, and the sizes."""
+    nang = g.TT.shape[0]
+    nelem, nq, nprim = g.Bg.shape
+    nrad, nt, npl = g.owners.shape[0], g.sqeta.shape[0], g.pairs.shape[0]
+    pc, qc, smem = fields_plan(nprim, nq)
+    t = _Launch(**{n: getattr(g, n).data_ptr() for n in ("pairs", "gidx", "Bg", "dBg", "TTp",
+                                                         "dTTp", "invh", "sqeta")},
+                ns=ns, nang=nang, nelem=nelem, nq=nq, nprim=nprim, nrad=nrad, nt=nt, npl=npl,
+                pc=pc, qc=qc, smem=smem, device=dev.index)
+    sizes = (nang * nrad, ns * nelem * nq * nt, 2 * ns * nelem * npl * nq, (nelem, nq, nt))
+    return t, sizes
+
+
+def dia_xc_fields(P: torch.Tensor, g):
+    """(rho, drho_u, drho_v), each [ns, nelem, nq, nt], of the spin densities
+    P [ns, nbf, nbf] (ns 1 or 2; bf = a * nrad + n) on the grid g (a
+    DiaGridOps from build_dia_grid or from_jax_grid, whose tables were
+    checked when it was built).
+
+    CPU inputs run the plain version; CUDA inputs launch the kernel, one
+    launch for all spins. Only P is checked per call."""
     name = "dia_xc_fields"
-    args = (P, gidx, Bg, dBg, TT, dTT, invh, sqeta)
-    if on_cpu(name, *args):
-        return dia_xc_fields_plain(*args)
-    check_kernel_inputs(
-        name, {"P": P, "Bg": Bg, "dBg": dBg, "TT": TT, "dTT": dTT, "invh": invh,
-               "sqeta": sqeta},
-        {"gidx": gidx},
-    )
-    nang, _, nt = TT.shape
-    nelem, nq, nprim = Bg.shape
-    nbf = P.shape[0]
-    if nbf % nang:
-        raise ValueError(f"{name}: P has size {nbf}, not a multiple of nang={nang}")
-    nrad = nbf // nang
-    expect_shape(name, "P", P, (nbf, nbf))
-    expect_shape(name, "gidx", gidx, (nelem, nprim))
-    expect_shape(name, "dBg", dBg, (nelem, nq, nprim))
-    expect_shape(name, "dTT", dTT, (nang, nang, nt))
-    expect_shape(name, "invh", invh, (nelem, nq, nt))
-    expect_shape(name, "sqeta", sqeta, (nt,))
-    if nprim * nprim > 1024:
-        raise ValueError(f"{name}: nprim={nprim} exceeds the kernel's 32")
+    if on_cpu(name, P, g.Bg):
+        return dia_xc_fields_plain(P, g)
+    if P.dtype != torch.float64:
+        raise TypeError(f"{name}: P must be float64, got {P.dtype}")
+    if not P.is_contiguous():
+        raise ValueError(f"{name}: P must be contiguous")
+    ns = P.shape[0] if P.dim() == 3 else 0
     dev = P.device
-    opts = dict(dtype=torch.float64, device=dev)
-    D1 = torch.empty((nang * nang, nelem, nq), **opts)
-    Dmu = torch.empty((nang * nang, nelem, nq), **opts)
-    rho, du, dv = (torch.empty((nelem, nq, nt), **opts) for _ in range(3))
-    err = _build.lib().dia_xc_fields_launch(
-        *(t.data_ptr() for t in (*args, D1, Dmu, rho, du, dv)),
-        nang, nelem, nq, nprim, nrad, nt, dev.index,
-        torch.cuda.current_stream(dev).cuda_stream,
-    )
+    t, (nbf, nfield, nscratch, shape) = grid_template(_templates, g, ns,
+                                                      lambda: _template(g, ns, dev))
+    if ns not in (1, 2) or P.shape[1] != nbf or P.shape[2] != nbf:
+        raise ValueError(f"{name}: P has shape {tuple(P.shape)}, expected (ns, {nbf}, {nbf}) "
+                         "with ns 1 or 2")
+    # fields [3, ns, nelem, nq, nt], then the scratch D1, Dmu [ns, nelem, 2, npl, nq]
+    buf = torch.empty(3 * nfield + nscratch, dtype=torch.float64, device=dev)
+    a = _Launch.from_buffer_copy(t)
+    a.P, a.out = P.data_ptr(), buf.data_ptr()
+    a.D = a.out + 8 * 3 * nfield
+    # the current stream's handle without a Stream object (which costs 7.6 us
+    # per call on the H100's host)
+    a.stream = torch._C._cuda_getCurrentRawStream(dev.index)
+    err = _build.lib().dia_xc_fields_launch(ctypes.byref(a))
     if err:
         raise RuntimeError(f"{name}: kernel launch failed with cudaError_t {err}")
     launches[name] += 1
-    return rho, du, dv
+    return buf[:3 * nfield].view(3, ns, *shape).unbind(0)
 
 
-def dia_xc_fields_plain(P, gidx, Bg, dBg, TT, dTT, invh, sqeta):
-    """Plain PyTorch version of dia_xc_fields, faithful to
-    diatomic_dft.py:97-103 on the padded 4-index density, with
-    index_select over gidx."""
-    nang = TT.shape[0]
+def _fields_one(P, g):
+    """One spin, faithful to diatomic_dft.py:97-103 on the padded 4-index
+    density, with index_select over gidx."""
+    nang = g.TT.shape[0]
     nrad = P.shape[0] // nang
     n1 = nrad + 1
-    nelem, nprim = gidx.shape
-    gi = gidx.long()
+    nelem, nprim = g.gidx.shape
+    gi = g.gidx.long()
     lin = (gi[:, :, None] * n1 + gi[:, None, :]).reshape(-1)
     P4p = F.pad(P.reshape(nang, nrad, nang, nrad).permute(0, 2, 1, 3), (0, 1, 0, 1))
     Pg = P4p.reshape(nang, nang, n1 * n1).index_select(2, lin)
     Pg = Pg.reshape(nang, nang, nelem, nprim, nprim)
-    D1 = torch.einsum("abeij,eqi,eqj->abeq", Pg, Bg, Bg)
-    Dmu = 2.0 * torch.einsum("abeij,eqi,eqj->abeq", Pg, dBg, Bg)
-    rho = torch.einsum("abeq,abt->eqt", D1, TT)
-    drho_u = torch.einsum("abeq,abt->eqt", Dmu, TT) * invh
-    drho_v = torch.einsum("abeq,abt->eqt", D1, dTT) * (sqeta[None, None, :] * invh)
+    D1 = torch.einsum("abeij,eqi,eqj->abeq", Pg, g.Bg, g.Bg)
+    Dmu = 2.0 * torch.einsum("abeij,eqi,eqj->abeq", Pg, g.dBg, g.Bg)
+    rho = torch.einsum("abeq,abt->eqt", D1, g.TT)
+    drho_u = torch.einsum("abeq,abt->eqt", Dmu, g.TT) * g.invh
+    drho_v = torch.einsum("abeq,abt->eqt", D1, g.dTT) * (g.sqeta[None, None, :] * g.invh)
     return rho, drho_u, drho_v
+
+
+def dia_xc_fields_plain(P, g):
+    """Plain PyTorch version of dia_xc_fields: each spin on its own, so a
+    spin's fields do not depend on ns. Reads only helfem_tpu's tables (TT,
+    dTT, gidx, ...), not the live-pair tables."""
+    per_spin = [_fields_one(P[s], g) for s in range(P.shape[0])]
+    return tuple(torch.stack(f) for f in zip(*per_spin))

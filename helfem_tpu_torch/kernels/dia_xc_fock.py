@@ -1,82 +1,128 @@
-"""K5 dia_xc_fock: the XC Fock matrix from the weighted grid potentials of
-the diatomic DFT grid, as a hand-written CUDA kernel (csrc/dia_xc_fock.cu)
-and its plain PyTorch version.
+"""K5 dia_xc_fock: the XC Fock matrices from the weighted grid potentials of
+the diatomic DFT grid, for one or two spins, as a hand-written CUDA kernel
+(csrc/dia_xc_fock.cu) and its plain PyTorch version.
 
 Replaces the LDA/GGA part of helfem_tpu/models/diatomic_dft.py:
-eval_fxc_dia.fock (diatomic_dft.py:156-165) and its scatter-add
-(:197-200). The shell mask is applied by the caller.
+eval_fxc_dia.fock (diatomic_dft.py:156-165), its scatter-add (:197-200) and
+the shell mask that eval_fxc_dia applies after it (:206-208).
 """
+
+import ctypes
 
 import torch
 
 from helfem_tpu_torch.kernels import _build
-from helfem_tpu_torch.kernels._common import (
-    check_kernel_inputs, expect_shape, launches, on_cpu,
-)
+from helfem_tpu_torch.kernels._common import grid_template, launches, on_cpu
 
 __all__ = ["dia_xc_fock", "dia_xc_fock_plain"]
 
+_GRID = ("pairs", "band", "owners", "TTp", "dTTp", "ijs", "BBs", "SSs")
+_SMEM = 232448  # one block's shared memory on the H100
 
-def dia_xc_fock(wvr: torch.Tensor, wgu: torch.Tensor, wgv: torch.Tensor,
-                gidx: torch.Tensor, Bg: torch.Tensor, dBg: torch.Tensor,
-                TT: torch.Tensor, dTT: torch.Tensor, nrad: int) -> torch.Tensor:
-    """F [nang * nrad, nang * nrad] from wvr = w vr, wgu = w gu invh and
-    wgv = w gv invh sqeta [nelem, nq, nt].
 
-    gidx [nelem, np] int32 (nrad = trash slot), Bg/dBg [nelem, nq, np],
-    TT/dTT [nang, nang, nt]. CPU inputs run the plain version; CUDA inputs
-    launch the kernel. The kernel does not check gidx's values: pass the
-    gidx of a grid made by build_dia_grid or from_jax_grid."""
+class _Launch(ctypes.Structure):
+    """csrc/dia_xc_fock.cu:XckLaunch: the pointers, then the sizes."""
+
+    _fields_ = ([(n, ctypes.c_void_p) for n in ("wvr", "wgu", "wgv", *_GRID, "mask", "XY", "Fel",
+                                                 "F", "stream")]
+                + [(n, ctypes.c_int) for n in ("ns", "nang", "nelem", "nq", "nprim", "nrad", "nt",
+                                               "npl", "device")])
+
+
+_templates: dict = {}  # _common.grid_template's cache of _template
+
+
+def _template(g, ns: int, dev):
+    """The launch arguments that depend only on the grid, and the sizes."""
+    nang = g.TT.shape[0]
+    nelem, nq, nprim = g.Bg.shape
+    nrad, nt, npl = g.owners.shape[0], g.sqeta.shape[0], g.pairs.shape[0]
+    if 4 * (4 * nrad + 2 * npl) > _SMEM:  # the kernel's tables in shared memory
+        raise ValueError(f"dia_xc_fock: {nrad} radial functions and {npl} live shell pairs "
+                         f"need more than the card's {_SMEM} bytes of shared memory")
+    t = _Launch(**{n: getattr(g, n).data_ptr() for n in _GRID}, ns=ns, nang=nang, nelem=nelem,
+                nq=nq, nprim=nprim, nrad=nrad, nt=nt, npl=npl, device=dev.index)
+    nbf = nang * nrad
+    sizes = (nbf, (ns, nelem, nq, nt), ns * nbf * nbf, ns * nelem * 2 * nq * npl,
+             ns * nelem * npl * nprim * nprim)
+    return t, sizes
+
+
+def dia_xc_fock(wvr: torch.Tensor, wgu: torch.Tensor, wgv: torch.Tensor, g,
+                mask: torch.Tensor | None = None) -> torch.Tensor:
+    """F [ns, nbf, nbf] (bf = a * nrad + n) from wvr = w vr, wgu = w gu invh
+    and wgv = w gv invh sqeta, each [ns, nelem, nq, nt] (ns 1 or 2), on the
+    grid g (a DiaGridOps from build_dia_grid or from_jax_grid, whose tables
+    were checked when it was built); F[s] * mask[:, None] * mask[None, :]
+    when the 0/1 shell mask [nbf] is given.
+
+    CPU inputs run the plain version; CUDA inputs launch the kernel, one
+    launch for all spins. Only the potentials and the mask are checked per
+    call."""
     name = "dia_xc_fock"
-    args = (wvr, wgu, wgv, gidx, Bg, dBg, TT, dTT)
-    if on_cpu(name, *args):
-        return dia_xc_fock_plain(*args, nrad)
-    check_kernel_inputs(
-        name, {"wvr": wvr, "wgu": wgu, "wgv": wgv, "Bg": Bg, "dBg": dBg, "TT": TT,
-               "dTT": dTT},
-        {"gidx": gidx},
-    )
-    nang, _, nt = TT.shape
-    nelem, nq, nprim = Bg.shape
-    for arg, t in (("wvr", wvr), ("wgu", wgu), ("wgv", wgv)):
-        expect_shape(name, arg, t, (nelem, nq, nt))
-    expect_shape(name, "gidx", gidx, (nelem, nprim))
-    expect_shape(name, "dBg", dBg, (nelem, nq, nprim))
-    expect_shape(name, "dTT", dTT, (nang, nang, nt))
-    if nprim * nprim > 1024:
-        raise ValueError(f"{name}: nprim={nprim} exceeds the kernel's 32")
-    if 3 * nq * 8 > 48 * 1024:
-        raise ValueError(f"{name}: nq={nq} exceeds the kernel's 2048 radial points")
+    tensors = (wvr, wgu, wgv, g.Bg) + (() if mask is None else (mask,))
+    if on_cpu(name, *tensors):
+        return dia_xc_fock_plain(wvr, wgu, wgv, g, mask)
+    ns = wvr.shape[0] if wvr.dim() == 4 else 0
     dev = wvr.device
-    opts = dict(dtype=torch.float64, device=dev)
-    Fel = torch.empty((nang * nang, nelem, nprim * nprim), **opts)
-    Fout = torch.empty((nang * nrad, nang * nrad), **opts)
-    err = _build.lib().dia_xc_fock_launch(
-        *(t.data_ptr() for t in (*args, Fel, Fout)),
-        nang, nelem, nq, nprim, nrad, nt, dev.index,
-        torch.cuda.current_stream(dev).cuda_stream,
-    )
+    t, (nbf, shape, nF, nXY, nFel) = grid_template(_templates, g, ns,
+                                                   lambda: _template(g, ns, dev))
+    for arg, x in (("wvr", wvr), ("wgu", wgu), ("wgv", wgv), ("mask", mask)):
+        if x is None:
+            continue
+        if x.dtype != torch.float64:
+            raise TypeError(f"{name}: {arg} must be float64, got {x.dtype}")
+        if not x.is_contiguous():
+            raise ValueError(f"{name}: {arg} must be contiguous")
+        want = (nbf,) if arg == "mask" else shape
+        if ns not in (1, 2) or x.shape != want:
+            raise ValueError(f"{name}: {arg} has shape {tuple(x.shape)}, expected {want} "
+                             "with ns 1 or 2")
+    # F [ns, nbf, nbf], then the scratch X, Y [ns, nelem, 2, nq, npl] and the
+    # element blocks [ns, nelem, npl, nprim^2]: one allocation
+    buf = torch.empty(nF + nXY + nFel, dtype=torch.float64, device=dev)
+    a = _Launch.from_buffer_copy(t)
+    a.wvr, a.wgu, a.wgv = wvr.data_ptr(), wgu.data_ptr(), wgv.data_ptr()
+    a.mask = None if mask is None else mask.data_ptr()
+    a.F = buf.data_ptr()
+    a.XY = a.F + 8 * nF
+    a.Fel = a.XY + 8 * nXY
+    # the current stream's handle without a Stream object (which costs 7.6 us
+    # per call on the H100's host)
+    a.stream = torch._C._cuda_getCurrentRawStream(dev.index)
+    err = _build.lib().dia_xc_fock_launch(ctypes.byref(a))
     if err:
         raise RuntimeError(f"{name}: kernel launch failed with cudaError_t {err}")
     launches[name] += 1
-    return Fout
+    return buf[:nF].view(ns, nbf, nbf)
 
 
-def dia_xc_fock_plain(wvr, wgu, wgv, gidx, Bg, dBg, TT, dTT, nrad: int) -> torch.Tensor:
-    """Plain PyTorch version of dia_xc_fock, faithful to
-    diatomic_dft.py:156-165 and :197-200 with index_add_ over gidx."""
-    nang = TT.shape[0]
+def _fock_one(wvr, wgu, wgv, g, nrad):
+    """One spin, faithful to diatomic_dft.py:156-165 and :197-200 with
+    index_add_ over gidx."""
+    nang = g.TT.shape[0]
     n1 = nrad + 1
-    gi = gidx.long()
+    gi = g.gidx.long()
     lin = (gi[:, :, None] * n1 + gi[:, None, :]).reshape(-1)
-    A1 = torch.einsum("eqt,abt->abeq", wvr, TT)
-    Fel = torch.einsum("abeq,eqi,eqj->abeij", A1, Bg, Bg)
-    B1 = torch.einsum("eqt,abt->abeq", wgu, TT)
-    rad = torch.einsum("abeq,eqi,eqj->abeij", B1, dBg, Bg)
+    A1 = torch.einsum("eqt,abt->abeq", wvr, g.TT)
+    Fel = torch.einsum("abeq,eqi,eqj->abeij", A1, g.Bg, g.Bg)
+    B1 = torch.einsum("eqt,abt->abeq", wgu, g.TT)
+    rad = torch.einsum("abeq,eqi,eqj->abeij", B1, g.dBg, g.Bg)
     Fel = Fel + rad + rad.transpose(0, 1).transpose(3, 4)
-    C1 = torch.einsum("eqt,abt->abeq", wgv, dTT)
-    Fel = Fel + torch.einsum("abeq,eqi,eqj->abeij", C1, Bg, Bg)
+    C1 = torch.einsum("eqt,abt->abeq", wgv, g.dTT)
+    Fel = Fel + torch.einsum("abeq,eqi,eqj->abeij", C1, g.Bg, g.Bg)
     F4 = torch.zeros((nang, nang, n1 * n1), dtype=Fel.dtype, device=Fel.device)
     F4.index_add_(2, lin, Fel.reshape(nang, nang, -1))
     F4 = F4.reshape(nang, nang, n1, n1)[:, :, :nrad, :nrad]
     return F4.permute(0, 2, 1, 3).reshape(nang * nrad, nang * nrad)
+
+
+def dia_xc_fock_plain(wvr, wgu, wgv, g, mask=None) -> torch.Tensor:
+    """Plain PyTorch version of dia_xc_fock: each spin on its own, then the
+    mask as eval_fxc_dia applies it (diatomic_dft.py:206-208). Reads only
+    helfem_tpu's tables, not the live-pair tables."""
+    nrad = g.owners.shape[0]
+    F = torch.stack([_fock_one(wvr[s], wgu[s], wgv[s], g, nrad) for s in range(wvr.shape[0])])
+    if mask is not None:
+        F = F * mask[None, :, None] * mask[None, None, :]
+    return F

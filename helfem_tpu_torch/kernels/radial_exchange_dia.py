@@ -71,6 +71,31 @@ def _inelem_plan(name: str, nprim: int, no: int | None) -> tuple[int, int, int, 
                      f"of shared memory, above the card's {_SMEM}")
 
 
+def _column_chunks(name: str, nprim: int, no: int) -> list[tuple[int, int]]:
+    """(start, stop) of the occupied-column chunks that the occupied-orbital
+    kernel runs one launch each: all no columns when _inelem_plan admits
+    them, else the fewest chunks of near-equal width that it admits. R is a
+    sum over the columns, so the chunks' results add up to the whole (up to
+    the order of the sums)."""
+    try:
+        _inelem_plan(name, nprim, no)
+        return [(0, no)]
+    except ValueError:
+        pass
+    lo, hi = 1, no  # the widest admitted width lies in [lo, hi)
+    _inelem_plan(name, nprim, lo)  # raises if not even one column fits
+    while hi - lo > 1:
+        mid = (lo + hi) // 2
+        try:
+            _inelem_plan(name, nprim, mid)
+            lo = mid
+        except ValueError:
+            hi = mid
+    k = -(-no // lo)
+    bounds = [no * c // k for c in range(k + 1)]
+    return list(zip(bounds[:-1], bounds[1:]))
+
+
 def _channel_groups(S: int, nang: int, nelem: int, nprim: int, tm: int, smem: int,
                     sms: int) -> int:
     """Channel groups G of the in-element GEMM: the G that finishes in the
@@ -112,7 +137,10 @@ def radial_exchange_dia_occ(Uw: torch.Tensor, V: torch.Tensor, teiJ3: torch.Tens
     like the upper cross-element triangle, by R_qr[b,c,n,m] = R_rq[c,b,m,n].
     teiJ3 [nlm, 3, nelem, np^2, np^2], dP0/dP2/dQ0/dQ2 [nlm, nelem, np, np],
     ilm [S] int32 (table row of each channel), gidx [nelem, np] int32. CPU
-    inputs run the plain version; CUDA inputs launch the kernel. ilm's and gidx's values are not checked: pass
+    inputs run the plain version; CUDA inputs launch the kernel, once per
+    column chunk of _column_chunks (once for all no columns where the
+    shared-memory plan admits them), the chunks' results summed in order.
+    ilm's and gidx's values are not checked: pass
     those of operators made by DiatomicBasis.build_operators or
     from_jax_operators."""
     name = "radial_exchange_dia_occ"
@@ -129,6 +157,20 @@ def radial_exchange_dia_occ(Uw: torch.Tensor, V: torch.Tensor, teiJ3: torch.Tens
     expect_shape(name, "Uw", Uw, (S, 2, 2, nang, n1, no))
     expect_shape(name, "V", V, (S, 2, 2, nang, n1, no))
     _check_tables(name, teiJ3, dP0, dP2, dQ0, dQ2, ilm, gidx, S)
+    K4 = None
+    for o0, o1 in _column_chunks(name, nprim, no):
+        whole = o1 - o0 == no
+        part = _launch_occ(name, Uw if whole else Uw[..., o0:o1].contiguous(),
+                           V if whole else V[..., o0:o1].contiguous(), args[2:])
+        K4 = part if K4 is None else K4.add_(part)
+    return K4
+
+
+def _launch_occ(name, Uw, V, tables):
+    """One launch of the occupied-orbital kernel on the columns of Uw, V."""
+    teiJ3, dP0, dP2, dQ0, dQ2, ilm, gidx = tables
+    S, _, _, nang, n1, no = Uw.shape
+    nelem, nprim = gidx.shape
     nrad = n1 - 1
     tm, smem, ns, wbuf = _inelem_plan(name, nprim, no)
     dev = Uw.device
@@ -144,7 +186,7 @@ def radial_exchange_dia_occ(Uw: torch.Tensor, V: torch.Tensor, teiJ3: torch.Tens
     X = torch.empty((npairs, nang * nprim, nang * nprim), **opts)
     K4 = torch.empty((nang, nang, nrad, nrad), **opts)
     err = _build.lib().radial_exchange_dia_occ_launch(
-        *(t.data_ptr() for t in (*args, part, ud, vd, X, K4)),
+        *(t.data_ptr() for t in (Uw, V, *tables, part, ud, vd, X, K4)),
         S, nelem, nprim, nang, nrad, no, G, ns, wbuf, dev.index,
         torch.cuda.current_stream(dev).cuda_stream,
     )

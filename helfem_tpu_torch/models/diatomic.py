@@ -576,8 +576,9 @@ def exchange_dia_occ(ops: DiatomicOperators, Co: torch.Tensor,
     LMfac and the +-|M| weights, and V) are torch.einsum; the radial core
     (window rank products, the in-element TEI contraction, the
     cross-element Q x R x P terms and the assembly) is the kernel
-    radial_exchange_dia_occ, launched once for all channels. The dense R
-    never exists in device memory."""
+    radial_exchange_dia_occ, launched once for all channels (once per
+    column chunk past the widest occupied width its shared-memory plan
+    admits). The dense R never exists in device memory."""
     Uw, V = exchange_factors(ops, Co, sgn)
     K4 = radial_exchange_dia_occ(Uw, V, ops.teiJ3, ops.dP0, ops.dP2, ops.dQ0, ops.dQ2,
                                  ops.step_ilm, ops.gidx)

@@ -32,7 +32,8 @@ __all__ = ["DiaGridOps", "build_dia_grid", "dia_grid_tables", "eval_fxc_dia",
 
 
 class DiaGridOps(NamedTuple):
-    """The LDA/GGA tables of helfem_tpu's DiaGridOps, on one device."""
+    """The LDA/GGA tables of helfem_tpu's DiaGridOps, on one device, and the
+    shell-pair tables the XC kernels read (built once with the grid)."""
 
     Bg: torch.Tensor  # [nelem, nq, nprim]
     dBg: torch.Tensor
@@ -42,6 +43,14 @@ class DiaGridOps(NamedTuple):
     dTT: torch.Tensor  # [nang, nang, nt] d/deta products
     sqeta: torch.Tensor  # [nt] sqrt(1 - eta^2)
     gidx: torch.Tensor  # [nelem, nprim] int32, trash slot = nrad
+    pairs: torch.Tensor  # [npl, 2] int32: live shell pairs a <= b
+    TTp: torch.Tensor  # [npl, nt] TT rows of the live pairs
+    dTTp: torch.Tensor  # [npl, nt] dTT rows of the live pairs
+    owners: torch.Tensor  # [nrad, 2] int32: element slots e * nprim + i covering n, else -1
+    band: torch.Tensor  # [nrad, 2] int32: first and last radial index sharing an element with n
+    ijs: torch.Tensor  # [nij] int32: (i << 16) | j of the element pairs i <= j, row by row
+    BBs: torch.Tensor  # [nelem, nq, nijp] B_i B_j at i <= j, zero-padded to nijp = 8k
+    SSs: torch.Tensor  # [nelem, nq, nijp] dB_i B_j + B_i dB_j
 
     def to(self, device) -> "DiaGridOps":
         return DiaGridOps(*(t.to(device) for t in self))
@@ -75,11 +84,66 @@ def dia_grid_tables(basis, neta: int = 0) -> dict[str, np.ndarray]:
                 gidx=basis.fem.gidx)
 
 
+def pair_tables(TT: np.ndarray, dTT: np.ndarray, gidx: np.ndarray,
+                nrad: int) -> dict[str, np.ndarray]:
+    """The shell-pair tables of the XC kernels: the live pairs a <= b (TT or
+    dTT not identically zero), their TT and dTT rows, the element slots
+    covering each radial function and the run of radial indices those
+    elements span.
+
+    Raises ValueError unless TT and dTT are exactly symmetric in (a, b): the
+    kernels fold (a, b) with (b, a) on that ground (D1[a,b] + D1[b,a] =
+    B^T (W_ab + W_ba) B for the density windows W, and the Fock element
+    block of (b, a) is that of (a, b))."""
+    TT, dTT = np.asarray(TT), np.asarray(dTT)
+    for name, T in (("TT", TT), ("dTT", dTT)):
+        if not np.array_equal(T, T.transpose(1, 0, 2)):
+            raise ValueError(f"{name} is not exactly symmetric in its two shell indices")
+    live = np.triu((TT != 0).any(-1) | (dTT != 0).any(-1))
+    a, b = np.nonzero(live)
+    gidx = np.asarray(gidx)
+    nprim = gidx.shape[1]
+    owners = np.full((nrad, 2), -1, dtype=np.int32)
+    band = np.zeros((nrad, 2), dtype=np.int32)
+    for slot, n in enumerate(gidx.ravel()):  # element order
+        if n < nrad:
+            owners[n, int(owners[n, 0] >= 0)] = slot
+    for n in range(nrad):
+        cover = np.unique(gidx[owners[n][owners[n] >= 0] // nprim])
+        cover = cover[cover < nrad]
+        band[n] = cover.min(), cover.max()
+        if len(cover) != cover.max() - cover.min() + 1 or len(cover) > 2 * nprim - 1:
+            raise ValueError("the elements covering a radial function do not span one "
+                             "run of at most 2 nprim - 1 radial indices")
+    return dict(pairs=np.stack([a, b], axis=1).astype(np.int32), TTp=TT[a, b], dTTp=dTT[a, b],
+                owners=owners, band=band)
+
+
+def element_tables(Bg: np.ndarray, dBg: np.ndarray) -> dict[str, np.ndarray]:
+    """The products of the element functions that the XC Fock kernel
+    contracts its pair potentials with, on the i <= j half (the element
+    blocks are symmetric in (i, j))."""
+    Bg, dBg = np.asarray(Bg), np.asarray(dBg)
+    nelem, nq, nprim = Bg.shape
+    i, j = np.triu_indices(nprim)
+    nijp = -(-len(i) // 8) * 8
+    BBs = np.zeros((nelem, nq, nijp))
+    SSs = np.zeros((nelem, nq, nijp))
+    BBs[:, :, :len(i)] = Bg[:, :, i] * Bg[:, :, j]
+    SSs[:, :, :len(i)] = dBg[:, :, i] * Bg[:, :, j] + Bg[:, :, i] * dBg[:, :, j]
+    return dict(ijs=(i << 16 | j).astype(np.int32), BBs=BBs, SSs=SSs)
+
+
+_INT_FIELDS = ("gidx", "pairs", "owners", "band", "ijs")
+
+
 def _grid(arrays: Mapping[str, np.ndarray], nrad: int, device) -> DiaGridOps:
     check_gidx(arrays["gidx"], nrad)
+    arrays = {**arrays, **pair_tables(arrays["TT"], arrays["dTT"], arrays["gidx"], nrad),
+              **element_tables(arrays["Bg"], arrays["dBg"])}
     return DiaGridOps(**{
         name: torch.tensor(np.asarray(arrays[name]),
-                           dtype=torch.int32 if name == "gidx" else torch.float64,
+                           dtype=torch.int32 if name in _INT_FIELDS else torch.float64,
                            device=device)
         for name in DiaGridOps._fields
     })
@@ -98,51 +162,47 @@ def build_dia_grid(basis, device, neta: int = 0) -> DiaGridOps:
 
 def _fields_dia(g: DiaGridOps, P: torch.Tensor, need_tau: bool = False,
                 need_lapl: bool = False):
-    """(rho, drho_u, drho_v) [nelem, nq, nt] of the density P [nbf, nbf]
+    """(rho, drho_u, drho_v) [nelem, nq, nt] of one density P [nbf, nbf]
     (diatomic_dft.py:95-103), through the dia_xc_fields kernel."""
     if need_tau or need_lapl:
         raise NotImplementedError("meta-GGA (tau) and laplacian fields on the diatomic "
                                   "grid are not ported to helfem_tpu_torch yet")
-    return dia_xc_fields(P.contiguous(), g.gidx, g.Bg, g.dBg, g.TT, g.dTT, g.invh, g.sqeta)
+    return tuple(f[0] for f in dia_xc_fields(P.contiguous()[None], g))
 
 
 def eval_fxc_dia(funcs, g: DiaGridOps, ops, Pa: torch.Tensor, Pb: torch.Tensor,
                  thr: float = 1e-12):
     """(Fxca, Fxcb, Exc, Nel) on the diatomic grid (diatomic_dft.py:127-209)
-    for LDA and GGA functionals."""
+    for LDA and GGA functionals. Both spins go through one launch of each
+    kernel; when Pb is Pa the fields are formed once and reused (the same
+    bits as forming them twice: the kernel is deterministic per spin)."""
     if any(f.family not in ("lda", "gga") for f in funcs):
         raise NotImplementedError("meta-GGA functionals on the diatomic grid are not "
                                   "ported to helfem_tpu_torch yet")
-    nrad = ops.shellmask.shape[-1]
-    ra, ua, va = _fields_dia(g, Pa)
-    rb, ub, vb = _fields_dia(g, Pb)
+    same = Pb is Pa
+    rho, du, dv = dia_xc_fields(Pa.contiguous()[None] if same else torch.stack((Pa, Pb)), g)
+    ra, ua, va = rho[0], du[0], dv[0]
+    rb, ub, vb = (ra, ua, va) if same else (rho[1], du[1], dv[1])
     saa = ua * ua + va * va
     sab = ua * ub + va * vb
     sbb = ub * ub + vb * vb
     e, vra, vrb, vsaa, vsab, vsbb = xc_eval(funcs, ra, rb, saa, sab, sbb, thr)
     Exc = torch.sum(g.w * e)
     Nel = torch.sum(g.w * (ra + rb))
-
-    def fock(vr, gu, gv):
-        # an LDA's sigma potentials are exact zeros, and so are gu and gv
-        return dia_xc_fock(g.w * vr, g.w * gu * g.invh,
-                           g.w * gv * g.invh * g.sqeta[None, None, :],
-                           g.gidx, g.Bg, g.dBg, g.TT, g.dTT, nrad)
-
-    gua = 2.0 * vsaa * ua + vsab * ub
-    gva = 2.0 * vsaa * va + vsab * vb
-    gub = 2.0 * vsbb * ub + vsab * ua
-    gvb = 2.0 * vsbb * vb + vsab * va
-    m2 = ops.shellmask.reshape(-1)
-    Fa = fock(vra, gua, gva) * m2[:, None] * m2[None, :]
-    Fb = fock(vrb, gub, gvb) * m2[:, None] * m2[None, :]
-    return Fa, Fb, Exc, Nel
+    # an LDA's sigma potentials are exact zeros, and so are gu and gv
+    gu = torch.stack((2.0 * vsaa * ua + vsab * ub, 2.0 * vsbb * ub + vsab * ua))
+    gv = torch.stack((2.0 * vsaa * va + vsab * vb, 2.0 * vsbb * vb + vsab * va))
+    F = dia_xc_fock(g.w * torch.stack((vra, vrb)), g.w * gu * g.invh,
+                    g.w * gv * g.invh * g.sqeta[None, None, :], g, ops.shellmask.reshape(-1))
+    return F[0], F[1], Exc, Nel
 
 
 def eval_overlap_dia(g: DiaGridOps, nang: int, nrad: int) -> torch.Tensor:
     """Grid overlap for the accuracy self-check (diatomic_dft.py:212-219),
     through the dia_xc_fock kernel with vr = 1 and no gradient terms."""
-    if g.TT.shape[0] != nang:
-        raise ValueError(f"grid has {g.TT.shape[0]} angular shells, expected {nang}")
-    zero = torch.zeros_like(g.w)
-    return dia_xc_fock(g.w, zero, zero, g.gidx, g.Bg, g.dBg, g.TT, g.dTT, nrad)
+    if g.TT.shape[0] != nang or g.owners.shape[0] != nrad:
+        raise ValueError(f"grid has {g.TT.shape[0]} x {g.owners.shape[0]} functions, "
+                         f"expected {nang} x {nrad}")
+    w = g.w[None]
+    zero = torch.zeros_like(w)
+    return dia_xc_fock(w, zero, zero, g)[0]

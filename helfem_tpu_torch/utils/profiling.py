@@ -1,16 +1,18 @@
-"""Warm SCF walls and a device-time breakdown on the card (torch.profiler),
-shared by chip_smoke.py and tools/profile_dia_scf.py."""
+"""Warm SCF walls, a device-time breakdown on the card and a kernel's device
+time per call (torch.profiler), shared by chip_smoke.py and the tools."""
 
 import time
 
 import torch
 
-__all__ = ["profile_scf"]
+__all__ = ["device_ms", "profile_scf"]
 
 
-def profile_scf(label: str, run, rows: int = 20) -> None:
+def profile_scf(label: str, run, rows: int = 20, kernels: tuple = ()) -> None:
     """Warm SCF walls (min of three) of run() -> result, and the device time
-    of one more SCF by kernel, from torch.profiler."""
+    of one more SCF by kernel, from torch.profiler; beside the table, the
+    device time and launches of each device kernel whose name contains one
+    of `kernels`."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -36,3 +38,25 @@ def profile_scf(label: str, run, rows: int = 20) -> None:
     print(f"profiled {label} SCF: wall {wall:.4f} s (profiler on), device busy "
           f"{busy:.4f} s = {100 * busy / wall:.1f} % of the wall")
     print(events.table(sort_by=key, row_limit=rows))
+    for name in kernels:
+        hits = [e for e in events if e.device_type == DeviceType.CUDA and name in e.key]
+        print(f"{label}: {name} device time {sum(getattr(e, key) for e in hits) * 1e-3:.4f} ms "
+              f"in {sum(e.count for e in hits)} launches per SCF")
+
+
+def device_ms(fn, reps: int = 20) -> float:
+    """Device time per call of fn() in ms: the time of the kernels it
+    launches, summed by torch.profiler over reps calls after one warm call,
+    without the host's dispatch between them."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    busy = sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA)
+    return busy / reps * 1e-3

@@ -17,7 +17,6 @@ from helfem_tpu_torch.kernels.matmul_probe import split_dd
 from helfem_tpu_torch.models.diatomic import (
     DiatomicBasis, _to4, exchange_factors, exchange_weights,
 )
-from helfem_tpu_torch.models.diatomic_dft import build_dia_grid
 from helfem_tpu_torch.scf.atomic_scf import scf_atom
 from helfem_tpu_torch.scf.diatomic_scf import scf_diatomic
 
@@ -182,9 +181,11 @@ def dia_basis(request):
 
 def _dia_inputs(basis, dev, seed=43):
     """Each diatomic kernel's inputs for a random symmetric
-    symmetry-block-diagonal density and random grid potentials."""
+    symmetry-block-diagonal density, and the XC kernels' for two spins
+    (chip_smoke.xc_kernel_inputs)."""
+    from chip_smoke import xc_kernel_inputs
+
     ops = basis.build_operators(dev)
-    g = build_dia_grid(basis, dev)
     rng = np.random.default_rng(seed)
     P = np.zeros((basis.nbf, basis.nbf))
     for idx in basis.sym_blocks():
@@ -195,8 +196,6 @@ def _dia_inputs(basis, dev, seed=43):
     nj = basis.njbd
     Paux0 = torch.einsum("sab,abIJ->sIJ", ops.GmLM[:nj], P4).contiguous()
     Paux2 = torch.einsum("sab,abIJ->sIJ", ops.GpLM[:nj], P4).contiguous()
-    wvr, wgu, wgv = (torch.tensor(rng.standard_normal(tuple(g.w.shape)), device=dev)
-                     for _ in range(3))
     # rank factors of 7 random occupied columns, and the dense R of the same
     # density, as exchange_dia_occ and exchange_dia form them
     Co = torch.tensor(rng.standard_normal((basis.nbf, 7)), device=dev)
@@ -208,8 +207,7 @@ def _dia_inputs(basis, dev, seed=43):
         "radial_exchange_dia": (R, *xtabs),
         "radial_coulomb_dia": (Paux0, Paux2, ops.teiJ3, ops.dP0, ops.dP2, ops.dQ0, ops.dQ2,
                                ops.LMfac, ops.LM_ilm[:nj], ops.gidx),
-        "dia_xc_fields": (P, g.gidx, g.Bg, g.dBg, g.TT, g.dTT, g.invh, g.sqeta),
-        "dia_xc_fock": (wvr, wgu, wgv, g.gidx, g.Bg, g.dBg, g.TT, g.dTT, basis.nrad),
+        **{name: args for name, (args, _, _) in xc_kernel_inputs(basis, dev, 2, seed).items()},
     }
 
 
@@ -255,6 +253,62 @@ def test_dia_scf_on_card_matches_cpu(cuda_device):
     assert gpu.converged and abs(gpu.E - cpu.E) < 1e-9
     assert all(kernels.launches[k] > before[k] for k in DIA_KERNELS[:3])
     assert all(kernels.launches[k] == before[k] for k in DIA_KERNELS[3:])  # no exchange in PBE
+
+
+# XC kernel shapes: the N2 bench and CO bases, the N2 lmax=12 bench basis,
+# elements past the old kernels' nprim 32, and more radial points per
+# element than the old K5's 2048
+XC_SHAPES = {
+    "n2": dict(Z1=7, Z2=7, Rbond=2.0743, lmax=(6, 6), rmax=25.0, nelem=5, nnodes=8),
+    "co": DIA_CONFIGS["co_l4"],
+    "lmax12": dict(Z1=7, Z2=7, Rbond=2.068, lmax=(12, 12, 12), rmax=40.0, nelem=5, nnodes=15),
+    "np33": dict(Z1=3, Z2=1, Rbond=3.015, lmax=(2, 1), rmax=20.0, nelem=2, nnodes=33),
+    "np40": dict(Z1=3, Z2=1, Rbond=3.015, lmax=(2, 1), rmax=20.0, nelem=2, nnodes=40),
+    "nq2100": dict(Z1=3, Z2=1, Rbond=3.015, lmax=(2, 1), rmax=20.0, nelem=2, nnodes=8,
+                   nquad=2100),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ns", [1, 2])
+@pytest.mark.parametrize("shape", list(XC_SHAPES))
+@pytest.mark.parametrize("name", ["dia_xc_fields", "dia_xc_fock"])
+def test_xc_kernel_matches_plain_on_card(cuda_device, name, shape, ns):
+    """K4 and K5 for one and two spins: one launch per call, 1e-12 x
+    max-abs of each output against the plain version, the same bits from
+    two calls."""
+    from chip_smoke import xc_kernel_inputs
+
+    args = xc_kernel_inputs(DiatomicBasis(**XC_SHAPES[shape]), cuda_device, ns, 47)[name][0]
+    before = kernels.launches[name]
+    out = _as_tuple(getattr(kernels, name)(*args))
+    again = _as_tuple(getattr(kernels, name)(*args))
+    torch.cuda.synchronize()
+    assert kernels.launches[name] == before + 2
+    ref = _as_tuple(getattr(kernels, name + "_plain")(*args))
+    for o, a, r in zip(out, again, ref):
+        assert o.shape[0] == ns and torch.equal(o, a)
+        assert float((o - r).abs().max()) <= TOL * float(r.abs().max())
+
+
+@pytest.mark.cuda
+def test_occupied_exchange_in_column_chunks_on_card(cuda_device):
+    """K6 at nprim 15 with 48 occupied columns, past the 34 that one launch
+    takes: two launches whose sum agrees with the plain version at 1e-12 x
+    max-abs, the same bits twice."""
+    from chip_smoke import random_exchange_inputs
+
+    name = "radial_exchange_dia_occ"
+    args = random_exchange_inputs(cuda_device, nang=9, nprim=15, nelem=2, nlm=2, no=48,
+                                  dense_channels=1, seed=23)[name][0]
+    before = kernels.launches[name]
+    out = kernels.radial_exchange_dia_occ(*args)
+    again = kernels.radial_exchange_dia_occ(*args)
+    torch.cuda.synchronize()
+    assert kernels.launches[name] == before + 4
+    ref = kernels.radial_exchange_dia_occ_plain(*args)
+    assert torch.equal(out, again)
+    assert float((out - ref).abs().max()) <= TOL * float(ref.abs().max())
 
 
 @pytest.mark.cuda
@@ -335,6 +389,28 @@ def test_exchange_plan_raises_past_shared_memory(nprim, largest):
     assert _inelem_plan("radial_exchange_dia_occ", nprim, largest)[1] <= _SMEM
     with pytest.raises(ValueError, match=f"no={largest + 1} .* nprim={nprim} need"):
         _inelem_plan("radial_exchange_dia_occ", nprim, largest + 1)
+
+
+@pytest.mark.parametrize("nprim, no", [(2, 250), (8, 103), (15, 48), (32, 40)])
+def test_exchange_column_chunks_cover_wide_occupations(nprim, no):
+    """Past the widest occupied width one launch takes (106, 102, 34, 14 at
+    these nprim), the occupied-orbital wrapper splits the columns into the
+    fewest contiguous chunks of near-equal width, each admitted by the plan;
+    at or below it, one chunk."""
+    from helfem_tpu_torch.kernels.radial_exchange_dia import _column_chunks, _inelem_plan
+
+    name = "radial_exchange_dia_occ"
+    largest = _largest_no(nprim)
+    assert no > largest
+    chunks = _column_chunks(name, nprim, no)
+    assert chunks[0][0] == 0 and chunks[-1][1] == no
+    assert all(a[1] == b[0] for a, b in zip(chunks, chunks[1:]))
+    assert len(chunks) == -(-no // largest)
+    widths = [b - a for a, b in chunks]
+    assert max(widths) - min(widths) <= 1
+    for w in set(widths):
+        _inelem_plan(name, nprim, w)
+    assert _column_chunks(name, nprim, largest) == [(0, largest)]
 
 
 def test_exchange_plan_at_lmax12_and_channel_groups():
