@@ -10,17 +10,21 @@ Phases, any failure raises and exits non-zero:
      -> exit non-zero with no result;
   2. build the CUDA kernels from helfem_tpu_torch/csrc/ (nvcc, sm_90a, one
      process per source, in parallel), timed against one nvcc call for all
-     sources, with each kernel's registers and spills from ptxas;
-     cuobjdump's SASS must show DMMA in every exchange in-element instance
-     and in both XC kernels, HGMMA with TF32 operands in every "reduced"
-     matmul probe instance, and FFMA with no HMMA or HGMMA in every "full"
-     one;
+     sources, with each kernel's registers and spills from ptxas (the two
+     atomic radial kernels must not spill); cuobjdump's SASS must show DMMA
+     in both atomic radial kernels, in every diatomic exchange in-element
+     instance and in both XC kernels, HGMMA with TF32 operands in every
+     "reduced" matmul probe instance, and FFMA with no HMMA or HGMMA in
+     every "full" one;
   3. each kernel against its plain PyTorch version on the card, on random
      symmetric block-diagonal densities (numpy seed): the atomic kernels at
-     the Ar and Xe bench shapes, the diatomic ones at the N2 bench shapes
-     and a heteronuclear CO shape (random grid potentials for the XC Fock,
-     random occupied columns for the exchange; both spins for the XC
-     kernels), the two exchange kernels also at a LiH shape and at the N2
+     the Ar and Xe bench shapes and on random tables at nprim 33 and 40, at
+     NM 29 with nprim 32 (past one block's shared memory for all M at once;
+     64 angular channels for the exchange) and in a Hermite element layout,
+     each twice with the same bits and one launch per call, the diatomic
+     ones at the N2 bench shapes and a heteronuclear CO shape (random grid
+     potentials for the XC Fock, random occupied columns for the exchange;
+     both spins for the XC kernels), the two exchange kernels also at a LiH shape and at the N2
      lmax=12 shapes on random tables, the XC kernels at the N2 lmax=12
      basis for one spin: max-abs error <= 1e-12 x max-abs of the result;
      beside each call time the kernel's device time (torch.profiler); the
@@ -30,10 +34,11 @@ Phases, any failure raises and exits non-zero:
      probes their one-call library counterpart, torch.matmul in true f32
      for "full" and in TF32 for "reduced" (three calls for matmul_dd);
   4. Ar HF (the bench config) through the port's atomic CLI on the card:
-     within 1e-6 Eh of the numerical HF limit, and both atomic kernels'
-     launch counters must rise during the SCF;
+     within 1e-6 Eh of the numerical HF limit and 1e-10 Eh of the port's
+     pinned value, both atomic kernels launched once per iteration;
   5. three warm Ar HF SCF walls and a torch.profiler breakdown of the device
-     time of one more SCF, by kernel;
+     time of one more SCF, by kernel, each SCF with the atomic kernels once
+     per iteration; their device time per SCF;
   6. N2 PBE (the bench config) through the port's diatomic CLI on the card:
      within 1e-6 Eh of the JAX package's f64 value, the three diatomic
      kernels' launch counters must rise during the SCF, the XC kernels'
@@ -55,11 +60,15 @@ Phases, any failure raises and exits non-zero:
      with the occupied-orbital exchange kernel launched; the warm wall. Then
      N2 PBE at the same basis and the PBE bench geometry, cold (converged,
      Nel on the grid within 1e-6 of 14, within 1e-8 Eh of the pinned value,
-     the XC kernels once per iteration), then warm with its profile.
+     the XC kernels once per iteration), then warm with its profile;
+ 12. Xe HF (the bench's heavier atomic point, lmax=3) through the port's
+     atomic CLI: converged to convthr 1e-9, within 3e-6 Eh of the Xe HF limit,
+     the atomic kernels once per iteration.
 The last two lines are the kernels' JSON record and {"ok": true, ...}.
 """
 
 import json
+import re
 import subprocess
 import sys
 import time
@@ -70,6 +79,20 @@ import torch
 AR_HF_LIMIT = -526.8175128  # numerical HF limit (Saito 2009), bench.py gate
 AR_CLI = ["--Z", "Ar", "--lmax", "1", "--mmax", "1", "--nelem", "10",
           "--nnodes", "15", "--Rmax", "40", "--iguess", "3", "--convthr", "1e-9"]
+AR_HF_PORT = -526.817512802713  # the port's converged value, the same on every run
+XE_HF_LIMIT = -7232.1383638  # Cinal 2020, J. Math. Chem. 58, 1571; bench.py gate
+XE_CLI = ["--Z", "Xe", "--lmax", "3", "--mmax", "3", "--nelem", "8", "--nnodes", "12",
+          "--Rmax", "40", "--zexp", "2.5", "--iguess", "3", "--convthr", "1e-9"]
+ATOMIC = ("radial_exchange", "radial_coulomb")  # one launch each per SCF iteration
+# the atomic kernels on random tables: (NL, NM, nang, nelem, nnodes, primbas)
+WIDE_SHAPES = {
+    "np33": (3, 5, 4, 2, 33, 4),
+    "np40": (3, 5, 4, 2, 40, 4),
+    # NM nprim^2 doubles past one block's 227 KB; 64 channels = two groups
+    "nm29_np32": (2, 29, 64, 2, 32, 4),
+    # Hermite elements with two continuous derivatives: neighbours share 3 slots
+    "hermite": (3, 5, 4, 4, 5, 8),
+}
 N2_PBE_REF = -108.978708437276  # helfem_tpu on the CPU in f64, bench.py gate
 N2_CLI = ["--Z1", "N", "--Z2", "N", "--Rbond", "2.0743", "--lmax", "6,6", "--nelem", "5",
           "--nnodes", "8", "--Rmax", "25", "--method", "PBE", "--convthr", "1e-7"]
@@ -128,6 +151,7 @@ KERNELS = {  # name -> (source, replaces, shape of its record)
 }
 XC = ("dia_xc_fields", "dia_xc_fock")  # one launch each per SCF iteration
 INELEM = "exdia_inelem_kernel"  # the in-element GEMM core of K6 and K7
+RADIAL_SASS = ("radial_exchange_kernel", "radial_coulomb_kernel")  # K1, K2 on DMMA
 XC_SASS = ("xc_fields_kernel", "xc_fock_kernel")  # K4 and K5, both on DMMA
 PROBE_TF32, PROBE_FULL = "matmul_tf32_kernel", "matmul_full_kernel"  # K8/K9 instances
 PROBES = {  # name -> (source, {precision: replaces})
@@ -142,11 +166,11 @@ PROBES = {  # name -> (source, {precision: replaces})
 
 def sass_check(build) -> str:
     """cuobjdump's SASS of the built library, instance by instance: the
-    exchange in-element kernel and the two XC kernels must issue DMMA (FP64
-    tensor-core) instructions; every "reduced" probe kernel HGMMA (wgmma) with TF32
-    operands; every "full" probe kernel FFMA and no HMMA or HGMMA, since a
-    "full" kernel gone to TF32 would pass the 1e-5 gate at small K and be
-    another function."""
+    atomic radial kernels, the diatomic exchange in-element kernel and the
+    two XC kernels must issue DMMA (FP64 tensor-core) instructions; every
+    "reduced" probe kernel HGMMA (wgmma) with TF32 operands; every "full"
+    probe kernel FFMA and no HMMA or HGMMA, since a "full" kernel gone to
+    TF32 would pass the 1e-5 gate at small K and be another function."""
     from pathlib import Path
 
     cuobjdump = Path(build._nvcc()).with_name("cuobjdump")
@@ -160,7 +184,7 @@ def sass_check(build) -> str:
         def n_op(op, also=""):
             return sum(op in line and also in line for line in lines)
 
-        if INELEM in name or any(k in name for k in XC_SASS):
+        if INELEM in name or any(k in name for k in XC_SASS + RADIAL_SASS):
             counts[name] = {"DMMA": n_op("DMMA")}
             bad += [name] if not counts[name]["DMMA"] else []
         elif PROBE_TF32 in name:
@@ -170,12 +194,26 @@ def sass_check(build) -> str:
             counts[name] = {"FFMA": n_op("FFMA"), "HMMA": n_op("HMMA"), "HGMMA": n_op("HGMMA")}
             c = counts[name]
             bad += [name] if not c["FFMA"] or c["HMMA"] or c["HGMMA"] else []
-    missing = [k for k in (INELEM, *XC_SASS, PROBE_TF32, PROBE_FULL)
+    missing = [k for k in (INELEM, *XC_SASS, *RADIAL_SASS, PROBE_TF32, PROBE_FULL)
                if not any(k in n for n in counts)]
     if bad or missing:
         raise RuntimeError(f"SASS check failed for {bad or missing}: {counts}")
     return "SASS instructions per instance:\n" + "\n".join(f"  {k}: {v}"
                                                          for k, v in counts.items())
+
+
+def radial_spills(log: str) -> str:
+    """The spill bytes (stores + loads) ptxas reports for the atomic radial
+    kernels; raises if either spills or is missing from the log."""
+    lines = log.splitlines()
+    spills = {}
+    for line, props in zip(lines, lines[1:]):
+        name = next((k for k in RADIAL_SASS if k in line and "Function properties" in line), None)
+        if name:
+            spills[name] = sum(int(n) for n in re.findall(r"(\d+) bytes spill", props))
+    if set(spills) != set(RADIAL_SASS) or any(spills.values()):
+        raise RuntimeError(f"atomic radial kernels spill or are missing: {spills}")
+    return f"atomic radial kernels' spill bytes: {spills}"
 
 
 def phase(title: str) -> None:
@@ -228,12 +266,31 @@ def window_entries(gidx: torch.Tensor, nrad: int) -> int:
     return int(cover[:nrad, :nrad].sum())
 
 
+def atomic_kernel_work(tei, U, V, Lfac, gidx, Paux, Pd) -> dict:
+    """Per atomic kernel (its inputs, the bytes it must move, the operations
+    it does) for operators tei, U = disjL, V = disjm1L, Lfac, gidx and the
+    densities Paux (Coulomb) and Pd (exchange). The bytes count each input
+    entry the function needs once (of a matrix read through gidx, the
+    entries its element windows cover) and each output once."""
+    NL, NM, nrad = Paux.shape[:3]
+    nang = Pd.shape[0]
+    nelem, npr = gidx.shape
+    # exchange: in-element np^4 contraction per element, two np^3 products per
+    # element pair, per (L, channel); Coulomb: np^4 per element plus traces
+    xflops = NL * nang * (2 * nelem * npr**4 + 4 * npr**3 * nelem * (nelem - 1))
+    cflops = NL * NM * nelem * (2 * npr**4 + 8 * npr**2)
+    return {
+        "radial_exchange": ((tei, U, V, gidx, Pd),
+                            nbytes(tei, U, V, gidx, Pd) + 8 * NL * nang * nrad * nrad, xflops),
+        "radial_coulomb": ((Paux, tei, U, V, Lfac, gidx),
+                           8 * NL * NM * window_entries(gidx, nrad)
+                           + nbytes(tei, U, V, Lfac, gidx) + nbytes(Paux), cflops),
+    }
+
+
 def kernel_inputs(cfg: dict, dev, seed: int = 7):
-    """Operators of an atomic bench basis, and per kernel (its inputs, the
-    bytes it must move, the operations it does) for a random symmetric
-    channel-block-diagonal density. The bytes count each input entry the
-    function needs once (of a matrix read through gidx, the entries its
-    element windows cover) and each output once."""
+    """Operators of an atomic bench basis, and atomic_kernel_work for a
+    random symmetric channel-block-diagonal density."""
     from helfem_tpu_torch.models.atomic import AtomicBasis
 
     basis = AtomicBasis(**cfg)
@@ -245,22 +302,35 @@ def kernel_inputs(cfg: dict, dev, seed: int = 7):
     a = torch.arange(basis.nang, device=dev)
     P4[a, a] = Pd
     Paux = torch.einsum("LMab,abIJ->LMIJ", ops.G, P4).contiguous()
-    NL, NM = Paux.shape[:2]
-    nelem, npr = ops.gidx.shape
-    nang, nrad = basis.nang, basis.nrad
-    # exchange: in-element np^4 contraction per element, two np^3 products per
-    # element pair, per (L, channel); Coulomb: np^4 per element plus traces
-    xflops = NL * nang * (2 * nelem * npr**4 + 4 * npr**3 * nelem * (nelem - 1))
-    cflops = NL * NM * nelem * (2 * npr**4 + 8 * npr**2)
-    return {
-        "radial_exchange": ((ops.tei, ops.disjL, ops.disjm1L, ops.gidx, Pd),
-                            nbytes(ops.tei, ops.disjL, ops.disjm1L, ops.gidx, Pd)
-                            + 8 * NL * nang * nrad * nrad, xflops),
-        "radial_coulomb": ((Paux, ops.tei, ops.disjL, ops.disjm1L, ops.Lfac, ops.gidx),
-                           8 * NL * NM * window_entries(ops.gidx, nrad)
-                           + nbytes(ops.tei, ops.disjL, ops.disjm1L, ops.Lfac, ops.gidx)
-                           + nbytes(Paux), cflops),
-    }
+    return atomic_kernel_work(ops.tei, ops.disjL, ops.disjm1L, ops.Lfac, ops.gidx, Paux, Pd)
+
+
+def random_atomic_inputs(dev, NL: int, NM: int, nang: int, nelem: int, nnodes: int,
+                         primbas: int = 4, seed: int = 19):
+    """atomic_kernel_work on random tables: the element layout (gidx) of an
+    FEMBasis of nelem elements of primbas's polynomials on nnodes nodes
+    (4 LIP; 5-11 Hermite, whose neighbours share nder + 1 slots), random
+    tei, disjL, disjm1L and symmetric densities Paux [NL, NM] and Pd [nang].
+    The kernels compute their functions for any tables."""
+    from helfem_tpu_torch.ops.fem import FEMBasis
+    from helfem_tpu_torch.ops.polynomials import get_basis
+
+    fem = FEMBasis(get_basis(primbas, nnodes), np.linspace(0.0, 10.0, nelem + 1))
+    npr, nrad = fem.nprim, fem.nbf
+    rng = np.random.default_rng(seed)
+
+    def normal(*shape):
+        return torch.tensor(rng.standard_normal(shape), device=dev)
+
+    def symmetric(*lead):
+        X = normal(*lead, nrad, nrad)
+        return (X + X.transpose(-1, -2)).contiguous()
+
+    tei = normal(NL, nelem, npr, npr, npr, npr)
+    U, V = normal(NL, nelem, npr, npr), normal(NL, nelem, npr, npr)
+    Lfac = 4.0 * np.pi / (2.0 * torch.arange(NL, dtype=torch.float64, device=dev) + 1.0)
+    gidx = torch.tensor(fem.gidx, dtype=torch.int32, device=dev)
+    return atomic_kernel_work(tei, U, V, Lfac, gidx, symmetric(NL, NM), symmetric(nang))
 
 
 def xc_kernel_inputs(basis, dev, ns: int = 2, seed: int = 11):
@@ -461,6 +531,20 @@ def _outputs(out):
     return out if isinstance(out, tuple) else (out,)
 
 
+def same_bits_twice(name: str, args) -> None:
+    """Two calls of the kernel: one launch each and the same bits."""
+    from helfem_tpu_torch import kernels
+
+    kern = getattr(kernels, name)
+    before = kernels.launches[name]
+    first, second = _outputs(kern(*args)), _outputs(kern(*args))
+    torch.cuda.synchronize()
+    if kernels.launches[name] != before + 2:
+        raise RuntimeError(f"{name}: {kernels.launches[name] - before} launches in two calls")
+    if not all(torch.equal(x, y) for x, y in zip(first, second)):
+        raise RuntimeError(f"{name}: two calls on the same inputs gave different bits")
+
+
 def compare(name: str, args, bytes_moved: int, flops: int, warmup: int = 5,
             reps: int = 50) -> dict:
     """The kernel against its plain version on the same card inputs: gate
@@ -608,6 +692,7 @@ def main() -> None:
           f"for comparison: {serial:.2f} s)")
     print("\n".join(line for line in log.splitlines()
                     if "registers" in line or "spill" in line or "Compiling entry" in line))
+    print(radial_spills(log))
     _build.lib()
     print(sass_check(_build))
 
@@ -620,7 +705,16 @@ def main() -> None:
         inputs = make(cfg, dev)
         print(f"{shape}: operators built in {time.perf_counter() - t0:.2f} s")
         for name, (args, moved, flops) in inputs.items():
+            if name in ATOMIC:
+                same_bits_twice(name, args)
             results[(name, shape)] = report(shape, name, compare(name, args, moved, flops))
+    for shape, sizes in WIDE_SHAPES.items():
+        for name, (args, moved, flops) in random_atomic_inputs(dev, *sizes).items():
+            same_bits_twice(name, args)
+            results[(name, shape)] = report(shape, name, compare(name, args, moved, flops, 2, 10))
+        torch.cuda.empty_cache()
+    print(f"atomic kernels on random tables {WIDE_SHAPES}: one launch per call, the same bits "
+          "twice")
     from helfem_tpu_torch.tools.exchange_timing import LIH
 
     for shape, cfg in {**DIA_SHAPES, "lih": LIH}.items():
@@ -661,24 +755,40 @@ def main() -> None:
     phase("4. Ar HF through the port's atomic CLI on the card")
 
     def ar_check(res):
-        dE = res.E - AR_HF_LIMIT
-        print(f"Ar HF: E - HF limit = {dE:+.3e}")
-        ok = res.converged and abs(dE) < 1e-6 and np.isfinite(res.E)
-        return "" if ok else "did not converge to the HF limit within 1e-6 Eh"
+        dE, dpin = res.E - AR_HF_LIMIT, res.E - AR_HF_PORT
+        print(f"Ar HF: E - HF limit = {dE:+.3e}, E - pinned value = {dpin:+.3e}")
+        ok = res.converged and abs(dE) < 1e-6 and abs(dpin) < 1e-10 and np.isfinite(res.E)
+        return "" if ok else "did not converge within 1e-6 Eh of the HF limit and 1e-10 Eh " \
+            "of the pinned value"
 
-    counts = run_cli(atomic_main, AR_CLI, "Ar HF", ["radial_exchange", "radial_coulomb"],
-                     ar_check)
+    counts = run_cli(atomic_main, AR_CLI, "Ar HF", list(ATOMIC), ar_check, per_iter=ATOMIC)
 
     phase("5. warm Ar HF SCF walls and profile")
-    from helfem_tpu_torch.utils.profiling import profile_scf
-
+    from helfem_tpu_torch import kernels
     from helfem_tpu_torch.models.atomic import AtomicBasis
     from helfem_tpu_torch.scf.atomic_scf import scf_atom
+    from helfem_tpu_torch.utils.profiling import profile_scf
 
-    ar_basis = AtomicBasis(**SHAPES["ar"])
-    ar_ops = ar_basis.build_operators(dev)
-    profile_scf("Ar HF", lambda: scf_atom(ar_basis, 9, 9, convthr=1e-9, guess="TF",
-                                          ops=ar_ops))
+    def counted(label, scf, names=XC):
+        """scf() with the launch counters reset before it and the kernels
+        in names held to one launch per iteration after it."""
+        def run():
+            kernels.reset_launches()
+            res = scf()
+            check_per_iteration(label, res, kernels.launches, names)
+            return res
+        return run
+
+    def atomic_profile(label, cfg, scf_args):
+        basis = AtomicBasis(**cfg)
+        ops = basis.build_operators(dev)
+        per_kernel = profile_scf(label, counted(f"warm {label}", lambda: scf_atom(
+            basis, *scf_args, convthr=1e-9, guess="TF", ops=ops), ATOMIC), kernels=RADIAL_SASS)
+        total = sum(ms for ms, _ in per_kernel.values())
+        print(f"{label}: K1 + K2 device time per warm SCF {total:.4f} ms, launches "
+              f"{[n for _, n in per_kernel.values()]}")
+
+    atomic_profile("Ar HF", SHAPES["ar"], (9, 9))
 
     phase("6. N2 PBE through the port's diatomic CLI on the card")
 
@@ -693,18 +803,7 @@ def main() -> None:
                           per_iter=XC))
 
     phase("7. warm N2 PBE SCF walls and profile")
-    from helfem_tpu_torch import kernels
     from helfem_tpu_torch.scf.diatomic_scf import scf_diatomic
-
-    def counted(label, scf):
-        """scf() with the launch counters reset before it and the XC
-        kernels held to one launch per iteration after it."""
-        def run():
-            kernels.reset_launches()
-            res = scf()
-            check_per_iteration(label, res, kernels.launches, XC)
-            return res
-        return run
 
     n2_basis = DiatomicBasis(**DIA_SHAPES["n2"])
     n2_ops = n2_basis.build_operators(dev)
@@ -824,6 +923,18 @@ def main() -> None:
                            "pinned value by 1e-8 Eh")
     profile_scf("N2 PBE lmax=12", run_pbe, kernels=XC_SASS)
     del pbe_ops
+    torch.cuda.empty_cache()
+
+    phase("12. Xe HF through the port's atomic CLI on the card, then its warm profile")
+
+    def xe_check(res):
+        dE = res.E - XE_HF_LIMIT
+        print(f"Xe HF: E - HF limit = {dE:+.3e}")
+        ok = res.converged and abs(dE) < 3e-6 and np.isfinite(res.E)
+        return "" if ok else "did not converge within 3e-6 Eh of the Xe HF limit"
+
+    run_cli(atomic_main, XE_CLI, "Xe HF", list(ATOMIC), xe_check, per_iter=ATOMIC)
+    atomic_profile("Xe HF", SHAPES["xe"], (27, 27))
 
     record = []
     for name, (source, replaces, shape) in KERNELS.items():

@@ -7,7 +7,13 @@ and no switch to force either. `launches` counts each wrapper's kernel
 launches. The kernels are built from csrc/ at first use (_build.py).
 """
 
-from helfem_tpu_torch.kernels._common import check_gidx, launches, reset_launches
+from helfem_tpu_torch.kernels._common import (
+    band_table,
+    check_gidx,
+    launches,
+    owner_table,
+    reset_launches,
+)
 from helfem_tpu_torch.kernels.dia_xc_fields import dia_xc_fields, dia_xc_fields_plain
 from helfem_tpu_torch.kernels.dia_xc_fock import dia_xc_fock, dia_xc_fock_plain
 from helfem_tpu_torch.kernels.matmul_probe import (
@@ -29,7 +35,7 @@ from helfem_tpu_torch.kernels.radial_exchange_dia import (
     radial_exchange_dia_plain,
 )
 
-__all__ = ["check_gidx", "launches", "reset_launches", "radial_coulomb",
+__all__ = ["band_table", "check_gidx", "launches", "owner_table", "reset_launches", "radial_coulomb",
            "radial_coulomb_plain", "radial_exchange", "radial_exchange_plain",
            "radial_coulomb_dia", "radial_coulomb_dia_plain", "dia_xc_fields",
            "dia_xc_fields_plain", "dia_xc_fock", "dia_xc_fock_plain",

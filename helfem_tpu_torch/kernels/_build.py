@@ -28,8 +28,10 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 # entry point -> argument types (pointers and the stream as c_void_p: a plain
 # int would be cut to 32 bits)
 _SIGNATURES = {
-    "radial_exchange_launch": [_P] * 7 + [_I] * 6 + [_P],
-    "radial_coulomb_launch": [_P] * 10 + [_I] * 6 + [_P],
+    "radial_exchange_launch": [_P],
+    "radial_exchange_smem": [_P],
+    "radial_coulomb_launch": [_P],
+    "radial_coulomb_smem": [_P],
     "radial_coulomb_dia_launch": [_P] * 16 + [_I] * 5 + [_P],
     "dia_xc_fields_launch": [_P],
     "dia_xc_fock_launch": [_P],

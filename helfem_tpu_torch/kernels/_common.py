@@ -29,26 +29,84 @@ def check_gidx(gidx: np.ndarray, nrad: int) -> None:
                          "two element slots; the CUDA kernels assume two")
 
 
-def grid_template(cache: dict, g, ns: int, build):
-    """build() once per (grid, spin count): a wrapper's launch arguments that
-    depend only on the grid (a DiaGridOps, immutable), cached under the
-    grid's id with the grid itself held, so that the id stays its own; at
-    most 8 entries."""
-    key = (id(g), ns)
+def owner_table(gidx: np.ndarray, nrad: int) -> np.ndarray:
+    """[nrad, 2] int32: owners[n] = the element slots e * nprim + i with
+    gidx[e, i] = n, in element order, -1 where fewer than two. Built once per
+    operator set or grid on the host; the kernels assemble "owner computes"
+    from it (each output entry sums the element windows covering its row and
+    column in a fixed order), so no block scans gidx. Raises where
+    check_gidx does."""
+    gidx = np.asarray(gidx)
+    check_gidx(gidx, nrad)
+    owners = np.full((nrad, 2), -1, dtype=np.int32)
+    for slot, n in enumerate(gidx.ravel()):  # element order
+        if n < nrad:
+            owners[n, int(owners[n, 0] >= 0)] = slot
+    return owners
+
+
+def band_table(gidx: np.ndarray, owners: np.ndarray, nrad: int) -> np.ndarray:
+    """[nrad, 2] int32: the first and last radial index of the elements that
+    cover n (owner_table's), the columns an element window can reach from
+    row n. Raises unless they form one run of at most 2 nprim - 1 indices,
+    which holds for every FEMBasis layout."""
+    gidx = np.asarray(gidx)
+    nprim = gidx.shape[1]
+    band = np.zeros((nrad, 2), dtype=np.int32)
+    for n in range(nrad):
+        cover = np.unique(gidx[owners[n][owners[n] >= 0] // nprim])
+        cover = cover[cover < nrad]
+        band[n] = cover.min(), cover.max()
+        if len(cover) != cover.max() - cover.min() + 1 or len(cover) > 2 * nprim - 1:
+            raise ValueError("the elements covering a radial function do not span one "
+                             "run of at most 2 nprim - 1 radial indices")
+    return band
+
+
+def launch_template(cache: dict, held: tuple, extra, build):
+    """build() once per (held, extra): a wrapper's launch arguments that
+    depend only on the objects in `held` (operator tensors or a grid, which
+    the port never modifies in place) and on `extra` (hashable sizes).
+
+    Looked up first by the objects' ids, then by their memory (a tensor's
+    address, dtype, shape and strides; other objects by id), so that a fresh
+    view of a cached tensor (ops.tei[L]) finds its entry too. An entry holds
+    the objects it was built from, so neither their ids nor their memory can
+    be reused while it lives; at most 16 entries."""
+    key = (tuple(map(id, held)), extra)
     hit = cache.get(key)
-    if hit is not None and hit[0] is g:
+    if hit is not None:
         return hit[1]
-    value = build()
-    if len(cache) >= 8:
-        cache.clear()
-    cache[key] = (g, value)
-    return value
+    mem = (tuple((t.data_ptr(), t.dtype, tuple(t.shape), t.stride())
+                 if isinstance(t, torch.Tensor) else id(t) for t in held), extra)
+    hit = cache.get(mem)
+    if hit is None:
+        value = build()
+        if len(cache) >= 16:
+            cache.clear()
+        hit = (held, value)
+        cache[mem] = hit
+        cache[key] = hit  # the ids of the objects the entry holds
+    return hit[1]
+
+
+def stream_scratch(cache: dict, stream: int, n: int, device) -> int:
+    """The address of n doubles of kernel scratch kept for `stream`: made by
+    PyTorch's caching allocator on first use and reused by every later call
+    on that stream, whose launches the stream orders after each other.
+    `cache` belongs to one launch template and lives as long as it does."""
+    buf = cache.get(stream)
+    if buf is None:
+        buf = cache[stream] = torch.empty(n, dtype=torch.float64, device=device)
+    return buf.data_ptr()
 
 
 def on_cpu(name: str, *tensors: torch.Tensor) -> bool:
     """True when every input lies on the CPU (the plain version runs), False
     when every input lies on one CUDA device (the kernel runs); raises on a
     mix or on any other device."""
+    if all(t.is_cuda for t in tensors) and len({t.get_device() for t in tensors}) == 1:
+        return False
     devices = {t.device for t in tensors}
     if len(devices) != 1:
         raise ValueError(f"{name}: inputs on several devices {sorted(map(str, devices))}")

@@ -12,7 +12,7 @@ import torch
 import torch.nn.functional as F
 
 from helfem_tpu_torch.kernels import _build
-from helfem_tpu_torch.kernels._common import grid_template, launches, on_cpu
+from helfem_tpu_torch.kernels._common import launch_template, launches, on_cpu
 
 __all__ = ["dia_xc_fields", "dia_xc_fields_plain"]
 
@@ -52,7 +52,7 @@ def fields_plan(nprim: int, nq: int) -> tuple[int, int, int]:
     return pc, qc, smem
 
 
-_templates: dict = {}  # _common.grid_template's cache of _template
+_templates: dict = {}  # _common.launch_template's cache of _template
 
 
 def _template(g, ns: int, dev):
@@ -86,8 +86,8 @@ def dia_xc_fields(P: torch.Tensor, g):
         raise ValueError(f"{name}: P must be contiguous")
     ns = P.shape[0] if P.dim() == 3 else 0
     dev = P.device
-    t, (nbf, nfield, nscratch, shape) = grid_template(_templates, g, ns,
-                                                      lambda: _template(g, ns, dev))
+    t, (nbf, nfield, nscratch, shape) = launch_template(_templates, (g,), ns,
+                                                        lambda: _template(g, ns, dev))
     if ns not in (1, 2) or P.shape[1] != nbf or P.shape[2] != nbf:
         raise ValueError(f"{name}: P has shape {tuple(P.shape)}, expected (ns, {nbf}, {nbf}) "
                          "with ns 1 or 2")

@@ -12,7 +12,7 @@ import ctypes
 import torch
 
 from helfem_tpu_torch.kernels import _build
-from helfem_tpu_torch.kernels._common import grid_template, launches, on_cpu
+from helfem_tpu_torch.kernels._common import launch_template, launches, on_cpu
 
 __all__ = ["dia_xc_fock", "dia_xc_fock_plain"]
 
@@ -29,7 +29,7 @@ class _Launch(ctypes.Structure):
                                                "npl", "device")])
 
 
-_templates: dict = {}  # _common.grid_template's cache of _template
+_templates: dict = {}  # _common.launch_template's cache of _template
 
 
 def _template(g, ns: int, dev):
@@ -65,8 +65,8 @@ def dia_xc_fock(wvr: torch.Tensor, wgu: torch.Tensor, wgv: torch.Tensor, g,
         return dia_xc_fock_plain(wvr, wgu, wgv, g, mask)
     ns = wvr.shape[0] if wvr.dim() == 4 else 0
     dev = wvr.device
-    t, (nbf, shape, nF, nXY, nFel) = grid_template(_templates, g, ns,
-                                                   lambda: _template(g, ns, dev))
+    t, (nbf, shape, nF, nXY, nFel) = launch_template(_templates, (g,), ns,
+                                                     lambda: _template(g, ns, dev))
     for arg, x in (("wvr", wvr), ("wgu", wgu), ("wgv", wgv), ("mask", mask)):
         if x is None:
             continue

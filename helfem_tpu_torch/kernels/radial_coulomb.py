@@ -8,15 +8,70 @@ assembly. The Gaunt contractions around it stay torch.einsum
 (models/atomic.py:coulomb).
 """
 
+import ctypes
+
+import numpy as np
 import torch
 import torch.nn.functional as F
 
 from helfem_tpu_torch.kernels import _build
 from helfem_tpu_torch.kernels._common import (
-    check_kernel_inputs, expect_shape, launches, on_cpu,
+    band_table, check_kernel_inputs, expect_shape, launch_template, launches, on_cpu,
+    owner_table, stream_scratch,
 )
+from helfem_tpu_torch.kernels._radial import WARPS, band_plan, fixed_bytes, sm_count
 
 __all__ = ["radial_coulomb", "radial_coulomb_plain"]
+
+
+class _Launch(ctypes.Structure):
+    """csrc/radial_coulomb.cu:RcLaunch: the pointers, then the sizes and the
+    tile plan."""
+
+    _fields_ = ([(n, ctypes.c_void_p) for n in ("Paux", "tei", "U", "V", "Lfac", "gidx",
+                                                 "owners", "band", "Jin", "tr", "Jaux",
+                                                 "stream")]
+                + [(n, ctypes.c_int) for n in ("NL", "NM", "nelem", "nprim", "nrad", "R", "CG",
+                                               "NU", "device")])
+
+
+_templates: dict = {}  # _common.launch_template's cache of _template
+
+
+def plan(NL: int, NM: int, nelem: int, nprim: int, nrad: int, nsm: int = 132):
+    """The kernel's band tiles: rows (i,j) of each (L, e) slice plus the two
+    trace rows, against the NM density helpers."""
+    # besides the owner table and gidx: the column bands, each warp's prefix
+    # and suffix sums
+    fixed = fixed_bytes(nelem, nprim, nrad) + 8 * nrad + 8 * 2 * WARPS * nelem
+    return band_plan("radial_coulomb", nprim * nprim + 2, nprim, NM, NL * nelem, fixed, nsm)
+
+
+def _template(tei, disjL, disjm1L, Lfac, gidx, NM: int, nrad: int):
+    """The launch arguments that depend only on the operators (checked
+    here, once), the owner and band tables they need, and the sizes."""
+    name = "radial_coulomb"
+    check_kernel_inputs(name, {"tei": tei, "disjL": disjL, "disjm1L": disjm1L, "Lfac": Lfac},
+                        {"gidx": gidx})
+    NL = Lfac.shape[0]
+    nelem, nprim = gidx.shape
+    expect_shape(name, "tei", tei, (NL, nelem) + (nprim,) * 4)
+    expect_shape(name, "disjL", disjL, (NL, nelem, nprim, nprim))
+    expect_shape(name, "disjm1L", disjm1L, (NL, nelem, nprim, nprim))
+    dev = tei.device
+    gi = gidx.cpu().numpy()
+    own = owner_table(gi, nrad)
+    tables = torch.tensor(np.concatenate([own.ravel(), band_table(gi, own, nrad).ravel()]),
+                          dtype=torch.int32, device=dev)
+    p = plan(NL, NM, nelem, nprim, nrad, sm_count(dev))
+    t = _Launch(tei=tei.data_ptr(), U=disjL.data_ptr(), V=disjm1L.data_ptr(),
+                Lfac=Lfac.data_ptr(), gidx=gidx.data_ptr(), owners=tables.data_ptr(),
+                band=tables.data_ptr() + 4 * own.size, NL=NL,
+                NM=NM, nelem=nelem, nprim=nprim, nrad=nrad, R=p.R, CG=p.CG, NU=p.NU,
+                device=dev.index)
+    # the scratch Jin [NL, NM, nelem, np^2] and the traces [NL, NM, 2, nelem]
+    nscratch = NL * NM * nelem * (nprim * nprim + 2)
+    return t, (NL, NM, nrad, nrad), nscratch, {}, tables
 
 
 def radial_coulomb(Paux: torch.Tensor, tei: torch.Tensor, disjL: torch.Tensor,
@@ -27,42 +82,35 @@ def radial_coulomb(Paux: torch.Tensor, tei: torch.Tensor, disjL: torch.Tensor,
     tei [NL, nelem, np, np, np, np], disjL/disjm1L [NL, nelem, np, np], Lfac
     [NL], gidx [nelem, np] int32 (nrad = trash slot); returns Jaux
     [NL, NM, nrad, nrad]. CPU inputs run the plain version; CUDA inputs
-    launch the kernel. The kernel does not check gidx's values: pass the
-    gidx of operators made by AtomicBasis.build_operators or
-    from_jax_operators, which check_gidx."""
+    launch the kernel, once. The operators are checked, and the launch
+    arguments that depend on them built, once per operator set; per call
+    only Paux is checked. Pass the gidx of operators made by
+    AtomicBasis.build_operators or from_jax_operators, which check_gidx."""
     name = "radial_coulomb"
     if on_cpu(name, Paux, tei, disjL, disjm1L, Lfac, gidx):
         return radial_coulomb_plain(Paux, tei, disjL, disjm1L, Lfac, gidx)
-    check_kernel_inputs(
-        name, {"Paux": Paux, "tei": tei, "disjL": disjL, "disjm1L": disjm1L, "Lfac": Lfac},
-        {"gidx": gidx},
-    )
-    NL, NM, nrad = Paux.shape[:3]
-    nelem, nprim = gidx.shape
-    expect_shape(name, "Paux", Paux, (NL, NM, nrad, nrad))
-    expect_shape(name, "tei", tei, (NL, nelem) + (nprim,) * 4)
-    expect_shape(name, "disjL", disjL, (NL, nelem, nprim, nprim))
-    expect_shape(name, "disjm1L", disjm1L, (NL, nelem, nprim, nprim))
-    expect_shape(name, "Lfac", Lfac, (NL,))
-    if nprim * nprim > 1024:
-        raise ValueError(f"{name}: nprim={nprim} exceeds the kernel's 32")
-    if NM * nprim * nprim * 8 > 227 * 1024:
-        raise ValueError(f"{name}: NM={NM} windows exceed the shared memory of a block")
-    dev = Paux.device
-    # scratch and outputs come from PyTorch's stream-ordered caching allocator
-    # and the launch goes on the current stream, so the scratch may be freed
-    # when this function returns: later users of the memory run after it
-    opts = dict(dtype=torch.float64, device=dev)
-    Jin = torch.empty((NL, NM, nelem, nprim * nprim), **opts)
-    ts = torch.empty((NL, NM, nelem), **opts)
-    tb = torch.empty((NL, NM, nelem), **opts)
-    Jaux = torch.empty((NL, NM, nrad, nrad), **opts)
-    err = _build.lib().radial_coulomb_launch(
-        Paux.data_ptr(), tei.data_ptr(), disjL.data_ptr(), disjm1L.data_ptr(),
-        Lfac.data_ptr(), gidx.data_ptr(), Jin.data_ptr(), ts.data_ptr(),
-        tb.data_ptr(), Jaux.data_ptr(), NL, NM, nelem, nprim, nrad, dev.index,
-        torch.cuda.current_stream(dev).cuda_stream,
-    )
+    if Paux.dim() != 4:
+        raise ValueError(f"{name}: Paux has shape {tuple(Paux.shape)}, expected "
+                         "[NL, NM, nrad, nrad]")
+    NM, nrad = Paux.shape[1], Paux.shape[2]
+    t, shape, nscratch, scratch, _ = launch_template(
+        _templates, (tei, disjL, disjm1L, Lfac, gidx), (NM, nrad),
+        lambda: _template(tei, disjL, disjm1L, Lfac, gidx, NM, nrad))
+    if Paux.dtype != torch.float64:
+        raise TypeError(f"{name}: Paux must be float64, got {Paux.dtype}")
+    if not Paux.is_contiguous():
+        raise ValueError(f"{name}: Paux must be contiguous")
+    if Paux.shape != shape:
+        raise ValueError(f"{name}: Paux has shape {tuple(Paux.shape)}, expected {shape}")
+    # the current stream's handle without a Stream object (which costs 7.6 us
+    # per call on the H100's host)
+    stream = torch._C._cuda_getCurrentRawStream(t.device)
+    Jaux = torch.empty(shape, dtype=torch.float64, device=Paux.device)
+    a = _Launch.from_buffer_copy(t)
+    a.Paux, a.Jaux, a.stream = Paux.data_ptr(), Jaux.data_ptr(), stream
+    a.Jin = stream_scratch(scratch, stream, nscratch, Paux.device)
+    a.tr = a.Jin + 8 * (nscratch - 2 * shape[0] * shape[1] * t.nelem)
+    err = _build.lib().radial_coulomb_launch(ctypes.byref(a))
     if err:
         raise RuntimeError(f"{name}: kernel launch failed with cudaError_t {err}")
     launches[name] += 1

@@ -8,15 +8,72 @@ form; the plain version follows the JAX function's prefix-sum form, with
 index_select/index_add_ over gidx in place of the one-hot assembler matmuls.
 """
 
+import ctypes
+
+import numpy as np
 import torch
 import torch.nn.functional as F
 
 from helfem_tpu_torch.kernels import _build
 from helfem_tpu_torch.kernels._common import (
-    check_kernel_inputs, expect_shape, launches, on_cpu,
+    check_kernel_inputs, expect_shape, launch_template, launches, on_cpu, owner_table,
+    stream_scratch,
+)
+from helfem_tpu_torch.kernels._radial import (
+    band_plan, cross_doubles, cross_plan, fixed_bytes, sm_count,
 )
 
 __all__ = ["radial_exchange", "radial_exchange_plain"]
+
+
+class _Launch(ctypes.Structure):
+    """csrc/radial_exchange.cu:RxLaunch: the pointers, then the sizes and the
+    tile plan."""
+
+    _fields_ = ([(n, ctypes.c_void_p) for n in ("tei", "U", "V", "Pd", "gidx", "owners",
+                                                 "bounds", "Kpair", "KK", "stream")]
+                + [(n, ctypes.c_int) for n in ("NL", "nelem", "nprim", "nang", "nrad", "nb", "R",
+                                               "CG", "NU", "AG", "GG", "device")])
+
+
+_templates: dict = {}  # _common.launch_template's cache of _template
+
+
+def plan(NL: int, nang: int, nelem: int, nprim: int, nrad: int, nsm: int = 132):
+    """The kernel's band tiles (rows (j,k) of each (g, e) slice against the
+    nang channels) and cross tiles (channels and g per element pair)."""
+    # besides the owner table and gidx: the slot table, the shared functions
+    fixed = fixed_bytes(nelem, nprim, nrad) + 4 * (nelem * nprim + nrad)
+    cross = cross_plan(nprim, nang, NL, nelem, fixed)
+    band = band_plan("radial_exchange", nprim * nprim, nprim, nang, NL * nelem, fixed, nsm,
+                     cross.tasks, 8 * cross_doubles(cross.AG, cross.GG, nprim))
+    return band, cross
+
+
+def _template(tei, U, V, gidx, nang: int, nrad: int):
+    """The launch arguments that depend only on the operators (checked
+    here, once), the owner table and the list of the radial functions two
+    element slots share (the boundary rows and columns of the assembly),
+    and the sizes."""
+    name = "radial_exchange"
+    check_kernel_inputs(name, {"tei": tei, "U": U, "V": V}, {"gidx": gidx})
+    NL, nelem, nprim = U.shape[:3]
+    expect_shape(name, "tei", tei, (NL, nelem) + (nprim,) * 4)
+    expect_shape(name, "U", U, (NL, nelem, nprim, nprim))
+    expect_shape(name, "V", V, (NL, nelem, nprim, nprim))
+    expect_shape(name, "gidx", gidx, (nelem, nprim))
+    dev = tei.device
+    own = owner_table(gidx.cpu().numpy(), nrad)
+    tables = torch.tensor(np.concatenate([own.ravel(), np.nonzero(own[:, 1] >= 0)[0]]),
+                          dtype=torch.int32, device=dev)  # owners, then the shared functions
+    band, cross = plan(NL, nang, nelem, nprim, nrad, sm_count(dev))
+    t = _Launch(tei=tei.data_ptr(), U=U.data_ptr(), V=V.data_ptr(), gidx=gidx.data_ptr(),
+                owners=tables.data_ptr(), bounds=tables.data_ptr() + 4 * own.size, NL=NL,
+                nelem=nelem, nprim=nprim, nang=nang, nrad=nrad, nb=len(tables) - own.size,
+                R=band.R, CG=band.CG, NU=band.NU, AG=cross.AG, GG=cross.GG, device=dev.index)
+    # the scratch Kpair [NL, nang, nelem, np, nelem, np] (only its boundary
+    # rows and columns are used)
+    return t, (NL, nang, nrad, nrad), NL * nang * (nelem * nprim) ** 2, {}, tables
 
 
 def radial_exchange(tei: torch.Tensor, U: torch.Tensor, V: torch.Tensor,
@@ -26,34 +83,35 @@ def radial_exchange(tei: torch.Tensor, U: torch.Tensor, V: torch.Tensor,
     tei [NL, nelem, np, np, np, np], U = disjL and V = disjm1L
     [NL, nelem, np, np], gidx [nelem, np] int32 (nrad = trash slot), Pd
     [nang, nrad, nrad]; returns KK [NL, nang, nrad, nrad] (trash dropped).
-    CPU inputs run the plain version; CUDA inputs launch the kernel. The
-    kernel does not check gidx's values: pass the gidx of operators made by
-    AtomicBasis.build_operators or from_jax_operators, which check_gidx."""
+    CPU inputs run the plain version; CUDA inputs launch the kernel, once.
+    The operators are checked, and the launch arguments that depend on them
+    built, once per operator set; per call only Pd is checked. Pass the
+    gidx of operators made by AtomicBasis.build_operators or
+    from_jax_operators, which check_gidx."""
     name = "radial_exchange"
     if on_cpu(name, tei, U, V, gidx, Pd):
         return radial_exchange_plain(tei, U, V, gidx, Pd)
-    check_kernel_inputs(name, {"tei": tei, "U": U, "V": V, "Pd": Pd}, {"gidx": gidx})
-    NL, nelem, nprim = U.shape[:3]
+    if Pd.dim() != 3:
+        raise ValueError(f"{name}: Pd has shape {tuple(Pd.shape)}, expected [nang, nrad, nrad]")
     nang, nrad = Pd.shape[:2]
-    expect_shape(name, "tei", tei, (NL, nelem) + (nprim,) * 4)
-    expect_shape(name, "U", U, (NL, nelem, nprim, nprim))
-    expect_shape(name, "V", V, (NL, nelem, nprim, nprim))
-    expect_shape(name, "gidx", gidx, (nelem, nprim))
-    expect_shape(name, "Pd", Pd, (nang, nrad, nrad))
-    if nprim * nprim > 1024:
-        raise ValueError(f"{name}: nprim={nprim} exceeds the kernel's 32")
-    dev = Pd.device
-    # scratch and outputs come from PyTorch's stream-ordered caching allocator
-    # and the launch goes on the current stream, so the scratch may be freed
-    # when this function returns: later users of the memory run after it
-    Kpair = torch.empty((NL, nang, nelem, nelem, nprim, nprim), dtype=torch.float64, device=dev)
-    KK = torch.empty((NL, nang, nrad, nrad), dtype=torch.float64, device=dev)
-    err = _build.lib().radial_exchange_launch(
-        tei.data_ptr(), U.data_ptr(), V.data_ptr(), gidx.data_ptr(),
-        Pd.data_ptr(), Kpair.data_ptr(), KK.data_ptr(),
-        NL, nelem, nprim, nang, nrad, dev.index,
-        torch.cuda.current_stream(dev).cuda_stream,
-    )
+    t, shape, nscratch, scratch, _ = launch_template(
+        _templates, (tei, U, V, gidx), (nang, nrad),
+        lambda: _template(tei, U, V, gidx, nang, nrad))
+    if Pd.dtype != torch.float64:
+        raise TypeError(f"{name}: Pd must be float64, got {Pd.dtype}")
+    if not Pd.is_contiguous():
+        raise ValueError(f"{name}: Pd must be contiguous")
+    if Pd.shape[2] != nrad:
+        raise ValueError(f"{name}: Pd has shape {tuple(Pd.shape)}, expected "
+                         f"{(nang, nrad, nrad)}")
+    # the current stream's handle without a Stream object (which costs 7.6 us
+    # per call on the H100's host)
+    stream = torch._C._cuda_getCurrentRawStream(t.device)
+    KK = torch.empty(shape, dtype=torch.float64, device=Pd.device)
+    a = _Launch.from_buffer_copy(t)
+    a.Pd, a.KK, a.stream = Pd.data_ptr(), KK.data_ptr(), stream
+    a.Kpair = stream_scratch(scratch, stream, nscratch, Pd.device)
+    err = _build.lib().radial_exchange_launch(ctypes.byref(a))
     if err:
         raise RuntimeError(f"{name}: kernel launch failed with cudaError_t {err}")
     launches[name] += 1

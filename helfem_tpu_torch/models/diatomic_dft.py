@@ -22,7 +22,9 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from helfem_tpu_torch.kernels import check_gidx, dia_xc_fields, dia_xc_fock
+from helfem_tpu_torch.kernels import (
+    band_table, check_gidx, dia_xc_fields, dia_xc_fock, owner_table,
+)
 from helfem_tpu_torch.ops.quadrature import gauss_legendre
 from helfem_tpu_torch.ops.spherical import legendre_Pbar, ylm_dtheta
 from helfem_tpu_torch.ops.xc import xc_eval
@@ -103,18 +105,8 @@ def pair_tables(TT: np.ndarray, dTT: np.ndarray, gidx: np.ndarray,
     a, b = np.nonzero(live)
     gidx = np.asarray(gidx)
     nprim = gidx.shape[1]
-    owners = np.full((nrad, 2), -1, dtype=np.int32)
-    band = np.zeros((nrad, 2), dtype=np.int32)
-    for slot, n in enumerate(gidx.ravel()):  # element order
-        if n < nrad:
-            owners[n, int(owners[n, 0] >= 0)] = slot
-    for n in range(nrad):
-        cover = np.unique(gidx[owners[n][owners[n] >= 0] // nprim])
-        cover = cover[cover < nrad]
-        band[n] = cover.min(), cover.max()
-        if len(cover) != cover.max() - cover.min() + 1 or len(cover) > 2 * nprim - 1:
-            raise ValueError("the elements covering a radial function do not span one "
-                             "run of at most 2 nprim - 1 radial indices")
+    owners = owner_table(gidx, nrad)
+    band = band_table(gidx, owners, nrad)
     return dict(pairs=np.stack([a, b], axis=1).astype(np.int32), TTp=TT[a, b], dTTp=dTT[a, b],
                 owners=owners, band=band)
 

@@ -13,8 +13,9 @@ g/u for homonuclear), the paths of the N2 HF and N2 PBE bench configs:
 
 helfem_tpu's lax.while_loop chunk becomes a Python loop over tensors that
 stay on the device; one boolean per iteration comes back to stop the chunk.
-The eigensolve is torch.linalg.eigh per block (the card has IEEE f64, so
-helfem_tpu's warm refinement sweeps are not carried over). Every other
+The eigensolve is torch.linalg.eigh per block with helfem_tpu's four
+refinement passes (utils/linalg.py:eigh_refined); its warm start is not
+carried over. Every other
 scf_diatomic option (open shells, range-separated and meta-GGA hybrids,
 fields, finite nuclei, level shifts, other guesses, --ndev, ...) raises
 NotImplementedError: nothing falls back silently.

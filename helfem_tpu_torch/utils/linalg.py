@@ -4,10 +4,13 @@ helfem_tpu/utils/linalg.py.
 Because S = I_ang (x) S_rad, every (l,m) symmetry block has the same radial
 dimension, so the per-block whitened eigensolves batch into ONE
 torch.linalg.eigh over a leading block axis (replacing the per-block LAPACK
-loop of scf::eig_gsym_sub, src/general/scf_helpers.cpp:142-186). The card
-has native IEEE f64, so the eigensolve is a plain f64 eigh: helfem_tpu's
-refinement sweeps (eigh_refined, eigh_warm), which exist because the TPU
-eigh stops at f32 residual, are not carried over.
+loop of scf::eig_gsym_sub, src/general/scf_helpers.cpp:142-186), followed
+by helfem_tpu's first-order refinement passes (eigh_refined: f64 eigh seed,
+four passes). The card has native IEEE f64, but its batched eigh leaves a
+residual that stalls the DIIS error of Xe HF at the bench basis at 2.1e-9
+(3.5e-10 with the host's LAPACK eigh on the same card); the passes are
+matmuls and bring the card below the 1e-9 threshold. helfem_tpu's warm
+start (eigh_warm) is not carried over.
 """
 
 import numpy as np
@@ -15,7 +18,7 @@ import torch
 import torch.nn.functional as F
 
 __all__ = ["form_sinvh", "build_blocks", "gather_blocks", "eig_blocks",
-           "eig_blocks_b", "density_blocks"]
+           "eig_blocks_b", "density_blocks", "eigh_refined"]
 
 _BIG = 1e6
 
@@ -42,6 +45,34 @@ def build_blocks(S: np.ndarray, blocks) -> tuple[np.ndarray, np.ndarray]:
     return blk_idx, blk_sinvh
 
 
+def eigh_refined(A: torch.Tensor, npass: int = 4, tau: float = 1e-9):
+    """torch.linalg.eigh of the symmetric A (batched over leading axes),
+    then `npass` first-order refinement passes, as helfem_tpu's eigh_refined
+    and _refine_passes (helfem_tpu/utils/linalg.py:21-64) make them:
+
+        M = V^T A V;  E = diag(M);  C_ij = M_ij / (E_j - E_i)  (i != j)
+        V <- V (I + C);  V <- V (3I - V^T V) / 2
+
+    Near-degenerate pairs (|E_j - E_i| <= tau (max(|E_i|, |E_j|) + 1)) are
+    left out of C (rotations inside a degenerate cluster do not change the
+    density) and C is clipped to [-0.1, 0.1]. Returns (E ascending, V)."""
+    E, V = torch.linalg.eigh(A)
+    eye = torch.eye(A.shape[-1], dtype=A.dtype, device=A.device)
+    for _ in range(npass):
+        M = V.mT @ A @ V
+        E = torch.diagonal(M, dim1=-2, dim2=-1)
+        dE = E[..., None, :] - E[..., :, None]
+        scale = torch.maximum(E.abs()[..., None, :], E.abs()[..., :, None]) + 1.0
+        mask = dE.abs() > tau * scale
+        C = torch.where(mask, M / torch.where(mask, dE, torch.ones_like(dE)),
+                        torch.zeros_like(M)).clamp(-0.1, 0.1)
+        V = V + V @ C
+        V = V @ (1.5 * eye - 0.5 * (V.mT @ V))
+    order = torch.argsort(E, dim=-1)
+    return (torch.take_along_dim(E, order, dim=-1),
+            torch.take_along_dim(V, order[..., None, :], dim=-1))
+
+
 def gather_blocks(F_: torch.Tensor, blk_idx: torch.Tensor) -> torch.Tensor:
     """Symmetry-block coordinates [nblk, blen, blen] of a global matrix
     (padded slots read the zero pad row/col)."""
@@ -60,7 +91,7 @@ def eig_blocks_b(Fb: torch.Tensor, blk_idx: torch.Tensor, blk_sinvh: torch.Tenso
     pad = (blk_idx == nbf).to(Fb.dtype)
     eye = torch.eye(blk_idx.shape[1], dtype=Fb.dtype, device=Fb.device)
     Forth = Forth + _BIG * eye[None] * pad[:, None, :]
-    E, V = torch.linalg.eigh(Forth)
+    E, V = eigh_refined(Forth)
     C = torch.einsum("bpi,bij->bpj", blk_sinvh, V)
     return E, C
 

@@ -8,11 +8,11 @@ import torch
 __all__ = ["device_ms", "profile_scf"]
 
 
-def profile_scf(label: str, run, rows: int = 20, kernels: tuple = ()) -> None:
+def profile_scf(label: str, run, rows: int = 20, kernels: tuple = ()) -> dict:
     """Warm SCF walls (min of three) of run() -> result, and the device time
     of one more SCF by kernel, from torch.profiler; beside the table, the
     device time and launches of each device kernel whose name contains one
-    of `kernels`."""
+    of `kernels`, which are also returned as {name: (ms, launches)}."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -38,10 +38,13 @@ def profile_scf(label: str, run, rows: int = 20, kernels: tuple = ()) -> None:
     print(f"profiled {label} SCF: wall {wall:.4f} s (profiler on), device busy "
           f"{busy:.4f} s = {100 * busy / wall:.1f} % of the wall")
     print(events.table(sort_by=key, row_limit=rows))
+    per_kernel = {}
     for name in kernels:
         hits = [e for e in events if e.device_type == DeviceType.CUDA and name in e.key]
-        print(f"{label}: {name} device time {sum(getattr(e, key) for e in hits) * 1e-3:.4f} ms "
-              f"in {sum(e.count for e in hits)} launches per SCF")
+        per_kernel[name] = (sum(getattr(e, key) for e in hits) * 1e-3, sum(e.count for e in hits))
+        print(f"{label}: {name} device time {per_kernel[name][0]:.4f} ms in "
+              f"{per_kernel[name][1]} launches per SCF")
+    return per_kernel
 
 
 def device_ms(fn, reps: int = 20) -> float:

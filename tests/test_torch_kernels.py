@@ -7,6 +7,9 @@ This file imports no JAX, so the card tests also run where JAX is absent:
     python -m pytest --noconftest -m cuda tests/test_torch_kernels.py
 """
 
+import ctypes
+import importlib
+
 import numpy as np
 import pytest
 import torch
@@ -53,6 +56,12 @@ def _inputs(basis, ops, dev, seed=41):
         "radial_exchange": (t["tei"], t["disjL"], t["disjm1L"], gidx, Pd),
         "radial_coulomb": (Paux, t["tei"], t["disjL"], t["disjm1L"], t["Lfac"], gidx),
     }
+
+
+def _wrapper_module(name):
+    """The module kernels/<name>.py (the package attribute of that name is
+    its wrapper function)."""
+    return importlib.import_module(f"helfem_tpu_torch.kernels.{name}")
 
 
 def _windows(M, gidx, nrad):
@@ -112,6 +121,60 @@ def test_plain_coulomb_matches_element_loop_reference(host):
             assert np.abs(got[L, M] - ref).max() <= TOL * max(np.abs(ref).max(), 1e-300)
 
 
+@pytest.mark.parametrize("primbas,nnodes", [(4, 6), (4, 15), (8, 5), (11, 3)],
+                         ids=["lip6", "lip15", "hermite_nder2", "hermite_nder5"])
+def test_owner_table_matches_a_scan_of_gidx(primbas, nnodes):
+    """The host-built owner table against a direct scan of gidx: the slots
+    e * nprim + i holding each radial index, in element order."""
+    from helfem_tpu_torch.ops.fem import FEMBasis
+    from helfem_tpu_torch.ops.polynomials import get_basis
+
+    fem = FEMBasis(get_basis(primbas, nnodes), np.linspace(0.0, 5.0, 5))
+    got = kernels.owner_table(fem.gidx, fem.nbf)
+    flat = fem.gidx.ravel()
+    for n in range(fem.nbf):
+        slots = [s for s in range(flat.size) if flat[s] == n]
+        assert 1 <= len(slots) <= 2
+        assert got[n].tolist() == slots + [-1] * (2 - len(slots))
+    assert got.dtype == np.int32 and got.shape == (fem.nbf, 2)
+
+
+@pytest.mark.parametrize("ncols", [1, 5, 8, 13, 29, 33])
+def test_radial_plans_admit_wide_elements(ncols):
+    """K1's and K2's tile plans take nprim 2-40 with up to 33 channels and
+    fit the card's shared memory; the whole depth is one chunk at the bench
+    shapes."""
+    from helfem_tpu_torch.kernels import _radial
+
+    rc, rx = _wrapper_module("radial_coulomb"), _wrapper_module("radial_exchange")
+    for nprim in range(2, 41):
+        nelem, NL = 10, 7
+        nrad = nelem * (nprim - 1) - 1
+        fixed = _radial.fixed_bytes(nelem, nprim, nrad) + 4 * (nelem * nprim + nrad)
+        c = rc.plan(NL, ncols, nelem, nprim, nrad)
+        band, cross = rx.plan(NL, ncols, nelem, nprim, nrad)
+        for p in (c, band):
+            assert p.R % 8 == 0 and 8 <= p.R <= 64 and p.CG % 8 == 0 and p.CG <= 32
+            assert 1 <= p.NU <= nprim and p.CG * -(-ncols // 32) >= ncols
+            assert fixed + 8 * _radial.band_doubles(p.R, p.CG, p.NU, nprim) <= _radial.SMEM_BLOCK
+        assert 1 <= cross.AG <= ncols and 1 <= cross.GG <= NL
+        assert fixed + 8 * _radial.cross_doubles(cross.AG, cross.GG, nprim) <= _radial.SMEM_BLOCK
+    assert rc.plan(3, 5, 10, 15, 139).NU == 15 and rc.plan(7, 13, 8, 12, 87).NU == 12
+    assert rx.plan(3, 4, 10, 15, 139)[0].NU == 15 and rx.plan(7, 16, 8, 12, 87)[0].NU == 12
+
+
+def test_radial_exchange_plan_raises_past_shared_memory():
+    """The one shape limit left: K1's cross tiles of one element pair need
+    (3 np8 ldw + 8 np8 20) doubles; nprim 68 fits the card's 227 KB, 69 and
+    more do not, and the error names the shape. K2 plans far beyond."""
+    rc, rx = _wrapper_module("radial_coulomb"), _wrapper_module("radial_exchange")
+    rx.plan(3, 4, 2, 68, 133)
+    rc.plan(3, 29, 2, 200, 397)
+    for nprim in (69, 96, 120):
+        with pytest.raises(ValueError, match=f"nprim={nprim} needs"):
+            rx.plan(3, 4, 2, nprim, 2 * nprim - 3)
+
+
 def test_check_gidx_rejects_triple_cover():
     kernels.check_gidx(np.array([[3, 0, 1], [1, 2, 3]], dtype=np.int32), 3)
     with pytest.raises(ValueError, match="two"):
@@ -151,6 +214,91 @@ def test_kernel_rejects_bad_inputs_on_card(host, cuda_device, name):
         fn(*([args[0].transpose(-1, -2)] + args[1:]))
     with pytest.raises(ValueError, match="shape"):
         fn(*(args[:-1] + [args[-1][..., :-1].contiguous()]))
+
+
+# the K1/K2 shapes of chip_smoke.py: the Ar and Xe bench bases, and random
+# tables at nprim 33 and 40, at NM 29 with nprim 32 (64 exchange channels)
+# and in a Hermite element layout
+RADIAL_SHAPES = ["ar", "xe", "np33", "np40", "nm29_np32", "hermite"]
+
+
+def _radial_inputs(shape, dev):
+    import chip_smoke as cs
+
+    if shape in cs.SHAPES:
+        return cs.kernel_inputs(cs.SHAPES[shape], dev)
+    return cs.random_atomic_inputs(dev, *cs.WIDE_SHAPES[shape])
+
+
+def _check_twice(name, args, fn=None):
+    """Two calls of the kernel: one launch each, the same bits, and within
+    TOL x max-abs of the plain version."""
+    fn = fn or getattr(kernels, name)
+    before = kernels.launches[name]
+    out = fn(*args)
+    again = fn(*args)
+    torch.cuda.synchronize()
+    assert kernels.launches[name] == before + 2
+    assert torch.equal(out, again)
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", RADIAL_SHAPES)
+@pytest.mark.parametrize("name", ["radial_exchange", "radial_coulomb"])
+def test_radial_kernel_matches_plain_at_bench_and_wide_shapes(cuda_device, name, shape):
+    """K1 and K2 at the bench shapes and past the old nprim 32 and 227 KB
+    limits: 1e-12 x max-abs of the plain version, equal bits twice, one
+    launch per call."""
+    args = _radial_inputs(shape, cuda_device)[name][0]
+    out = _check_twice(name, args)
+    ref = getattr(kernels, name + "_plain")(*args)
+    assert float((out - ref).abs().max()) <= TOL * float(ref.abs().max())
+
+
+@pytest.mark.cuda
+def test_exchange_kernel_L_batch_on_card(cuda_device):
+    """exchange_kernel_L's call: one multipole channel (NL = 1) on a batch of
+    radial matrices, views of the operators each call (the sadatom shape)."""
+    import chip_smoke as cs
+    from helfem_tpu_torch.models import atomic
+
+    args = cs.kernel_inputs(cs.SHAPES["ar"], cuda_device)["radial_exchange"][0]
+    tei, U, V, gidx, Pd = args
+    nrad = Pd.shape[-1]
+    R = torch.tensor(np.random.default_rng(5).standard_normal((6, nrad, nrad)),
+                     device=cuda_device)
+    for L in range(tei.shape[0]):
+        out = _check_twice("radial_exchange", (tei[L], U[L], V[L], gidx, nrad, R),
+                           atomic.exchange_kernel_L)
+        ref = kernels.radial_exchange_plain(tei[L:L + 1], U[L:L + 1], V[L:L + 1], gidx, R)[0]
+        assert out.shape == (6, nrad, nrad)
+        assert float((out - ref).abs().max()) <= TOL * float(ref.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", RADIAL_SHAPES)
+def test_radial_plan_matches_kernel_smem(cuda_device, shape):
+    """The wrappers' plans count the kernels' shared memory as the kernels do."""
+    from helfem_tpu_torch.kernels import _build, _radial
+
+    inputs = _radial_inputs(shape, cuda_device)
+    for name in ("radial_exchange", "radial_coulomb"):
+        mod = _wrapper_module(name)
+        args = inputs[name][0]
+        getattr(kernels, name)(*args)
+        for t, *_ in [v[1] for v in mod._templates.values()]:
+            fixed = _radial.fixed_bytes(t.nelem, t.nprim, t.nrad)
+            band = _radial.band_doubles(t.R, t.CG, t.NU, t.nprim)
+            if name == "radial_exchange":  # the slot table, the shared functions
+                band = max(band, _radial.cross_doubles(t.AG, t.GG, t.nprim))
+                fixed += 4 * (t.nelem * t.nprim + t.nrad)
+            else:  # the column bands, each warp's prefix and suffix sums
+                band += 2 * _radial.WARPS * t.nelem
+                fixed += 8 * t.nrad
+            want = fixed + 8 * band
+            assert getattr(_build.lib(), f"{name}_smem")(ctypes.byref(t)) == want
+            assert want <= _radial.SMEM_BLOCK
 
 
 @pytest.mark.cuda
