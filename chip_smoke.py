@@ -11,7 +11,8 @@ Phases, any failure raises and exits non-zero:
   2. build the CUDA kernels from helfem_tpu_torch/csrc/ (nvcc, sm_90a, one
      process per source, in parallel), timed against one nvcc call for all
      sources, with each kernel's registers and spills from ptxas (the two
-     atomic radial kernels must not spill); cuobjdump's SASS must show DMMA
+     atomic radial kernels and every instance of the diatomic Coulomb
+     kernel K3 must not spill); cuobjdump's SASS must show DMMA
      in both atomic radial kernels, in every diatomic exchange in-element
      instance and in both XC kernels, HGMMA with TF32 operands in every
      "reduced" matmul probe instance, and FFMA with no HMMA or HGMMA in
@@ -24,9 +25,13 @@ Phases, any failure raises and exits non-zero:
      each twice with the same bits and one launch per call, the diatomic
      ones at the N2 bench shapes and a heteronuclear CO shape (random grid
      potentials for the XC Fock, random occupied columns for the exchange;
-     both spins for the XC kernels), the two exchange kernels also at a LiH shape and at the N2
-     lmax=12 shapes on random tables, the XC kernels at the N2 lmax=12
-     basis for one spin: max-abs error <= 1e-12 x max-abs of the result;
+     both spins for the XC kernels), K3 also past the old nprim 32 (LiH at
+     nprim 33 and 40) and with every signed channel at the N2 bench (njbd
+     None), each K3 call twice with the same bits and one launch per call,
+     the two exchange kernels also at a LiH shape, at the N2 lmax=12 shapes
+     and at nprim 33 and 40 on random tables, the XC kernels at the N2
+     lmax=12 basis for one spin: max-abs error <= 1e-12 x max-abs of the
+     result;
      beside each call time the kernel's device time (torch.profiler); the
      matmul probes at n = 2048 and 4096, both precisions, within 1e-5 x
      max-abs of their plain versions (f32 sums in another order);
@@ -41,26 +46,31 @@ Phases, any failure raises and exits non-zero:
      per iteration; their device time per SCF;
   6. N2 PBE (the bench config) through the port's diatomic CLI on the card:
      within 1e-6 Eh of the JAX package's f64 value, the three diatomic
-     kernels' launch counters must rise during the SCF, the XC kernels'
-     once per iteration;
+     kernels' launch counters must rise during the SCF, K3's and the XC
+     kernels' once per iteration;
   7. three warm N2 PBE SCF walls and the profiler breakdown of one more,
-     each SCF with the XC kernels once per iteration;
+     each SCF with K3 and the XC kernels once per iteration; K3's device
+     time per SCF beside K4 + K5's;
   8. N2 HF through the diatomic CLI on the card: within 1e-6 Eh of the JAX
-     package's pinned value, with the Coulomb and the occupied-orbital
-     exchange kernels launched and the dense exchange kernel not; then the
+     package's pinned value, with K3 once per iteration, the occupied-orbital
+     exchange kernel launched and the dense exchange kernel not; then the
      dense exchange_dia on the converged density, which must agree with
      exchange_dia_occ on the converged orbitals;
-  9. three warm N2 HF SCF walls and the profiler breakdown of one more, then
-     N2 PBE0 once through the CLI: converged, with the XC and the exchange
-     kernels launched, the XC kernels once per iteration;
+  9. three warm N2 HF SCF walls and the profiler breakdown of one more (K3
+     once per iteration, its device time per SCF), then N2 PBE0 once
+     through the CLI: converged, with the XC and the exchange kernels
+     launched, K3 and the XC kernels once per iteration;
  10. the f64-ablation tool's JSON line at n = 2048 through its main;
- 11. N2 HF at the lmax=12 basis (tools/profile_dia_scf.py's) from the core
-     guess, cold then warm: within 2e-5 Eh of the bench reference and 1e-8
-     Eh of the value the exchange kernels' first, CUDA-core version gave,
-     with the occupied-orbital exchange kernel launched; the warm wall. Then
-     N2 PBE at the same basis and the PBE bench geometry, cold (converged,
-     Nel on the grid within 1e-6 of 14, within 1e-8 Eh of the pinned value,
-     the XC kernels once per iteration), then warm with its profile;
+ 11. K3 at the N2 lmax=12 basis (tools/profile_dia_scf.py's) on a random
+     density (equal bits twice, 1e-12 x max-abs, its record's lmax12
+     fields), then N2 HF there from the core guess, cold then warm: within
+     2e-5 Eh of the bench reference and 1e-8 Eh of the value the exchange
+     kernels' first, CUDA-core version gave, with the occupied-orbital
+     exchange kernel launched and K3 once per iteration; the warm wall.
+     Then N2 PBE at the same basis and the PBE bench geometry, cold
+     (converged, Nel on the grid within 1e-6 of 14, within 1e-8 Eh of the
+     pinned value, K3 and the XC kernels once per iteration), then warm with
+     its profile and K3's device time per SCF;
  12. Xe HF (the bench's heavier atomic point, lmax=3) through the port's
      atomic CLI: converged to convthr 1e-9, within 3e-6 Eh of the Xe HF limit,
      the atomic kernels once per iteration.
@@ -150,8 +160,22 @@ KERNELS = {  # name -> (source, replaces, shape of its record)
                             "helfem_tpu/models/diatomic.py:799", "n2"),
 }
 XC = ("dia_xc_fields", "dia_xc_fock")  # one launch each per SCF iteration
+K3 = ("radial_coulomb_dia",)  # one launch per diatomic SCF iteration
+XC_K3 = (*XC, *K3)
 INELEM = "exdia_inelem_kernel"  # the in-element GEMM core of K6 and K7
 RADIAL_SASS = ("radial_exchange_kernel", "radial_coulomb_kernel")  # K1, K2 on DMMA
+K3_SASS = "radial_coulomb_dia_kernel"  # K3's instances (columns per lane, channels)
+NO_SPILLS = (*RADIAL_SASS, K3_SASS)  # ptxas must report no spills for these
+# K3 past the old nprim 32 (the LiH XC shapes of tests/test_torch_kernels.py)
+# and at the N2 bench with every signed channel (njbd None: +-M share a row)
+K3_SHAPES = {
+    "np33": (dict(Z1=3, Z2=1, Rbond=3.015, lmax=(2, 1), rmax=20.0, nelem=2, nnodes=33), True),
+    "np40": (dict(Z1=3, Z2=1, Rbond=3.015, lmax=(2, 1), rmax=20.0, nelem=2, nnodes=40), True),
+    "n2_all": (dict(Z1=7, Z2=7, Rbond=2.0743, lmax=(6, 6), rmax=25.0, nelem=5, nnodes=8),
+               False),
+}
+# K6/K7 past the old nprim 32 on random tables: (nang, nprim, nelem, nlm, no)
+EXCHANGE_WIDE = {"np33": (3, 33, 2, 1, 2), "np40": (3, 40, 2, 1, 2)}
 XC_SASS = ("xc_fields_kernel", "xc_fock_kernel")  # K4 and K5, both on DMMA
 PROBE_TF32, PROBE_FULL = "matmul_tf32_kernel", "matmul_full_kernel"  # K8/K9 instances
 PROBES = {  # name -> (source, {precision: replaces})
@@ -203,17 +227,18 @@ def sass_check(build) -> str:
 
 
 def radial_spills(log: str) -> str:
-    """The spill bytes (stores + loads) ptxas reports for the atomic radial
-    kernels; raises if either spills or is missing from the log."""
+    """The spill bytes (stores + loads) ptxas reports for each instance of
+    the atomic radial kernels and of K3; raises if one spills or a kernel is
+    missing from the log."""
     lines = log.splitlines()
     spills = {}
     for line, props in zip(lines, lines[1:]):
-        name = next((k for k in RADIAL_SASS if k in line and "Function properties" in line), None)
-        if name:
-            spills[name] = sum(int(n) for n in re.findall(r"(\d+) bytes spill", props))
-    if set(spills) != set(RADIAL_SASS) or any(spills.values()):
-        raise RuntimeError(f"atomic radial kernels spill or are missing: {spills}")
-    return f"atomic radial kernels' spill bytes: {spills}"
+        if "Function properties" in line and any(k in line for k in NO_SPILLS):
+            spills[line.split()[-1]] = sum(int(n) for n in re.findall(r"(\d+) bytes spill",
+                                                                       props))
+    if any(not any(k in n for n in spills) for k in NO_SPILLS) or any(spills.values()):
+        raise RuntimeError(f"the radial kernels spill or are missing: {spills}")
+    return f"radial kernels' spill bytes: {spills}"
 
 
 def phase(title: str) -> None:
@@ -373,40 +398,58 @@ def xc_kernel_inputs(basis, dev, ns: int = 2, seed: int = 11):
     }
 
 
-def dia_kernel_inputs(cfg: dict, dev, seed: int = 11, ns: int = 2):
-    """Operators and grid of a diatomic basis, and per kernel (its inputs,
-    bytes, operations) for a random symmetric symmetry-block-diagonal
-    density (the Coulomb kernel), and xc_kernel_inputs's inputs for the XC
-    kernels at ns spins; bytes counted as kernel_inputs counts them."""
-    from helfem_tpu_torch.models.diatomic import DiatomicBasis, _to4
-
-    basis = DiatomicBasis(**cfg)
-    ops = basis.build_operators(dev)
+def block_density(basis, dev, seed: int) -> torch.Tensor:
+    """A random symmetric symmetry-block-diagonal density of a diatomic
+    basis (numpy seed)."""
     rng = np.random.default_rng(seed)
     P = np.zeros((basis.nbf, basis.nbf))
     for idx in basis.sym_blocks():
         X = rng.standard_normal((len(idx), len(idx)))
         P[np.ix_(idx, idx)] = X + X.T
-    P = torch.tensor(P, device=dev)
-    nang, nrad, njbd = basis.nang, basis.nrad, basis.njbd
-    P4 = _to4(P, nang, nrad)
-    Paux0 = torch.einsum("sab,abIJ->sIJ", ops.GmLM[:njbd], P4).contiguous()
-    Paux2 = torch.einsum("sab,abIJ->sIJ", ops.GpLM[:njbd], P4).contiguous()
-    ilm = ops.LM_ilm[:njbd]
+    return torch.tensor(P, device=dev)
+
+
+def coulomb_dia_inputs(basis, ops, P: torch.Tensor, njbd: int | None):
+    """K3's inputs (its arguments, bytes, operations) for density P, as
+    coulomb_dia(ops, P, njbd) forms them (njbd None: every signed channel).
+    The bytes count the windows of Paux0 and Paux2 (the entries their
+    element windows cover), ilm, gidx and each table row read once, and the
+    outputs Jr0, Jr2."""
+    from helfem_tpu_torch.models.diatomic import _to4
+
+    sl = slice(None) if njbd is None else slice(0, njbd)
+    nrad = basis.nrad
+    P4 = _to4(P, basis.nang, nrad)
+    Paux0 = torch.einsum("sab,abIJ->sIJ", ops.GmLM[sl], P4).contiguous()
+    Paux2 = torch.einsum("sab,abIJ->sIJ", ops.GpLM[sl], P4).contiguous()
+    ilm = ops.LM_ilm[sl]
+    S = ilm.shape[0]
     nelem, npr = ops.gidx.shape
     # the rows of the channel tables this call reads, and the entries of an
     # [nrad, nrad] block that the element windows cover
     rows = len(set(ilm.tolist()))
     win = window_entries(ops.gidx, nrad)
     np2 = npr * npr
-    # inputs: the windows of Paux0 and Paux2, ilm, gidx, the table rows;
-    # outputs Jr0, Jr2
-    k3_bytes = (8 * 2 * njbd * win + nbytes(Paux0, Paux2) + nbytes(ilm, ops.gidx)
-                + 8 * rows * (3 * nelem * np2 * np2 + 4 * nelem * np2 + 1))
-    k3 = (Paux0, Paux2, ops.teiJ3, ops.dP0, ops.dP2, ops.dQ0, ops.dQ2, ops.LMfac, ilm,
-          ops.gidx)
+    moved = (8 * 2 * S * win + nbytes(Paux0, Paux2) + nbytes(ilm, ops.gidx)
+             + 8 * rows * (3 * nelem * np2 * np2 + 4 * nelem * np2 + 1))
+    args = (Paux0, Paux2, ops.teiJ3, ops.dP0, ops.dP2, ops.dQ0, ops.dQ2, ops.LMfac, ilm,
+            ops.gidx)
+    return args, moved, S * nelem * (8 * np2 * np2 + 16 * np2)
+
+
+def dia_kernel_inputs(cfg: dict, dev, seed: int = 11, ns: int = 2):
+    """Operators and grid of a diatomic basis, and per kernel (its inputs,
+    bytes, operations) for a random symmetric symmetry-block-diagonal
+    density (the Coulomb kernel, at the SCF's njbd channels), and
+    xc_kernel_inputs's inputs for the XC kernels at ns spins; bytes counted
+    as kernel_inputs counts them."""
+    from helfem_tpu_torch.models.diatomic import DiatomicBasis
+
+    basis = DiatomicBasis(**cfg)
+    ops = basis.build_operators(dev)
+    P = block_density(basis, dev, seed)
     return {
-        "radial_coulomb_dia": (k3, k3_bytes, njbd * nelem * (8 * np2 * np2 + 16 * np2)),
+        "radial_coulomb_dia": coulomb_dia_inputs(basis, ops, P, basis.njbd),
         **xc_kernel_inputs(basis, dev, ns, seed + 1),
     }
 
@@ -705,9 +748,25 @@ def main() -> None:
         inputs = make(cfg, dev)
         print(f"{shape}: operators built in {time.perf_counter() - t0:.2f} s")
         for name, (args, moved, flops) in inputs.items():
-            if name in ATOMIC:
+            if name in ATOMIC or name == "radial_coulomb_dia":
                 same_bits_twice(name, args)
             results[(name, shape)] = report(shape, name, compare(name, args, moved, flops))
+    from helfem_tpu_torch.models.diatomic import DiatomicBasis
+
+    for shape, (cfg, prefix) in K3_SHAPES.items():
+        t0 = time.perf_counter()
+        basis = DiatomicBasis(**cfg)
+        ops = basis.build_operators(dev)
+        args, moved, flops = coulomb_dia_inputs(basis, ops, block_density(basis, dev, 29),
+                                                basis.njbd if prefix else None)
+        print(f"{shape}: nprim {ops.gidx.shape[1]}, {args[0].shape[0]} channels, operators "
+              f"built in {time.perf_counter() - t0:.2f} s")
+        same_bits_twice("radial_coulomb_dia", args)
+        results[("radial_coulomb_dia", shape)] = report(
+            shape, "radial_coulomb_dia", compare("radial_coulomb_dia", args, moved, flops, 2, 10))
+        del ops, args
+        torch.cuda.empty_cache()
+    print(f"K3 at {list(K3_SHAPES)}: one launch per call, the same bits twice")
     for shape, sizes in WIDE_SHAPES.items():
         for name, (args, moved, flops) in random_atomic_inputs(dev, *sizes).items():
             same_bits_twice(name, args)
@@ -730,7 +789,12 @@ def main() -> None:
                                            compare(name, args, moved, flops, warmup=1, reps=3))
     del inputs, args
     torch.cuda.empty_cache()
-    from helfem_tpu_torch.models.diatomic import DiatomicBasis
+    for shape, (nang, npr, nelem, nlm, no) in EXCHANGE_WIDE.items():
+        inputs = random_exchange_inputs(dev, nang, npr, nelem, nlm, no, dense_channels=nlm)
+        for name, (args, moved, flops) in inputs.items():
+            results[(name, shape)] = report(shape, name, compare(name, args, moved, flops, 1, 3))
+        del inputs, args
+        torch.cuda.empty_cache()
 
     t0 = time.perf_counter()
     inputs = xc_kernel_inputs(DiatomicBasis(**N2_L12_SHAPE), dev, ns=1)
@@ -779,6 +843,13 @@ def main() -> None:
             return res
         return run
 
+    def k3_per_scf(label, per_kernel):
+        """K3's device time per warm SCF, beside K4 + K5's where they ran."""
+        ms, n = per_kernel[K3_SASS]
+        xc = sum(per_kernel[k][0] for k in XC_SASS if k in per_kernel)
+        print(f"{label}: K3 device time per warm SCF {ms:.4f} ms in {n} launches "
+              f"({ms / max(n, 1):.4f} ms each); K4 + K5 {xc:.4f} ms")
+
     def atomic_profile(label, cfg, scf_args):
         basis = AtomicBasis(**cfg)
         ops = basis.build_operators(dev)
@@ -800,15 +871,16 @@ def main() -> None:
 
     counts.update(run_cli(diatomic_main, N2_CLI, "N2 PBE",
                           ["radial_coulomb_dia", "dia_xc_fields", "dia_xc_fock"], n2_check,
-                          per_iter=XC))
+                          per_iter=XC_K3))
 
     phase("7. warm N2 PBE SCF walls and profile")
     from helfem_tpu_torch.scf.diatomic_scf import scf_diatomic
 
     n2_basis = DiatomicBasis(**DIA_SHAPES["n2"])
     n2_ops = n2_basis.build_operators(dev)
-    profile_scf("N2 PBE", counted("warm N2 PBE", lambda: scf_diatomic(
-        n2_basis, 7, 7, method="PBE", convthr=1e-7, maxit=50, ops=n2_ops)), kernels=XC_SASS)
+    k3_per_scf("N2 PBE", profile_scf("N2 PBE", counted("warm N2 PBE", lambda: scf_diatomic(
+        n2_basis, 7, 7, method="PBE", convthr=1e-7, maxit=50, ops=n2_ops), XC_K3),
+        kernels=(*XC_SASS, K3_SASS)))
 
     phase("8. N2 HF through the port's diatomic CLI on the card")
     from helfem_tpu_torch.models.diatomic import exchange_dia, exchange_dia_occ
@@ -830,7 +902,8 @@ def main() -> None:
         return kept["res"]
 
     counts.update(run_cli(hf_main, N2_HF_CLI, "N2 HF",
-                          ["radial_coulomb_dia", "radial_exchange_dia_occ"], hf_check))
+                          ["radial_coulomb_dia", "radial_exchange_dia_occ"], hf_check,
+                          per_iter=K3))
     # the P-only entry point on the converged density against the occupied-
     # orbital one on the converged orbitals
     hf_basis = DiatomicBasis(**N2_HF_SHAPE)
@@ -853,8 +926,9 @@ def main() -> None:
         raise RuntimeError("exchange_dia disagrees with exchange_dia_occ or never launched")
 
     phase("9. warm N2 HF SCF walls and profile; N2 PBE0 once")
-    profile_scf("N2 HF", lambda: scf_diatomic(hf_basis, 7, 7, method="HF", convthr=1e-7,
-                                              maxit=50, ops=hf_ops))
+    k3_per_scf("N2 HF", profile_scf("N2 HF", counted("warm N2 HF", lambda: scf_diatomic(
+        hf_basis, 7, 7, method="HF", convthr=1e-7, maxit=50, ops=hf_ops), K3),
+        kernels=(K3_SASS,)))
 
     def pbe0_check(res):
         print(f"N2 PBE0: E = {res.E:.12f}, Exx = {res.Exx:.10f}, Exc = {res.Exc:.10f}, "
@@ -865,7 +939,7 @@ def main() -> None:
     pbe0_cli = [a if a != "PBE" else "PBE0" for a in N2_CLI]
     run_cli(diatomic_main, pbe0_cli, "N2 PBE0",
             ["radial_coulomb_dia", "dia_xc_fields", "dia_xc_fock", "radial_exchange_dia_occ"],
-            pbe0_check, per_iter=XC)
+            pbe0_check, per_iter=XC_K3)
 
     phase("10. the f64-ablation tool at n = 2048")
     from helfem_tpu_torch.tools.f64_ablation import main as ablation_main
@@ -887,6 +961,11 @@ def main() -> None:
     big_ops = big.build_operators(dev)
     torch.cuda.synchronize()
     print(f"N2 HF lmax=12: nbf {big.nbf}, basis and operators {time.perf_counter() - t0:.3f} s")
+    args, moved, flops = coulomb_dia_inputs(big, big_ops, block_density(big, dev, 31), big.njbd)
+    same_bits_twice("radial_coulomb_dia", args)
+    results[("radial_coulomb_dia", "lmax12")] = report(
+        "lmax12", "radial_coulomb_dia", compare("radial_coulomb_dia", args, moved, flops, 2, 10))
+    del args
     for label in ("cold", "warm"):
         kernels.reset_launches()
         t0 = time.perf_counter()
@@ -894,6 +973,7 @@ def main() -> None:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         k6 = kernels.launches["radial_exchange_dia_occ"]
+        check_per_iteration(f"N2 HF lmax=12 {label}", res, kernels.launches, K3)
         dE, dcc = res.E - N2_L12_REF, res.E - N2_L12_CUDA_CORES
         print(f"N2 HF lmax=12 {label} SCF: E = {res.E:.12f} in {res.niter} iterations, "
               f"converged {res.converged}; wall {wall:.3f} s; radial_exchange_dia_occ "
@@ -909,7 +989,7 @@ def main() -> None:
     torch.cuda.synchronize()
     print(f"N2 PBE lmax=12: basis and operators {time.perf_counter() - t0:.3f} s")
     run_pbe = counted("N2 PBE lmax=12", lambda: scf_diatomic(
-        pbe, 7, 7, method="PBE", convthr=1e-7, maxit=50, ops=pbe_ops))
+        pbe, 7, 7, method="PBE", convthr=1e-7, maxit=50, ops=pbe_ops), XC_K3)
     t0 = time.perf_counter()
     res = run_pbe()
     torch.cuda.synchronize()
@@ -921,7 +1001,8 @@ def main() -> None:
     if not (res.converged and abs(res.Nelgrid - 14.0) < 1e-6 and abs(dE) < 1e-8):
         raise RuntimeError("N2 PBE lmax=12: not converged, Nel off 14 by 1e-6, or E off the "
                            "pinned value by 1e-8 Eh")
-    profile_scf("N2 PBE lmax=12", run_pbe, kernels=XC_SASS)
+    k3_per_scf("N2 PBE lmax=12", profile_scf("N2 PBE lmax=12", run_pbe,
+                                             kernels=(*XC_SASS, K3_SASS)))
     del pbe_ops
     torch.cuda.empty_cache()
 

@@ -210,6 +210,29 @@ __device__ __forceinline__ bool band_reduce(double* red, int R, int nr, int ntn,
   return live && part == 0;
 }
 
+// Warp-wide exclusive prefix sums of x(0), ..., x(n - 1) into out[0..n):
+// out[e] = the sum of x(f) over f < e, or over f > e when reverse; chunks
+// of 32 in scan order, a fixed tree order within each chunk, so every call
+// sums in the same order.
+template <class X>
+__device__ inline void warp_exclusive_scan(const X& x, int n, bool reverse, double* out) {
+  const int lane = threadIdx.x & 31;
+  double carry = 0.0;
+  for (int base = 0; base < n; base += 32) {
+    const int pos = base + lane;                // position in scan order
+    const int e = reverse ? n - 1 - pos : pos;  // element index
+    double v = pos < n ? x(e) : 0.0;
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const double y = __shfl_up_sync(0xffffffffu, v, off);
+      if (lane >= off) v += y;
+    }
+    const double below = __shfl_up_sync(0xffffffffu, v, 1);
+    if (pos < n) out[e] = (lane ? below : 0.0) + carry;
+    carry += __shfl_sync(0xffffffffu, v, 31);
+  }
+}
+
 // The owner table in shared memory: own[n] = {the slots e * nprim + i
 // covering n (element order), then their elements e}, -1 where none.
 __device__ __forceinline__ void stage_owners(int4* own, const int* __restrict__ owners, int nrad,

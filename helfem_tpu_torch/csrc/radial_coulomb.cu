@@ -67,29 +67,6 @@ __host__ __device__ inline int rc_smem(const RcLaunch& a) {
          4 * (6 * a.nrad + a.nelem * a.nprim);
 }
 
-// Warp-wide exclusive prefix sums of x[0..n) (global, read through L2) into
-// out[0..n) (shared memory): out[e] = the sum of x[f] over f < e, or over
-// f > e when reverse; chunks of 32 in scan order, a fixed tree order within
-// each chunk, so every call sums in the same order.
-__device__ inline void warp_exclusive_scan(const double* __restrict__ x, int n, bool reverse,
-                                           double* out) {
-  const int lane = threadIdx.x & 31;
-  double carry = 0.0;
-  for (int base = 0; base < n; base += 32) {
-    const int pos = base + lane;                // position in scan order
-    const int e = reverse ? n - 1 - pos : pos;  // element index
-    double v = pos < n ? __ldcg(x + e) : 0.0;
-#pragma unroll
-    for (int off = 1; off < 32; off <<= 1) {
-      const double y = __shfl_up_sync(0xffffffffu, v, off);
-      if (lane >= off) v += y;
-    }
-    const double below = __shfl_up_sync(0xffffffffu, v, 1);
-    if (pos < n) out[e] = (lane ? below : 0.0) + carry;
-    carry += __shfl_sync(0xffffffffu, v, 31);
-  }
-}
-
 // A[row, (u, l)] of a (L, e) slice: tei rows, then disjL, disjm1L.
 struct CoulombRows {
   static constexpr bool kUnitMajor = false;
@@ -203,8 +180,10 @@ __global__ void __launch_bounds__(RB_THREADS, 2) radial_coulomb_kernel(const RcL
           jj[x] = __ldcg(J + lw);
         }
         if (!scanned) {  // warp-uniform: the run's first pass
-          warp_exclusive_scan(a.tr + (size_t)LM * 2 * nelem, nelem, false, wsum);
-          warp_exclusive_scan(a.tr + ((size_t)LM * 2 + 1) * nelem, nelem, true, wsum + nelem);
+          const double* ts = a.tr + (size_t)LM * 2 * nelem;  // written by other blocks:
+          const double* tb = ts + nelem;                      // read through L2
+          warp_exclusive_scan([=](int e) { return __ldcg(ts + e); }, nelem, false, wsum);
+          warp_exclusive_scan([=](int e) { return __ldcg(tb + e); }, nelem, true, wsum + nelem);
           __syncwarp();
           scanned = true;
         }

@@ -92,13 +92,16 @@
 #define EX_BAR_FULL 1
 #define EX_BAR_EMPTY 4
 #define EX_BAR_PRODUCERS 7
+#define EX_MAX_NPRIM 72  // the largest nprim the in-element plan admits
+#define EX_CROSS_U ((EX_MAX_NPRIM * EX_MAX_NPRIM + 255) / 256)  // K7 cross outputs a thread
 
 // Shared-memory geometry of the in-element GEMM (kernels/radial_exchange_dia.py
 // mirrors it): kpad depth columns per chunk; ns stages of the A slab
 // (astage doubles: rows of np, as the table stores them, plus the 16-byte
 // alignment slack of the bulk copy) and of R (kpad rows of XCS); wbuf
 // buffers of the U/V windows, kpad rows of xp doubles (xk = 2 no padded to
-// 4, xp = 4 mod 8), ws apart.
+// 4, xp = 4 mod 8), ws apart; then the element's nprim gidx slots (ints,
+// padded to whole doubles).
 struct ExdiaGeom {
   int kpad, astage, xk, xp, ws;
 };
@@ -124,6 +127,7 @@ __host__ __device__ inline size_t exdia_smem_doubles(const ExdiaGeom& q, bool oc
   return (size_t)ns * (q.astage + (size_t)q.kpad * XCS) +
          (occ ? (size_t)wbuf * 2 * XT * q.ws : 0);
 }
+__host__ __device__ inline size_t exdia_gs_doubles(int nprim) { return (nprim + 1) / 2; }
 
 __device__ __forceinline__ unsigned smem_addr(const void* p) {
   return (unsigned)__cvta_generic_to_shared(p);
@@ -302,7 +306,7 @@ __global__ void __launch_bounds__(EX_THREADS, TM == 1 ? 2 : 1) exdia_inelem_kern
     int nprim, int nang, int nrad, int no, int cpg, int ns, int wbuf) {
   constexpr int BM = 64 * TM;
   extern __shared__ __align__(16) double sm[];
-  __shared__ int gs[32], aoff[EX_MAX_STAGES];
+  __shared__ int aoff[EX_MAX_STAGES];
   __shared__ unsigned long long mbar[EX_MAX_STAGES];
   const ExdiaGeom q = exdia_geom(nprim, no, BM);
   const int np = nprim, np2 = np * np, np3 = np2 * np;
@@ -310,6 +314,8 @@ __global__ void __launch_bounds__(EX_THREADS, TM == 1 ? 2 : 1) exdia_inelem_kern
   double* As = sm;
   double* Rs = As + ns * q.astage;
   double* Ws = Rs + ns * rsz;
+  const size_t nsm = exdia_smem_doubles(q, OCC, ns, wbuf);
+  int* gs = (int*)(sm + nsm);  // the element's gidx slots
 
   const int mtiles = (np2 + BM - 1) / BM;
   const int mb = blockIdx.x % mtiles;
@@ -317,10 +323,9 @@ __global__ void __launch_bounds__(EX_THREADS, TM == 1 ? 2 : 1) exdia_inelem_kern
   while (bt > ct) bt -= ++ct;
   const int e = blockIdx.y, grp = blockIdx.z, tid = threadIdx.x;
   const int row0 = mb * BM, nrows = min(BM, np2 - row0);
-  if (tid < np) gs[tid] = gidx[e * np + tid];
+  for (int k = tid; k < np; k += EX_THREADS) gs[k] = gidx[e * np + k];
   if (tid < ns)
     asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_addr(mbar + tid)));
-  const size_t nsm = exdia_smem_doubles(q, OCC, ns, wbuf);
   for (size_t x = tid; x < nsm; x += EX_THREADS) sm[x] = 0.0;  // every pad reads as 0
   asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");  // zeros before bulk copies
@@ -448,7 +453,8 @@ __global__ void __launch_bounds__(EX_THREADS, TM == 1 ? 2 : 1) exdia_inelem_kern
   write(1);
 }
 
-// K6 cross factors. grid (nang, nelem, S), 128 threads.
+// K6 cross factors. grid (nang, nelem, S), 128 threads; dynamic shared
+// memory: the element's nprim gidx slots.
 //   ud[e][(s,t,o)][(b,i)]  = sum_p (dQ0[c,e,i,p] Uw[s,0,t,b,g(e,p),o]
 //                                   - dQ2[c,e,i,p] Uw[s,1,t,b,g(e,p),o])
 //   vd[e][(s,t,o)][(b,i)]  = the same with dP0, dP2 and V
@@ -459,9 +465,9 @@ __global__ void exdia_transform_kernel(
     const int* __restrict__ ilm, const int* __restrict__ gidx,
     double* __restrict__ ud, double* __restrict__ vd, int S, int nelem,
     int nprim, int nang, int nrad, int no) {
-  __shared__ int gs[32];
+  extern __shared__ int gs[];
   const int b = blockIdx.x, e = blockIdx.y, s = blockIdx.z, c = ilm[s];
-  if (threadIdx.x < nprim) gs[threadIdx.x] = gidx[e * nprim + threadIdx.x];
+  for (int k = threadIdx.x; k < nprim; k += blockDim.x) gs[k] = gidx[e * nprim + k];
   __syncthreads();
   const int nrad1 = nrad + 1;
   const size_t Ktot = (size_t)S * 2 * no, Mdim = (size_t)nang * nprim;
@@ -540,8 +546,10 @@ __global__ void __launch_bounds__(256) exdia_cross_gemm_kernel(
 }
 
 // K7 cross term from the dense R windows. grid (nang * nang, npairs), 256
-// threads; each thread owns up to four (i, x) outputs (nprim <= 32).
-// Dynamic shared memory: 6 np^2 doubles (dQ0, dQ2, dP0, dP2, R window, Y).
+// threads; each thread owns up to U (i, x) outputs: U = 4 for nprim <= 32,
+// EX_CROSS_U up to EX_MAX_NPRIM. Dynamic shared memory: 6 np^2 doubles
+// (dQ0, dQ2, dP0, dP2, R window, Y).
+template <int U>
 __global__ void __launch_bounds__(256) exdia_cross_dense_kernel(
     const double* __restrict__ R, const double* __restrict__ dP0,
     const double* __restrict__ dP2, const double* __restrict__ dQ0,
@@ -549,7 +557,7 @@ __global__ void __launch_bounds__(256) exdia_cross_dense_kernel(
     const int* __restrict__ gidx, double* __restrict__ X, int S, int nelem,
     int nprim, int nang, int nrad) {
   extern __shared__ double sm[];
-  __shared__ int ge[32], gf[32];
+  __shared__ int ge[EX_MAX_NPRIM], gf[EX_MAX_NPRIM];
   const int np2 = nprim * nprim;
   double* Dq0 = sm;
   double* Dq2 = Dq0 + np2;
@@ -568,7 +576,7 @@ __global__ void __launch_bounds__(256) exdia_cross_dense_kernel(
     ge[tid] = gidx[e * nprim + tid];
     gf[tid] = gidx[f * nprim + tid];
   }
-  double acc[4] = {0.0, 0.0, 0.0, 0.0};
+  double acc[U] = {};
   for (int s = 0; s < S; ++s) {
     const int c = ilm[s];
     __syncthreads();
@@ -671,7 +679,8 @@ static cudaError_t launch_inelem_tm(const double* A, const double* B, const doub
                                     int nelem, int nprim, int nang, int nrad, int no, int G,
                                     int ns, int wbuf, cudaStream_t st) {
   const ExdiaGeom q = exdia_geom(nprim, no, 64 * TM);
-  const size_t smem = exdia_smem_doubles(q, OCC, ns, wbuf) * sizeof(double);
+  const size_t smem =
+      (exdia_smem_doubles(q, OCC, ns, wbuf) + exdia_gs_doubles(nprim)) * sizeof(double);
   cudaError_t err = cudaFuncSetAttribute(exdia_inelem_kernel<OCC, TM>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)smem);
@@ -732,7 +741,7 @@ extern "C" int radial_exchange_dia_occ_launch(
   if (err != cudaSuccess) return (int)err;
   const int npairs = nelem * (nelem - 1) / 2;
   if (npairs > 0) {
-    exdia_transform_kernel<<<dim3(nang, nelem, S), 128, 0, st>>>(
+    exdia_transform_kernel<<<dim3(nang, nelem, S), 128, nprim * sizeof(int), st>>>(
         Uw, V, dP0, dP2, dQ0, dQ2, ilm, gidx, ud, vd, S, nelem, nprim, nang, nrad, no);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
@@ -759,12 +768,13 @@ extern "C" int radial_exchange_dia_launch(
   if (err != cudaSuccess) return (int)err;
   const int npairs = nelem * (nelem - 1) / 2;
   if (npairs > 0) {
+    if (nprim > EX_MAX_NPRIM) return (int)cudaErrorInvalidValue;
     const size_t smem = 6 * (size_t)nprim * nprim * sizeof(double);
-    err = cudaFuncSetAttribute(exdia_cross_dense_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    auto kernel = nprim <= 32 ? exdia_cross_dense_kernel<4> : exdia_cross_dense_kernel<EX_CROSS_U>;
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
-    exdia_cross_dense_kernel<<<dim3(nang * nang, npairs), 256, smem, st>>>(
-        R, dP0, dP2, dQ0, dQ2, ilm, gidx, X, S, nelem, nprim, nang, nrad);
+    kernel<<<dim3(nang * nang, npairs), 256, smem, st>>>(R, dP0, dP2, dQ0, dQ2, ilm, gidx, X, S,
+                                                         nelem, nprim, nang, nrad);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }

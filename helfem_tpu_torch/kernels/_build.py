@@ -32,7 +32,9 @@ _SIGNATURES = {
     "radial_exchange_smem": [_P],
     "radial_coulomb_launch": [_P],
     "radial_coulomb_smem": [_P],
-    "radial_coulomb_dia_launch": [_P] * 16 + [_I] * 5 + [_P],
+    "radial_coulomb_dia_launch": [_P],
+    "radial_coulomb_dia_smem": [_P],
+    "radial_coulomb_dia_grid": [_P],
     "dia_xc_fields_launch": [_P],
     "dia_xc_fock_launch": [_P],
     "radial_exchange_dia_occ_launch": [_P] * 14 + [_I] * 10 + [_P],

@@ -63,28 +63,33 @@ def band_table(gidx: np.ndarray, owners: np.ndarray, nrad: int) -> np.ndarray:
     return band
 
 
-def launch_template(cache: dict, held: tuple, extra, build):
-    """build() once per (held, extra): a wrapper's launch arguments that
-    depend only on the objects in `held` (operator tensors or a grid, which
-    the port never modifies in place) and on `extra` (hashable sizes).
+def launch_template(cache: dict, held: tuple, extra, build, views: tuple = ()):
+    """build() once per (held, views, extra): a wrapper's launch arguments
+    that depend only on the objects in `held` and the tensors in `views`
+    (operator tensors or a grid, which the port never modifies in place)
+    and on `extra` (hashable sizes).
 
-    Looked up first by the objects' ids, then by their memory (a tensor's
+    Looked up first by the ids of `held`, then by their memory (a tensor's
     address, dtype, shape and strides; other objects by id), so that a fresh
-    view of a cached tensor (ops.tei[L]) finds its entry too. An entry holds
-    the objects it was built from, so neither their ids nor their memory can
-    be reused while it lives; at most 16 entries."""
-    key = (tuple(map(id, held)), extra)
+    view of a cached tensor (ops.tei[L]) finds its entry too. `views` are
+    tensors that callers pass as a fresh view on every call
+    (ops.LM_ilm[:njbd]): they are keyed by their memory alone, which costs
+    less than a miss on the ids of all. An entry holds the objects it was
+    built from, so neither their ids nor their memory can be reused while it
+    lives; at most 16 entries."""
+    vmem = tuple((t.data_ptr(), t.dtype, tuple(t.shape), t.stride()) for t in views)
+    key = (tuple(map(id, held)), vmem, extra)
     hit = cache.get(key)
     if hit is not None:
         return hit[1]
     mem = (tuple((t.data_ptr(), t.dtype, tuple(t.shape), t.stride())
-                 if isinstance(t, torch.Tensor) else id(t) for t in held), extra)
+                 if isinstance(t, torch.Tensor) else id(t) for t in held), vmem, extra)
     hit = cache.get(mem)
     if hit is None:
         value = build()
         if len(cache) >= 16:
             cache.clear()
-        hit = (held, value)
+        hit = (held + views, value)
         cache[mem] = hit
         cache[key] = hit  # the ids of the objects the entry holds
     return hit[1]

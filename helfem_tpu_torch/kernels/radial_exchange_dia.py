@@ -43,32 +43,51 @@ __all__ = ["radial_exchange_dia_occ", "radial_exchange_dia_occ_plain",
 _TILE = 8  # shell-pair tile edge of the kernel (XT in the source)
 _SMEM = 232448 - 256  # one block's on the H100, less the kernel's static shared memory
 _SM_SMEM = 233472  # shared memory of one multiprocessor, for resident blocks
+_MAX_NPRIM = 72  # EX_MAX_NPRIM: the cross kernel's static gidx slots
 
 
 def _inelem_plan(name: str, nprim: int, no: int | None) -> tuple[int, int, int, int]:
     """(TM, shared-memory bytes, stages, window buffers) of the in-element
     GEMM, as csrc/radial_exchange_dia.cu sizes them (exdia_tm, exdia_geom,
-    exdia_smem_doubles): three stages of the A slab and the R tile and two
-    U/V window buffers where they fit, then fewer; no is None for the dense
-    kernel, which stages no windows. Raises ValueError when two stages and
-    one window buffer do not fit."""
+    exdia_smem_doubles, exdia_gs_doubles): three stages of the A slab and
+    the R tile and two U/V window buffers where they fit, then fewer, and
+    the element's gidx slots; no is None for the dense kernel, which stages
+    no windows. Raises ValueError when two stages (and one window buffer)
+    do not fit: past nprim 62 for K6, past 72 for K7's in-element GEMM."""
     np2 = nprim * nprim
     tm = 1 if np2 <= 64 else (2 if np2 <= 128 or nprim > 16 else 4)
     kpad = -(-nprim // 8) * 8
     rows = min(64 * tm, -(-np2 // 64) * 64)
     stage = (rows * nprim + kpad + 3) // 2 * 2 + kpad * (8 * _TILE + 4)
+    slots = (nprim + 1) // 2
     if no is None:
-        ns = 3 if 8 * 3 * stage <= _SMEM else 2
-        return tm, 8 * ns * stage, ns, 0
+        for ns in (3, 2):
+            smem = 8 * (ns * stage + slots)
+            if smem <= _SMEM:
+                return tm, smem, ns, 0
+        raise ValueError(f"{name}: nprim={nprim} needs {smem} bytes of shared memory for two "
+                         f"stages, above the card's {_SMEM}")
     xk = -(-2 * no // 4) * 4
     window = 2 * _TILE * (kpad * (xk if xk % 8 else xk + 4) + 4)
     # the next windows land two chunks after they are issued
     for ns, wbuf in ((3, 2), (3, 1), (2, 2), (2, 1)) if nprim >= 2 else ((3, 1), (2, 1)):
-        smem = 8 * (ns * stage + wbuf * window)
+        smem = 8 * (ns * stage + wbuf * window + slots)
         if smem <= _SMEM:
             return tm, smem, ns, wbuf
     raise ValueError(f"{name}: no={no} occupied columns at nprim={nprim} need {smem} bytes "
                      f"of shared memory, above the card's {_SMEM}")
+
+
+def _cross_dense_smem(name: str, nprim: int) -> int:
+    """Dynamic shared memory of K7's cross kernel (exdia_cross_dense_kernel):
+    six [np, np] tables, beside its static gidx slots of two elements (2 x
+    EX_MAX_NPRIM ints). Raises ValueError past nprim 69, where they exceed
+    one block's."""
+    smem = 8 * 6 * nprim * nprim
+    if smem > 232448 - 8 * _MAX_NPRIM:
+        raise ValueError(f"{name}: nprim={nprim} needs {smem} bytes of shared memory for the "
+                         f"cross-element term, above the card's {232448 - 8 * _MAX_NPRIM}")
+    return smem
 
 
 def _column_chunks(name: str, nprim: int, no: int) -> list[tuple[int, int]]:
@@ -118,8 +137,6 @@ def _check_tables(name, teiJ3, dP0, dP2, dQ0, dQ2, ilm, gidx, S):
     for arg, t in (("dP0", dP0), ("dP2", dP2), ("dQ0", dQ0), ("dQ2", dQ2)):
         expect_shape(name, arg, t, (nlm, nelem, nprim, nprim))
     expect_shape(name, "ilm", ilm, (S,))
-    if nprim > 32:
-        raise ValueError(f"{name}: nprim={nprim} exceeds the kernel's 32")
 
 
 def radial_exchange_dia_occ(Uw: torch.Tensor, V: torch.Tensor, teiJ3: torch.Tensor,
@@ -220,6 +237,8 @@ def radial_exchange_dia(R: torch.Tensor, teiJ3: torch.Tensor, dP0: torch.Tensor,
     expect_shape(name, "R", R, (S, 4, nang, nang, nrad, nrad))
     _check_tables(name, teiJ3, dP0, dP2, dQ0, dQ2, ilm, gidx, S)
     tm, smem, ns, _ = _inelem_plan(name, nprim, None)
+    if nelem > 1:
+        _cross_dense_smem(name, nprim)
     dev = R.device
     G = _channel_groups(S, nang, nelem, nprim, tm, smem,
                         torch.cuda.get_device_properties(dev).multi_processor_count)

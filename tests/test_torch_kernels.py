@@ -175,6 +175,72 @@ def test_radial_exchange_plan_raises_past_shared_memory():
             rx.plan(3, 4, 2, nprim, 2 * nprim - 3)
 
 
+@pytest.mark.parametrize("S", [1, 2, 3, 7, 15, 16, 27, 30])
+def test_coulomb_dia_plan_covers_every_slice_once(S):
+    """K3's host plan for nprim 2-40: its row tasks cover every row and
+    every column of every (group, element) slice exactly once, within the
+    card's shared memory; the
+    channel groups hold every channel once, beside the channels of its
+    table row (one group per row on the SCF path, the +-M pairs of a row
+    together when every signed channel runs)."""
+    mod = _wrapper_module("radial_coulomb_dia")
+    rng = np.random.default_rng(S)
+    for ilm in (np.arange(S), rng.integers(0, max(1, S // 2), S)):
+        groups, slot, CH = mod.channel_groups(ilm)
+        assert CH == (2 if len(set(ilm.tolist())) < S else 1)
+        for s, c in enumerate(ilm):
+            g, k = divmod(int(slot[s]), CH)
+            assert groups[g, 0] == c and groups[g, 1 + k] == s
+        assert sorted(groups[:, 1:][groups[:, 1:] >= 0].tolist()) == list(range(S))
+        assert len(groups) == sum(-(-int((ilm == c).sum()) // CH) for c in set(ilm.tolist()))
+        G, nelem = len(groups), 3
+        for nprim in range(2, 41):
+            np2, nrad = nprim * nprim, nelem * (nprim - 1) - 1
+            for nblocks in (132, 396):
+                p = mod.plan(S, G, CH, nelem, nprim, nrad, nblocks)
+                assert p.R % 8 == 0 and 8 <= p.R <= mod.MAX_R and 1 <= p.K <= mod.MAX_K
+                assert 32 * (p.K - 1) < p.W <= 32 * p.K and p.ncb * p.W >= np2
+                assert mod.smem_bytes(CH, p.W, p.K, p.R, S, nelem, nprim, nrad) <= mod.SMEM_BLOCK
+                cover = {}
+                for g, e, r0, nr, c0, nc in mod.tasks(p, G, nelem, nprim):
+                    cover.setdefault((g, e), []).append((r0, nr, c0, nc))
+                assert sorted(cover) == [(g, e) for g in range(G) for e in range(nelem)]
+                for tiles in cover.values():
+                    rows = sorted({(r0, nr) for r0, nr, _, _ in tiles})
+                    cols = sorted({(c0, nc) for _, _, c0, nc in tiles})
+                    assert len(tiles) == len(rows) * len(cols) == p.nrb * p.ncb
+                    assert len(set(tiles)) == len(tiles)
+                    for spans, total in ((rows, np2), (cols, np2)):
+                        assert spans[0][0] == 0 and all(n > 0 for _, n in spans)
+                        assert all(a + n == b for (a, n), (b, _) in zip(spans, spans[1:]))
+                        assert spans[-1][0] + spans[-1][1] == total
+
+
+def test_exchange_planners_admit_wide_elements_and_raise_past_shared_memory():
+    """K6 and K7 past the old nprim 32: their shared-memory plans admit
+    nprim 33 and 40 (K6 up to 62 with one occupied column; K7's in-element
+    GEMM up to 72, its cross-element kernel up to 69), and one past each
+    limit the planner raises a ValueError naming the shape."""
+    from helfem_tpu_torch.kernels.radial_exchange_dia import (
+        _SMEM, _column_chunks, _cross_dense_smem, _inelem_plan,
+    )
+
+    occ, dense = "radial_exchange_dia_occ", "radial_exchange_dia"
+    for nprim in (33, 40, 62):
+        assert _inelem_plan(occ, nprim, 1)[1] <= _SMEM
+        assert _column_chunks(occ, nprim, 9)[-1][1] == 9
+    for nprim in (33, 40, 69):
+        assert _inelem_plan(dense, nprim, None)[1] <= _SMEM
+        assert _cross_dense_smem(dense, nprim) <= _SMEM
+    assert _inelem_plan(dense, 72, None)[1] <= _SMEM
+    with pytest.raises(ValueError, match="no=1 occupied columns at nprim=63 need"):
+        _column_chunks(occ, 63, 9)
+    with pytest.raises(ValueError, match="nprim=73 needs .* two stages"):
+        _inelem_plan(dense, 73, None)
+    with pytest.raises(ValueError, match="nprim=70 needs .* cross-element"):
+        _cross_dense_smem(dense, 70)
+
+
 def test_check_gidx_rejects_triple_cover():
     kernels.check_gidx(np.array([[3, 0, 1], [1, 2, 3]], dtype=np.int32), 3)
     with pytest.raises(ValueError, match="two"):
@@ -391,6 +457,109 @@ def test_dia_kernel_rejects_bad_inputs_on_card(dia_basis, cuda_device, name):
         fn(*([args[0][..., :-1].contiguous()] + args[1:]))
 
 
+# K3 past the old nprim 32 (the LiH XC shapes below) and with every signed
+# channel (njbd None: the +-M channels of a table row share one read of it)
+K3_SHAPES = {
+    "n2_all": ("n2_bench", False),
+    "co_all": ("co_l4", False),
+    "lih_all": ("lih_np5", False),
+    "np33": ("np33", True),
+    "np40": ("np40", True),
+}
+
+
+def _coulomb_dia_args(cfg, dev, prefix, seed=53):
+    """K3's arguments for a random symmetric symmetry-block-diagonal density,
+    as coulomb_dia(ops, P, basis.njbd if prefix else None) forms them."""
+    import chip_smoke as cs
+
+    basis = DiatomicBasis(**cfg)
+    ops = basis.build_operators(dev)
+    P = cs.block_density(basis, dev, seed)
+    return cs.coulomb_dia_inputs(basis, ops, P, basis.njbd if prefix else None)[0]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", list(K3_SHAPES))
+def test_coulomb_dia_kernel_matches_plain_on_card(cuda_device, shape):
+    """K3 at nprim 33 and 40 and with every signed channel: one launch per
+    call, the same bits twice, 1e-12 x max-abs of the plain version."""
+    key, prefix = K3_SHAPES[shape]
+    cfg = DIA_CONFIGS.get(key) or XC_SHAPES[key]
+    args = _coulomb_dia_args(cfg, cuda_device, prefix)
+    before = kernels.launches["radial_coulomb_dia"]
+    out = kernels.radial_coulomb_dia(*args)
+    again = kernels.radial_coulomb_dia(*args)
+    torch.cuda.synchronize()
+    assert kernels.launches["radial_coulomb_dia"] == before + 2
+    ref = kernels.radial_coulomb_dia_plain(*args)
+    for o, a, r in zip(out, again, ref):
+        assert torch.equal(o, a)
+        assert float((o - r).abs().max()) <= TOL * float(r.abs().max())
+
+
+@pytest.mark.cuda
+def test_coulomb_dia_rejects_bad_helpers_on_card(cuda_device):
+    """Per call K3 checks Paux0 and Paux2 alone: type, contiguity and the
+    shape [S, nrad, nrad] of the operator set's template."""
+    args = list(_coulomb_dia_args(DIA_CONFIGS["lih_np5"], cuda_device, True))
+    fn = kernels.radial_coulomb_dia
+    for k, arg in ((0, "Paux0"), (1, "Paux2")):
+        bad = list(args)
+        bad[k] = args[k].float()
+        with pytest.raises(TypeError, match=arg):
+            fn(*bad)
+        bad[k] = args[k].transpose(-1, -2)
+        with pytest.raises(ValueError, match=f"{arg} must be contiguous"):
+            fn(*bad)
+        bad[k] = args[k][:-1].contiguous()
+        with pytest.raises(ValueError, match=f"{arg} has shape"):
+            fn(*bad)
+    with pytest.raises(ValueError, match="Paux0 has shape"):
+        fn(*([args[0][0]] + args[1:]))
+
+
+@pytest.mark.cuda
+def test_coulomb_dia_reuses_its_template_for_fresh_ilm_views(cuda_device):
+    """coulomb_dia passes ops.LM_ilm[:njbd], a new view on every call: the
+    launch template is found by its memory, so a second call builds none."""
+    from helfem_tpu_torch.models.diatomic import coulomb_dia
+
+    mod = _wrapper_module("radial_coulomb_dia")
+    basis = DiatomicBasis(**DIA_CONFIGS["co_l4"])
+    ops = basis.build_operators(cuda_device)
+    P = torch.tensor(np.eye(basis.nbf), device=cuda_device)
+    first = coulomb_dia(ops, P, basis.njbd)
+    entries = dict(mod._templates)
+    again = coulomb_dia(ops, P, basis.njbd)
+    torch.cuda.synchronize()
+    assert torch.equal(first, again)
+    assert len(mod._templates) == len(entries)
+    assert all(mod._templates[k] is v for k, v in entries.items())
+    view = ops.LM_ilm[:basis.njbd]
+    hits = [v for k, v in entries.items() if view.data_ptr() in [m[0] for m in k[1]]]
+    assert hits, "no template is keyed by the memory of ops.LM_ilm[:njbd]"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", ["n2_bench", "lih_np5"])
+def test_coulomb_dia_plan_matches_kernel_smem(cuda_device, shape):
+    """The wrapper's plan counts the kernel's shared memory as the kernel
+    does, and sizes its tasks by the kernel's cooperative grid."""
+    from helfem_tpu_torch.kernels import _build
+
+    mod = _wrapper_module("radial_coulomb_dia")
+    mod._templates.clear()
+    args = _coulomb_dia_args(DIA_CONFIGS[shape], cuda_device, True)
+    kernels.radial_coulomb_dia(*args)
+    (t, *_), = {id(v[1]): v[1] for v in mod._templates.values()}.values()
+    want = mod.smem_bytes(t.CH, t.W, t.K, t.R, t.S, t.nelem, t.nprim, t.nrad)
+    assert _build.lib().radial_coulomb_dia_smem(ctypes.byref(t)) == want <= mod.SMEM_BLOCK
+    nblocks = _build.lib().radial_coulomb_dia_grid(ctypes.byref(t))
+    assert nblocks >= torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    assert mod.plan(t.S, t.G, t.CH, t.nelem, t.nprim, t.nrad, nblocks).R == t.R
+
+
 @pytest.mark.cuda
 def test_dia_scf_on_card_matches_cpu(cuda_device):
     cfg = dict(Z1=7, Z2=7, Rbond=2.0743, lmax=(2, 2), rmax=15.0, nelem=3, nnodes=5)
@@ -477,8 +646,9 @@ def test_exchange_kernel_matches_plain_at_lmax12_shapes(cuda_device, name):
 
 # (nang, nprim, nelem, S, no) at the edges of the exchange core's tiling:
 # one element (no cross pairs), one and nine shells (ragged 8 x 8 tiles),
-# nprim from 2 to the wrappers' 32 (row blocks past 16), one occupied column
-# and the most that the shared-memory plan admits ("max"), one channel
+# nprim from 2 past the old limit of 32 (row blocks past 16; np2 past the
+# cross kernel's 1024 outputs of one pass), one occupied column and the most
+# that the shared-memory plan admits ("max"), one channel
 EXCHANGE_EDGES = {
     "nelem1": (9, 5, 1, 3, 3),
     "nang1": (1, 5, 3, 2, 2),
@@ -487,6 +657,8 @@ EXCHANGE_EDGES = {
     "np5": (9, 5, 3, 2, 3),
     "np15": (9, 15, 2, 2, 3),
     "np32": (3, 32, 2, 1, 2),
+    "np33": (3, 33, 2, 1, 2),
+    "np40": (3, 40, 2, 1, 2),
     "no1": (9, 8, 3, 2, 1),
     "no_max_np15": (9, 15, 2, 1, "max"),
     "no_max_np32": (3, 32, 2, 1, "max"),

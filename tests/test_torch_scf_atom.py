@@ -34,6 +34,18 @@ def test_rhf_energy_matches_jax(atom):
         assert abs(getattr(got, comp) - getattr(ref, comp)) < 1e-7, comp
 
 
+def test_rhf_energy_matches_jax_with_the_xe_cli_options():
+    """The options of the Xe HF path (chip_smoke.py's XE_CLI: lmax = mmax =
+    3, zexp 2.5, the TF guess, convthr 1e-9) at a small closed shell, Ne on
+    four elements: the port's energy within 1e-9 Eh of helfem_tpu's."""
+    cfg = dict(Z=10, lmax=3, mmax=3, rmax=40.0, nelem=4, nnodes=8, zexp=2.5)
+    ref = jax_scf.scf_atom(JaxBasis(**cfg), 5, 5, convthr=1e-9, guess="TF")
+    got = atomic_scf.scf_atom(AtomicBasis(**cfg), 5, 5, convthr=1e-9, guess="TF",
+                              device="cpu")
+    assert ref.converged and got.converged
+    assert abs(got.E - ref.E) < 1e-9
+
+
 def test_aufbau_matches_jax():
     rng = np.random.default_rng(21)
     E = np.sort(rng.standard_normal((4, 6)), axis=1)
