@@ -40,7 +40,9 @@ Phases, any failure raises and exits non-zero:
      for "full" and in TF32 for "reduced" (three calls for matmul_dd);
   4. Ar HF (the bench config) through the port's atomic CLI on the card:
      within 1e-6 Eh of the numerical HF limit and 1e-10 Eh of the port's
-     pinned value, both atomic kernels launched once per iteration;
+     pinned value, both atomic kernels launched once per iteration; then
+     again with the CLI's default guess (SAP, its Ar atom solved on the
+     card through K2), within 1e-10 Eh of the same pinned value;
   5. three warm Ar HF SCF walls and a torch.profiler breakdown of the device
      time of one more SCF, by kernel, each SCF with the atomic kernels once
      per iteration; their device time per SCF;
@@ -66,14 +68,26 @@ Phases, any failure raises and exits non-zero:
      fields), then N2 HF there from the core guess, cold then warm: within
      2e-5 Eh of the bench reference and 1e-8 Eh of the value the exchange
      kernels' first, CUDA-core version gave, with the occupied-orbital
-     exchange kernel launched and K3 once per iteration; the warm wall.
-     Then N2 PBE at the same basis and the PBE bench geometry, cold
+     exchange kernel launched and K3 once per iteration; the warm wall;
+     then the same SCF from the SAP guess (the bench's own start), cold and
+     warm, within 2e-5 Eh of the bench reference, beside the core-guess
+     iterations and walls. Then N2 PBE at the same basis and the PBE bench geometry, cold
      (converged, Nel on the grid within 1e-6 of 14, within 1e-8 Eh of the
      pinned value, K3 and the XC kernels once per iteration), then warm with
      its profile and K3's device time per SCF;
  12. Xe HF (the bench's heavier atomic point, lmax=3) through the port's
      atomic CLI: converged to convthr 1e-9, within 3e-6 Eh of the Xe HF limit,
-     the atomic kernels once per iteration.
+     the atomic kernels once per iteration;
+ 13. gensap Kr (bench.py's bench_gensap basis, SVWN, --nosearch) through the
+     port's gensap CLI, cold and warm: converged within 1e-5 Eh of the bench
+     value, a finite Z_eff table, K2 once per Fock build and K1 never; K1
+     and K2 at the Kr SAD shapes against their plain versions; the warm
+     solve's device time for K1, K2, eigh and the rest;
+ 14. SAD-HF Ar at the Ar bench basis: K1 (NL 3 on two channels) and K2 (the
+     L=0 tables) at its shapes against their plain versions, sad_exchange
+     and sad_coulomb against their CPU versions (1e-12 x max-abs, the same
+     bits twice), then the solve: within 1e-6 Eh of the Ar HF limit, K1 and
+     K2 once per Fock build, and its warm device time like phase 13's.
 The last two lines are the kernels' JSON record and {"ok": true, ...}.
 """
 
@@ -81,19 +95,32 @@ import json
 import re
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
 import torch
 
 AR_HF_LIMIT = -526.8175128  # numerical HF limit (Saito 2009), bench.py gate
-AR_CLI = ["--Z", "Ar", "--lmax", "1", "--mmax", "1", "--nelem", "10",
-          "--nnodes", "15", "--Rmax", "40", "--iguess", "3", "--convthr", "1e-9"]
+AR_BASIS_CLI = ["--Z", "Ar", "--lmax", "1", "--mmax", "1", "--nelem", "10", "--nnodes", "15",
+                "--Rmax", "40", "--convthr", "1e-9"]
+AR_CLI = AR_BASIS_CLI + ["--iguess", "3"]
+AR_CLI_SAP = AR_BASIS_CLI  # the CLI's default --iguess 2, SAP
 AR_HF_PORT = -526.817512802713  # the port's converged value, the same on every run
 XE_HF_LIMIT = -7232.1383638  # Cinal 2020, J. Math. Chem. 58, 1571; bench.py gate
 XE_CLI = ["--Z", "Xe", "--lmax", "3", "--mmax", "3", "--nelem", "8", "--nnodes", "12",
           "--Rmax", "40", "--zexp", "2.5", "--iguess", "3", "--convthr", "1e-9"]
 ATOMIC = ("radial_exchange", "radial_coulomb")  # one launch each per SCF iteration
+# gensap Kr at bench.py's bench_gensap basis through the port's gensap CLI
+# (TF guess, aufbau without the search), and bench.py's gate
+KR_GENSAP_CLI = ["--Z", "Kr", "--lmax", "2", "--Rmax", "40", "--nelem", "8", "--nnodes", "12",
+                 "--method", "SVWN", "--convthr", "1e-7", "--nosearch"]
+KR_GENSAP_REF = -2750.147940
+SAD_SHAPES = {  # SadAtomBasis arguments: gensap Kr, and SAD-HF Ar at the Ar bench basis
+    "sad_kr": dict(Z=36, lmax=2, rmax=40.0, nelem=8, nnodes=12),
+    "sad_ar": dict(Z=18, lmax=1, rmax=40.0, nelem=10, nnodes=15),
+}
+EIGH_OP = "aten::linalg_eigh"  # its device time: the kernels launched under it
 # the atomic kernels on random tables: (NL, NM, nang, nelem, nnodes, primbas)
 WIDE_SHAPES = {
     "np33": (3, 5, 4, 2, 33, 4),
@@ -297,7 +324,8 @@ def atomic_kernel_work(tei, U, V, Lfac, gidx, Paux, Pd) -> dict:
     densities Paux (Coulomb) and Pd (exchange). The bytes count each input
     entry the function needs once (of a matrix read through gidx, the
     entries its element windows cover) and each output once."""
-    NL, NM, nrad = Paux.shape[:3]
+    NL = tei.shape[0]
+    NM, nrad = Paux.shape[1:3]
     nang = Pd.shape[0]
     nelem, npr = gidx.shape
     # exchange: in-element np^4 contraction per element, two np^3 products per
@@ -328,6 +356,20 @@ def kernel_inputs(cfg: dict, dev, seed: int = 7):
     P4[a, a] = Pd
     Paux = torch.einsum("LMab,abIJ->LMIJ", ops.G, P4).contiguous()
     return atomic_kernel_work(ops.tei, ops.disjL, ops.disjm1L, ops.Lfac, ops.gidx, Paux, Pd)
+
+
+def sad_kernel_inputs(basis, ops, seed: int = 53) -> dict:
+    """atomic_kernel_work of the spherically averaged atom's two calls for a
+    random positive semidefinite m-averaged cube Pang [nl, nrad, nrad]: K1
+    on every (L, channel) of the full tables (sad_exchange), K2 on the L=0
+    tables with the L=0 helper of Pang's sum (sad_coulomb)."""
+    X = np.random.default_rng(seed).standard_normal((basis.lmax + 1, basis.nrad, 4))
+    Pang = torch.tensor(np.einsum("lik,ljk->lij", X, X), device=ops.device)
+    at, at0 = ops.at, ops.at0
+    Paux = (at0.G[0, 0, 0, 0] * Pang.sum(0))[None, None].contiguous()
+    x = atomic_kernel_work(at.tei, at.disjL, at.disjm1L, at.Lfac, at.gidx, Paux, Pang)
+    c = atomic_kernel_work(at0.tei, at0.disjL, at0.disjm1L, at0.Lfac, at0.gidx, Paux, Pang)
+    return {"radial_exchange": x["radial_exchange"], "radial_coulomb": c["radial_coulomb"]}
 
 
 def random_atomic_inputs(dev, NL: int, NM: int, nang: int, nelem: int, nnodes: int,
@@ -562,7 +604,8 @@ def lmax12_exchange_inputs(dev, seed: int = 17, dense_channels: int = 3):
 
 
 def report(shape: str, name: str, r: dict) -> dict:
-    device = f" (device {r['device_ms']:.4f})" if "device_ms" in r else ""
+    device = "" if "device_ms" not in r else (" (device not measured)" if r["device_ms"] is None
+                                              else f" (device {r['device_ms']:.4f})")
     print(f"{shape} {name}: max-abs err {r['max_abs_err']:.3e} (scale "
           f"{r['scale']:.3e}), kernel {r['ms']:.4f} ms{device}, plain {r['plain_ms']:.4f} ms, "
           f"bound {r['bound_ms']:.5f} ms by {r['bound_by']} ({r['bytes']} B, "
@@ -613,8 +656,10 @@ def compare(name: str, args, bytes_moved: int, flops: int, warmup: int = 5,
     k2 = cuda_ms(lambda: kern(*args), warmup, reps)
     p2 = cuda_ms(lambda: plain(*args), warmup, reps)
     t_bytes, t_ops = bytes_moved / HBM_BYTES_S, flops / FP64_FLOP_S
+    # the profiler now and then returns no kernel time at all: not measured
+    dev_ms = device_ms(lambda: kern(*args), min(reps, 20)) or None
     return {"max_abs_err": max(errs), "scale": min(scales), "ms": 0.5 * (k1 + k2),
-            "device_ms": device_ms(lambda: kern(*args), min(reps, 20)),
+            "device_ms": dev_ms,
             "plain_ms": 0.5 * (p1 + p2), "bound_ms": 1e3 * max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "bytes": bytes_moved, "flops": flops}
@@ -710,6 +755,126 @@ def run_cli(main, argv, label: str, names: list[str], check, per_iter=()) -> dic
         raise RuntimeError(f"{label}: the SCF never launched {missing}")
     check_per_iteration(label, res, counts, per_iter)
     return {name: counts[name] for name in names}
+
+
+def sad_launches(label: str, res, hf: bool) -> dict:
+    """K2 once per Fock build of a SAD solve, K1 as often for HF and never
+    for a functional; returns the counts."""
+    from helfem_tpu_torch import kernels
+
+    got = {name: kernels.launches[name] for name in ATOMIC}
+    want = {"radial_exchange": res.nfock if hf else 0, "radial_coulomb": res.nfock}
+    if got != want:
+        raise RuntimeError(f"{label}: launches {got}, expected {want} for {res.nfock} "
+                           "Fock builds")
+    return got
+
+
+def sad_kernels(shape: str, ops, results: dict) -> None:
+    """K1 and K2 at a SAD shape against their plain versions (the same bits
+    twice, one launch per call), into results."""
+    from helfem_tpu_torch.models import sadatom
+
+    basis = sadatom.SadAtomBasis(**SAD_SHAPES[shape])
+    for name, (args, moved, flops) in sad_kernel_inputs(basis, ops).items():
+        same_bits_twice(name, args)
+        results[(name, shape)] = report(shape, name, compare(name, args, moved, flops))
+
+
+def sad_profile(label: str, solve, hf: bool) -> None:
+    """Warm solve walls and the device time per solve of K1, K2, the
+    eigensolves (torch.linalg.eigh; the refinement passes' matmuls are in
+    the rest) and the rest."""
+    from helfem_tpu_torch import kernels
+    from helfem_tpu_torch.utils.profiling import profile_scf
+
+    def run():
+        kernels.reset_launches()
+        res = solve()
+        sad_launches(f"warm {label}", res, hf)
+        return res
+
+    per = profile_scf(label, run, kernels=RADIAL_SASS, ops=(EIGH_OP,))
+    k1, k2 = (per[k][0] for k in RADIAL_SASS)
+    eigh, busy = per[EIGH_OP][0], per["busy"][0]
+    print(f"{label}: device time per solve {busy:.4f} ms: K1 {k1:.4f} ms, K2 {k2:.4f} ms, "
+          f"eigh {eigh:.4f} ms, the rest {busy - k1 - k2 - eigh:.4f} ms")
+
+
+def sad_phases(dev, results: dict) -> dict:
+    """Phases 13 and 14: gensap Kr through the gensap CLI and SAD-HF Ar;
+    returns each path's K1/K2 launch counts."""
+    from helfem_tpu_torch import kernels
+    from helfem_tpu_torch.cli.gensap import main as gensap_main
+    from helfem_tpu_torch.models import sadatom
+
+    phase("13. gensap Kr through the port's gensap CLI on the card, cold and warm; K1/K2 at "
+          "the Kr SAD shapes; the warm solve's profile")
+    sad_counts = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for label in ("cold", "warm"):
+            out = f"{tmp}/result_Kr_{label}.dat"
+            kernels.reset_launches()
+            t0 = time.perf_counter()
+            res = gensap_main(KR_GENSAP_CLI + ["--output", out, "--device", "cuda"])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            sad_counts["sad_kr"] = sad_launches(f"gensap Kr {label}", res, hf=False)
+            table = np.loadtxt(out)
+            dE = res.E - KR_GENSAP_REF
+            print(f"gensap Kr {label}: E = {res.E:.9f} (E - bench value {dE:+.3e}), converged "
+                  f"{res.converged}, configuration {res.occs.tolist()}, {res.niter} iterations, "
+                  f"{res.nfock} Fock builds; walls: basis {res.walls['basis']:.3f} s, operators "
+                  f"{res.walls['operators']:.3f} s, solve {res.walls['solve']:.3f} s, whole CLI "
+                  f"{wall:.3f} s; Z_eff from {table[0, 8]:.6f} to {table[-1, 8]:.3e} over "
+                  f"{len(table)} points; kernel launches {sad_counts['sad_kr']}")
+            if not (res.converged and abs(dE) < 1e-5 and table.shape == (480, 9)
+                    and np.isfinite(table).all()):
+                raise RuntimeError(f"gensap Kr {label}: not converged within 1e-5 Eh of the "
+                                   "bench value, or the SAP table is not finite")
+    kr_basis = sadatom.SadAtomBasis(**SAD_SHAPES["sad_kr"])
+    kr_ops = kr_basis.build_ops(dev)
+    sad_kernels("sad_kr", kr_ops, results)
+    sad_profile("gensap Kr", lambda: sadatom.solve_sadatom(
+        kr_basis, method="SVWN", convthr=1e-7, search=False, ops=kr_ops), hf=False)
+    del kr_ops
+
+    phase("14. SAD-HF Ar at the Ar bench basis on the card: K1/K2 at its shapes, the solve, "
+          "its profile")
+    ar_basis = sadatom.SadAtomBasis(**SAD_SHAPES["sad_ar"])
+    ar_ops = ar_basis.build_ops(dev)
+    sad_kernels("sad_ar", ar_ops, results)
+    # the Fock pieces themselves against the same functions on CPU tensors
+    cpu_ops = ar_ops.to("cpu")
+    Pang = sad_kernel_inputs(ar_basis, ar_ops)["radial_exchange"][0][-1]
+    for fn, P in ((sadatom.sad_exchange, Pang), (sadatom.sad_coulomb, Pang.sum(0))):
+        first, second = fn(ar_ops, P), fn(ar_ops, P)
+        torch.cuda.synchronize()
+        ref = fn(cpu_ops, P.cpu())
+        err, scale = float((first.cpu() - ref).abs().max()), float(ref.abs().max())
+        print(f"SAD-HF Ar: {fn.__name__} on the card vs on the CPU: max-abs err {err:.3e} "
+              f"(scale {scale:.3e}), the same bits twice {torch.equal(first, second)}")
+        if not (torch.equal(first, second) and err <= REL_TOL * scale):
+            raise RuntimeError(f"SAD-HF Ar: {fn.__name__} disagrees with its CPU version or "
+                               "gives other bits on a second call")
+    del cpu_ops
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    res = sadatom.solve_sadatom(ar_basis, method="HF", convthr=1e-9, search=False, ops=ar_ops)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    sad_counts["sad_ar"] = sad_launches("SAD-HF Ar", res, hf=True)
+    dE, dpin = res.E - AR_HF_LIMIT, res.E - AR_HF_PORT
+    print(f"SAD-HF Ar: E = {res.E:.12f}, converged {res.converged}, configuration "
+          f"{res.occs.tolist()}, {res.niter} iterations, {res.nfock} Fock builds, cold solve "
+          f"{wall:.3f} s; E - HF limit {dE:+.3e}, E - the atomic CLI's pinned value "
+          f"{dpin:+.3e}; kernel launches {sad_counts['sad_ar']}")
+    if not (res.converged and abs(dE) < 1e-6):
+        raise RuntimeError("SAD-HF Ar: not converged within 1e-6 Eh of the Ar HF limit")
+    sad_profile("SAD-HF Ar", lambda: sadatom.solve_sadatom(
+        ar_basis, method="HF", convthr=1e-9, search=False, ops=ar_ops), hf=True)
+    del ar_ops
+    return sad_counts
 
 
 def main() -> None:
@@ -818,14 +983,28 @@ def main() -> None:
 
     phase("4. Ar HF through the port's atomic CLI on the card")
 
-    def ar_check(res):
+    def ar_check(res, label="Ar HF"):
         dE, dpin = res.E - AR_HF_LIMIT, res.E - AR_HF_PORT
-        print(f"Ar HF: E - HF limit = {dE:+.3e}, E - pinned value = {dpin:+.3e}")
+        print(f"{label}: E - HF limit = {dE:+.3e}, E - pinned value = {dpin:+.3e}")
         ok = res.converged and abs(dE) < 1e-6 and abs(dpin) < 1e-10 and np.isfinite(res.E)
         return "" if ok else "did not converge within 1e-6 Eh of the HF limit and 1e-10 Eh " \
             "of the pinned value"
 
     counts = run_cli(atomic_main, AR_CLI, "Ar HF", list(ATOMIC), ar_check, per_iter=ATOMIC)
+    sap_kept = {}
+
+    def ar_sap_main(argv):
+        sap_kept["res"] = atomic_main(argv)
+        return sap_kept["res"]
+
+    # the SAD solve of Ar's SAP table runs inside the CLI (lda_x: K2 only)
+    sap = run_cli(ar_sap_main, AR_CLI_SAP, "Ar HF from SAP", list(ATOMIC),
+                  lambda res: ar_check(res, "Ar HF from SAP"), per_iter=("radial_exchange",))
+    sad_builds = sap["radial_coulomb"] - sap_kept["res"].niter
+    print(f"Ar HF from SAP: {sad_builds} K2 launches in the SAD solve of Ar's SAP table, "
+          "beside one K1 and one K2 per SCF iteration")
+    if sad_builds <= 0:
+        raise RuntimeError("Ar HF from SAP: the SAP table's SAD solve never launched K2")
 
     phase("5. warm Ar HF SCF walls and profile")
     from helfem_tpu_torch import kernels
@@ -855,9 +1034,9 @@ def main() -> None:
         ops = basis.build_operators(dev)
         per_kernel = profile_scf(label, counted(f"warm {label}", lambda: scf_atom(
             basis, *scf_args, convthr=1e-9, guess="TF", ops=ops), ATOMIC), kernels=RADIAL_SASS)
-        total = sum(ms for ms, _ in per_kernel.values())
+        total = sum(per_kernel[k][0] for k in RADIAL_SASS)
         print(f"{label}: K1 + K2 device time per warm SCF {total:.4f} ms, launches "
-              f"{[n for _, n in per_kernel.values()]}")
+              f"{[per_kernel[k][1] for k in RADIAL_SASS]}")
 
     atomic_profile("Ar HF", SHAPES["ar"], (9, 9))
 
@@ -954,8 +1133,8 @@ def main() -> None:
     if not all(np.isfinite(v) for v in ablation.values() if isinstance(v, float)):
         raise RuntimeError("the ablation tool printed a non-finite number")
 
-    phase("11. N2 HF (cold and warm) and N2 PBE (cold, then warm with a profile) at the "
-          "lmax=12 basis, from the core guess")
+    phase("11. N2 HF (cold and warm, from the core and the SAP guess) and N2 PBE (cold, then "
+          "warm with a profile) at the lmax=12 basis")
     t0 = time.perf_counter()
     big = DiatomicBasis(**N2_L12_SHAPE)
     big_ops = big.build_operators(dev)
@@ -966,12 +1145,14 @@ def main() -> None:
     results[("radial_coulomb_dia", "lmax12")] = report(
         "lmax12", "radial_coulomb_dia", compare("radial_coulomb_dia", args, moved, flops, 2, 10))
     del args
+    core = {}
     for label in ("cold", "warm"):
         kernels.reset_launches()
         t0 = time.perf_counter()
         res = scf_diatomic(big, 7, 7, method="HF", convthr=1e-7, maxit=50, ops=big_ops)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+        core[label] = (res.niter, wall)
         k6 = kernels.launches["radial_exchange_dia_occ"]
         check_per_iteration(f"N2 HF lmax=12 {label}", res, kernels.launches, K3)
         dE, dcc = res.E - N2_L12_REF, res.E - N2_L12_CUDA_CORES
@@ -981,6 +1162,32 @@ def main() -> None:
         if not (res.converged and abs(dE) < 2e-5 and abs(dcc) < 1e-8 and k6 > 0):
             raise RuntimeError(f"N2 HF lmax=12 {label}: not converged to the reference "
                                "(2e-5) and the CUDA-core value (1e-8), or K6 never launched")
+    # from the SAP guess, the bench's start: the cold SCF also solves N's
+    # SAD atom on the card and builds the guess Hamiltonian on the host
+    from helfem_tpu_torch.models.diatomic_tools import guess_hamiltonian_dia
+
+    for label in ("cold", "warm"):
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        res = scf_diatomic(big, 7, 7, method="HF", convthr=1e-7, maxit=50, ops=big_ops,
+                           guess="SAP")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        k6 = kernels.launches["radial_exchange_dia_occ"]
+        check_per_iteration(f"N2 HF lmax=12 from SAP {label}", res, kernels.launches, K3)
+        dE = res.E - N2_L12_REF
+        if label == "warm":  # N's table is cached: the host's guess Hamiltonian alone
+            t1 = time.perf_counter()
+            guess_hamiltonian_dia(big, "SAP", dev)
+            print(f"N2 lmax=12: the SAP guess Hamiltonian (host numpy, N's table cached) "
+                  f"{time.perf_counter() - t1:.3f} s")
+        print(f"N2 HF lmax=12 from SAP {label} SCF: E = {res.E:.12f} in {res.niter} "
+              f"iterations, converged {res.converged}; wall {wall:.3f} s (core guess: "
+              f"{core[label][0]} iterations, {core[label][1]:.3f} s); E - reference "
+              f"{dE:+.3e}; K2 launches (N's SAD solve) {kernels.launches['radial_coulomb']}")
+        if not (res.converged and abs(dE) < 2e-5 and k6 > 0):
+            raise RuntimeError(f"N2 HF lmax=12 from SAP {label}: not converged within 2e-5 "
+                               "Eh of the reference, or K6 never launched")
     del big_ops
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
@@ -1017,6 +1224,8 @@ def main() -> None:
     run_cli(atomic_main, XE_CLI, "Xe HF", list(ATOMIC), xe_check, per_iter=ATOMIC)
     atomic_profile("Xe HF", SHAPES["xe"], (27, 27))
 
+    sad_counts = sad_phases(dev, results)
+
     record = []
     for name, (source, replaces, shape) in KERNELS.items():
         r = results[(name, shape)]
@@ -1028,6 +1237,11 @@ def main() -> None:
             "lmax12_bound_ms": big["bound_ms"]}
         if name in XC:
             extra.update(spins=2, other_shape_spins=2, lmax12_spins=1)
+        for sad in SAD_SHAPES if name in ATOMIC else ():
+            o = results[(name, sad)]
+            extra.update({f"{sad}_{k}": o[k] for k in
+                          ("max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms")})
+            extra[f"{sad}_launches"] = sad_counts[sad][name]
         record.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": counts[name], "max_abs_err": r["max_abs_err"], "ms": r["ms"],

@@ -41,7 +41,7 @@ def main(argv=None):
     p.add_argument("--convthr", type=float, default=1e-7)
     p.add_argument("--method", default="HF")
     p.add_argument("--iguess", type=int, default=2,
-                   help="0 core, 1 GSZ, 2 SAP (not ported yet), 3 TF")
+                   help="0 core, 1 GSZ, 2 SAP, 3 TF")
     p.add_argument("--diisorder", type=int, default=10, help="DIIS history length")
     p.add_argument("--diiseps", type=float, default=0.1,
                    help="DIIS error below which extrapolation starts mixing in")

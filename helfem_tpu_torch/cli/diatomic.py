@@ -3,9 +3,10 @@ the PyTorch/CUDA port.
 
 A subset of helfem_tpu.cli.diatomic (flag names mirror the reference
 `diatomic` program, src/diatomic/main.cpp:89-143), plus --device. The port
-runs closed-shell HF, LDA/GGA and PBE0 from the core guess; flags of the JAX
-CLI that it does not cover are rejected with NotImplementedError. The
-per-iteration and final-energy lines match the JAX CLI's.
+runs closed-shell HF, LDA/GGA and PBE0 from the core, SAP, GSZ or TF guess;
+flags of the JAX CLI that it does not cover are rejected with
+NotImplementedError. The per-iteration and final-energy lines match the JAX
+CLI's.
 """
 
 import argparse
@@ -47,10 +48,10 @@ def main(argv=None):
     p.add_argument("--method", default="HF",
                    help="HF, LDA, SVWN, PBE, revPBE, PBEsol, PBE0 or an 'x,c' pair "
                         "(meta-GGAs, other hybrids, range separation: not ported yet)")
-    p.add_argument("--guess", default="core", help="core (SAP, TF, GSZ: not ported yet)")
+    p.add_argument("--guess", default="core", help="core, SAP, TF or GSZ")
     p.add_argument("--iguess", type=int, default=None,
-                   help="guess by reference id: 0 core (1 GSZ, 2 SAP, 3 TF: not "
-                        "ported yet); overrides --guess")
+                   help="guess by reference id: 0 core, 1 GSZ, 2 SAP, 3 TF; "
+                        "overrides --guess")
     p.add_argument("--dftthr", type=float, default=1e-12)
     p.add_argument("--ldft", type=int, default=0,
                    help="eta rule order for the dft grid (0 = auto)")

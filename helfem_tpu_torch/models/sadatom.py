@@ -1,0 +1,945 @@
+"""Spherically averaged atom solver (sadatom / gensap), ported from
+helfem_tpu/models/sadatom.py for the restricted solver.
+
+Orbitals live in per-l radial channels with integer shell occupations
+(fractional filling of a degenerate shell by capacity weighting); the
+density is spherically averaged, so
+
+  * Coulomb is pure L=0: models/atomic.py:coulomb with a trivial angular
+    shell on a second operator set that holds only the L=0 tables, so the
+    radial_coulomb kernel (K2) streams one TEI slice set, not NL;
+  * exact exchange is l-resolved with m-averaged angular weights
+    totcoup(L; lout, lin) = sum_{mo,mi} G(lo mo; L M; li mi)^2 / (2 lout + 1)
+    (reference: sadatom TwoDBasis::exchange, src/sadatom/basis.cpp:360-460).
+    The radial kernel is linear in its density, so ONE radial_exchange
+    launch (K1) on the m-averaged cube Pang gives KK[L, k] for every (L, k)
+    and K[o] = -sum_{L,k} Lfac_L totcoup[L, o, k] KK[L, k];
+  * XC lives on a radial-only grid, in plain PyTorch (LDA/GGA).
+
+The per-l channel axis is a batch axis: one batched whitened eigensolve
+(torch.linalg.eigh with helfem_tpu's refinement passes) across all
+channels. After two host iterations (numpy DIIS) the SCF runs as steps over
+device tensors, with the level shift switched off on the device once the
+DIIS error drops below 1e-3, and one boolean per iteration back to the host.
+
+Not ported (they raise NotImplementedError): finite nuclei, confinement,
+the nuclear sub-grid and --zeroder (ROADMAP queue 1 item 8), the
+unrestricted solver and its searches (queue 1 item 5), meta-GGAs.
+"""
+
+from collections.abc import Mapping
+from dataclasses import dataclass, field
+from typing import NamedTuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from helfem_tpu_torch.kernels import radial_exchange
+from helfem_tpu_torch.models.atomic import AtomicOperators, coulomb, from_jax_operators
+from helfem_tpu_torch.models.sadconf import aufbau_from_energies as aufbau_occs
+from helfem_tpu_torch.models.sadconf import shell_capacity
+from helfem_tpu_torch.ops.fem import FEMBasis
+from helfem_tpu_torch.ops.gaunt import gaunt_coefficient
+from helfem_tpu_torch.ops.grids import form_grid
+from helfem_tpu_torch.ops.polynomials import get_basis
+from helfem_tpu_torch.ops.radial import RadialBasis
+from helfem_tpu_torch.ops.xc import parse_method, xc_eval
+from helfem_tpu_torch.scf.common import vdot
+from helfem_tpu_torch.scf.diis import DIIS, device_diis_step
+from helfem_tpu_torch.scf.guess import potential
+from helfem_tpu_torch.utils.linalg import eigh_refined, form_sinvh
+
+__all__ = ["SadAtomBasis", "SadOps", "SadResult", "from_jax_sad_ops", "sad_coulomb",
+           "sad_exchange", "sad_xc", "solve_sadatom", "sap_potential_table", "totcoup_table"]
+
+_ITEM8 = "is not ported to helfem_tpu_torch yet (ROADMAP.md queue 1 item 8)"
+_ITEM5 = ("the unrestricted spherically averaged solver is not ported to helfem_tpu_torch "
+          "yet (ROADMAP.md queue 1 item 5)")
+
+
+def totcoup_table(lmax: int) -> np.ndarray:
+    """m-averaged squared Gaunt couplings [NL, nl, nl] with NL = 2*lmax+1."""
+    NL = 2 * lmax + 1
+    t = np.zeros((NL, lmax + 1, lmax + 1))
+    for lo in range(lmax + 1):
+        for li in range(lmax + 1):
+            for mo in range(-lo, lo + 1):
+                for mi in range(-li, li + 1):
+                    M = mo - mi
+                    for L in range(abs(lo - li), lo + li + 1):
+                        c = gaunt_coefficient(lo, mo, L, M, li, mi)
+                        t[L, lo, li] += c * c
+            t[:, lo, li] /= 2 * lo + 1
+    return t
+
+
+class SadOps(NamedTuple):
+    """Device constants of the solver (fields of helfem_tpu's SadOps, plus
+    at0)."""
+
+    at: AtomicOperators  # nang=1 operators (radial S/T/Vnuc, TEI tensors)
+    at0: AtomicOperators  # at with only its L=0 slices (contiguous): Coulomb's set
+    Tl: torch.Tensor  # [nrad, nrad] 1/2 <BB/r^2>
+    totcoup: torch.Tensor  # [NL, nl, nl]
+    # radial XC grid
+    bg: torch.Tensor
+    dbg: torch.Tensor
+    r: torch.Tensor
+    w2: torch.Tensor  # wr * 4 pi r^2
+
+    @property
+    def device(self) -> torch.device:
+        return self.at.device
+
+    def to(self, device) -> "SadOps":
+        at = self.at.to(device)
+        return SadOps(at, _l0_operators(at), *(t.to(device) for t in self[2:]))
+
+
+def _l0_operators(at: AtomicOperators) -> AtomicOperators:
+    """The L=0 slices of the TEI tensors, G and Lfac as contiguous tensors of
+    their own (built once per operator set: K2's launch template is keyed by
+    them); the one-electron matrices are shared."""
+    return at._replace(**{k: getattr(at, k)[:1].contiguous()
+                          for k in ("G", "Lfac", "tei", "disjL", "disjm1L")})
+
+
+def from_jax_sad_ops(arrays: Mapping, device) -> SadOps:
+    """The port's SadOps from helfem_tpu's SadOps given as numpy arrays:
+    arrays["at"] holds the AtomicOperators fields (models/atomic.py:
+    from_jax_operators), the other keys the SadOps fields."""
+    at = from_jax_operators(arrays["at"], device)
+
+    def dev(name):
+        return torch.tensor(np.asarray(arrays[name]), dtype=torch.float64, device=device)
+
+    return SadOps(at, _l0_operators(at), *(dev(n) for n in SadOps._fields[2:]))
+
+
+@dataclass
+class SadAtomBasis:
+    Z: int
+    lmax: int = 3
+    rmax: float = 40.0
+    nelem: int = 10
+    nnodes: int = 15
+    nquad: int = 0
+    igrid: int = 4
+    zexp: float = 2.0
+    primbas: int = 4
+    # helfem_tpu's finite nuclei, nuclear sub-grid, confinement and
+    # --zeroder: only their inert defaults are accepted
+    finitenuc: str = "point"
+    nelem0: int = 0
+    iconf: int = 0
+    zeroder: bool = False
+
+    rb: RadialBasis = field(init=False)
+
+    def __post_init__(self):
+        for name, value, default in (("finitenuc", self.finitenuc, "point"),
+                                     ("nelem0", self.nelem0, 0), ("iconf", self.iconf, 0),
+                                     ("zeroder", self.zeroder, False)):
+            if value != default:
+                raise NotImplementedError(f"SadAtomBasis {name}={value!r} {_ITEM8}")
+        poly = get_basis(self.primbas, self.nnodes)
+        if self.nquad == 0:
+            self.nquad = 5 * self.nnodes
+        bval = form_grid("point", 0.0, self.nelem, self.rmax, self.igrid, self.zexp,
+                         0, 2, 2.0, self.Z, 0, 0, 0.0, 0.0)
+        self.rb = RadialBasis(FEMBasis(poly, bval), self.nquad)
+
+    @property
+    def nrad(self) -> int:
+        return self.rb.fem.nbf
+
+    @property
+    def NL(self) -> int:
+        return 2 * self.lmax + 1
+
+    def host_ops(self) -> dict:
+        """The SadOps fields as numpy arrays (from_jax_sad_ops's layout),
+        computed as helfem_tpu's SadAtomBasis.build_ops computes them."""
+        rb = self.rb
+        NL = self.NL
+        disjL, disjm1L = rb.disjoint_integrals(NL - 1)
+        G = np.zeros((NL, 1, 1, 1))
+        G[0, 0, 0, 0] = 1.0 / np.sqrt(4.0 * np.pi)
+        T = rb.kinetic()
+        Vnuc = self.Z * rb.nuclear()
+        S = rb.overlap()
+        at = dict(gidx=rb.fem.gidx, G=G, Lfac=4.0 * np.pi / (2.0 * np.arange(NL) + 1.0),
+                  tei=rb.twoe_integral(NL - 1), disjL=disjL, disjm1L=disjm1L, S=S,
+                  H0=T + Vnuc, T=T, Vnuc=Vnuc, Sinvh_rad=form_sinvh(S))
+        return dict(at=at, Tl=rb.kinetic_l(), totcoup=totcoup_table(self.lmax), bg=rb.b,
+                    dbg=rb.db, r=rb.r, w2=rb.wr * 4.0 * np.pi * rb.r**2)
+
+    def build_ops(self, device) -> SadOps:
+        return from_jax_sad_ops(self.host_ops(), device)
+
+
+# ----------------------------------------------------------------------------
+# Fock pieces
+# ----------------------------------------------------------------------------
+
+
+def sad_exchange(ops: SadOps, Pang: torch.Tensor) -> torch.Tensor:
+    """l-resolved exchange cube K[nl, nrad, nrad] (negative contribution)
+    from the m-averaged angular density cube Pang[nl, nrad, nrad]: one
+    radial_exchange call for every (L, channel), then the totcoup and Lfac
+    contraction (helfem_tpu's per-L scan, sadatom.py:181-199, by linearity)."""
+    at = ops.at
+    KK = radial_exchange(at.tei, at.disjL, at.disjm1L, at.gidx, Pang.contiguous())
+    return -torch.einsum("L,Lok,LkIJ->oIJ", at.Lfac, ops.totcoup, KK)
+
+
+def sad_coulomb(ops: SadOps, Pr: torch.Tensor) -> torch.Tensor:
+    """J[nrad, nrad] of the spherically averaged density Pr [nrad, nrad]:
+    models/atomic.py:coulomb on the L=0 operator set (G[L>0] = 0, so the
+    L>0 slices would contribute exact zeros)."""
+    return coulomb(ops.at0, Pr)
+
+
+def _windows(P: torch.Tensor, gi: torch.Tensor) -> torch.Tensor:
+    """Element windows [nelem, nprim, nprim] of [nrad, nrad] (trash slot 0)."""
+    Pp = F.pad(P, (0, 1, 0, 1))
+    return Pp[gi[:, :, None], gi[:, None, :]]
+
+
+def _assemble(Fel: torch.Tensor, gi: torch.Tensor, nrad: int) -> torch.Tensor:
+    """Sum element blocks [nelem, nprim, nprim] into [nrad, nrad]."""
+    n1 = nrad + 1
+    lin = (gi[:, :, None] * n1 + gi[:, None, :]).reshape(-1)
+    out = torch.zeros(n1 * n1, dtype=Fel.dtype, device=Fel.device)
+    out.index_add_(0, lin, Fel.reshape(-1))
+    return out.reshape(n1, n1)[:nrad, :nrad]
+
+
+def sad_xc(funcs, ops: SadOps, Pla: torch.Tensor, Plb: torch.Tensor, thr: float = 1e-12):
+    """Radial XC (sadatom.py:202-267, LDA/GGA): returns (Fxc_a, Fxc_b, Exc,
+    Nel) with single radial Fock matrices. Density n_s(r) = sum_l
+    P^s_l[I,J] b_I b_J / (4 pi); when Plb is Pla its fields are formed once."""
+    if any(f.family not in ("lda", "gga") for f in funcs):
+        raise NotImplementedError("meta-GGA functionals on the radial grid are not ported "
+                                  "to helfem_tpu_torch yet")
+    gi = ops.at.gidx.long()
+    nrad = ops.at.Sinvh_rad.shape[0]
+    fourpi = 4.0 * np.pi
+
+    def fields(Pl):
+        Pg = _windows(Pl.sum(0), gi)
+        n = torch.einsum("eij,eqi,eqj->eq", Pg, ops.bg, ops.bg) / fourpi
+        dn = 2.0 * torch.einsum("eij,eqi,eqj->eq", Pg, ops.dbg, ops.bg) / fourpi
+        return n, dn
+
+    na, dna = fields(Pla)
+    nb, dnb = (na, dna) if Plb is Pla else fields(Plb)
+    e, vra, vrb, vsaa, vsab, vsbb = xc_eval(funcs, na, nb, dna * dna, dna * dnb, dnb * dnb,
+                                            thr)
+    Exc = torch.sum(ops.w2 * e)
+    Nel = torch.sum(ops.w2 * (na + nb))
+    gga = any(f.family != "lda" for f in funcs)
+    w = ops.w2 / fourpi
+
+    def fock(vr, gr):
+        Fel = torch.einsum("eq,eqi,eqj->eij", w * vr, ops.bg, ops.bg)
+        if gga:
+            rad = torch.einsum("eq,eqi,eqj->eij", w * gr, ops.dbg, ops.bg)
+            Fel = Fel + rad + rad.transpose(1, 2)
+        return _assemble(Fel, gi, nrad)
+
+    Fa = fock(vra, 2.0 * vsaa * dna + vsab * dnb)
+    Fb = fock(vrb, 2.0 * vsbb * dnb + vsab * dna)
+    return Fa, Fb, Exc, Nel
+
+
+def make_sad_fock(funcs, kfrac: float, nl: int, dftthr: float = 1e-12):
+    """fock(ops, Pla, Plb, Panga, Pangb) -> (Fla, Flb, Ekin, Enuc, Ecoul,
+    Exx, Exc, Nel) (sadatom.py:409-439). One K2 launch per call, and one K1
+    launch when kfrac != 0 and Pangb is Panga (the restricted solver's
+    call); the energies are device scalars."""
+
+    def fock(ops: SadOps, Pla, Plb, Panga, Pangb):
+        Pl = Pla + Plb
+        Pr = Pl.sum(0)
+        J = sad_coulomb(ops, Pr)
+        ll1 = torch.arange(nl, dtype=Pl.dtype, device=Pl.device)
+        kc = (ll1 * (ll1 + 1.0))[:, None, None] * ops.Tl[None]
+        Fla = Flb = (ops.at.H0 + J)[None] + kc
+        zero = torch.zeros((), dtype=Pl.dtype, device=Pl.device)
+        Exx = Exc = Nel = zero
+        if kfrac != 0.0:
+            Ka = kfrac * sad_exchange(ops, Panga)
+            Kb = Ka if Pangb is Panga else kfrac * sad_exchange(ops, Pangb)
+            Fla, Flb = Fla + Ka, Flb + Kb
+            Exx = 0.5 * (vdot(Pla, Ka) + vdot(Plb, Kb))
+        if funcs:
+            XCa, XCb, Exc, Nel = sad_xc(funcs, ops, Pla, Plb, dftthr)
+            Fla, Flb = Fla + XCa[None], Flb + XCb[None]
+        Ekin = vdot(Pr, ops.at.T) + vdot(Pl, kc)
+        Enuc = vdot(Pr, ops.at.Vnuc)
+        Ecoul = 0.5 * vdot(Pr, J)
+        return Fla, Flb, Ekin, Enuc, Ecoul, Exx, Exc, Nel
+
+    return fock
+
+
+# ----------------------------------------------------------------------------
+# occupations, eigensolves and the SCF step
+# ----------------------------------------------------------------------------
+
+
+def density_cubes(C: np.ndarray, occs: np.ndarray):
+    """(Pl, Pang): integer-occupation and capacity-averaged density cubes
+    from orbitals C[nl, nrad, nmo] and per-l electron counts occs[nl]
+    (restricted capacities)."""
+    nl, nrad, _ = C.shape
+    Pl = np.zeros((nl, nrad, nrad))
+    Pang = np.zeros((nl, nrad, nrad))
+    for l in range(nl):
+        cap = shell_capacity(l, True)
+        left = int(occs[l])
+        io = 0
+        while left > 0:
+            nocc = min(cap, left)
+            c = C[l][:, io]
+            Pl[l] += nocc * np.outer(c, c)
+            Pang[l] += (nocc / cap) * np.outer(c, c)
+            left -= nocc
+            io += 1
+    return Pl, Pang
+
+
+def occ_weight_vectors(occs: np.ndarray, nl: int, nmo: int):
+    """(occw, angw)[nl, nmo]: per-orbital electron counts and capacity-
+    averaged angular weights for fixed per-l electron counts, the static-
+    occupation form of density_cubes (restricted capacities)."""
+    occw = np.zeros((nl, nmo))
+    angw = np.zeros((nl, nmo))
+    for l in range(nl):
+        cap = shell_capacity(l, True)
+        left = int(occs[l])
+        io = 0
+        while left > 0:
+            nocc = min(cap, left)
+            occw[l, io] = nocc
+            angw[l, io] = nocc / cap
+            left -= nocc
+            io += 1
+    return occw, angw
+
+
+def eig_channels(Fl: torch.Tensor, Sinvh: torch.Tensor):
+    """Batched whitened eigensolve of the channel Fock cube [nl, nrad, nrad]:
+    (E [nl, nrad] ascending, C [nl, nrad, nrad])."""
+    Forth = torch.einsum("pi,lpq,qj->lij", Sinvh, Fl, Sinvh)
+    E, V = eigh_refined(Forth)
+    return E, torch.einsum("pi,lij->lpj", Sinvh, V)
+
+
+def eig_channels_shifted(Fl: np.ndarray, C_prev: np.ndarray, occs, S: np.ndarray,
+                         Sinvh: torch.Tensor, shift: float):
+    """Level-shifted channel eigensolve: the virtual orbitals of each l
+    channel are pushed up by `shift` via S Cv Cv^T S before diagonalizing
+    (reference: OrbitalChannel::UpdateOrbitalsShifted, solver.cpp:351-380)."""
+    Fl = np.array(Fl, copy=True)
+    for l in range(Fl.shape[0]):
+        cap = shell_capacity(l, True)
+        nsh = int(np.ceil(occs[l] / cap)) if occs[l] > 0 else 0
+        if nsh:
+            Cv = C_prev[l][:, nsh:]
+            Fl[l] += shift * (S @ Cv) @ (Cv.T @ S)
+    return eig_channels(torch.as_tensor(Fl, device=Sinvh.device), Sinvh)
+
+
+def make_sad_step(funcs, kfrac: float, nl: int, dftthr: float = 1e-12, shift: float = 1.0):
+    """One restricted SCF iteration on the device (the restricted body of
+    helfem_tpu's make_sad_fused_chunk, sadatom.py:325-405): density ->
+    Fock -> C2-DIIS (history updated in place) -> eigensolve with the level
+    shift on the previous virtuals while the DIIS error is above 1e-3."""
+    fock = make_sad_fock(funcs, kfrac, nl, dftthr)
+
+    def step(ops: SadOps, occw, angw, C, histF, histE, count):
+        S, Sinvh = ops.at.S, ops.at.Sinvh_rad
+        Ph = torch.einsum("lpk,lk,lqk->lpq", C, occw, C) / 2.0
+        Pang = torch.einsum("lpk,lk,lqk->lpq", C, angw, C)
+        Fl, _, Ekin, Enuc, Ecoul, Exx, Exc, Nel = fock(ops, Ph, Ph, Pang, Pang)
+        FPS = torch.einsum("lpq,lqr,rs->lps", Fl, Ph, S)
+        err = torch.einsum("pi,lpq,qj->lij", Sinvh, FPS - FPS.transpose(1, 2),
+                           Sinvh).reshape(-1)
+        errmax = torch.max(torch.abs(err))
+        Fuse, count = device_diis_step(histF, histE, count, Fl, err)
+        shift_eff = shift * (errmax > 1e-3).to(errmax.dtype)
+        SC = torch.einsum("pq,lqk->lpk", S, C * (occw <= 0.0).to(C.dtype)[:, None, :])
+        E, Cn = eig_channels(Fuse + shift_eff * torch.einsum("lpk,lrk->lpr", SC, SC), Sinvh)
+        Etot = Ekin + Enuc + Ecoul + Exx + Exc
+        return Cn, E, count, Etot, errmax, torch.stack([Ekin, Ecoul, Exx, Exc, Nel])
+
+    return step
+
+
+def make_sad_chunk(funcs, kfrac: float, nl: int, dftthr: float = 1e-12, shift: float = 1.0):
+    """Up to `nrun` device steps with the convergence test (err < convthr
+    and |dE| < convthr, the host loop's own) on the device after each; the
+    occupations are fixed. Returns the per-step orbitals, eigenvalues,
+    energies, errors and energy components, the new DIIS count and the
+    number of steps run."""
+    step = make_sad_step(funcs, kfrac, nl, dftthr, shift)
+
+    def chunk(ops, occw, angw, C, histF, histE, count, convthr, Eprev, nrun):
+        Ep = torch.tensor(Eprev, dtype=torch.float64, device=C.device)
+        Cs, Es, Etots, errs, comps = [], [], [], [], []
+        for _ in range(nrun):
+            C, E, count, Etot, errmax, comp = step(ops, occw, angw, C, histF, histE, count)
+            Cs.append(C)
+            Es.append(E)
+            Etots.append(Etot)
+            errs.append(errmax)
+            comps.append(comp)
+            done = (errmax < convthr) & (torch.abs(Etot - Ep) < convthr)
+            Ep = Etot
+            if bool(done):
+                break
+        return (Cs, Es, count, torch.stack(Etots), torch.stack(errs), torch.stack(comps),
+                len(Cs))
+
+    return chunk
+
+
+@dataclass
+class SadResult:
+    converged: bool
+    E: float
+    occs: np.ndarray
+    Ekin: float
+    Ecoul: float
+    Exx: float
+    Exc: float
+    orbE: np.ndarray  # [nl, nmo]
+    orbs: np.ndarray
+    Pl: np.ndarray
+    # energy-ordered configuration list from the ground-state search:
+    # [(occs_key, E, converged)] with occs_key the per-l electron counts
+    conf_list: list | None = None
+    niter: int = 0  # SCF iterations of the reported configuration
+    nfock: int = 0  # Fock builds over every configuration solved
+    walls: dict = field(default_factory=dict)  # phase -> seconds (CLI)
+
+
+# ----------------------------------------------------------------------------
+# solver
+# ----------------------------------------------------------------------------
+
+
+def solve_sadatom_unrestricted(*args, **kwargs):
+    raise NotImplementedError(_ITEM5)
+
+
+def search_sadatom_unrestricted(*args, **kwargs):
+    raise NotImplementedError(_ITEM5)
+
+
+def solve_sadatom(
+    basis: SadAtomBasis,
+    nel: int | None = None,
+    method: str = "HF",
+    occs: np.ndarray | None = None,
+    maxit: int = 128,
+    convthr: float = 1e-7,
+    guess: str = "TF",
+    verbose: bool = False,
+    ops: SadOps | None = None,
+    search: bool = True,
+    shift: float = 1.0,
+    dftthr: float = 1e-12,
+    diisorder: int = 10,
+    diiseps: float = 0.1,
+    device=None,
+) -> SadResult:
+    """Restricted spherically averaged SCF (helfem_tpu's solve_sadatom
+    without --diisthr). occs given -> one fixed-occupation solve;
+    search=True -> exhaustive ground-configuration search (aufbau self-
+    consistency + MoveElectrons neighbours, reference sadatom/main.cpp:280-
+    560); else aufbau self-consistency only. `shift` is the level shift
+    applied until the DIIS error drops below 1e-3. The operators are built on
+    `device` unless `ops` is given, in which case the solve runs on ops'
+    device."""
+    if nel is None:
+        nel = basis.Z
+    if ops is None:
+        if device is None:
+            raise ValueError("solve_sadatom needs a device (or prebuilt ops)")
+        ops = basis.build_ops(device)
+    device = ops.device
+    nl, nrad = basis.lmax + 1, basis.nrad
+    funcs, kfrac = parse_method(method)
+    funcs = tuple(funcs)
+    fock = make_sad_fock(funcs, kfrac, nl, dftthr)
+    S_np = ops.at.S.cpu().numpy()
+    Sinvh_np = ops.at.Sinvh_rad.cpu().numpy()
+    Sinvh = ops.at.Sinvh_rad
+
+    def as_dev(x) -> torch.Tensor:
+        return torch.as_tensor(np.asarray(x), dtype=torch.float64, device=device)
+
+    # guess orbitals
+    rb = basis.rb
+    Vg = as_dev(rb.model_potential(potential(guess, basis.Z, device=device)(rb.r)))
+    ll1 = np.arange(nl) * (np.arange(nl) + 1.0)
+    Hg = (ops.at.T + Vg)[None] + as_dev(ll1[:, None, None]) * ops.Tl[None]
+    Eg, Cg = eig_channels(Hg, Sinvh)
+    Eg, Cg = Eg.cpu().numpy(), Cg.cpu().numpy()
+    nfock = [0]
+
+    def run_scf(occs, E0, C0):
+        # two host iterations on the numpy DIIS, then device steps: only
+        # per-iteration (E, err) scalars reach the host
+        E_, C_ = E0.copy(), C0
+        Eold, Etot = 0.0, 0.0
+        diis = DIIS(S_np, Sinvh_np, max_hist=diisorder, diis_eps=diiseps, adiis=False)
+        occw_np, angw_np = occ_weight_vectors(occs, nl, nrad)
+        occw, angw = as_dev(occw_np), as_dev(angw_np)
+        converged = False
+        out = None
+        warmup = 2
+        chunk_len, CH = 4, 16  # chunk schedule 4, 8, 16
+        chunk = None
+        it = 0
+        while it < maxit:
+            it += 1
+            if it > warmup:
+                if chunk is None:
+                    chunk = make_sad_chunk(funcs, kfrac, nl, dftthr, shift)
+                    histF = torch.zeros((diisorder, nl, nrad, nrad), dtype=torch.float64,
+                                        device=device)
+                    histE = torch.zeros((diisorder, nl * nrad * nrad), dtype=torch.float64,
+                                        device=device)
+                    count = 0
+                nrun = min(chunk_len, CH, maxit - it + 1)
+                chunk_len = min(2 * chunk_len, CH)
+                Cin = as_dev(C_)
+                Cs, Es, count, Etots, errs, comps, kmax = chunk(
+                    ops, occw, angw, Cin, histF, histE, count, float(convthr), Eold, nrun)
+                Etots = Etots.cpu().numpy()
+                errs = errs.cpu().numpy()
+                k = 0
+                for k in range(kmax):
+                    Etot = float(Etots[k])
+                    err = float(errs[k])
+                    dE = Etot - Eold
+                    Eold = Etot
+                    if verbose:
+                        print(f"  it {it + k:3d} E={Etot:+.10f} dE={dE:+.2e} err={err:.2e}")
+                    if err < convthr and abs(dE) < convthr:
+                        converged = True
+                        break
+                # the chunk ran k+1 counted iterations, one already counted above
+                it += k
+                Ekin, Ecoul, Exx, Exc = (float(x) for x in comps[k][:4].cpu())
+                if converged or it >= maxit:
+                    # orbitals CONSISTENT with the reported Etot: step k's
+                    # energy comes from the PRE-eigh density, i.e. the
+                    # post-eigh orbitals of step k-1 (the chunk input for
+                    # k=0), as the host path, which stops before updating C_
+                    C_ = (Cs[k - 1] if k > 0 else Cin).cpu().numpy()
+                    if k > 0:
+                        E_ = Es[k - 1].cpu().numpy()
+                    Pl, _ = density_cubes(C_, occs)
+                    out = (Etot, Ekin, Ecoul, Exx, Exc, E_, C_, Pl)
+                    break
+                E_ = Es[k].cpu().numpy()
+                C_ = Cs[k].cpu().numpy()
+                continue
+
+            Pl, Pang = density_cubes(C_, occs)
+            # with restricted capacities 2(2l+1), Pang IS the per-spin
+            # m-averaged density (fracocc = nocc/cap), matching the
+            # reference's AngularDensity (src/sadatom/solver.cpp:505-528)
+            Pla = as_dev(Pl / 2.0)
+            Panga = as_dev(Pang)
+            Fla, _, Ekin_, Enuc, Ecoul_, Exx_, Exc_, _ = fock(ops, Pla, Pla, Panga, Panga)
+            Etot = float(Ekin_ + Enuc + Ecoul_ + Exx_ + Exc_)
+            Ekin, Ecoul, Exx, Exc = float(Ekin_), float(Ecoul_), float(Exx_), float(Exc_)
+            dE = Etot - Eold
+            Eold = Etot
+            Fn = Fla.cpu().numpy()
+            errv = []
+            for l in range(nl):
+                FPS = Fn[l] @ (Pl[l] / 2.0) @ S_np
+                errv.append((Sinvh_np.T @ (FPS - FPS.T) @ Sinvh_np).ravel())
+            err = diis.update_with_error([Fn[l] for l in range(nl)], np.concatenate(errv))
+            if verbose:
+                print(f"  it {it:3d} E={Etot:+.10f} dE={dE:+.2e} err={err:.2e}")
+            if err < convthr and abs(dE) < convthr and it > 1:
+                converged = True
+            if converged or it == maxit:
+                out = (Etot, Ekin, Ecoul, Exx, Exc, E_, C_, Pl)
+                break
+            Fuse = np.stack(diis.solve())
+            if err > 1e-3 and shift != 0.0:
+                # level shift on virtuals until DIIS takes over
+                # (reference: solver.cpp:1190-1193)
+                E_, C_ = eig_channels_shifted(Fuse, C_, occs, S_np, Sinvh, shift)
+            else:
+                E_, C_ = eig_channels(as_dev(Fuse), Sinvh)
+            E_, C_ = E_.cpu().numpy(), C_.cpu().numpy()
+        nfock[0] += it
+        return converged, out, E_, C_, it
+
+    # memoized fixed-occupation solves, keyed by the occupation tuple
+    results: dict[tuple, tuple] = {}
+
+    def solve_cb(key):
+        if key not in results:
+            results[key] = run_scf(np.array(key, dtype=int), Eg, Cg)
+        conv_, out_, Efin_, _, _ = results[key]
+        return out_[0], conv_, Efin_
+
+    if occs is not None:
+        # enforced occupations: one fixed-occupation SCF, no search
+        key = tuple(int(x) for x in occs)
+        E_, conv_, _ = solve_cb(key)
+        conf_list = [(key, E_, conv_)]
+    elif search:
+        # exhaustive ground-configuration search (aufbau self-consistency +
+        # MoveElectrons neighbors; reference: src/sadatom/main.cpp:300-350)
+        from helfem_tpu_torch.models.sadconf import initial_occs, search_restricted
+
+        try:
+            occs0 = initial_occs(nel, basis.lmax)
+        except ValueError:
+            occs0 = aufbau_occs(Eg, nel, True)
+        conf_list = search_restricted(solve_cb, occs0, nel, verbose=verbose)
+    else:
+        # aufbau self-consistency only
+        key = tuple(int(x) for x in aufbau_occs(Eg, nel, True))
+        seen = {key}
+        for _ in range(6):
+            _, _, Efin_ = solve_cb(key)
+            newkey = tuple(int(x) for x in aufbau_occs(Efin_, nel, True))
+            if newkey in seen:
+                break
+            seen.add(newkey)
+            key = newkey
+        conf_list = sorted(
+            ((k, results[k][1][0], results[k][0]) for k in seen if k in results),
+            key=lambda t: t[1],
+        )
+
+    best_key = conf_list[0][0]
+    conv, out, _, _, niter = results[best_key]
+    Etot, Ekin, Ecoul, Exx, Exc, Eorb, Corb, Pl = out
+    return SadResult(
+        converged=conv, E=Etot, occs=np.array(best_key, dtype=int), Ekin=Ekin, Ecoul=Ecoul,
+        Exx=Exx, Exc=Exc, orbE=np.asarray(Eorb), orbs=np.asarray(Corb), Pl=Pl,
+        conf_list=conf_list, niter=niter, nfock=nfock[0],
+    )
+
+
+# ----------------------------------------------------------------------------
+# densities and potentials on the radial grid (gensap outputs), host numpy
+# ----------------------------------------------------------------------------
+
+
+def _element_windows(basis: SadAtomBasis, Prad: np.ndarray) -> np.ndarray:
+    gi = basis.rb.fem.gidx
+    Pp = np.zeros((basis.nrad + 1, basis.nrad + 1))
+    Pp[: basis.nrad, : basis.nrad] = Prad
+    return Pp[gi[:, :, None], gi[:, None, :]]
+
+
+def radial_density(basis: SadAtomBasis, Prad: np.ndarray):
+    """(r, n, dn/dr, lapl n, weights) flattened over the element grid;
+    n(r) = P_IJ b_I b_J / (4 pi) (reference: sadatom electron_density)."""
+    rb = basis.rb
+    Pg = _element_windows(basis, Prad)
+    fourpi = 4.0 * np.pi
+    n = np.einsum("eij,eqi,eqj->eq", Pg, rb.b, rb.b) / fourpi
+    dn = 2.0 * np.einsum("eij,eqi,eqj->eq", Pg, rb.db, rb.b) / fourpi
+    ln = (
+        2.0 * np.einsum("eij,eqi,eqj->eq", Pg, rb.d2b, rb.b)
+        + 2.0 * np.einsum("eij,eqi,eqj->eq", Pg, rb.db, rb.db)
+        + 4.0 * np.einsum("eij,eqi,eqj->eq", Pg, rb.db, rb.b) / rb.r
+    ) / fourpi
+    return rb.r.ravel(), n.ravel(), dn.ravel(), ln.ravel(), (rb.wr * fourpi * rb.r**2).ravel()
+
+
+def occupied_orbital_table(basis: SadAtomBasis, occs: np.ndarray, orbE: np.ndarray,
+                           orbs) -> list[dict]:
+    """Per-occupied-shell analysis rows (reference: OrbitalChannel::Print,
+    src/sadatom/solver.cpp:152-186, with the <r^i> operator set of
+    TwoDBasis::Rmatrices, basis.cpp:1274-1282): for each occupied shell,
+    (n, l, nocc, E, <r^i>^(1/i) for i in -2,-1,1,2,3, and the radius of the
+    maximum of the r^2-weighted orbital density)."""
+    powers = (-2, -1, 1, 2, 3)
+    rb = basis.rb
+    R = {i: rb.radial_integral(i) for i in powers}
+    gi = rb.fem.gidx
+    rows = []
+    for l in range(basis.lmax + 1):
+        left = int(occs[l])
+        cap = shell_capacity(l, True)
+        k = 0
+        while left > 0:
+            nocc = min(left, cap)
+            left -= nocc
+            c = np.asarray(orbs[l])[:, k]
+            cp = np.append(c, 0.0)[gi]  # [nelem, nprim], trash slot dropped
+            mom = {i: float(c @ R[i] @ c) ** (1.0 / i) for i in powers}
+            # coarse max of r^2 |u(r)|^2 on the quadrature grid ...
+            u = np.einsum("eqi,ei->eq", rb.b, cp)
+            rfd = (rb.r * u) ** 2
+            e0, q0 = np.unravel_index(np.argmax(rfd), rfd.shape)
+            # ... then zoomed refinement within the winning element
+            lo = rb.xq[q0 - 1] if q0 > 0 else -1.0
+            hi = rb.xq[q0 + 1] if q0 + 1 < len(rb.xq) else 1.0
+            for _ in range(4):
+                xs = np.linspace(lo, hi, 65)
+                Bf = rb.fem.eval_dnf(xs, 0)[0][e0]  # [nxs, nprim]
+                rs = rb.fem.coords(xs)[e0]
+                us = Bf @ cp[e0]  # u*r = B c
+                j = int(np.argmax(us**2))  # (r u)^2 = (B c)^2
+                lo = xs[max(j - 1, 0)]
+                hi = xs[min(j + 1, len(xs) - 1)]
+            rows.append({
+                "n": k + l + 1, "l": l, "nocc": nocc, "E": float(np.asarray(orbE)[l][k]),
+                "moments": mom, "rmax": float(rs[j]),
+            })
+            k += 1
+    return rows
+
+
+def xc_ingredients(basis: SadAtomBasis, Pl: np.ndarray):
+    """XC-ingredient table on the radial grid of a restricted density cube
+    (split evenly over the spins): columns [r, rho_a, rho_b, sigma_aa,
+    sigma_ab, sigma_bb, lapl_a, lapl_b, tau_a, tau_b] (reference:
+    SCFSolver::XCIngredients, src/sadatom/solver.cpp:1585-1597; gensap
+    --saveing writes it)."""
+    Pla = Pl / 2.0
+    r, n, dn, ln, _ = radial_density(basis, Pla.sum(axis=0))
+    tau = kinetic_energy_density(basis, Pla)
+    return np.column_stack([r, n, n, dn * dn, dn * dn, dn * dn, ln, ln, tau, tau])
+
+
+def kinetic_energy_density(basis: SadAtomBasis, Pl: np.ndarray):
+    """tau(r) = 1/2 sum_l P_l[IJ] (b'_I b'_J + l(l+1) b_I b_J / r^2) / (4 pi)."""
+    rb = basis.rb
+    tau = np.zeros_like(rb.r)
+    for l in range(Pl.shape[0]):
+        Pg = _element_windows(basis, Pl[l])
+        tau += 0.5 * np.einsum("eij,eqi,eqj->eq", Pg, rb.db, rb.db)
+        tau += 0.5 * l * (l + 1) * np.einsum("eij,eqi,eqj->eq", Pg, rb.b, rb.b) / rb.r**2
+    return tau.ravel() / (4.0 * np.pi)
+
+
+def coulomb_screening(basis: SadAtomBasis, Prad: np.ndarray) -> np.ndarray:
+    """r * V_H(r) on the radial grid (effective electron screening charge;
+    reference: sadatom TwoDBasis::coulomb_screening, basis.cpp:778-840).
+
+    V_H(r) = (1/r) int_0^r rho_B dr' + int_r^inf rho_B / r' dr' with
+    rho_B(r) = P_IJ B_I B_J (the radial charge density)."""
+    rb = basis.rb
+    nelem, nq = rb.r.shape
+    Pg = _element_windows(basis, Prad)
+    # per-element totals of <BB> and <BB/r>
+    q0 = np.einsum("eij,eqi,eq,eqj->e", Pg, rb.B, rb.wr, rb.B)
+    qm1 = np.einsum("eij,eqi,eq,eqj->e", Pg, rb.B / rb.r[:, :, None], rb.wr, rb.B)
+    pre = np.concatenate([[0.0], np.cumsum(q0)[:-1]])  # charge inside element start
+    suf = np.concatenate([np.cumsum(qm1[::-1])[::-1][1:], [0.0]])  # 1/r-weighted outside
+    # in-element cumulative integrals per quadrature point (segment sums)
+    V = np.zeros((nelem, nq))
+    for e in range(nelem):
+        rq = rb.r[e]
+        lo = np.concatenate([[rb.fem.bval[e]], rq[:-1]])
+        hi = rq
+        mid, hlen = 0.5 * (lo + hi), 0.5 * (hi - lo)
+        rp = mid[:, None] + hlen[:, None] * rb.xq[None, :]
+        xpoly = (rp - rb.fem.mids[e]) / (0.5 * rb.fem.lengths[e])
+        Bin = rb.fem.eval_element(e, xpoly.ravel(), 0)[0].reshape(nq, nq, -1)
+        dens = np.einsum("ij,pqi,pqj->pq", Pg[e], Bin, Bin)
+        seg0 = np.einsum("pq,q,p->p", dens, rb.wq, hlen)  # int B B over segment
+        segm1 = np.einsum("pq,pq,q,p->p", dens, 1.0 / rp, rb.wq, hlen)
+        cum0 = np.cumsum(seg0)  # int_lo(e)^rq
+        cumm1_above = np.cumsum(segm1[::-1])[::-1] - segm1  # int_rq^hi(e)
+        V[e] = (pre[e] + cum0) / rq + cumm1_above + suf[e]
+    return (V * rb.r).ravel()
+
+
+def _mult_vxc_radial(funcs, na, nb, dna, dnb, lna, lnb, r, thr: float = 1e-12):
+    """Multiplicative xc potential per spin on the radial grid,
+
+        v_s = dE/dn_s - div(2 v_sigma_ss grad n_s + v_sigma_st grad n_t),
+
+    with the divergence in spherical symmetry div A = dA/dr + 2A/r and the
+    radial derivative of v_sigma taken by ONE torch.func.jvp through the
+    functional's potentials (torch.func.grad of its energy; helfem_tpu takes
+    jax.jvp through xc_eval). The inputs are substituted as ops/xc.py:xc_eval
+    substitutes them (masked points by 1, spin densities floored at thr,
+    same-spin sigmas at 0), inside the differentiated function. LDA
+    functionals give zero v_sigma; meta-GGAs raise."""
+    if any(f.family not in ("lda", "gga") for f in funcs):
+        raise NotImplementedError("multiplicative xc potential: LDA/GGA only")
+    t = {k: torch.as_tensor(np.asarray(v), dtype=torch.float64)
+         for k, v in dict(na=na, nb=nb, dna=dna, dnb=dnb, lna=lna, lnb=lnb, r=r).items()}
+    na, nb, dna, dnb, r = t["na"], t["nb"], t["dna"], t["dnb"], t["r"]
+    # pure second radial derivative from the full laplacian: n'' = lapl - 2 n'/r
+    d2na = t["lna"] - 2.0 * dna / r
+    d2nb = t["lnb"] - 2.0 * dnb / r
+
+    def energy(*a):
+        return sum(f.f(*a, **dict(f.params)) for f in funcs).sum()
+
+    grad = torch.func.grad(energy, argnums=(0, 1, 2, 3, 4))
+
+    def pots(ra, rb, saa, sab, sbb):
+        mask = (ra + rb) > thr
+        one = torch.ones_like(ra)
+        args = (torch.clamp(torch.where(mask, ra, one), min=thr),
+                torch.clamp(torch.where(mask, rb, one), min=thr),
+                torch.clamp(saa, min=0.0), sab, torch.clamp(sbb, min=0.0))
+        return torch.stack([torch.where(mask, g, torch.zeros_like(g)) for g in grad(*args)])
+
+    prim = (na, nb, dna * dna, dna * dnb, dnb * dnb)
+    tang = (dna, dnb, 2.0 * dna * d2na, d2na * dnb + dna * d2nb, 2.0 * dnb * d2nb)
+    V, dV = torch.func.jvp(pots, prim, tang)
+    vra, vrb, vsaa, vsab, vsbb = V
+    _, _, dvsaa, dvsab, dvsbb = dV
+    Aa = 2.0 * vsaa * dna + vsab * dnb
+    Ab = 2.0 * vsbb * dnb + vsab * dna
+    dAa = 2.0 * (dvsaa * dna + vsaa * d2na) + dvsab * dnb + vsab * d2nb
+    dAb = 2.0 * (dvsbb * dnb + vsbb * d2nb) + dvsab * dna + vsab * d2na
+    va = vra - (dAa + 2.0 * Aa / r)
+    vb = vrb - (dAb + 2.0 * Ab / r)
+    return va.numpy(), vb.numpy()
+
+
+def xc_screening(basis: SadAtomBasis, Prad: np.ndarray, funcs) -> np.ndarray:
+    """r * v_xc(r) for LDA and GGA functionals (reference: sadatom
+    TwoDBasis::xc_screening, src/sadatom/basis.cpp:1284-1288, incl. the GGA
+    gradient-divergence correction)."""
+    r, n, dn, ln, _ = radial_density(basis, Prad)
+    va, vb = _mult_vxc_radial(funcs, n / 2, n / 2, dn / 2, dn / 2, ln / 2, ln / 2, r)
+    return r * 0.5 * (va + vb)
+
+
+def xc_screening_polarized(basis: SadAtomBasis, Prad_a: np.ndarray, Prad_b: np.ndarray,
+                           funcs):
+    """(r*vxc_a, r*vxc_b) for spin-polarized densities, LDA/GGA (reference:
+    sadatom TwoDBasis::xc_screening(Pa,Pb,...), src/sadatom/basis.cpp:1289)."""
+    r, na, dna, lna, _ = radial_density(basis, Prad_a)
+    _, nb, dnb, lnb, _ = radial_density(basis, Prad_b)
+    va, vb = _mult_vxc_radial(funcs, na, nb, dna, dnb, lna, lnb, r)
+    return r * va, r * vb
+
+
+def potential_table(basis: SadAtomBasis, Pla: np.ndarray, Plb: np.ndarray, funcs,
+                    mode: str = "average", dftthr: float = 1e-12):
+    """9-column SAP potential table (r, rho, drho/dr, lapl rho, tau, r*V_H,
+    r*v_xc, w, Z - Zeff), sorted by r. The spin-resolved xc column follows
+    the reference's potential variants (src/sadatom/solver.cpp:1414-1571):
+
+      average   restricted v_xc of the total density (AveragePotential)
+      mean      mean of the spin-resolved potentials (UnrestrictedPotential)
+      weighted  density-weighted spin average (WeightedPotential)
+      highspin  restricted v_xc of 2*rho_alpha (HighSpinPotential)
+      lowspin   restricted v_xc of 2*rho_beta (LowSpinPotential)
+    """
+    Pa, Pb = Pla.sum(axis=0), Plb.sum(axis=0)
+    P = Pa + Pb
+    r, na, dna, lna, wt = radial_density(basis, Pa)
+    _, nb, dnb, lnb, _ = radial_density(basis, Pb)
+    tau = kinetic_energy_density(basis, Pla) + kinetic_energy_density(basis, Plb)
+    vcoul = coulomb_screening(basis, P)
+    if mode == "average":
+        vxc = xc_screening(basis, P, funcs)
+    elif mode == "mean":
+        va, vb = xc_screening_polarized(basis, Pa, Pb, funcs)
+        vxc = 0.5 * (va + vb)
+    elif mode == "weighted":
+        va, vb = xc_screening_polarized(basis, Pa, Pb, funcs)
+        n = na + nb
+        vxc = np.where(n > dftthr, (va * na + vb * nb) / np.maximum(n, dftthr), 0.0)
+    elif mode == "highspin":
+        vxc = xc_screening(basis, 2.0 * Pa, funcs)
+    elif mode == "lowspin":
+        vxc = xc_screening(basis, 2.0 * Pb, funcs)
+    else:
+        raise ValueError(f"unknown potential mode {mode}")
+    zeff = basis.Z - (vcoul + vxc)
+    out = np.column_stack([r, na + nb, dna + dnb, lna + lnb, tau, vcoul, vxc, wt, zeff])
+    return out[np.argsort(r)]
+
+
+def vdw_radius(basis: SadAtomBasis, Prad: np.ndarray, threshold: float = 0.001) -> float:
+    """Radius where the electron density drops to `threshold` (the van der
+    Waals radius criterion; reference: sadatom TwoDBasis::vdw_radius,
+    src/sadatom/basis.cpp:1043-1100), by log-linear interpolation at the
+    outermost crossing."""
+    r, n, _, _, _ = radial_density(basis, Prad)
+    order = np.argsort(r)
+    r, n = r[order], n[order]
+    above = np.nonzero(n > threshold)[0]
+    if len(above) == 0:
+        return 0.0
+    i = above[-1]
+    if i + 1 >= len(r):
+        return r[-1]
+    r1, r2 = r[i], r[i + 1]
+    n1, n2 = n[i], max(n[i + 1], 1e-300)
+    t = (np.log(threshold) - np.log(n1)) / (np.log(n2) - np.log(n1))
+    return float(r1 + t * (r2 - r1))
+
+
+def electron_count_radius(basis: SadAtomBasis, Prad: np.ndarray, nel_inside: float) -> float:
+    """Radius enclosing `nel_inside` electrons (reference:
+    TwoDBasis::electron_count_radius, src/sadatom/basis.cpp:1119-1165;
+    callers pass nel_inside = nel_total - eps), by linear interpolation on
+    the cumulative quadrature sum."""
+    r, n, _, _, w = radial_density(basis, Prad)
+    order = np.argsort(r)
+    r, nw = r[order], (n * w)[order]
+    cum = np.cumsum(nw)
+    idx = int(np.searchsorted(cum, nel_inside))
+    if idx >= len(r):
+        return float(r[-1])
+    if idx == 0:
+        return float(r[0])
+    c1, c2 = cum[idx - 1], cum[idx]
+    t = (nel_inside - c1) / max(c2 - c1, 1e-300)
+    return float(r[idx - 1] + t * (r[idx] - r[idx - 1]))
+
+
+def xc_potential_table(basis: SadAtomBasis, Pla, Plb, funcs):
+    """(r, vxc_a, vxc_b) on the radial grid for potential export (reference:
+    SCFSolver::XCPotential -> xcpot.dat), LDA and GGA."""
+    r, na, dna, lna, _ = radial_density(basis, Pla.sum(axis=0))
+    _, nb, dnb, lnb, _ = radial_density(basis, Plb.sum(axis=0))
+    va, vb = _mult_vxc_radial(funcs, na, nb, dna, dnb, lna, lnb, r)
+    order = np.argsort(r)
+    return r[order], va[order], vb[order]
+
+
+def sap_potential_table(Z: int, method: str = "lda_x", lmax: int = 3, device=None, **kw):
+    """The SAP effective-charge table of element Z from the spherically
+    averaged atom solved on `device` in the Saito ground configuration
+    (sadconf.get_configuration; one fixed-occupation solve). `kw` goes to
+    SadAtomBasis. Returns (r, Zeff, result) with Zeff(r) = Z - r V_H(r) -
+    r v_xc(r), sorted by r."""
+    from helfem_tpu_torch.models.sadconf import get_configuration
+
+    conf = get_configuration(Z)
+    if lmax < 3:
+        if conf[lmax + 1:].any():
+            raise ValueError(f"Z={Z} ground state needs lmax >= {np.nonzero(conf)[0].max()}")
+        conf = conf[: lmax + 1]
+    basis = SadAtomBasis(Z=Z, lmax=lmax, **kw)
+    res = solve_sadatom(basis, method=method, occs=conf, device=device)
+    Prad = res.Pl.sum(axis=0)
+    funcs, _ = parse_method(method)
+    vcoul = coulomb_screening(basis, Prad)
+    vxc = xc_screening(basis, Prad, funcs)
+    r = basis.rb.r.ravel()
+    Zeff = Z - (vcoul + vxc)
+    order = np.argsort(r)
+    return r[order], Zeff[order], res

@@ -227,7 +227,8 @@ def scf_atom(
         return torch.as_tensor(np.asarray(x), dtype=torch.float64, device=device)
 
     # guess: model-potential Hamiltonian
-    Hg = as_dev(basis.kinetic() + basis.model_potential(potential(guess, basis.Z)))
+    Hg = as_dev(basis.kinetic()
+                + basis.model_potential(potential(guess, basis.Z, device=device)))
     Ea, Ca = eig_blocks(Hg, blk_idx, blk_sinvh)
     Ea = Ea.cpu().numpy()
 

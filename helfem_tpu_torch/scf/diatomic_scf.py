@@ -4,10 +4,11 @@ The port runs closed-shell restricted Hartree-Fock, LDA and GGA
 functionals and the PBE0 hybrid under the diatomic symmetry blocks (m, plus
 g/u for homonuclear), the paths of the N2 HF and N2 PBE bench configs:
 
-  core guess -> two host iterations (Fock on the device, host DIIS with
-  ADIIS far from convergence) -> fused device chunks of 4, 8, then 16
-  iterations: density and occupied orbitals -> Coulomb (M = 0 channels),
-  occupied-orbital exchange and XC Fock (CUDA kernels on the card) ->
+  guess (core, or SAP/GSZ/TF of the two atoms) -> two host iterations (Fock
+  on the device, host DIIS with ADIIS far from convergence) -> fused device
+  chunks of 4, 8, then 16 iterations: density and occupied orbitals ->
+  Coulomb (M = 0 channels), occupied-orbital exchange and XC Fock (CUDA
+  kernels on the card) ->
   block-coordinate C2-DIIS -> blocked eigensolve, with the convergence test
   on the device after every iteration.
 
@@ -17,7 +18,7 @@ The eigensolve is torch.linalg.eigh per block with helfem_tpu's four
 refinement passes (utils/linalg.py:eigh_refined); its warm start is not
 carried over. Every other
 scf_diatomic option (open shells, range-separated and meta-GGA hybrids,
-fields, finite nuclei, level shifts, other guesses, --ndev, ...) raises
+fields, finite nuclei, level shifts, --ndev, ...) raises
 NotImplementedError: nothing falls back silently.
 """
 
@@ -34,6 +35,7 @@ from helfem_tpu_torch.models.diatomic import (
     exchange_dia_occ,
 )
 from helfem_tpu_torch.models.diatomic_dft import DiaGridOps, build_dia_grid, eval_fxc_dia
+from helfem_tpu_torch.models.diatomic_tools import guess_hamiltonian_dia
 from helfem_tpu_torch.ops.xc import parse_method_rs
 from helfem_tpu_torch.scf.common import (
     aufbau_blocks,
@@ -208,9 +210,11 @@ def scf_diatomic(
     **unported,
 ) -> DiaSCFResult:
     """Closed-shell restricted SCF (helfem_tpu's scf_diatomic for nela ==
-    nelb and the core guess) for HF, LDA/GGA functionals and PBE0. The
-    operators and the grid (none for pure HF) are built on `device` unless
-    `ops` is given, in which case the SCF runs on ops' device."""
+    nelb) for HF, LDA/GGA functionals and PBE0, from the core guess or the
+    SAP, GSZ or TF guess of the two atoms (a SAP atom is solved on the
+    operators' device). The operators and the grid (none for pure HF) are
+    built on `device` unless `ops` is given, in which case the SCF runs on
+    ops' device."""
     reject_unported(unported, _UNPORTED, "scf_diatomic")
     if nela != nelb:
         raise NotImplementedError("open-shell diatomic SCF is not ported to "
@@ -220,9 +224,6 @@ def scf_diatomic(
     if spec.kshort:
         raise NotImplementedError(f"method '{method}' needs the range-separated exchange, "
                                   "which is not ported to helfem_tpu_torch yet")
-    if guess != "core":
-        raise NotImplementedError(f"guess '{guess}' is not ported to helfem_tpu_torch "
-                                  "yet; only the core guess")
     if ops is None:
         if device is None:
             raise ValueError("scf_diatomic needs a device (or prebuilt ops)")
@@ -237,7 +238,11 @@ def scf_diatomic(
     def as_dev(x) -> torch.Tensor:
         return torch.as_tensor(np.asarray(x), dtype=torch.float64, device=device)
 
-    Ea, Ca = eig_blocks(ops.H0, ops.blk_idx, ops.blk_sinvh)
+    if guess == "core":
+        Hguess = ops.H0
+    else:
+        Hguess = as_dev(guess_hamiltonian_dia(basis, guess, device))
+    Ea, Ca = eig_blocks(Hguess, ops.blk_idx, ops.blk_sinvh)
     Ea = Ea.cpu().numpy()
     blk_idx_np = ops.blk_idx.cpu().numpy()
     blk_sinvh_np = ops.blk_sinvh.cpu().numpy()

@@ -1,6 +1,5 @@
 """Initial-guess model potentials (L7), carried over from
-helfem_tpu/scf/guess.py: core, Thomas-Fermi and GSZ. The SAP guess needs the
-sadatom solver, which is not ported yet, and raises NotImplementedError.
+helfem_tpu/scf/guess.py: core, Thomas-Fermi, GSZ and SAP.
 
 Screened-nucleus effective charges Z_eff(r); guess Hamiltonian is
 T - Z_eff(r)/r (reference: src/general/{gsz,sap,model_potential}.cpp).
@@ -9,11 +8,15 @@ T - Z_eff(r)/r (reference: src/general/{gsz,sap,model_potential}.cpp).
   (arXiv physics/0511017; reference: gsz.cpp Z_thomasfermi).
 * GSZ (Green-Sellin-Zachor): analytic form with the d_Z parameters of
   Green 1969 (reference: gsz.cpp).
+* SAP (superposition of atomic potentials): the reference ships a tabulated
+  Z_eff(r) generated by its own `gensap` program; here the table is
+  regenerated by the port's sadatom solver (models/sadatom.py), on the
+  device the caller names, once per element and process.
 """
 
 import numpy as np
 
-__all__ = ["Z_thomasfermi", "Z_gsz", "potential"]
+__all__ = ["Z_thomasfermi", "Z_gsz", "Z_sap", "potential"]
 
 # Green 1969 d_Z parameters, Z = 0..103 (published data table)
 _D_GSZ = np.array([
@@ -46,8 +49,30 @@ def Z_gsz(r: np.ndarray, Z: int) -> np.ndarray:
     return 1.0 + (Z - 1) / (1.0 + (np.exp(r / d) - 1.0) * H)
 
 
-def potential(kind: str, Z: int):
-    """V(r) callable: -Z_eff(r)/r. kind in {'core','TF','GSZ','SAP'}."""
+_SAP_CACHE: dict[int, tuple] = {}
+
+
+def Z_sap(r: np.ndarray, Z: int, device) -> np.ndarray:
+    """SAP effective charge, generated on demand by solving the spherically
+    averaged atom with exchange-only LDA on `device` (the construction of
+    the reference's sap.cpp table; see models/sadatom.sap_potential_table)
+    and linearly interpolated, with a 40-bohr cutoff like the reference
+    (sap.cpp:33-47)."""
+    if Z not in _SAP_CACHE:
+        from helfem_tpu_torch.models.sadatom import sap_potential_table
+
+        rt, zt, _ = sap_potential_table(Z, method="lda_x", lmax=min(3, 2 if Z <= 20 else 3),
+                                        device=device)
+        _SAP_CACHE[Z] = (rt, zt)
+    rt, zt = _SAP_CACHE[Z]
+    out = np.interp(r, rt, zt, left=float(Z), right=0.0)
+    return np.where(r > 40.0, 0.0, out)
+
+
+def potential(kind: str, Z: int, device=None):
+    """V(r) callable: -Z_eff(r)/r. kind in {'core','TF','GSZ','SAP'}; SAP
+    solves its atom on `device` (the caller's operators' device) at the
+    first call for Z."""
     if kind == "core":
         return lambda r: -Z / r
     if kind == "TF":
@@ -55,5 +80,7 @@ def potential(kind: str, Z: int):
     if kind == "GSZ":
         return lambda r: -Z_gsz(r, Z) / r
     if kind == "SAP":
-        raise NotImplementedError("SAP guess needs the sadatom port; see ROADMAP")
+        if device is None:
+            raise ValueError("the SAP guess needs the device to solve its atom on")
+        return lambda r: -Z_sap(r, Z, device) / r
     raise ValueError(f"unknown guess {kind}")

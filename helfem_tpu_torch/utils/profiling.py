@@ -8,11 +8,14 @@ import torch
 __all__ = ["device_ms", "profile_scf"]
 
 
-def profile_scf(label: str, run, rows: int = 20, kernels: tuple = ()) -> dict:
+def profile_scf(label: str, run, rows: int = 20, kernels: tuple = (), ops: tuple = ()) -> dict:
     """Warm SCF walls (min of three) of run() -> result, and the device time
     of one more SCF by kernel, from torch.profiler; beside the table, the
     device time and launches of each device kernel whose name contains one
-    of `kernels`, which are also returned as {name: (ms, launches)}."""
+    of `kernels`, which are also returned as {name: (ms, launches)}, and
+    the device time and calls of each operator named in `ops` (the kernels
+    launched under it, e.g. "aten::linalg_eigh"), returned the same way;
+    "busy" holds the device time of all kernels and their number."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -38,12 +41,19 @@ def profile_scf(label: str, run, rows: int = 20, kernels: tuple = ()) -> dict:
     print(f"profiled {label} SCF: wall {wall:.4f} s (profiler on), device busy "
           f"{busy:.4f} s = {100 * busy / wall:.1f} % of the wall")
     print(events.table(sort_by=key, row_limit=rows))
-    per_kernel = {}
+    device = [e for e in events if e.device_type == DeviceType.CUDA]
+    per_kernel = {"busy": (busy * 1e3, sum(e.count for e in device))}
     for name in kernels:
-        hits = [e for e in events if e.device_type == DeviceType.CUDA and name in e.key]
+        hits = [e for e in device if name in e.key]
         per_kernel[name] = (sum(getattr(e, key) for e in hits) * 1e-3, sum(e.count for e in hits))
         print(f"{label}: {name} device time {per_kernel[name][0]:.4f} ms in "
               f"{per_kernel[name][1]} launches per SCF")
+    for name in ops:
+        hits = [e for e in events if e.device_type != DeviceType.CUDA and e.key == name]
+        per_kernel[name] = (sum(e.device_time_total for e in hits) * 1e-3,
+                            sum(e.count for e in hits))
+        print(f"{label}: {name} device time {per_kernel[name][0]:.4f} ms in "
+              f"{per_kernel[name][1]} calls per SCF")
     return per_kernel
 
 

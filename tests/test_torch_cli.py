@@ -28,13 +28,26 @@ def test_cli_runs_on_cpu(capsys):
     assert "Total                 energy: -2.86167994188" in out
 
 
+def test_cli_runs_with_its_default_sap_guess(capsys):
+    """No --iguess: the SAP guess (--iguess 2), its He atom solved on the
+    CPU, converges to the TF-started energy. One intra-op thread: the SAD
+    solve is a stream of small ops, and the test workers share the cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        res = main([a for a in HE if a not in ("--iguess", "3")] + ["--device", "cpu"])
+    finally:
+        torch.set_num_threads(threads)
+    assert res.converged and abs(res.E - HE_JAX) < 1e-9
+    assert "(fused)" in capsys.readouterr().out
+
+
 @pytest.mark.parametrize("extra, match", [
-    (["--iguess", "2"], "SAP"),
     (["--method", "PBE"], "PBE"),
     (["--Ez", "0.01"], "--Ez"),
     (["--ndev", "2"], "--ndev"),
     (["--Q", "1"], "--Q"),
-], ids=["sap", "pbe", "field_flag", "ndev_flag", "charge_flag"])
+], ids=["pbe", "field_flag", "ndev_flag", "charge_flag"])
 def test_cli_unported_raises(extra, match):
     with pytest.raises(NotImplementedError, match=match):
         main(HE + extra + ["--device", "cpu"])
@@ -60,7 +73,8 @@ def test_port_never_imports_jax():
         "for name in ('models.diatomic', 'models.diatomic_dft', 'scf.diatomic_scf',\n"
         "             'cli.diatomic', 'ops.xc', 'ops.legendreq', 'ops.spherical',\n"
         "             'kernels.radial_exchange_dia', 'kernels.matmul_probe',\n"
-        "             'tools.f64_ablation', 'tools.profile_dia_scf', 'utils.profiling'):\n"
+        "             'tools.f64_ablation', 'tools.profile_dia_scf', 'utils.profiling',\n"
+        "             'models.sadatom', 'models.sadconf', 'models.diatomic_tools', 'cli.gensap'):\n"
         "    assert 'helfem_tpu_torch.' + name in names, name\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'helfem_tpu'))\n"
         "assert not bad, bad\n"

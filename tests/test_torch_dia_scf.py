@@ -50,13 +50,11 @@ def test_cli_runs_on_cpu(capsys):
     (["--method", "LC-LDA"], "LC-LDA"),
     (["--method", "B3LYP5"], "B3LYP5"),
     (["--method", "TPSS"], "TPSS"),
-    (["--iguess", "2"], "SAP"),
-    (["--guess", "TF"], "TF"),
     (["--Q", "1"], "open-shell"),
     (["--Ez", "0.01"], "--Ez"),
     (["--ndev", "2"], "--ndev"),
     (["--restricted", "0"], "--restricted"),
-], ids=["range_separated", "hybrid", "mgga", "sap", "tf", "open_shell", "field_flag", "ndev_flag",
+], ids=["range_separated", "hybrid", "mgga", "open_shell", "field_flag", "ndev_flag",
         "uhf_flag"])
 def test_cli_unported_raises(extra, match):
     with pytest.raises(NotImplementedError, match=match):

@@ -377,6 +377,52 @@ def test_scf_on_card_matches_cpu(cuda_device):
     assert all(kernels.launches[k] > before[k] for k in ("radial_exchange", "radial_coulomb"))
 
 
+# the spherically averaged atom at chip_smoke.py's shapes: gensap Kr of the
+# bench (K2 only: SVWN) and SAD-HF Ar at the Ar bench basis (K1 at NL 3 on
+# two channels, K2)
+SAD_SHAPES = {
+    "kr_gensap": dict(Z=36, lmax=2, rmax=40.0, nelem=8, nnodes=12),
+    "ar_hf": dict(Z=18, lmax=1, rmax=40.0, nelem=10, nnodes=15),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", list(SAD_SHAPES))
+def test_sad_fock_pieces_match_plain_on_card(cuda_device, shape):
+    """sad_exchange (one K1 launch for every (L, channel)) and sad_coulomb
+    (one K2 launch on the L=0 tables) on the card against the same
+    functions on CPU tensors: 1e-12 x max-abs, the same bits twice, one
+    launch per call."""
+    from helfem_tpu_torch.models import sadatom
+
+    basis = sadatom.SadAtomBasis(**SAD_SHAPES[shape])
+    host_ops = basis.host_ops()
+    cpu = sadatom.from_jax_sad_ops(host_ops, "cpu")
+    gpu = sadatom.from_jax_sad_ops(host_ops, cuda_device)
+    X = np.random.default_rng(47).standard_normal((basis.lmax + 1, basis.nrad, 4))
+    Pang = np.einsum("lik,ljk->lij", X, X)
+    for fn, name, P in ((sadatom.sad_exchange, "radial_exchange", Pang),
+                        (sadatom.sad_coulomb, "radial_coulomb", Pang.sum(0))):
+        out = _check_twice(name, (gpu, torch.tensor(P, device=cuda_device)), fn).cpu()
+        ref = fn(cpu, torch.tensor(P))
+        assert float((out - ref).abs().max()) <= TOL * float(ref.abs().max())
+
+
+@pytest.mark.cuda
+def test_sad_solve_on_card_matches_cpu(cuda_device):
+    """SAD-HF Ne with the occupation search: the same energy and
+    configuration, K1 and K2 once per Fock build."""
+    from helfem_tpu_torch.models import sadatom
+
+    basis = sadatom.SadAtomBasis(Z=10, lmax=1, nelem=5, nnodes=8)
+    cpu = sadatom.solve_sadatom(basis, method="HF", convthr=1e-9, device="cpu")
+    kernels.reset_launches()
+    gpu = sadatom.solve_sadatom(basis, method="HF", convthr=1e-9, device=cuda_device)
+    assert gpu.converged and abs(gpu.E - cpu.E) < 1e-9
+    assert list(gpu.occs) == list(cpu.occs) == [4, 6]
+    assert kernels.launches["radial_exchange"] == kernels.launches["radial_coulomb"] == gpu.nfock
+
+
 DIA_CONFIGS = {
     # the N2 bench shapes, and a heteronuclear CO where odd-L channels live
     "n2_bench": dict(Z1=7, Z2=7, Rbond=2.0743, lmax=(6, 6), rmax=25.0, nelem=5, nnodes=8),

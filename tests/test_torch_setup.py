@@ -59,7 +59,3 @@ def test_guess_hamiltonian_bit_identical(bases, guess):
     Ht = tb.kinetic() + tb.model_potential(potential(guess, tb.Z))
     assert _bit_identical(Hj, Ht)
 
-
-def test_sap_guess_not_ported():
-    with pytest.raises(NotImplementedError, match="sadatom"):
-        potential("SAP", 18)
