@@ -30,8 +30,11 @@ Phases, any failure raises and exits non-zero:
      None), each K3 call twice with the same bits and one launch per call,
      the two exchange kernels also at a LiH shape, at the N2 lmax=12 shapes
      and at nprim 33 and 40 on random tables, the XC kernels at the N2
-     lmax=12 basis for one spin: max-abs error <= 1e-12 x max-abs of the
-     result;
+     lmax=12 basis for one spin, and the XC kernels on the atomic grids
+     of the Ar and Xe bench bases and on the SAD grid of gensap Kr (one
+     angular shell and point) for one spin (the restricted path's), each
+     twice with the same bits and one launch per call: max-abs
+     error <= 1e-12 x max-abs of the result;
      beside each call time the kernel's device time (torch.profiler); the
      matmul probes at n = 2048 and 4096, both precisions, within 1e-5 x
      max-abs of their plain versions (f32 sums in another order);
@@ -42,12 +45,14 @@ Phases, any failure raises and exits non-zero:
      within 1e-6 Eh of the numerical HF limit and 1e-10 Eh of the port's
      pinned value, both atomic kernels launched once per iteration; then
      again with the CLI's default guess (SAP, its Ar atom solved on the
-     card through K2), within 1e-10 Eh of the same pinned value;
+     card through K2, K4 and K5, each once per Fock build), within 1e-10
+     Eh of the same pinned value;
   5. three warm Ar HF SCF walls and a torch.profiler breakdown of the device
      time of one more SCF, by kernel, each SCF with the atomic kernels once
      per iteration; their device time per SCF;
   6. N2 PBE (the bench config) through the port's diatomic CLI on the card:
-     within 1e-6 Eh of the JAX package's f64 value, the three diatomic
+     within 1e-6 Eh of the JAX package's f64 value and 1e-10 Eh of the
+     port's own value (−108.978708437278 on every run), the three diatomic
      kernels' launch counters must rise during the SCF, K3's and the XC
      kernels' once per iteration;
   7. three warm N2 PBE SCF walls and the profiler breakdown of one more,
@@ -70,7 +75,8 @@ Phases, any failure raises and exits non-zero:
      kernels' first, CUDA-core version gave, with the occupied-orbital
      exchange kernel launched and K3 once per iteration; the warm wall;
      then the same SCF from the SAP guess (the bench's own start), cold and
-     warm, within 2e-5 Eh of the bench reference, beside the core-guess
+     warm, within 2e-5 Eh of the bench reference (N's SAD atom, solved in
+     the cold run, with K2, K4 and K5 once per Fock build), beside the core-guess
      iterations and walls. Then N2 PBE at the same basis and the PBE bench geometry, cold
      (converged, Nel on the grid within 1e-6 of 14, within 1e-8 Eh of the
      pinned value, K3 and the XC kernels once per iteration), then warm with
@@ -80,14 +86,26 @@ Phases, any failure raises and exits non-zero:
      the atomic kernels once per iteration;
  13. gensap Kr (bench.py's bench_gensap basis, SVWN, --nosearch) through the
      port's gensap CLI, cold and warm: converged within 1e-5 Eh of the bench
-     value, a finite Z_eff table, K2 once per Fock build and K1 never; K1
-     and K2 at the Kr SAD shapes against their plain versions; the warm
-     solve's device time for K1, K2, eigh and the rest;
+     value and 1e-8 Eh of the port's own, a finite Z_eff table, K2, K4 and
+     K5 once per Fock build and K1
+     never; K1 and K2 at the Kr SAD shapes against their plain versions;
+     the warm solve's device time for K1, K2, K4, K5, eigh and the rest;
  14. SAD-HF Ar at the Ar bench basis: K1 (NL 3 on two channels) and K2 (the
      L=0 tables) at its shapes against their plain versions, sad_exchange
      and sad_coulomb against their CPU versions (1e-12 x max-abs, the same
      bits twice), then the solve: within 1e-6 Eh of the Ar HF limit, K1 and
-     K2 once per Fock build, and its warm device time like phase 13's.
+     K2 once per Fock build (K4 and K5 never), and its warm device time
+     like phase 13's;
+ 15. atomic DFT and open shells through the port's atomic CLI (TF guess):
+     Ar SVWN at the Ar bench basis within 1e-6 Eh of the NIST LSD value and
+     Nel on the grid within 1e-6 of 18; Ar PBE0, Xe PBE (the Xe bench
+     basis), and the quartet N (5 alpha, 2 beta, Ar bench radial basis)
+     UHF, UKS-PBE and ROHF within 1e-8 Eh of helfem_tpu's f64 values; K2
+     once per iteration, K1 once per iteration for HF and PBE0 (both spins
+     in one launch), K4 once per iteration and K5 once per iteration plus
+     once for the grid self-check for a functional; then warm walls and a
+     profile of Ar PBE0 and Xe PBE (device-busy share, eigh share, K4/K5
+     device time per call).
 The last two lines are the kernels' JSON record and {"ok": true, ...}.
 """
 
@@ -116,11 +134,32 @@ ATOMIC = ("radial_exchange", "radial_coulomb")  # one launch each per SCF iterat
 KR_GENSAP_CLI = ["--Z", "Kr", "--lmax", "2", "--Rmax", "40", "--nelem", "8", "--nnodes", "12",
                  "--method", "SVWN", "--convthr", "1e-7", "--nosearch"]
 KR_GENSAP_REF = -2750.147940
+KR_GENSAP_PORT = -2750.147940403  # the port's value since its first run, a 1e-8 regression gate
 SAD_SHAPES = {  # SadAtomBasis arguments: gensap Kr, and SAD-HF Ar at the Ar bench basis
     "sad_kr": dict(Z=36, lmax=2, rmax=40.0, nelem=8, nnodes=12),
     "sad_ar": dict(Z=18, lmax=1, rmax=40.0, nelem=10, nnodes=15),
 }
-EIGH_OP = "aten::linalg_eigh"  # its device time: the kernels launched under it
+# phase 15: atomic DFT and open shells through the port's atomic CLI (TF
+# guess): label -> (CLI arguments, reference energy, gate in Eh). Ar SVWN
+# against the NIST LSD value (tests/test_xc.py's gate at this basis), the
+# rest against helfem_tpu's scf_atom in f64 on the CPU at the same options
+# (guess TF, maxit 100), -527.388222513552 for Ar PBE0 and so on
+AR_LSD_NIST = -525.946195
+N_CLI = ["--Z", "N", "--M", "4", "--lmax", "1", "--mmax", "1", "--nelem", "10", "--nnodes",
+         "15", "--Rmax", "40", "--iguess", "3", "--convthr", "1e-9"]  # 5 alpha, 2 beta
+DFT_CELLS = {
+    "Ar SVWN": ([a if a != "1e-9" else "1e-8" for a in AR_CLI] + ["--method", "SVWN"],
+                AR_LSD_NIST, 1e-6),
+    "Ar PBE0": (AR_CLI + ["--method", "PBE0"], -527.388222513552, 1e-8),
+    "Xe PBE": (XE_CLI + ["--method", "PBE"], -7234.233235137333, 1e-8),
+    "N UHF": (N_CLI, -54.404548303402, 1e-8),
+    "N UKS PBE": (N_CLI + ["--method", "PBE"], -54.535756774118, 1e-8),
+    "N ROHF": (N_CLI + ["--restricted", "1"], -54.400934208516, 1e-8),
+}
+# the XC kernels on the atomic grids (phase 3), at the one spin of the
+# restricted main path
+ATOMIC_XC_SHAPES = ("ar", "xe", "sad_kr")
+EIGH_OP = "aten::_linalg_eigh"  # its self device time: the cuSOLVER kernels it launches
 # the atomic kernels on random tables: (NL, NM, nang, nelem, nnodes, primbas)
 WIDE_SHAPES = {
     "np33": (3, 5, 4, 2, 33, 4),
@@ -131,6 +170,7 @@ WIDE_SHAPES = {
     "hermite": (3, 5, 4, 4, 5, 8),
 }
 N2_PBE_REF = -108.978708437276  # helfem_tpu on the CPU in f64, bench.py gate
+N2_PBE_PORT = -108.978708437278  # the port's value on every run since its first, gate 1e-10
 N2_CLI = ["--Z1", "N", "--Z2", "N", "--Rbond", "2.0743", "--lmax", "6,6", "--nelem", "5",
           "--nnodes", "8", "--Rmax", "25", "--method", "PBE", "--convthr", "1e-7"]
 SHAPES = {  # AtomicBasis arguments of the Ar and Xe bench configs
@@ -400,14 +440,48 @@ def random_atomic_inputs(dev, NL: int, NM: int, nang: int, nelem: int, nnodes: i
     return atomic_kernel_work(tei, U, V, Lfac, gidx, symmetric(NL, NM), symmetric(nang))
 
 
-def xc_kernel_inputs(basis, dev, ns: int = 2, seed: int = 11):
-    """The XC kernels' inputs at a diatomic basis: ns random symmetric
-    symmetry-block-diagonal densities for K4, random grid potentials and the
-    basis's shell mask for K5, with bytes and operations counted as
-    kernel_inputs counts them: per spin, K4 reads the windows of the live
+def xc_work(g, P, pots, mask, nrad: int) -> dict:
+    """Per XC kernel (its inputs, the bytes it must move, the operations it
+    does) on the grid g for the densities P [ns, nbf, nbf] (K4) and the
+    weighted grid potentials pots = (wvr, wgu, wgv) with the shell mask
+    (None: no mask) (K5): per spin, K4 reads the windows of the live
     ordered shell pairs (the only ones it needs) and writes three fields,
-    K5 writes the dense F; the operations are the folded ones the kernels
-    do (one window or element block per unordered live pair)."""
+    K5 reads the element functions Bg and dBg (not the product tables the
+    kernel streams, which are built from them) and writes the dense F; the
+    operations are the folded ones the kernels do (one window or element
+    block per unordered live pair)."""
+    wvr, wgu, wgv = pots
+    ns, nbf = P.shape[:2]
+    nelem, nq, npr = g.Bg.shape
+    nt, npl = g.sqeta.shape[0], g.pairs.shape[0]
+    ordered = 2 * npl - int((g.pairs[:, 0] == g.pairs[:, 1]).sum())
+    win = window_entries(g.gidx, nrad)
+    pair_rows = nbytes(g.pairs, g.TTp, g.dTTp)
+    k4_bytes = (8 * ns * ordered * win + pair_rows + nbytes(g.gidx, g.Bg, g.dBg, g.invh, g.sqeta)
+                + 3 * nbytes(wvr))
+    masks = () if mask is None else (mask,)
+    k5_bytes = (nbytes(wvr, wgu, wgv, *masks, g.owners, g.band, g.ijs, g.Bg, g.dBg)
+                + pair_rows + 8 * ns * nbf ** 2)
+    nij = npr * (npr + 1) // 2
+    return {
+        "dia_xc_fields": ((P, g), k4_bytes,
+                          ns * npl * nelem * nq * (2 * npr * npr + 4 * npr + 6 * nt)),
+        "dia_xc_fock": ((wvr, wgu, wgv, g, *masks), k5_bytes,
+                        ns * npl * nelem * nq * (6 * nt + 4 * nij)),
+    }
+
+
+def random_potentials(g, ns: int, rng):
+    """Random weighted grid potentials (wvr, wgu, wgv) [ns, nelem, nq, nt]
+    for the XC Fock kernel on the grid g."""
+    shape = (ns, *g.w.shape)
+    return tuple(torch.tensor(rng.standard_normal(shape), device=g.w.device) for _ in range(3))
+
+
+def xc_kernel_inputs(basis, dev, ns: int = 2, seed: int = 11):
+    """xc_work at a diatomic basis: ns random symmetric
+    symmetry-block-diagonal densities for K4, random grid potentials and
+    the basis's shell mask for K5."""
     from helfem_tpu_torch.models.diatomic_dft import build_dia_grid
 
     g = build_dia_grid(basis, dev)
@@ -418,26 +492,38 @@ def xc_kernel_inputs(basis, dev, ns: int = 2, seed: int = 11):
             X = rng.standard_normal((len(idx), len(idx)))
             P[s][np.ix_(idx, idx)] = X + X.T
     P = torch.tensor(P, device=dev)
-    shape = (ns, *g.w.shape)
-    wvr, wgu, wgv = (torch.tensor(rng.standard_normal(shape), device=dev) for _ in range(3))
+    pots = random_potentials(g, ns, rng)
     mask = torch.tensor(basis.shell_mask().reshape(-1), device=dev)
-    nelem, nq, npr = g.Bg.shape
-    nt, npl = g.sqeta.shape[0], g.pairs.shape[0]
-    ordered = 2 * npl - int((g.pairs[:, 0] == g.pairs[:, 1]).sum())
-    win = window_entries(g.gidx, basis.nrad)
-    pair_rows = nbytes(g.pairs, g.TTp, g.dTTp)
-    k4_bytes = (8 * ns * ordered * win + pair_rows + nbytes(g.gidx, g.Bg, g.dBg, g.invh, g.sqeta)
-                + 3 * nbytes(wvr))
-    k5_bytes = (nbytes(wvr, wgu, wgv, mask, g.owners, g.band, g.ijs, g.BBs, g.SSs)
-                + pair_rows
-                + 8 * ns * basis.nbf ** 2)
-    nij = npr * (npr + 1) // 2
-    return {
-        "dia_xc_fields": ((P, g), k4_bytes,
-                          ns * npl * nelem * nq * (2 * npr * npr + 4 * npr + 6 * nt)),
-        "dia_xc_fock": ((wvr, wgu, wgv, g, mask), k5_bytes,
-                        ns * npl * nelem * nq * (6 * nt + 4 * nij)),
-    }
+    return xc_work(g, P, pots, mask, basis.nrad)
+
+
+def atomic_xc_inputs(shape: str, dev, ns: int = 2, seed: int = 59):
+    """xc_work on an atomic grid: the atomic grid of SHAPES[shape] (Ar or
+    Xe bench basis) with random symmetric densities dense over the same-m
+    shell pairs (every live pair carries data), or the SAD grid of
+    SAD_SHAPES[shape] (one shell, one angular point) with random symmetric
+    radial densities; random grid potentials, no mask."""
+    from helfem_tpu_torch.models import sadatom
+    from helfem_tpu_torch.models.atomic import AtomicBasis
+    from helfem_tpu_torch.models.atomic_dft import build_atomic_grid
+
+    rng = np.random.default_rng(seed)
+    if shape in SAD_SHAPES:
+        basis = sadatom.SadAtomBasis(**SAD_SHAPES[shape])
+        g = basis.build_ops(dev).grid
+        mval = np.zeros(1, dtype=int)
+    else:
+        basis = AtomicBasis(**SHAPES[shape])
+        g = build_atomic_grid(basis, dev)
+        mval = basis.mval
+    nang, nrad = len(mval), basis.nrad
+    same_m = (mval[:, None] == mval[None, :])[:, None, :, None]
+    P = np.zeros((ns, nang, nrad, nang, nrad))
+    for s in range(ns):
+        X = rng.standard_normal((nang, nrad, nang, nrad))
+        P[s] = (X + X.transpose(2, 3, 0, 1)) * same_m
+    P = torch.tensor(P.reshape(ns, nang * nrad, nang * nrad), device=dev)
+    return xc_work(g, P, random_potentials(g, ns, rng), None, nrad)
 
 
 def block_density(basis, dev, seed: int) -> torch.Tensor:
@@ -656,8 +742,13 @@ def compare(name: str, args, bytes_moved: int, flops: int, warmup: int = 5,
     k2 = cuda_ms(lambda: kern(*args), warmup, reps)
     p2 = cuda_ms(lambda: plain(*args), warmup, reps)
     t_bytes, t_ops = bytes_moved / HBM_BYTES_S, flops / FP64_FLOP_S
-    # the profiler now and then returns no kernel time at all: not measured
-    dev_ms = device_ms(lambda: kern(*args), min(reps, 20)) or None
+    # the profiler now and then returns no kernel time at all: ask again,
+    # twice, then not measured
+    dev_ms = None
+    for _ in range(3):
+        dev_ms = device_ms(lambda: kern(*args), min(reps, 20)) or None
+        if dev_ms:
+            break
     return {"max_abs_err": max(errs), "scale": min(scales), "ms": 0.5 * (k1 + k2),
             "device_ms": dev_ms,
             "plain_ms": 0.5 * (p1 + p2), "bound_ms": 1e3 * max(t_bytes, t_ops),
@@ -759,11 +850,13 @@ def run_cli(main, argv, label: str, names: list[str], check, per_iter=()) -> dic
 
 def sad_launches(label: str, res, hf: bool) -> dict:
     """K2 once per Fock build of a SAD solve, K1 as often for HF and never
-    for a functional; returns the counts."""
+    for a functional, K4 and K5 as often for a functional and never for HF;
+    returns the counts."""
     from helfem_tpu_torch import kernels
 
-    got = {name: kernels.launches[name] for name in ATOMIC}
-    want = {"radial_exchange": res.nfock if hf else 0, "radial_coulomb": res.nfock}
+    got = {name: kernels.launches[name] for name in (*ATOMIC, *XC)}
+    want = {"radial_exchange": res.nfock if hf else 0, "radial_coulomb": res.nfock,
+            **{name: 0 if hf else res.nfock for name in XC}}
     if got != want:
         raise RuntimeError(f"{label}: launches {got}, expected {want} for {res.nfock} "
                            "Fock builds")
@@ -782,9 +875,9 @@ def sad_kernels(shape: str, ops, results: dict) -> None:
 
 
 def sad_profile(label: str, solve, hf: bool) -> None:
-    """Warm solve walls and the device time per solve of K1, K2, the
-    eigensolves (torch.linalg.eigh; the refinement passes' matmuls are in
-    the rest) and the rest."""
+    """Warm solve walls and the device time per solve of K1, K2, K4, K5,
+    the eigensolves (torch.linalg.eigh; the refinement passes' matmuls are
+    in the rest) and the rest."""
     from helfem_tpu_torch import kernels
     from helfem_tpu_torch.utils.profiling import profile_scf
 
@@ -794,11 +887,12 @@ def sad_profile(label: str, solve, hf: bool) -> None:
         sad_launches(f"warm {label}", res, hf)
         return res
 
-    per = profile_scf(label, run, kernels=RADIAL_SASS, ops=(EIGH_OP,))
-    k1, k2 = (per[k][0] for k in RADIAL_SASS)
+    per = profile_scf(label, run, kernels=RADIAL_SASS + XC_SASS, ops=(EIGH_OP,))
+    k1, k2, k4, k5 = (per[k][0] for k in RADIAL_SASS + XC_SASS)
     eigh, busy = per[EIGH_OP][0], per["busy"][0]
     print(f"{label}: device time per solve {busy:.4f} ms: K1 {k1:.4f} ms, K2 {k2:.4f} ms, "
-          f"eigh {eigh:.4f} ms, the rest {busy - k1 - k2 - eigh:.4f} ms")
+          f"K4 {k4:.4f} ms, K5 {k5:.4f} ms, eigh {eigh:.4f} ms, the rest "
+          f"{busy - k1 - k2 - k4 - k5 - eigh:.4f} ms")
 
 
 def sad_phases(dev, results: dict) -> dict:
@@ -828,10 +922,11 @@ def sad_phases(dev, results: dict) -> dict:
                   f"{res.walls['operators']:.3f} s, solve {res.walls['solve']:.3f} s, whole CLI "
                   f"{wall:.3f} s; Z_eff from {table[0, 8]:.6f} to {table[-1, 8]:.3e} over "
                   f"{len(table)} points; kernel launches {sad_counts['sad_kr']}")
-            if not (res.converged and abs(dE) < 1e-5 and table.shape == (480, 9)
-                    and np.isfinite(table).all()):
+            if not (res.converged and abs(dE) < 1e-5 and abs(res.E - KR_GENSAP_PORT) < 1e-8
+                    and table.shape == (480, 9) and np.isfinite(table).all()):
                 raise RuntimeError(f"gensap Kr {label}: not converged within 1e-5 Eh of the "
-                                   "bench value, or the SAP table is not finite")
+                                   "bench value and 1e-8 Eh of the port's value, or the SAP "
+                                   "table is not finite")
     kr_basis = sadatom.SadAtomBasis(**SAD_SHAPES["sad_kr"])
     kr_ops = kr_basis.build_ops(dev)
     sad_kernels("sad_kr", kr_ops, results)
@@ -875,6 +970,71 @@ def sad_phases(dev, results: dict) -> dict:
         ar_basis, method="HF", convthr=1e-9, search=False, ops=ar_ops), hf=True)
     del ar_ops
     return sad_counts
+
+
+def dft_phase(dev) -> dict:
+    """Phase 15: the DFT_CELLS through the port's atomic CLI, each with K2
+    once per iteration, K1 once per iteration for HF and hybrids (both
+    spins in one launch) and never otherwise, K4 once per iteration and K5
+    once per iteration plus once for the CLI's grid self-check for a
+    functional and never otherwise; then warm walls and a profile of Ar
+    PBE0 and Xe PBE. Returns each cell's launch counts."""
+    from helfem_tpu_torch import kernels
+    from helfem_tpu_torch.cli.atomic import main as atomic_main
+    from helfem_tpu_torch.models.atomic import AtomicBasis
+    from helfem_tpu_torch.scf.atomic_scf import atomic_method, scf_atom
+    from helfem_tpu_torch.utils.profiling import profile_scf
+
+    phase("15. atomic DFT and open shells through the port's atomic CLI: Ar SVWN, Ar PBE0, "
+          "Xe PBE, N UHF, UKS-PBE and ROHF; warm walls and profiles of Ar PBE0 and Xe PBE")
+    dft_counts = {}
+    for label, (argv, ref, gate) in DFT_CELLS.items():
+        funcs, kfrac = atomic_method(argv[argv.index("--method") + 1] if "--method" in argv
+                                     else "HF")
+        nel = {"Ar": 18, "Xe": 54, "N": 7}[label.split()[0]]
+
+        def check(res, label=label, ref=ref, gate=gate, funcs=funcs, kfrac=kfrac, nel=nel):
+            n = res.niter
+            want = {"radial_coulomb": n, "radial_exchange": n if kfrac else 0,
+                    "dia_xc_fields": n if funcs else 0, "dia_xc_fock": n + 1 if funcs else 0}
+            got = {name: kernels.launches[name] for name in want}
+            dE = res.E - ref
+            print(f"{label}: E - reference = {dE:+.3e} (gate {gate:g}), Exc {res.Exc:.10f}, "
+                  f"Exx {res.Exx:.10f}, Nel on the grid {res.Nelgrid:.12f}, "
+                  f"{'restricted' if res.orbE_b is None else 'unrestricted'}")
+            if got != want:
+                return f"launches {got}, expected {want}"
+            ok = (res.converged and abs(dE) < gate
+                  and (not funcs or abs(res.Nelgrid - nel) < 1e-6))
+            return "" if ok else "did not converge within the gate, or Nel is off"
+
+        names = ["radial_coulomb"] + (["radial_exchange"] if kfrac else []) + \
+            (list(XC) if funcs else [])
+        dft_counts[label] = run_cli(atomic_main, argv, label, names, check)
+
+    def profile(label, cfg, nel, method, names):
+        basis = AtomicBasis(**cfg)
+        ops = basis.build_operators(dev)
+
+        def run():
+            kernels.reset_launches()
+            res = scf_atom(basis, nel, nel, method=method, convthr=1e-9, guess="TF", ops=ops)
+            check_per_iteration(f"warm {label}", res, kernels.launches, names)
+            return res
+
+        per = profile_scf(label, run, kernels=RADIAL_SASS + XC_SASS, ops=(EIGH_OP,))
+        busy = per["busy"][0]
+        (k1, n1), (k2, n2), (k4, n4), (k5, n5) = (per[k] for k in RADIAL_SASS + XC_SASS)
+        eigh = per[EIGH_OP][0]
+        print(f"{label}: device time per warm SCF {busy:.4f} ms: eigh {eigh:.4f} ms "
+              f"({100 * eigh / busy:.1f} %), K1 {k1:.4f} ms in {n1}, K2 {k2:.4f} ms in {n2}, "
+              f"K4 {k4:.4f} ms in {n4} ({k4 / max(n4, 1):.4f} a call), K5 {k5:.4f} ms in {n5} "
+              f"({k5 / max(n5, 1):.4f} a call), the rest "
+              f"{busy - k1 - k2 - k4 - k5 - eigh:.4f} ms")
+
+    profile("Ar PBE0", SHAPES["ar"], 9, "PBE0", (*ATOMIC, *XC))
+    profile("Xe PBE", SHAPES["xe"], 27, "PBE", ("radial_coulomb", *XC))
+    return dft_counts
 
 
 def main() -> None:
@@ -971,6 +1131,20 @@ def main() -> None:
                                            compare(name, args, moved, flops, warmup=2, reps=10))
     del inputs, args
     torch.cuda.empty_cache()
+    for shape in ATOMIC_XC_SHAPES:
+        t0 = time.perf_counter()
+        inputs = atomic_xc_inputs(shape, dev, ns=1)
+        torch.cuda.synchronize()
+        print(f"{shape}: the atomic XC grid and its inputs made in "
+              f"{time.perf_counter() - t0:.2f} s")
+        for name, (args, moved, flops) in inputs.items():
+            same_bits_twice(name, args)
+            results[(name, shape)] = report(f"{shape} atomic grid", name,
+                                            compare(name, args, moved, flops))
+    print(f"XC kernels on the atomic grids {list(ATOMIC_XC_SHAPES)}: one launch per call, the "
+          "same bits twice")
+    del inputs, args
+    torch.cuda.empty_cache()
     probes = {}
     for n in (2048, 4096):
         for (name, prec), r in compare_probes(n, dev).items():
@@ -978,6 +1152,7 @@ def main() -> None:
             print(f"    library, torch.matmul {LIBRARY_LABEL[prec]}"
                   f"{' (three calls)' if name == 'matmul_dd' else ''}: {r['library_ms']:.4f} ms")
 
+    from helfem_tpu_torch import kernels
     from helfem_tpu_torch.cli.atomic import main as atomic_main
     from helfem_tpu_torch.cli.diatomic import main as diatomic_main
 
@@ -1001,13 +1176,14 @@ def main() -> None:
     sap = run_cli(ar_sap_main, AR_CLI_SAP, "Ar HF from SAP", list(ATOMIC),
                   lambda res: ar_check(res, "Ar HF from SAP"), per_iter=("radial_exchange",))
     sad_builds = sap["radial_coulomb"] - sap_kept["res"].niter
+    xc_sad = {name: kernels.launches[name] for name in XC}
     print(f"Ar HF from SAP: {sad_builds} K2 launches in the SAD solve of Ar's SAP table, "
-          "beside one K1 and one K2 per SCF iteration")
-    if sad_builds <= 0:
-        raise RuntimeError("Ar HF from SAP: the SAP table's SAD solve never launched K2")
+          f"beside one K1 and one K2 per SCF iteration; K4/K5 there {xc_sad}")
+    if sad_builds <= 0 or set(xc_sad.values()) != {sad_builds}:
+        raise RuntimeError("Ar HF from SAP: the SAP table's SAD solve did not launch K2, K4 "
+                           "and K5 once per Fock build")
 
     phase("5. warm Ar HF SCF walls and profile")
-    from helfem_tpu_torch import kernels
     from helfem_tpu_torch.models.atomic import AtomicBasis
     from helfem_tpu_torch.scf.atomic_scf import scf_atom
     from helfem_tpu_torch.utils.profiling import profile_scf
@@ -1044,9 +1220,12 @@ def main() -> None:
 
     def n2_check(res):
         dE = res.E - N2_PBE_REF
-        print(f"N2 PBE: E - reference = {dE:+.3e}, Nel on the grid {res.Nelgrid:.12f}")
-        ok = res.converged and abs(dE) < 1e-6 and np.isfinite(res.E)
-        return "" if ok else "did not converge to the reference within 1e-6 Eh"
+        print(f"N2 PBE: E - reference = {dE:+.3e}, E - the port's value "
+              f"{res.E - N2_PBE_PORT:+.3e}, Nel on the grid {res.Nelgrid:.12f}")
+        ok = (res.converged and abs(dE) < 1e-6 and abs(res.E - N2_PBE_PORT) < 1e-10
+              and np.isfinite(res.E))
+        return "" if ok else "did not converge to the reference within 1e-6 Eh and to the " \
+            "port's value within 1e-10 Eh"
 
     counts.update(run_cli(diatomic_main, N2_CLI, "N2 PBE",
                           ["radial_coulomb_dia", "dia_xc_fields", "dia_xc_fock"], n2_check,
@@ -1181,13 +1360,17 @@ def main() -> None:
             guess_hamiltonian_dia(big, "SAP", dev)
             print(f"N2 lmax=12: the SAP guess Hamiltonian (host numpy, N's table cached) "
                   f"{time.perf_counter() - t1:.3f} s")
+        sad = {name: kernels.launches[name] for name in ("radial_coulomb", *XC)}
         print(f"N2 HF lmax=12 from SAP {label} SCF: E = {res.E:.12f} in {res.niter} "
               f"iterations, converged {res.converged}; wall {wall:.3f} s (core guess: "
               f"{core[label][0]} iterations, {core[label][1]:.3f} s); E - reference "
-              f"{dE:+.3e}; K2 launches (N's SAD solve) {kernels.launches['radial_coulomb']}")
+              f"{dE:+.3e}; K2, K4, K5 launches (N's SAD solve) {sad}")
         if not (res.converged and abs(dE) < 2e-5 and k6 > 0):
             raise RuntimeError(f"N2 HF lmax=12 from SAP {label}: not converged within 2e-5 "
                                "Eh of the reference, or K6 never launched")
+        if len(set(sad.values())) != 1 or (label == "cold") != (sad["radial_coulomb"] > 0):
+            raise RuntimeError(f"N2 HF lmax=12 from SAP {label}: N's SAD solve did not launch "
+                               "K2, K4 and K5 once per Fock build (cold) or never (warm)")
     del big_ops
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
@@ -1225,6 +1408,7 @@ def main() -> None:
     atomic_profile("Xe HF", SHAPES["xe"], (27, 27))
 
     sad_counts = sad_phases(dev, results)
+    dft_counts = dft_phase(dev)
 
     record = []
     for name, (source, replaces, shape) in KERNELS.items():
@@ -1237,6 +1421,14 @@ def main() -> None:
             "lmax12_bound_ms": big["bound_ms"]}
         if name in XC:
             extra.update(spins=2, other_shape_spins=2, lmax12_spins=1)
+            for grid in ATOMIC_XC_SHAPES:
+                o = results[(name, grid)]
+                extra.update({f"atomic_{grid}_{k}": o[k] for k in
+                              ("max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms")})
+                extra[f"atomic_{grid}_spins"] = 1
+            extra["sad_kr_launches"] = sad_counts["sad_kr"][name]
+        if name in (*ATOMIC, *XC):
+            extra["phase15_launches"] = {label: c.get(name, 0) for label, c in dft_counts.items()}
         for sad in SAD_SHAPES if name in ATOMIC else ():
             o = results[(name, sad)]
             extra.update({f"{sad}_{k}": o[k] for k in

@@ -1,5 +1,5 @@
-"""`python -m helfem_tpu_torch.cli.atomic`: atomic HF SCF driver of the
-PyTorch/CUDA port.
+"""`python -m helfem_tpu_torch.cli.atomic`: atomic HF/DFT SCF driver of the
+PyTorch/CUDA port (restricted, unrestricted or ROHF).
 
 A subset of helfem_tpu.cli.atomic (flag names mirror the reference `atomic`
 program, src/atomic/main.cpp:63-119), plus --device. Flags of the JAX CLI
@@ -14,11 +14,11 @@ from helfem_tpu_torch.cli._common import open_device, parse_nela_nelb, reject_un
 
 # helfem_tpu.cli.atomic flags outside this slice
 _UNPORTED_FLAGS = (
-    "Zl", "Zr", "Rmid", "nela", "nelb", "Q", "M", "nquad", "nelem0", "grid0",
+    "Zl", "Zr", "Rmid", "nquad", "nelem0", "grid0",
     "zexp0", "add_conf", "load", "readocc", "Ez", "Qzz", "Bz", "finitenuc",
     "Rrms", "iconf", "conf_N", "conf_R", "conf_barrier", "shift_conf", "save",
-    "dftthr", "restricted", "symmetry", "maverage", "perturb", "seed",
-    "dampfock", "dampthr", "diag", "eigiter", "diisthr", "ldft", "mdft",
+    "symmetry", "maverage", "perturb", "seed",
+    "dampfock", "dampthr", "diag", "eigiter", "diisthr", "mdft",
     "angstrom", "x_pars", "c_pars", "zeroder", "trace", "ndev", "taylor_order",
 )
 
@@ -27,6 +27,10 @@ def main(argv=None):
     p = argparse.ArgumentParser(prog="helfem_tpu_torch.cli.atomic", description=__doc__,
                                 allow_abbrev=False)
     p.add_argument("--Z", required=True, help="nuclear charge (number or symbol)")
+    p.add_argument("--nela", type=int, default=0)
+    p.add_argument("--nelb", type=int, default=0)
+    p.add_argument("--Q", type=int, default=0, help="charge state")
+    p.add_argument("--M", type=int, default=0, help="spin multiplicity")
     p.add_argument("--lmax", type=int, required=True)
     p.add_argument("--mmax", type=int, required=True)
     p.add_argument("--Rmax", type=float, default=40.0)
@@ -39,9 +43,17 @@ def main(argv=None):
                         "5 HIP, 6-11 general HIP, 100/101 Chebyshev nodes)")
     p.add_argument("--maxit", type=int, default=50)
     p.add_argument("--convthr", type=float, default=1e-7)
-    p.add_argument("--method", default="HF")
+    p.add_argument("--method", default="HF",
+                   help="HF, LDA, SVWN, PBE, revPBE, PBEsol, PBE0/PBEh or an 'x,c' pair "
+                        "of the ported functionals")
     p.add_argument("--iguess", type=int, default=2,
                    help="0 core, 1 GSZ, 2 SAP, 3 TF")
+    p.add_argument("--dftthr", type=float, default=1e-12, help="XC density threshold")
+    p.add_argument("--restricted", type=int, default=-1,
+                   help="-1 restricted iff nela == nelb, 0 unrestricted, 1 restricted "
+                        "(ROHF for open shells)")
+    p.add_argument("--ldft", type=int, default=0,
+                   help="theta points of the XC grid (0: 2*lmax + 12)")
     p.add_argument("--diisorder", type=int, default=10, help="DIIS history length")
     p.add_argument("--diiseps", type=float, default=0.1,
                    help="DIIS error below which extrapolation starts mixing in")
@@ -54,14 +66,19 @@ def main(argv=None):
     import torch
 
     from helfem_tpu_torch.models.atomic import AtomicBasis
-    from helfem_tpu_torch.scf.atomic_scf import hf_kfrac, scf_atom
+    import numpy as np
+
+    from helfem_tpu_torch.models.atomic_dft import (
+        build_atomic_grid, eval_kinetic_grid, eval_overlap_grid,
+    )
+    from helfem_tpu_torch.scf.atomic_scf import atomic_method, scf_atom
     from helfem_tpu_torch.utils.elements import HARTREE_IN_EV, get_Z
     from helfem_tpu_torch.utils.timer import Timer
 
     device = open_device(args.device)
-    hf_kfrac(args.method)  # raises for methods that are not ported
+    funcs, _ = atomic_method(args.method)  # raises for methods that are not ported
     Z = get_Z(args.Z)
-    nela, nelb = parse_nela_nelb(Z, 0, 0, 0, 0)
+    nela, nelb = parse_nela_nelb(Z, args.Q, args.M, args.nela, args.nelb)
     guess = {0: "core", 1: "GSZ", 2: "SAP", 3: "TF"}[args.iguess]
 
     timer = Timer()
@@ -74,11 +91,26 @@ def main(argv=None):
           f"{basis.nbf} basis functions ({basis.nang} angular x {basis.nrad} radial)")
     ops = basis.build_operators(device)
     walls["operators"] = timer.lap("operator build")
+    grid = None
+    if funcs:
+        # grid-accuracy self-check, as the reference prints it
+        # (src/atomic/main.cpp:411-441)
+        grid = build_atomic_grid(basis, device, ntheta=args.ldft)
+        S = basis.overlap()
+        dS = np.abs(eval_overlap_grid(grid, basis.nrad).cpu().numpy() - S)
+        nrm = np.sqrt(np.outer(np.diag(S), np.diag(S)))
+        print(f"Error in overlap matrix evaluated through xc grid is {np.linalg.norm(dS / nrm):e}")
+        T = basis.kinetic()
+        dT = np.abs(eval_kinetic_grid(grid, basis.nrad).cpu().numpy() - T) / (1 + np.abs(T))
+        print(f"Relative error in kinetic matrix evaluated through xc grid is "
+              f"{np.linalg.norm(dT):e}")
+        walls["grid check"] = timer.lap("XC grid self-check")
     t0 = time.perf_counter()
     res = scf_atom(
         basis, nela, nelb, method=args.method, maxit=args.maxit,
-        convthr=args.convthr, guess=guess, verbose=True, ops=ops,
-        diisorder=args.diisorder, diiseps=args.diiseps,
+        convthr=args.convthr, guess=guess, verbose=True, ops=ops, dftthr=args.dftthr,
+        restricted=args.restricted, diisorder=args.diisorder, diiseps=args.diiseps,
+        ldft=args.ldft, grid=grid,
     )
     if device.type == "cuda":
         torch.cuda.synchronize(device)

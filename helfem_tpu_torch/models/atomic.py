@@ -277,16 +277,23 @@ def exchange_general_bd(ops: AtomicOperators, tei, U, V, Lfacv,
     every (L, channel) pair, KK[g, a] = kernel_L(Pd[a]), then one
     Gaunt-weighting contraction K[b, c] = sum_{g,a} wG[g,b,c,a] KK[g,a] with
     wG[g,b,c,a] = Lfac_g sum_M G[g,M,b,a] G[g,M,c,a]. Returns the NEGATIVE
-    exchange contribution to F."""
+    exchange contribution to F.
+
+    Pd [ns, nang, nrad, nrad] holds ns spin densities: their ns * nang
+    channels go through ONE radial_exchange launch (the kernel is linear in
+    each channel), and the result is [ns, nbf, nbf]."""
     nang = ops.G.shape[-1]
     nrad = ops.Sinvh_rad.shape[0]
-    KK = radial_exchange(tei, U, V, ops.gidx, Pd.contiguous())
+    ns = Pd.shape[0] if Pd.dim() == 4 else 1
+    KK = radial_exchange(tei, U, V, ops.gidx, Pd.reshape(-1, nrad, nrad).contiguous())
+    KK = KK.reshape(KK.shape[0], ns, nang, nrad, nrad)
     wG = torch.einsum("gMba,gMca->gbca", ops.G, ops.G) * Lfacv[:, None, None, None]
-    K4 = torch.einsum("gbca,gaNM->bcNM", wG, KK)
-    return -_from4(K4, nang, nrad)
+    K = -torch.einsum("gbca,gsaNM->sbNcM", wG, KK).reshape(ns, nang * nrad, nang * nrad)
+    return K if Pd.dim() == 4 else K[0]
 
 
 def exchange_bd(ops: AtomicOperators, Pd: torch.Tensor) -> torch.Tensor:
     """Full-range exchange K(P) for channel-block-diagonal P, from the
-    per-channel diagonal radial blocks Pd [nang, nrad, nrad]."""
+    per-channel diagonal radial blocks Pd [nang, nrad, nrad] (or [ns, nang,
+    nrad, nrad] for ns spins in one kernel launch)."""
     return exchange_general_bd(ops, ops.tei, ops.disjL, ops.disjm1L, ops.Lfac, Pd)

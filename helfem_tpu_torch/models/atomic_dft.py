@@ -1,0 +1,176 @@
+"""Atomic DFT quadrature grid and XC Fock build (L6), ported from
+helfem_tpu/models/atomic_dft.py for LDA and GGA functionals.
+
+Grid = (element x radial point) x (Gauss-Legendre point in cos theta);
+phi is eliminated analytically (the density is m-block-diagonal), and the
+angular factors are products of normalized associated Legendre functions
+Theta_a(theta) = Pbar_{l_a}^{|m_a|}(cos theta). Weight per point
+w = wr r^2 2 pi wth.
+
+The grid runs on the diatomic XC kernels unchanged: dia_xc_fields (K4)
+computes rho = sum_ab TT D1, u = invh sum_ab TT Dmu and v = invh sqeta
+sum_ab dTT D1, which with invh = sqeta = 1 are rho, drho/dr and r times
+(1/r) drho/dtheta; dia_xc_fock (K5) contracts w vr, w gr and w gt / r with
+the same tables, term for term helfem_tpu's fock_spin. The pointwise
+functional (ops/xc.py:xc_eval) is plain PyTorch with autograd. The meta-GGA
+(tau) and laplacian branches are not ported and raise.
+"""
+
+from collections.abc import Mapping
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from helfem_tpu_torch.kernels import dia_xc_fields, dia_xc_fock
+from helfem_tpu_torch.models.xc_grid import build_grid
+from helfem_tpu_torch.ops.quadrature import gauss_legendre
+from helfem_tpu_torch.ops.spherical import legendre_Pbar, ylm_dtheta
+from helfem_tpu_torch.ops.xc import xc_eval
+
+__all__ = ["AtomGridOps", "atomic_grid_tables", "build_atomic_grid", "eval_fxc",
+           "eval_kinetic_grid", "eval_overlap_grid", "from_jax_atomic_grid"]
+
+_ITEM6 = ("meta-GGA (tau) and laplacian terms on the atomic grid are not ported to "
+          "helfem_tpu_torch yet (ROADMAP.md queue 1 item 6)")
+
+
+class AtomGridOps(NamedTuple):
+    """The atomic grid in the layout of the XC kernels (the fields of
+    diatomic_dft.DiaGridOps, so dia_xc_fields and dia_xc_fock take it as
+    they are), plus r and the two tables of the kinetic self-check."""
+
+    Bg: torch.Tensor  # [nelem, nq, nprim] radial b values
+    dBg: torch.Tensor  # [nelem, nq, nprim] db/dr
+    w: torch.Tensor  # [nelem, nq, nt] w2 wth
+    invh: torch.Tensor  # [nelem, nq, nt] ones
+    TT: torch.Tensor  # [nang, nang, nt] Theta_a Theta_b delta_{ma mb}
+    dTT: torch.Tensor  # [nang, nang, nt] Theta'_a Theta_b + Theta_a Theta'_b
+    sqeta: torch.Tensor  # [nt] ones
+    gidx: torch.Tensor  # [nelem, nprim] int32, trash slot = nrad
+    pairs: torch.Tensor  # the live-pair and element tables (models/xc_grid.py)
+    TTp: torch.Tensor
+    dTTp: torch.Tensor
+    owners: torch.Tensor
+    band: torch.Tensor
+    ijs: torch.Tensor
+    BBs: torch.Tensor
+    SSs: torch.Tensor
+    r: torch.Tensor  # [nelem, nq]
+    dTT2: torch.Tensor  # [nang, nang, nt] Theta'_a Theta'_b
+    TTm2: torch.Tensor  # [nang, nang, nt] m_a m_b Theta_a Theta_b / sin^2
+
+    def to(self, device) -> "AtomGridOps":
+        return AtomGridOps(*(t.to(device) for t in self))
+
+
+def atomic_grid_tables(basis, ntheta: int = 0) -> dict[str, np.ndarray]:
+    """helfem_tpu's DFTGridOps fields of the LDA, GGA and tau branches as
+    numpy arrays (atomic_dft.py:56-96): bg, dbg, r, w2, wth, TT, dTT, gidx,
+    and dTT2, TTm2 for the kinetic self-check. ntheta = 0 takes
+    2 lmax + 12 points in cos theta."""
+    if ntheta == 0:
+        ntheta = 2 * basis.lmax + 12
+    cth, wth = gauss_legendre(ntheta)
+    lmax = int(basis.lval.max())
+    P = legendre_Pbar(lmax, cth)
+    D = ylm_dtheta(lmax, cth)  # d/dtheta
+    sin2 = 1.0 - cth**2
+    nang = basis.nang
+    Th = np.zeros((nang, ntheta))
+    dTh = np.zeros((nang, ntheta))
+    for a in range(nang):
+        Th[a] = P[basis.lval[a], abs(basis.mval[a])]
+        dTh[a] = D[basis.lval[a], abs(basis.mval[a])]
+    same_m = (basis.mval[:, None] == basis.mval[None, :]).astype(np.float64)
+    TT = same_m[:, :, None] * Th[:, None, :] * Th[None, :, :]
+    dTT = same_m[:, :, None] * (dTh[:, None, :] * Th[None, :, :] + Th[:, None, :] * dTh[None, :, :])
+    dTT2 = same_m[:, :, None] * dTh[:, None, :] * dTh[None, :, :]
+    mm = (basis.mval[:, None] * basis.mval[None, :]).astype(np.float64)
+    TTm2 = same_m[:, :, None] * mm[:, :, None] * Th[:, None, :] * Th[None, :, :] / sin2[None, None, :]
+    rb = basis.rb
+    return dict(bg=rb.b, dbg=rb.db, r=rb.r, w2=rb.wr * rb.r**2 * 2.0 * np.pi, wth=wth, TT=TT,
+                dTT=dTT, dTT2=dTT2, TTm2=TTm2, gidx=rb.fem.gidx)
+
+
+def from_jax_atomic_grid(arrays: Mapping[str, np.ndarray], nrad: int, device) -> AtomGridOps:
+    """The port's grid from helfem_tpu's DFTGridOps fields given as numpy
+    arrays (bg, dbg, r, w2, wth, TT, dTT, dTT2, TTm2, gidx; the laplacian
+    tables are not carried); nrad is the basis's radial size, which gidx's
+    checks need."""
+    a = {k: np.asarray(v) for k, v in arrays.items()}
+    w = a["w2"][:, :, None] * a["wth"][None, None, :]
+    return build_grid(AtomGridOps, dict(
+        Bg=a["bg"], dBg=a["dbg"], w=w, invh=np.ones_like(w), TT=a["TT"], dTT=a["dTT"],
+        sqeta=np.ones_like(a["wth"]), gidx=a["gidx"], r=a["r"], dTT2=a["dTT2"],
+        TTm2=a["TTm2"]), nrad, device)
+
+
+def build_atomic_grid(basis, device, ntheta: int = 0) -> AtomGridOps:
+    return from_jax_atomic_grid(atomic_grid_tables(basis, ntheta), basis.nrad, device)
+
+
+def eval_fxc(funcs, g: AtomGridOps, Pa: torch.Tensor, Pb: torch.Tensor, thr: float = 1e-12):
+    """(Fxca, Fxcb, Exc, Nel) on the atomic grid (atomic_dft.py:134-182) for
+    LDA and GGA functionals: one dia_xc_fields launch, the functional, and
+    one dia_xc_fock launch, each for both spins, or for one spin when Pb is
+    Pa (Fxcb is then Fxca, the same tensor). The theta gradient is
+    divided by r after the dTT contraction, and its Fock weight formed as
+    (w gt) / r, in helfem_tpu's order."""
+    if any(f.family not in ("lda", "gga") for f in funcs):
+        raise NotImplementedError(_ITEM6)
+    same = Pb is Pa
+    rho, du, dv = dia_xc_fields(Pa.contiguous()[None] if same else torch.stack((Pa, Pb)), g)
+    r = g.r[:, :, None]
+    ra, ra_r, ra_t = rho[0], du[0], dv[0] / r
+    rb, rb_r, rb_t = (ra, ra_r, ra_t) if same else (rho[1], du[1], dv[1] / r)
+    saa = ra_r * ra_r + ra_t * ra_t
+    sab = ra_r * rb_r + ra_t * rb_t
+    sbb = rb_r * rb_r + rb_t * rb_t
+    e, vra, vrb, vsaa, vsab, vsbb = xc_eval(funcs, ra, rb, saa, sab, sbb, thr)
+    Exc = torch.sum(g.w * e)
+    Nel = torch.sum(g.w * (ra + rb))
+    # an LDA's sigma potentials are exact zeros, and so are gr and gt
+    pots = [(vra, 2.0 * vsaa * ra_r + vsab * rb_r, 2.0 * vsaa * ra_t + vsab * rb_t)]
+    if not same:
+        pots.append((vrb, 2.0 * vsbb * rb_r + vsab * ra_r, 2.0 * vsbb * rb_t + vsab * ra_t))
+    vr, gr, gt = (torch.stack(x) for x in zip(*pots))
+    F = dia_xc_fock(g.w * vr, g.w * gr, g.w * gt / r, g)
+    return F[0], F[-1], Exc, Nel
+
+
+def _check_size(g: AtomGridOps, nrad: int) -> None:
+    if g.owners.shape[0] != nrad:
+        raise ValueError(f"grid has {g.owners.shape[0]} radial functions, expected {nrad}")
+
+
+def eval_overlap_grid(g: AtomGridOps, nrad: int) -> torch.Tensor:
+    """The overlap matrix through the XC grid, the reference's grid
+    self-check (atomic_dft.py:185-192), through dia_xc_fock with vr = 1 and
+    no gradient terms."""
+    _check_size(g, nrad)
+    w = g.w[None]
+    zero = torch.zeros_like(w)
+    return dia_xc_fock(w, zero, zero, g)[0]
+
+
+def eval_kinetic_grid(g: AtomGridOps, nrad: int) -> torch.Tensor:
+    """The kinetic matrix 1/2 int grad(chi_A).grad(chi_B) through the grid,
+    the second half of the self-check (atomic_dft.py:195-206). Plain
+    PyTorch on the grid's device: its dB.dB term is outside dia_xc_fock's
+    contraction, and it runs once per CLI run. It joins a kernel with the
+    tau branch (ROADMAP.md queue 2 item 6)."""
+    _check_size(g, nrad)
+    nang = g.TT.shape[0]
+    w = g.w
+    T1 = torch.einsum("eqt,abt->abeq", 0.5 * w, g.TT)
+    Tel = torch.einsum("abeq,eqi,eqj->abeij", T1, g.dBg, g.dBg)
+    T2 = torch.einsum("eqt,abt->abeq", 0.5 * w / g.r[:, :, None] ** 2, g.dTT2 + g.TTm2)
+    Tel = Tel + torch.einsum("abeq,eqi,eqj->abeij", T2, g.Bg, g.Bg)
+    n1 = nrad + 1
+    gi = g.gidx.long()
+    lin = (gi[:, :, None] * n1 + gi[:, None, :]).reshape(-1)
+    T4 = torch.zeros((nang, nang, n1 * n1), dtype=Tel.dtype, device=Tel.device)
+    T4.index_add_(2, lin, Tel.reshape(nang, nang, -1))
+    T4 = T4.reshape(nang, nang, n1, n1)[:, :, :nrad, :nrad]
+    return T4.permute(0, 2, 1, 3).reshape(nang * nrad, nang * nrad)

@@ -22,9 +22,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from helfem_tpu_torch.kernels import (
-    band_table, check_gidx, dia_xc_fields, dia_xc_fock, owner_table,
-)
+from helfem_tpu_torch.kernels import dia_xc_fields, dia_xc_fock
+from helfem_tpu_torch.models.xc_grid import build_grid
 from helfem_tpu_torch.ops.quadrature import gauss_legendre
 from helfem_tpu_torch.ops.spherical import legendre_Pbar, ylm_dtheta
 from helfem_tpu_torch.ops.xc import xc_eval
@@ -86,70 +85,15 @@ def dia_grid_tables(basis, neta: int = 0) -> dict[str, np.ndarray]:
                 gidx=basis.fem.gidx)
 
 
-def pair_tables(TT: np.ndarray, dTT: np.ndarray, gidx: np.ndarray,
-                nrad: int) -> dict[str, np.ndarray]:
-    """The shell-pair tables of the XC kernels: the live pairs a <= b (TT or
-    dTT not identically zero), their TT and dTT rows, the element slots
-    covering each radial function and the run of radial indices those
-    elements span.
-
-    Raises ValueError unless TT and dTT are exactly symmetric in (a, b): the
-    kernels fold (a, b) with (b, a) on that ground (D1[a,b] + D1[b,a] =
-    B^T (W_ab + W_ba) B for the density windows W, and the Fock element
-    block of (b, a) is that of (a, b))."""
-    TT, dTT = np.asarray(TT), np.asarray(dTT)
-    for name, T in (("TT", TT), ("dTT", dTT)):
-        if not np.array_equal(T, T.transpose(1, 0, 2)):
-            raise ValueError(f"{name} is not exactly symmetric in its two shell indices")
-    live = np.triu((TT != 0).any(-1) | (dTT != 0).any(-1))
-    a, b = np.nonzero(live)
-    gidx = np.asarray(gidx)
-    nprim = gidx.shape[1]
-    owners = owner_table(gidx, nrad)
-    band = band_table(gidx, owners, nrad)
-    return dict(pairs=np.stack([a, b], axis=1).astype(np.int32), TTp=TT[a, b], dTTp=dTT[a, b],
-                owners=owners, band=band)
-
-
-def element_tables(Bg: np.ndarray, dBg: np.ndarray) -> dict[str, np.ndarray]:
-    """The products of the element functions that the XC Fock kernel
-    contracts its pair potentials with, on the i <= j half (the element
-    blocks are symmetric in (i, j))."""
-    Bg, dBg = np.asarray(Bg), np.asarray(dBg)
-    nelem, nq, nprim = Bg.shape
-    i, j = np.triu_indices(nprim)
-    nijp = -(-len(i) // 8) * 8
-    BBs = np.zeros((nelem, nq, nijp))
-    SSs = np.zeros((nelem, nq, nijp))
-    BBs[:, :, :len(i)] = Bg[:, :, i] * Bg[:, :, j]
-    SSs[:, :, :len(i)] = dBg[:, :, i] * Bg[:, :, j] + Bg[:, :, i] * dBg[:, :, j]
-    return dict(ijs=(i << 16 | j).astype(np.int32), BBs=BBs, SSs=SSs)
-
-
-_INT_FIELDS = ("gidx", "pairs", "owners", "band", "ijs")
-
-
-def _grid(arrays: Mapping[str, np.ndarray], nrad: int, device) -> DiaGridOps:
-    check_gidx(arrays["gidx"], nrad)
-    arrays = {**arrays, **pair_tables(arrays["TT"], arrays["dTT"], arrays["gidx"], nrad),
-              **element_tables(arrays["Bg"], arrays["dBg"])}
-    return DiaGridOps(**{
-        name: torch.tensor(np.asarray(arrays[name]),
-                           dtype=torch.int32 if name in _INT_FIELDS else torch.float64,
-                           device=device)
-        for name in DiaGridOps._fields
-    })
-
-
 def from_jax_grid(arrays: Mapping[str, np.ndarray], nrad: int, device) -> DiaGridOps:
     """The port's grid from helfem_tpu's DiaGridOps fields given as numpy
     arrays (the meta-GGA tables are not carried); nrad is the basis's radial
     size, which gidx's checks need."""
-    return _grid(arrays, nrad, device)
+    return build_grid(DiaGridOps, arrays, nrad, device)
 
 
 def build_dia_grid(basis, device, neta: int = 0) -> DiaGridOps:
-    return _grid(dia_grid_tables(basis, neta), basis.nrad, device)
+    return build_grid(DiaGridOps, dia_grid_tables(basis, neta), basis.nrad, device)
 
 
 def _fields_dia(g: DiaGridOps, P: torch.Tensor, need_tau: bool = False,

@@ -14,7 +14,10 @@ density is spherically averaged, so
     The radial kernel is linear in its density, so ONE radial_exchange
     launch (K1) on the m-averaged cube Pang gives KK[L, k] for every (L, k)
     and K[o] = -sum_{L,k} Lfac_L totcoup[L, o, k] KK[L, k];
-  * XC lives on a radial-only grid, in plain PyTorch (LDA/GGA).
+  * XC lives on a radial-only grid: the single-angle case of the atomic
+    grid (nang = 1, nt = 1, TT = 1/(4 pi), dTT = 0), built once with the
+    operators, so the XC kernels dia_xc_fields (K4) and dia_xc_fock (K5)
+    run it, one launch each per Fock build (LDA/GGA).
 
 The per-l channel axis is a batch axis: one batched whitened eigensolve
 (torch.linalg.eigh with helfem_tpu's refinement passes) across all
@@ -33,10 +36,11 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 from helfem_tpu_torch.kernels import radial_exchange
 from helfem_tpu_torch.models.atomic import AtomicOperators, coulomb, from_jax_operators
+from helfem_tpu_torch.models.atomic_dft import AtomGridOps, eval_fxc
+from helfem_tpu_torch.models.xc_grid import build_grid
 from helfem_tpu_torch.models.sadconf import aufbau_from_energies as aufbau_occs
 from helfem_tpu_torch.models.sadconf import shell_capacity
 from helfem_tpu_torch.ops.fem import FEMBasis
@@ -44,7 +48,7 @@ from helfem_tpu_torch.ops.gaunt import gaunt_coefficient
 from helfem_tpu_torch.ops.grids import form_grid
 from helfem_tpu_torch.ops.polynomials import get_basis
 from helfem_tpu_torch.ops.radial import RadialBasis
-from helfem_tpu_torch.ops.xc import parse_method, xc_eval
+from helfem_tpu_torch.ops.xc import parse_method
 from helfem_tpu_torch.scf.common import vdot
 from helfem_tpu_torch.scf.diis import DIIS, device_diis_step
 from helfem_tpu_torch.scf.guess import potential
@@ -76,7 +80,7 @@ def totcoup_table(lmax: int) -> np.ndarray:
 
 class SadOps(NamedTuple):
     """Device constants of the solver (fields of helfem_tpu's SadOps, plus
-    at0)."""
+    at0 and grid)."""
 
     at: AtomicOperators  # nang=1 operators (radial S/T/Vnuc, TEI tensors)
     at0: AtomicOperators  # at with only its L=0 slices (contiguous): Coulomb's set
@@ -87,6 +91,7 @@ class SadOps(NamedTuple):
     dbg: torch.Tensor
     r: torch.Tensor
     w2: torch.Tensor  # wr * 4 pi r^2
+    grid: AtomGridOps  # the radial grid in the XC kernels' layout (sad_grid)
 
     @property
     def device(self) -> torch.device:
@@ -105,16 +110,32 @@ def _l0_operators(at: AtomicOperators) -> AtomicOperators:
                           for k in ("G", "Lfac", "tei", "disjL", "disjm1L")})
 
 
+def sad_grid(arrays: Mapping, nrad: int, device) -> AtomGridOps:
+    """The radial XC grid as the XC kernels take it: the atomic grid with
+    one angular shell and one angular point, TT = 1/(4 pi) and dTT = 0, so
+    rho = D1 / (4 pi) and u = Dmu / (4 pi) are helfem_tpu's n and dn/dr
+    (sadatom.py:202-267), and w = w2. arrays holds bg, dbg, r, w2 and
+    at["gidx"] (from_jax_sad_ops's layout); nrad is the radial size."""
+    w = np.asarray(arrays["w2"])[:, :, None]
+    one, zero = np.ones((1, 1, 1)), np.zeros((1, 1, 1))
+    return build_grid(AtomGridOps, dict(
+        Bg=arrays["bg"], dBg=arrays["dbg"], w=w, invh=np.ones_like(w), TT=one / (4.0 * np.pi),
+        dTT=zero, sqeta=np.ones(1), gidx=arrays["at"]["gidx"], r=arrays["r"], dTT2=zero,
+        TTm2=zero), nrad, device)
+
+
 def from_jax_sad_ops(arrays: Mapping, device) -> SadOps:
     """The port's SadOps from helfem_tpu's SadOps given as numpy arrays:
     arrays["at"] holds the AtomicOperators fields (models/atomic.py:
-    from_jax_operators), the other keys the SadOps fields."""
+    from_jax_operators), the other keys the SadOps fields; the XC grid is
+    built from them (sad_grid)."""
     at = from_jax_operators(arrays["at"], device)
 
     def dev(name):
         return torch.tensor(np.asarray(arrays[name]), dtype=torch.float64, device=device)
 
-    return SadOps(at, _l0_operators(at), *(dev(n) for n in SadOps._fields[2:]))
+    return SadOps(at, _l0_operators(at), *(dev(n) for n in SadOps._fields[2:-1]),
+                  sad_grid(arrays, at.Sinvh_rad.shape[0], device))
 
 
 @dataclass
@@ -201,57 +222,15 @@ def sad_coulomb(ops: SadOps, Pr: torch.Tensor) -> torch.Tensor:
     return coulomb(ops.at0, Pr)
 
 
-def _windows(P: torch.Tensor, gi: torch.Tensor) -> torch.Tensor:
-    """Element windows [nelem, nprim, nprim] of [nrad, nrad] (trash slot 0)."""
-    Pp = F.pad(P, (0, 1, 0, 1))
-    return Pp[gi[:, :, None], gi[:, None, :]]
-
-
-def _assemble(Fel: torch.Tensor, gi: torch.Tensor, nrad: int) -> torch.Tensor:
-    """Sum element blocks [nelem, nprim, nprim] into [nrad, nrad]."""
-    n1 = nrad + 1
-    lin = (gi[:, :, None] * n1 + gi[:, None, :]).reshape(-1)
-    out = torch.zeros(n1 * n1, dtype=Fel.dtype, device=Fel.device)
-    out.index_add_(0, lin, Fel.reshape(-1))
-    return out.reshape(n1, n1)[:nrad, :nrad]
-
-
 def sad_xc(funcs, ops: SadOps, Pla: torch.Tensor, Plb: torch.Tensor, thr: float = 1e-12):
     """Radial XC (sadatom.py:202-267, LDA/GGA): returns (Fxc_a, Fxc_b, Exc,
-    Nel) with single radial Fock matrices. Density n_s(r) = sum_l
-    P^s_l[I,J] b_I b_J / (4 pi); when Plb is Pla its fields are formed once."""
-    if any(f.family not in ("lda", "gga") for f in funcs):
-        raise NotImplementedError("meta-GGA functionals on the radial grid are not ported "
-                                  "to helfem_tpu_torch yet")
-    gi = ops.at.gidx.long()
-    nrad = ops.at.Sinvh_rad.shape[0]
-    fourpi = 4.0 * np.pi
-
-    def fields(Pl):
-        Pg = _windows(Pl.sum(0), gi)
-        n = torch.einsum("eij,eqi,eqj->eq", Pg, ops.bg, ops.bg) / fourpi
-        dn = 2.0 * torch.einsum("eij,eqi,eqj->eq", Pg, ops.dbg, ops.bg) / fourpi
-        return n, dn
-
-    na, dna = fields(Pla)
-    nb, dnb = (na, dna) if Plb is Pla else fields(Plb)
-    e, vra, vrb, vsaa, vsab, vsbb = xc_eval(funcs, na, nb, dna * dna, dna * dnb, dnb * dnb,
-                                            thr)
-    Exc = torch.sum(ops.w2 * e)
-    Nel = torch.sum(ops.w2 * (na + nb))
-    gga = any(f.family != "lda" for f in funcs)
-    w = ops.w2 / fourpi
-
-    def fock(vr, gr):
-        Fel = torch.einsum("eq,eqi,eqj->eij", w * vr, ops.bg, ops.bg)
-        if gga:
-            rad = torch.einsum("eq,eqi,eqj->eij", w * gr, ops.dbg, ops.bg)
-            Fel = Fel + rad + rad.transpose(1, 2)
-        return _assemble(Fel, gi, nrad)
-
-    Fa = fock(vra, 2.0 * vsaa * dna + vsab * dnb)
-    Fb = fock(vrb, 2.0 * vsbb * dnb + vsab * dna)
-    return Fa, Fb, Exc, Nel
+    Nel) with single radial Fock matrices. The density n_s(r) = sum_l
+    P^s_l[I,J] b_I b_J / (4 pi) is the atomic grid's on ops.grid (one
+    angular shell and point, dTT = 0), so this is atomic_dft.eval_fxc
+    there: one dia_xc_fields and one dia_xc_fock launch, for one spin when
+    Plb is Pla."""
+    Pa = Pla.sum(0)
+    return eval_fxc(funcs, ops.grid, Pa, Pa if Plb is Pla else Plb.sum(0), thr)
 
 
 def make_sad_fock(funcs, kfrac: float, nl: int, dftthr: float = 1e-12):

@@ -1,19 +1,22 @@
 """Atomic SCF driver (L7), ported from helfem_tpu/scf/atomic_scf.py.
 
-This slice runs closed-shell restricted Hartree-Fock under (l,m) symmetry
-blocks (symmetry=2), the path of the Ar HF bench config:
+The port runs HF, the ported LDA/GGA functionals and their global hybrids
+(PBE0), restricted (RHF/RKS), unrestricted (UHF/UKS) or ROHF, under (l,m)
+symmetry blocks (symmetry=2):
 
   two host iterations (Fock on the device, host DIIS) ->
-  fused device chunks of 4, 8, then 16 iterations: density -> Coulomb and
-  block-diagonal exchange (CUDA kernels on the card) -> block-coordinate
-  C2-DIIS -> batched whitened eigensolve, with the convergence test on the
-  device after every iteration.
+  fused device chunks of 4, 8, then 16 iterations: density -> Coulomb,
+  block-diagonal exchange and the XC grid (CUDA kernels on the card) ->
+  block-coordinate C2-DIIS -> batched whitened eigensolve, with the
+  convergence test on the device after every iteration.
 
-helfem_tpu's lax.while_loop chunk becomes a Python loop over tensors that
-stay on the device; one boolean per iteration comes back to stop the chunk.
-Every other scf_atom option (UHF/ROHF, DFT, range separation, fields,
-confinement, finite nuclei, --ndev, --eigiter, m-averaging, damping, ...)
-raises NotImplementedError: nothing falls back silently.
+ROHF stays on the host loop (its Fock update is host numpy every
+iteration), as in helfem_tpu. helfem_tpu's lax.while_loop chunk becomes a
+Python loop over tensors that stay on the device; one boolean per iteration
+comes back to stop the chunk. Every other scf_atom option (range
+separation, meta-GGAs, fields, confinement, finite nuclei, --ndev,
+--eigiter, m-averaging, damping, ...) raises NotImplementedError: nothing
+falls back silently.
 """
 
 from dataclasses import dataclass, field
@@ -28,6 +31,7 @@ from helfem_tpu_torch.models.atomic import (
     coulomb,
     exchange_bd,
 )
+from helfem_tpu_torch.models.atomic_dft import AtomGridOps, build_atomic_grid, eval_fxc
 from helfem_tpu_torch.ops.xc import parse_method_rs
 from helfem_tpu_torch.scf.common import (
     aufbau_blocks,
@@ -44,11 +48,13 @@ from helfem_tpu_torch.utils.linalg import (
     density_blocks,
     eig_blocks,
     eig_blocks_b,
+    form_sh,
     gather_blocks,
+    rohf_update,
     scatter_blocks,
 )
 
-__all__ = ["scf_atom", "SCFResult", "aufbau_blocks", "hf_kfrac"]
+__all__ = ["scf_atom", "SCFResult", "aufbau_blocks", "atomic_method", "make_fock"]
 
 
 @dataclass
@@ -83,103 +89,171 @@ def _diis_error(F, P, S, Sinvh):
     return e.reshape(-1)
 
 
-def make_fock(kfrac: float, nrad: int):
-    """Fock builder of restricted HF for channel-block-diagonal densities
-    (helfem_tpu's make_fock with restricted=True and bd=True; no XC, fields
-    or range separation): fock(ops, Pa) -> (Fa, Ekin, Enuc, Ecoul, Exx)."""
+def make_fock(funcs, kfrac: float, nrad: int, dftthr: float = 1e-12,
+              restricted: bool = False):
+    """Fock builder for channel-block-diagonal densities (helfem_tpu's
+    make_fock with bd=True, atomic_scf.py:149-211; no fields or range
+    separation): fock(ops, g, Pa, Pb) -> (Fa, Fb, Ekin, Enuc, Ecoul, Exx,
+    Exc, Nel), the energies device scalars. Coulomb is one radial_coulomb
+    launch; the exchange kfrac K is one radial_exchange launch, for Pa alone
+    when restricted (Pb is Pa) and for both spins together otherwise; the
+    XC of funcs on the grid g is one launch each of dia_xc_fields and
+    dia_xc_fock (models/atomic_dft.py:eval_fxc)."""
 
-    def fock(ops: AtomicOperators, Pa: torch.Tensor):
-        P = Pa + Pa
+    def fock(ops: AtomicOperators, g, Pa: torch.Tensor, Pb: torch.Tensor):
+        P = Pa + Pb
         J = coulomb(ops, P)
-        nang = ops.G.shape[-1]
-        Ka = kfrac * exchange_bd(ops, channel_diag(Pa, nang, nrad))
-        Fa = ops.H0 + J + Ka
-        Exx = 0.5 * (vdot(Pa, Ka) + vdot(Pa, Ka))
+        Fa = Fb = ops.H0 + J
+        Exx = Exc = Nel = torch.zeros((), dtype=P.dtype, device=P.device)
+        if kfrac != 0.0:
+            nang = ops.G.shape[-1]
+            if restricted:
+                Ka = Kb = kfrac * exchange_bd(ops, channel_diag(Pa, nang, nrad))
+            else:
+                Ka, Kb = kfrac * exchange_bd(ops, torch.stack(
+                    (channel_diag(Pa, nang, nrad), channel_diag(Pb, nang, nrad))))
+            Fa, Fb = Fa + Ka, Fb + Kb
+            Exx = 0.5 * (vdot(Pa, Ka) + vdot(Pb, Kb))
+        if funcs:
+            XCa, XCb, Exc, Nel = eval_fxc(funcs, g, Pa, Pa if restricted else Pb, dftthr)
+            Fa, Fb = Fa + XCa, Fb + XCb
         Ekin = vdot(P, ops.T)
         Enuc = vdot(P, ops.Vnuc)
         Ecoul = 0.5 * vdot(P, J)
-        return Fa, Ekin, Enuc, Ecoul, Exx
+        return Fa, Fb, Ekin, Enuc, Ecoul, Exx, Exc, Nel
 
     return fock
 
 
-def make_fused_step(kfrac: float, nrad: int):
+def _components(Ekin, Enuc, Ecoul, Exx, Exc):
+    """[Ekin, Enuc, Ecoul, Exx, Exc, Efield] (no field terms here)."""
+    return torch.stack([Ekin, Enuc, Ecoul, Exx, Exc, torch.zeros_like(Ekin)])
+
+
+def make_fused_step(funcs, kfrac: float, nrad: int, dftthr: float = 1e-12):
     """One restricted SCF iteration on the device: density -> Fock ->
     block-coordinate C2-DIIS (circular history, updated in place) ->
     blocked eigensolve. Only (energy, DIIS error) need to reach the host."""
-    fock = make_fock(kfrac, nrad)
+    fock = make_fock(funcs, kfrac, nrad, dftthr, restricted=True)
 
-    def step(ops, blk_idx, blk_sinvh, Sb, occ, C, histF, histE, count):
+    def step(ops, g, blk_idx, blk_sinvh, Sb, occ, C, histF, histE, count):
         nbf = ops.S.shape[0]
         Pab = torch.einsum("bpk,bk,bqk->bpq", C, occ, C)
         Pa = scatter_blocks(Pab, blk_idx, nbf)
-        Fa, Ekin, Enuc, Ecoul, Exx = fock(ops, Pa)
-        Etot = Ekin + Enuc + Ecoul + Exx
+        Fa, _, Ekin, Enuc, Ecoul, Exx, Exc, Nel = fock(ops, g, Pa, Pa)
+        Etot = Ekin + Enuc + Ecoul + Exx + Exc
         Fab = gather_blocks(Fa, blk_idx)
         err = diis_error_blocks(Fab, Pab, Sb, blk_sinvh)
         errmax = torch.max(torch.abs(err))
         Fuse, count = device_diis_step(histF, histE, count, Fab, err)
         E, Cn = eig_blocks_b(Fuse, blk_idx, blk_sinvh, nbf)
-        zero = torch.zeros_like(Ekin)
-        comps = torch.stack([Ekin, Enuc, Ecoul, Exx, zero, zero])
-        return Cn, E, count, Etot, errmax, comps
+        return Cn, E, count, Etot, errmax, Nel, _components(Ekin, Enuc, Ecoul, Exx, Exc)
 
     return step
 
 
-def make_fused_chunk(kfrac: float, nrad: int):
+def make_fused_chunk(funcs, kfrac: float, nrad: int, dftthr: float = 1e-12):
     """Up to `nrun` fused iterations with the convergence test (err <
     convthr and |dE| < convthr, the host loop's own) on the device after
     each; occupations are frozen within a chunk. Returns the per-iteration
-    orbitals, eigenvalues, energies, errors and energy components, the new
-    DIIS count and the number of iterations run."""
-    step = make_fused_step(kfrac, nrad)
+    orbitals, eigenvalues, energies, errors, grid electron counts and
+    energy components, the new DIIS count and the number of iterations
+    run."""
+    step = make_fused_step(funcs, kfrac, nrad, dftthr)
 
-    def chunk(ops, blk_idx, blk_sinvh, occ, C, histF, histE, count, convthr,
+    def chunk(ops, g, blk_idx, blk_sinvh, occ, C, histF, histE, count, convthr,
               Eprev, nrun):
         Sb = gather_blocks(ops.S, blk_idx)
         Ep = torch.tensor(Eprev, dtype=torch.float64, device=C.device)
-        Cs, Es, Etots, errs, comps = [], [], [], [], []
+        Cs, Es, Etots, errs, Nels, comps = [], [], [], [], [], []
         for _ in range(nrun):
-            C, E, count, Etot, errmax, comp = step(ops, blk_idx, blk_sinvh, Sb,
-                                                   occ, C, histF, histE, count)
+            C, E, count, Etot, errmax, Nel, comp = step(ops, g, blk_idx, blk_sinvh, Sb,
+                                                        occ, C, histF, histE, count)
             Cs.append(C)
             Es.append(E)
             Etots.append(Etot)
             errs.append(errmax)
+            Nels.append(Nel)
             comps.append(comp)
             done = (errmax < convthr) & (torch.abs(Etot - Ep) < convthr)
             Ep = Etot
             if bool(done):
                 break
-        return (Cs, Es, count, torch.stack(Etots), torch.stack(errs),
+        return (Cs, Es, count, torch.stack(Etots), torch.stack(errs), torch.stack(Nels),
                 torch.stack(comps), len(Cs))
 
     return chunk
 
 
-# scf_atom options of helfem_tpu that this slice does not cover, with the
+def make_fused_chunk_u(funcs, kfrac: float, nrad: int, dftthr: float = 1e-12):
+    """Unrestricted analogue of make_fused_chunk (atomic_scf.py:317-413):
+    the DIIS history stores spin-stacked block-coordinate Fock pairs with
+    the combined alpha+beta error vector (the reference's uDIIS
+    combined-error mode); both spins' blocks go through one batched
+    eigensolve. Returns per iteration the orbitals and eigenvalues of both
+    spins, energies, errors, grid electron counts and energy components,
+    then the new DIIS count and the number of iterations run."""
+    fock = make_fock(funcs, kfrac, nrad, dftthr, restricted=False)
+
+    def chunk(ops, g, blk_idx, blk_sinvh, occa, occb, Ca, Cb, histF, histE, count,
+              convthr, Eprev, nrun):
+        nbf = ops.S.shape[0]
+        nblk = blk_idx.shape[0]
+        Sb = gather_blocks(ops.S, blk_idx)
+        idx2, sinvh2 = blk_idx.repeat(2, 1), blk_sinvh.repeat(2, 1, 1)
+        Ep = torch.tensor(Eprev, dtype=torch.float64, device=Ca.device)
+        out = []
+        for _ in range(nrun):
+            Pab = torch.einsum("bpk,bk,bqk->bpq", Ca, occa, Ca)
+            Pbb = torch.einsum("bpk,bk,bqk->bpq", Cb, occb, Cb)
+            Pa = scatter_blocks(Pab, blk_idx, nbf)
+            Pb = scatter_blocks(Pbb, blk_idx, nbf)
+            Fa, Fb, Ekin, Enuc, Ecoul, Exx, Exc, Nel = fock(ops, g, Pa, Pb)
+            Etot = Ekin + Enuc + Ecoul + Exx + Exc
+            Fab = gather_blocks(Fa, blk_idx)
+            Fbb = gather_blocks(Fb, blk_idx)
+            err = torch.cat((diis_error_blocks(Fab, Pab, Sb, blk_sinvh),
+                             diis_error_blocks(Fbb, Pbb, Sb, blk_sinvh)))
+            errmax = torch.max(torch.abs(err))
+            Fuse, count = device_diis_step(histF, histE, count, torch.stack((Fab, Fbb)), err)
+            E, C = eig_blocks_b(Fuse.reshape(2 * nblk, *Fuse.shape[2:]), idx2, sinvh2, nbf)
+            Ea, Eb, Ca, Cb = E[:nblk], E[nblk:], C[:nblk], C[nblk:]
+            out.append((Ca, Cb, Ea, Eb, Etot, errmax, Nel,
+                        _components(Ekin, Enuc, Ecoul, Exx, Exc)))
+            done = (errmax < convthr) & (torch.abs(Etot - Ep) < convthr)
+            Ep = Etot
+            if bool(done):
+                break
+        Cas, Cbs, Eas, Ebs, Etots, errs, Nels, comps = zip(*out)
+        return (Cas, Cbs, Eas, Ebs, count, torch.stack(Etots), torch.stack(errs),
+                torch.stack(Nels), torch.stack(comps), len(out))
+
+    return chunk
+
+
+# scf_atom options of helfem_tpu that the port does not cover, with the
 # default values under which they are inert
 _UNPORTED = {
-    "dftthr": 1e-12, "Ez": 0.0, "Qzz": 0.0, "Bz": 0.0, "iconf": 0,
+    "Ez": 0.0, "Qzz": 0.0, "Bz": 0.0, "iconf": 0,
     "conf_N": 0, "conf_R": 0.0, "conf_barrier": 0.0, "shift_conf": 0.0,
     "finitenuc": "point", "Rrms": 0.0, "Zl": 0, "Zr": 0, "Rmid": 0.0,
     "occs": None, "perturb": 0.0, "seed": 0, "P0a": None, "P0b": None,
     "save_cb": None, "maverage": False, "dampfock": 1.0, "dampthr": 0.5,
-    "ldft": 0, "diag": True, "eigiter": 0, "ndev": 0, "diisthr": None,
+    "diag": True, "eigiter": 0, "ndev": 0, "diisthr": None,
 }
 
 
-def hf_kfrac(method: str) -> float:
-    """Exact-exchange fraction of a method this slice runs on atoms: HF
-    only; every functional raises (atomic DFT is not ported yet)."""
+def atomic_method(method: str):
+    """(funcs, kfrac) of a method the port runs on atoms: HF, the ported
+    LDA/GGA functionals and their global hybrids. Raises
+    NotImplementedError for the functionals ops/xc.py does not port and for
+    range separation (ROADMAP.md queue 1 items 6 and 7)."""
     spec = parse_method_rs(method)
-    if spec.funcs or spec.kshort:
+    if spec.kshort:
         raise NotImplementedError(
-            f"method '{method}': atomic DFT is not ported to helfem_tpu_torch "
-            "yet; only HF runs on atoms (see ROADMAP.md)"
-        )
-    return spec.kfull
+            f"method '{method}' needs the range-separated exchange, which is not ported "
+            "to helfem_tpu_torch yet (ROADMAP.md queue 1 item 7)")
+    return spec.funcs, spec.kfull
 
 
 def scf_atom(
@@ -192,21 +266,26 @@ def scf_atom(
     guess: str = "TF",
     verbose: bool = False,
     ops: AtomicOperators | None = None,
+    dftthr: float = 1e-12,
     restricted: int = -1,
     symmetry: int = -1,
     diisorder: int = 10,
     diiseps: float = 0.1,
+    ldft: int = 0,
     device=None,
+    grid: AtomGridOps | None = None,
     **unported,
 ) -> SCFResult:
-    """Closed-shell restricted HF (helfem_tpu's scf_atom for nela == nelb,
-    method 'HF', symmetry 2). The operators are built on `device` unless
-    `ops` is given, in which case the SCF runs on ops' device."""
+    """Restricted, unrestricted or ROHF SCF of HF, the ported LDA/GGA
+    functionals and their global hybrids under (l,m) symmetry blocks
+    (helfem_tpu's scf_atom at symmetry 2). restricted = -1 restricts
+    exactly when nela == nelb, 0 runs UHF/UKS, and 1 with nela != nelb runs
+    ROHF through rohf_update on the host loop alone, as helfem_tpu does.
+    The operators (and the grid of a functional, ldft theta points, 0 for
+    2 lmax + 12) are built on `device` unless `ops` (and `grid`) are given,
+    in which case the SCF runs on ops' device."""
     reject_unported(unported, _UNPORTED, "scf_atom")
-    kfrac = hf_kfrac(method)
-    if nela != nelb or restricted == 0:
-        raise NotImplementedError("unrestricted and ROHF SCF are not ported to "
-                                  "helfem_tpu_torch yet; only closed-shell RHF")
+    funcs, kfrac = atomic_method(method)
     if symmetry not in (-1, 2):
         raise NotImplementedError(f"symmetry={symmetry}: only (l,m) blocks "
                                   "(symmetry 2) are ported")
@@ -217,56 +296,76 @@ def scf_atom(
         ops = basis.build_operators(device)
     device = ops.device
     nrad = basis.nrad
+    g = grid
+    if funcs and g is None:
+        g = build_atomic_grid(basis, device, ntheta=ldft)
+    rohf = restricted == 1 and nela != nelb
+    restricted = nela == nelb if restricted == -1 else (restricted == 1 and not rohf)
     S_np = ops.S.cpu().numpy()
     blk_idx_np, blk_sinvh_np = build_blocks(S_np, basis.sym_blocks(symm))
     blk_idx = torch.as_tensor(blk_idx_np, device=device)
     blk_sinvh = torch.as_tensor(blk_sinvh_np, device=device)
-    fock = make_fock(kfrac, nrad)
+    fock = make_fock(funcs, kfrac, nrad, dftthr, restricted=restricted)
 
     def as_dev(x) -> torch.Tensor:
         return torch.as_tensor(np.asarray(x), dtype=torch.float64, device=device)
 
-    # guess: model-potential Hamiltonian
+    # guess: model-potential Hamiltonian, the same orbitals for both spins
     Hg = as_dev(basis.kinetic()
                 + basis.model_potential(potential(guess, basis.Z, device=device)))
     Ea, Ca = eig_blocks(Hg, blk_idx, blk_sinvh)
     Ea = Ea.cpu().numpy()
+    Eb, Cb = Ea.copy(), Ca
 
     Sinvh_np = full_sinvh(blk_idx_np, blk_sinvh_np, basis.nbf)
     Sinvh_dev = as_dev(Sinvh_np)
     diis = DIIS(S_np, Sinvh_np, max_hist=diisorder, diis_eps=diiseps,
                 blocks=(blk_idx_np, blk_sinvh_np))
+    Sh_np = form_sh(S_np) if rohf else None
 
     Eold = 0.0
     Etot = 0.0
+    Nel = 0.0
     converged = False
-    occa = None
+    occa = occb = None
     # fused device chunks engage after TWO host iterations; they are
     # load-bearing (helfem_tpu atomic_scf.py:684-697): the host DIIS handles
-    # the large-error regime that the chunks' pure C2-DIIS cannot
-    warmup = 2
+    # the large-error regime that the chunks' pure C2-DIIS cannot. ROHF's
+    # Fock update is host work every iteration, so it stays on the host.
+    warmup = maxit if rohf else 2
     chunk_len = 4  # chunk schedule 4, 8, 16
+    CH = 16
+    nhist = 10
     fused = None
     it = 0
     while it < maxit:
         it += 1
         occa = aufbau_blocks(Ea, nela)
+        occb = occa if restricted else aufbau_blocks(Eb, nelb)
 
         if it > warmup:
+            nblk, blen = blk_idx_np.shape
             if fused is None:
-                nhist = 10
-                CH = 16
-                fused = make_fused_chunk(kfrac, nrad)
-                nblk, blen = blk_idx_np.shape
-                histF = torch.zeros((nhist, nblk, blen, blen), dtype=torch.float64, device=device)
-                histE = torch.zeros((nhist, nblk * blen * blen), dtype=torch.float64, device=device)
+                ns = 1 if restricted else 2
+                fused = (make_fused_chunk if restricted else make_fused_chunk_u)(
+                    funcs, kfrac, nrad, dftthr)
+                histF = torch.zeros((nhist, *(() if restricted else (2,)), nblk, blen, blen),
+                                    dtype=torch.float64, device=device)
+                histE = torch.zeros((nhist, ns * nblk * blen * blen), dtype=torch.float64,
+                                    device=device)
                 count = 0
             nrun = min(chunk_len, CH, maxit - it + 1)
             chunk_len = min(2 * chunk_len, CH)
-            Cs, Es, count, Etots, errs, comps, kmax = fused(
-                ops, blk_idx, blk_sinvh, as_dev(occa), Ca, histF, histE, count,
-                float(convthr), Eold, nrun,
-            )
+            if restricted:
+                Cs, Es, count, Etots, errs, Nels, comps, kmax = fused(
+                    ops, g, blk_idx, blk_sinvh, as_dev(occa), Ca, histF, histE, count,
+                    float(convthr), Eold, nrun,
+                )
+            else:
+                Cs, Cbs, Es, Ebs, count, Etots, errs, Nels, comps, kmax = fused(
+                    ops, g, blk_idx, blk_sinvh, as_dev(occa), as_dev(occb), Ca, Cb, histF,
+                    histE, count, float(convthr), Eold, nrun,
+                )
             Etots = Etots.cpu().numpy()
             errs = errs.cpu().numpy()
             k = 0
@@ -284,20 +383,36 @@ def scf_atom(
             it += k
             Ca = Cs[k]
             Ea = Es[k].cpu().numpy()
+            if restricted:
+                Eb, Cb = Ea, Ca
+            else:
+                Cb = Cbs[k]
+                Eb = Ebs[k].cpu().numpy()
+            Nel = float(Nels[k])
             Ekin, Enuc, Ecoul, Exx, Exc, Efield = comps[k].cpu().numpy()
             if converged or it >= maxit:
                 break
             continue
 
         Pa = density_blocks(Ca, as_dev(occa), blk_idx, ops.S)
-        Fa, Ekin, Enuc, Ecoul, Exx = fock(ops, Pa)
-        Exc = Efield = 0.0
-        Etot = float(Ekin + Enuc + Ecoul + Exx)
+        Pb = Pa if restricted else density_blocks(Cb, as_dev(occb), blk_idx, ops.S)
+        Fa, Fb, Ekin, Enuc, Ecoul, Exx, Exc, Nel = fock(ops, g, Pa, Pb)
+        Efield = 0.0
+        Etot = float(Ekin + Enuc + Ecoul + Exx + Exc)
+        Nel = float(Nel)
         dE = Etot - Eold
         Eold = Etot
-        ev = _diis_error(Fa, Pa, ops.S, Sinvh_dev)
-        err = diis.update_with_error([Fa.cpu().numpy()], ev.cpu().numpy())
-        (Fa_,) = diis.solve()
+        if restricted:
+            ev = _diis_error(Fa, Pa, ops.S, Sinvh_dev)
+            err = diis.update_with_error([Fa.cpu().numpy()], ev.cpu().numpy())
+            (Fa_,) = diis.solve()
+            Fb_ = Fa_
+        else:
+            Fa, Fb, Pa, Pb = (x.cpu().numpy() for x in (Fa, Fb, Pa, Pb))
+            if rohf:
+                Fa, Fb = rohf_update(Fa, Fb, Pa + Pb, Sh_np, Sinvh_np, nela, nelb)
+            err = diis.update([Fa, Fb], [Pa, Pb])
+            Fa_, Fb_ = diis.solve()
         if verbose:
             print(f"iter {it:3d}  E = {Etot:+.12f}  dE = {dE:+.3e}  diis = {err:.3e}")
         if err < convthr and abs(dE) < convthr and it > 1:
@@ -305,6 +420,11 @@ def scf_atom(
             break
         Ea, Ca = eig_blocks(as_dev(Fa_), blk_idx, blk_sinvh)
         Ea = Ea.cpu().numpy()
+        if restricted:
+            Eb, Cb = Ea, Ca
+        else:
+            Eb, Cb = eig_blocks(as_dev(Fb_), blk_idx, blk_sinvh)
+            Eb = Eb.cpu().numpy()
 
     labels = basis.sym_labels(symm)
 
@@ -315,7 +435,10 @@ def scf_atom(
         order = order[flat[order] < _BIG / 2]
         return [labels[i // E.shape[1]] for i in order]
 
-    oe = np.sort(Ea.ravel())
+    def _sorted(E):
+        e = np.sort(E.ravel())
+        return e[e < _BIG / 2]
+
     return SCFResult(
         converged=converged,
         niter=it,
@@ -325,13 +448,17 @@ def scf_atom(
         Ecoul=float(Ecoul),
         Exx=float(Exx),
         Exc=float(Exc),
-        Nelgrid=0.0,
+        Nelgrid=float(Nel),
         Efield=float(Efield),
-        orbE_a=oe[oe < _BIG / 2],
+        orbE_a=_sorted(Ea),
         orbs_a=Ca.cpu().numpy(),
         occ_a=occa,
+        orbE_b=None if restricted else _sorted(Eb),
+        orbs_b=None if restricted else Cb.cpu().numpy(),
+        occ_b=None if restricted else occb,
         orbsym_a=_sorted_syms(Ea),
+        orbsym_b=None if restricted else _sorted_syms(Eb),
         orbE_blocks_a=Ea,
+        orbE_blocks_b=None if restricted else Eb,
         symm_used=symm,
     )
-

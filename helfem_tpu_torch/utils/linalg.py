@@ -17,8 +17,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-__all__ = ["form_sinvh", "build_blocks", "gather_blocks", "eig_blocks",
-           "eig_blocks_b", "density_blocks", "eigh_refined"]
+__all__ = ["form_sinvh", "form_sh", "rohf_update", "build_blocks", "gather_blocks",
+           "eig_blocks", "eig_blocks_b", "density_blocks", "eigh_refined"]
 
 _BIG = 1e6
 
@@ -28,6 +28,37 @@ def form_sinvh(S: np.ndarray) -> np.ndarray:
     (reference: utils::invh, libhelfem/src/utils.cpp)."""
     w, U = np.linalg.eigh(S)
     return U @ np.diag(w**-0.5) @ U.T
+
+
+def form_sh(S: np.ndarray) -> np.ndarray:
+    """Symmetric square root S^{1/2}, eigenvalues clamped at zero (a masked,
+    singular overlap gives no NaN from roundoff-negative eigenvalues)."""
+    w, U = np.linalg.eigh(S)
+    return U @ np.diag(np.sqrt(np.clip(w, 0.0, None))) @ U.T
+
+
+def rohf_update(Fa, Fb, P, Sh, Sinvh, nocca, noccb):
+    """Constrained-UHF (ROHF) Fock update of Tsuchimochi and Scuseria, JCP
+    134, 064101 (2011), as helfem_tpu's (utils/linalg.py:293-315; reference
+    scf::ROHF_update): flip the sign of the core-virtual blocks of
+    (Fa - Fb)/2 in the natural-orbital basis of P = Pa + Pb. Host numpy;
+    returns the updated (Fa, Fb)."""
+    M = Sh.T @ P @ Sh
+    occs, V = np.linalg.eigh(M)  # natural orbitals, ascending occupation
+    C = Sinvh @ V  # AO to NO, S-orthonormal columns
+    no_to_ao = V.T @ Sh
+    Delta_NO = C.T @ ((Fa - Fb) / 2.0) @ C
+    n = C.shape[1]
+    Nc = min(nocca, noccb)
+    Na = max(nocca, noccb) - Nc
+    Nv = n - Na - Nc
+    lam = np.zeros_like(Delta_NO)
+    # the cores are the LAST Nc columns (highest occupation), the virtuals
+    # the first Nv
+    lam[n - Nc:, :Nv] = -Delta_NO[n - Nc:, :Nv]
+    lam[:Nv, n - Nc:] = -Delta_NO[:Nv, n - Nc:]
+    lam_AO = no_to_ao.T @ lam @ no_to_ao
+    return Fa + lam_AO, Fb - lam_AO
 
 
 def build_blocks(S: np.ndarray, blocks) -> tuple[np.ndarray, np.ndarray]:

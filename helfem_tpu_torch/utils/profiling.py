@@ -14,8 +14,11 @@ def profile_scf(label: str, run, rows: int = 20, kernels: tuple = (), ops: tuple
     device time and launches of each device kernel whose name contains one
     of `kernels`, which are also returned as {name: (ms, launches)}, and
     the device time and calls of each operator named in `ops` (the kernels
-    launched under it, e.g. "aten::linalg_eigh"), returned the same way;
-    "busy" holds the device time of all kernels and their number."""
+    it launches itself, e.g. "aten::_linalg_eigh" and its cuSOLVER kernels:
+    the self time, since an operator's total also holds the profiler's own
+    "Buffer Flush" and "Activity Buffer Request" rows that fall inside it),
+    returned the same way; "busy" holds the device time of all kernels and
+    their number."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -50,7 +53,7 @@ def profile_scf(label: str, run, rows: int = 20, kernels: tuple = (), ops: tuple
               f"{per_kernel[name][1]} launches per SCF")
     for name in ops:
         hits = [e for e in events if e.device_type != DeviceType.CUDA and e.key == name]
-        per_kernel[name] = (sum(e.device_time_total for e in hits) * 1e-3,
+        per_kernel[name] = (sum(getattr(e, key) for e in hits) * 1e-3,
                             sum(e.count for e in hits))
         print(f"{label}: {name} device time {per_kernel[name][0]:.4f} ms in "
               f"{per_kernel[name][1]} calls per SCF")

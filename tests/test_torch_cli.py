@@ -43,11 +43,11 @@ def test_cli_runs_with_its_default_sap_guess(capsys):
 
 
 @pytest.mark.parametrize("extra, match", [
-    (["--method", "PBE"], "PBE"),
+    (["--method", "TPSS"], "TPSS"),
     (["--Ez", "0.01"], "--Ez"),
     (["--ndev", "2"], "--ndev"),
-    (["--Q", "1"], "--Q"),
-], ids=["pbe", "field_flag", "ndev_flag", "charge_flag"])
+    (["--symmetry", "1"], "--symmetry"),
+], ids=["tpss", "field_flag", "ndev_flag", "symmetry_flag"])
 def test_cli_unported_raises(extra, match):
     with pytest.raises(NotImplementedError, match=match):
         main(HE + extra + ["--device", "cpu"])
@@ -74,7 +74,8 @@ def test_port_never_imports_jax():
         "             'cli.diatomic', 'ops.xc', 'ops.legendreq', 'ops.spherical',\n"
         "             'kernels.radial_exchange_dia', 'kernels.matmul_probe',\n"
         "             'tools.f64_ablation', 'tools.profile_dia_scf', 'utils.profiling',\n"
-        "             'models.sadatom', 'models.sadconf', 'models.diatomic_tools', 'cli.gensap'):\n"
+        "             'models.sadatom', 'models.sadconf', 'models.diatomic_tools', 'cli.gensap',\n"
+        "             'models.atomic_dft', 'models.xc_grid'):\n"
         "    assert 'helfem_tpu_torch.' + name in names, name\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'helfem_tpu'))\n"
         "assert not bad, bad\n"

@@ -655,6 +655,79 @@ def test_xc_kernel_matches_plain_on_card(cuda_device, name, shape, ns):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("ns", [1, 2])
+@pytest.mark.parametrize("shape", ["ar", "xe", "sad_kr"])
+@pytest.mark.parametrize("name", ["dia_xc_fields", "dia_xc_fock"])
+def test_xc_kernel_matches_plain_on_atomic_grids(cuda_device, name, shape, ns):
+    """K4 and K5 on the atomic grids of the Ar and Xe bench bases (densities
+    dense over the same-m shell pairs) and on the SAD grid of gensap Kr (one
+    angular shell and point): one launch per call, 1e-12 x max-abs of each
+    output against the plain version, the same bits from two calls."""
+    from chip_smoke import atomic_xc_inputs
+
+    args = atomic_xc_inputs(shape, cuda_device, ns, 61)[name][0]
+    before = kernels.launches[name]
+    out = _as_tuple(getattr(kernels, name)(*args))
+    again = _as_tuple(getattr(kernels, name)(*args))
+    torch.cuda.synchronize()
+    assert kernels.launches[name] == before + 2
+    ref = _as_tuple(getattr(kernels, name + "_plain")(*args))
+    for o, a, r in zip(out, again, ref):
+        assert o.shape[0] == ns and torch.equal(o, a)
+        assert float((o - r).abs().max()) <= TOL * float(r.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["ne_pbe0", "n_uks_pbe", "n_rohf"])
+def test_atomic_dft_and_open_shells_on_card_match_cpu(cuda_device, case):
+    """The atomic SCF with a hybrid, UKS and ROHF on the card: the CPU's
+    energy within 1e-9 Eh; K2 once per iteration, K1 once per iteration
+    for PBE0 and ROHF (both spins in one launch), K4 and K5 once per
+    iteration for a functional."""
+    Z, na, nb, kw = {"ne_pbe0": (10, 5, 5, dict(method="PBE0")),
+                     "n_uks_pbe": (7, 5, 2, dict(method="PBE")),
+                     "n_rohf": (7, 5, 2, dict(method="HF", restricted=1))}[case]
+    cfg = dict(Z=Z, lmax=1, mmax=1, rmax=40.0, nelem=5, nnodes=8)
+    cpu = scf_atom(AtomicBasis(**cfg), na, nb, convthr=1e-10, device="cpu", **kw)
+    kernels.reset_launches()
+    gpu = scf_atom(AtomicBasis(**cfg), na, nb, convthr=1e-10, device=cuda_device, **kw)
+    assert gpu.converged and abs(gpu.E - cpu.E) < 1e-9
+    n, dft, hf = gpu.niter, kw["method"] != "HF", kw["method"] != "PBE"
+    assert kernels.launches["radial_coulomb"] == n
+    assert kernels.launches["radial_exchange"] == (n if hf else 0)
+    assert kernels.launches["dia_xc_fields"] == kernels.launches["dia_xc_fock"] == (n if dft
+                                                                                     else 0)
+
+
+@pytest.mark.cuda
+def test_sad_xc_on_card_matches_cpu(cuda_device):
+    """sad_xc through K4/K5 on the card against the same function on CPU
+    tensors, for one and two spin densities: 1e-12 x max-abs of each
+    output, one launch of each kernel per call."""
+    from helfem_tpu_torch.models import sadatom
+    from helfem_tpu_torch.ops.xc import parse_method
+
+    basis = sadatom.SadAtomBasis(**SAD_SHAPES["kr_gensap"])
+    host_ops = basis.host_ops()
+    cpu = sadatom.from_jax_sad_ops(host_ops, "cpu")
+    gpu = sadatom.from_jax_sad_ops(host_ops, cuda_device)
+    funcs = tuple(parse_method("PBE")[0])
+    rng = np.random.default_rng(67)
+    Pa, Pb = (np.einsum("lik,ljk->lij", X, X) for X in
+              rng.standard_normal((2, basis.lmax + 1, basis.nrad, 4)))
+    for spins in ((Pa,), (Pa, Pb)):
+        t = [torch.tensor(P, device=cuda_device) for P in spins]
+        c = [torch.tensor(P) for P in spins]
+        before = {k: kernels.launches[k] for k in ("dia_xc_fields", "dia_xc_fock")}
+        out = sadatom.sad_xc(funcs, gpu, t[0], t[-1])
+        torch.cuda.synchronize()
+        assert all(kernels.launches[k] == before[k] + 1 for k in before)
+        ref = sadatom.sad_xc(funcs, cpu, c[0], c[-1])
+        for o, r in zip(out, ref):
+            assert float((o.cpu() - r).abs().max()) <= TOL * float(r.abs().max())
+
+
+@pytest.mark.cuda
 def test_occupied_exchange_in_column_chunks_on_card(cuda_device):
     """K6 at nprim 15 with 48 occupied columns, past the 34 that one launch
     takes: two launches whose sum agrees with the plain version at 1e-12 x

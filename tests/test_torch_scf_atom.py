@@ -87,9 +87,9 @@ def test_device_diis_step_matches_jax(count):
 
 
 @pytest.mark.parametrize("nel, kwargs", [
-    ((2, 1), {}),  # open shell -> UHF
-    ((1, 1), {"restricted": 0}),
-    ((1, 1), {"method": "PBE"}),
+    ((1, 1), {"method": "TPSS"}),  # meta-GGA
+    ((1, 1), {"method": "BLYP"}),  # LYP correlation
+    ((1, 1), {"method": "LC-LDA"}),  # range separation
     ((1, 1), {"symmetry": 1}),
     ((1, 1), {"Ez": 0.01}),
     ((1, 1), {"ndev": 1}),
@@ -97,7 +97,7 @@ def test_device_diis_step_matches_jax(count):
     ((1, 1), {"maverage": True}),
     ((1, 1), {"dampfock": 0.5}),
     ((1, 1), {"diisthr": 1e-3}),
-], ids=["open_shell", "uhf", "dft", "symm1", "field", "ndev", "eigiter",
+], ids=["tpss", "blyp", "lc-lda", "symm1", "field", "ndev", "eigiter",
         "maverage", "damping", "diisthr"])
 def test_unported_options_raise(nel, kwargs):
     basis = AtomicBasis(Z=sum(nel), lmax=0, mmax=0, rmax=20.0, nelem=2, nnodes=4)
