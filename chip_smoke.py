@@ -73,8 +73,9 @@ Phases, any failure raises and exits non-zero:
      fields), then N2 HF there from the core guess, cold then warm: within
      2e-5 Eh of the bench reference and 1e-8 Eh of the value the exchange
      kernels' first, CUDA-core version gave, with the occupied-orbital
-     exchange kernel launched and K3 once per iteration; the warm wall;
-     then the same SCF from the SAP guess (the bench's own start), cold and
+     exchange kernel launched and K3 once per iteration; the warm wall and
+     tr(P S) - 14 beside the whitening's defect of the overlap blocks (a
+     closed-shell witness for phase 16's spin counts); then the same SCF from the SAP guess (the bench's own start), cold and
      warm, within 2e-5 Eh of the bench reference (N's SAD atom, solved in
      the cold run, with K2, K4 and K5 once per Fock build), beside the core-guess
      iterations and walls. Then N2 PBE at the same basis and the PBE bench geometry, cold
@@ -105,7 +106,31 @@ Phases, any failure raises and exits non-zero:
      in one launch), K4 once per iteration and K5 once per iteration plus
      once for the grid self-check for a functional; then warm walls and a
      profile of Ar PBE0 and Xe PBE (device-busy share, eigh share, K4/K5
-     device time per call).
+     device time per call);
+ 16. open shells through the port's diatomic and gensap CLIs: triplet O2
+     (9 alpha, 7 beta, SAP guess) at the N2 bench basis, UHF, UKS-PBE and
+     ROHF, within 1e-8 Eh of helfem_tpu's f64 values and their iteration
+     counts +-1, ROHF >= UHF - 1e-8, the triplet's occupations (alpha one
+     electron above beta in each of the two blocks of one pi pair, all
+     integer), per iteration K3 once, K6 twice (UHF, ROHF), K4 and K5 once
+     with two spins (UKS); K6 at O2's alpha and beta widths against its
+     plain version and the host's ROHF update timed; O2 UHF at the lmax=12
+     basis from SAP, cold and warm (converged at 1e-7 within 1e-8 Eh of the
+     port's pinned value, occupations summing to 9 and 7, tr(Pa S) = 9 and
+     tr(Pb S) = 7 within 1e-8: the basis whitens its overlap only to 5.5e-7,
+     K3 once and K6 twice per iteration) with its warm profile, then K6 on
+     each spin's converged occupied columns against its plain version and
+     timed; H2+ (nelb = 0) at lmax=10 within 1e-8 Eh of the
+     exact -0.6026342144949, its exchange cancelling the Coulomb
+     self-interaction, K6 once per iteration (none for beta); gensap Cr
+     --unrestricted (lda_x, the bench's gensap basis): 3d5 4s1, M = 7,
+     within 1e-8 Eh of helfem_tpu's value, K2, K4 and K5 once per Fock
+     build (two spins in the unrestricted search), K1 never, and K4/K5 on
+     the SAD Cr grid at two spins against their plain versions (equal bits
+     twice); then SAD-UHF
+     Cr (M = 7) with K1 once per Fock build for both spins' stacked cubes
+     (checked against its plain version at that shape), within 1e-8 Eh of
+     helfem_tpu's value, and its warm profile.
 The last two lines are the kernels' JSON record and {"ok": true, ...}.
 """
 
@@ -245,6 +270,47 @@ K3_SHAPES = {
 EXCHANGE_WIDE = {"np33": (3, 33, 2, 1, 2), "np40": (3, 40, 2, 1, 2)}
 XC_SASS = ("xc_fields_kernel", "xc_fock_kernel")  # K4 and K5, both on DMMA
 PROBE_TF32, PROBE_FULL = "matmul_tf32_kernel", "matmul_full_kernel"  # K8/K9 instances
+K6_SASS = "exdia_"  # the device kernels of K6 (and K7)
+# phase 16: triplet O2 X3Sigma_g- at the N2 bench basis through the port's
+# diatomic CLI, from the SAP guess: label -> (CLI arguments, helfem_tpu's
+# scf_diatomic in f64 on the CPU at the same options (maxit 50), and its
+# iteration count)
+O2_SHAPE = dict(Z1=8, Z2=8, Rbond=2.282, lmax=(6, 6), rmax=25.0, nelem=5, nnodes=8)
+O2_CLI = ["--Z1", "O", "--Z2", "O", "--Rbond", "2.282", "--lmax", "6,6", "--Rmax", "25",
+          "--nelem", "5", "--nnodes", "8", "--M", "3", "--iguess", "2"]
+O2_CELLS = {
+    "O2 UHF": (O2_CLI + ["--restricted", "0", "--convthr", "1e-8"], -147.85336509135217, 12),
+    "O2 UKS-PBE": (O2_CLI + ["--method", "PBE", "--convthr", "1e-7"], -148.40897278531432, 9),
+    "O2 ROHF": (O2_CLI + ["--restricted", "1", "--convthr", "1e-8"], -147.82949099699513, 10),
+}
+# O2 UHF at the bench's profile-point basis (nbf 4130); no f64 value of
+# helfem_tpu at this size, so the port's own from its first run on an H100,
+# a 1e-8 regression gate
+O2_L12_SHAPE = dict(O2_SHAPE, lmax=(12, 12, 12), rmax=40.0, nnodes=15)
+O2_L12_PORT = -149.691060621579
+# the spin counts tr(P S) of that basis: its overlap blocks reach a condition
+# number of 7.6e11, so S^-1/2 whitens them only to 5.5e-7 (max |Sinvh^T S
+# Sinvh - I|) and the occupied orbitals' S-norms carry ~1e-10 per electron
+# (tr(Pa S) - 9 = -7.06e-10 on the first run). Witnesses that this is the
+# basis: phase 11 prints tr(P S) - 14 of closed-shell N2 HF at the same
+# sizes, and tests/test_torch_dia_open.py::test_lmax12_whitening_matches_jax
+# holds helfem_tpu's own host S^-1/2 to the same defect on these blocks
+SPIN_COUNT_TOL = 1e-8
+# H2+ (one electron, nelb = 0): the exact electronic energy
+# -1.1026342144949 (tests/test_diatomic.py:150) plus 1/R
+H2P_CLI = ["--Z1", "H", "--Z2", "H", "--Rbond", "2.0", "--lmax", "10", "--Rmax", "20",
+           "--nelem", "3", "--nnodes", "14", "--Q", "1", "--convthr", "1e-9"]
+H2P_EXACT = -0.6026342144949
+# gensap Cr --unrestricted at bench.py's bench_gensap basis (lda_x, TF guess,
+# convthr 1e-7; the restricted leg without its search), and helfem_tpu's
+# search_sadatom_unrestricted there in f64 on the CPU (3d5 4s1, M = 7)
+CR_GENSAP_CLI = ["--Z", "Cr", "--lmax", "2", "--Rmax", "40", "--nelem", "8", "--nnodes", "12",
+                 "--unrestricted", "--nosearch"]
+CR_SHAPE = dict(Z=24, lmax=2, rmax=40.0, nelem=8, nnodes=12)
+CR_U_REF = -1040.2732201950523
+# SAD-UHF Cr at M = 7 (15 alpha, 9 beta, aufbau, convthr 1e-8): helfem_tpu's
+# solve_sadatom_unrestricted in f64 on the CPU, occupations (4,6,5)/(3,6,0)
+CR_UHF_REF = -1043.3567816060308
 PROBES = {  # name -> (source, {precision: replaces})
     "matmul_f32": ("helfem_tpu_torch/csrc/matmul_probe.cu",
                    {"full": "scripts/pallas_f64_ablation.py:50",
@@ -501,15 +567,17 @@ def atomic_xc_inputs(shape: str, dev, ns: int = 2, seed: int = 59):
     """xc_work on an atomic grid: the atomic grid of SHAPES[shape] (Ar or
     Xe bench basis) with random symmetric densities dense over the same-m
     shell pairs (every live pair carries data), or the SAD grid of
-    SAD_SHAPES[shape] (one shell, one angular point) with random symmetric
-    radial densities; random grid potentials, no mask."""
+    SAD_SHAPES[shape] or, for "sad_cr", of CR_SHAPE (one shell, one angular
+    point) with random symmetric radial densities; random grid potentials,
+    no mask."""
     from helfem_tpu_torch.models import sadatom
     from helfem_tpu_torch.models.atomic import AtomicBasis
     from helfem_tpu_torch.models.atomic_dft import build_atomic_grid
 
     rng = np.random.default_rng(seed)
-    if shape in SAD_SHAPES:
-        basis = sadatom.SadAtomBasis(**SAD_SHAPES[shape])
+    sad = {**SAD_SHAPES, "sad_cr": CR_SHAPE}
+    if shape in sad:
+        basis = sadatom.SadAtomBasis(**sad[shape])
         g = basis.build_ops(dev).grid
         mval = np.zeros(1, dtype=int)
     else:
@@ -607,30 +675,39 @@ def dense_R(Uw, V):
     return R.reshape(R.shape[0], 4, *R.shape[3:]).contiguous()
 
 
-def dia_exchange_inputs(cfg: dict, dev, no: int = 7, seed: int = 13):
-    """The two exchange kernels' inputs at a diatomic basis, for `no` random
-    occupied columns (and the dense R of the same density), with bytes and
-    operations counted as kernel_inputs counts them."""
-    from helfem_tpu_torch.models.diatomic import (DiatomicBasis, exchange_factors,
-                                                  exchange_weights)
+def exchange_inputs(basis, ops, Co: torch.Tensor, dense: bool = True) -> dict:
+    """The exchange kernels' inputs at a diatomic basis for the occupied
+    columns Co [nbf, no] (K6) and, when `dense`, the dense R of the same
+    density (K7), with bytes and operations counted as kernel_inputs counts
+    them."""
+    from helfem_tpu_torch.models.diatomic import exchange_factors, exchange_weights
 
-    basis = DiatomicBasis(**cfg)
-    ops = basis.build_operators(dev)
     nang, nrad = basis.nang, basis.nrad
     nelem, npr = ops.gidx.shape
-    Co = torch.tensor(np.random.default_rng(seed).standard_normal((basis.nbf, no)), device=dev)
     Uw, V = exchange_factors(ops, Co)
-    R = exchange_weights(ops, Co @ Co.T)
     S = Uw.shape[0]
-    kdepth = no * int((1 + ops.step_wm).sum())
+    kdepth = Co.shape[1] * int((1 + ops.step_wm).sum())
     k6f, k7f, tables, out, win = exchange_work(S, kdepth, nang, nelem, npr, nrad, ops.gidx)
     small = nbytes(ops.step_ilm, ops.gidx)
     tabs = (ops.teiJ3, ops.dP0, ops.dP2, ops.dQ0, ops.dQ2, ops.step_ilm, ops.gidx)
-    return {
-        "radial_exchange_dia_occ": ((Uw, V, *tabs), nbytes(Uw, V) + tables + small + out, k6f),
-        "radial_exchange_dia": ((R, *tabs), 8 * S * 4 * nang * nang * win + tables + small + out,
-                                k7f),
-    }
+    inputs = {"radial_exchange_dia_occ": ((Uw, V, *tabs),
+                                          nbytes(Uw, V) + tables + small + out, k6f)}
+    if dense:
+        inputs["radial_exchange_dia"] = ((exchange_weights(ops, Co @ Co.T), *tabs),
+                                         8 * S * 4 * nang * nang * win + tables + small + out,
+                                         k7f)
+    return inputs
+
+
+def dia_exchange_inputs(cfg: dict, dev, no: int = 7, seed: int = 13):
+    """exchange_inputs at a diatomic basis for `no` random occupied
+    columns."""
+    from helfem_tpu_torch.models.diatomic import DiatomicBasis
+
+    basis = DiatomicBasis(**cfg)
+    ops = basis.build_operators(dev)
+    Co = torch.tensor(np.random.default_rng(seed).standard_normal((basis.nbf, no)), device=dev)
+    return exchange_inputs(basis, ops, Co)
 
 
 def random_exchange_inputs(dev, nang: int, nprim: int, nelem: int, nlm: int, no: int,
@@ -893,6 +970,7 @@ def sad_profile(label: str, solve, hf: bool) -> None:
     print(f"{label}: device time per solve {busy:.4f} ms: K1 {k1:.4f} ms, K2 {k2:.4f} ms, "
           f"K4 {k4:.4f} ms, K5 {k5:.4f} ms, eigh {eigh:.4f} ms, the rest "
           f"{busy - k1 - k2 - k4 - k5 - eigh:.4f} ms")
+    return per
 
 
 def sad_phases(dev, results: dict) -> dict:
@@ -1035,6 +1113,280 @@ def dft_phase(dev) -> dict:
     profile("Ar PBE0", SHAPES["ar"], 9, "PBE0", (*ATOMIC, *XC))
     profile("Xe PBE", SHAPES["xe"], 27, "PBE", ("radial_coulomb", *XC))
     return dft_counts
+
+
+class SpinSpy:
+    """Inside `with`: the spins of every dia_xc_fields launch (the leading
+    axis of its density), seen through the models' own references to the
+    wrapper, which it wraps and afterwards restores."""
+
+    def __enter__(self):
+        from helfem_tpu_torch.models import atomic_dft, diatomic_dft
+
+        self.modules, self.spins = (atomic_dft, diatomic_dft), []
+        self.wrapped = atomic_dft.dia_xc_fields
+
+        def spy(P, *args):
+            self.spins.append(P.shape[0])
+            return self.wrapped(P, *args)
+
+        for module in self.modules:
+            module.dia_xc_fields = spy
+        return self
+
+    def __exit__(self, *exc):
+        for module in self.modules:
+            module.dia_xc_fields = self.wrapped
+
+
+def whitening_defect(ops) -> float:
+    """max |Sinvh_b^T S_b Sinvh_b - I| over the symmetry blocks."""
+    from helfem_tpu_torch.utils.linalg import gather_blocks
+
+    M = torch.einsum("bpi,bpq,bqj->bij", ops.blk_sinvh, gather_blocks(ops.S, ops.blk_idx),
+                     ops.blk_sinvh)
+    valid = (ops.blk_idx < ops.S.shape[0]).to(M.dtype)
+    return float((M - torch.diag_embed(valid)).abs().max())
+
+
+def spin_traces(ops, res) -> tuple[float, ...]:
+    """tr(Pa S) and tr(Pb S) of a diatomic result; tr(Pa S) alone when it
+    is restricted (Pb = Pa)."""
+    from helfem_tpu_torch.utils.linalg import density_blocks
+
+    dev = ops.S.device
+    spins = [(res.orbs_a, res.occ_a)] + ([] if res.orbs_b is None else
+                                         [(res.orbs_b, res.occ_b)])
+    return tuple(float(torch.trace(density_blocks(torch.tensor(C, device=dev),
+                                                  torch.tensor(o, device=dev),
+                                                  ops.blk_idx, ops.S) @ ops.S))
+                 for C, o in spins)
+
+
+def triplet_occupations(basis, res) -> str:
+    """Error text unless every occupation is 0 or 1 and alpha has exactly
+    one electron more than beta in each of the two blocks of one pi pair
+    (m = +1 and -1, one parity label): the triplet Sigma of O2's two pi*
+    electrons."""
+    labels = basis.sym_labels(True)
+    occ = np.concatenate((res.occ_a, res.occ_b))
+    if not np.all((np.abs(occ) < 1e-12) | (np.abs(occ - 1.0) < 1e-12)):
+        return "fractional occupations"
+    diff = res.occ_a.sum(1) - res.occ_b.sum(1)
+    open_ = np.nonzero(np.abs(diff) > 1e-12)[0]
+    names = [labels[b] for b in open_]
+    print(f"open-shell blocks {names} (alpha - beta {diff[open_].tolist()}); alpha, beta per "
+          f"block {list(zip(labels, res.occ_a.sum(1).tolist(), res.occ_b.sum(1).tolist()))}")
+    ok = (len(open_) == 2 and np.allclose(diff[open_], 1.0) and names[0] == names[1]
+          and names[0].startswith("pi"))
+    return "" if ok else f"not the triplet: open blocks {names}"
+
+
+def open_shell_phase(dev, results: dict) -> dict:
+    """Phase 16: open-shell diatomics and the unrestricted SAD atom (the
+    module docstring); returns each run's launch counts."""
+    from helfem_tpu_torch import kernels
+    from helfem_tpu_torch.cli.diatomic import main as diatomic_main
+    from helfem_tpu_torch.cli.gensap import VARIANTS
+    from helfem_tpu_torch.cli.gensap import main as gensap_main
+    from helfem_tpu_torch.models import sadatom
+    from helfem_tpu_torch.models.diatomic import DiatomicBasis
+    from helfem_tpu_torch.scf.common import full_sinvh
+    from helfem_tpu_torch.scf.diatomic_scf import occ_select, occupied_dia, scf_diatomic
+    from helfem_tpu_torch.utils.linalg import form_sh, rohf_update
+    from helfem_tpu_torch.utils.profiling import profile_scf
+
+    phase("16. open shells: O2 UHF, UKS-PBE and ROHF, O2 UHF at lmax=12, H2+, gensap Cr "
+          "--unrestricted and SAD-UHF Cr")
+    o2 = DiatomicBasis(**O2_SHAPE)
+    counts, energies = {}, {}
+    for label, (argv, ref, niter) in O2_CELLS.items():
+        dft = "--method" in argv
+        names = ["radial_coulomb_dia", *(XC if dft else ["radial_exchange_dia_occ"])]
+
+        def check(res, label=label, ref=ref, niter=niter, dft=dft):
+            n = res.niter
+            want = {"radial_coulomb_dia": n, "radial_exchange_dia_occ": 0 if dft else 2 * n}
+            if dft:  # the O SAD atom of the SAP guess was solved by the first cell
+                want.update({name: n for name in XC})
+            got = {name: kernels.launches[name] for name in want}
+            dE = res.E - ref
+            energies[label] = res.E
+            print(f"{label}: E - helfem_tpu = {dE:+.3e}, {n} iterations (helfem_tpu {niter}), "
+                  f"Exx {res.Exx:.10f}, Exc {res.Exc:.10f}; XC launches by spins "
+                  f"{spy.spins}")
+            if got != want:
+                return f"launches {got}, expected {want}"
+            if dft and spy.spins != [2] * n:
+                return f"dia_xc_fields ran {spy.spins} spins, expected two in each of {n}"
+            problem = triplet_occupations(o2, res)
+            if problem:
+                return problem
+            ok = res.converged and abs(dE) < 1e-8 and abs(n - niter) <= 1
+            return "" if ok else "not converged within 1e-8 Eh and +-1 iteration of helfem_tpu"
+
+        with SpinSpy() as spy:
+            counts[label] = run_cli(diatomic_main, argv, label, names, check)
+    gap = energies["O2 ROHF"] - energies["O2 UHF"]
+    print(f"O2: E(ROHF) - E(UHF) = {gap:+.6e} Eh")
+    if gap < -1e-8:
+        raise RuntimeError("O2: ROHF below UHF")
+    # K6 at O2's occupied widths, and the host's ROHF update at nbf 665
+    for no, shape in ((9, "o2_alpha"), (7, "o2_beta")):
+        args, moved, flops = dia_exchange_inputs(O2_SHAPE, dev, no=no)["radial_exchange_dia_occ"]
+        results[("radial_exchange_dia_occ", shape)] = report(
+            shape, "radial_exchange_dia_occ", compare("radial_exchange_dia_occ", args, moved,
+                                                      flops))
+    ops = o2.build_operators(dev)
+    S = ops.S.cpu().numpy()
+    rng = np.random.default_rng(83)
+    Fa, Fb, P = (X + X.T for X in rng.standard_normal((3, o2.nbf, o2.nbf)))
+    t0 = time.perf_counter()
+    Sh = form_sh(S)
+    t1 = time.perf_counter()
+    Sinvh = full_sinvh(ops.blk_idx.cpu().numpy(), ops.blk_sinvh.cpu().numpy(), o2.nbf)
+    for _ in range(3):
+        rohf_update(Fa, Fb, P, Sh, Sinvh, 9, 7)
+    t2 = time.perf_counter()
+    print(f"O2 ROHF host work at nbf {o2.nbf}: form_sh once {1e3 * (t1 - t0):.2f} ms, "
+          f"rohf_update {1e3 * (t2 - t1) / 3:.2f} ms per iteration")
+    del ops
+
+    t0 = time.perf_counter()
+    big = DiatomicBasis(**O2_L12_SHAPE)
+    big_ops = big.build_operators(dev)
+    torch.cuda.synchronize()
+    print(f"O2 UHF lmax=12: nbf {big.nbf}, basis and operators {time.perf_counter() - t0:.3f} s")
+
+    def run_big():
+        kernels.reset_launches()
+        res = scf_diatomic(big, 9, 7, method="HF", convthr=1e-7, maxit=50, ops=big_ops,
+                           guess="SAP")
+        n = res.niter
+        got = {name: kernels.launches[name] for name in (*K3, "radial_exchange_dia_occ")}
+        if got != {"radial_coulomb_dia": n, "radial_exchange_dia_occ": 2 * n}:
+            raise RuntimeError(f"O2 UHF lmax=12: launches {got}, expected K3 {n} and K6 "
+                               f"{2 * n}")
+        return res
+
+    for label in ("cold", "warm"):
+        t0 = time.perf_counter()
+        res = run_big()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        na, nb = spin_traces(big_ops, res)
+        pin = "" if O2_L12_PORT is None else f", E - pinned value {res.E - O2_L12_PORT:+.3e}"
+        print(f"O2 UHF lmax=12 {label} SCF: E = {res.E:.12f} in {res.niter} iterations, "
+              f"converged {res.converged}; wall {wall:.3f} s; tr(Pa S) - 9 = {na - 9:+.3e}, "
+              f"tr(Pb S) - 7 = {nb - 7:+.3e} (the whitening's defect "
+              f"{whitening_defect(big_ops):.2e}){pin}")
+        occ_ok = (np.allclose(res.occ_a.sum(), 9, rtol=0, atol=1e-12)
+                  and np.allclose(res.occ_b.sum(), 7, rtol=0, atol=1e-12))
+        if not (res.converged and occ_ok and abs(na - 9) < SPIN_COUNT_TOL
+                and abs(nb - 7) < SPIN_COUNT_TOL
+                and (O2_L12_PORT is None or abs(res.E - O2_L12_PORT) < 1e-8)):
+            raise RuntimeError(f"O2 UHF lmax=12 {label}: not converged, a spin count off by "
+                               f"{SPIN_COUNT_TOL:g}, or E off the pinned value by 1e-8 Eh")
+    per = profile_scf("O2 UHF lmax=12", run_big, kernels=(K3_SASS, K6_SASS), ops=(EIGH_OP,))
+    busy, eigh, k3, k6 = (per[k][0] for k in ("busy", EIGH_OP, K3_SASS, K6_SASS))
+    n6 = 2 * res.niter
+    results[("radial_exchange_dia_occ", "o2_l12_scf")] = {"device_ms": k6 / n6, "launches": n6}
+    print(f"O2 UHF lmax=12: device time per warm SCF {busy:.4f} ms: eigh {eigh:.4f} ms "
+          f"({100 * eigh / busy:.1f} %), K6 {k6:.4f} ms in {n6} launches ({k6 / n6:.4f} a "
+          f"launch, both spins' mean), K3 {k3:.4f} ms, the rest {busy - eigh - k6 - k3:.4f} ms")
+    # K6 on each spin's converged occupied columns, against its plain version
+    for spin, C, occ in (("alpha", res.orbs_a, res.occ_a), ("beta", res.orbs_b, res.occ_b)):
+        Co = occupied_dia(big_ops, torch.tensor(C, device=dev), occ_select(occ, dev))
+        args, moved, flops = exchange_inputs(big, big_ops, Co, dense=False)[
+            "radial_exchange_dia_occ"]
+        results[("radial_exchange_dia_occ", f"o2_l12_{spin}")] = report(
+            f"o2_l12_{spin} ({Co.shape[1]} columns)", "radial_exchange_dia_occ",
+            compare("radial_exchange_dia_occ", args, moved, flops, warmup=1, reps=3))
+    del args, Co
+    del big_ops
+    torch.cuda.empty_cache()
+
+    def h2p_check(res):
+        dE = res.E - H2P_EXACT
+        print(f"H2+: E - exact = {dE:+.3e}, Exx + Ecoul = {res.Exx + res.Ecoul:+.3e}, "
+              f"beta occupied {res.occ_b.sum()}")
+        ok = (res.converged and abs(dE) < 1e-8 and res.occ_b.sum() == 0
+              and abs(res.Exx + res.Ecoul) < 1e-12 * res.Ecoul)
+        return "" if ok else "not within 1e-8 Eh of the exact energy, or Exx != -Ecoul"
+
+    k36 = ["radial_coulomb_dia", "radial_exchange_dia_occ"]
+    counts["H2+"] = run_cli(diatomic_main, H2P_CLI, "H2+", k36, h2p_check, per_iter=k36)
+
+    sad_names = (*ATOMIC, *XC)
+    with tempfile.TemporaryDirectory() as tmp, SpinSpy() as spy:
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        res = gensap_main(CR_GENSAP_CLI + ["--output", f"{tmp}/result_Cr.dat",
+                                           "--device", "cuda"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        r_u = res.spin_polarised
+        got = {name: kernels.launches[name] for name in sad_names}
+        nf = res.nfock + r_u.nfock
+        want = {"radial_exchange": 0, **{name: nf for name in ("radial_coulomb", *XC)}}
+        total = (np.asarray(r_u.occs) + np.asarray(r_u.occs_b)).tolist()
+        M = int(sum(r_u.occs) - sum(r_u.occs_b) + 1)
+        dE = r_u.E - CR_U_REF
+        tables = [np.loadtxt(f"{tmp}/result{tag}_Cr.dat") for tag in VARIANTS]
+        print(f"gensap Cr --unrestricted: E = {r_u.E:.10f} (E - helfem_tpu {dE:+.3e}), "
+              f"configuration {total}, M = {M}, {len(r_u.conf_list)} configurations, "
+              f"{r_u.nfock} Fock builds (restricted leg {res.nfock}); walls: solve "
+              f"{res.walls['solve']:.3f} s, unrestricted {res.walls['unrestricted']:.3f} s, "
+              f"whole CLI {wall:.3f} s; kernel launches {got}")
+        if got != want or spy.spins != [1] * res.nfock + [2] * r_u.nfock:
+            raise RuntimeError(f"gensap Cr: launches {got}, expected {want}, or K4 spins not "
+                               "one per restricted and two per unrestricted Fock build")
+        if not (r_u.converged and abs(dE) < 1e-8 and total == [7, 12, 5] and M == 7
+                and all(t.shape[1] == 9 and np.isfinite(t).all() for t in tables)):
+            raise RuntimeError("gensap Cr: not 3d5 4s1 with M = 7 within 1e-8 Eh of "
+                               "helfem_tpu, or a potential table is not finite")
+    counts["gensap Cr"] = got
+    for name, (args, moved, flops) in atomic_xc_inputs("sad_cr", dev, ns=2).items():
+        same_bits_twice(name, args)
+        results[(name, "sad_cr2")] = report("sad_cr2 (two spins) atomic grid", name,
+                                            compare(name, args, moved, flops))
+    del args
+
+    cr = sadatom.SadAtomBasis(**CR_SHAPE)
+    cr_ops = cr.build_ops(dev)
+    X = np.random.default_rng(89).standard_normal((2 * (cr.lmax + 1), cr.nrad, 4))
+    Pang = torch.tensor(np.einsum("lik,ljk->lij", X, X), device=dev)
+    at = cr_ops.at
+    args, moved, flops = atomic_kernel_work(at.tei, at.disjL, at.disjm1L, at.Lfac, at.gidx,
+                                            Pang[None, None, 0].contiguous(),
+                                            Pang)["radial_exchange"]
+    same_bits_twice("radial_exchange", args)
+    results[("radial_exchange", "sad_cr2")] = report(
+        "sad_cr2 (two spins)", "radial_exchange", compare("radial_exchange", args, moved, flops))
+
+    def solve_cr():
+        return sadatom.solve_sadatom_unrestricted(cr, 15, 9, method="HF", convthr=1e-8,
+                                                  ops=cr_ops)
+
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    res = solve_cr()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts["SAD-UHF Cr"] = sad_launches("SAD-UHF Cr", res, hf=True)
+    dE = res.E - CR_UHF_REF
+    print(f"SAD-UHF Cr: E = {res.E:.10f} (E - helfem_tpu {dE:+.3e}), occupations "
+          f"{res.occs.tolist()} / {res.occs_b.tolist()}, {res.nfock} Fock builds, cold solve "
+          f"{wall:.3f} s; kernel launches {counts['SAD-UHF Cr']}")
+    if not (res.converged and abs(dE) < 1e-8):
+        raise RuntimeError("SAD-UHF Cr: not converged within 1e-8 Eh of helfem_tpu")
+    per = sad_profile("SAD-UHF Cr", solve_cr, hf=True)
+    k1, n1 = per[RADIAL_SASS[0]]
+    results[("radial_exchange", "sad_cr2_scf")] = {"device_ms": k1 / max(n1, 1),
+                                                   "launches": n1}
+    print(f"SAD-UHF Cr: K1 {k1 / max(n1, 1):.4f} ms device a launch (both spins)")
+    del cr_ops
+    return counts
 
 
 def main() -> None:
@@ -1335,9 +1687,12 @@ def main() -> None:
         k6 = kernels.launches["radial_exchange_dia_occ"]
         check_per_iteration(f"N2 HF lmax=12 {label}", res, kernels.launches, K3)
         dE, dcc = res.E - N2_L12_REF, res.E - N2_L12_CUDA_CORES
+        na, = spin_traces(big_ops, res)
         print(f"N2 HF lmax=12 {label} SCF: E = {res.E:.12f} in {res.niter} iterations, "
               f"converged {res.converged}; wall {wall:.3f} s; radial_exchange_dia_occ "
-              f"launches {k6}; E - reference {dE:+.3e}, E - CUDA-core value {dcc:+.3e}")
+              f"launches {k6}; E - reference {dE:+.3e}, E - CUDA-core value {dcc:+.3e}; "
+              f"tr(P S) - 14 = {2 * na - 14:+.3e} (the whitening's defect "
+              f"{whitening_defect(big_ops):.2e})")
         if not (res.converged and abs(dE) < 2e-5 and abs(dcc) < 1e-8 and k6 > 0):
             raise RuntimeError(f"N2 HF lmax=12 {label}: not converged to the reference "
                                "(2e-5) and the CUDA-core value (1e-8), or K6 never launched")
@@ -1409,6 +1764,7 @@ def main() -> None:
 
     sad_counts = sad_phases(dev, results)
     dft_counts = dft_phase(dev)
+    open_counts = open_shell_phase(dev, results)
 
     record = []
     for name, (source, replaces, shape) in KERNELS.items():
@@ -1429,6 +1785,20 @@ def main() -> None:
             extra["sad_kr_launches"] = sad_counts["sad_kr"][name]
         if name in (*ATOMIC, *XC):
             extra["phase15_launches"] = {label: c.get(name, 0) for label, c in dft_counts.items()}
+        extra["phase16_launches"] = {label: c.get(name, 0) for label, c in open_counts.items()}
+        for more in {"radial_exchange_dia_occ": ("o2_alpha", "o2_beta", "o2_l12_alpha",
+                                                 "o2_l12_beta"),
+                     "radial_exchange": ("sad_cr2",), **dict.fromkeys(XC, ("sad_cr2",))
+                     }.get(name, ()):
+            o = results[(name, more)]
+            extra.update({f"{more}_{k}": o[k] for k in
+                          ("max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms")})
+        if name in XC:
+            extra["sad_cr2_spins"] = 2
+        scf = results.get((name, {"radial_exchange_dia_occ": "o2_l12_scf",
+                                  "radial_exchange": "sad_cr2_scf"}.get(name)))
+        if scf is not None:
+            extra["open_shell_scf_device_ms_per_launch"] = scf["device_ms"]
         for sad in SAD_SHAPES if name in ATOMIC else ():
             o = results[(name, sad)]
             extra.update({f"{sad}_{k}": o[k] for k in

@@ -3,9 +3,10 @@ the PyTorch/CUDA port.
 
 A subset of helfem_tpu.cli.diatomic (flag names mirror the reference
 `diatomic` program, src/diatomic/main.cpp:89-143), plus --device. The port
-runs closed-shell HF, LDA/GGA and PBE0 from the core, SAP, GSZ or TF guess;
-flags of the JAX CLI that it does not cover are rejected with
-NotImplementedError. The per-iteration and final-energy lines match the JAX
+runs HF, LDA/GGA and PBE0, restricted, unrestricted (--restricted 0, the
+default for nela != nelb) or ROHF (--restricted 1 with nela != nelb), from
+the core, SAP, GSZ or TF guess; flags of the JAX CLI that it does not cover
+are rejected with NotImplementedError. The per-iteration and final-energy lines match the JAX
 CLI's.
 """
 
@@ -16,9 +17,8 @@ from helfem_tpu_torch.cli._common import open_device, parse_nela_nelb, reject_un
 
 # helfem_tpu.cli.diatomic flags outside this slice
 _UNPORTED_FLAGS = (
-    "nela", "nelb", "M", "lpad", "diag", "maverage", "save", "load", "Ez", "Qzz",
-    "Bz", "restricted", "symmetry", "perturb", "seed", "diisthr", "mdft", "readocc",
-    "x_pars", "c_pars", "finitenuc", "trace", "Rrms1", "Rrms2", "ndev",
+    "lpad", "diag", "maverage", "save", "load", "Ez", "Qzz", "Bz", "symmetry", "diisthr",
+    "mdft", "readocc", "x_pars", "c_pars", "finitenuc", "trace", "Rrms1", "Rrms2", "ndev",
 )
 
 
@@ -29,7 +29,10 @@ def main(argv=None):
     p.add_argument("--Z2", required=True)
     p.add_argument("--Rbond", type=float, required=True)
     p.add_argument("--angstrom", action="store_true")
+    p.add_argument("--nela", type=int, default=0)
+    p.add_argument("--nelb", type=int, default=0)
     p.add_argument("--Q", type=int, default=0, help="molecular charge")
+    p.add_argument("--M", type=int, default=0, help="spin multiplicity 2S+1 (0 = lowest)")
     p.add_argument("--lmax", required=True, help="lmax, or comma list per |m|")
     p.add_argument("--mmax", type=int, default=-1,
                    help="maximum m; if >= 0, --lmax must be a single value applied "
@@ -55,6 +58,11 @@ def main(argv=None):
     p.add_argument("--dftthr", type=float, default=1e-12)
     p.add_argument("--ldft", type=int, default=0,
                    help="eta rule order for the dft grid (0 = auto)")
+    p.add_argument("--restricted", type=int, default=-1,
+                   help="-1 auto, 0 unrestricted, 1 restricted (ROHF if open shell)")
+    p.add_argument("--perturb", type=float, default=0.0,
+                   help="random orthogonal rotation amplitude for the guess orbitals")
+    p.add_argument("--seed", type=int, default=0)
     p.add_argument("--diisorder", type=int, default=10, help="DIIS history length")
     p.add_argument("--diiseps", type=float, default=0.1,
                    help="DIIS error below which extrapolation starts mixing in")
@@ -82,7 +90,7 @@ def main(argv=None):
         lmax = tuple(int(x) for x in str(args.lmax).split(","))
     if args.iguess is not None:
         args.guess = {0: "core", 1: "GSZ", 2: "SAP", 3: "TF"}[args.iguess]
-    nela, nelb = parse_nela_nelb(Z1 + Z2, args.Q, 0, 0, 0)
+    nela, nelb = parse_nela_nelb(Z1 + Z2, args.Q, args.M, args.nela, args.nelb)
 
     timer = Timer()
     basis = DiatomicBasis(
@@ -99,7 +107,8 @@ def main(argv=None):
     t0 = time.perf_counter()
     res = scf_diatomic(
         basis, nela, nelb, method=args.method, maxit=args.maxit, convthr=args.convthr,
-        verbose=True, ops=ops, guess=args.guess, diisorder=args.diisorder,
+        verbose=True, ops=ops, guess=args.guess, restricted=args.restricted,
+        perturb=args.perturb, seed=args.seed, diisorder=args.diisorder,
         diiseps=args.diiseps, dftthr=args.dftthr, ldft=args.ldft,
     )
     if device.type == "cuda":
@@ -117,15 +126,19 @@ def main(argv=None):
         print(f"{name:<21s} energy: % .16f" % val)
     print(f"{'Virial ratio':<21s}       : % .16f" % (-res.E / res.Ekin))
     print(f"{'Electrons on grid':<21s}       : % .16f" % res.Nelgrid)
-    if nela > 0:
-        nshow = min(nela + 2, len(res.orbE_a))
-        print("\noccupied + lowest virtual orbital energies:")
+    spins = [("", nela, res.orbE_a, res.orbsym_a)]
+    if res.orbE_b is not None:
+        spins = [("alpha ", nela, res.orbE_a, res.orbsym_a),
+                 ("beta ", nelb, res.orbE_b, res.orbsym_b)]
+    for spin, nel, orbE, orbsym in spins:
+        nshow = min(nel + 2, len(orbE))
+        print(f"\n{spin}occupied + lowest virtual orbital energies:")
         for i in range(nshow):
-            tag = "occ" if i < nela else "vir"
-            print(f"  {i + 1:3d} {res.orbsym_a[i]:>8s}  % .9f  {tag}" % res.orbE_a[i])
-        if len(res.orbE_a) > nela:
-            gap = (res.orbE_a[nela] - res.orbE_a[nela - 1]) * HARTREE_IN_EV
-            print(f"HOMO-LUMO gap: {gap:.3f} eV")
+            tag = "occ" if i < nel else "vir"
+            print(f"  {i + 1:3d} {orbsym[i]:>8s}  % .9f  {tag}" % orbE[i])
+        if 0 < nel < len(orbE):
+            gap = (orbE[nel] - orbE[nel - 1]) * HARTREE_IN_EV
+            print(f"{spin}HOMO-LUMO gap: {gap:.3f} eV")
     if not res.converged:
         print("WARNING: SCF did not converge!")
     return res

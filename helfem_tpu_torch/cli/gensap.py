@@ -5,13 +5,15 @@ A subset of helfem_tpu.cli.gensap (flag names mirror the reference gensap,
 src/sadatom/main.cpp:101-143), plus --device. It runs the restricted solver
 with its occupation search and writes the SAP table result_<El>.dat;
 --savepot, --saveorb and --saveing write the xc potential, the orbitals and
-the xc ingredients. Flags of the JAX CLI that it does not cover (the
-unrestricted program, charges, finite nuclei, confinement, ...) are rejected
-with NotImplementedError.
+the xc ingredients. --unrestricted (or --restricted -1/0) then runs the
+spin-polarised solver, at a fixed multiplicity --M, with the Hund-rule
+aufbau search or with the multiplicity scan (--scan), and writes the five
+potential variants resultU/M/W/S/s_<El>.dat. Flags of the JAX CLI that it
+does not cover (finite nuclei, confinement, ...) are rejected with
+NotImplementedError.
 """
 
 import argparse
-import time
 
 import numpy as np
 
@@ -19,10 +21,13 @@ from helfem_tpu_torch.cli._common import open_device, reject_unported
 
 # helfem_tpu.cli.gensap flags outside this slice
 _UNPORTED_FLAGS = (
-    "unrestricted", "restricted", "M", "scan", "Q", "finitenuc", "Rrms", "nelem0", "grid0",
-    "zexp0", "iconf", "conf_N", "conf_R", "conf_barrier", "shift_conf", "add_conf", "zeroder",
-    "completeness", "x_pars", "c_pars", "diisthr", "taylor_order",
+    "finitenuc", "Rrms", "nelem0", "grid0", "zexp0", "iconf", "conf_N", "conf_R",
+    "conf_barrier", "shift_conf", "add_conf", "zeroder", "completeness", "x_pars", "c_pars",
+    "diisthr", "taylor_order",
 )
+# the unrestricted potential variants: file tag -> potential_table mode
+# (reference: src/sadatom/main.cpp:738-767)
+VARIANTS = {"U": "mean", "M": "average", "W": "weighted", "S": "highspin", "s": "lowspin"}
 BOHR_A = 0.529177210903
 SHELLS = "spdfgh"
 
@@ -59,7 +64,17 @@ def main(argv=None):
     p.add_argument("--nosearch", action="store_true", help="skip occupation search")
     p.add_argument("--occs", default="auto",
                    help="'auto' (search), 'hf' (Saito 2009 table), or per-l electron "
-                        "counts like '7,12,5,0'")
+                        "counts like '7,12,5,0' (with --unrestricted: 2(lmax+1) spin-"
+                        "resolved counts, or lmax+1 split by Hund's rules)")
+    p.add_argument("--restricted", type=int, default=None,
+                   help="1 restricted search, -1 unrestricted aufbau search, 0 unrestricted "
+                        "multiplicity scan (the --unrestricted/--scan pair)")
+    p.add_argument("--unrestricted", action="store_true",
+                   help="spin-polarised solve; writes resultU/M/W/S/s_<El>.dat variants")
+    p.add_argument("--M", type=int, default=0, help="spin multiplicity 2S+1 (0 = search)")
+    p.add_argument("--scan", action="store_true",
+                   help="with --unrestricted: full multiplicity scan")
+    p.add_argument("--Q", type=int, default=0, help="total charge")
     p.add_argument("--output", default="", help="result_<El>.dat path (default auto)")
     p.add_argument("--saveing", action="store_true",
                    help="write the xc-ingredient table xcing_<El>.dat")
@@ -81,28 +96,18 @@ def main(argv=None):
     args, extra = p.parse_known_args(argv)
     reject_unported(extra, _UNPORTED_FLAGS, p.prog)
 
-    import torch
-
-    from helfem_tpu_torch.models.sadatom import (
-        SadAtomBasis,
-        coulomb_screening,
-        electron_count_radius,
-        kinetic_energy_density,
-        occupied_orbital_table,
-        radial_density,
-        solve_sadatom,
-        vdw_radius,
-        xc_ingredients,
-        xc_potential_table,
-        xc_screening,
-    )
-    from helfem_tpu_torch.models.sadconf import get_configuration
+    from helfem_tpu_torch.models.sadatom import SadAtomBasis
+    from helfem_tpu_torch.models.sadconf import get_configuration, hund_rule
     from helfem_tpu_torch.ops.xc import parse_method
-    from helfem_tpu_torch.utils.elements import HARTREE_IN_EV, SYMBOLS, get_Z
+    from helfem_tpu_torch.utils.elements import SYMBOLS, get_Z
     from helfem_tpu_torch.utils.timer import Timer
 
     device = open_device(args.device)
     Z = get_Z(args.Z)
+    nel = Z - args.Q
+    if args.restricted is not None:
+        args.unrestricted = args.restricted != 1
+        args.scan = args.restricted == 0
     guess = {0: "core", 1: "GSZ", 2: "SAP", 3: "TF"}[args.iguess]
     # --pot computes the exported screening with another functional than
     # the SCF's (reference: main.cpp:672-678)
@@ -118,8 +123,21 @@ def main(argv=None):
         print(f"Saito 2009 occupations for {SYMBOLS[Z]}: {list(occs)}")
     elif args.occs != "auto":
         occs = np.array([int(x) for x in args.occs.replace(",", " ").split()])
-        if len(occs) != args.lmax + 1:
-            raise SystemExit(f"--occs needs {args.lmax + 1} entries")
+    # spin-resolved occupations (reference: main.cpp:578-590, and Hund's
+    # rules for lmax+1 entries, translate_occs at main.cpp:87-95)
+    occs_u = None
+    if occs is not None and args.unrestricted:
+        if len(occs) == 2 * (args.lmax + 1):
+            occs_u = (occs[: args.lmax + 1], occs[args.lmax + 1:])
+        elif len(occs) == args.lmax + 1:
+            occs_u = hund_rule(occs)
+            print("Used Hund's rules to translate occupations into "
+                  f"{list(occs_u[0])} + {list(occs_u[1])}")
+        else:
+            raise SystemExit(f"--occs needs {args.lmax + 1} or {2 * (args.lmax + 1)} entries")
+        occs = None
+    elif occs is not None and len(occs) != args.lmax + 1:
+        raise SystemExit(f"--occs needs {args.lmax + 1} entries")
     if args.pot != "none":
         print(f"exported potential computed with {args.pot}")
 
@@ -130,16 +148,78 @@ def main(argv=None):
     walls = {"basis": timer.lap("basis set formation")}
     ops = basis.build_ops(device)
     walls["operators"] = timer.lap("operator build")
-    t0 = time.perf_counter()
-    res = solve_sadatom(
-        basis, nel=Z, method=args.method, occs=occs, maxit=args.maxit, convthr=args.convthr,
-        guess=guess, verbose=True, ops=ops, search=not args.nosearch, shift=args.shift,
-        dftthr=args.dftthr, diisorder=args.diisorder, diiseps=args.diiseps,
-    )
+    solver_kw = dict(maxit=args.maxit, convthr=args.convthr, guess=guess, shift=args.shift,
+                     dftthr=args.dftthr, diisorder=args.diisorder, diiseps=args.diiseps,
+                     ops=ops)
+    res = None
+    if occs_u is None:
+        res = restricted_leg(args, basis, Z, nel, occs, funcs, pot_funcs, solver_kw, walls)
+    if args.unrestricted:
+        r_u = unrestricted_leg(args, basis, Z, nel, occs_u, funcs, pot_funcs, solver_kw,
+                               walls)
+        if res is None:
+            r_u.walls = walls
+            return r_u
+        res.spin_polarised = r_u
+    return res
+
+
+def _sync(device) -> None:
+    """Wait for the card, so that a wall covers the device work."""
     if device.type == "cuda":
+        import torch
+
         torch.cuda.synchronize(device)
-    walls["solve"] = time.perf_counter() - t0
-    timer.lap("SCF")
+
+
+def print_orbitals(basis, occs, orbE, orbs, restricted: bool = True) -> None:
+    """Per-orbital <r^i> moments and density-maximum radius (reference:
+    OrbitalChannel::Print, src/sadatom/solver.cpp:152-186)."""
+    from helfem_tpu_torch.models.sadatom import occupied_orbital_table
+
+    hdr = f"{'nl':>3s} {'nocc':>4s} {'E':>16s}"
+    for i in (-2, -1, 1, 2, 3):
+        hdr += f" {'<r>(' + str(i) + ')':>12s}"
+    print(hdr + f" {'r(max)':>12s}")
+    for row in occupied_orbital_table(basis, occs, orbE, orbs, restricted):
+        line = f"{row['n']:2d}{SHELLS[row['l']]} {row['nocc']:4d} " + "% 16.9f" % row["E"]
+        for i in (-2, -1, 1, 2, 3):
+            line += " %e" % row["moments"][i]
+        print(line + " %e" % row["rmax"])
+
+
+def print_radii(args, basis, Prad, nel) -> None:
+    """vdW and electron-count radii (reference: main.cpp:632-639)."""
+    from helfem_tpu_torch.models.sadatom import electron_count_radius, vdw_radius
+
+    rvdw = vdw_radius(basis, Prad, args.vdwthr)
+    print(f"\nEstimated vdW radius with density threshold {args.vdwthr:e} "
+          f"is {rvdw:.6f} bohr = {rvdw * BOHR_A:.6f} A")
+    print("Note that this criterion is sensitive to numerical noise.")
+    rincl = electron_count_radius(basis, Prad, nel - args.eps_el)
+    print(f"Estimated vdW radius with electron count threshold "
+          f"{args.eps_el:e} is {rincl:.6f} bohr = {rincl * BOHR_A:.6f} A")
+
+
+def restricted_leg(args, basis, Z, nel, occs, funcs, pot_funcs, solver_kw, walls):
+    """The restricted solve or search, its printout and the SAP table."""
+    from helfem_tpu_torch.models.sadatom import (
+        coulomb_screening,
+        kinetic_energy_density,
+        radial_density,
+        solve_sadatom,
+        xc_ingredients,
+        xc_potential_table,
+        xc_screening,
+    )
+    from helfem_tpu_torch.utils.elements import HARTREE_IN_EV, SYMBOLS
+    from helfem_tpu_torch.utils.timer import Timer
+
+    timer = Timer()
+    res = solve_sadatom(basis, nel=nel, method=args.method, occs=occs, verbose=True,
+                        search=not args.nosearch, **solver_kw)
+    _sync(solver_kw["ops"].device)
+    walls["solve"] = timer.lap("SCF")
     res.walls = walls
     if res.conf_list and len(res.conf_list) > 1:
         # energy-ordered configuration list (reference: main.cpp:350-365)
@@ -154,17 +234,7 @@ def main(argv=None):
             print(line)
     occstr = " ".join(f"{SHELLS[l]}^{n}" for l, n in enumerate(res.occs) if n)
     print(f"\nConfiguration: {occstr}")
-    # per-orbital <r^i> moments and density-maximum radius (reference:
-    # OrbitalChannel::Print, src/sadatom/solver.cpp:152-186)
-    hdr = f"{'nl':>3s} {'nocc':>4s} {'E':>16s}"
-    for i in (-2, -1, 1, 2, 3):
-        hdr += f" {'<r>(' + str(i) + ')':>12s}"
-    print(hdr + f" {'r(max)':>12s}")
-    for row in occupied_orbital_table(basis, res.occs, res.orbE, res.orbs):
-        line = f"{row['n']:2d}{SHELLS[row['l']]} {row['nocc']:4d} " + "% 16.9f" % row["E"]
-        for i in (-2, -1, 1, 2, 3):
-            line += " %e" % row["moments"][i]
-        print(line + " %e" % row["rmax"])
+    print_orbitals(basis, res.occs, res.orbE, res.orbs)
     print("Etot  = % 18.9f" % res.E)
     print("Ekin  = % 18.9f" % res.Ekin)
     print("Ecoul = % 18.9f" % res.Ecoul)
@@ -172,14 +242,7 @@ def main(argv=None):
     print("Exc   = % 18.9f" % (res.Exx + res.Exc))
 
     Prad = res.Pl.sum(axis=0)
-    # vdW and electron-count radii (reference: main.cpp:632-639)
-    rvdw = vdw_radius(basis, Prad, args.vdwthr)
-    print(f"\nEstimated vdW radius with density threshold {args.vdwthr:e} "
-          f"is {rvdw:.6f} bohr = {rvdw * BOHR_A:.6f} A")
-    print("Note that this criterion is sensitive to numerical noise.")
-    rincl = electron_count_radius(basis, Prad, Z - args.eps_el)
-    print(f"Estimated vdW radius with electron count threshold "
-          f"{args.eps_el:e} is {rincl:.6f} bohr = {rincl * BOHR_A:.6f} A")
+    print_radii(args, basis, Prad, nel)
 
     # SAP potential table (reference: RestrictedPotential's 9 columns)
     r, n, dn, ln, wt = radial_density(basis, Prad)
@@ -207,6 +270,73 @@ def main(argv=None):
     if not res.converged:
         print("WARNING: SCF did not converge!")
     return res
+
+
+def unrestricted_leg(args, basis, Z, nel, occs_u, funcs, pot_funcs, solver_kw, walls):
+    """The spin-polarised solve: a fixed spin-resolved configuration, a
+    fixed multiplicity with aufbau occupations, or the configuration search
+    (reference: main.cpp:578-767); its printout, radii and the five
+    potential-variant tables (beside --output when it names a path)."""
+    import os
+
+    from helfem_tpu_torch.models.sadatom import (
+        potential_table,
+        search_sadatom_unrestricted,
+        solve_sadatom_unrestricted,
+        xc_potential_table,
+    )
+    from helfem_tpu_torch.utils.elements import HARTREE_IN_EV, SYMBOLS
+    from helfem_tpu_torch.utils.timer import Timer
+
+    timer = Timer()
+    if occs_u is not None:
+        oa, ob = (np.asarray(o, dtype=int) for o in occs_u)
+        r_u = solve_sadatom_unrestricted(basis, int(oa.sum()), int(ob.sum()),
+                                         method=args.method, occs_a=oa, occs_b=ob,
+                                         verbose=True, **solver_kw)
+        M = int(oa.sum() - ob.sum() + 1)
+        if not r_u.converged:
+            print("WARNING: unrestricted solve did not converge")
+    elif args.M > 0:
+        nela = (nel + args.M - 1) // 2
+        r_u = solve_sadatom_unrestricted(basis, nela, nel - nela, method=args.method,
+                                         **solver_kw)
+        M = args.M
+        if not r_u.converged:
+            raise SystemExit("unrestricted solve did not converge")
+    else:
+        r_u = search_sadatom_unrestricted(basis, nel=nel, method=args.method,
+                                          mode="scan" if args.scan else "aufbau", **solver_kw)
+        print(f"\nMinimal energy spin states for {SYMBOLS[Z]}")
+        E0 = r_u.conf_list[0][1]
+        for i, ((oa, ob), E, conv) in enumerate(r_u.conf_list):
+            occfmt = " ".join(f"{n:2d}" for n in (*oa, *ob))
+            line = f"{sum(oa) - sum(ob) + 1:2d}:  {occfmt}  {E:+.10f}"
+            if i > 0:
+                line += f" {(E - E0) * HARTREE_IN_EV:11.6f}"
+            if not conv:
+                line += "  convergence failure"
+            print(line)
+        M = int(sum(r_u.occs) - sum(r_u.occs_b) + 1)
+    _sync(solver_kw["ops"].device)
+    walls["unrestricted"] = timer.lap("unrestricted SCF")
+    print(f"selected multiplicity {M}, E = {r_u.E:.9f}")
+    for tag, occ, E, C in (("alpha", r_u.occs, r_u.orbE, r_u.orbs),
+                           ("beta", r_u.occs_b, r_u.orbE_b, r_u.orbs_b)):
+        if np.asarray(occ).any():
+            print(f"{tag} orbitals:")
+            print_orbitals(basis, occ, E, C, restricted=False)
+    print_radii(args, basis, (r_u.Pl + r_u.Plb).sum(axis=0), nel)
+    if args.savepot:
+        rp, va, vb = xc_potential_table(basis, r_u.Pl, r_u.Plb, funcs)
+        np.savetxt("xcpot.dat", np.column_stack([rp, va, vb]))
+        print("xc potential written to xcpot.dat")
+    for tag, mode in VARIANTS.items():
+        path = os.path.join(os.path.dirname(args.output), f"result{tag}_{SYMBOLS[Z]}.dat")
+        np.savetxt(path, potential_table(basis, r_u.Pl, r_u.Plb, pot_funcs, mode=mode))
+        print(f"{mode} potential written to {path}")
+    return r_u
+
 
 
 if __name__ == "__main__":

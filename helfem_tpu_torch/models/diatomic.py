@@ -578,7 +578,11 @@ def exchange_dia_occ(ops: DiatomicOperators, Co: torch.Tensor,
     cross-element Q x R x P terms and the assembly) is the kernel
     radial_exchange_dia_occ, launched once for all channels (once per
     column chunk past the widest occupied width its shared-memory plan
-    admits). The dense R never exists in device memory."""
+    admits). The dense R never exists in device memory. No column (a spin
+    with no electron, as beta in H2+) is the zero density: K = 0, and no
+    kernel launches."""
+    if Co.shape[-1] == 0:
+        return torch.zeros((Co.shape[0], Co.shape[0]), dtype=Co.dtype, device=Co.device)
     Uw, V = exchange_factors(ops, Co, sgn)
     K4 = radial_exchange_dia_occ(Uw, V, ops.teiJ3, ops.dP0, ops.dP2, ops.dQ0, ops.dQ2,
                                  ops.step_ilm, ops.gidx)

@@ -1,5 +1,6 @@
 """Spherically averaged atom solver (sadatom / gensap), ported from
-helfem_tpu/models/sadatom.py for the restricted solver.
+helfem_tpu/models/sadatom.py: the restricted and the unrestricted
+(spin-polarised) solvers and their configuration searches.
 
 Orbitals live in per-l radial channels with integer shell occupations
 (fractional filling of a degenerate shell by capacity weighting); the
@@ -13,7 +14,8 @@ density is spherically averaged, so
     (reference: sadatom TwoDBasis::exchange, src/sadatom/basis.cpp:360-460).
     The radial kernel is linear in its density, so ONE radial_exchange
     launch (K1) on the m-averaged cube Pang gives KK[L, k] for every (L, k)
-    and K[o] = -sum_{L,k} Lfac_L totcoup[L, o, k] KK[L, k];
+    and K[o] = -sum_{L,k} Lfac_L totcoup[L, o, k] KK[L, k]; unrestricted,
+    both spins' cubes go through that one launch as 2 nl channels;
   * XC lives on a radial-only grid: the single-angle case of the atomic
     grid (nang = 1, nt = 1, TT = 1/(4 pi), dTT = 0), built once with the
     operators, so the XC kernels dia_xc_fields (K4) and dia_xc_fock (K5)
@@ -21,13 +23,14 @@ density is spherically averaged, so
 
 The per-l channel axis is a batch axis: one batched whitened eigensolve
 (torch.linalg.eigh with helfem_tpu's refinement passes) across all
-channels. After two host iterations (numpy DIIS) the SCF runs as steps over
-device tensors, with the level shift switched off on the device once the
-DIIS error drops below 1e-3, and one boolean per iteration back to the host.
+channels, of both spins when unrestricted. After two host iterations (numpy
+DIIS) the SCF runs as steps over device tensors, with the level shift
+switched off on the device once the DIIS error drops below 1e-3, and one
+boolean per iteration back to the host.
 
 Not ported (they raise NotImplementedError): finite nuclei, confinement,
-the nuclear sub-grid and --zeroder (ROADMAP queue 1 item 8), the
-unrestricted solver and its searches (queue 1 item 5), meta-GGAs.
+the nuclear sub-grid and --zeroder (ROADMAP queue 1 item 8), the sliding
+DIIS/ADIIS switch --diisthr, meta-GGAs.
 """
 
 from collections.abc import Mapping
@@ -49,17 +52,19 @@ from helfem_tpu_torch.ops.grids import form_grid
 from helfem_tpu_torch.ops.polynomials import get_basis
 from helfem_tpu_torch.ops.radial import RadialBasis
 from helfem_tpu_torch.ops.xc import parse_method
-from helfem_tpu_torch.scf.common import vdot
+from helfem_tpu_torch.scf.common import reject_unported, vdot
 from helfem_tpu_torch.scf.diis import DIIS, device_diis_step
 from helfem_tpu_torch.scf.guess import potential
 from helfem_tpu_torch.utils.linalg import eigh_refined, form_sinvh
 
 __all__ = ["SadAtomBasis", "SadOps", "SadResult", "from_jax_sad_ops", "sad_coulomb",
-           "sad_exchange", "sad_xc", "solve_sadatom", "sap_potential_table", "totcoup_table"]
+           "sad_exchange", "sad_xc", "search_sadatom_unrestricted", "solve_sadatom",
+           "solve_sadatom_unrestricted", "sap_potential_table", "totcoup_table"]
 
 _ITEM8 = "is not ported to helfem_tpu_torch yet (ROADMAP.md queue 1 item 8)"
-_ITEM5 = ("the unrestricted spherically averaged solver is not ported to helfem_tpu_torch "
-          "yet (ROADMAP.md queue 1 item 5)")
+# options of helfem_tpu's unrestricted solver and search that the port does
+# not cover, with the default under which they are inert
+_UNPORTED = {"diisthr": None}
 
 
 def totcoup_table(lmax: int) -> np.ndarray:
@@ -206,13 +211,16 @@ class SadAtomBasis:
 
 
 def sad_exchange(ops: SadOps, Pang: torch.Tensor) -> torch.Tensor:
-    """l-resolved exchange cube K[nl, nrad, nrad] (negative contribution)
-    from the m-averaged angular density cube Pang[nl, nrad, nrad]: one
-    radial_exchange call for every (L, channel), then the totcoup and Lfac
-    contraction (helfem_tpu's per-L scan, sadatom.py:181-199, by linearity)."""
+    """l-resolved exchange cube K[..., nl, nrad, nrad] (negative
+    contribution) from the m-averaged angular density cube Pang[..., nl,
+    nrad, nrad] (a leading spin axis optional): one radial_exchange call for
+    every (L, channel) of every spin, then the totcoup and Lfac contraction
+    (helfem_tpu's per-L scan, sadatom.py:181-199, by linearity)."""
     at = ops.at
-    KK = radial_exchange(at.tei, at.disjL, at.disjm1L, at.gidx, Pang.contiguous())
-    return -torch.einsum("L,Lok,LkIJ->oIJ", at.Lfac, ops.totcoup, KK)
+    KK = radial_exchange(at.tei, at.disjL, at.disjm1L, at.gidx,
+                         Pang.reshape(-1, *Pang.shape[-2:]).contiguous())
+    KK = KK.reshape(KK.shape[0], *Pang.shape)
+    return -torch.einsum("L,Lok,L...kIJ->...oIJ", at.Lfac, ops.totcoup, KK)
 
 
 def sad_coulomb(ops: SadOps, Pr: torch.Tensor) -> torch.Tensor:
@@ -235,9 +243,10 @@ def sad_xc(funcs, ops: SadOps, Pla: torch.Tensor, Plb: torch.Tensor, thr: float 
 
 def make_sad_fock(funcs, kfrac: float, nl: int, dftthr: float = 1e-12):
     """fock(ops, Pla, Plb, Panga, Pangb) -> (Fla, Flb, Ekin, Enuc, Ecoul,
-    Exx, Exc, Nel) (sadatom.py:409-439). One K2 launch per call, and one K1
-    launch when kfrac != 0 and Pangb is Panga (the restricted solver's
-    call); the energies are device scalars."""
+    Exx, Exc, Nel) (sadatom.py:409-439). One K2 launch per call, on the
+    total density; when kfrac != 0 one K1 launch, for Panga alone when
+    Pangb is Panga (the restricted solver's call) and for both spins'
+    stacked cubes otherwise; the energies are device scalars."""
 
     def fock(ops: SadOps, Pla, Plb, Panga, Pangb):
         Pl = Pla + Plb
@@ -249,8 +258,10 @@ def make_sad_fock(funcs, kfrac: float, nl: int, dftthr: float = 1e-12):
         zero = torch.zeros((), dtype=Pl.dtype, device=Pl.device)
         Exx = Exc = Nel = zero
         if kfrac != 0.0:
-            Ka = kfrac * sad_exchange(ops, Panga)
-            Kb = Ka if Pangb is Panga else kfrac * sad_exchange(ops, Pangb)
+            if Pangb is Panga:
+                Ka = Kb = kfrac * sad_exchange(ops, Panga)
+            else:
+                Ka, Kb = kfrac * sad_exchange(ops, torch.stack((Panga, Pangb)))
             Fla, Flb = Fla + Ka, Flb + Kb
             Exx = 0.5 * (vdot(Pla, Ka) + vdot(Plb, Kb))
         if funcs:
@@ -269,15 +280,15 @@ def make_sad_fock(funcs, kfrac: float, nl: int, dftthr: float = 1e-12):
 # ----------------------------------------------------------------------------
 
 
-def density_cubes(C: np.ndarray, occs: np.ndarray):
+def density_cubes(C: np.ndarray, occs: np.ndarray, restricted: bool = True):
     """(Pl, Pang): integer-occupation and capacity-averaged density cubes
     from orbitals C[nl, nrad, nmo] and per-l electron counts occs[nl]
-    (restricted capacities)."""
+    (restricted capacities 2(2l+1), or 2l+1 for one spin)."""
     nl, nrad, _ = C.shape
     Pl = np.zeros((nl, nrad, nrad))
     Pang = np.zeros((nl, nrad, nrad))
     for l in range(nl):
-        cap = shell_capacity(l, True)
+        cap = shell_capacity(l, restricted)
         left = int(occs[l])
         io = 0
         while left > 0:
@@ -290,14 +301,14 @@ def density_cubes(C: np.ndarray, occs: np.ndarray):
     return Pl, Pang
 
 
-def occ_weight_vectors(occs: np.ndarray, nl: int, nmo: int):
+def occ_weight_vectors(occs: np.ndarray, nl: int, nmo: int, restricted: bool = True):
     """(occw, angw)[nl, nmo]: per-orbital electron counts and capacity-
     averaged angular weights for fixed per-l electron counts, the static-
-    occupation form of density_cubes (restricted capacities)."""
+    occupation form of density_cubes."""
     occw = np.zeros((nl, nmo))
     angw = np.zeros((nl, nmo))
     for l in range(nl):
-        cap = shell_capacity(l, True)
+        cap = shell_capacity(l, restricted)
         left = int(occs[l])
         io = 0
         while left > 0:
@@ -317,43 +328,62 @@ def eig_channels(Fl: torch.Tensor, Sinvh: torch.Tensor):
     return E, torch.einsum("pi,lij->lpj", Sinvh, V)
 
 
-def eig_channels_shifted(Fl: np.ndarray, C_prev: np.ndarray, occs, S: np.ndarray,
-                         Sinvh: torch.Tensor, shift: float):
-    """Level-shifted channel eigensolve: the virtual orbitals of each l
-    channel are pushed up by `shift` via S Cv Cv^T S before diagonalizing
-    (reference: OrbitalChannel::UpdateOrbitalsShifted, solver.cpp:351-380)."""
+def shifted_fock(Fl: np.ndarray, C_prev: np.ndarray, occs, S: np.ndarray, shift: float,
+                 restricted: bool = True) -> np.ndarray:
+    """The channel Fock cube with the virtual orbitals of each l channel
+    pushed up by `shift` via S Cv Cv^T S (reference:
+    OrbitalChannel::UpdateOrbitalsShifted, solver.cpp:351-380). Host numpy."""
     Fl = np.array(Fl, copy=True)
     for l in range(Fl.shape[0]):
-        cap = shell_capacity(l, True)
+        cap = shell_capacity(l, restricted)
         nsh = int(np.ceil(occs[l] / cap)) if occs[l] > 0 else 0
         if nsh:
             Cv = C_prev[l][:, nsh:]
             Fl[l] += shift * (S @ Cv) @ (Cv.T @ S)
-    return eig_channels(torch.as_tensor(Fl, device=Sinvh.device), Sinvh)
+    return Fl
+
+
+def _channel_error(Fl, Pl, S, Sinvh):
+    """DIIS error Sinvh^T (F P S - its transpose) Sinvh of every channel."""
+    FPS = torch.einsum("lpq,lqr,rs->lps", Fl, Pl, S)
+    return torch.einsum("pi,lpq,qj->lij", Sinvh, FPS - FPS.transpose(1, 2), Sinvh).reshape(-1)
 
 
 def make_sad_step(funcs, kfrac: float, nl: int, dftthr: float = 1e-12, shift: float = 1.0):
-    """One restricted SCF iteration on the device (the restricted body of
-    helfem_tpu's make_sad_fused_chunk, sadatom.py:325-405): density ->
-    Fock -> C2-DIIS (history updated in place) -> eigensolve with the level
-    shift on the previous virtuals while the DIIS error is above 1e-3."""
+    """One SCF iteration on the device (the body of helfem_tpu's
+    make_sad_fused_chunk, sadatom.py:325-405): densities -> Fock -> C2-DIIS
+    (history updated in place) -> eigensolve with the level shift on the
+    previous virtuals while the DIIS error is above 1e-3. occw, angw and C
+    are tuples with one entry per spin (one when restricted, whose density
+    is split evenly over the spins); unrestricted, the DIIS error is both
+    spins' concatenated, the history holds the spin-stacked Focks, K1 runs
+    once for both spins and both spins' 2 nl channels go through one
+    batched eigensolve."""
     fock = make_sad_fock(funcs, kfrac, nl, dftthr)
 
     def step(ops: SadOps, occw, angw, C, histF, histE, count):
         S, Sinvh = ops.at.S, ops.at.Sinvh_rad
-        Ph = torch.einsum("lpk,lk,lqk->lpq", C, occw, C) / 2.0
-        Pang = torch.einsum("lpk,lk,lqk->lpq", C, angw, C)
-        Fl, _, Ekin, Enuc, Ecoul, Exx, Exc, Nel = fock(ops, Ph, Ph, Pang, Pang)
-        FPS = torch.einsum("lpq,lqr,rs->lps", Fl, Ph, S)
-        err = torch.einsum("pi,lpq,qj->lij", Sinvh, FPS - FPS.transpose(1, 2),
-                           Sinvh).reshape(-1)
+        restricted = len(C) == 1
+        Pl = [torch.einsum("lpk,lk,lqk->lpq", c, w, c) for c, w in zip(C, occw)]
+        Pang = [torch.einsum("lpk,lk,lqk->lpq", c, w, c) for c, w in zip(C, angw)]
+        if restricted:
+            Pl = [Pl[0] / 2.0]
+        Fla, Flb, Ekin, Enuc, Ecoul, Exx, Exc, Nel = fock(ops, Pl[0], Pl[-1], Pang[0],
+                                                          Pang[-1])
+        F = (Fla, Flb)[:len(C)]
+        err = torch.cat([_channel_error(f, p, S, Sinvh) for f, p in zip(F, Pl)])
         errmax = torch.max(torch.abs(err))
-        Fuse, count = device_diis_step(histF, histE, count, Fl, err)
+        Fuse, count = device_diis_step(histF, histE, count,
+                                       F[0] if restricted else torch.stack(F), err)
         shift_eff = shift * (errmax > 1e-3).to(errmax.dtype)
-        SC = torch.einsum("pq,lqk->lpk", S, C * (occw <= 0.0).to(C.dtype)[:, None, :])
-        E, Cn = eig_channels(Fuse + shift_eff * torch.einsum("lpk,lrk->lpr", SC, SC), Sinvh)
+        Fsh = []
+        for f, c, w in zip(Fuse.reshape(-1, nl, *Fuse.shape[-2:]), C, occw):
+            SC = torch.einsum("pq,lqk->lpk", S, c * (w <= 0.0).to(c.dtype)[:, None, :])
+            Fsh.append(f + shift_eff * torch.einsum("lpk,lrk->lpr", SC, SC))
+        E, Cn = eig_channels(torch.cat(Fsh), Sinvh)
         Etot = Ekin + Enuc + Ecoul + Exx + Exc
-        return Cn, E, count, Etot, errmax, torch.stack([Ekin, Ecoul, Exx, Exc, Nel])
+        return (Cn.split(nl), E.split(nl), count, Etot, errmax,
+                torch.stack([Ekin, Ecoul, Exx, Exc, Nel]))
 
     return step
 
@@ -361,13 +391,13 @@ def make_sad_step(funcs, kfrac: float, nl: int, dftthr: float = 1e-12, shift: fl
 def make_sad_chunk(funcs, kfrac: float, nl: int, dftthr: float = 1e-12, shift: float = 1.0):
     """Up to `nrun` device steps with the convergence test (err < convthr
     and |dE| < convthr, the host loop's own) on the device after each; the
-    occupations are fixed. Returns the per-step orbitals, eigenvalues,
-    energies, errors and energy components, the new DIIS count and the
-    number of steps run."""
+    occupations are fixed. Returns the per-step orbitals and eigenvalues
+    (a tuple per spin), energies, errors and energy components, the new
+    DIIS count and the number of steps run."""
     step = make_sad_step(funcs, kfrac, nl, dftthr, shift)
 
     def chunk(ops, occw, angw, C, histF, histE, count, convthr, Eprev, nrun):
-        Ep = torch.tensor(Eprev, dtype=torch.float64, device=C.device)
+        Ep = torch.tensor(Eprev, dtype=torch.float64, device=C[0].device)
         Cs, Es, Etots, errs, comps = [], [], [], [], []
         for _ in range(nrun):
             C, E, count, Etot, errmax, comp = step(ops, occw, angw, C, histF, histE, count)
@@ -390,7 +420,7 @@ def make_sad_chunk(funcs, kfrac: float, nl: int, dftthr: float = 1e-12, shift: f
 class SadResult:
     converged: bool
     E: float
-    occs: np.ndarray
+    occs: np.ndarray  # per-l electron counts (alpha's when unrestricted)
     Ekin: float
     Ecoul: float
     Exx: float
@@ -398,9 +428,17 @@ class SadResult:
     orbE: np.ndarray  # [nl, nmo]
     orbs: np.ndarray
     Pl: np.ndarray
+    # beta of the unrestricted solver (None when restricted)
+    occs_b: np.ndarray | None = None
+    Plb: np.ndarray | None = None
+    orbE_b: np.ndarray | None = None
+    orbs_b: np.ndarray | None = None
     # energy-ordered configuration list from the ground-state search:
-    # [(occs_key, E, converged)] with occs_key the per-l electron counts
+    # [(occs_key, E, converged)] with occs_key the per-l electron counts, or
+    # an (occa, occb) pair of them when unrestricted
     conf_list: list | None = None
+    # gensap --unrestricted: the spin-polarised solve beside this restricted one
+    spin_polarised: "SadResult | None" = None
     niter: int = 0  # SCF iterations of the reported configuration
     nfock: int = 0  # Fock builds over every configuration solved
     walls: dict = field(default_factory=dict)  # phase -> seconds (CLI)
@@ -411,12 +449,243 @@ class SadResult:
 # ----------------------------------------------------------------------------
 
 
-def solve_sadatom_unrestricted(*args, **kwargs):
-    raise NotImplementedError(_ITEM5)
+def _guess_channels(basis: SadAtomBasis, ops: SadOps, guess: str):
+    """(E [nl, nrad], C [nl, nrad, nrad]) on the host: the channel
+    eigenpairs of the kinetic energy plus the guess model potential."""
+    nl = basis.lmax + 1
+    rb = basis.rb
+    Vg = torch.as_tensor(rb.model_potential(potential(guess, basis.Z, device=ops.device)(rb.r)),
+                         dtype=torch.float64, device=ops.device)
+    ll1 = torch.as_tensor(np.arange(nl) * (np.arange(nl) + 1.0), dtype=torch.float64,
+                          device=ops.device)
+    Hg = (ops.at.T + Vg)[None] + ll1[:, None, None] * ops.Tl[None]
+    E, C = eig_channels(Hg, ops.at.Sinvh_rad)
+    return E.cpu().numpy(), C.cpu().numpy()
 
 
-def search_sadatom_unrestricted(*args, **kwargs):
-    raise NotImplementedError(_ITEM5)
+def _sad_ops(basis: SadAtomBasis, ops: SadOps | None, device, fn: str) -> SadOps:
+    if ops is None:
+        if device is None:
+            raise ValueError(f"{fn} needs a device (or prebuilt ops)")
+        ops = basis.build_ops(device)
+    return ops
+
+
+def solve_sadatom_unrestricted(
+    basis: SadAtomBasis,
+    nela: int,
+    nelb: int,
+    method: str = "HF",
+    occs_a: np.ndarray | None = None,
+    occs_b: np.ndarray | None = None,
+    maxit: int = 128,
+    convthr: float = 1e-7,
+    guess: str = "TF",
+    verbose: bool = False,
+    ops: SadOps | None = None,
+    shift: float = 1.0,
+    dftthr: float = 1e-12,
+    diisorder: int = 10,
+    diiseps: float = 0.1,
+    device=None,
+    **unported,
+) -> SadResult:
+    """Spin-polarised spherically averaged SCF (helfem_tpu's
+    solve_sadatom_unrestricted, sadatom.py:816-992; reference: the uconf_t
+    path of src/sadatom/solver.cpp): occupations per l channel and spin,
+    capacities 2l+1 per spin. occs_a and occs_b given fix the configuration;
+    otherwise the aufbau occupations of each spin are refreshed after every
+    host iteration and every device chunk (fixed chunks of 4, as
+    helfem_tpu's). Each Fock build launches K2 once on the total density,
+    K1 once for both spins' stacked cubes (HF and hybrids) and K4/K5 once
+    with two spins (functionals). The operators are built on `device`
+    unless `ops` is given, in which case the solve runs on ops' device."""
+    reject_unported(unported, _UNPORTED, "solve_sadatom_unrestricted")
+    fixed = occs_a is not None and occs_b is not None
+    ops = _sad_ops(basis, ops, device, "solve_sadatom_unrestricted")
+    device = ops.device
+    nl, nrad = basis.lmax + 1, basis.nrad
+    funcs, kfrac = parse_method(method)
+    funcs = tuple(funcs)
+    fock = make_sad_fock(funcs, kfrac, nl, dftthr)
+    S_np = ops.at.S.cpu().numpy()
+    Sinvh_np = ops.at.Sinvh_rad.cpu().numpy()
+    Sinvh = ops.at.Sinvh_rad
+
+    def as_dev(x) -> torch.Tensor:
+        return torch.as_tensor(np.asarray(x), dtype=torch.float64, device=device)
+
+    Ea, Ca = _guess_channels(basis, ops, guess)
+    Eb, Cb = Ea.copy(), Ca
+    if occs_a is None:
+        occs_a = aufbau_occs(Ea, nela, False)
+    if occs_b is None:
+        occs_b = aufbau_occs(Eb, nelb, False)
+    diis = DIIS(S_np, Sinvh_np, max_hist=diisorder, diis_eps=diiseps, adiis=False)
+    Eold, Etot, converged = 0.0, 0.0, False
+    Ekin = Ecoul = Exx = Exc = 0.0
+    out = None
+    warmup, CH = 2, 4
+    chunk = None
+    it = 0
+    while it < maxit:
+        it += 1
+        if it > warmup:
+            if chunk is None:
+                chunk = make_sad_chunk(funcs, kfrac, nl, dftthr, shift)
+                histF = torch.zeros((diisorder, 2, nl, nrad, nrad), dtype=torch.float64,
+                                    device=device)
+                histE = torch.zeros((diisorder, 2 * nl * nrad * nrad), dtype=torch.float64,
+                                    device=device)
+                count = 0
+            wa = occ_weight_vectors(occs_a, nl, nrad, False)
+            wb = occ_weight_vectors(occs_b, nl, nrad, False)
+            Cs, Es, count, Etots, errs, comps, kmax = chunk(
+                ops, (as_dev(wa[0]), as_dev(wb[0])), (as_dev(wa[1]), as_dev(wb[1])),
+                (as_dev(Ca), as_dev(Cb)), histF, histE, count, float(convthr), Eold,
+                min(CH, maxit - it + 1))
+            Etots = Etots.cpu().numpy()
+            errs = errs.cpu().numpy()
+            k = 0
+            for k in range(kmax):
+                Etot = float(Etots[k])
+                err = float(errs[k])
+                dE = Etot - Eold
+                Eold = Etot
+                if verbose:
+                    print(f"  it {it + k:3d} E={Etot:+.10f} dE={dE:+.2e} err={err:.2e}")
+                if err < convthr and abs(dE) < convthr:
+                    converged = True
+                    break
+            it += k
+            Ekin, Ecoul, Exx, Exc = (float(x) for x in comps[k][:4].cpu())
+            if converged or it >= maxit:
+                # orbitals consistent with the reported Etot: step k's energy
+                # comes from the post-eigh orbitals of step k-1 (the chunk
+                # input for k = 0), as in the restricted solver
+                if k > 0:
+                    (Ca, Cb), (Ea, Eb) = ([x.cpu().numpy() for x in Cs[k - 1]],
+                                          [x.cpu().numpy() for x in Es[k - 1]])
+                out = (Etot, Ekin, Ecoul, Exx, Exc)
+                break
+            (Ca, Cb), (Ea, Eb) = ([x.cpu().numpy() for x in Cs[k]],
+                                  [x.cpu().numpy() for x in Es[k]])
+            if not fixed:
+                occs_a = aufbau_occs(Ea, nela, False)
+                occs_b = aufbau_occs(Eb, nelb, False)
+            continue
+
+        Pla, Panga = density_cubes(Ca, occs_a, False)
+        Plb, Pangb = density_cubes(Cb, occs_b, False)
+        Fla, Flb, Ekin_, Enuc, Ecoul_, Exx_, Exc_, _ = fock(
+            ops, as_dev(Pla), as_dev(Plb), as_dev(Panga), as_dev(Pangb))
+        Etot = float(Ekin_ + Enuc + Ecoul_ + Exx_ + Exc_)
+        Ekin, Ecoul, Exx, Exc = float(Ekin_), float(Ecoul_), float(Exx_), float(Exc_)
+        dE = Etot - Eold
+        Eold = Etot
+        Fa, Fb = Fla.cpu().numpy(), Flb.cpu().numpy()
+        errv = []
+        for l in range(nl):
+            for F_, P_ in ((Fa[l], Pla[l]), (Fb[l], Plb[l])):
+                FPS = F_ @ P_ @ S_np
+                errv.append((Sinvh_np.T @ (FPS - FPS.T) @ Sinvh_np).ravel())
+        err = diis.update_with_error([Fa[l] for l in range(nl)] + [Fb[l] for l in range(nl)],
+                                     np.concatenate(errv))
+        if verbose:
+            print(f"  it {it:3d} E={Etot:+.10f} dE={dE:+.2e} err={err:.2e}")
+        if err < convthr and abs(dE) < convthr and it > 1:
+            converged = True
+        if converged or it == maxit:
+            out = (Etot, Ekin, Ecoul, Exx, Exc)
+            break
+        sols = diis.solve()
+        Fa, Fb = np.stack(sols[:nl]), np.stack(sols[nl:])
+        if err > 1e-3 and shift != 0.0:
+            # level shift on the virtuals until DIIS takes over
+            # (reference: solver.cpp:1190-1193)
+            Fa = shifted_fock(Fa, Ca, occs_a, S_np, shift, False)
+            Fb = shifted_fock(Fb, Cb, occs_b, S_np, shift, False)
+        E, C = eig_channels(as_dev(np.concatenate((Fa, Fb))), Sinvh)
+        E, C = E.cpu().numpy(), C.cpu().numpy()
+        Ea, Eb, Ca, Cb = E[:nl], E[nl:], C[:nl], C[nl:]
+        if not fixed:
+            occs_a = aufbau_occs(Ea, nela, False)
+            occs_b = aufbau_occs(Eb, nelb, False)
+
+    Etot, Ekin, Ecoul, Exx, Exc = out
+    Pla, _ = density_cubes(Ca, occs_a, False)
+    Plb, _ = density_cubes(Cb, occs_b, False)
+    return SadResult(
+        converged=converged, E=Etot, occs=np.asarray(occs_a), Ekin=Ekin, Ecoul=Ecoul,
+        Exx=Exx, Exc=Exc, orbE=Ea, orbs=Ca, Pl=Pla, occs_b=np.asarray(occs_b), Plb=Plb,
+        orbE_b=Eb, orbs_b=Cb, niter=it, nfock=it,
+    )
+
+
+def search_sadatom_unrestricted(
+    basis: SadAtomBasis,
+    nel: int | None = None,
+    method: str = "HF",
+    mode: str = "aufbau",
+    maxit: int = 128,
+    convthr: float = 1e-7,
+    guess: str = "TF",
+    verbose: bool = False,
+    max_dx: int = 5,
+    shift: float = 1.0,
+    dftthr: float = 1e-12,
+    diisorder: int = 10,
+    diiseps: float = 0.1,
+    ops: SadOps | None = None,
+    device=None,
+    **unported,
+) -> SadResult:
+    """Unrestricted ground-configuration search (helfem_tpu's
+    search_sadatom_unrestricted, sadatom.py:1209-1292). mode 'aufbau':
+    Hund-rule-coupled aufbau and MoveElectrons search (reference
+    restricted=-1, src/sadatom/main.cpp:367-460); 'scan': the multiplicity
+    scan over spin splits dx = 0..max_dx (restricted=0, main.cpp:460-560).
+    Returns the best configuration's SadResult with the energy-ordered
+    conf_list [((occa, occb), E, converged), ...]; its nfock counts the
+    Fock builds of every configuration solved."""
+    from helfem_tpu_torch.models.sadconf import (
+        hund_rule,
+        initial_occs,
+        search_spin_scan,
+        search_unrestricted,
+    )
+
+    reject_unported(unported, _UNPORTED, "search_sadatom_unrestricted")
+    if nel is None:
+        nel = basis.Z
+    ops = _sad_ops(basis, ops, device, "search_sadatom_unrestricted")
+    results: dict[tuple, SadResult] = {}
+
+    def solve_cb(key):
+        if key not in results:
+            occa, occb = key
+            results[key] = solve_sadatom_unrestricted(
+                basis, int(sum(occa)), int(sum(occb)), method=method,
+                occs_a=np.array(occa, dtype=int), occs_b=np.array(occb, dtype=int),
+                maxit=maxit, convthr=convthr, guess=guess, verbose=verbose, ops=ops,
+                shift=shift, dftthr=dftthr, diisorder=diisorder, diiseps=diiseps)
+        r = results[key]
+        return r.E, r.converged, r.orbE, r.orbE_b
+
+    if mode == "aufbau":
+        try:
+            occ0 = initial_occs(nel, basis.lmax)
+        except ValueError:
+            occ0 = aufbau_occs(_guess_channels(basis, ops, guess)[0], nel, True)
+        conf_list = search_unrestricted(solve_cb, *hund_rule(occ0), nel, verbose=verbose)
+    elif mode == "scan":
+        conf_list = search_spin_scan(solve_cb, nel, basis.lmax, max_dx=max_dx, verbose=verbose)
+    else:
+        raise ValueError(f"unknown search mode {mode}")
+    best = results[conf_list[0][0]]
+    best.conf_list = conf_list
+    best.nfock = sum(r.nfock for r in results.values())
+    return best
 
 
 def solve_sadatom(
@@ -446,10 +715,7 @@ def solve_sadatom(
     device."""
     if nel is None:
         nel = basis.Z
-    if ops is None:
-        if device is None:
-            raise ValueError("solve_sadatom needs a device (or prebuilt ops)")
-        ops = basis.build_ops(device)
+    ops = _sad_ops(basis, ops, device, "solve_sadatom")
     device = ops.device
     nl, nrad = basis.lmax + 1, basis.nrad
     funcs, kfrac = parse_method(method)
@@ -462,13 +728,7 @@ def solve_sadatom(
     def as_dev(x) -> torch.Tensor:
         return torch.as_tensor(np.asarray(x), dtype=torch.float64, device=device)
 
-    # guess orbitals
-    rb = basis.rb
-    Vg = as_dev(rb.model_potential(potential(guess, basis.Z, device=device)(rb.r)))
-    ll1 = np.arange(nl) * (np.arange(nl) + 1.0)
-    Hg = (ops.at.T + Vg)[None] + as_dev(ll1[:, None, None]) * ops.Tl[None]
-    Eg, Cg = eig_channels(Hg, Sinvh)
-    Eg, Cg = Eg.cpu().numpy(), Cg.cpu().numpy()
+    Eg, Cg = _guess_channels(basis, ops, guess)
     nfock = [0]
 
     def run_scf(occs, E0, C0):
@@ -499,7 +759,8 @@ def solve_sadatom(
                 chunk_len = min(2 * chunk_len, CH)
                 Cin = as_dev(C_)
                 Cs, Es, count, Etots, errs, comps, kmax = chunk(
-                    ops, occw, angw, Cin, histF, histE, count, float(convthr), Eold, nrun)
+                    ops, (occw,), (angw,), (Cin,), histF, histE, count, float(convthr), Eold,
+                    nrun)
                 Etots = Etots.cpu().numpy()
                 errs = errs.cpu().numpy()
                 k = 0
@@ -521,14 +782,14 @@ def solve_sadatom(
                     # energy comes from the PRE-eigh density, i.e. the
                     # post-eigh orbitals of step k-1 (the chunk input for
                     # k=0), as the host path, which stops before updating C_
-                    C_ = (Cs[k - 1] if k > 0 else Cin).cpu().numpy()
+                    C_ = (Cs[k - 1][0] if k > 0 else Cin).cpu().numpy()
                     if k > 0:
-                        E_ = Es[k - 1].cpu().numpy()
+                        E_ = Es[k - 1][0].cpu().numpy()
                     Pl, _ = density_cubes(C_, occs)
                     out = (Etot, Ekin, Ecoul, Exx, Exc, E_, C_, Pl)
                     break
-                E_ = Es[k].cpu().numpy()
-                C_ = Cs[k].cpu().numpy()
+                E_ = Es[k][0].cpu().numpy()
+                C_ = Cs[k][0].cpu().numpy()
                 continue
 
             Pl, Pang = density_cubes(C_, occs)
@@ -559,7 +820,7 @@ def solve_sadatom(
             if err > 1e-3 and shift != 0.0:
                 # level shift on virtuals until DIIS takes over
                 # (reference: solver.cpp:1190-1193)
-                E_, C_ = eig_channels_shifted(Fuse, C_, occs, S_np, Sinvh, shift)
+                E_, C_ = eig_channels(as_dev(shifted_fock(Fuse, C_, occs, S_np, shift)), Sinvh)
             else:
                 E_, C_ = eig_channels(as_dev(Fuse), Sinvh)
             E_, C_ = E_.cpu().numpy(), C_.cpu().numpy()
@@ -645,12 +906,13 @@ def radial_density(basis: SadAtomBasis, Prad: np.ndarray):
 
 
 def occupied_orbital_table(basis: SadAtomBasis, occs: np.ndarray, orbE: np.ndarray,
-                           orbs) -> list[dict]:
+                           orbs, restricted: bool = True) -> list[dict]:
     """Per-occupied-shell analysis rows (reference: OrbitalChannel::Print,
     src/sadatom/solver.cpp:152-186, with the <r^i> operator set of
     TwoDBasis::Rmatrices, basis.cpp:1274-1282): for each occupied shell,
     (n, l, nocc, E, <r^i>^(1/i) for i in -2,-1,1,2,3, and the radius of the
-    maximum of the r^2-weighted orbital density)."""
+    maximum of the r^2-weighted orbital density); shell capacities 2(2l+1),
+    or 2l+1 for one spin of the unrestricted solver."""
     powers = (-2, -1, 1, 2, 3)
     rb = basis.rb
     R = {i: rb.radial_integral(i) for i in powers}
@@ -658,7 +920,7 @@ def occupied_orbital_table(basis: SadAtomBasis, occs: np.ndarray, orbE: np.ndarr
     rows = []
     for l in range(basis.lmax + 1):
         left = int(occs[l])
-        cap = shell_capacity(l, True)
+        cap = shell_capacity(l, restricted)
         k = 0
         while left > 0:
             nocc = min(left, cap)

@@ -1,25 +1,27 @@
 """Diatomic SCF driver (L7), ported from helfem_tpu/scf/diatomic_scf.py.
 
-The port runs closed-shell restricted Hartree-Fock, LDA and GGA
-functionals and the PBE0 hybrid under the diatomic symmetry blocks (m, plus
-g/u for homonuclear), the paths of the N2 HF and N2 PBE bench configs:
+The port runs HF, LDA and GGA functionals and the PBE0 hybrid, restricted
+(RHF/RKS), unrestricted (UHF/UKS) or ROHF, under the diatomic symmetry
+blocks (m, plus g/u for homonuclear), the paths of the N2 HF and N2 PBE
+bench configs and of open shells such as triplet O2 or H2+:
 
   guess (core, or SAP/GSZ/TF of the two atoms) -> two host iterations (Fock
   on the device, host DIIS with ADIIS far from convergence) -> fused device
-  chunks of 4, 8, then 16 iterations: density and occupied orbitals ->
-  Coulomb (M = 0 channels), occupied-orbital exchange and XC Fock (CUDA
-  kernels on the card) ->
-  block-coordinate C2-DIIS -> blocked eigensolve, with the convergence test
-  on the device after every iteration.
+  chunks of 4, 8, then 16 iterations: densities and occupied orbitals ->
+  Coulomb of the total density (M = 0 channels), occupied-orbital exchange
+  per spin and the XC Fock of both spins (CUDA kernels on the card) ->
+  block-coordinate C2-DIIS -> one batched blocked eigensolve for both
+  spins, with the convergence test on the device after every iteration.
 
-helfem_tpu's lax.while_loop chunk becomes a Python loop over tensors that
-stay on the device; one boolean per iteration comes back to stop the chunk.
-The eigensolve is torch.linalg.eigh per block with helfem_tpu's four
-refinement passes (utils/linalg.py:eigh_refined); its warm start is not
-carried over. Every other
-scf_diatomic option (open shells, range-separated and meta-GGA hybrids,
-fields, finite nuclei, level shifts, --ndev, ...) raises
-NotImplementedError: nothing falls back silently.
+ROHF stays on the host loop (its Fock update is host numpy every
+iteration), as in helfem_tpu. helfem_tpu's lax.while_loop chunk becomes a
+Python loop over tensors that stay on the device; one boolean per iteration
+comes back to stop the chunk. The eigensolve is torch.linalg.eigh per block
+with helfem_tpu's four refinement passes (utils/linalg.py:eigh_refined);
+its warm start is not carried over. Every other scf_diatomic option
+(enforced occupations, range-separated and meta-GGA hybrids, fields, finite
+nuclei, level shifts, --ndev, ...) raises NotImplementedError: nothing
+falls back silently.
 """
 
 from dataclasses import dataclass, field
@@ -50,7 +52,10 @@ from helfem_tpu_torch.utils.linalg import (
     density_blocks,
     eig_blocks,
     eig_blocks_b,
+    form_sh,
     gather_blocks,
+    perturbation_matrix,
+    rohf_update,
     scatter_blocks,
 )
 
@@ -99,97 +104,118 @@ class DiaSCFResult:
     orbE_a: np.ndarray
     orbs_a: np.ndarray | None = None  # [nblk, blen, blen] block orbitals
     occ_a: np.ndarray | None = None  # [nblk, blen]
+    orbE_b: np.ndarray | None = None  # beta: None when restricted
+    orbs_b: np.ndarray | None = None
+    occ_b: np.ndarray | None = None
     orbsym_a: list[str] | None = None  # spectroscopic label per orbE_a entry
+    orbsym_b: list[str] | None = None
     orbE_blocks_a: np.ndarray | None = None  # [nblk, blen] block eigenvalues
+    orbE_blocks_b: np.ndarray | None = None
     Nelgrid: float = 0.0  # electrons counted on the DFT grid
     walls: dict = field(default_factory=dict)  # phase -> seconds (CLI)
 
 
 def make_dia_fock(funcs: tuple, kfrac: float = 0.0, dftthr: float = 1e-12,
                   njbd: int | None = None):
-    """Restricted Fock build for symmetry-block-diagonal densities
-    (helfem_tpu's make_dia_fock with restricted=True, so Kb = Ka and Exx =
-    <Pa, Ka>): fock(ops, g, Pa, Co=None) -> (Fa, Ekin, Enuc, Ecoul, Exx,
-    Exc, Nel). With kfrac != 0 the exchange is built from the sqrt(f)-
-    weighted occupied columns Co when given (the SCF always has them), from
-    the density otherwise. funcs may be empty (pure HF: g is not read).
-    njbd runs the Coulomb build on the M = 0 channels only (exact here,
-    coulomb_dia)."""
+    """Fock build of both spins for symmetry-block-diagonal densities
+    (helfem_tpu's make_dia_fock): fock(ops, g, Pa, Pb, Coa=None, Cob=None)
+    -> (Fa, Fb, Ekin, Enuc, Ecoul, Exx, Exc, Nel), the energies device
+    scalars. The Coulomb build runs once, on Pa + Pb (njbd: on the M = 0
+    channels only, exact here, coulomb_dia). With kfrac != 0 each spin's
+    exchange is built from its sqrt(f)-weighted occupied columns when given
+    (the SCF always has them), from its density otherwise; restricted
+    (Pb is Pa) builds it once, Kb = Ka, and Exx = (<Pa, Ka> + <Pb, Kb>)/2.
+    funcs may be empty (pure HF: g is not read); the XC build takes both
+    spins in one launch of each kernel, one spin when Pb is Pa."""
+
+    def exchange(ops, P, Co):
+        return kfrac * (exchange_dia_occ(ops, Co) if Co is not None else exchange_dia(ops, P))
 
     def fock(ops: DiatomicOperators, g: DiaGridOps | None, Pa: torch.Tensor,
-             Co: torch.Tensor | None = None):
-        P = Pa + Pa
+             Pb: torch.Tensor, Coa: torch.Tensor | None = None,
+             Cob: torch.Tensor | None = None):
+        restricted = Pb is Pa
+        P = Pa + Pb
         J = coulomb_dia(ops, P, njbd)
-        Fa = ops.H0 + J
+        Fa = Fb = ops.H0 + J
         zero = torch.zeros((), dtype=Pa.dtype, device=Pa.device)
         Exx = Exc = Nel = zero
         if kfrac != 0.0:
-            Ka = kfrac * (exchange_dia_occ(ops, Co) if Co is not None
-                          else exchange_dia(ops, Pa))
-            Fa = Fa + Ka
-            Exx = vdot(Pa, Ka)
+            Ka = exchange(ops, Pa, Coa)
+            Kb = Ka if restricted else exchange(ops, Pb, Cob)
+            Fa, Fb = Fa + Ka, Fb if restricted else Fb + Kb
+            Exx = 0.5 * (vdot(Pa, Ka) + vdot(Pb, Kb))
         if funcs:
-            XCa, _, Exc, Nel = eval_fxc_dia(funcs, g, ops, Pa, Pa, dftthr)
-            Fa = Fa + XCa
+            XCa, XCb, Exc, Nel = eval_fxc_dia(funcs, g, ops, Pa, Pb, dftthr)
+            Fa, Fb = Fa + XCa, Fb if restricted else Fb + XCb
         Ekin = vdot(P, ops.T)
         Enuc = vdot(P, ops.Vnuc)
         Ecoul = 0.5 * vdot(P, J)
-        return Fa, Ekin, Enuc, Ecoul, Exx, Exc, Nel
+        return Fa, Fa if restricted else Fb, Ekin, Enuc, Ecoul, Exx, Exc, Nel
 
     return fock
 
 
 def make_dia_fused_chunk(funcs: tuple, kfrac: float, dftthr: float, njbd: int | None):
-    """Up to `nrun` restricted SCF iterations on the device (helfem_tpu's
-    make_dia_fused_chunk, restricted, no fields): density and occupied
-    columns -> Fock -> block C2-DIIS (circular history, updated in place) ->
-    blocked eigensolve, with the convergence test (err < convthr and |dE| <
-    convthr) on the device after each. Occupations (and with them the
-    selector `sel` of the occupied columns, None without exchange) are
-    frozen within a chunk. Energies leave out the nuclear repulsion, as
-    helfem_tpu's do."""
+    """Up to `nrun` SCF iterations on the device (helfem_tpu's
+    make_dia_fused_chunk, no fields): densities and occupied columns ->
+    Fock -> block C2-DIIS (circular history, updated in place) -> blocked
+    eigensolve, with the convergence test (err < convthr and |dE| <
+    convthr) on the device after each. occ, sel and C are tuples with one
+    entry per spin (one when restricted); unrestricted, the DIIS error is
+    both spins' errors concatenated, the history holds the spin-stacked
+    block Focks [nhist, 2, nblk, blen, blen], and both spins' blocks go
+    through one batched eigensolve. Occupations (and with them the
+    selectors of the occupied columns, None without exchange) are frozen
+    within a chunk. Returns per iteration the orbitals and eigenvalues of
+    each spin, energies, errors, grid electron counts and energy
+    components, then the new DIIS count and the number of iterations run.
+    Energies leave out the nuclear repulsion, as helfem_tpu's do."""
     fock = make_dia_fock(funcs, kfrac, dftthr, njbd)
 
     def chunk(ops, g, occ, sel, C, histF, histE, count, convthr, Eprev, nrun):
         nbf = ops.S.shape[0]
+        ns, nblk = len(C), ops.blk_idx.shape[0]
         Sb = gather_blocks(ops.S, ops.blk_idx)
-        Ep = torch.tensor(Eprev, dtype=torch.float64, device=C.device)
-        Cs, Es, Etots, errs, Nels, comps = [], [], [], [], [], []
+        idx, sinvh = ops.blk_idx.repeat(ns, 1), ops.blk_sinvh.repeat(ns, 1, 1)
+        Ep = torch.tensor(Eprev, dtype=torch.float64, device=C[0].device)
+        out = []
         for _ in range(nrun):
-            Pab = torch.einsum("bpk,bk,bqk->bpq", C, occ, C)
-            Pa = scatter_blocks(Pab, ops.blk_idx, nbf)
-            Co = None if sel is None else occupied_dia(ops, C, sel)
-            Fa, Ekin, Enuc, Ecoul, Exx, Exc, Nel = fock(ops, g, Pa, Co)
+            Pbk = [torch.einsum("bpk,bk,bqk->bpq", c, o, c) for c, o in zip(C, occ)]
+            P = [scatter_blocks(p, ops.blk_idx, nbf) for p in Pbk]
+            Co = [None if s is None else occupied_dia(ops, c, s) for c, s in zip(C, sel)]
+            Fa, Fb, Ekin, Enuc, Ecoul, Exx, Exc, Nel = fock(ops, g, P[0], P[-1], Co[0], Co[-1])
             Etot = Ekin + Enuc + Ecoul + Exx + Exc
-            Fab = gather_blocks(Fa, ops.blk_idx)
-            err = diis_error_blocks(Fab, Pab, Sb, ops.blk_sinvh)
+            Fbk = [gather_blocks(F, ops.blk_idx) for F in (Fa, Fb)[:ns]]
+            err = torch.cat([diis_error_blocks(F, p, Sb, ops.blk_sinvh)
+                             for F, p in zip(Fbk, Pbk)])
             errmax = torch.max(torch.abs(err))
-            Fuse, count = device_diis_step(histF, histE, count, Fab, err)
-            E, C = eig_blocks_b(Fuse, ops.blk_idx, ops.blk_sinvh, nbf)
-            Cs.append(C)
-            Es.append(E)
-            Etots.append(Etot)
-            errs.append(errmax)
-            Nels.append(Nel)
-            comps.append(torch.stack([Ekin, Enuc, Ecoul, Exx, Exc]))
+            Fuse, count = device_diis_step(histF, histE, count,
+                                           Fbk[0] if ns == 1 else torch.stack(Fbk), err)
+            E, Cn = eig_blocks_b(Fuse.reshape(ns * nblk, *Fuse.shape[-2:]), idx, sinvh, nbf)
+            C, E = Cn.split(nblk), E.split(nblk)
+            out.append((C, E, Etot, errmax, Nel, torch.stack([Ekin, Enuc, Ecoul, Exx, Exc])))
             done = (errmax < convthr) & (torch.abs(Etot - Ep) < convthr)
             Ep = Etot
             if bool(done):
                 break
+        Cs, Es, Etots, errs, Nels, comps = zip(*out)
         return (Cs, Es, count, torch.stack(Etots), torch.stack(errs), torch.stack(Nels),
-                torch.stack(comps), len(Cs))
+                torch.stack(comps), len(out))
 
     return chunk
 
 
-# scf_diatomic options of helfem_tpu that this slice does not cover, with the
+# scf_diatomic options of helfem_tpu that the port does not cover, with the
 # default values under which they are inert
 _UNPORTED = {
     "P0a": None, "P0b": None, "Ez": 0.0, "Qzz": 0.0, "Bz": 0.0, "finitenuc": "point",
-    "Rrms1": 0.0, "Rrms2": 0.0, "shift": 0.0, "restricted": -1, "perturb": 0.0,
-    "seed": 0, "occs": None, "readocc_until": 0, "diisthr": None, "save_cb": None,
-    "diag": True, "maverage": False, "ndev": 0,
+    "Rrms1": 0.0, "Rrms2": 0.0, "shift": 0.0, "occs": None, "readocc_until": 0,
+    "diisthr": None, "save_cb": None, "diag": True, "maverage": False, "ndev": 0,
 }
+# device memory one spin's per-iteration orbitals may take in a fused chunk
+# (helfem_tpu caps its chunk length the same way; two spins hold twice it)
+_CHUNK_C_BYTES = 256e6
 
 
 def scf_diatomic(
@@ -202,6 +228,9 @@ def scf_diatomic(
     verbose: bool = False,
     ops: DiatomicOperators | None = None,
     guess: str = "core",
+    restricted: int = -1,
+    perturb: float = 0.0,
+    seed: int = 0,
     diisorder: int = 10,
     diiseps: float = 0.1,
     dftthr: float = 1e-12,
@@ -209,16 +238,16 @@ def scf_diatomic(
     device=None,
     **unported,
 ) -> DiaSCFResult:
-    """Closed-shell restricted SCF (helfem_tpu's scf_diatomic for nela ==
-    nelb) for HF, LDA/GGA functionals and PBE0, from the core guess or the
-    SAP, GSZ or TF guess of the two atoms (a SAP atom is solved on the
-    operators' device). The operators and the grid (none for pure HF) are
-    built on `device` unless `ops` is given, in which case the SCF runs on
-    ops' device."""
+    """Restricted, unrestricted or ROHF SCF (helfem_tpu's scf_diatomic) for
+    HF, LDA/GGA functionals and PBE0, from the core guess or the SAP, GSZ or
+    TF guess of the two atoms (a SAP atom is solved on the operators'
+    device). restricted = -1 restricts exactly when nela == nelb, 0 runs
+    UHF/UKS, and 1 with nela != nelb runs ROHF through rohf_update on the
+    host loop alone, as helfem_tpu does. perturb rotates the guess orbitals
+    of each spin by its own random rotation (seed, seed + 1). The operators
+    and the grid (none for pure HF) are built on `device` unless `ops` is
+    given, in which case the SCF runs on ops' device."""
     reject_unported(unported, _UNPORTED, "scf_diatomic")
-    if nela != nelb:
-        raise NotImplementedError("open-shell diatomic SCF is not ported to "
-                                  "helfem_tpu_torch yet; only closed shells")
     spec = parse_method_rs(method)
     funcs, kfrac = spec.funcs, spec.kfull
     if spec.kshort:
@@ -233,10 +262,26 @@ def scf_diatomic(
     g = build_dia_grid(basis, device, neta=ldft) if funcs else None
     Enucrep = basis.Z1 * basis.Z2 / basis.Rbond
     njbd = basis.njbd
+    rohf = restricted == 1 and nela != nelb
+    restricted = nela == nelb if restricted == -1 else (restricted == 1 and not rohf)
+    ns = 1 if restricted else 2
     fock = make_dia_fock(funcs, kfrac, dftthr, njbd)
 
     def as_dev(x) -> torch.Tensor:
         return torch.as_tensor(np.asarray(x), dtype=torch.float64, device=device)
+
+    blk_idx_np = ops.blk_idx.cpu().numpy()
+    blk_sinvh_np = ops.blk_sinvh.cpu().numpy()
+    nblk, blen = blk_idx_np.shape
+    idx_s, sinvh_s = ops.blk_idx.repeat(ns, 1), ops.blk_sinvh.repeat(ns, 1, 1)
+
+    def eig_spins(Fs):
+        """One batched blocked eigensolve of each spin's dense Fock:
+        (host eigenvalues, device orbitals) per spin."""
+        E, C = eig_blocks_b(torch.cat([gather_blocks(as_dev(F), ops.blk_idx) for F in Fs]),
+                            idx_s, sinvh_s, nbf)
+        E = E.cpu().numpy()
+        return [(E[s * nblk:(s + 1) * nblk], C[s * nblk:(s + 1) * nblk]) for s in range(ns)]
 
     if guess == "core":
         Hguess = ops.H0
@@ -244,41 +289,56 @@ def scf_diatomic(
         Hguess = as_dev(guess_hamiltonian_dia(basis, guess, device))
     Ea, Ca = eig_blocks(Hguess, ops.blk_idx, ops.blk_sinvh)
     Ea = Ea.cpu().numpy()
-    blk_idx_np = ops.blk_idx.cpu().numpy()
-    blk_sinvh_np = ops.blk_sinvh.cpu().numpy()
-    diis = DIIS(ops.S.cpu().numpy(), full_sinvh(blk_idx_np, blk_sinvh_np, nbf),
-                max_hist=diisorder, diis_eps=diiseps, blocks=(blk_idx_np, blk_sinvh_np))
+    Eb, Cb = Ea.copy(), Ca
+    if perturb:
+        # an independent rotation per spin (the reference draws a fresh one
+        # for beta), so a symmetric guess can break spin symmetry
+        Ca = torch.einsum("bpk,kq->bpq", Ca, as_dev(perturbation_matrix(blen, perturb, seed)))
+        if not restricted:
+            Cb = torch.einsum("bpk,kq->bpq", Cb,
+                              as_dev(perturbation_matrix(blen, perturb, seed + 1)))
+    Sinvh_np = full_sinvh(blk_idx_np, blk_sinvh_np, nbf)
+    diis = DIIS(ops.S.cpu().numpy(), Sinvh_np, max_hist=diisorder, diis_eps=diiseps,
+                blocks=(blk_idx_np, blk_sinvh_np))
+    Sh_np = form_sh(ops.S.cpu().numpy()) if rohf else None
 
     Eold, Etot, converged = 0.0, 0.0, False
     Ekin = Enuc = Ecoul = Exx = Exc = Nel = 0.0
     # fused device chunks engage after TWO host iterations: the host DIIS's
-    # ADIIS weights carry the far-from-converged core guess, which the
-    # chunks' pure C2-DIIS cannot (helfem_tpu diatomic_scf.py:736-745)
-    warmup = 2
-    chunk_len = 4  # chunk schedule 4, 8, 16
+    # ADIIS weights carry the far-from-converged guess, which the chunks'
+    # pure C2-DIIS cannot (helfem_tpu diatomic_scf.py:736-745). ROHF's Fock
+    # update is host work every iteration, so it stays on the host.
+    warmup = maxit if rohf else 2
+    chunk_len = 4  # chunk schedule 4, 8, 16, capped by the orbitals' memory
     CH = 16
+    while CH > 4 and CH * nblk * blen * blen * 8 > _CHUNK_C_BYTES:
+        CH //= 2
     fused = None
-    occa = None
+    occa = occb = None
+
+    def select(occ):
+        return occ_select(occ, device) if kfrac != 0.0 else None
+
     it = 0
     while it < maxit:
         it += 1
         occa = aufbau_blocks(Ea, nela)
+        occb = occa if restricted else aufbau_blocks(Eb, nelb)
         if it > warmup:
             if fused is None:
                 nhist = 10
                 fused = make_dia_fused_chunk(funcs, kfrac, dftthr, njbd)
-                nblk, blen = blk_idx_np.shape
-                histF = torch.zeros((nhist, nblk, blen, blen), dtype=torch.float64,
-                                    device=device)
-                histE = torch.zeros((nhist, nblk * blen * blen), dtype=torch.float64,
+                histF = torch.zeros((nhist, *(() if restricted else (2,)), nblk, blen, blen),
+                                    dtype=torch.float64, device=device)
+                histE = torch.zeros((nhist, ns * nblk * blen * blen), dtype=torch.float64,
                                     device=device)
                 count = 0
             nrun = min(chunk_len, CH, maxit - it + 1)
             chunk_len = min(2 * chunk_len, CH)
-            sel = occ_select(occa, device) if kfrac != 0.0 else None
+            occs = (occa, occb)[:ns]
             Cs, Es, count, Etots, errs, Nels, comps, kmax = fused(
-                ops, g, as_dev(occa), sel, Ca, histF, histE, count, float(convthr),
-                Eold - Enucrep, nrun,
+                ops, g, tuple(as_dev(o) for o in occs), tuple(select(o) for o in occs),
+                (Ca, Cb)[:ns], histF, histE, count, float(convthr), Eold - Enucrep, nrun,
             )
             Etots = Etots.cpu().numpy()
             errs = errs.cpu().numpy()
@@ -296,8 +356,8 @@ def scf_diatomic(
                     break
             # the chunk ran k+1 counted iterations, one already counted above
             it += k
-            Ca = Cs[k]
-            Ea = Es[k].cpu().numpy()
+            Ca, Cb = Cs[k][0], Cs[k][-1]
+            Ea, Eb = Es[k][0].cpu().numpy(), Es[k][-1].cpu().numpy()
             Nel = float(Nels[k])
             Ekin, Enuc, Ecoul, Exx, Exc = comps[k].cpu().numpy()
             if converged or it >= maxit:
@@ -305,30 +365,44 @@ def scf_diatomic(
             continue
 
         Pa = density_blocks(Ca, as_dev(occa), ops.blk_idx, ops.S)
-        Co = occupied_dia(ops, Ca, occ_select(occa, device)) if kfrac != 0.0 else None
-        Fa, Ekin, Enuc, Ecoul, Exx, Exc, Nel = fock(ops, g, Pa, Co)
+        Pb = Pa if restricted else density_blocks(Cb, as_dev(occb), ops.blk_idx, ops.S)
+        sela = select(occa)
+        Coa = None if sela is None else occupied_dia(ops, Ca, sela)
+        Cob = None if restricted or sela is None else occupied_dia(ops, Cb, select(occb))
+        Fa, Fb, Ekin, Enuc, Ecoul, Exx, Exc, Nel = fock(ops, g, Pa, Pb, Coa, Cob)
         Ekin, Enuc, Ecoul, Exx, Exc, Nel = (float(x) for x in
                                             (Ekin, Enuc, Ecoul, Exx, Exc, Nel))
         Etot = Ekin + Enuc + Ecoul + Exx + Exc + Enucrep
         dE = Etot - Eold
         Eold = Etot
-        err = diis.update([Fa.cpu().numpy()], [Pa.cpu().numpy()])
-        (Fa_,) = diis.solve()
+        if restricted:
+            err = diis.update([Fa.cpu().numpy()], [Pa.cpu().numpy()])
+        else:
+            Fa, Fb, Pa, Pb = (x.cpu().numpy() for x in (Fa, Fb, Pa, Pb))
+            if rohf:
+                Fa, Fb = rohf_update(Fa, Fb, Pa + Pb, Sh_np, Sinvh_np, nela, nelb)
+            err = diis.update([Fa, Fb], [Pa, Pb])
+        Fs = diis.solve()
         if verbose:
             print(f"iter {it:3d}  E = {Etot:+.12f}  dE = {dE:+.3e}  diis = {err:.3e}")
         if err < convthr and abs(dE) < convthr and it > 1:
             converged = True
             break
-        Ea, Ca = eig_blocks(as_dev(Fa_), ops.blk_idx, ops.blk_sinvh)
-        Ea = Ea.cpu().numpy()
+        spins = eig_spins(Fs)
+        (Ea, Ca), (Eb, Cb) = spins[0], spins[-1]
 
-    nblk = Ea.shape[0]
     labels = basis.sym_labels(True)
     if len(labels) != nblk:
         labels = basis.sym_labels(False)
-    flat = Ea.ravel()
-    order = np.argsort(flat)
-    order = order[flat[order] < _BIG / 2]
+
+    def _sorted(E):
+        """(eigenvalues ascending, their block labels), padded slots dropped."""
+        flat = E.ravel()
+        order = np.argsort(flat)
+        order = order[flat[order] < _BIG / 2]
+        return flat[order], [labels[i // E.shape[1]] for i in order]
+
+    (oea, syma), (oeb, symb) = _sorted(Ea), _sorted(Eb)
     return DiaSCFResult(
         converged=converged,
         niter=it,
@@ -339,10 +413,15 @@ def scf_diatomic(
         Ecoul=float(Ecoul),
         Exx=float(Exx),
         Exc=float(Exc),
-        orbE_a=flat[order],
+        orbE_a=oea,
         orbs_a=Ca.cpu().numpy(),
         occ_a=occa,
-        orbsym_a=[labels[i // Ea.shape[1]] for i in order],
+        orbE_b=None if restricted else oeb,
+        orbs_b=None if restricted else Cb.cpu().numpy(),
+        occ_b=None if restricted else occb,
+        orbsym_a=syma,
+        orbsym_b=None if restricted else symb,
         orbE_blocks_a=Ea,
+        orbE_blocks_b=None if restricted else Eb,
         Nelgrid=float(Nel),
     )

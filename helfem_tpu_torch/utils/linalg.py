@@ -17,7 +17,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-__all__ = ["form_sinvh", "form_sh", "rohf_update", "build_blocks", "gather_blocks",
+__all__ = ["form_sinvh", "form_sh", "perturbation_matrix", "rohf_update", "build_blocks", "gather_blocks",
            "eig_blocks", "eig_blocks_b", "density_blocks", "eigh_refined"]
 
 _BIG = 1e6
@@ -35,6 +35,20 @@ def form_sh(S: np.ndarray) -> np.ndarray:
     singular overlap gives no NaN from roundoff-negative eigenvalues)."""
     w, U = np.linalg.eigh(S)
     return U @ np.diag(np.sqrt(np.clip(w, 0.0, None))) @ U.T
+
+
+def perturbation_matrix(n: int, magnitude: float, seed: int = 0) -> np.ndarray:
+    """Random orthogonal rotation [n, n] (helfem_tpu's, utils/linalg.py:
+    271-283; reference scf::perturbation_matrix): expm of a random
+    antisymmetric matrix of the given magnitude, made strictly orthogonal
+    through its SVD. Host numpy."""
+    rng = np.random.default_rng(seed)
+    A = rng.standard_normal((n, n))
+    A = magnitude * (A - A.T) / 2.0
+    w, V = np.linalg.eig(A)  # antisymmetric: imaginary spectrum
+    R = (V @ np.diag(np.exp(w)) @ np.linalg.inv(V)).real
+    U, _, Vt = np.linalg.svd(R)
+    return U @ Vt
 
 
 def rohf_update(Fa, Fb, P, Sh, Sinvh, nocca, noccb):

@@ -1,5 +1,6 @@
-"""The port's CLI, its isolation from JAX, and the kernel wrappers' routing
-on CPU tensors."""
+"""The port's CLIs (atomic; the open-shell flags of the diatomic CLI and of
+gensap), their isolation from JAX, and the kernel wrappers' routing on CPU
+tensors."""
 
 import os
 import subprocess
@@ -11,13 +12,26 @@ import pytest
 import torch
 
 from helfem_tpu_torch import kernels
+from helfem_tpu_torch.cli import diatomic, gensap
 from helfem_tpu_torch.cli.atomic import main
 from helfem_tpu_torch.kernels.matmul_probe import split_dd
+from helfem_tpu_torch.models.diatomic import DiatomicBasis
+from helfem_tpu_torch.models.sadatom import (
+    SadAtomBasis,
+    search_sadatom_unrestricted,
+    solve_sadatom_unrestricted,
+)
+from helfem_tpu_torch.scf.diatomic_scf import scf_diatomic
 
 REPO = Path(__file__).resolve().parents[1]
 HE = ["--Z", "He", "--lmax", "0", "--mmax", "0", "--nelem", "5", "--nnodes", "8",
       "--iguess", "3", "--convthr", "1e-9"]
 HE_JAX = -2.861679941883  # helfem_tpu scf_atom on the same basis
+O2 = dict(Z1=8, Z2=8, Rbond=2.282, lmax=(2, 2), rmax=15.0, nelem=3, nnodes=5)
+O2_CLI = ["--Z1", "O", "--Z2", "O", "--Rbond", "2.282", "--lmax", "2,2", "--nelem", "3",
+          "--nnodes", "5", "--Rmax", "15", "--convthr", "1e-8", "--device", "cpu"]
+LI = ["--Z", "Li", "--lmax", "1", "--nelem", "5", "--nnodes", "8", "--nosearch",
+      "--device", "cpu"]
 
 
 def test_cli_runs_on_cpu(capsys):
@@ -56,6 +70,72 @@ def test_cli_unported_raises(extra, match):
 def test_cli_unknown_flag_exits():
     with pytest.raises(SystemExit):
         main(HE + ["--device", "cpu", "--no-such-flag"])
+
+
+@pytest.fixture
+def one_thread():
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+@pytest.mark.parametrize("extra, nela, nelb, kw", [
+    (["--M", "3"], 9, 7, {}),
+    (["--nela", "9", "--nelb", "7", "--restricted", "1"], 9, 7, dict(restricted=1)),
+    (["--Q", "1", "--restricted", "0", "--perturb", "0.01", "--seed", "3"], 8, 7,
+     dict(restricted=0, perturb=0.01, seed=3)),
+    (["--restricted", "0"], 8, 8, dict(restricted=0)),
+], ids=["multiplicity", "nela_nelb_rohf", "cation_uhf_perturbed", "closed_shell_uhf"])
+def test_dia_cli_open_shell_flags(capsys, one_thread, extra, nela, nelb, kw):
+    """The diatomic CLI passes --nela/--nelb/--M/--Q, --restricted,
+    --perturb and --seed through to scf_diatomic and prints both spins'
+    orbital energies."""
+    res = diatomic.main(O2_CLI + extra)
+    out = capsys.readouterr().out
+    ref = scf_diatomic(DiatomicBasis(**O2), nela, nelb, convthr=1e-8, maxit=50,
+                       device="cpu", **kw)
+    assert res.converged and abs(res.E - ref.E) < 1e-12 and res.niter == ref.niter
+    assert f"with {nela}+{nelb} electrons" in out
+    assert "beta occupied + lowest virtual orbital energies:" in out
+    assert res.orbE_b is not None and res.occ_b.sum() == nelb
+
+
+@pytest.mark.parametrize("extra, match", [
+    (["--M", "3", "--symmetry", "1"], "--symmetry"),
+    (["--M", "3", "--readocc"], "--readocc"),
+    (["--M", "3", "--Bz", "0.1"], "--Bz"),
+    (["--M", "3", "--diisthr", "1e-3"], "--diisthr"),
+], ids=["symmetry", "readocc", "magnetic_field", "diisthr"])
+def test_dia_cli_still_rejects_the_rest(extra, match):
+    with pytest.raises(NotImplementedError, match=match):
+        diatomic.main(O2_CLI + extra)
+
+
+@pytest.mark.parametrize("extra, check", [
+    (["--unrestricted"], lambda b: search_sadatom_unrestricted(b, method="lda_x",
+                                                               device="cpu")),
+    (["--unrestricted", "--M", "2"], lambda b: solve_sadatom_unrestricted(
+        b, 2, 1, method="lda_x", device="cpu")),
+    (["--unrestricted", "--scan"], lambda b: search_sadatom_unrestricted(
+        b, method="lda_x", mode="scan", device="cpu")),
+    (["--restricted", "-1", "--Q", "1"], lambda b: search_sadatom_unrestricted(
+        b, nel=2, method="lda_x", device="cpu")),
+], ids=["aufbau_search", "multiplicity", "scan", "cation"])
+def test_gensap_cli_unrestricted_flags(tmp_path, monkeypatch, one_thread, extra, check):
+    """gensap --unrestricted (or --restricted -1/0), --M, --scan and --Q run
+    the spin-polarised solver as the library calls do, and write the SAP
+    table and its five potential variants beside --output."""
+    monkeypatch.chdir(tmp_path)
+    res = gensap.main(LI + extra + ["--output", str(tmp_path / "sap.dat")])
+    ref = check(SadAtomBasis(Z=3, lmax=1, nelem=5, nnodes=8))
+    r_u = res.spin_polarised
+    assert r_u.converged and abs(r_u.E - ref.E) < 1e-12
+    assert list(r_u.occs) == list(ref.occs) and list(r_u.occs_b) == list(ref.occs_b)
+    assert res.Pl.sum(axis=0).trace() != 0.0 and np.loadtxt(tmp_path / "sap.dat").shape[1] == 9
+    for tag in gensap.VARIANTS:
+        table = np.loadtxt(tmp_path / f"result{tag}_Li.dat")
+        assert table.shape[1] == 9 and np.isfinite(table).all(), tag
 
 
 def _run(code: str, env=None) -> subprocess.CompletedProcess:

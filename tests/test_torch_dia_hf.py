@@ -99,14 +99,15 @@ def test_fock_exchange_routes_agree(core_state, kfrac):
     Co = diatomic_scf.occupied_dia(ops, C, diatomic_scf.occ_select(occ, "cpu"))
     Pa = density_blocks(C, torch.tensor(occ), ops.blk_idx, ops.S)
     fock = diatomic_scf.make_dia_fock((), kfrac, njbd=basis.njbd)
-    a = fock(ops, None, Pa, Co)
-    b = fock(ops, None, Pa)
+    a = fock(ops, None, Pa, Pa, Co)
+    b = fock(ops, None, Pa, Pa)
+    assert a[1] is a[0]  # restricted: Fb is Fa
     assert float((a[0] - b[0]).abs().max()) < 1e-12 * float(b[0].abs().max())
-    assert abs(float(a[4]) - float(b[4])) < 1e-12 * abs(float(b[4]))
-    assert float(a[4]) < 0.0 and float(a[5]) == 0.0 and float(a[6]) == 0.0
+    assert abs(float(a[5]) - float(b[5])) < 1e-12 * abs(float(b[5]))
+    assert float(a[5]) < 0.0 and float(a[6]) == 0.0 and float(a[7]) == 0.0
     # Exx = <Pa, Ka> with Ka = kfrac K(Pa)
-    J_only = diatomic_scf.make_dia_fock((), 0.0, njbd=basis.njbd)(ops, None, Pa)
-    assert abs(float(a[4]) - float(((a[0] - J_only[0]) * Pa).sum())) < 1e-12
+    J_only = diatomic_scf.make_dia_fock((), 0.0, njbd=basis.njbd)(ops, None, Pa, Pa)
+    assert abs(float(a[5]) - float(((a[0] - J_only[0]) * Pa).sum())) < 1e-12
 
 
 @pytest.mark.parametrize("method", ["LC-LDA", "sr-PBE0"])
@@ -117,6 +118,9 @@ def test_range_separated_methods_raise(method):
 
 
 def test_open_shell_hf_raises():
+    """Open shells run (tests/test_torch_dia_open.py); under a magnetic
+    field (its spin Zeeman term) they still raise."""
     cfg, _ = CASES["H2"]
-    with pytest.raises(NotImplementedError, match="open-shell"):
-        diatomic_scf.scf_diatomic(DiatomicBasis(**cfg), 1, 0, method="HF", device="cpu")
+    with pytest.raises(NotImplementedError, match="Bz"):
+        diatomic_scf.scf_diatomic(DiatomicBasis(**cfg), 1, 0, method="HF", device="cpu",
+                                  Bz=0.1)

@@ -50,10 +50,10 @@ def test_cli_runs_on_cpu(capsys):
     (["--method", "LC-LDA"], "LC-LDA"),
     (["--method", "B3LYP5"], "B3LYP5"),
     (["--method", "TPSS"], "TPSS"),
-    (["--Q", "1"], "open-shell"),
+    (["--Q", "1", "--readocc"], "--readocc"),
     (["--Ez", "0.01"], "--Ez"),
     (["--ndev", "2"], "--ndev"),
-    (["--restricted", "0"], "--restricted"),
+    (["--restricted", "0", "--Bz", "0.1"], "--Bz"),
 ], ids=["range_separated", "hybrid", "mgga", "open_shell", "field_flag", "ndev_flag",
         "uhf_flag"])
 def test_cli_unported_raises(extra, match):
@@ -67,10 +67,14 @@ def test_cli_unknown_flag_exits():
 
 
 @pytest.mark.parametrize("kwargs", [
-    {"Ez": 0.01}, {"Bz": 0.1}, {"shift": 0.1}, {"restricted": 0}, {"maverage": True},
-    {"diag": False}, {"ndev": 1}, {"diisthr": 1e-3}, {"perturb": 0.1},
+    {"Ez": 0.01}, {"Bz": 0.1}, {"shift": 0.1}, {"restricted": 0, "Bz": 0.1},
+    {"maverage": True}, {"diag": False}, {"ndev": 1}, {"diisthr": 1e-3},
+    {"perturb": 0.1, "P0a": np.zeros((1, 1))},
 ], ids=lambda kw: next(iter(kw)))
 def test_unported_options_raise(kwargs):
+    """Unported options raise; UHF and perturbed guesses run
+    (tests/test_torch_dia_open.py), under a field or from a density they
+    still raise."""
     cfg, nel = CASES["H2"]
     with pytest.raises(NotImplementedError):
         diatomic_scf.scf_diatomic(DiatomicBasis(**cfg), nel, nel, method="PBE",

@@ -951,3 +951,89 @@ def test_dia_hf_scf_on_card_matches_cpu(cuda_device, method):
     assert gpu.converged and abs(gpu.E - cpu.E) < 1e-9 and abs(gpu.Exx - cpu.Exx) < 1e-9
     assert kernels.launches["radial_exchange_dia_occ"] > before["radial_exchange_dia_occ"]
     assert kernels.launches["radial_exchange_dia"] == before["radial_exchange_dia"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["o2_uhf", "o2_uks_pbe", "o2_rohf", "h2_cation"])
+def test_dia_open_shell_scf_on_card_matches_cpu(cuda_device, case):
+    """The open-shell diatomic SCF on the card: the CPU's energy within 1e-9
+    Eh and its iteration count; per iteration K3 once (on Pa + Pb), K6 once
+    per spin that has electrons (twice for O2 UHF and ROHF, once for H2+,
+    whose beta has none), K4 and K5 once for both spins (UKS)."""
+    cfg, na, nb, kw = {
+        "o2_uhf": (dict(Z1=8, Z2=8, Rbond=2.282, lmax=(2, 2), rmax=15.0, nelem=3, nnodes=5),
+                   9, 7, dict(method="HF", restricted=0)),
+        "o2_uks_pbe": (dict(Z1=8, Z2=8, Rbond=2.282, lmax=(2, 2), rmax=15.0, nelem=3,
+                            nnodes=5), 9, 7, dict(method="PBE")),
+        "o2_rohf": (dict(Z1=8, Z2=8, Rbond=2.282, lmax=(2, 2), rmax=15.0, nelem=3, nnodes=5),
+                    9, 7, dict(method="HF", restricted=1)),
+        "h2_cation": (dict(Z1=1, Z2=1, Rbond=2.0, lmax=(4,), rmax=15.0, nelem=3, nnodes=6),
+                      1, 0, dict(method="HF")),
+    }[case]
+    cpu = scf_diatomic(DiatomicBasis(**cfg), na, nb, convthr=1e-9, device="cpu", **kw)
+    kernels.reset_launches()
+    gpu = scf_diatomic(DiatomicBasis(**cfg), na, nb, convthr=1e-9, device=cuda_device, **kw)
+    assert gpu.converged and abs(gpu.E - cpu.E) < 1e-9 and gpu.niter == cpu.niter
+    n, hf = gpu.niter, kw["method"] == "HF"
+    assert kernels.launches["radial_coulomb_dia"] == n
+    assert kernels.launches["radial_exchange_dia_occ"] == (n * ((na > 0) + (nb > 0)) if hf
+                                                           else 0)
+    assert kernels.launches["dia_xc_fields"] == kernels.launches["dia_xc_fock"] == (
+        0 if hf else n)
+    assert kernels.launches["radial_exchange_dia"] == 0
+
+
+@pytest.mark.cuda
+def test_two_spin_exchange_kernels_on_card(cuda_device):
+    """The unrestricted SAD Fock build's stacked K1 call (both spins' cubes
+    as 2 nl channels, one launch) against two one-spin calls, and K6 on a
+    spin's own occupied columns against its plain version; a spin with no
+    column launches nothing."""
+    from helfem_tpu_torch.models import sadatom
+    from helfem_tpu_torch.models.diatomic import exchange_dia_occ
+
+    basis = sadatom.SadAtomBasis(**SAD_SHAPES["kr_gensap"])
+    ops = basis.build_ops(cuda_device)
+    rng = np.random.default_rng(73)
+    Pa, Pb = (torch.tensor(np.einsum("lik,ljk->lij", X, X), device=cuda_device) for X in
+              rng.standard_normal((2, basis.lmax + 1, basis.nrad, 4)))
+    before = kernels.launches["radial_exchange"]
+    both = sadatom.sad_exchange(ops, torch.stack((Pa, Pb)))
+    torch.cuda.synchronize()
+    assert kernels.launches["radial_exchange"] == before + 1
+    for s, P in enumerate((Pa, Pb)):
+        one = sadatom.sad_exchange(ops, P)
+        assert float((both[s] - one).abs().max()) <= TOL * float(one.abs().max())
+    cfg = dict(Z1=8, Z2=8, Rbond=2.282, lmax=(2, 2), rmax=15.0, nelem=3, nnodes=5)
+    dops = DiatomicBasis(**cfg).build_operators(cuda_device)
+    Cob = torch.tensor(rng.standard_normal((dops.S.shape[0], 7)), device=cuda_device)
+    args = (*exchange_factors(dops, Cob), dops.teiJ3, dops.dP0, dops.dP2, dops.dQ0, dops.dQ2,
+            dops.step_ilm, dops.gidx)
+    got = kernels.radial_exchange_dia_occ(*args)
+    ref = kernels.radial_exchange_dia_occ_plain(*args)
+    assert float((got - ref).abs().max()) <= TOL * float(ref.abs().max())
+    before = kernels.launches["radial_exchange_dia_occ"]
+    K = exchange_dia_occ(dops, Cob[:, :0])
+    assert kernels.launches["radial_exchange_dia_occ"] == before and not K.any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method", ["HF", "PBE"])
+def test_unrestricted_sad_on_card_matches_cpu(cuda_device, method):
+    """The unrestricted SAD solve on the card: the CPU's energy within 1e-9
+    Eh; per Fock build K2 once, K1 once for both spins (HF), K4 and K5
+    once for both spins (PBE)."""
+    from helfem_tpu_torch.models import sadatom
+
+    cfg = dict(Z=7, lmax=1, nelem=6, nnodes=8)
+    cpu = sadatom.solve_sadatom_unrestricted(sadatom.SadAtomBasis(**cfg), 5, 2, method=method,
+                                             convthr=1e-9, device="cpu")
+    kernels.reset_launches()
+    gpu = sadatom.solve_sadatom_unrestricted(sadatom.SadAtomBasis(**cfg), 5, 2, method=method,
+                                             convthr=1e-9, device=cuda_device)
+    assert gpu.converged and abs(gpu.E - cpu.E) < 1e-9
+    n, hf = gpu.nfock, method == "HF"
+    assert kernels.launches["radial_coulomb"] == n
+    assert kernels.launches["radial_exchange"] == (n if hf else 0)
+    assert kernels.launches["dia_xc_fields"] == kernels.launches["dia_xc_fock"] == (
+        0 if hf else n)

@@ -355,12 +355,15 @@ def test_gensap_cli_matches_jax(tmp_path, monkeypatch, capsys):
 
 
 @pytest.mark.parametrize("extra, match", [
-    (["--unrestricted"], "--unrestricted"),
+    (["--unrestricted", "--diisthr", "1e-3"], "--diisthr"),
     (["--finitenuc", "gaussian"], "--finitenuc"),
     (["--iconf", "1"], "--iconf"),
-    (["--Q", "1"], "--Q"),
+    (["--Q", "1", "--conf_R", "5"], "--conf_R"),
 ], ids=["unrestricted", "finite_nucleus", "confinement", "charge"])
 def test_gensap_cli_unported_flags_raise(extra, match):
+    """Flags the port does not cover raise; --unrestricted and --Q run
+    (tests/test_torch_cli.py), with the sliding DIIS switch or a confined
+    ion they still raise."""
     with pytest.raises(NotImplementedError, match=match):
         gensap.main(["--Z", "He", "--lmax", "0", "--device", "cpu", *extra])
 
@@ -374,6 +377,10 @@ def test_unported_basis_options_raise(kwargs):
 
 
 def test_unrestricted_solver_raises():
-    for fn in (sadatom.solve_sadatom_unrestricted, sadatom.search_sadatom_unrestricted):
-        with pytest.raises(NotImplementedError, match="queue 1 item 5"):
-            fn(sadatom.SadAtomBasis(Z=3, lmax=1), 2, 1)
+    """The unrestricted solver and search run (tests/test_torch_sadatom_open.py);
+    an option of helfem_tpu's that the port does not cover still raises."""
+    basis = sadatom.SadAtomBasis(Z=3, lmax=1)
+    with pytest.raises(NotImplementedError, match="diisthr"):
+        sadatom.solve_sadatom_unrestricted(basis, 2, 1, device="cpu", diisthr=1e-3)
+    with pytest.raises(NotImplementedError, match="diisthr"):
+        sadatom.search_sadatom_unrestricted(basis, device="cpu", diisthr=1e-3)
