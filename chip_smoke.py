@@ -104,7 +104,8 @@ Phases, any failure raises and exits non-zero:
      UHF, UKS-PBE and ROHF within 1e-8 Eh of helfem_tpu's f64 values; K2
      once per iteration, K1 once per iteration for HF and PBE0 (both spins
      in one launch), K4 once per iteration and K5 once per iteration plus
-     once for the grid self-check for a functional; then warm walls and a
+     twice for the grid self-check (overlap, and kinetic through its tau
+     contraction) for a functional; then warm walls and a
      profile of Ar PBE0 and Xe PBE (device-busy share, eigh share, K4/K5
      device time per call);
  16. open shells through the port's diatomic and gensap CLIs: triplet O2
@@ -130,7 +131,22 @@ Phases, any failure raises and exits non-zero:
      twice); then SAD-UHF
      Cr (M = 7) with K1 once per Fock build for both spins' stacked cubes
      (checked against its plain version at that shape), within 1e-8 Eh of
-     helfem_tpu's value, and its warm profile.
+     helfem_tpu's value, and its warm profile;
+ 17. meta-GGAs (tau) and the new GGA catalog: K4 and K5 in tau mode
+     against their plain versions on the N2 bench and lmax=12 grids, the
+     Ar and Xe atomic grids and the SAD Kr grid's two-shell meta-GGA form,
+     at one and two spins (1e-12 x max-abs, the same bits twice, one
+     launch per call, CUDA-event and profiler times beside the bound);
+     sum w tau = tr(P T) within 1e-10 at the N2 bench basis and the grid
+     kinetic matrix within 1e-9 of the analytic T at the Ar bench basis,
+     both on the card; Ar TPSS, TPSSh, rSCAN and B3LYP5 at the Ar bench
+     basis, N2 TPSS and B3LYP5 at the N2 bench basis from SAP, quartet N
+     UKS-TPSS and gensap Kr TPSS (--pot SVWN) through the port's CLIs,
+     each within 1e-9 Eh of helfem_tpu's f64 value at the same arguments,
+     K4 and K5 once per Fock build (the atomic CLI's K5 twice more for its
+     grid self-check), K1 or K6 launched for the hybrids; then each cell's
+     warm walls (min of 3) and device-time shares of eigh, K4, K5 and
+     xc_eval's autograd ops.
 The last two lines are the kernels' JSON record and {"ok": true, ...}.
 """
 
@@ -311,6 +327,35 @@ CR_U_REF = -1040.2732201950523
 # SAD-UHF Cr at M = 7 (15 alpha, 9 beta, aufbau, convthr 1e-8): helfem_tpu's
 # solve_sadatom_unrestricted in f64 on the CPU, occupations (4,6,5)/(3,6,0)
 CR_UHF_REF = -1043.3567816060308
+# phase 17: meta-GGAs and the new GGA catalog. The XC kernels in tau mode on
+# these grids (one and two spins), and full-width SCFs through the port's
+# CLIs: label -> (CLI module, arguments, helfem_tpu's energy, its iteration
+# count). Each energy is helfem_tpu's CLI in f64 on the CPU with the same
+# arguments, e.g. `python -m helfem_tpu.cli.atomic --Z Ar --lmax 1 --mmax 1
+# --nelem 10 --nnodes 15 --Rmax 40 --convthr 1e-8 --iguess 3 --method TPSS`,
+# `python -m helfem_tpu.cli.diatomic --Z1 N --Z2 N --Rbond 2.0743 --lmax 6,6
+# --nelem 5 --nnodes 8 --Rmax 25 --iguess 2 --convthr 1e-7 --method TPSS` and
+# `python -m helfem_tpu.cli.gensap --Z Kr --lmax 2 --Rmax 40 --nelem 8
+# --nnodes 12 --method TPSS --pot SVWN --convthr 1e-7 --nosearch` (gensap's
+# result has no iteration count)
+TAU_GRIDS = ("n2", "lmax12", "ar", "xe", "sad_kr")
+AR_MGGA_CLI = [a if a != "1e-9" else "1e-8" for a in AR_CLI]
+N2_MGGA_CLI = ["--Z1", "N", "--Z2", "N", "--Rbond", "2.0743", "--lmax", "6,6", "--nelem", "5",
+               "--nnodes", "8", "--Rmax", "25", "--iguess", "2", "--convthr", "1e-7"]
+KR_TPSS_CLI = [a if a != "SVWN" else "TPSS" for a in KR_GENSAP_CLI] + ["--pot", "SVWN"]
+MGGA_CELLS = {
+    "Ar TPSS": ("atomic", AR_MGGA_CLI + ["--method", "TPSS"], -527.5694249429183, 10),
+    "Ar TPSSh": ("atomic", AR_MGGA_CLI + ["--method", "TPSSh"], -527.5645163672733, 10),
+    "Ar rSCAN": ("atomic", AR_MGGA_CLI + ["--method", "rSCAN"], -527.6283489665886, 10),
+    "Ar B3LYP5": ("atomic", AR_MGGA_CLI + ["--method", "B3LYP5"], -527.4982727594287, 9),
+    "N2 TPSS": ("diatomic", N2_MGGA_CLI + ["--method", "TPSS"], -109.12524381118806, 9),
+    "N2 B3LYP5": ("diatomic", N2_MGGA_CLI + ["--method", "B3LYP5"], -109.04793816048158, 8),
+    "N UKS-TPSS": ("atomic", N_CLI + ["--method", "TPSS"], -54.616175639654855, 12),
+    "gensap Kr TPSS": ("gensap", KR_TPSS_CLI, -2753.7109945860525, None),
+}
+MGGA_GATE = 1e-9
+TAU_TRACE_TOL = 1e-10  # sum w tau against tr(P T), relative
+KINETIC_GRID_TOL = 1e-9  # the grid kinetic matrix against the analytic T
 PROBES = {  # name -> (source, {precision: replaces})
     "matmul_f32": ("helfem_tpu_torch/csrc/matmul_probe.cu",
                    {"full": "scripts/pallas_f64_ablation.py:50",
@@ -506,45 +551,54 @@ def random_atomic_inputs(dev, NL: int, NM: int, nang: int, nelem: int, nnodes: i
     return atomic_kernel_work(tei, U, V, Lfac, gidx, symmetric(NL, NM), symmetric(nang))
 
 
-def xc_work(g, P, pots, mask, nrad: int) -> dict:
+def xc_work(g, P, pots, mask, nrad: int, tau: bool = False) -> dict:
     """Per XC kernel (its inputs, the bytes it must move, the operations it
     does) on the grid g for the densities P [ns, nbf, nbf] (K4) and the
-    weighted grid potentials pots = (wvr, wgu, wgv) with the shell mask
-    (None: no mask) (K5): per spin, K4 reads the windows of the live
-    ordered shell pairs (the only ones it needs) and writes three fields,
-    K5 reads the element functions Bg and dBg (not the product tables the
-    kernel streams, which are built from them) and writes the dense F; the
-    operations are the folded ones the kernels do (one window or element
-    block per unordered live pair)."""
-    wvr, wgu, wgv = pots
+    weighted grid potentials pots = (wvr, wgu, wgv[, wvt]) with the shell
+    mask (None: no mask) (K5), in tau mode when tau: per spin, K4 reads the
+    windows of the live ordered shell pairs (the only ones it needs) and
+    writes three fields (four in tau mode), K5 reads the element functions
+    Bg and dBg (not the product tables the kernel streams, which are built
+    from them) and writes the dense F; tau mode also reads the pair rows of
+    dTT2 and TTm2 and the tau factors, and K5 wvt; the operations are the
+    folded ones the kernels do (one window or element block per unordered
+    live pair)."""
+    wvr, wgu, wgv = pots[:3]
     ns, nbf = P.shape[:2]
     nelem, nq, npr = g.Bg.shape
     nt, npl = g.sqeta.shape[0], g.pairs.shape[0]
     ordered = 2 * npl - int((g.pairs[:, 0] == g.pairs[:, 1]).sum())
     win = window_entries(g.gidx, nrad)
-    pair_rows = nbytes(g.pairs, g.TTp, g.dTTp)
+    pair_rows = nbytes(g.pairs, g.TTp, g.dTTp) + (nbytes(g.dTT2p, g.TTm2p, g.tfac) if tau else 0)
     k4_bytes = (8 * ns * ordered * win + pair_rows + nbytes(g.gidx, g.Bg, g.dBg, g.invh, g.sqeta)
-                + 3 * nbytes(wvr))
+                + (4 if tau else 3) * nbytes(wvr))
     masks = () if mask is None else (mask,)
-    k5_bytes = (nbytes(wvr, wgu, wgv, *masks, g.owners, g.band, g.ijs, g.Bg, g.dBg)
+    k5_bytes = (nbytes(*pots, *masks, g.owners, g.band, g.ijs, g.Bg, g.dBg)
                 + pair_rows + 8 * ns * nbf ** 2)
     nij = npr * (npr + 1) // 2
+    if tau:
+        k4_ops = 4 * npr * npr + 6 * npr + 12 * nt
+        k5_ops, k5_args = 12 * nt + 6 * nij, (wvr, wgu, wgv, g, mask, pots[3])
+        k4_args = (P, g, True)
+    else:
+        k4_ops = 2 * npr * npr + 4 * npr + 6 * nt
+        k5_ops, k5_args = 6 * nt + 4 * nij, (wvr, wgu, wgv, g, *masks)
+        k4_args = (P, g)
     return {
-        "dia_xc_fields": ((P, g), k4_bytes,
-                          ns * npl * nelem * nq * (2 * npr * npr + 4 * npr + 6 * nt)),
-        "dia_xc_fock": ((wvr, wgu, wgv, g, *masks), k5_bytes,
-                        ns * npl * nelem * nq * (6 * nt + 4 * nij)),
+        "dia_xc_fields": (k4_args, k4_bytes, ns * npl * nelem * nq * k4_ops),
+        "dia_xc_fock": (k5_args, k5_bytes, ns * npl * nelem * nq * k5_ops),
     }
 
 
-def random_potentials(g, ns: int, rng):
-    """Random weighted grid potentials (wvr, wgu, wgv) [ns, nelem, nq, nt]
-    for the XC Fock kernel on the grid g."""
+def random_potentials(g, ns: int, rng, tau: bool = False):
+    """Random weighted grid potentials (wvr, wgu, wgv[, wvt]) [ns, nelem,
+    nq, nt] for the XC Fock kernel on the grid g."""
     shape = (ns, *g.w.shape)
-    return tuple(torch.tensor(rng.standard_normal(shape), device=g.w.device) for _ in range(3))
+    return tuple(torch.tensor(rng.standard_normal(shape), device=g.w.device)
+                 for _ in range(4 if tau else 3))
 
 
-def xc_kernel_inputs(basis, dev, ns: int = 2, seed: int = 11):
+def xc_kernel_inputs(basis, dev, ns: int = 2, seed: int = 11, tau: bool = False):
     """xc_work at a diatomic basis: ns random symmetric
     symmetry-block-diagonal densities for K4, random grid potentials and
     the basis's shell mask for K5."""
@@ -558,18 +612,18 @@ def xc_kernel_inputs(basis, dev, ns: int = 2, seed: int = 11):
             X = rng.standard_normal((len(idx), len(idx)))
             P[s][np.ix_(idx, idx)] = X + X.T
     P = torch.tensor(P, device=dev)
-    pots = random_potentials(g, ns, rng)
+    pots = random_potentials(g, ns, rng, tau)
     mask = torch.tensor(basis.shell_mask().reshape(-1), device=dev)
-    return xc_work(g, P, pots, mask, basis.nrad)
+    return xc_work(g, P, pots, mask, basis.nrad, tau)
 
 
-def atomic_xc_inputs(shape: str, dev, ns: int = 2, seed: int = 59):
+def atomic_xc_inputs(shape: str, dev, ns: int = 2, seed: int = 59, tau: bool = False):
     """xc_work on an atomic grid: the atomic grid of SHAPES[shape] (Ar or
     Xe bench basis) with random symmetric densities dense over the same-m
     shell pairs (every live pair carries data), or the SAD grid of
     SAD_SHAPES[shape] or, for "sad_cr", of CR_SHAPE (one shell, one angular
-    point) with random symmetric radial densities; random grid potentials,
-    no mask."""
+    point; with tau its two-shell meta-GGA form, sadatom.sad_tau_grid) with
+    random symmetric radial densities; random grid potentials, no mask."""
     from helfem_tpu_torch.models import sadatom
     from helfem_tpu_torch.models.atomic import AtomicBasis
     from helfem_tpu_torch.models.atomic_dft import build_atomic_grid
@@ -578,20 +632,23 @@ def atomic_xc_inputs(shape: str, dev, ns: int = 2, seed: int = 59):
     sad = {**SAD_SHAPES, "sad_cr": CR_SHAPE}
     if shape in sad:
         basis = sadatom.SadAtomBasis(**sad[shape])
-        g = basis.build_ops(dev).grid
-        mval = np.zeros(1, dtype=int)
+        ops = basis.build_ops(dev)
+        g = ops.tgrid if tau else ops.grid
+        mval = np.zeros(g.TT.shape[0], dtype=int)
+        same_m = np.eye(len(mval), dtype=bool)  # the shells' block-diagonal density
     else:
         basis = AtomicBasis(**SHAPES[shape])
         g = build_atomic_grid(basis, dev)
         mval = basis.mval
+        same_m = mval[:, None] == mval[None, :]
     nang, nrad = len(mval), basis.nrad
-    same_m = (mval[:, None] == mval[None, :])[:, None, :, None]
+    same_m = same_m[:, None, :, None]
     P = np.zeros((ns, nang, nrad, nang, nrad))
     for s in range(ns):
         X = rng.standard_normal((nang, nrad, nang, nrad))
         P[s] = (X + X.transpose(2, 3, 0, 1)) * same_m
     P = torch.tensor(P.reshape(ns, nang * nrad, nang * nrad), device=dev)
-    return xc_work(g, P, random_potentials(g, ns, rng), None, nrad)
+    return xc_work(g, P, random_potentials(g, ns, rng, tau), None, nrad, tau)
 
 
 def block_density(basis, dev, seed: int) -> torch.Tensor:
@@ -769,8 +826,13 @@ def lmax12_exchange_inputs(dev, seed: int = 17, dense_channels: int = 3):
 def report(shape: str, name: str, r: dict) -> dict:
     device = "" if "device_ms" not in r else (" (device not measured)" if r["device_ms"] is None
                                               else f" (device {r['device_ms']:.4f})")
+    if "queued_ms" in r:
+        device += (", queued not measured" if r["queued_ms"] is None
+                   else f", queued {r['queued_ms']:.4f} ms")
+    rel = f", the largest of each output's err / its max-abs {r['rel_err']:.2e}" \
+        if "rel_err" in r else ""
     print(f"{shape} {name}: max-abs err {r['max_abs_err']:.3e} (scale "
-          f"{r['scale']:.3e}), kernel {r['ms']:.4f} ms{device}, plain {r['plain_ms']:.4f} ms, "
+          f"{r['scale']:.3e}{rel}), kernel {r['ms']:.4f} ms{device}, plain {r['plain_ms']:.4f} ms, "
           f"bound {r['bound_ms']:.5f} ms by {r['bound_by']} ({r['bytes']} B, "
           f"{r['flops']} flop); achieved {r['flops'] / r['ms'] / 1e9:.3f} TFLOP/s")
     return r
@@ -799,10 +861,12 @@ def compare(name: str, args, bytes_moved: int, flops: int, warmup: int = 5,
     """The kernel against its plain version on the same card inputs: gate
     each output at 1e-12 x its max-abs; CUDA-event times in turns (plain,
     kernel, kernel, plain), the kernel's device time per call from
-    torch.profiler (the call time less the host's dispatch), and the least
-    time the card could take."""
+    torch.profiler (the call time less the host's dispatch) and from CUDA
+    events around calls queued behind a sleeping kernel (the launches' own
+    gaps included, utils/profiling.py:queued_ms), and the least time the
+    card could take."""
     from helfem_tpu_torch import kernels
-    from helfem_tpu_torch.utils.profiling import device_ms
+    from helfem_tpu_torch.utils.profiling import device_ms, queued_ms
 
     kern, plain = getattr(kernels, name), getattr(kernels, name + "_plain")
     out = _outputs(kern(*args))
@@ -826,8 +890,11 @@ def compare(name: str, args, bytes_moved: int, flops: int, warmup: int = 5,
         dev_ms = device_ms(lambda: kern(*args), min(reps, 20)) or None
         if dev_ms:
             break
-    return {"max_abs_err": max(errs), "scale": min(scales), "ms": 0.5 * (k1 + k2),
-            "device_ms": dev_ms,
+    rel = max(err / scale if scale else (0.0 if err == 0.0 else float("inf"))
+              for err, scale in zip(errs, scales))
+    return {"max_abs_err": max(errs), "scale": min(scales), "rel_err": rel,
+            "ms": 0.5 * (k1 + k2), "device_ms": dev_ms,
+            "queued_ms": queued_ms(lambda: kern(*args), min(reps, 20)),
             "plain_ms": 0.5 * (p1 + p2), "bound_ms": 1e3 * max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "bytes": bytes_moved, "flops": flops}
@@ -914,7 +981,8 @@ def run_cli(main, argv, label: str, names: list[str], check, per_iter=()) -> dic
     counts = dict(kernels.launches)
     print(f"{label}: E = {res.E:.12f}, {res.niter} iterations, converged {res.converged}; "
           f"walls: basis {res.walls['basis']:.3f} s, operators {res.walls['operators']:.3f} s, "
-          f"SCF {res.walls['scf']:.3f} s, whole CLI {wall:.3f} s; kernel launches {counts}")
+          f"SCF {res.walls.get('scf', res.walls.get('solve')):.3f} s, whole CLI {wall:.3f} s; "
+          f"kernel launches {counts}")
     problem = check(res)
     if problem:
         raise RuntimeError(f"{label}: {problem}")
@@ -1054,8 +1122,8 @@ def dft_phase(dev) -> dict:
     """Phase 15: the DFT_CELLS through the port's atomic CLI, each with K2
     once per iteration, K1 once per iteration for HF and hybrids (both
     spins in one launch) and never otherwise, K4 once per iteration and K5
-    once per iteration plus once for the CLI's grid self-check for a
-    functional and never otherwise; then warm walls and a profile of Ar
+    once per iteration plus twice for the CLI's grid self-check (overlap,
+    kinetic) for a functional and never otherwise; then warm walls and a profile of Ar
     PBE0 and Xe PBE. Returns each cell's launch counts."""
     from helfem_tpu_torch import kernels
     from helfem_tpu_torch.cli.atomic import main as atomic_main
@@ -1074,7 +1142,7 @@ def dft_phase(dev) -> dict:
         def check(res, label=label, ref=ref, gate=gate, funcs=funcs, kfrac=kfrac, nel=nel):
             n = res.niter
             want = {"radial_coulomb": n, "radial_exchange": n if kfrac else 0,
-                    "dia_xc_fields": n if funcs else 0, "dia_xc_fock": n + 1 if funcs else 0}
+                    "dia_xc_fields": n if funcs else 0, "dia_xc_fock": n + 2 if funcs else 0}
             got = {name: kernels.launches[name] for name in want}
             dE = res.E - ref
             print(f"{label}: E - reference = {dE:+.3e} (gate {gate:g}), Exc {res.Exc:.10f}, "
@@ -1386,6 +1454,167 @@ def open_shell_phase(dev, results: dict) -> dict:
                                                    "launches": n1}
     print(f"SAD-UHF Cr: K1 {k1 / max(n1, 1):.4f} ms device a launch (both spins)")
     del cr_ops
+    return counts
+
+
+def tau_kernels(dev, results: dict) -> None:
+    """K4 and K5 in tau mode against their plain versions on the TAU_GRIDS
+    at one and two spins (1e-12 x each output's max-abs, the same bits
+    twice, one launch per call), into results[(name, "tau_<grid>_<ns>")]."""
+    from helfem_tpu_torch.models.diatomic import DiatomicBasis
+
+    for grid in TAU_GRIDS:
+        for ns in (1, 2):
+            t0 = time.perf_counter()
+            if grid in ("n2", "lmax12"):
+                cfg = DIA_SHAPES["n2"] if grid == "n2" else N2_L12_SHAPE
+                inputs = xc_kernel_inputs(DiatomicBasis(**cfg), dev, ns, 83, tau=True)
+            else:
+                inputs = atomic_xc_inputs(grid, dev, ns, 89, tau=True)
+            torch.cuda.synchronize()
+            print(f"tau {grid}, {ns} spin(s): grid and inputs made in "
+                  f"{time.perf_counter() - t0:.2f} s")
+            reps = (2, 10) if grid == "lmax12" else (5, 50)
+            for name, (args, moved, flops) in inputs.items():
+                same_bits_twice(name, args)
+                results[(name, f"tau_{grid}_{ns}")] = report(
+                    f"tau {grid} ns={ns}", name, compare(name, args, moved, flops, *reps))
+            del inputs, args
+            torch.cuda.empty_cache()
+    print(f"XC kernels in tau mode on {list(TAU_GRIDS)}, one and two spins: one launch per "
+          "call, the same bits twice")
+
+
+def tau_identities(dev) -> None:
+    """On the card: sum w tau = tr(P T) at the N2 bench basis (a physical
+    two-orbital-per-block density through K4's tau mode), and the grid
+    kinetic matrix (K5's tau contraction) against the analytic T at the Ar
+    bench basis."""
+    from helfem_tpu_torch.models.atomic import AtomicBasis
+    from helfem_tpu_torch.models.atomic_dft import build_atomic_grid, eval_kinetic_grid
+    from helfem_tpu_torch.models.diatomic import DiatomicBasis
+    from helfem_tpu_torch.models.diatomic_dft import _fields_dia, build_dia_grid
+
+    basis = DiatomicBasis(**DIA_SHAPES["n2"])
+    ops = basis.build_operators(dev)
+    g = build_dia_grid(basis, dev)
+    rng = np.random.default_rng(97)
+    P = np.zeros((basis.nbf, basis.nbf))
+    for idx in basis.sym_blocks():
+        X = rng.standard_normal((len(idx), 2)) * 0.3
+        P[np.ix_(idx, idx)] = X @ X.T
+    m = ops.shellmask.reshape(-1).cpu().numpy()
+    P = torch.tensor(P * np.outer(m, m), device=dev)
+    tau = _fields_dia(g, P, True)[3]
+    t_grid, t_ref = float(torch.sum(g.w * tau)), float(torch.sum(P * ops.T))
+    rel = abs(t_grid - t_ref) / abs(t_ref)
+    print(f"N2 bench basis: sum w tau = {t_grid:.15f}, tr(P T) = {t_ref:.15f}, relative "
+          f"difference {rel:.3e} (gate {TAU_TRACE_TOL:g})")
+    if not rel < TAU_TRACE_TOL:
+        raise RuntimeError("sum w tau disagrees with tr(P T) on the card")
+    del ops, g
+    ar = AtomicBasis(**SHAPES["ar"])
+    g = build_atomic_grid(ar, dev)
+    T = eval_kinetic_grid(g, ar.nrad).cpu().numpy()
+    Tref = ar.kinetic()
+    err = float((np.abs(T - Tref) / (1.0 + np.abs(Tref))).max())
+    print(f"Ar bench basis: grid kinetic matrix through K5's tau contraction against the "
+          f"analytic T: max |dT| / (1 + |T|) = {err:.3e} (gate {KINETIC_GRID_TOL:g})")
+    if not err < KINETIC_GRID_TOL:
+        raise RuntimeError("the grid kinetic matrix disagrees with the analytic T on the card")
+
+
+def mgga_phase(dev, results: dict) -> dict:
+    """Phase 17: the XC kernels' tau mode against their plain versions, the
+    two tau identities, and the MGGA_CELLS through the port's CLIs, each
+    within MGGA_GATE of helfem_tpu's energy with K4 and K5 once per Fock
+    build (the atomic CLI's K5 twice more, for the grid self-check's
+    overlap and kinetic matrices); then each cell's warm walls (min of 3)
+    and the device-time shares of eigh, K4, K5 and xc_eval (its forward
+    range and autograd's backward nodes). Returns each cell's launches."""
+    from helfem_tpu_torch import kernels
+    from helfem_tpu_torch.cli.atomic import main as atomic_main
+    from helfem_tpu_torch.cli.diatomic import main as diatomic_main
+    from helfem_tpu_torch.cli.gensap import main as gensap_main
+    from helfem_tpu_torch.models import sadatom
+    from helfem_tpu_torch.models.atomic import AtomicBasis
+    from helfem_tpu_torch.models.atomic_dft import build_atomic_grid
+    from helfem_tpu_torch.models.diatomic import DiatomicBasis
+    from helfem_tpu_torch.ops.xc import parse_method_rs
+    from helfem_tpu_torch.scf.atomic_scf import scf_atom
+    from helfem_tpu_torch.scf.diatomic_scf import scf_diatomic
+    from helfem_tpu_torch.utils.profiling import profile_scf
+
+    phase("17. meta-GGAs: K4/K5 in tau mode against plain on five grids, the tau identities, "
+          "Ar TPSS/TPSSh/rSCAN/B3LYP5, N2 TPSS/B3LYP5, quartet N UKS-TPSS and SAD TPSS Kr "
+          "through the port's CLIs, their warm walls and device shares")
+    tau_kernels(dev, results)
+    tau_identities(dev)
+    mains = {"atomic": atomic_main, "diatomic": diatomic_main, "gensap": gensap_main}
+    counts = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for label, (prog, argv, ref, ref_niter) in MGGA_CELLS.items():
+            method = argv[argv.index("--method") + 1]
+            hybrid = parse_method_rs(method).kfull != 0.0
+            extra = ["--output", f"{tmp}/result_Kr.dat"] if prog == "gensap" else []
+
+            def check(res, label=label, prog=prog, ref=ref, ref_niter=ref_niter):
+                nfock = res.nfock if prog == "gensap" else res.niter
+                got = {name: kernels.launches[name] for name in XC}
+                want = {"dia_xc_fields": nfock,
+                        "dia_xc_fock": nfock + (2 if prog == "atomic" else 0)}
+                dE = res.E - ref
+                k5 = got["dia_xc_fock"] - (2 if prog == "atomic" else 0)
+                print(f"{label}: E - helfem_tpu = {dE:+.3e} (gate {MGGA_GATE:g}), {res.niter} "
+                      f"iterations (helfem_tpu {ref_niter}), {nfock} Fock builds; launches per "
+                      f"Fock build K4 {got['dia_xc_fields'] / nfock:.3f}, K5 {k5 / nfock:.3f}")
+                if got != want:
+                    return f"launches {got}, expected {want}"
+                return "" if res.converged and abs(dE) < MGGA_GATE else \
+                    "did not converge within the gate"
+
+            names = list(XC) + (["radial_exchange" if prog == "atomic" else
+                                 "radial_exchange_dia_occ"] if hybrid else [])
+            counts[label] = run_cli(mains[prog], argv + extra, label, names, check)
+
+    def warm(label, run):
+        per = profile_scf(label, run, kernels=XC_SASS + RADIAL_SASS + (K3_SASS, K6_SASS),
+                          ops=(EIGH_OP,), ranges={"xc_eval": ("xc_eval",
+                                                              "autograd::engine::evaluate")})
+        busy = per["busy"][0]
+        shares = {name: per[key][0] for name, key in
+                  (("eigh", EIGH_OP), ("K4", XC_SASS[0]), ("K5", XC_SASS[1]),
+                   ("xc_eval", "xc_eval"))}
+        other = busy - sum(shares.values())
+        print(f"{label}: device time per warm SCF {busy:.4f} ms; "
+              + ", ".join(f"{k} {v:.4f} ms ({100 * v / busy:.1f} %)" for k, v in shares.items())
+              + f", the rest {other:.4f} ms ({100 * other / busy:.1f} %); K4/K5 launches "
+              f"{per[XC_SASS[0]][1]}/{per[XC_SASS[1]][1]}")
+        results[("mgga_scf", label)] = {"busy_ms": busy, **{f"{k}_ms": v for k, v in
+                                                            shares.items()}}
+
+    for label, (prog, argv, _, _) in MGGA_CELLS.items():
+        method = argv[argv.index("--method") + 1]
+        if prog == "atomic":
+            cfg = SHAPES["ar"] if label.startswith("Ar") else dict(SHAPES["ar"], Z=7)
+            nel = (9, 9) if label.startswith("Ar") else (5, 2)
+            basis = AtomicBasis(**cfg)
+            ops, grid = basis.build_operators(dev), build_atomic_grid(basis, dev)
+            convthr = float(argv[argv.index("--convthr") + 1])
+            warm(label, lambda: scf_atom(basis, *nel, method=method, convthr=convthr,
+                                         guess="TF", ops=ops, grid=grid))
+        elif prog == "diatomic":
+            basis = DiatomicBasis(**DIA_SHAPES["n2"])
+            ops = basis.build_operators(dev)
+            warm(label, lambda: scf_diatomic(basis, 7, 7, method=method, convthr=1e-7,
+                                             guess="SAP", ops=ops))
+        else:
+            basis = sadatom.SadAtomBasis(**SAD_SHAPES["sad_kr"])
+            ops = basis.build_ops(dev)
+            warm(label, lambda: sadatom.solve_sadatom(basis, method="TPSS", convthr=1e-7,
+                                                      search=False, ops=ops))
+        del ops
+        torch.cuda.empty_cache()
     return counts
 
 
@@ -1765,6 +1994,7 @@ def main() -> None:
     sad_counts = sad_phases(dev, results)
     dft_counts = dft_phase(dev)
     open_counts = open_shell_phase(dev, results)
+    mgga_counts = mgga_phase(dev, results)
 
     record = []
     for name, (source, replaces, shape) in KERNELS.items():
@@ -1795,6 +2025,13 @@ def main() -> None:
                           ("max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms")})
         if name in XC:
             extra["sad_cr2_spins"] = 2
+            for grid in TAU_GRIDS:
+                for ns in (1, 2):
+                    o = results[(name, f"tau_{grid}_{ns}")]
+                    extra.update({f"tau_{grid}_{ns}_{k}": o[k] for k in
+                                  ("max_abs_err", "rel_err", "ms", "device_ms", "queued_ms",
+                                   "plain_ms", "bound_ms")})
+            extra["phase17_launches"] = {label: c.get(name, 0) for label, c in mgga_counts.items()}
         scf = results.get((name, {"radial_exchange_dia_occ": "o2_l12_scf",
                                   "radial_exchange": "sad_cr2_scf"}.get(name)))
         if scf is not None:
@@ -1807,7 +2044,8 @@ def main() -> None:
         record.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": counts[name], "max_abs_err": r["max_abs_err"], "ms": r["ms"],
-            "device_ms": r["device_ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "device_ms": r["device_ms"], "queued_ms": r["queued_ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": None, "shape": shape,
             "other_shape_max_abs_err": other["max_abs_err"], "other_shape_ms": other["ms"],
             "other_shape_device_ms": other["device_ms"], "other_shape_plain_ms": other["plain_ms"],

@@ -2,8 +2,9 @@
 
 The paths of helfem_tpu carried to PyTorch so far, with hand-written CUDA
 kernels (`kernels/`, sources in `csrc/`): atomic restricted Hartree-Fock
-(radial Coulomb and exchange kernels); diatomic restricted LDA/GGA DFT
-(diatomic radial Coulomb, XC grid fields and XC Fock kernels); diatomic
+(radial Coulomb and exchange kernels); diatomic and atomic LDA, GGA and
+meta-GGA DFT (diatomic radial Coulomb, XC grid fields and XC Fock kernels,
+the last two with a tau mode); diatomic
 restricted Hartree-Fock and the PBE0 hybrid (the occupied-orbital and the
 dense diatomic exchange kernels); and the f64-ablation matmul probes
 (`tools/f64_ablation.py`). helfem_tpu stays the reference the port is tested

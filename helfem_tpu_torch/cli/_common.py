@@ -1,7 +1,9 @@
-"""Helpers shared by the port's CLIs: electron counts, the rejection of
-flags of the JAX CLIs that the port does not cover, and the device."""
+"""Helpers shared by the port's CLIs: electron counts, functional parameter
+files, the rejection of flags of the JAX CLIs that the port does not cover,
+and the device."""
 
-__all__ = ["open_device", "parse_nela_nelb", "reject_unported"]
+__all__ = ["add_xc_flags", "apply_pars_files", "open_device", "parse_nela_nelb",
+           "reject_unported"]
 
 
 def parse_nela_nelb(Z: int, Q: int, M: int, nela: int, nelb: int):
@@ -13,6 +15,50 @@ def parse_nela_nelb(Z: int, Q: int, M: int, nela: int, nelb: int):
         M = 1 if nel % 2 == 0 else 2
     na = (nel + M - 1) // 2
     return na, nel - na
+
+
+def add_xc_flags(p, mdft: bool = True) -> None:
+    """--x_pars and --c_pars, and with mdft --mdft, as helfem_tpu's CLIs
+    define them."""
+    if mdft:
+        p.add_argument("--mdft", type=int, default=0,
+                       help="accepted for reference parity; the phi integral is evaluated "
+                            "analytically here, so it has no effect")
+    p.add_argument("--x_pars", default="", help="file of 'key=value' parameter overrides for "
+                   "the exchange functional")
+    p.add_argument("--c_pars", default="", help="same for the correlation functional")
+
+
+def apply_pars_files(method: str, x_pars: str, c_pars: str) -> str:
+    """Fold --x_pars/--c_pars parameter files into the method string, as
+    helfem_tpu's _apply_pars_files does (helfem_tpu/cli/atomic.py:12-37;
+    reference: libxc ext_params files, src/atomic/main.cpp:107-108): the
+    files hold 'key=value' lines ('#' starts a comment) matched against the
+    functional's named parameters. Only an 'x_func,c_func' pair (or a
+    single functional with --x_pars) takes parameter files. The method is
+    returned unchanged when neither file is given."""
+    if not (x_pars or c_pars):
+        return method
+    parts = method.split(",")
+    if len(parts) > 2 or "[" in method:
+        raise SystemExit("--x_pars/--c_pars need a plain 'x_func,c_func' method")
+
+    def read(path):
+        kv = []
+        with open(path) as f:
+            for line in f:
+                line = line.split("#")[0].strip()
+                if line:
+                    kv.append(line.replace(" ", ""))
+        return ",".join(kv)
+
+    if x_pars:
+        parts[0] = f"{parts[0]}[{read(x_pars)}]"
+    if c_pars:
+        if len(parts) < 2:
+            raise SystemExit("--c_pars given but the method has no correlation part")
+        parts[1] = f"{parts[1]}[{read(c_pars)}]"
+    return ",".join(parts)
 
 
 def reject_unported(extra: list[str], unported: tuple, prog: str) -> None:

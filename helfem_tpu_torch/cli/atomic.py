@@ -10,7 +10,13 @@ per-iteration and final-energy lines match the JAX CLI's.
 import argparse
 import time
 
-from helfem_tpu_torch.cli._common import open_device, parse_nela_nelb, reject_unported
+from helfem_tpu_torch.cli._common import (
+    add_xc_flags,
+    apply_pars_files,
+    open_device,
+    parse_nela_nelb,
+    reject_unported,
+)
 
 # helfem_tpu.cli.atomic flags outside this slice
 _UNPORTED_FLAGS = (
@@ -18,8 +24,8 @@ _UNPORTED_FLAGS = (
     "zexp0", "add_conf", "load", "readocc", "Ez", "Qzz", "Bz", "finitenuc",
     "Rrms", "iconf", "conf_N", "conf_R", "conf_barrier", "shift_conf", "save",
     "symmetry", "maverage", "perturb", "seed",
-    "dampfock", "dampthr", "diag", "eigiter", "diisthr", "mdft",
-    "angstrom", "x_pars", "c_pars", "zeroder", "trace", "ndev", "taylor_order",
+    "dampfock", "dampthr", "diag", "eigiter", "diisthr",
+    "angstrom", "zeroder", "trace", "ndev", "taylor_order",
 )
 
 
@@ -44,8 +50,9 @@ def main(argv=None):
     p.add_argument("--maxit", type=int, default=50)
     p.add_argument("--convthr", type=float, default=1e-7)
     p.add_argument("--method", default="HF",
-                   help="HF, LDA, SVWN, PBE, revPBE, PBEsol, PBE0/PBEh or an 'x,c' pair "
-                        "of the ported functionals")
+                   help="HF, LDA, SVWN, PBE, revPBE, PBEsol, RPBE, BLYP, TPSS, SCAN, rSCAN, "
+                        "the hybrids PBE0/PBEh, TPSSh and B3LYP5, or an 'x,c' pair of the "
+                        "ported functionals")
     p.add_argument("--iguess", type=int, default=2,
                    help="0 core, 1 GSZ, 2 SAP, 3 TF")
     p.add_argument("--dftthr", type=float, default=1e-12, help="XC density threshold")
@@ -54,6 +61,7 @@ def main(argv=None):
                         "(ROHF for open shells)")
     p.add_argument("--ldft", type=int, default=0,
                    help="theta points of the XC grid (0: 2*lmax + 12)")
+    add_xc_flags(p)
     p.add_argument("--diisorder", type=int, default=10, help="DIIS history length")
     p.add_argument("--diiseps", type=float, default=0.1,
                    help="DIIS error below which extrapolation starts mixing in")
@@ -76,6 +84,7 @@ def main(argv=None):
     from helfem_tpu_torch.utils.timer import Timer
 
     device = open_device(args.device)
+    args.method = apply_pars_files(args.method, args.x_pars, args.c_pars)
     funcs, _ = atomic_method(args.method)  # raises for methods that are not ported
     Z = get_Z(args.Z)
     nela, nelb = parse_nela_nelb(Z, args.Q, args.M, args.nela, args.nelb)

@@ -3,22 +3,29 @@ the PyTorch/CUDA port.
 
 A subset of helfem_tpu.cli.diatomic (flag names mirror the reference
 `diatomic` program, src/diatomic/main.cpp:89-143), plus --device. The port
-runs HF, LDA/GGA and PBE0, restricted, unrestricted (--restricted 0, the
-default for nela != nelb) or ROHF (--restricted 1 with nela != nelb), from
-the core, SAP, GSZ or TF guess; flags of the JAX CLI that it does not cover
-are rejected with NotImplementedError. The per-iteration and final-energy lines match the JAX
+runs HF, LDA, GGA and meta-GGA functionals and their global hybrids,
+restricted, unrestricted (--restricted 0, the default for nela != nelb) or
+ROHF (--restricted 1 with nela != nelb), from the core, SAP, GSZ or TF
+guess; flags of the JAX CLI that it does not cover are rejected with
+NotImplementedError. The per-iteration and final-energy lines match the JAX
 CLI's.
 """
 
 import argparse
 import time
 
-from helfem_tpu_torch.cli._common import open_device, parse_nela_nelb, reject_unported
+from helfem_tpu_torch.cli._common import (
+    add_xc_flags,
+    apply_pars_files,
+    open_device,
+    parse_nela_nelb,
+    reject_unported,
+)
 
 # helfem_tpu.cli.diatomic flags outside this slice
 _UNPORTED_FLAGS = (
     "lpad", "diag", "maverage", "save", "load", "Ez", "Qzz", "Bz", "symmetry", "diisthr",
-    "mdft", "readocc", "x_pars", "c_pars", "finitenuc", "trace", "Rrms1", "Rrms2", "ndev",
+    "readocc", "finitenuc", "trace", "Rrms1", "Rrms2", "ndev",
 )
 
 
@@ -49,8 +56,9 @@ def main(argv=None):
     p.add_argument("--maxit", type=int, default=50)
     p.add_argument("--convthr", type=float, default=1e-7)
     p.add_argument("--method", default="HF",
-                   help="HF, LDA, SVWN, PBE, revPBE, PBEsol, PBE0 or an 'x,c' pair "
-                        "(meta-GGAs, other hybrids, range separation: not ported yet)")
+                   help="HF, LDA, SVWN, PBE, revPBE, PBEsol, RPBE, BLYP, TPSS, SCAN, rSCAN, "
+                        "the hybrids PBE0/PBEh, TPSSh and B3LYP5, or an 'x,c' pair (range "
+                        "separation and BR89: not ported yet)")
     p.add_argument("--guess", default="core", help="core, SAP, TF or GSZ")
     p.add_argument("--iguess", type=int, default=None,
                    help="guess by reference id: 0 core, 1 GSZ, 2 SAP, 3 TF; "
@@ -58,6 +66,7 @@ def main(argv=None):
     p.add_argument("--dftthr", type=float, default=1e-12)
     p.add_argument("--ldft", type=int, default=0,
                    help="eta rule order for the dft grid (0 = auto)")
+    add_xc_flags(p)
     p.add_argument("--restricted", type=int, default=-1,
                    help="-1 auto, 0 unrestricted, 1 restricted (ROHF if open shell)")
     p.add_argument("--perturb", type=float, default=0.0,
@@ -91,6 +100,7 @@ def main(argv=None):
     if args.iguess is not None:
         args.guess = {0: "core", 1: "GSZ", 2: "SAP", 3: "TF"}[args.iguess]
     nela, nelb = parse_nela_nelb(Z1 + Z2, args.Q, args.M, args.nela, args.nelb)
+    args.method = apply_pars_files(args.method, args.x_pars, args.c_pars)
 
     timer = Timer()
     basis = DiatomicBasis(

@@ -17,13 +17,18 @@ import argparse
 
 import numpy as np
 
-from helfem_tpu_torch.cli._common import open_device, reject_unported
+from helfem_tpu_torch.cli._common import (
+    add_xc_flags,
+    apply_pars_files,
+    open_device,
+    reject_unported,
+)
 
 # helfem_tpu.cli.gensap flags outside this slice
 _UNPORTED_FLAGS = (
     "finitenuc", "Rrms", "nelem0", "grid0", "zexp0", "iconf", "conf_N", "conf_R",
-    "conf_barrier", "shift_conf", "add_conf", "zeroder", "completeness", "x_pars", "c_pars",
-    "diisthr", "taylor_order",
+    "conf_barrier", "shift_conf", "add_conf", "zeroder", "completeness", "diisthr",
+    "taylor_order",
 )
 # the unrestricted potential variants: file tag -> potential_table mode
 # (reference: src/sadatom/main.cpp:738-767)
@@ -52,7 +57,10 @@ def main(argv=None):
     p.add_argument("--shift", type=float, default=1.0,
                    help="level shift for the initial SCF iterations, dropped once the "
                         "DIIS error is below 1e-3")
-    p.add_argument("--method", default="lda_x", help="xc method for the SAP potential")
+    p.add_argument("--method", default="lda_x",
+                   help="xc method of the SCF; a meta-GGA needs --pot with an LDA or GGA "
+                        "for the exported potential, as in helfem_tpu")
+    add_xc_flags(p, mdft=False)
     p.add_argument("--iguess", type=int, default=3,
                    help="guess potential: 0 core, 1 GSZ, 2 SAP, 3 TF (SAP solves the "
                         "atom's own SAP table first)")
@@ -108,6 +116,7 @@ def main(argv=None):
     if args.restricted is not None:
         args.unrestricted = args.restricted != 1
         args.scan = args.restricted == 0
+    args.method = apply_pars_files(args.method, args.x_pars, args.c_pars)
     guess = {0: "core", 1: "GSZ", 2: "SAP", 3: "TF"}[args.iguess]
     # --pot computes the exported screening with another functional than
     # the SCF's (reference: main.cpp:672-678)

@@ -13,6 +13,15 @@
 //   drho_u[e,q,t] = invh[e,q,t] sum_ab TT[a,b,t] Dmu[a,b,e,q]
 //   drho_v[e,q,t] = sqeta[t] invh[e,q,t] sum_ab dTT[a,b,t] D1[a,b,e,q]
 //
+// and in tau mode (meta-GGAs; diatomic_dft.py:104-110, the atomic grid's
+// atomic_dft.py:109-114 and the SAD atom's sadatom.py:220-230) a fourth
+// field from a third folded product Ddd = sum_ij P[..] dB[e,q,i] dB[e,q,j]:
+//
+//   tau[e,q,t] = 1/2 (f1 sum_ab TT Ddd + f2 sum_ab dTT2 D1 + f3 sum_ab TTm2 D1)
+//
+// with the grid's per-point factors f1, f2, f3 = tfac[0..2, e, q, t]
+// (models/xc_grid.py).
+//
 // Work: only the live shell pairs count (TT or dTT not identically zero:
 // m_a = m_b), and TT, dTT are symmetric in (a, b) (both checked once when
 // the grid is built, models/diatomic_dft.py:pair_tables). So (a, b) and
@@ -29,13 +38,15 @@
 //      mod 16 so that fragment loads are conflict-free) are staged in shared
 //      memory, four loads in flight per thread; per pair and 8 points a warp
 //      forms U = B S_p (depth nprim), then D1f = sum_j U B and Dmuf =
-//      2 sum_j U dB, summed over its lanes by shuffles. The result [ns,
-//      nelem, 2, npl, nq] stays in L2 (0.2 MB at N2, 2.3 MB at lmax=12).
+//      2 sum_j U dB, summed over its lanes by shuffles; in tau mode also
+//      U' = dB S_p and Dddf = sum_j U' dB. The result [ns, nelem, 2 (3 in
+//      tau mode), npl, nq] stays in L2 (0.2 MB at N2, 2.3 MB at lmax=12).
 //   2. items (spin, element, 8 points, 8 eta points): rho = D1f TT, u =
 //      Dmuf TT, v = D1f dTT over the live pairs (depth npl: 70 at N2, 379 at
 //      lmax=12), the pairs split over the block's eight warps and their
 //      partial tiles added in warp order through shared memory; invh and
-//      sqeta in the epilogue.
+//      sqeta in the epilogue. Tau mode adds Dddf TT, D1f dTT2 and D1f TTm2
+//      to each tile and tfac in the epilogue.
 // Every sum runs in a fixed order whatever block takes an item: two calls
 // give the same bits, and a spin's fields do not depend on ns.
 //
@@ -58,19 +69,22 @@ namespace cg = cooperative_groups;
 #define XCF_U 4  // staged entries per thread with their loads in flight together
 
 struct XcfGeom {
+  // nD: folded products per pair (2, or 3 in tau mode)
   int ns, nang, nelem, nq, nprim, nrad, nt, npl;
   int pc, qc;        // phase 1: pairs and radial points (a multiple of 8) per item
   int mp, lda, ldq;  // nprim rounded up to 8; row strides of the staged S and B
-  int npc, nqc;
+  int npc, nqc, nD;
 };
 
+template <bool TAU>
 __global__ void __launch_bounds__(XCF_THREADS, 2)
     xc_fields_kernel(const double* __restrict__ P, const int* __restrict__ pairs,
                      const int* __restrict__ gidx, const double* __restrict__ Bg,
                      const double* __restrict__ dBg, const double* __restrict__ TTp,
-                     const double* __restrict__ dTTp, const double* __restrict__ invh,
-                     const double* __restrict__ sqeta, double* D, double* __restrict__ out,
-                     XcfGeom g) {
+                     const double* __restrict__ dTTp, const double* __restrict__ dTT2p,
+                     const double* __restrict__ TTm2p, const double* __restrict__ invh,
+                     const double* __restrict__ sqeta, const double* __restrict__ tfac,
+                     double* D, double* __restrict__ out, XcfGeom g) {
   extern __shared__ __align__(16) double sm[];
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int gq = lane >> 2, tq = lane & 3;  // DMMA fragment row / column group
@@ -80,8 +94,9 @@ __global__ void __launch_bounds__(XCF_THREADS, 2)
   // ---- phase 1: folded pair stage. Per pair p and 8 radial points,
   // U = B S_p on DMMA (m8n8k4: rows q, columns j, depth i), then
   // D1f[p,q] = sum_j U[q,j] B[q,j], Dmuf = 2 sum_j U[q,j] dB[q,j], the sum
-  // over the lanes' column groups by a butterfly of shuffles.
-  // D: [ns, nelem, 2, npl, nq] ----
+  // over the lanes' column groups by a butterfly of shuffles; in tau mode
+  // also U' = dB S_p and Dddf = sum_j U'[q,j] dB[q,j].
+  // D: [ns, nelem, nD, npl, nq] ----
   const int n1 = g.ns * g.nelem * g.npc * g.nqc;
   double* S = sm;                      // [pc][mp][lda] windows S_p = W_ab + W_ba, zero-padded
   double* Bt = S + g.pc * mp * g.lda;  // [mp][ldq] B[q, j] transposed, zero-padded
@@ -150,26 +165,35 @@ __global__ void __launch_bounds__(XCF_THREADS, 2)
       const int pl = task / ntile, qt = 8 * (task - pl * ntile);
       const double* Sp = S + pl * mp * g.lda;
       const int q = qt + gq;  // this lane's radial point (row of U)
-      double v1 = 0.0, vm = 0.0;
+      double v1 = 0.0, vm = 0.0, vd = 0.0;
       for (int n0 = 0; n0 < mp; n0 += 8) {  // U[q, j] = sum_i B[q, i] S_p[i, j]
-        double c0 = 0.0, c1 = 0.0;
-        for (int k = 0; k < np; k += 4)
-          dmma884(c0, c1, Bt[(k + tq) * g.ldq + q], Sp[(k + tq) * g.lda + n0 + gq]);
+        double c0 = 0.0, c1 = 0.0, d0 = 0.0, d1 = 0.0;
+        for (int k = 0; k < np; k += 4) {
+          const double sv = Sp[(k + tq) * g.lda + n0 + gq];
+          dmma884(c0, c1, Bt[(k + tq) * g.ldq + q], sv);
+          if constexpr (TAU) dmma884(d0, d1, dBt[(k + tq) * g.ldq + q], sv);  // U' = dB S_p
+        }
         const int j = n0 + 2 * tq;  // this lane's columns j, j + 1 of U
         v1 = fma(c0, Bt[j * g.ldq + q], v1);
         v1 = fma(c1, Bt[(j + 1) * g.ldq + q], v1);
         vm = fma(c0, dBt[j * g.ldq + q], vm);
         vm = fma(c1, dBt[(j + 1) * g.ldq + q], vm);
+        if constexpr (TAU) {
+          vd = fma(d0, dBt[j * g.ldq + q], vd);
+          vd = fma(d1, dBt[(j + 1) * g.ldq + q], vd);
+        }
       }
 #pragma unroll
       for (int k = 1; k < 4; k *= 2) {  // sum over the four column groups tq
         v1 += __shfl_xor_sync(0xffffffffu, v1, k);
         vm += __shfl_xor_sync(0xffffffffu, vm, k);
+        if constexpr (TAU) vd += __shfl_xor_sync(0xffffffffu, vd, k);
       }
       if (tq == 0 && q < nqx) {
-        double* d1o = D + (((size_t)s * g.nelem + e) * 2 * g.npl + p0 + pl) * g.nq + q0 + q;
+        double* d1o = D + (((size_t)s * g.nelem + e) * g.nD * g.npl + p0 + pl) * g.nq + q0 + q;
         d1o[0] = v1;
         d1o[(size_t)g.npl * g.nq] = 2.0 * vm;
+        if constexpr (TAU) d1o[(size_t)2 * g.npl * g.nq] = vd;
       }
     }
   }
@@ -177,101 +201,133 @@ __global__ void __launch_bounds__(XCF_THREADS, 2)
   cg::this_grid().sync();
 
   // ---- phase 2: grid contraction rho = D1f TT, u = Dmuf TT, v = D1f dTT
-  // over the live pairs on DMMA: one 8 x 8 (q, t) tile per block, its eight
-  // warps each a share of the pairs, their partial tiles added in warp order
+  // (and in tau mode T1 = Dddf TT, T2 = D1f dTT2, T3 = D1f TTm2) over the
+  // live pairs on DMMA: one 8 x 8 (q, t) tile per block, its eight warps
+  // each a share of the pairs, their partial tiles added in warp order
   // through shared memory ----
+  constexpr int NACC = TAU ? 6 : 3;  // partial tiles per warp
+  constexpr int NOUT = TAU ? 4 : 3;  // output fields
   const int nqt = (g.nq + 7) / 8, ntt = (g.nt + 7) / 8, nks = (g.npl + 3) / 4;
   const int n2 = g.ns * g.nelem * nqt * ntt;
   const size_t nfield = (size_t)g.ns * g.nelem * g.nq * g.nt;
-  double* red = sm;  // [warps][3][64]
+  const size_t nplane = (size_t)g.nelem * g.nq * g.nt;  // one tfac factor
+  double* red = sm;  // [warps][NACC][64]
   for (int item = blockIdx.x; item < n2; item += gridDim.x) {
     const int tt = 8 * (item % ntt), qt = 8 * (item / ntt % nqt), es = item / (ntt * nqt);
-    const double* D1 = D + (size_t)es * 2 * g.npl * g.nq;
+    const double* D1 = D + (size_t)es * g.nD * g.npl * g.nq;
     const double* Dm = D1 + (size_t)g.npl * g.nq;
+    const double* Dd = Dm + (size_t)g.npl * g.nq;  // tau mode only
     const int q = qt + gq, t = tt + gq;
-    double r0 = 0.0, r1 = 0.0, u0 = 0.0, u1 = 0.0, w0 = 0.0, w1 = 0.0;
+    double acc[NACC][2];
+#pragma unroll
+    for (int f = 0; f < NACC; ++f) acc[f][0] = acc[f][1] = 0.0;
 #pragma unroll 4
     for (int kk = warp; kk < nks; kk += XCF_WARPS) {
       const int p = 4 * kk + tq;
-      const bool pa = p < g.npl;
-      const double a1 = pa && q < g.nq ? __ldcg(D1 + (size_t)p * g.nq + q) : 0.0;
-      const double am = pa && q < g.nq ? __ldcg(Dm + (size_t)p * g.nq + q) : 0.0;
-      const double bt = pa && t < g.nt ? __ldg(TTp + (size_t)p * g.nt + t) : 0.0;
-      const double bd = pa && t < g.nt ? __ldg(dTTp + (size_t)p * g.nt + t) : 0.0;
-      dmma884(r0, r1, a1, bt);
-      dmma884(u0, u1, am, bt);
-      dmma884(w0, w1, a1, bd);
+      const bool pa = p < g.npl, qa = pa && q < g.nq, ta = pa && t < g.nt;
+      const double a1 = qa ? __ldcg(D1 + (size_t)p * g.nq + q) : 0.0;
+      const double am = qa ? __ldcg(Dm + (size_t)p * g.nq + q) : 0.0;
+      const double bt = ta ? __ldg(TTp + (size_t)p * g.nt + t) : 0.0;
+      const double bd = ta ? __ldg(dTTp + (size_t)p * g.nt + t) : 0.0;
+      dmma884(acc[0][0], acc[0][1], a1, bt);
+      dmma884(acc[1][0], acc[1][1], am, bt);
+      dmma884(acc[2][0], acc[2][1], a1, bd);
+      if constexpr (TAU) {
+        const double ad = qa ? __ldcg(Dd + (size_t)p * g.nq + q) : 0.0;
+        const double b2 = ta ? __ldg(dTT2p + (size_t)p * g.nt + t) : 0.0;
+        const double b3 = ta ? __ldg(TTm2p + (size_t)p * g.nt + t) : 0.0;
+        dmma884(acc[3][0], acc[3][1], ad, bt);
+        dmma884(acc[4][0], acc[4][1], a1, b2);
+        dmma884(acc[5][0], acc[5][1], a1, b3);
+      }
     }
     __syncthreads();  // the previous item's partial tiles are consumed
-    double* rw = red + warp * 3 * 64 + gq * 8 + 2 * tq;
-    rw[0] = r0;
-    rw[1] = r1;
-    rw[64] = u0;
-    rw[65] = u1;
-    rw[128] = w0;
-    rw[129] = w1;
+    double* rw = red + warp * NACC * 64 + gq * 8 + 2 * tq;
+#pragma unroll
+    for (int f = 0; f < NACC; ++f) {
+      rw[f * 64] = acc[f][0];
+      rw[f * 64 + 1] = acc[f][1];
+    }
     __syncthreads();
-    if (tid < 3 * 64) {
+    if (tid < NOUT * 64) {
       const int f = tid / 64, qq = qt + (tid % 64) / 8, t2 = tt + tid % 8;
-      double v = 0.0;
-      for (int w = 0; w < XCF_WARPS; ++w) v += red[w * 3 * 64 + tid];
+      const int c = tid % 64;
       if (qq < g.nq && t2 < g.nt) {
         const int e = es % g.nelem;
         const size_t o = ((size_t)es * g.nq + qq) * g.nt + t2;
-        const double h = invh[((size_t)e * g.nq + qq) * g.nt + t2];
-        out[f * nfield + o] = f == 0 ? v : (f == 1 ? v * h : v * (sqeta[t2] * h));
+        const size_t pt = ((size_t)e * g.nq + qq) * g.nt + t2;
+        double v;
+        if (f < 3) {
+          v = 0.0;
+          for (int w = 0; w < XCF_WARPS; ++w) v += red[(w * NACC + f) * 64 + c];
+          const double h = invh[pt];
+          v = f == 0 ? v : (f == 1 ? v * h : v * (sqeta[t2] * h));
+        } else {  // tau = 1/2 (f1 T1 + f2 T2 + f3 T3)
+          double tk[3] = {0.0, 0.0, 0.0};
+          for (int w = 0; w < XCF_WARPS; ++w)
+#pragma unroll
+            for (int k = 0; k < 3; ++k) tk[k] += red[(w * NACC + 3 + k) * 64 + c];
+          v = 0.5 * (tfac[pt] * tk[0] + tfac[nplane + pt] * tk[1] + tfac[2 * nplane + pt] * tk[2]);
+        }
+        out[f * nfield + o] = v;
       }
     }
   }
 }
 
-// Blocks of this kernel that one SM holds at `smem` bytes of dynamic shared
-// memory, cached per device and size. The kernel is first allowed the whole
-// 227 KB and the largest shared-memory carveout, once per device, so that
-// the occupancy computed here is the one a cooperative launch is held to.
-static int xcf_blocks_per_sm(int device, int smem) {
-  static bool ready[8] = {false};
-  static int cached_dev[8] = {-1, -1, -1, -1, -1, -1, -1, -1}, cached_smem[8], cached_n[8];
+// Blocks of the kernel instance `kern` that one SM holds at `smem` bytes of
+// dynamic shared memory, cached per instance, device and size. Each
+// instance is first allowed the whole 227 KB and the largest shared-memory
+// carveout, once per device, so that the occupancy computed here is the one
+// a cooperative launch is held to.
+static int xcf_blocks_per_sm(const void* kern, int tau, int device, int smem) {
+  static bool ready[2][8] = {{false}};
+  static int cached_dev[8] = {-1, -1, -1, -1, -1, -1, -1, -1}, cached_smem[8], cached_n[8],
+             cached_tau[8];
   static int next = 0;
   for (int k = 0; k < 8; ++k)
-    if (cached_dev[k] == device && cached_smem[k] == smem) return cached_n[k];
-  if (!ready[device]) {
-    if (cudaFuncSetAttribute(xc_fields_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             232448) != cudaSuccess ||
-        cudaFuncSetAttribute(xc_fields_kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+    if (cached_dev[k] == device && cached_smem[k] == smem && cached_tau[k] == tau)
+      return cached_n[k];
+  if (!ready[tau][device]) {
+    if (cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, 232448) !=
+            cudaSuccess ||
+        cudaFuncSetAttribute(kern, cudaFuncAttributePreferredSharedMemoryCarveout,
                              (int)cudaSharedmemCarveoutMaxShared) != cudaSuccess)
       return 0;
-    ready[device] = true;
+    ready[tau][device] = true;
   }
   int n = 0;
-  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, xc_fields_kernel, XCF_THREADS, smem) !=
-      cudaSuccess)
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kern, XCF_THREADS, smem) != cudaSuccess)
     return 0;
   cached_dev[next] = device;
   cached_smem[next] = smem;
+  cached_tau[next] = tau;
   cached_n[next] = n;
   next = (next + 1) % 8;
   return n;
 }
 
 // The launch's arguments, as kernels/dia_xc_fields.py:_Launch lays them out:
-// the pointers first, then the sizes. D: scratch [ns, nelem, 2, npl, nq];
-// out: [3, ns, nelem, nq, nt] (rho, drho_u, drho_v). pc, qc (a multiple of 8)
-// and smem from the wrapper's plan (fields_plan).
+// the pointers first, then the sizes. D: scratch [ns, nelem, nD, npl, nq]
+// (nD = 2, or 3 in tau mode); out: [3 (4 in tau mode), ns, nelem, nq, nt]
+// (rho, drho_u, drho_v[, tau]). pc, qc (a multiple of 8) and smem from the
+// wrapper's plan (fields_plan); dTT2p, TTm2p and tfac are read in tau mode
+// only.
 struct XcfLaunch {
   const double* P;
   const int *pairs, *gidx;
-  const double *Bg, *dBg, *TTp, *dTTp, *invh, *sqeta;
+  const double *Bg, *dBg, *TTp, *dTTp, *dTT2p, *TTm2p, *invh, *sqeta, *tfac;
   double *D, *out;
   void* stream;
-  int ns, nang, nelem, nq, nprim, nrad, nt, npl, pc, qc, smem, device;
+  int ns, nang, nelem, nq, nprim, nrad, nt, npl, pc, qc, smem, device, tau;
 };
 
 // Returns a cudaError_t.
 extern "C" int dia_xc_fields_launch(const XcfLaunch* a) {
   const cudaError_t set = cudaSetDevice(a->device);
   if (set != cudaSuccess) return (int)set;
-  if (a->pc < 1 || a->qc < 8 || a->qc % 8) return (int)cudaErrorInvalidValue;
+  if (a->pc < 1 || a->qc < 8 || a->qc % 8 || (a->tau != 0 && a->tau != 1))
+    return (int)cudaErrorInvalidValue;
   static int sm_count[8] = {0};
   if (a->device < 0 || a->device >= 8) return (int)cudaErrorInvalidDevice;
   if (!sm_count[a->device]) {
@@ -279,20 +335,23 @@ extern "C" int dia_xc_fields_launch(const XcfLaunch* a) {
         cudaDeviceGetAttribute(&sm_count[a->device], cudaDevAttrMultiProcessorCount, a->device);
     if (err != cudaSuccess) return (int)err;
   }
-  const int per_sm = xcf_blocks_per_sm(a->device, a->smem);
+  const void* kern =
+      a->tau ? (const void*)xc_fields_kernel<true> : (const void*)xc_fields_kernel<false>;
+  const int per_sm = xcf_blocks_per_sm(kern, a->tau, a->device, a->smem);
   if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
   const int mp = (a->nprim + 7) / 8 * 8;
-  XcfGeom g{a->ns, a->nang, a->nelem, a->nq, a->nprim, a->nrad, a->nt, a->npl, a->pc, a->qc, mp,
-            dmma_ld(mp), dmma_ld(a->qc), (a->npl + a->pc - 1) / a->pc,
-            (a->nq + a->qc - 1) / a->qc};
+  XcfGeom g{a->ns,  a->nang, a->nelem, a->nq, a->nprim, a->nrad, a->nt,
+            a->npl, a->pc,   a->qc,    mp,    dmma_ld(mp), dmma_ld(a->qc),
+            (a->npl + a->pc - 1) / a->pc, (a->nq + a->qc - 1) / a->qc, a->tau ? 3 : 2};
   const long long n1 = (long long)g.ns * g.nelem * g.npc * g.nqc;
   const long long n2 = (long long)g.ns * g.nelem * ((g.nq + 7) / 8) * ((g.nt + 7) / 8);
   const long long want = n1 > n2 ? n1 : n2;
   int grid = per_sm * sm_count[a->device];
   if (want < grid) grid = (int)want;
-  void* args[] = {(void*)&a->P,   (void*)&a->pairs, (void*)&a->gidx, (void*)&a->Bg,
-                  (void*)&a->dBg, (void*)&a->TTp,   (void*)&a->dTTp, (void*)&a->invh,
-                  (void*)&a->sqeta, (void*)&a->D,   (void*)&a->out,  &g};
-  return (int)cudaLaunchCooperativeKernel((const void*)xc_fields_kernel, grid, XCF_THREADS,
-                                          args, (size_t)a->smem, (cudaStream_t)a->stream);
+  void* args[] = {(void*)&a->P,     (void*)&a->pairs, (void*)&a->gidx,  (void*)&a->Bg,
+                  (void*)&a->dBg,   (void*)&a->TTp,   (void*)&a->dTTp,  (void*)&a->dTT2p,
+                  (void*)&a->TTm2p, (void*)&a->invh,  (void*)&a->sqeta, (void*)&a->tfac,
+                  (void*)&a->D,     (void*)&a->out,   &g};
+  return (int)cudaLaunchCooperativeKernel(kern, grid, XCF_THREADS, args, (size_t)a->smem,
+                                          (cudaStream_t)a->stream);
 }

@@ -14,22 +14,31 @@
 //   F[a nrad + n, b nrad + m] = mask[a nrad + n] mask[b nrad + m] x the sum
 //       of Fel[a,b,e,i,j] over the elements e with gidx[e,i] = n, gidx[e,j] = m
 //
+// In tau mode (meta-GGAs; diatomic_dft.py:174-181, atomic_dft.py:170-176,
+// sadatom.py:256-265) a fourth input wvt = w vt adds, with the grid's tau
+// factors f1, f2, f3 = tfac[0..2, e, q, t] (models/xc_grid.py),
+//
+//   Z1 = sum_t 1/2 wvt f1 TT,   T2 = sum_t 1/2 wvt (f2 dTT2 + f3 TTm2)
+//   Fel += sum_q Z1 dB_i dB_j + T2 B_i B_j.
+//
 // Work: TT and dTT are symmetric in (a, b) (checked once when the grid is
 // built, models/diatomic_dft.py:pair_tables), so A1, B1, C1 are, and
 // Fel[b,a] = Fel[a,b], symmetric in (i, j): one element block per live
-// unordered pair p, its i <= j half, X_p = A1 + C1 and Y_p = B1:
-//   Fel_p[i,j] = sum_q X_p[q] B_i B_j + Y_p[q] (dB_i B_j + B_i dB_j).
+// unordered pair p, its i <= j half, X_p = A1 + C1 (+ T2) and Y_p = B1
+// (and Z_p = Z1):
+//   Fel_p[i,j] = sum_q X_p[q] B_i B_j + Y_p[q] (dB_i B_j + B_i dB_j)
+//                     (+ Z_p[q] dB_i dB_j).
 // Dead pairs (m_a != m_b) get exact zeros and no work.
 //
 // One cooperative launch for all spins, three phases joined by grid-wide
 // barriers:
-//   A. X, Y [ns, nelem, 2, nq, npl] on the FP64 tensor cores (mma.sync
-//      m8n8k4, csrc/dmma.cuh), one 8 x 8 (point, pair) tile per warp task,
-//      depth nt.
+//   A. X, Y [ns, nelem, 2, nq, npl] (X, Y, Z [.., 3, ..] in tau mode) on
+//      the FP64 tensor cores (mma.sync m8n8k4, csrc/dmma.cuh), one 8 x 8
+//      (point, pair) tile per warp task, depth nt.
 //   B. Fel [ns, nelem, npl, nprim^2] on the tensor cores against the
-//      products B_i B_j and dB_i B_j + B_i dB_j tabulated with the grid
-//      (element_tables), one 8 x 8 (pair, ij) tile per warp task, depth nq,
-//      written mirrored. Both scratches stay in L2.
+//      products B_i B_j, dB_i B_j + B_i dB_j and, in tau mode, dB_i dB_j
+//      tabulated with the grid (element_tables), one 8 x 8 (pair, ij) tile
+//      per warp task, depth nq, written mirrored. Both scratches stay in L2.
 //      Phases A and B each also zero half of F with 16-byte stores, which
 //      overlap the warps still in their tiles.
 //   C. owner-computes assembly of the live pairs' element windows over the
@@ -58,16 +67,21 @@ namespace cg = cooperative_groups;
 
 struct XckGeom {
   int ns, nang, nelem, nq, nprim, nrad, nt, npl, nij, nijp;
+  int nXY;  // pair potentials per pair: 2 (X, Y), or 3 (X, Y, Z) in tau mode
 };
 
+template <bool TAU>
 __global__ void __launch_bounds__(XCK_THREADS, 4)
     xc_fock_kernel(const double* __restrict__ wvr, const double* __restrict__ wgu,
-                   const double* __restrict__ wgv, const int* __restrict__ pairs,
-                   const int* __restrict__ band, const int* __restrict__ owners,
-                   const double* __restrict__ TTp, const double* __restrict__ dTTp,
+                   const double* __restrict__ wgv, const double* __restrict__ wvt,
+                   const int* __restrict__ pairs, const int* __restrict__ band,
+                   const int* __restrict__ owners, const double* __restrict__ TTp,
+                   const double* __restrict__ dTTp, const double* __restrict__ dTT2p,
+                   const double* __restrict__ TTm2p, const double* __restrict__ tfac,
                    const int* __restrict__ ijs, const double* __restrict__ BBs,
-                   const double* __restrict__ SSs, const double* __restrict__ mask, double* XY,
-                   double* Fel, double* __restrict__ F, XckGeom g) {
+                   const double* __restrict__ SSs, const double* __restrict__ DDs,
+                   const double* __restrict__ mask, double* XY, double* Fel,
+                   double* __restrict__ F, XckGeom g) {
   const int tid = threadIdx.x, lane = tid % 32;
   const int gq = lane >> 2, tq = lane & 3;  // DMMA fragment row / column group
   const int np = g.nprim, np2 = np * np, nt = g.nt;
@@ -92,16 +106,19 @@ __global__ void __launch_bounds__(XCK_THREADS, 4)
   const size_t nF2 = (size_t)g.ns * nbf * nbf / 2;  // double2 stores
   double2* F2 = reinterpret_cast<double2*>(F);
 
-  // ---- phase A: pair potentials X = A1 + C1, Y = B1 [ns, nelem, 2, nq, npl]
-  // on DMMA, one 8 x 8 (q, p) tile per warp task: X = wvr TT^T + wgv dTT^T,
-  // Y = wgu TT^T (depth t) ----
+  // ---- phase A: pair potentials X = A1 + C1, Y = B1 [ns, nelem, nXY, nq,
+  // npl] on DMMA, one 8 x 8 (q, p) tile per warp task: X = wvr TT^T + wgv
+  // dTT^T, Y = wgu TT^T (depth t); in tau mode X += (wvt f2 / 2) dTT2^T +
+  // (wvt f3 / 2) TTm2^T and Z = (wvt f1 / 2) TT^T ----
   const int nqt = (g.nq + 7) / 8, npt = (g.npl + 7) / 8;
   const int nA = g.ns * g.nelem * nqt * npt;
+  const size_t nplane = (size_t)g.nelem * g.nq * nt;  // one tfac factor
   for (int task = gwarp; task < nA; task += nwarps) {
     const int pt = 8 * (task % npt), qt = 8 * (task / npt % nqt), es = task / (npt * nqt);
     const int q = qt + gq, p = pt + gq;
     const size_t w = ((size_t)es * g.nq + q) * nt;
-    double x0 = 0.0, x1 = 0.0, y0 = 0.0, y1 = 0.0;
+    const size_t wf = ((size_t)(es % g.nelem) * g.nq + q) * nt;  // tfac's point
+    double x0 = 0.0, x1 = 0.0, y0 = 0.0, y1 = 0.0, z0 = 0.0, z1 = 0.0;
 #pragma unroll 3
     for (int k = 0; k < nt; k += 4) {
       const int t = k + tq;
@@ -113,18 +130,32 @@ __global__ void __launch_bounds__(XCK_THREADS, 4)
       dmma884(x0, x1, av, bt);
       dmma884(x0, x1, ag, bd);
       dmma884(y0, y1, au, bt);
+      if constexpr (TAU) {
+        const double hv = wa ? 0.5 * wvt[w + t] : 0.0;
+        const double a1 = wa ? hv * tfac[wf + t] : 0.0;
+        const double a2 = wa ? hv * tfac[nplane + wf + t] : 0.0;
+        const double a3 = wa ? hv * tfac[2 * nplane + wf + t] : 0.0;
+        const double b2 = pa ? dTT2p[(size_t)p * nt + t] : 0.0;
+        const double b3 = pa ? TTm2p[(size_t)p * nt + t] : 0.0;
+        dmma884(x0, x1, a2, b2);
+        dmma884(x0, x1, a3, b3);
+        dmma884(z0, z1, a1, bt);
+      }
     }
     const int pc = pt + 2 * tq;
     if (q < g.nq) {
-      double* xo = XY + ((size_t)es * 2 * g.nq + q) * g.npl + pc;
+      double* xo = XY + ((size_t)es * g.nXY * g.nq + q) * g.npl + pc;
       double* yo = xo + (size_t)g.nq * g.npl;
+      double* zo = yo + (size_t)g.nq * g.npl;  // tau mode only
       if (pc < g.npl) {
         xo[0] = x0;
         yo[0] = y0;
+        if constexpr (TAU) zo[0] = z0;
       }
       if (pc + 1 < g.npl) {
         xo[1] = x1;
         yo[1] = y1;
+        if constexpr (TAU) zo[1] = z1;
       }
     }
   }
@@ -133,16 +164,19 @@ __global__ void __launch_bounds__(XCK_THREADS, 4)
 
   // ---- phase B: element blocks Fel [ns, nelem, npl, np^2] of the live
   // pairs on DMMA, one 8 x 8 (p, ij) tile per warp task, ij over i <= j:
-  // Fel = X^T BB + Y^T SS (depth q); written mirrored ----
+  // Fel = X^T BB + Y^T SS (+ Z^T DD in tau mode) (depth q); written
+  // mirrored ----
   const int njt = g.nijp / 8;
   const int nB = g.ns * g.nelem * npt * njt;
   for (int task = gwarp; task < nB; task += nwarps) {
     const int jt = 8 * (task % njt), pt = 8 * (task / njt % npt), es = task / (njt * npt);
     const int e = es % g.nelem, p = pt + gq;
-    const double* X = XY + (size_t)es * 2 * g.nq * g.npl;
+    const double* X = XY + (size_t)es * g.nXY * g.nq * g.npl;
     const double* Y = X + (size_t)g.nq * g.npl;
+    const double* Z = Y + (size_t)g.nq * g.npl;  // tau mode only
     const double* bb = BBs + (size_t)e * g.nq * g.nijp + jt + gq;
     const double* ss = SSs + (size_t)e * g.nq * g.nijp + jt + gq;
+    const double* dd = DDs + (size_t)e * g.nq * g.nijp + jt + gq;
     double f0 = 0.0, f1 = 0.0;
 #pragma unroll 8
     for (int k = 0; k < g.nq; k += 4) {
@@ -154,6 +188,11 @@ __global__ void __launch_bounds__(XCK_THREADS, 4)
       const double b2 = qa ? __ldg(ss + (size_t)q * g.nijp) : 0.0;
       dmma884(f0, f1, ax, b1);
       dmma884(f0, f1, ay, b2);
+      if constexpr (TAU) {
+        const double az = xa ? __ldcg(Z + (size_t)q * g.npl + p) : 0.0;
+        const double b3 = qa ? __ldg(dd + (size_t)q * g.nijp) : 0.0;
+        dmma884(f0, f1, az, b3);
+      }
     }
     if (p < g.npl) {
       double* out = Fel + ((size_t)es * g.npl + p) * np2;
@@ -218,56 +257,60 @@ __global__ void __launch_bounds__(XCK_THREADS, 4)
   }
 }
 
-// Blocks of this kernel that one SM holds at `smem` bytes of dynamic shared
-// memory, cached per device and size. The kernel is first allowed the whole
-// 227 KB and the largest shared-memory carveout, once per device, so that
-// the occupancy computed here is the one a cooperative launch is held to.
-static int xck_blocks_per_sm(int device, int smem) {
-  static bool ready[8] = {false};
-  static int cached_dev[8] = {-1, -1, -1, -1, -1, -1, -1, -1}, cached_smem[8], cached_n[8];
+// Blocks of the kernel instance `kern` that one SM holds at `smem` bytes of
+// dynamic shared memory, cached per instance, device and size. Each
+// instance is first allowed the whole 227 KB and the largest shared-memory
+// carveout, once per device, so that the occupancy computed here is the one
+// a cooperative launch is held to.
+static int xck_blocks_per_sm(const void* kern, int tau, int device, int smem) {
+  static bool ready[2][8] = {{false}};
+  static int cached_dev[8] = {-1, -1, -1, -1, -1, -1, -1, -1}, cached_smem[8], cached_n[8],
+             cached_tau[8];
   static int next = 0;
   for (int k = 0; k < 8; ++k)
-    if (cached_dev[k] == device && cached_smem[k] == smem) return cached_n[k];
-  if (!ready[device]) {
-    if (cudaFuncSetAttribute(xc_fock_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             232448) != cudaSuccess ||
-        cudaFuncSetAttribute(xc_fock_kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+    if (cached_dev[k] == device && cached_smem[k] == smem && cached_tau[k] == tau)
+      return cached_n[k];
+  if (!ready[tau][device]) {
+    if (cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, 232448) !=
+            cudaSuccess ||
+        cudaFuncSetAttribute(kern, cudaFuncAttributePreferredSharedMemoryCarveout,
                              (int)cudaSharedmemCarveoutMaxShared) != cudaSuccess)
       return 0;
-    ready[device] = true;
+    ready[tau][device] = true;
   }
   int n = 0;
-  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, xc_fock_kernel, XCK_THREADS, smem) !=
-      cudaSuccess)
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kern, XCK_THREADS, smem) != cudaSuccess)
     return 0;
   cached_dev[next] = device;
   cached_smem[next] = smem;
+  cached_tau[next] = tau;
   cached_n[next] = n;
   next = (next + 1) % 8;
   return n;
 }
 
 // The launch's arguments, as kernels/dia_xc_fock.py:_Launch lays them out:
-// the pointers first, then the sizes. XY: scratch [ns, nelem, 2, nq, npl];
-// Fel: scratch [ns, nelem, npl, nprim^2]; F: output [ns, nbf, nbf]; mask
-// [nbf] or null (no mask). The grid tables come from
-// models/diatomic_dft.py (pair_tables, element_tables).
+// the pointers first, then the sizes. XY: scratch [ns, nelem, nXY, nq, npl]
+// (nXY = 2, or 3 in tau mode); Fel: scratch [ns, nelem, npl, nprim^2]; F:
+// output [ns, nbf, nbf]; mask [nbf] or null (no mask); wvt, dTT2p, TTm2p,
+// tfac and DDs are read in tau mode only. The grid tables come from
+// models/xc_grid.py (pair_tables, element_tables).
 struct XckLaunch {
-  const double *wvr, *wgu, *wgv;
+  const double *wvr, *wgu, *wgv, *wvt;
   const int *pairs, *band, *owners;
-  const double *TTp, *dTTp;
+  const double *TTp, *dTTp, *dTT2p, *TTm2p, *tfac;
   const int* ijs;
-  const double *BBs, *SSs, *mask;
+  const double *BBs, *SSs, *DDs, *mask;
   double *XY, *Fel, *F;
   void* stream;
-  int ns, nang, nelem, nq, nprim, nrad, nt, npl, device;
+  int ns, nang, nelem, nq, nprim, nrad, nt, npl, device, tau;
 };
 
 // Returns a cudaError_t.
 extern "C" int dia_xc_fock_launch(const XckLaunch* a) {
   cudaError_t err = cudaSetDevice(a->device);
   if (err != cudaSuccess) return (int)err;
-  if (a->nprim > 0xffff) return (int)cudaErrorInvalidValue;
+  if (a->nprim > 0xffff || (a->tau != 0 && a->tau != 1)) return (int)cudaErrorInvalidValue;
   static int sm_count[8] = {0};
   if (a->device < 0 || a->device >= 8) return (int)cudaErrorInvalidDevice;
   if (!sm_count[a->device]) {
@@ -275,18 +318,20 @@ extern "C" int dia_xc_fock_launch(const XckLaunch* a) {
                                  a->device);
     if (err != cudaSuccess) return (int)err;
   }
+  const void* kern =
+      a->tau ? (const void*)xc_fock_kernel<true> : (const void*)xc_fock_kernel<false>;
   const int smem = 4 * (4 * a->nrad + 2 * a->npl);
-  const int per_sm = xck_blocks_per_sm(a->device, smem);
+  const int per_sm = xck_blocks_per_sm(kern, a->tau, a->device, smem);
   if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
   const int nij = a->nprim * (a->nprim + 1) / 2;
-  XckGeom g{a->ns, a->nang, a->nelem, a->nq, a->nprim, a->nrad, a->nt, a->npl, nij,
-            (nij + 7) / 8 * 8};
-  void* args[] = {(void*)&a->wvr,  (void*)&a->wgu,  (void*)&a->wgv,    (void*)&a->pairs,
-                  (void*)&a->band, (void*)&a->owners, (void*)&a->TTp,
-                  (void*)&a->dTTp,
-                  (void*)&a->ijs,  (void*)&a->BBs,  (void*)&a->SSs,    (void*)&a->mask,
-                  (void*)&a->XY,   (void*)&a->Fel,  (void*)&a->F,      &g};
-  return (int)cudaLaunchCooperativeKernel((const void*)xc_fock_kernel,
-                                          per_sm * sm_count[a->device], XCK_THREADS, args,
+  XckGeom g{a->ns,  a->nang, a->nelem, a->nq, a->nprim, a->nrad, a->nt,
+            a->npl, nij,     (nij + 7) / 8 * 8, a->tau ? 3 : 2};
+  void* args[] = {(void*)&a->wvr,   (void*)&a->wgu,   (void*)&a->wgv,  (void*)&a->wvt,
+                  (void*)&a->pairs, (void*)&a->band,  (void*)&a->owners,
+                  (void*)&a->TTp,   (void*)&a->dTTp,  (void*)&a->dTT2p, (void*)&a->TTm2p,
+                  (void*)&a->tfac,  (void*)&a->ijs,   (void*)&a->BBs,  (void*)&a->SSs,
+                  (void*)&a->DDs,   (void*)&a->mask,  (void*)&a->XY,   (void*)&a->Fel,
+                  (void*)&a->F,     &g};
+  return (int)cudaLaunchCooperativeKernel(kern, per_sm * sm_count[a->device], XCK_THREADS, args,
                                           (size_t)smem, (cudaStream_t)a->stream);
 }

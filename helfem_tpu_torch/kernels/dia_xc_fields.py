@@ -1,9 +1,10 @@
-"""K4 dia_xc_fields: the density and its gradient components on the
-diatomic DFT grid for one or two spin densities, as a hand-written CUDA
-kernel (csrc/dia_xc_fields.cu) and its plain PyTorch version.
+"""K4 dia_xc_fields: the density, its gradient components and, in tau mode,
+the kinetic energy density on the XC grids (diatomic, atomic, SAD) for one
+or two spin densities, as a hand-written CUDA kernel
+(csrc/dia_xc_fields.cu) and its plain PyTorch version.
 
-Replaces the LDA/GGA part of helfem_tpu/models/diatomic_dft.py:_fields_dia
-(diatomic_dft.py:97-103).
+Replaces the LDA/GGA/tau part of helfem_tpu/models/diatomic_dft.py:
+_fields_dia (diatomic_dft.py:97-110).
 """
 
 import ctypes
@@ -23,9 +24,10 @@ class _Launch(ctypes.Structure):
     """csrc/dia_xc_fields.cu:XcfLaunch: the pointers, then the sizes."""
 
     _fields_ = ([(n, ctypes.c_void_p) for n in ("P", "pairs", "gidx", "Bg", "dBg", "TTp", "dTTp",
-                                                 "invh", "sqeta", "D", "out", "stream")]
+                                                 "dTT2p", "TTm2p", "invh", "sqeta", "tfac", "D",
+                                                 "out", "stream")]
                 + [(n, ctypes.c_int) for n in ("ns", "nang", "nelem", "nq", "nprim", "nrad", "nt",
-                                               "npl", "pc", "qc", "smem", "device")])
+                                               "npl", "pc", "qc", "smem", "device", "tau")])
 
 
 def _ld(n: int) -> int:
@@ -33,19 +35,21 @@ def _ld(n: int) -> int:
     return n + (20 - n % 16) % 16
 
 
-def fields_plan(nprim: int, nq: int) -> tuple[int, int, int]:
+def fields_plan(nprim: int, nq: int, tau: bool = False) -> tuple[int, int, int]:
     """(pairs, radial points, dynamic shared-memory bytes) of one phase-1
     item of the kernel (csrc/dia_xc_fields.cu takes them as given): the
-    windows of up to 8 pairs and the B tables of up to 128 points (a
-    multiple of 8), each within 64 KB, and at least phase 2's 12 KB of
-    partial tiles. Raises ValueError past the card's shared memory (nprim
-    above about 150)."""
+    windows of up to 8 pairs and the B and dB tables of up to 128 points (a
+    multiple of 8), each within 64 KB, and at least phase 2's partial tiles
+    (12 KB, 24 KB in tau mode; tau mode stages nothing more in phase 1).
+    Raises ValueError past the card's shared memory (nprim above about
+    150)."""
     mp = -(-nprim // 8) * 8
     qc = min(-(-nq // 8) * 8, 128)
     while qc > 8 and 2 * mp * _ld(qc) > 8192:
         qc -= 8
     pc = max(1, min(8, 8192 // (mp * _ld(mp))))
-    smem = max(8 * (pc * mp * _ld(mp) + 2 * mp * _ld(qc)) + 4 * (2 * pc + nprim), 8 * 3 * 8 * 64)
+    smem = max(8 * (pc * mp * _ld(mp) + 2 * mp * _ld(qc)) + 4 * (2 * pc + nprim),
+               8 * (6 if tau else 3) * 8 * 64)
     if smem > _SMEM:
         raise ValueError(f"dia_xc_fields: nprim={nprim} needs {smem} bytes of shared memory, "
                          f"above the card's {_SMEM}")
@@ -55,47 +59,51 @@ def fields_plan(nprim: int, nq: int) -> tuple[int, int, int]:
 _templates: dict = {}  # _common.launch_template's cache of _template
 
 
-def _template(g, ns: int, dev):
-    """The launch arguments that depend only on the grid, and the sizes."""
+def _template(g, ns: int, tau: bool, dev):
+    """The launch arguments that depend only on the grid and the mode, and
+    the sizes."""
     nang = g.TT.shape[0]
     nelem, nq, nprim = g.Bg.shape
     nrad, nt, npl = g.owners.shape[0], g.sqeta.shape[0], g.pairs.shape[0]
-    pc, qc, smem = fields_plan(nprim, nq)
+    pc, qc, smem = fields_plan(nprim, nq, tau)
     t = _Launch(**{n: getattr(g, n).data_ptr() for n in ("pairs", "gidx", "Bg", "dBg", "TTp",
-                                                         "dTTp", "invh", "sqeta")},
+                                                         "dTTp", "dTT2p", "TTm2p", "invh",
+                                                         "sqeta", "tfac")},
                 ns=ns, nang=nang, nelem=nelem, nq=nq, nprim=nprim, nrad=nrad, nt=nt, npl=npl,
-                pc=pc, qc=qc, smem=smem, device=dev.index)
-    sizes = (nang * nrad, ns * nelem * nq * nt, 2 * ns * nelem * npl * nq, (nelem, nq, nt))
+                pc=pc, qc=qc, smem=smem, device=dev.index, tau=int(tau))
+    nf, nD = (4, 3) if tau else (3, 2)
+    sizes = (nang * nrad, nf, ns * nelem * nq * nt, nD * ns * nelem * npl * nq, (nelem, nq, nt))
     return t, sizes
 
 
-def dia_xc_fields(P: torch.Tensor, g):
-    """(rho, drho_u, drho_v), each [ns, nelem, nq, nt], of the spin densities
-    P [ns, nbf, nbf] (ns 1 or 2; bf = a * nrad + n) on the grid g (a
-    DiaGridOps from build_dia_grid or from_jax_grid, whose tables were
+def dia_xc_fields(P: torch.Tensor, g, tau: bool = False):
+    """(rho, drho_u, drho_v), and tau with tau=True, each [ns, nelem, nq,
+    nt], of the spin densities P [ns, nbf, nbf] (ns 1 or 2; bf = a * nrad
+    + n) on the grid g (a DiaGridOps or AtomGridOps, whose tables were
     checked when it was built).
 
     CPU inputs run the plain version; CUDA inputs launch the kernel, one
-    launch for all spins. Only P is checked per call."""
+    launch for all spins and fields. Only P is checked per call."""
     name = "dia_xc_fields"
     if on_cpu(name, P, g.Bg):
-        return dia_xc_fields_plain(P, g)
+        return dia_xc_fields_plain(P, g, tau)
     if P.dtype != torch.float64:
         raise TypeError(f"{name}: P must be float64, got {P.dtype}")
     if not P.is_contiguous():
         raise ValueError(f"{name}: P must be contiguous")
     ns = P.shape[0] if P.dim() == 3 else 0
     dev = P.device
-    t, (nbf, nfield, nscratch, shape) = launch_template(_templates, (g,), ns,
-                                                        lambda: _template(g, ns, dev))
+    t, (nbf, nf, nfield, nscratch, shape) = launch_template(
+        _templates, (g,), (ns, bool(tau)), lambda: _template(g, ns, bool(tau), dev))
     if ns not in (1, 2) or P.shape[1] != nbf or P.shape[2] != nbf:
         raise ValueError(f"{name}: P has shape {tuple(P.shape)}, expected (ns, {nbf}, {nbf}) "
                          "with ns 1 or 2")
-    # fields [3, ns, nelem, nq, nt], then the scratch D1, Dmu [ns, nelem, 2, npl, nq]
-    buf = torch.empty(3 * nfield + nscratch, dtype=torch.float64, device=dev)
+    # fields [nf, ns, nelem, nq, nt], then the scratch D1, Dmu[, Ddd]
+    # [ns, nelem, nD, npl, nq]
+    buf = torch.empty(nf * nfield + nscratch, dtype=torch.float64, device=dev)
     a = _Launch.from_buffer_copy(t)
     a.P, a.out = P.data_ptr(), buf.data_ptr()
-    a.D = a.out + 8 * 3 * nfield
+    a.D = a.out + 8 * nf * nfield
     # the current stream's handle without a Stream object (which costs 7.6 us
     # per call on the H100's host)
     a.stream = torch._C._cuda_getCurrentRawStream(dev.index)
@@ -103,12 +111,13 @@ def dia_xc_fields(P: torch.Tensor, g):
     if err:
         raise RuntimeError(f"{name}: kernel launch failed with cudaError_t {err}")
     launches[name] += 1
-    return buf[:3 * nfield].view(3, ns, *shape).unbind(0)
+    return buf[:nf * nfield].view(nf, ns, *shape).unbind(0)
 
 
-def _fields_one(P, g):
-    """One spin, faithful to diatomic_dft.py:97-103 on the padded 4-index
-    density, with index_select over gidx."""
+def _fields_one(P, g, tau):
+    """One spin, faithful to diatomic_dft.py:97-110 on the padded 4-index
+    density, with index_select over gidx; the tau factors are the grid's
+    tfac (invh^2, invh^2, invhphi2 on the diatomic grid)."""
     nang = g.TT.shape[0]
     nrad = P.shape[0] // nang
     n1 = nrad + 1
@@ -123,12 +132,19 @@ def _fields_one(P, g):
     rho = torch.einsum("abeq,abt->eqt", D1, g.TT)
     drho_u = torch.einsum("abeq,abt->eqt", Dmu, g.TT) * g.invh
     drho_v = torch.einsum("abeq,abt->eqt", D1, g.dTT) * (g.sqeta[None, None, :] * g.invh)
-    return rho, drho_u, drho_v
+    if not tau:
+        return rho, drho_u, drho_v
+    Ddd = torch.einsum("abeij,eqi,eqj->abeq", Pg, g.dBg, g.dBg)
+    f1, f2, f3 = g.tfac
+    tau = 0.5 * (torch.einsum("abeq,abt->eqt", Ddd, g.TT) * f1
+                 + torch.einsum("abeq,abt->eqt", D1, g.dTT2) * f2
+                 + torch.einsum("abeq,abt->eqt", D1, g.TTm2) * f3)
+    return rho, drho_u, drho_v, tau
 
 
-def dia_xc_fields_plain(P, g):
+def dia_xc_fields_plain(P, g, tau: bool = False):
     """Plain PyTorch version of dia_xc_fields: each spin on its own, so a
     spin's fields do not depend on ns. Reads only helfem_tpu's tables (TT,
-    dTT, gidx, ...), not the live-pair tables."""
-    per_spin = [_fields_one(P[s], g) for s in range(P.shape[0])]
+    dTT, dTT2, TTm2, gidx, ...) and tfac, not the live-pair tables."""
+    per_spin = [_fields_one(P[s], g, tau) for s in range(P.shape[0])]
     return tuple(torch.stack(f) for f in zip(*per_spin))

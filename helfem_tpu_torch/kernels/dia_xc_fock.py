@@ -1,9 +1,10 @@
 """K5 dia_xc_fock: the XC Fock matrices from the weighted grid potentials of
-the diatomic DFT grid, for one or two spins, as a hand-written CUDA kernel
+the XC grids (diatomic, atomic, SAD), for one or two spins, with the vtau
+terms of meta-GGAs in tau mode, as a hand-written CUDA kernel
 (csrc/dia_xc_fock.cu) and its plain PyTorch version.
 
-Replaces the LDA/GGA part of helfem_tpu/models/diatomic_dft.py:
-eval_fxc_dia.fock (diatomic_dft.py:156-165), its scatter-add (:197-200) and
+Replaces the LDA/GGA/tau part of helfem_tpu/models/diatomic_dft.py:
+eval_fxc_dia.fock (diatomic_dft.py:156-181), its scatter-add (:197-200) and
 the shell mask that eval_fxc_dia applies after it (:206-208).
 """
 
@@ -16,24 +17,26 @@ from helfem_tpu_torch.kernels._common import launch_template, launches, on_cpu
 
 __all__ = ["dia_xc_fock", "dia_xc_fock_plain"]
 
-_GRID = ("pairs", "band", "owners", "TTp", "dTTp", "ijs", "BBs", "SSs")
+_GRID = ("pairs", "band", "owners", "TTp", "dTTp", "dTT2p", "TTm2p", "tfac", "ijs", "BBs", "SSs",
+         "DDs")
 _SMEM = 232448  # one block's shared memory on the H100
 
 
 class _Launch(ctypes.Structure):
     """csrc/dia_xc_fock.cu:XckLaunch: the pointers, then the sizes."""
 
-    _fields_ = ([(n, ctypes.c_void_p) for n in ("wvr", "wgu", "wgv", *_GRID, "mask", "XY", "Fel",
-                                                 "F", "stream")]
+    _fields_ = ([(n, ctypes.c_void_p) for n in ("wvr", "wgu", "wgv", "wvt", *_GRID, "mask", "XY",
+                                                 "Fel", "F", "stream")]
                 + [(n, ctypes.c_int) for n in ("ns", "nang", "nelem", "nq", "nprim", "nrad", "nt",
-                                               "npl", "device")])
+                                               "npl", "device", "tau")])
 
 
 _templates: dict = {}  # _common.launch_template's cache of _template
 
 
-def _template(g, ns: int, dev):
-    """The launch arguments that depend only on the grid, and the sizes."""
+def _template(g, ns: int, tau: bool, dev):
+    """The launch arguments that depend only on the grid and the mode, and
+    the sizes."""
     nang = g.TT.shape[0]
     nelem, nq, nprim = g.Bg.shape
     nrad, nt, npl = g.owners.shape[0], g.sqeta.shape[0], g.pairs.shape[0]
@@ -41,33 +44,34 @@ def _template(g, ns: int, dev):
         raise ValueError(f"dia_xc_fock: {nrad} radial functions and {npl} live shell pairs "
                          f"need more than the card's {_SMEM} bytes of shared memory")
     t = _Launch(**{n: getattr(g, n).data_ptr() for n in _GRID}, ns=ns, nang=nang, nelem=nelem,
-                nq=nq, nprim=nprim, nrad=nrad, nt=nt, npl=npl, device=dev.index)
+                nq=nq, nprim=nprim, nrad=nrad, nt=nt, npl=npl, device=dev.index, tau=int(tau))
     nbf = nang * nrad
-    sizes = (nbf, (ns, nelem, nq, nt), ns * nbf * nbf, ns * nelem * 2 * nq * npl,
+    sizes = (nbf, (ns, nelem, nq, nt), ns * nbf * nbf, ns * nelem * (3 if tau else 2) * nq * npl,
              ns * nelem * npl * nprim * nprim)
     return t, sizes
 
 
 def dia_xc_fock(wvr: torch.Tensor, wgu: torch.Tensor, wgv: torch.Tensor, g,
-                mask: torch.Tensor | None = None) -> torch.Tensor:
+                mask: torch.Tensor | None = None, wvt: torch.Tensor | None = None) -> torch.Tensor:
     """F [ns, nbf, nbf] (bf = a * nrad + n) from wvr = w vr, wgu = w gu invh
-    and wgv = w gv invh sqeta, each [ns, nelem, nq, nt] (ns 1 or 2), on the
-    grid g (a DiaGridOps from build_dia_grid or from_jax_grid, whose tables
-    were checked when it was built); F[s] * mask[:, None] * mask[None, :]
-    when the 0/1 shell mask [nbf] is given.
+    and wgv = w gv invh sqeta, and in tau mode wvt = w vtau, each [ns,
+    nelem, nq, nt] (ns 1 or 2), on the grid g (a DiaGridOps or AtomGridOps,
+    whose tables were checked when it was built); F[s] * mask[:, None] *
+    mask[None, :] when the 0/1 shell mask [nbf] is given.
 
     CPU inputs run the plain version; CUDA inputs launch the kernel, one
-    launch for all spins. Only the potentials and the mask are checked per
-    call."""
+    launch for all spins and terms. Only the potentials and the mask are
+    checked per call."""
     name = "dia_xc_fock"
-    tensors = (wvr, wgu, wgv, g.Bg) + (() if mask is None else (mask,))
+    tensors = (wvr, wgu, wgv, g.Bg) + tuple(x for x in (mask, wvt) if x is not None)
     if on_cpu(name, *tensors):
-        return dia_xc_fock_plain(wvr, wgu, wgv, g, mask)
+        return dia_xc_fock_plain(wvr, wgu, wgv, g, mask, wvt)
     ns = wvr.shape[0] if wvr.dim() == 4 else 0
     dev = wvr.device
-    t, (nbf, shape, nF, nXY, nFel) = launch_template(_templates, (g,), ns,
-                                                     lambda: _template(g, ns, dev))
-    for arg, x in (("wvr", wvr), ("wgu", wgu), ("wgv", wgv), ("mask", mask)):
+    tau = wvt is not None
+    t, (nbf, shape, nF, nXY, nFel) = launch_template(_templates, (g,), (ns, tau),
+                                                     lambda: _template(g, ns, tau, dev))
+    for arg, x in (("wvr", wvr), ("wgu", wgu), ("wgv", wgv), ("wvt", wvt), ("mask", mask)):
         if x is None:
             continue
         if x.dtype != torch.float64:
@@ -78,11 +82,12 @@ def dia_xc_fock(wvr: torch.Tensor, wgu: torch.Tensor, wgv: torch.Tensor, g,
         if ns not in (1, 2) or x.shape != want:
             raise ValueError(f"{name}: {arg} has shape {tuple(x.shape)}, expected {want} "
                              "with ns 1 or 2")
-    # F [ns, nbf, nbf], then the scratch X, Y [ns, nelem, 2, nq, npl] and the
+    # F [ns, nbf, nbf], then the scratch X, Y[, Z] [ns, nelem, nXY, nq, npl] and the
     # element blocks [ns, nelem, npl, nprim^2]: one allocation
     buf = torch.empty(nF + nXY + nFel, dtype=torch.float64, device=dev)
     a = _Launch.from_buffer_copy(t)
     a.wvr, a.wgu, a.wgv = wvr.data_ptr(), wgu.data_ptr(), wgv.data_ptr()
+    a.wvt = None if wvt is None else wvt.data_ptr()
     a.mask = None if mask is None else mask.data_ptr()
     a.F = buf.data_ptr()
     a.XY = a.F + 8 * nF
@@ -97,9 +102,10 @@ def dia_xc_fock(wvr: torch.Tensor, wgu: torch.Tensor, wgv: torch.Tensor, g,
     return buf[:nF].view(ns, nbf, nbf)
 
 
-def _fock_one(wvr, wgu, wgv, g, nrad):
-    """One spin, faithful to diatomic_dft.py:156-165 and :197-200 with
-    index_add_ over gidx."""
+def _fock_one(wvr, wgu, wgv, wvt, g, nrad):
+    """One spin, faithful to diatomic_dft.py:156-181 and :197-200 with
+    index_add_ over gidx; the tau factors are the grid's tfac (invh^2,
+    invh^2, invhphi2 on the diatomic grid)."""
     nang = g.TT.shape[0]
     n1 = nrad + 1
     gi = g.gidx.long()
@@ -111,18 +117,26 @@ def _fock_one(wvr, wgu, wgv, g, nrad):
     Fel = Fel + rad + rad.transpose(0, 1).transpose(3, 4)
     C1 = torch.einsum("eqt,abt->abeq", wgv, g.dTT)
     Fel = Fel + torch.einsum("abeq,eqi,eqj->abeij", C1, g.Bg, g.Bg)
+    if wvt is not None:
+        f1, f2, f3 = g.tfac
+        T1 = torch.einsum("eqt,abt->abeq", 0.5 * wvt * f1, g.TT)
+        Fel = Fel + torch.einsum("abeq,eqi,eqj->abeij", T1, g.dBg, g.dBg)
+        T2 = torch.einsum("eqt,abt->abeq", 0.5 * wvt * f2, g.dTT2)
+        T2 = T2 + torch.einsum("eqt,abt->abeq", 0.5 * wvt * f3, g.TTm2)
+        Fel = Fel + torch.einsum("abeq,eqi,eqj->abeij", T2, g.Bg, g.Bg)
     F4 = torch.zeros((nang, nang, n1 * n1), dtype=Fel.dtype, device=Fel.device)
     F4.index_add_(2, lin, Fel.reshape(nang, nang, -1))
     F4 = F4.reshape(nang, nang, n1, n1)[:, :, :nrad, :nrad]
     return F4.permute(0, 2, 1, 3).reshape(nang * nrad, nang * nrad)
 
 
-def dia_xc_fock_plain(wvr, wgu, wgv, g, mask=None) -> torch.Tensor:
+def dia_xc_fock_plain(wvr, wgu, wgv, g, mask=None, wvt=None) -> torch.Tensor:
     """Plain PyTorch version of dia_xc_fock: each spin on its own, then the
     mask as eval_fxc_dia applies it (diatomic_dft.py:206-208). Reads only
-    helfem_tpu's tables, not the live-pair tables."""
+    helfem_tpu's tables and tfac, not the live-pair tables."""
     nrad = g.owners.shape[0]
-    F = torch.stack([_fock_one(wvr[s], wgu[s], wgv[s], g, nrad) for s in range(wvr.shape[0])])
+    F = torch.stack([_fock_one(wvr[s], wgu[s], wgv[s], None if wvt is None else wvt[s], g, nrad)
+                     for s in range(wvr.shape[0])])
     if mask is not None:
         F = F * mask[None, :, None] * mask[None, None, :]
     return F

@@ -1,5 +1,5 @@
 """Atomic DFT quadrature grid and XC Fock build (L6), ported from
-helfem_tpu/models/atomic_dft.py for LDA and GGA functionals.
+helfem_tpu/models/atomic_dft.py for LDA, GGA and meta-GGA functionals.
 
 Grid = (element x radial point) x (Gauss-Legendre point in cos theta);
 phi is eliminated analytically (the density is m-block-diagonal), and the
@@ -11,9 +11,11 @@ The grid runs on the diatomic XC kernels unchanged: dia_xc_fields (K4)
 computes rho = sum_ab TT D1, u = invh sum_ab TT Dmu and v = invh sqeta
 sum_ab dTT D1, which with invh = sqeta = 1 are rho, drho/dr and r times
 (1/r) drho/dtheta; dia_xc_fock (K5) contracts w vr, w gr and w gt / r with
-the same tables, term for term helfem_tpu's fock_spin. The pointwise
-functional (ops/xc.py:xc_eval) is plain PyTorch with autograd. The meta-GGA
-(tau) and laplacian branches are not ported and raise.
+the same tables, term for term helfem_tpu's fock_spin. Meta-GGAs run the
+kernels' tau mode with the factors f1 = 1, f2 = f3 = 1/r^2
+(atomic_dft.py:109-114, :170-176). The pointwise functional
+(ops/xc.py:xc_eval) is plain PyTorch with autograd. The laplacian branch
+(BR89) is not ported and raises.
 """
 
 from collections.abc import Mapping
@@ -31,14 +33,14 @@ from helfem_tpu_torch.ops.xc import xc_eval
 __all__ = ["AtomGridOps", "atomic_grid_tables", "build_atomic_grid", "eval_fxc",
            "eval_kinetic_grid", "eval_overlap_grid", "from_jax_atomic_grid"]
 
-_ITEM6 = ("meta-GGA (tau) and laplacian terms on the atomic grid are not ported to "
+_ITEM6 = ("laplacian-level meta-GGAs (BR89, family mggal) are not ported to "
           "helfem_tpu_torch yet (ROADMAP.md queue 1 item 6)")
 
 
 class AtomGridOps(NamedTuple):
     """The atomic grid in the layout of the XC kernels (the fields of
-    diatomic_dft.DiaGridOps, so dia_xc_fields and dia_xc_fock take it as
-    they are), plus r and the two tables of the kinetic self-check."""
+    diatomic_dft.DiaGridOps that the kernels read, so dia_xc_fields and
+    dia_xc_fock take it as they are), plus r."""
 
     Bg: torch.Tensor  # [nelem, nq, nprim] radial b values
     dBg: torch.Tensor  # [nelem, nq, nprim] db/dr
@@ -46,19 +48,23 @@ class AtomGridOps(NamedTuple):
     invh: torch.Tensor  # [nelem, nq, nt] ones
     TT: torch.Tensor  # [nang, nang, nt] Theta_a Theta_b delta_{ma mb}
     dTT: torch.Tensor  # [nang, nang, nt] Theta'_a Theta_b + Theta_a Theta'_b
+    dTT2: torch.Tensor  # [nang, nang, nt] Theta'_a Theta'_b
+    TTm2: torch.Tensor  # [nang, nang, nt] m_a m_b Theta_a Theta_b / sin^2
+    tfac: torch.Tensor  # [3, nelem, nq, nt] tau factors 1, 1/r^2, 1/r^2
     sqeta: torch.Tensor  # [nt] ones
     gidx: torch.Tensor  # [nelem, nprim] int32, trash slot = nrad
     pairs: torch.Tensor  # the live-pair and element tables (models/xc_grid.py)
     TTp: torch.Tensor
     dTTp: torch.Tensor
+    dTT2p: torch.Tensor
+    TTm2p: torch.Tensor
     owners: torch.Tensor
     band: torch.Tensor
     ijs: torch.Tensor
     BBs: torch.Tensor
     SSs: torch.Tensor
+    DDs: torch.Tensor
     r: torch.Tensor  # [nelem, nq]
-    dTT2: torch.Tensor  # [nang, nang, nt] Theta'_a Theta'_b
-    TTm2: torch.Tensor  # [nang, nang, nt] m_a m_b Theta_a Theta_b / sin^2
 
     def to(self, device) -> "AtomGridOps":
         return AtomGridOps(*(t.to(device) for t in self))
@@ -66,9 +72,8 @@ class AtomGridOps(NamedTuple):
 
 def atomic_grid_tables(basis, ntheta: int = 0) -> dict[str, np.ndarray]:
     """helfem_tpu's DFTGridOps fields of the LDA, GGA and tau branches as
-    numpy arrays (atomic_dft.py:56-96): bg, dbg, r, w2, wth, TT, dTT, gidx,
-    and dTT2, TTm2 for the kinetic self-check. ntheta = 0 takes
-    2 lmax + 12 points in cos theta."""
+    numpy arrays (atomic_dft.py:56-96): bg, dbg, r, w2, wth, TT, dTT, dTT2,
+    TTm2, gidx. ntheta = 0 takes 2 lmax + 12 points in cos theta."""
     if ntheta == 0:
         ntheta = 2 * basis.lmax + 12
     cth, wth = gauss_legendre(ntheta)
@@ -93,6 +98,13 @@ def atomic_grid_tables(basis, ntheta: int = 0) -> dict[str, np.ndarray]:
                 dTT=dTT, dTT2=dTT2, TTm2=TTm2, gidx=rb.fem.gidx)
 
 
+def tau_factors(r: np.ndarray, nt: int) -> np.ndarray:
+    """The atomic grid's tau factors [3, nelem, nq, nt]: 1 for the TT Ddd
+    term, 1/r^2 for dTT2 D1 and TTm2 D1 (atomic_dft.py:109-114)."""
+    inv_r2 = np.broadcast_to((1.0 / np.asarray(r) ** 2)[:, :, None], (*np.shape(r), nt))
+    return np.stack((np.ones_like(inv_r2), inv_r2, inv_r2))
+
+
 def from_jax_atomic_grid(arrays: Mapping[str, np.ndarray], nrad: int, device) -> AtomGridOps:
     """The port's grid from helfem_tpu's DFTGridOps fields given as numpy
     arrays (bg, dbg, r, w2, wth, TT, dTT, dTT2, TTm2, gidx; the laplacian
@@ -102,8 +114,8 @@ def from_jax_atomic_grid(arrays: Mapping[str, np.ndarray], nrad: int, device) ->
     w = a["w2"][:, :, None] * a["wth"][None, None, :]
     return build_grid(AtomGridOps, dict(
         Bg=a["bg"], dBg=a["dbg"], w=w, invh=np.ones_like(w), TT=a["TT"], dTT=a["dTT"],
-        sqeta=np.ones_like(a["wth"]), gidx=a["gidx"], r=a["r"], dTT2=a["dTT2"],
-        TTm2=a["TTm2"]), nrad, device)
+        dTT2=a["dTT2"], TTm2=a["TTm2"], tfac=tau_factors(a["r"], w.shape[2]),
+        sqeta=np.ones_like(a["wth"]), gidx=a["gidx"], r=a["r"]), nrad, device)
 
 
 def build_atomic_grid(basis, device, ntheta: int = 0) -> AtomGridOps:
@@ -112,22 +124,28 @@ def build_atomic_grid(basis, device, ntheta: int = 0) -> AtomGridOps:
 
 def eval_fxc(funcs, g: AtomGridOps, Pa: torch.Tensor, Pb: torch.Tensor, thr: float = 1e-12):
     """(Fxca, Fxcb, Exc, Nel) on the atomic grid (atomic_dft.py:134-182) for
-    LDA and GGA functionals: one dia_xc_fields launch, the functional, and
-    one dia_xc_fock launch, each for both spins, or for one spin when Pb is
-    Pa (Fxcb is then Fxca, the same tensor). The theta gradient is
-    divided by r after the dTT contraction, and its Fock weight formed as
-    (w gt) / r, in helfem_tpu's order."""
-    if any(f.family not in ("lda", "gga") for f in funcs):
+    LDA, GGA and meta-GGA functionals: one dia_xc_fields launch, the
+    functional, and one dia_xc_fock launch, each for both spins, or for one
+    spin when Pb is Pa (Fxcb is then Fxca, the same tensor); a meta-GGA
+    runs both kernels in tau mode. The theta gradient is divided by r after
+    the dTT contraction, and its Fock weight formed as (w gt) / r, in
+    helfem_tpu's order."""
+    families = {f.family for f in funcs}
+    if not families <= {"lda", "gga", "mgga"}:
         raise NotImplementedError(_ITEM6)
+    mgga = "mgga" in families
     same = Pb is Pa
-    rho, du, dv = dia_xc_fields(Pa.contiguous()[None] if same else torch.stack((Pa, Pb)), g)
+    fields = dia_xc_fields(Pa.contiguous()[None] if same else torch.stack((Pa, Pb)), g, mgga)
+    rho, du, dv = fields[:3]
     r = g.r[:, :, None]
     ra, ra_r, ra_t = rho[0], du[0], dv[0] / r
     rb, rb_r, rb_t = (ra, ra_r, ra_t) if same else (rho[1], du[1], dv[1] / r)
     saa = ra_r * ra_r + ra_t * ra_t
     sab = ra_r * rb_r + ra_t * rb_t
     sbb = rb_r * rb_r + rb_t * rb_t
-    e, vra, vrb, vsaa, vsab, vsbb = xc_eval(funcs, ra, rb, saa, sab, sbb, thr)
+    tau = (fields[3][0], fields[3][-1]) if mgga else ()
+    out = xc_eval(funcs, ra, rb, saa, sab, sbb, thr, *tau)
+    e, vra, vrb, vsaa, vsab, vsbb = out[:6]
     Exc = torch.sum(g.w * e)
     Nel = torch.sum(g.w * (ra + rb))
     # an LDA's sigma potentials are exact zeros, and so are gr and gt
@@ -135,7 +153,8 @@ def eval_fxc(funcs, g: AtomGridOps, Pa: torch.Tensor, Pb: torch.Tensor, thr: flo
     if not same:
         pots.append((vrb, 2.0 * vsbb * rb_r + vsab * ra_r, 2.0 * vsbb * rb_t + vsab * ra_t))
     vr, gr, gt = (torch.stack(x) for x in zip(*pots))
-    F = dia_xc_fock(g.w * vr, g.w * gr, g.w * gt / r, g)
+    wvt = g.w * torch.stack(out[6:6 + len(pots)]) if mgga else None
+    F = dia_xc_fock(g.w * vr, g.w * gr, g.w * gt / r, g, wvt=wvt)
     return F[0], F[-1], Exc, Nel
 
 
@@ -156,21 +175,9 @@ def eval_overlap_grid(g: AtomGridOps, nrad: int) -> torch.Tensor:
 
 def eval_kinetic_grid(g: AtomGridOps, nrad: int) -> torch.Tensor:
     """The kinetic matrix 1/2 int grad(chi_A).grad(chi_B) through the grid,
-    the second half of the self-check (atomic_dft.py:195-206). Plain
-    PyTorch on the grid's device: its dB.dB term is outside dia_xc_fock's
-    contraction, and it runs once per CLI run. It joins a kernel with the
-    tau branch (ROADMAP.md queue 2 item 6)."""
+    the second half of the self-check (atomic_dft.py:195-206): dia_xc_fock's
+    tau contraction with wvt = w and every other potential zero."""
     _check_size(g, nrad)
-    nang = g.TT.shape[0]
-    w = g.w
-    T1 = torch.einsum("eqt,abt->abeq", 0.5 * w, g.TT)
-    Tel = torch.einsum("abeq,eqi,eqj->abeij", T1, g.dBg, g.dBg)
-    T2 = torch.einsum("eqt,abt->abeq", 0.5 * w / g.r[:, :, None] ** 2, g.dTT2 + g.TTm2)
-    Tel = Tel + torch.einsum("abeq,eqi,eqj->abeij", T2, g.Bg, g.Bg)
-    n1 = nrad + 1
-    gi = g.gidx.long()
-    lin = (gi[:, :, None] * n1 + gi[:, None, :]).reshape(-1)
-    T4 = torch.zeros((nang, nang, n1 * n1), dtype=Tel.dtype, device=Tel.device)
-    T4.index_add_(2, lin, Tel.reshape(nang, nang, -1))
-    T4 = T4.reshape(nang, nang, n1, n1)[:, :, :nrad, :nrad]
-    return T4.permute(0, 2, 1, 3).reshape(nang * nrad, nang * nrad)
+    w = g.w[None]
+    zero = torch.zeros_like(w)
+    return dia_xc_fock(zero, zero, zero, g, wvt=w)[0]

@@ -11,9 +11,10 @@ components
 The grid tables are built on the host in numpy, as helfem_tpu builds them.
 The density fields and the XC Fock assembly are the CUDA kernels
 dia_xc_fields and dia_xc_fock (kernels/), whose plain PyTorch versions run
-on CPU tensors; the pointwise functional (ops/xc.py:xc_eval) is plain
-PyTorch with autograd. LDA and GGA only: the meta-GGA (tau) and
-laplacian branches are not ported yet and raise.
+on CPU tensors, meta-GGAs in the kernels' tau mode (tau factors invh^2,
+invh^2 and invhphi2, diatomic_dft.py:104-110, :174-181); the pointwise
+functional (ops/xc.py:xc_eval) is plain PyTorch with autograd. The
+laplacian branch (BR89) is not ported yet and raises.
 """
 
 from collections.abc import Mapping
@@ -33,8 +34,9 @@ __all__ = ["DiaGridOps", "build_dia_grid", "dia_grid_tables", "eval_fxc_dia",
 
 
 class DiaGridOps(NamedTuple):
-    """The LDA/GGA tables of helfem_tpu's DiaGridOps, on one device, and the
-    shell-pair tables the XC kernels read (built once with the grid)."""
+    """The LDA, GGA and tau tables of helfem_tpu's DiaGridOps, on one
+    device, and the shell-pair tables the XC kernels read (built once with
+    the grid)."""
 
     Bg: torch.Tensor  # [nelem, nq, nprim]
     dBg: torch.Tensor
@@ -42,16 +44,23 @@ class DiaGridOps(NamedTuple):
     invh: torch.Tensor  # [nelem, nq, nt] 1/h
     TT: torch.Tensor  # [nang, nang, nt] Theta_a Theta_b delta_{ma mb}
     dTT: torch.Tensor  # [nang, nang, nt] d/deta products
+    dTT2: torch.Tensor  # [nang, nang, nt] (1-eta^2) Theta'_a Theta'_b (tau)
+    TTm2: torch.Tensor  # [nang, nang, nt] m_a m_b Theta_a Theta_b / (1-eta^2) (tau)
+    invhphi2: torch.Tensor  # [nelem, nq] 1/(Rh^2 sinh^2 mu) (tau)
+    tfac: torch.Tensor  # [3, nelem, nq, nt] tau factors invh^2, invh^2, invhphi2
     sqeta: torch.Tensor  # [nt] sqrt(1 - eta^2)
     gidx: torch.Tensor  # [nelem, nprim] int32, trash slot = nrad
     pairs: torch.Tensor  # [npl, 2] int32: live shell pairs a <= b
     TTp: torch.Tensor  # [npl, nt] TT rows of the live pairs
     dTTp: torch.Tensor  # [npl, nt] dTT rows of the live pairs
+    dTT2p: torch.Tensor  # [npl, nt] dTT2 rows of the live pairs
+    TTm2p: torch.Tensor  # [npl, nt] TTm2 rows of the live pairs
     owners: torch.Tensor  # [nrad, 2] int32: element slots e * nprim + i covering n, else -1
     band: torch.Tensor  # [nrad, 2] int32: first and last radial index sharing an element with n
     ijs: torch.Tensor  # [nij] int32: (i << 16) | j of the element pairs i <= j, row by row
     BBs: torch.Tensor  # [nelem, nq, nijp] B_i B_j at i <= j, zero-padded to nijp = 8k
     SSs: torch.Tensor  # [nelem, nq, nijp] dB_i B_j + B_i dB_j
+    DDs: torch.Tensor  # [nelem, nq, nijp] dB_i dB_j (tau)
 
     def to(self, device) -> "DiaGridOps":
         return DiaGridOps(*(t.to(device) for t in self))
@@ -75,61 +84,87 @@ def dia_grid_tables(basis, neta: int = 0) -> dict[str, np.ndarray]:
     same_m = (basis.mval[:, None] == basis.mval[None, :]).astype(np.float64)
     TT = same_m[:, :, None] * Th[:, None, :] * Th[None, :, :]
     dTT = same_m[:, :, None] * (dTh[:, None, :] * Th[None, :, :] + Th[:, None, :] * dTh[None, :, :])
+    dTT2 = same_m[:, :, None] * (1.0 - eta**2)[None, None, :] * dTh[:, None, :] * dTh[None, :, :]
+    mm = (basis.mval[:, None] * basis.mval[None, :]).astype(np.float64)
+    TTm2 = (same_m[:, :, None] * mm[:, :, None] * Th[:, None, :] * Th[None, :, :]
+            / (1.0 - eta**2)[None, None, :])
     Rh = basis.Rhalf
     ch = np.cosh(basis.mu)
     sh = np.sinh(basis.mu)
     vol = ch[:, :, None] ** 2 - eta[None, None, :] ** 2
     w = 2.0 * np.pi * Rh**3 * basis.wmu[:, :, None] * sh[:, :, None] * vol * weta[None, None, :]
     invh = 1.0 / (Rh * np.sqrt(vol))
-    return dict(Bg=basis.B, dBg=basis.dB, w=w, invh=invh, TT=TT, dTT=dTT, sqeta=sx,
-                gidx=basis.fem.gidx)
+    return dict(Bg=basis.B, dBg=basis.dB, w=w, invh=invh, TT=TT, dTT=dTT, dTT2=dTT2,
+                TTm2=TTm2, invhphi2=1.0 / (Rh**2 * sh**2), sqeta=sx, gidx=basis.fem.gidx)
+
+
+def tau_factors(invh: np.ndarray, invhphi2: np.ndarray) -> np.ndarray:
+    """The diatomic grid's tau factors [3, nelem, nq, nt]: invh^2 for the
+    TT Ddd and dTT2 D1 terms, invhphi2 for TTm2 D1 (diatomic_dft.py:104-110)."""
+    invh2 = np.asarray(invh) ** 2
+    return np.stack((invh2, invh2, np.broadcast_to(np.asarray(invhphi2)[:, :, None],
+                                                   invh2.shape)))
 
 
 def from_jax_grid(arrays: Mapping[str, np.ndarray], nrad: int, device) -> DiaGridOps:
     """The port's grid from helfem_tpu's DiaGridOps fields given as numpy
-    arrays (the meta-GGA tables are not carried); nrad is the basis's radial
-    size, which gidx's checks need."""
-    return build_grid(DiaGridOps, arrays, nrad, device)
+    arrays (the laplacian tables are not carried); nrad is the basis's
+    radial size, which gidx's checks need."""
+    return build_grid(DiaGridOps, {**arrays, "tfac": tau_factors(arrays["invh"],
+                                                                 arrays["invhphi2"])},
+                      nrad, device)
 
 
 def build_dia_grid(basis, device, neta: int = 0) -> DiaGridOps:
-    return build_grid(DiaGridOps, dia_grid_tables(basis, neta), basis.nrad, device)
+    return from_jax_grid(dia_grid_tables(basis, neta), basis.nrad, device)
+
+
+_ITEM6 = ("laplacian-level meta-GGAs (BR89, family mggal) on the diatomic grid are not "
+          "ported to helfem_tpu_torch yet (ROADMAP.md queue 1 item 6)")
 
 
 def _fields_dia(g: DiaGridOps, P: torch.Tensor, need_tau: bool = False,
                 need_lapl: bool = False):
-    """(rho, drho_u, drho_v) [nelem, nq, nt] of one density P [nbf, nbf]
-    (diatomic_dft.py:95-103), through the dia_xc_fields kernel."""
-    if need_tau or need_lapl:
-        raise NotImplementedError("meta-GGA (tau) and laplacian fields on the diatomic "
-                                  "grid are not ported to helfem_tpu_torch yet")
-    return tuple(f[0] for f in dia_xc_fields(P.contiguous()[None], g))
+    """(rho, drho_u, drho_v, tau) [nelem, nq, nt] of one density P [nbf,
+    nbf] (diatomic_dft.py:95-110), tau None unless need_tau, through the
+    dia_xc_fields kernel."""
+    if need_lapl:
+        raise NotImplementedError(_ITEM6)
+    fields = tuple(f[0] for f in dia_xc_fields(P.contiguous()[None], g, need_tau))
+    return fields if need_tau else (*fields, None)
 
 
 def eval_fxc_dia(funcs, g: DiaGridOps, ops, Pa: torch.Tensor, Pb: torch.Tensor,
                  thr: float = 1e-12):
     """(Fxca, Fxcb, Exc, Nel) on the diatomic grid (diatomic_dft.py:127-209)
-    for LDA and GGA functionals. Both spins go through one launch of each
-    kernel; when Pb is Pa the fields are formed once and reused (the same
-    bits as forming them twice: the kernel is deterministic per spin)."""
-    if any(f.family not in ("lda", "gga") for f in funcs):
-        raise NotImplementedError("meta-GGA functionals on the diatomic grid are not "
-                                  "ported to helfem_tpu_torch yet")
+    for LDA, GGA and meta-GGA functionals. Both spins go through one launch
+    of each kernel, in tau mode for a meta-GGA; when Pb is Pa the fields
+    are formed once and reused (the same bits as forming them twice: the
+    kernel is deterministic per spin)."""
+    families = {f.family for f in funcs}
+    if not families <= {"lda", "gga", "mgga"}:
+        raise NotImplementedError(_ITEM6)
+    mgga = "mgga" in families
     same = Pb is Pa
-    rho, du, dv = dia_xc_fields(Pa.contiguous()[None] if same else torch.stack((Pa, Pb)), g)
+    fields = dia_xc_fields(Pa.contiguous()[None] if same else torch.stack((Pa, Pb)), g, mgga)
+    rho, du, dv = fields[:3]
     ra, ua, va = rho[0], du[0], dv[0]
     rb, ub, vb = (ra, ua, va) if same else (rho[1], du[1], dv[1])
     saa = ua * ua + va * va
     sab = ua * ub + va * vb
     sbb = ub * ub + vb * vb
-    e, vra, vrb, vsaa, vsab, vsbb = xc_eval(funcs, ra, rb, saa, sab, sbb, thr)
+    tau = (fields[3][0], fields[3][-1]) if mgga else ()
+    out = xc_eval(funcs, ra, rb, saa, sab, sbb, thr, *tau)
+    e, vra, vrb, vsaa, vsab, vsbb = out[:6]
     Exc = torch.sum(g.w * e)
     Nel = torch.sum(g.w * (ra + rb))
     # an LDA's sigma potentials are exact zeros, and so are gu and gv
     gu = torch.stack((2.0 * vsaa * ua + vsab * ub, 2.0 * vsbb * ub + vsab * ua))
     gv = torch.stack((2.0 * vsaa * va + vsab * vb, 2.0 * vsbb * vb + vsab * va))
+    wvt = g.w * torch.stack(out[6:8]) if mgga else None
     F = dia_xc_fock(g.w * torch.stack((vra, vrb)), g.w * gu * g.invh,
-                    g.w * gv * g.invh * g.sqeta[None, None, :], g, ops.shellmask.reshape(-1))
+                    g.w * gv * g.invh * g.sqeta[None, None, :], g, ops.shellmask.reshape(-1),
+                    wvt)
     return F[0], F[1], Exc, Nel
 
 

@@ -19,7 +19,12 @@ density is spherically averaged, so
   * XC lives on a radial-only grid: the single-angle case of the atomic
     grid (nang = 1, nt = 1, TT = 1/(4 pi), dTT = 0), built once with the
     operators, so the XC kernels dia_xc_fields (K4) and dia_xc_fock (K5)
-    run it, one launch each per Fock build (LDA/GGA).
+    run it, one launch each per Fock build (LDA/GGA). Meta-GGAs run a
+    second radial grid with two shells (sad_tau_grid): shell 0 holds
+    sum_l P_l, shell 1 sum_l l(l+1) P_l, and the tables put the centrifugal
+    piece of tau and of its Fock term on shell 1, so one tau-mode launch
+    of each kernel per Fock build gives tau and the per-l Fock cube
+    F + F1 + l(l+1) F2 (sadatom.py:202-267).
 
 The per-l channel axis is a batch axis: one batched whitened eigensolve
 (torch.linalg.eigh with helfem_tpu's refinement passes) across all
@@ -30,7 +35,9 @@ boolean per iteration back to the host.
 
 Not ported (they raise NotImplementedError): finite nuclei, confinement,
 the nuclear sub-grid and --zeroder (ROADMAP queue 1 item 8), the sliding
-DIIS/ADIIS switch --diisthr, meta-GGAs.
+DIIS/ADIIS switch --diisthr, the laplacian-level BR89 (item 6), and the
+multiplicative potential of a meta-GGA (_mult_vxc_radial, as in
+helfem_tpu).
 """
 
 from collections.abc import Mapping
@@ -42,7 +49,8 @@ import torch
 
 from helfem_tpu_torch.kernels import radial_exchange
 from helfem_tpu_torch.models.atomic import AtomicOperators, coulomb, from_jax_operators
-from helfem_tpu_torch.models.atomic_dft import AtomGridOps, eval_fxc
+from helfem_tpu_torch.kernels import dia_xc_fields, dia_xc_fock
+from helfem_tpu_torch.models.atomic_dft import AtomGridOps, eval_fxc, tau_factors
 from helfem_tpu_torch.models.xc_grid import build_grid
 from helfem_tpu_torch.models.sadconf import aufbau_from_energies as aufbau_occs
 from helfem_tpu_torch.models.sadconf import shell_capacity
@@ -51,7 +59,7 @@ from helfem_tpu_torch.ops.gaunt import gaunt_coefficient
 from helfem_tpu_torch.ops.grids import form_grid
 from helfem_tpu_torch.ops.polynomials import get_basis
 from helfem_tpu_torch.ops.radial import RadialBasis
-from helfem_tpu_torch.ops.xc import parse_method
+from helfem_tpu_torch.ops.xc import parse_method, xc_eval
 from helfem_tpu_torch.scf.common import reject_unported, vdot
 from helfem_tpu_torch.scf.diis import DIIS, device_diis_step
 from helfem_tpu_torch.scf.guess import potential
@@ -97,6 +105,7 @@ class SadOps(NamedTuple):
     r: torch.Tensor
     w2: torch.Tensor  # wr * 4 pi r^2
     grid: AtomGridOps  # the radial grid in the XC kernels' layout (sad_grid)
+    tgrid: AtomGridOps  # its two-shell form for meta-GGAs (sad_tau_grid)
 
     @property
     def device(self) -> torch.device:
@@ -121,26 +130,48 @@ def sad_grid(arrays: Mapping, nrad: int, device) -> AtomGridOps:
     rho = D1 / (4 pi) and u = Dmu / (4 pi) are helfem_tpu's n and dn/dr
     (sadatom.py:202-267), and w = w2. arrays holds bg, dbg, r, w2 and
     at["gidx"] (from_jax_sad_ops's layout); nrad is the radial size."""
-    w = np.asarray(arrays["w2"])[:, :, None]
     one, zero = np.ones((1, 1, 1)), np.zeros((1, 1, 1))
+    return _radial_grid(arrays, nrad, device, one / (4.0 * np.pi), zero)
+
+
+def sad_tau_grid(arrays: Mapping, nrad: int, device) -> AtomGridOps:
+    """The meta-GGA form of sad_grid: two angular shells on one point, the
+    density blockdiag(sum_l P_l, sum_l l(l+1) P_l), TT = diag(1, 0) / (4 pi)
+    and TTm2 = diag(0, 1) / (4 pi) with the atomic tau factors (1, 1/r^2,
+    1/r^2). Then rho and u are sad_grid's, and the kernels' tau is
+    1/2 [Ddd(sum_l P_l) + D1(sum_l l(l+1) P_l) / r^2] / (4 pi), helfem_tpu's
+    (sadatom.py:220-230); the Fock's shell-0 block is F + F1 and its
+    shell-1 block F2, so channel l's Fock is F + F1 + l(l+1) F2
+    (sadatom.py:256-265)."""
+    TT = np.zeros((2, 2, 1))
+    TTm2 = np.zeros((2, 2, 1))
+    TT[0, 0, 0] = TTm2[1, 1, 0] = 1.0 / (4.0 * np.pi)
+    return _radial_grid(arrays, nrad, device, TT, TTm2)
+
+
+def _radial_grid(arrays: Mapping, nrad: int, device, TT: np.ndarray,
+                 TTm2: np.ndarray) -> AtomGridOps:
+    w = np.asarray(arrays["w2"])[:, :, None]
+    zero = np.zeros_like(TT)
     return build_grid(AtomGridOps, dict(
-        Bg=arrays["bg"], dBg=arrays["dbg"], w=w, invh=np.ones_like(w), TT=one / (4.0 * np.pi),
-        dTT=zero, sqeta=np.ones(1), gidx=arrays["at"]["gidx"], r=arrays["r"], dTT2=zero,
-        TTm2=zero), nrad, device)
+        Bg=arrays["bg"], dBg=arrays["dbg"], w=w, invh=np.ones_like(w), TT=TT, dTT=zero,
+        dTT2=zero, TTm2=TTm2, tfac=tau_factors(arrays["r"], 1), sqeta=np.ones(1),
+        gidx=arrays["at"]["gidx"], r=arrays["r"]), nrad, device)
 
 
 def from_jax_sad_ops(arrays: Mapping, device) -> SadOps:
     """The port's SadOps from helfem_tpu's SadOps given as numpy arrays:
     arrays["at"] holds the AtomicOperators fields (models/atomic.py:
-    from_jax_operators), the other keys the SadOps fields; the XC grid is
-    built from them (sad_grid)."""
+    from_jax_operators), the other keys the SadOps fields; the XC grids are
+    built from them (sad_grid, sad_tau_grid)."""
     at = from_jax_operators(arrays["at"], device)
 
     def dev(name):
         return torch.tensor(np.asarray(arrays[name]), dtype=torch.float64, device=device)
 
-    return SadOps(at, _l0_operators(at), *(dev(n) for n in SadOps._fields[2:-1]),
-                  sad_grid(arrays, at.Sinvh_rad.shape[0], device))
+    nrad = at.Sinvh_rad.shape[0]
+    return SadOps(at, _l0_operators(at), *(dev(n) for n in SadOps._fields[2:-2]),
+                  sad_grid(arrays, nrad, device), sad_tau_grid(arrays, nrad, device))
 
 
 @dataclass
@@ -231,14 +262,43 @@ def sad_coulomb(ops: SadOps, Pr: torch.Tensor) -> torch.Tensor:
 
 
 def sad_xc(funcs, ops: SadOps, Pla: torch.Tensor, Plb: torch.Tensor, thr: float = 1e-12):
-    """Radial XC (sadatom.py:202-267, LDA/GGA): returns (Fxc_a, Fxc_b, Exc,
-    Nel) with single radial Fock matrices. The density n_s(r) = sum_l
-    P^s_l[I,J] b_I b_J / (4 pi) is the atomic grid's on ops.grid (one
-    angular shell and point, dTT = 0), so this is atomic_dft.eval_fxc
-    there: one dia_xc_fields and one dia_xc_fock launch, for one spin when
-    Plb is Pla."""
-    Pa = Pla.sum(0)
-    return eval_fxc(funcs, ops.grid, Pa, Pa if Plb is Pla else Plb.sum(0), thr)
+    """Radial XC (sadatom.py:202-267): returns (Fxc_a, Fxc_b, Exc, Nel), the
+    Fock a single radial matrix for LDA/GGA and an [nl, nrad, nrad] cube
+    for meta-GGAs (the vtau term carries the l(l+1) centrifugal piece).
+
+    LDA/GGA: the density n_s(r) = sum_l P^s_l[I,J] b_I b_J / (4 pi) is the
+    atomic grid's on ops.grid (one angular shell and point, dTT = 0), so
+    this is atomic_dft.eval_fxc there. Meta-GGAs run ops.tgrid
+    (sad_tau_grid). Either way one dia_xc_fields and one dia_xc_fock launch
+    per call, for one spin when Plb is Pla."""
+    if not any(f.family == "mgga" for f in funcs):
+        Pa = Pla.sum(0)
+        return eval_fxc(funcs, ops.grid, Pa, Pa if Plb is Pla else Plb.sum(0), thr)
+    g = ops.tgrid
+    nl = Pla.shape[0]
+    ll1 = torch.arange(nl, dtype=Pla.dtype, device=Pla.device)
+    ll1 = ll1 * (ll1 + 1.0)
+
+    def two_shells(Pl):  # blockdiag(sum_l P_l, sum_l l(l+1) P_l)
+        return torch.block_diag(Pl.sum(0), torch.einsum("l,lij->ij", ll1, Pl))
+
+    same = Plb is Pla
+    P = two_shells(Pla)[None] if same else torch.stack((two_shells(Pla), two_shells(Plb)))
+    rho, du, _, tau = dia_xc_fields(P, g, True)
+    na, dna, ta = rho[0], du[0], tau[0]
+    nb, dnb, tb = (na, dna, ta) if same else (rho[1], du[1], tau[1])
+    e, vra, vrb, vsaa, vsab, vsbb, vta, vtb = xc_eval(funcs, na, nb, dna * dna, dna * dnb,
+                                                      dnb * dnb, thr, ta, tb)
+    Exc = torch.sum(g.w * e)
+    Nel = torch.sum(g.w * (na + nb))
+    pots = [(vra, 2.0 * vsaa * dna + vsab * dnb, vta)]
+    if not same:
+        pots.append((vrb, 2.0 * vsbb * dnb + vsab * dna, vtb))
+    vr, gr, vt = (torch.stack(x) for x in zip(*pots))
+    F = dia_xc_fock(g.w * vr, g.w * gr, torch.zeros_like(vr), g, wvt=g.w * vt)
+    nrad = F.shape[-1] // 2
+    cubes = F[:, :nrad, :nrad][:, None] + ll1[None, :, None, None] * F[:, nrad:, nrad:][:, None]
+    return cubes[0], cubes[-1], Exc, Nel
 
 
 def make_sad_fock(funcs, kfrac: float, nl: int, dftthr: float = 1e-12):
@@ -266,7 +326,9 @@ def make_sad_fock(funcs, kfrac: float, nl: int, dftthr: float = 1e-12):
             Exx = 0.5 * (vdot(Pla, Ka) + vdot(Plb, Kb))
         if funcs:
             XCa, XCb, Exc, Nel = sad_xc(funcs, ops, Pla, Plb, dftthr)
-            Fla, Flb = Fla + XCa[None], Flb + XCb[None]
+            # a radial matrix for LDA/GGA, a per-l cube for meta-GGAs
+            Fla = Fla + (XCa if XCa.dim() == 3 else XCa[None])
+            Flb = Flb + (XCb if XCb.dim() == 3 else XCb[None])
         Ekin = vdot(Pr, ops.at.T) + vdot(Pl, kc)
         Enuc = vdot(Pr, ops.at.Vnuc)
         Ecoul = 0.5 * vdot(Pr, J)

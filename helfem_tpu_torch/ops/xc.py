@@ -6,13 +6,20 @@ ops; every potential (vrho, vsigma) comes from one reverse-mode
 torch.autograd.grad pass in f64, where helfem_tpu takes jax.vjp, so the
 potentials match the energy by construction.
 
-Ported: Slater exchange, VWN5 and PW92 correlation (LDA); PBE exchange and
-correlation (GGA), with the revPBE and PBEsol parameter variants. Methods:
-HF, lda, svwn/svwn5, pbe, revpbe, pbesol, and 'x,c' (or 'x-c') pairs of the
-catalog's functionals. Every other catalog entry, every hybrid, every
-range-separated method and every meta-GGA raises NotImplementedError.
-Formulas from the original publications (Vosko-Wilk-Nusair 1980;
-Perdew-Wang 1992; Perdew-Burke-Ernzerhof 1996).
+Meta-GGAs (family 'mgga') also take the kinetic energy densities ta, tb
+and give vtau.
+
+Ported: Slater exchange, VWN5 and PW92 correlation (LDA); PBE, RPBE and
+B88 exchange, PBE and LYP correlation (GGA), with the revPBE and PBEsol
+parameter variants; TPSS, SCAN and rSCAN exchange and correlation
+(meta-GGA). Methods: HF, lda, svwn/svwn5, pbe, revpbe, pbesol, rpbe, blyp,
+tpss, scan, rscan, the hybrids pbe0/pbeh, tpssh and b3lyp5, and 'x,c' (or
+'x-c') pairs of the catalog's functionals. The laplacian-level BR89
+(ROADMAP.md queue 1 item 6), lda_x_erf and the range-separated methods
+(item 7) raise NotImplementedError. Formulas from the original
+publications (Vosko-Wilk-Nusair 1980; Perdew-Wang 1992;
+Perdew-Burke-Ernzerhof 1996; Becke 1988; Lee-Yang-Parr 1988; Tao et al.
+2003; Sun-Ruzsinszky-Perdew 2015; Bartok-Yates 2019).
 
 Density threshold: points with rho < thr are masked out of energies and
 potentials (libxc's dens_threshold convention, dftgrid.cpp:428).
@@ -32,17 +39,33 @@ _TINY = 1e-30
 _PI = math.pi
 
 
+def _max(x, c):
+    """max(x, c) with jnp.maximum's derivative: half to each side at a tie
+    (torch.clamp passes all of it), so that potentials at a floor agree
+    with helfem_tpu's."""
+    return torch.maximum(x, torch.as_tensor(c, dtype=x.dtype, device=x.device))
+
+
+def _min(x, c):
+    return torch.minimum(x, torch.as_tensor(c, dtype=x.dtype, device=x.device))
+
+
+def _clip(x, lo, hi):
+    """jnp.clip: min(max(x, lo), hi), with its derivative at ties."""
+    return _min(_max(x, lo), hi)
+
+
 def _clip_zeta(zeta):
     # keep |zeta| strictly below 1: phi = (1 -+ zeta)^{2/3} has an infinite
     # rho-derivative at zeta = +-1 (reached exactly when one spin density
     # rounds away), which would poison the autodiff potentials with NaNs
-    return torch.clamp(zeta, -1.0 + 1e-15, 1.0 - 1e-15)
+    return _clip(zeta, -1.0 + 1e-15, 1.0 - 1e-15)
 
 
 class Functional(NamedTuple):
     name: str
-    family: str  # 'lda' or 'gga'
-    f: Callable  # (ra, rb, saa, sab, sbb, **params) -> energy per volume
+    family: str  # 'lda', 'gga' or 'mgga'
+    f: Callable  # (ra, rb, saa, sab, sbb[, ta, tb], **params) -> energy per volume
     params: tuple = ()  # sorted ((key, value), ...) overrides, hashable
 
 
@@ -141,6 +164,22 @@ def _ex_pbe(ra, rb, saa, sab, sbb, *, kappa=0.804, mu=0.2195149727645171):
     return 0.5 * (exs(2.0 * ra, 4.0 * saa) + exs(2.0 * rb, 4.0 * sbb))
 
 
+def _ex_rpbe(ra, rb, saa, sab, sbb, *, kappa=0.804, mu=0.2195149727645171):
+    # RPBE (Hammer, Hansen, Norskov, PRB 59, 7413 (1999)): PBE's UEG limit,
+    # small-s expansion and 1 + kappa bound, with an exponential saturation
+    # Fx = 1 + kappa (1 - exp(-mu s^2 / kappa))
+    def exs(r2, s2x4):
+        kf1 = (3.0 * _PI**2) ** (1.0 / 3.0)
+        r13 = r2 ** (1.0 / 3.0)
+        exu = -3.0 * kf1 * r13 / (4.0 * _PI)
+        inv43 = r2 ** (-4.0 / 3.0)
+        s2 = (s2x4 * inv43) * inv43 / (4.0 * kf1**2)
+        Fx = 1.0 + kappa * (1.0 - torch.exp(-mu * s2 / kappa))
+        return r2 * exu * Fx
+
+    return 0.5 * (exs(2.0 * ra, 4.0 * saa) + exs(2.0 * rb, 4.0 * sbb))
+
+
 def _ec_pbe(ra, rb, saa, sab, sbb, *, beta=0.06672455060314922):
     gamma = (1.0 - math.log(2.0)) / _PI**2
     rho = ra + rb
@@ -162,6 +201,326 @@ def _ec_pbe(ra, rb, saa, sab, sbb, *, beta=0.06672455060314922):
 
 
 # ----------------------------------------------------------------------------
+# B88 exchange and LYP correlation
+# ----------------------------------------------------------------------------
+
+
+def _ex_b88(ra, rb, saa, sab, sbb, *, beta=0.0042):
+    """Becke 1988 gradient-corrected exchange."""
+
+    def exs(r, s):
+        r43 = r ** (4.0 / 3.0)
+        # x = |grad rho| / rho^(4/3); the 1e-30 sigma floor keeps sqrt's
+        # derivative finite at sigma = 0
+        x = torch.sqrt(_max(s, 0.0) + 1e-30) * r ** (-4.0 / 3.0)
+        corr = -beta * r43 * x * x / (1.0 + 6.0 * beta * x * torch.asinh(x))
+        lda = -0.75 * (6.0 / _PI) ** (1.0 / 3.0) * r43
+        return lda + corr
+
+    return exs(ra, saa) + exs(rb, sbb)
+
+
+def _ec_lyp(ra, rb, saa, sab, sbb):
+    """Lee-Yang-Parr correlation in the Miehlich et al. form, with the
+    rho^(-11/3) weight carried by spin ratios and rho^(-5/3) factors as
+    helfem_tpu writes it."""
+    a, b, c, d = 0.04918, 0.132, 0.2533, 0.349
+    CF = 0.3 * (3.0 * _PI**2) ** (2.0 / 3.0)
+    rho = ra + rb
+    r13 = rho ** (-1.0 / 3.0)
+    den = 1.0 + d * r13
+    delta = c * r13 + d * r13 / den
+    sigma = saa + 2.0 * sab + sbb
+    t1 = -a * 4.0 / den * (ra / rho) * rb
+    xa, xb = ra / rho, rb / rho
+    inv43 = rho ** (-4.0 / 3.0)
+
+    def m53(q):  # q * rho^(-5/3)
+        return (q * inv43) * r13
+
+    T2 = (
+        2.0 ** (11.0 / 3.0) * CF * (xa ** (8.0 / 3.0) + xb ** (8.0 / 3.0)) * rho
+        + (47.0 / 18.0 - 7.0 * delta / 18.0) * m53(sigma)
+        - (2.5 - delta / 18.0) * m53(saa + sbb)
+        - (delta - 11.0) / 9.0 * m53(xa * saa + xb * sbb)
+    )
+    T3 = (
+        -2.0 / 3.0 * m53(sigma)
+        + (2.0 / 3.0 - xa * xa) * m53(sbb)
+        + (2.0 / 3.0 - xb * xb) * m53(saa)
+    )
+    omega0 = torch.exp(-c * r13) / den
+    return t1 - a * b * omega0 * (xa * xb * T2 + T3)
+
+
+# ----------------------------------------------------------------------------
+# TPSS meta-GGA (Tao-Perdew-Staroverov-Scuseria 2003)
+# ----------------------------------------------------------------------------
+
+
+def _tpss_Fx(p, z, alpha):
+    """TPSS exchange enhancement factor, eqs. (5)-(10) of PRL 91, 146401."""
+    kappa = 0.804
+    b = 0.40
+    c = 1.59096
+    e = 1.537
+    mu = 0.21951
+    qb = 0.45 * (alpha - 1.0) / torch.sqrt(1.0 + b * alpha * (alpha - 1.0)) + 2.0 * p / 3.0
+    z2 = z * z
+    num = (
+        (10.0 / 81.0 + c * z2 / (1.0 + z2) ** 2) * p
+        + 146.0 / 2025.0 * qb * qb
+        - 73.0 / 405.0 * qb * torch.sqrt(0.5 * (0.6 * z) ** 2 + 0.5 * p * p + 1e-30)
+        + (1.0 / kappa) * (10.0 / 81.0) ** 2 * p * p
+        + 2.0 * math.sqrt(e) * (10.0 / 81.0) * (0.6 * z) ** 2
+        + e * mu * p**3
+    )
+    den = 1.0 + math.sqrt(e) * p
+    x = (num / den) / den
+    return 1.0 + kappa - kappa / (1.0 + x / kappa)
+
+
+def _ex_tpss(ra, rb, saa, sab, sbb, ta, tb):
+    def exs(r2, s4, t2):
+        # closed-shell quantities of the density 2 rho_s; z = tw / tau from
+        # ratios scaled by n^(-5/3), as helfem_tpu forms them
+        kf1 = (3.0 * _PI**2) ** (1.0 / 3.0)
+        exu = -3.0 * kf1 * r2 ** (1.0 / 3.0) / (4.0 * _PI)
+        inv43 = r2 ** (-4.0 / 3.0)
+        inv53 = r2 ** (-5.0 / 3.0)
+        p = (s4 * inv43) * inv43 / (4.0 * kf1**2)
+        tw = s4 / (8.0 * r2 + _TINY)  # von Weizsaecker
+        tau = torch.maximum(t2, tw + _TINY)
+        tws = tw * inv53
+        taus = tau * inv53
+        z = _clip(tws / torch.maximum(taus, _max(tws, 1e-15)), 0.0, 1.0)
+        alpha = _max((tau - tw) * inv53 / (0.3 * kf1**2), 0.0)
+        return r2 * exu * _tpss_Fx(p, z, alpha)
+
+    return 0.5 * (exs(2.0 * ra, 4.0 * saa, 2.0 * ta) + exs(2.0 * rb, 4.0 * sbb, 2.0 * tb))
+
+
+def _ec_tpss(ra, rb, saa, sab, sbb, ta, tb):
+    """TPSS correlation: revPKZB with the z^3 self-interaction correction."""
+    d = 2.8
+    rho = ra + rb
+    tau = ta + tb
+    sigma = saa + 2.0 * sab + sbb
+    tw = sigma / (8.0 * rho + _TINY)
+    inv53 = rho ** (-5.0 / 3.0)
+    tws = tw * inv53
+    taus = torch.maximum(tau, tw + _TINY) * inv53
+    z = _clip(tws / torch.maximum(taus, _max(tws, 1e-15)), 0.0, 1.0)
+    zeta = _clip((ra - rb) / rho, -1.0 + 1e-14, 1.0 - 1e-14)
+    # C(zeta, xi)
+    C0 = 0.53 + 0.87 * zeta**2 + 0.50 * zeta**4 + 2.26 * zeta**6
+    xa, xb = ra / rho, rb / rho
+    gz2 = 4.0 * (xb * xb * saa - 2.0 * xa * xb * sab + xa * xa * sbb) * rho ** (-2.0)
+    kf = (3.0 * _PI**2 * rho) ** (1.0 / 3.0)
+    xi2 = gz2 / (4.0 * kf**2 + _TINY)
+    fz = 0.5 * ((1.0 + zeta) ** (-4.0 / 3.0) + (1.0 - zeta) ** (-4.0 / 3.0))
+    C = C0 * torch.exp(-4.0 * torch.log1p(xi2 * fz))  # C0 / (1 + xi2 fz)^4
+    # epsilon_c^PBE of the full density (per particle)
+    eps = _ec_pbe(ra, rb, saa, sab, sbb) / rho
+    # per-spin fully polarized PBE epsilon, floored at 1e-12 as helfem_tpu
+    # floors it (a vanishing spin density enters with weight rho_s / rho)
+    ra_s = _max(ra, 1e-12)
+    rb_s = _max(rb, 1e-12)
+    epsa = _ec_pbe(ra_s, _TINY, saa, 0.0, 0.0) / ra_s
+    epsb = _ec_pbe(rb_s, _TINY, sbb, 0.0, 0.0) / rb_s
+    epsta = torch.maximum(epsa, eps)
+    epstb = torch.maximum(epsb, eps)
+    sumterm = (ra * epsta + rb * epstb) / rho
+    epsrev = eps * (1.0 + C * z * z) - (1.0 + C) * z * z * sumterm
+    return rho * epsrev * (1.0 + d * epsrev * z**3)
+
+
+# ----------------------------------------------------------------------------
+# SCAN meta-GGA (Sun-Ruzsinszky-Perdew, PRL 115, 036402 (2015))
+# ----------------------------------------------------------------------------
+
+
+def _scan_falpha(alpha, c1, c2, d):
+    """SCAN's iso-orbital interpolation f(alpha): exp(-c1 a/(1-a)) below
+    a = 1, -d exp(c2/(1-a)) above, each branch on clipped inputs so that
+    the branch torch.where drops has a finite derivative."""
+    a_lo = _clip(alpha, 0.0, 1.0 - 1e-9)
+    lo = torch.exp(-c1 * a_lo / (1.0 - a_lo))
+    a_hi = _max(alpha, 1.0 + 1e-9)
+    hi = -d * torch.exp(c2 / (1.0 - a_hi))
+    return torch.where(alpha < 1.0, lo, hi)
+
+
+def _scan_gx_block(k1):
+    """SCAN exchange's gradient-expansion constants (b1, b2, b3, b4) from
+    their exact fractions."""
+    muak = 10.0 / 81.0
+    b2 = (5913.0 / 405000.0) ** 0.5
+    b1 = (511.0 / 13500.0) / (2.0 * b2)
+    b4 = muak * muak / k1 - 1606.0 / 18225.0 - b1 * b1
+    return b1, b2, 0.5, b4
+
+
+def _scan_Fx(p, alpha, fx, k1, k0):
+    """SCAN's exchange enhancement factor at iso-orbital indicator alpha
+    with the interpolation value fx = f_x(alpha)."""
+    muak = 10.0 / 81.0
+    b1, b2, b3, b4 = _scan_gx_block(k1)
+    a1 = 4.9479
+    oma = 1.0 - alpha
+    x = muak * p * (1.0 + (b4 * p / muak) * torch.exp(-abs(b4) * p / muak)) + (
+        b1 * p + b2 * oma * torch.exp(-b3 * oma * oma)
+    ) ** 2
+    # h1x saturates at 1 + k1 for x >> k1; the cap changes it by < 4e-11
+    x = _min(x, 1e8)
+    h1x = 1.0 + k1 - k1 / (1.0 + x / k1)
+    # g_x = 1 - exp(-a1 p^(-1/4)), p floored where the exponential is 0
+    pf = _max(p, 1e-20)
+    gx = 1.0 - torch.exp(-a1 / torch.sqrt(torch.sqrt(pf)))
+    return (h1x + fx * (1.0 + k0 - h1x)) * gx
+
+
+def _ex_scan(ra, rb, saa, sab, sbb, ta, tb, *, k1=0.065, k0=0.174):
+    """SCAN exchange (constants from the PRL 115, 036402 supplement)."""
+
+    def exs(r2, s4, t2):
+        kf1 = (3.0 * _PI**2) ** (1.0 / 3.0)
+        exu = -3.0 * kf1 * r2 ** (1.0 / 3.0) / (4.0 * _PI)
+        inv43 = r2 ** (-4.0 / 3.0)
+        inv53 = r2 ** (-5.0 / 3.0)
+        p = (s4 * inv43) * inv43 / (4.0 * kf1**2)
+        tw = s4 / (8.0 * r2 + _TINY)
+        tau = torch.maximum(t2, tw + _TINY)
+        alpha = _max((tau - tw) * inv53 / (0.3 * kf1**2), 0.0)
+        fx = _scan_falpha(alpha, 0.667, 0.8, 1.24)
+        return r2 * exu * _scan_Fx(p, alpha, fx, k1, k0)
+
+    return 0.5 * (exs(2.0 * ra, 4.0 * saa, 2.0 * ta) + exs(2.0 * rb, 4.0 * sbb, 2.0 * tb))
+
+
+def _scan_eps_c(rho, zeta, sigma, fc_of_alpha, alpha_of):
+    """SCAN-type correlation per volume: the alpha = 1 limit (PW92 + H1)
+    and the alpha = 0 limit (LDA0 + H0, spin factor g_c) interpolated by
+    fc_of_alpha(alpha), alpha = alpha_of(num53, den53, inv53)."""
+    b1c, b2c, b3c = 0.0285764, 0.0889, 0.125541
+    chi_inf = 0.128026
+    gamma = 0.031091
+    kf1 = (3.0 * _PI**2) ** (1.0 / 3.0)
+    inv43 = rho ** (-4.0 / 3.0)
+    rs = (3.0 / (4.0 * _PI)) ** (1.0 / 3.0) * rho ** (-1.0 / 3.0)
+    p = (sigma * inv43) * inv43 / (4.0 * kf1**2)
+    ds = 0.5 * ((1.0 + zeta) ** (5.0 / 3.0) + (1.0 - zeta) ** (5.0 / 3.0))
+    alpha = alpha_of(0.3 * kf1**2 * ds)
+
+    eps_lsda = _ec_pw92_eps(rho, zeta)
+    phi = 0.5 * ((1.0 + zeta) ** (2.0 / 3.0) + (1.0 - zeta) ** (2.0 / 3.0))
+    phi3 = phi * phi * phi
+    t2 = (sigma * inv43) / rho * (_PI / (16.0 * kf1)) / (phi * phi)
+    w1 = torch.expm1(-eps_lsda / (gamma * phi3))
+    beta_rs = 0.066725 * (1.0 + 0.1 * rs) / (1.0 + 0.1778 * rs)
+    y = beta_rs / (gamma * (w1 + _TINY)) * t2
+    g = (1.0 + 4.0 * y) ** (-0.25)
+    H1 = gamma * phi3 * torch.log1p(w1 * (1.0 - g))
+    eps1 = eps_lsda + H1
+
+    eps_lda0 = -b1c / (1.0 + b2c * torch.sqrt(rs) + b3c * rs)
+    w0 = torch.expm1(-eps_lda0 / b1c)
+    ginf = (1.0 + 4.0 * chi_inf * p) ** (-0.25)
+    H0 = b1c * torch.log1p(w0 * (1.0 - ginf))
+    dxz = 0.5 * ((1.0 + zeta) ** (4.0 / 3.0) + (1.0 - zeta) ** (4.0 / 3.0))
+    gcz = (1.0 - 2.3631 * (dxz - 1.0)) * (1.0 - zeta**12)
+    eps0 = (eps_lda0 + H0) * gcz
+
+    fc = fc_of_alpha(alpha)
+    return rho * (eps1 + fc * (eps0 - eps1))
+
+
+def _ec_scan(ra, rb, saa, sab, sbb, ta, tb):
+    """SCAN correlation: single-orbital (alpha = 0) and slowly varying
+    (alpha = 1) limits interpolated by f_c(alpha)."""
+    rho = ra + rb
+    zeta = _clip_zeta((ra - rb) / rho)
+    sigma = saa + 2.0 * sab + sbb
+    tw = sigma / (8.0 * rho + _TINY)
+    taus = torch.maximum(ta + tb, tw + _TINY)
+    inv53 = rho ** (-5.0 / 3.0)
+    return _scan_eps_c(
+        rho, zeta, sigma, lambda a: _scan_falpha(a, 0.64, 1.5, 0.7),
+        lambda den53: _max((taus - tw) * inv53 / den53, 0.0))
+
+
+# ----------------------------------------------------------------------------
+# rSCAN meta-GGA (Bartok-Yates, JCP 150, 161101 (2019)): SCAN with a
+# regularized iso-orbital indicator and polynomial interpolation functions
+# ----------------------------------------------------------------------------
+
+# Degree-7 interpolation polynomials replacing SCAN's exponentials on
+# [0, 2.5): coefficients 0-2 are the Taylor expansion of exp(-c1 a/(1-a))
+# at a = 0, and value and first two derivatives meet the -d exp(c2/(1-a))
+# branch at a = 2.5
+_RSCAN_CX = (1.0, -0.667, -0.4445555, -0.663086601049, 1.451297044490,
+             -0.887998041597, 0.234528941479, -0.023185843322)
+_RSCAN_CC = (1.0, -0.64, -0.4352, -1.535685604549, 3.061560252175,
+             -1.915710236206, 0.516884468372, -0.051848879792)
+_RSCAN_TAU_R = 1.0e-4
+_RSCAN_ALPHA_R = 1.0e-3
+
+
+def _rscan_falpha(alpha, cs, c2, d):
+    """rSCAN interpolation: the degree-7 polynomial below alpha = 2.5,
+    SCAN's damped exponential above."""
+    poly = torch.zeros_like(alpha)
+    for c in reversed(cs):
+        poly = poly * alpha + c
+    a_hi = _max(alpha, 2.5)
+    hi = -d * torch.exp(c2 / (1.0 - a_hi))
+    return torch.where(alpha < 2.5, poly, hi)
+
+
+def _rscan_alpha(num53, den53, inv53):
+    """Regularized alpha' = a^3 / (a^2 + alpha_r) of
+    a = (tau - tau_W) / (tau_unif + tau_r), from the tunif-scaled numerator
+    (tau - tw) rho^(-5/3), the scaled tau_unif prefactor and rho^(-5/3); a
+    capped at 1e6, where f(alpha) is constant to 1e-6."""
+    a = num53 / (den53 + _RSCAN_TAU_R * inv53)
+    a = _min(a, 1e6)
+    return a * a * a / (a * a + _RSCAN_ALPHA_R)
+
+
+def _ex_rscan(ra, rb, saa, sab, sbb, ta, tb, *, k1=0.065, k0=0.174):
+    """rSCAN exchange: SCAN's F_x with alpha -> alpha' and f_x -> the
+    polynomial interpolation."""
+
+    def exs(r2, s4, t2):
+        kf1 = (3.0 * _PI**2) ** (1.0 / 3.0)
+        exu = -3.0 * kf1 * r2 ** (1.0 / 3.0) / (4.0 * _PI)
+        inv43 = r2 ** (-4.0 / 3.0)
+        inv53 = r2 ** (-5.0 / 3.0)
+        p = (s4 * inv43) * inv43 / (4.0 * kf1**2)
+        tw = s4 / (8.0 * r2 + _TINY)
+        tau = torch.maximum(t2, tw + _TINY)
+        alpha = _rscan_alpha(_max((tau - tw) * inv53, 0.0), 0.3 * kf1**2, inv53)
+        fx = _rscan_falpha(alpha, _RSCAN_CX, 0.8, 1.24)
+        return r2 * exu * _scan_Fx(p, alpha, fx, k1, k0)
+
+    return 0.5 * (exs(2.0 * ra, 4.0 * saa, 2.0 * ta) + exs(2.0 * rb, 4.0 * sbb, 2.0 * tb))
+
+
+def _ec_rscan(ra, rb, saa, sab, sbb, ta, tb):
+    """rSCAN correlation: SCAN's eps_c0 / eps_c1 interpolated by the f_c
+    polynomial of the regularized alpha'."""
+    rho = ra + rb
+    zeta = _clip_zeta((ra - rb) / rho)
+    sigma = saa + 2.0 * sab + sbb
+    tw = sigma / (8.0 * rho + _TINY)
+    taus = torch.maximum(ta + tb, tw + _TINY)
+    inv53 = rho ** (-5.0 / 3.0)
+    return _scan_eps_c(
+        rho, zeta, sigma, lambda a: _rscan_falpha(a, _RSCAN_CC, 1.5, 0.7),
+        lambda den53: _rscan_alpha(_max((taus - tw) * inv53, 0.0), den53, inv53))
+
+
+# ----------------------------------------------------------------------------
 # catalog + method parsing
 # ----------------------------------------------------------------------------
 
@@ -171,12 +530,20 @@ _CATALOG = {
     "lda_c_pw": Functional("lda_c_pw", "lda", _ec_pw92),
     "gga_x_pbe": Functional("gga_x_pbe", "gga", _ex_pbe),
     "gga_c_pbe": Functional("gga_c_pbe", "gga", _ec_pbe),
+    "gga_x_rpbe": Functional("gga_x_rpbe", "gga", _ex_rpbe),
+    "gga_x_b88": Functional("gga_x_b88", "gga", _ex_b88),
+    "gga_c_lyp": Functional("gga_c_lyp", "gga", _ec_lyp),
+    "mgga_x_tpss": Functional("mgga_x_tpss", "mgga", _ex_tpss),
+    "mgga_c_tpss": Functional("mgga_c_tpss", "mgga", _ec_tpss),
+    "mgga_x_scan": Functional("mgga_x_scan", "mgga", _ex_scan),
+    "mgga_c_scan": Functional("mgga_c_scan", "mgga", _ec_scan),
+    "mgga_x_rscan": Functional("mgga_x_rscan", "mgga", _ex_rscan),
+    "mgga_c_rscan": Functional("mgga_c_rscan", "mgga", _ec_rscan),
 }
 
-# helfem_tpu catalog entries outside this port's slice
-_UNPORTED_FUNCS = ("gga_x_rpbe", "gga_x_b88", "gga_c_lyp", "mgga_x_tpss", "mgga_c_tpss",
-                   "mgga_x_scan", "mgga_c_scan", "mgga_x_rscan", "mgga_c_rscan",
-                   "mgga_x_br89", "lda_x_erf")
+# helfem_tpu catalog entries outside this port's slice, with their ROADMAP
+# item: the laplacian-level BR89 and the short-range LDA exchange
+_UNPORTED_FUNCS = {"mgga_x_br89": 6, "lda_x_erf": 7}
 
 # alias -> (kfrac, [(weight, functional-name, params-dict), ...])
 _ALIASES = {
@@ -184,30 +551,47 @@ _ALIASES = {
     "svwn": (0.0, [(1.0, "lda_x", {}), (1.0, "lda_c_vwn", {})]),
     "svwn5": (0.0, [(1.0, "lda_x", {}), (1.0, "lda_c_vwn", {})]),
     "pbe": (0.0, [(1.0, "gga_x_pbe", {}), (1.0, "gga_c_pbe", {})]),
-    # parameter-override variants (Zhang-Yang revPBE; Perdew et al. PBEsol)
-    "revpbe": (0.0, [(1.0, "gga_x_pbe", {"kappa": 1.245}), (1.0, "gga_c_pbe", {})]),
-    "pbesol": (0.0, [(1.0, "gga_x_pbe", {"mu": 10.0 / 81.0}),
-                     (1.0, "gga_c_pbe", {"beta": 0.046})]),
+    "blyp": (0.0, [(1.0, "gga_x_b88", {}), (1.0, "gga_c_lyp", {})]),
+    "tpss": (0.0, [(1.0, "mgga_x_tpss", {}), (1.0, "mgga_c_tpss", {})]),
+    "scan": (0.0, [(1.0, "mgga_x_scan", {}), (1.0, "mgga_c_scan", {})]),
+    "rscan": (0.0, [(1.0, "mgga_x_rscan", {}), (1.0, "mgga_c_rscan", {})]),
     # PBE0 (Adamo-Barone): 25 % exact exchange
     "pbe0": (0.25, [(0.75, "gga_x_pbe", {}), (1.0, "gga_c_pbe", {})]),
     "pbeh": (0.25, [(0.75, "gga_x_pbe", {}), (1.0, "gga_c_pbe", {})]),
+    # TPSSh: 10 % exact exchange (Staroverov et al. 2003)
+    "tpssh": (0.10, [(0.9, "mgga_x_tpss", {}), (1.0, "mgga_c_tpss", {})]),
+    # B3LYP with the VWN5 correlation ("B3LYP5"): the 0.72 weight multiplies
+    # the whole B88 (LDA + gradient correction), so Slater's is 0.80 - 0.72
+    "b3lyp5": (0.20, [(0.08, "lda_x", {}), (0.72, "gga_x_b88", {}),
+                      (0.19, "lda_c_vwn", {}), (0.81, "gga_c_lyp", {})]),
+    # parameter-override variants (Hammer et al. RPBE; Zhang-Yang revPBE;
+    # Perdew et al. PBEsol)
+    "rpbe": (0.0, [(1.0, "gga_x_rpbe", {}), (1.0, "gga_c_pbe", {})]),
+    "revpbe": (0.0, [(1.0, "gga_x_pbe", {"kappa": 1.245}), (1.0, "gga_c_pbe", {})]),
+    "pbesol": (0.0, [(1.0, "gga_x_pbe", {"mu": 10.0 / 81.0}),
+                     (1.0, "gga_c_pbe", {"beta": 0.046})]),
 }
 
-# helfem_tpu aliases outside this port's slice: meta-GGAs and their hybrids,
-# other GGAs and their hybrids, and the range-separated methods
-_UNPORTED_METHODS = ("blyp", "tpss", "scan", "rscan", "tpssh", "b3lyp5",
-                     "rpbe", "lc-lda", "ldaerf", "lcy-lda", "sr-pbe0")
+# helfem_tpu aliases outside this port's slice: the range-separated methods
+# (ROADMAP.md queue 1 item 7)
+_UNPORTED_METHODS = ("lc-lda", "ldaerf", "lcy-lda", "sr-pbe0")
+
+_MISSING = {
+    6: "the laplacian-level meta-GGA (BR89, family mggal) is not ported to helfem_tpu_torch "
+       "yet (ROADMAP.md queue 1 item 6)",
+    7: "range separation and lda_x_erf are not ported to helfem_tpu_torch yet "
+       "(ROADMAP.md queue 1 item 7)",
+}
 
 
-def _unported(what: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported to helfem_tpu_torch yet; "
-                               "ported: HF, LDA, SVWN, PBE, revPBE, PBEsol, PBE0 (see ROADMAP.md)")
+def _unported(what: str, item: int) -> NotImplementedError:
+    return NotImplementedError(f"{what}: {_MISSING[item]}")
 
 
 def get_functional(name: str) -> Functional:
     key = name.lower()
     if key in _UNPORTED_FUNCS:
-        raise _unported(f"functional '{name}'")
+        raise _unported(f"functional '{name}'", _UNPORTED_FUNCS[key])
     if key not in _CATALOG:
         raise ValueError(f"unknown functional '{name}'")
     return _CATALOG[key]
@@ -259,8 +643,9 @@ def _parse_part(part: str) -> Functional:
 class MethodSpec(NamedTuple):
     """Parsed method: semilocal functionals plus the exact-exchange mixing
     kfull * K + kshort * K_sr(omega) (same fields as helfem_tpu's; the port
-    produces kfull 1 for HF, 0.25 for PBE0 and 0 for pure functionals, and
-    never a short-range part)."""
+    produces the global fractions -- 1 for HF, 0.25 for PBE0, 0.20 for
+    B3LYP5, 0.10 for TPSSh, 0 for pure functionals -- and never a
+    short-range part)."""
 
     funcs: tuple
     kfull: float
@@ -279,7 +664,7 @@ def parse_method_rs(method: str) -> MethodSpec:
         return MethodSpec((), 1.0, 0.0)
     base = m.split("[", 1)[0]
     if base in _UNPORTED_METHODS:
-        raise _unported(f"method '{method}'")
+        raise _unported(f"method '{method}'", 7)
     if m in _ALIASES:
         kfrac, parts = _ALIASES[m]
         return MethodSpec(
@@ -322,30 +707,38 @@ def parse_method(method: str):
     return list(spec.funcs), spec.kfull
 
 
-def xc_eval(funcs, ra, rb, saa, sab, sbb, thr: float = 1e-12):
-    """Energy density and potentials on grid tensors (xc.py:932-978 for
-    LDA/GGA): returns (e, vra, vrb, vsaa, vsab, vsbb). Points where rho <
-    thr give exactly zero.
+_NARGS = {"lda": 5, "gga": 5, "mgga": 7}
+
+
+def xc_eval(funcs, ra, rb, saa, sab, sbb, thr: float = 1e-12, ta=None, tb=None):
+    """Energy density and potentials on grid tensors (xc.py:932-978 without
+    the laplacian): returns (e, vra, vrb, vsaa, vsab, vsbb[, vta, vtb]), the
+    tau potentials when ta and tb are given. Points where rho < thr give
+    exactly zero.
 
     The inputs are substituted before any functional sees them -- masked
-    points by 1.0, each spin density floored at thr and the same-spin sigmas
-    at 0 -- and differentiated as new leaves, as jax.vjp differentiates
-    helfem_tpu's substituted arguments, so no branch that torch.where drops
-    can feed a NaN into a potential."""
-    mask = (ra + rb) > thr
-    one = torch.ones_like(ra)
-    args = [
-        torch.clamp(torch.where(mask, ra, one), min=thr),
-        torch.clamp(torch.where(mask, rb, one), min=thr),
-        torch.clamp(saa, min=0.0),
-        sab,
-        torch.clamp(sbb, min=0.0),
-    ]
-    args = [a.detach().requires_grad_(True) for a in args]
-    with torch.enable_grad():
-        e = sum(f.f(*args, **dict(f.params)) for f in funcs) if funcs else args[0] * 0.0
-        grads = torch.autograd.grad(e, args, grad_outputs=torch.ones_like(e),
-                                    allow_unused=True)
-    z = torch.zeros_like(ra)
-    grads = [z if g is None else g for g in grads]
-    return tuple(torch.where(mask, x, z) for x in (e.detach(), *grads))
+    points by 1.0, each spin density floored at thr, the same-spin sigmas
+    at 0 and tau at 1e-30 -- and differentiated as new leaves, as jax.vjp
+    differentiates helfem_tpu's substituted arguments, so no branch that
+    torch.where drops can feed a NaN into a potential."""
+    with torch.profiler.record_function("xc_eval"):  # a profiler range, inert otherwise
+        mask = (ra + rb) > thr
+        one = torch.ones_like(ra)
+        args = [
+            _max(torch.where(mask, ra, one), thr),
+            _max(torch.where(mask, rb, one), thr),
+            _max(saa, 0.0),
+            sab,
+            _max(sbb, 0.0),
+        ]
+        if ta is not None:
+            args += [_max(ta, _TINY), _max(tb, _TINY)]
+        args = [a.detach().requires_grad_(True) for a in args]
+        with torch.enable_grad():
+            e = (sum(f.f(*args[:_NARGS[f.family]], **dict(f.params)) for f in funcs)
+                 if funcs else args[0] * 0.0)
+            grads = torch.autograd.grad(e, args, grad_outputs=torch.ones_like(e),
+                                        allow_unused=True)
+        z = torch.zeros_like(ra)
+        grads = [z if g is None else g for g in grads]
+        return tuple(torch.where(mask, x, z) for x in (e.detach(), *grads))

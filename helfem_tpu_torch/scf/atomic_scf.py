@@ -1,8 +1,8 @@
 """Atomic SCF driver (L7), ported from helfem_tpu/scf/atomic_scf.py.
 
-The port runs HF, the ported LDA/GGA functionals and their global hybrids
-(PBE0), restricted (RHF/RKS), unrestricted (UHF/UKS) or ROHF, under (l,m)
-symmetry blocks (symmetry=2):
+The port runs HF, the ported LDA, GGA and meta-GGA functionals and their
+global hybrids (PBE0, B3LYP5, TPSSh), restricted (RHF/RKS), unrestricted
+(UHF/UKS) or ROHF, under (l,m) symmetry blocks (symmetry=2):
 
   two host iterations (Fock on the device, host DIIS) ->
   fused device chunks of 4, 8, then 16 iterations: density -> Coulomb,
@@ -245,7 +245,7 @@ _UNPORTED = {
 
 def atomic_method(method: str):
     """(funcs, kfrac) of a method the port runs on atoms: HF, the ported
-    LDA/GGA functionals and their global hybrids. Raises
+    LDA, GGA and meta-GGA functionals and their global hybrids. Raises
     NotImplementedError for the functionals ops/xc.py does not port and for
     range separation (ROADMAP.md queue 1 items 6 and 7)."""
     spec = parse_method_rs(method)
@@ -276,8 +276,8 @@ def scf_atom(
     grid: AtomGridOps | None = None,
     **unported,
 ) -> SCFResult:
-    """Restricted, unrestricted or ROHF SCF of HF, the ported LDA/GGA
-    functionals and their global hybrids under (l,m) symmetry blocks
+    """Restricted, unrestricted or ROHF SCF of HF, the ported LDA, GGA and
+    meta-GGA functionals and their global hybrids under (l,m) symmetry blocks
     (helfem_tpu's scf_atom at symmetry 2). restricted = -1 restricts
     exactly when nela == nelb, 0 runs UHF/UKS, and 1 with nela != nelb runs
     ROHF through rohf_update on the host loop alone, as helfem_tpu does.

@@ -239,7 +239,8 @@ def scf_diatomic(
     **unported,
 ) -> DiaSCFResult:
     """Restricted, unrestricted or ROHF SCF (helfem_tpu's scf_diatomic) for
-    HF, LDA/GGA functionals and PBE0, from the core guess or the SAP, GSZ or
+    HF, LDA, GGA and meta-GGA functionals and their global hybrids (PBE0,
+    B3LYP5, TPSSh), from the core guess or the SAP, GSZ or
     TF guess of the two atoms (a SAP atom is solved on the operators'
     device). restricted = -1 restricts exactly when nela == nelb, 0 runs
     UHF/UKS, and 1 with nela != nelb runs ROHF through rohf_update on the

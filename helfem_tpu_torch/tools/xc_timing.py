@@ -8,11 +8,13 @@ two kernels against their plain versions at the N2 (6,6), CO and N2
 lmax=12 shapes, so that two commits can be timed in one run on the card: one
 process per checkout, since a process keeps the first kernel library it
 loads. A checkout whose kernels take both spins in one call is timed at one
-and two spins, an older one at its one spin per call. Beside the call time
-(CUDA events over back-to-back calls, host dispatch included) it prints
-the device time per call from torch.profiler, measured by this file's own
-checkout's utils/profiling.py. Prints the card and one JSON line per
-kernel, shape and spin count.
+and two spins, an older one at its one spin per call; one with a tau mode
+(meta-GGAs) also in that mode. Beside the call time (CUDA events over
+back-to-back calls, host dispatch included) it prints the device time per
+call from torch.profiler and from CUDA events around calls queued behind
+a sleeping kernel, measured by this file's own checkout's
+utils/profiling.py. Prints the card and one JSON line per kernel, shape,
+spin count and mode.
 """
 
 import argparse
@@ -25,13 +27,14 @@ import sys
 from pathlib import Path
 
 
-def _device_ms():
-    """device_ms from this file's checkout, whatever checkout is timed."""
+def _timers():
+    """device_ms and queued_ms from this file's checkout, whatever checkout
+    is timed."""
     path = Path(__file__).resolve().parents[1] / "utils" / "profiling.py"
     spec = importlib.util.spec_from_file_location("_xc_timing_profiling", path)
     module = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(module)
-    return module.device_ms
+    return module.device_ms, module.queued_ms
 
 
 def main(argv=None):
@@ -40,7 +43,7 @@ def main(argv=None):
                    help="checkout whose kernels are timed")
     args = p.parse_args(argv)
     root = str(Path(args.root).resolve())
-    device_ms = _device_ms()
+    device_ms, queued_ms = _timers()
     sys.path.insert(0, root)
     import torch
 
@@ -54,24 +57,34 @@ def main(argv=None):
     print(f"card: {smi}; checkout {root}", flush=True)
     dev = torch.device("cuda", 0)
     batched = "ns" in inspect.signature(cs.dia_kernel_inputs).parameters
+    modes = (False, True) if "tau" in inspect.signature(cs.xc_kernel_inputs).parameters else \
+        (False,)
+    from helfem_tpu_torch.models.diatomic import DiatomicBasis
+
     shapes = {**cs.DIA_SHAPES, "lmax12": cs.N2_L12_SHAPE}
     for shape, cfg in shapes.items():
         big = shape == "lmax12"
         for ns in (1, 2) if batched else (1,):
-            inputs = cs.dia_kernel_inputs(cfg, dev, ns=ns) if batched else \
-                cs.dia_kernel_inputs(cfg, dev)
-            for name in ("dia_xc_fields", "dia_xc_fock"):
-                kargs, moved, flops = inputs[name]
-                r = cs.compare(name, kargs, moved, flops, *((2, 10) if big else (5, 50)))
-                kern = getattr(kernels, name)
-                dms = device_ms(lambda: kern(*kargs), 10 if big else 20)
-                print(json.dumps({"root": root, "shape": shape, "spins": ns, "name": name,
-                                  "ms": r["ms"], "device_ms": dms, "plain_ms": r["plain_ms"],
-                                  "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-                                  "max_abs_err": r["max_abs_err"], "scale": r["scale"]}),
-                      flush=True)
-            del inputs
-            torch.cuda.empty_cache()
+            for tau in modes:
+                if tau:
+                    inputs = cs.xc_kernel_inputs(DiatomicBasis(**cfg), dev, ns, tau=True)
+                else:
+                    inputs = cs.dia_kernel_inputs(cfg, dev, ns=ns) if batched else \
+                        cs.dia_kernel_inputs(cfg, dev)
+                for name in ("dia_xc_fields", "dia_xc_fock"):
+                    kargs, moved, flops = inputs[name]
+                    r = cs.compare(name, kargs, moved, flops, *((2, 10) if big else (5, 50)))
+                    kern = getattr(kernels, name)
+                    reps = 10 if big else 20
+                    print(json.dumps({
+                        "root": root, "shape": shape, "spins": ns, "tau": tau, "name": name,
+                        "ms": r["ms"], "device_ms": device_ms(lambda: kern(*kargs), reps),
+                        "queued_ms": queued_ms(lambda: kern(*kargs), reps),
+                        "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                        "bound_by": r["bound_by"], "max_abs_err": r["max_abs_err"],
+                        "scale": r["scale"]}), flush=True)
+                del inputs
+                torch.cuda.empty_cache()
 
 
 if __name__ == "__main__":

@@ -1,14 +1,28 @@
 """Warm SCF walls, a device-time breakdown on the card and a kernel's device
-time per call (torch.profiler), shared by chip_smoke.py and the tools."""
+time per call (torch.profiler, and CUDA events over calls queued behind a
+sleeping kernel), shared by chip_smoke.py and the tools."""
 
 import time
 
 import torch
 
-__all__ = ["device_ms", "profile_scf"]
+__all__ = ["device_ms", "profile_scf", "queued_ms"]
 
 
-def profile_scf(label: str, run, rows: int = 20, kernels: tuple = (), ops: tuple = ()) -> dict:
+def _kernels(events):
+    """The device kernels among profiler events: device rows that are not
+    the device-side span of a record_function range (a "user annotation",
+    whose time is the span from its first kernel to its last, under the
+    range's own name, which no kernel shares with a host row)."""
+    from torch.autograd import DeviceType
+
+    host = {e.key for e in events if e.device_type != DeviceType.CUDA}
+    return [e for e in events if e.device_type == DeviceType.CUDA and e.key not in host
+            and not getattr(e, "is_user_annotation", False)]
+
+
+def profile_scf(label: str, run, rows: int = 20, kernels: tuple = (), ops: tuple = (),
+                ranges: dict | None = None) -> dict:
     """Warm SCF walls (min of three) of run() -> result, and the device time
     of one more SCF by kernel, from torch.profiler; beside the table, the
     device time and launches of each device kernel whose name contains one
@@ -18,7 +32,10 @@ def profile_scf(label: str, run, rows: int = 20, kernels: tuple = (), ops: tuple
     the self time, since an operator's total also holds the profiler's own
     "Buffer Flush" and "Activity Buffer Request" rows that fall inside it),
     returned the same way; "busy" holds the device time of all kernels and
-    their number."""
+    their number. `ranges` maps a name to key prefixes of host events
+    (record_function ranges, autograd's evaluate_function nodes): the total
+    device time of the kernels launched inside them, returned the same
+    way."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -40,11 +57,11 @@ def profile_scf(label: str, run, rows: int = 20, kernels: tuple = (), ops: tuple
     events = prof.key_averages()
     key = "self_device_time_total"
     # device kernels only: operator rows repeat the time of their kernels
-    busy = sum(getattr(e, key) for e in events if e.device_type == DeviceType.CUDA) * 1e-6
+    device = _kernels(events)
+    busy = sum(getattr(e, key) for e in device) * 1e-6
     print(f"profiled {label} SCF: wall {wall:.4f} s (profiler on), device busy "
           f"{busy:.4f} s = {100 * busy / wall:.1f} % of the wall")
     print(events.table(sort_by=key, row_limit=rows))
-    device = [e for e in events if e.device_type == DeviceType.CUDA]
     per_kernel = {"busy": (busy * 1e3, sum(e.count for e in device))}
     for name in kernels:
         hits = [e for e in device if name in e.key]
@@ -57,6 +74,13 @@ def profile_scf(label: str, run, rows: int = 20, kernels: tuple = (), ops: tuple
                             sum(e.count for e in hits))
         print(f"{label}: {name} device time {per_kernel[name][0]:.4f} ms in "
               f"{per_kernel[name][1]} calls per SCF")
+    for name, prefixes in (ranges or {}).items():
+        hits = [e for e in events if e.device_type != DeviceType.CUDA
+                and e.key.startswith(tuple(prefixes))]
+        per_kernel[name] = (sum(e.device_time_total for e in hits) * 1e-3,
+                            sum(e.count for e in hits))
+        print(f"{label}: {name} device time {per_kernel[name][0]:.4f} ms in "
+              f"{per_kernel[name][1]} host events per SCF")
     return per_kernel
 
 
@@ -64,7 +88,6 @@ def device_ms(fn, reps: int = 20) -> float:
     """Device time per call of fn() in ms: the time of the kernels it
     launches, summed by torch.profiler over reps calls after one warm call,
     without the host's dispatch between them."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -73,6 +96,31 @@ def device_ms(fn, reps: int = 20) -> float:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    busy = sum(e.self_device_time_total for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA)
+    busy = sum(e.self_device_time_total for e in _kernels(prof.key_averages()))
     return busy / reps * 1e-3
+
+
+def queued_ms(fn, reps: int = 50) -> float | None:
+    """Device time per call of fn() in ms from CUDA events around reps
+    calls that the host queued while the card ran a sleeping kernel, so
+    that no call waits for the host's dispatch: the launches' own gaps
+    count, the host does not. None when the host did not get ahead of the
+    sleep, four times lengthened."""
+    fn()
+    torch.cuda.synchronize()
+    cycles = 200_000 * reps  # about 0.1 ms a call at the card's clock
+    for _ in range(3):
+        e0, e1, e2 = (torch.cuda.Event(enable_timing=True) for _ in range(3))
+        e0.record()
+        torch.cuda._sleep(cycles)
+        e1.record()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        host_ms = (time.perf_counter() - t0) * 1e3
+        e2.record()
+        torch.cuda.synchronize()
+        if host_ms < e0.elapsed_time(e1):
+            return e1.elapsed_time(e2) / reps
+        cycles *= 4
+    return None

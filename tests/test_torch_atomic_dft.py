@@ -105,8 +105,10 @@ def test_eval_fxc_matches_jax(grids, method, case):
 
 
 def test_eval_fxc_rejects_meta_gga(grids):
+    """A laplacian-level meta-GGA (family mggal, BR89's) raises, naming its
+    ROADMAP item; the tau level runs (tests/test_torch_mgga.py)."""
     *_, g = grids
-    tau = Functional("mgga_x_fake", "mgga", lambda *a: a[0])
+    tau = Functional("mgga_x_fake", "mggal", lambda *a: a[0])
     P = torch.zeros(g.owners.shape[0] * g.TT.shape[0], g.owners.shape[0] * g.TT.shape[0])
     with pytest.raises(NotImplementedError, match="queue 1 item 6"):
         atomic_dft.eval_fxc((tau,), g, P, P)

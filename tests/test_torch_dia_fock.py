@@ -209,16 +209,24 @@ def test_xc_eval_potentials_finite_at_tiny_spin_density():
     assert all(torch.isfinite(x).all() for x in out)
 
 
-@pytest.mark.parametrize("method", ["TPSSh", "B3LYP5", "TPSS", "SCAN", "LC-LDA", "BLYP",
-                                    "gga_x_b88,gga_c_lyp"])
-def test_unported_methods_raise(method):
-    with pytest.raises(NotImplementedError):
+@pytest.mark.parametrize("method, item", [
+    ("mgga_x_br89,gga_c_pbe", 6), ("LDAERF", 7), ("mgga_x_br89", 6), ("SR-PBE0", 7),
+    ("LC-LDA", 7), ("lcy-lda", 7), ("lda_x_erf,lda_c_pw", 7),
+], ids=["br89_pair", "ldaerf", "br89", "sr_pbe0", "lc_lda", "lcy_lda", "lda_x_erf_pair"])
+def test_unported_methods_raise(method, item):
+    """The laplacian-level BR89 (ROADMAP queue 1 item 6), lda_x_erf and the
+    range-separated methods (item 7) raise, naming their item."""
+    with pytest.raises(NotImplementedError, match=f"item {item}"):
         xc.parse_method_rs(method)
 
 
 def test_ported_methods_parse_like_jax():
     for method in ["HF", "LDA", "SVWN", "SVWN5", "PBE", "revPBE", "PBEsol", "PBE0", "PBEh",
-                   "lda_x,lda_c_vwn", "gga_x_pbe-gga_c_pbe", "gga_x_pbe[kappa=1.0],gga_c_pbe"]:
+                   "lda_x,lda_c_vwn", "gga_x_pbe-gga_c_pbe", "gga_x_pbe[kappa=1.0],gga_c_pbe",
+                   "RPBE", "BLYP", "TPSS", "SCAN", "rSCAN", "TPSSh", "B3LYP5",
+                   "gga_x_b88,gga_c_lyp", "mgga_x_tpss-mgga_c_tpss", "mgga_x_scan,mgga_c_scan",
+                   "mgga_x_rscan[k1=0.07],mgga_c_rscan", "gga_x_b88[beta=0.005],gga_c_lyp",
+                   "gga_x_rpbe[kappa=1.0],gga_c_pbe"]:
         got, ref = xc.parse_method_rs(method), jxc.parse_method_rs(method)
         assert [f.name for f in got.funcs] == [f.name for f in ref.funcs]
         assert (got.kfull, got.kshort) == (ref.kfull, ref.kshort)

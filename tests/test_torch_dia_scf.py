@@ -48,13 +48,13 @@ def test_cli_runs_on_cpu(capsys):
 
 @pytest.mark.parametrize("extra, match", [
     (["--method", "LC-LDA"], "LC-LDA"),
-    (["--method", "B3LYP5"], "B3LYP5"),
-    (["--method", "TPSS"], "TPSS"),
+    (["--method", "sr-pbe0"], "sr-pbe0"),
+    (["--method", "mgga_x_br89,gga_c_pbe"], "mgga_x_br89"),
     (["--Q", "1", "--readocc"], "--readocc"),
     (["--Ez", "0.01"], "--Ez"),
     (["--ndev", "2"], "--ndev"),
     (["--restricted", "0", "--Bz", "0.1"], "--Bz"),
-], ids=["range_separated", "hybrid", "mgga", "open_shell", "field_flag", "ndev_flag",
+], ids=["range_separated", "sr_hybrid", "br89", "open_shell", "field_flag", "ndev_flag",
         "uhf_flag"])
 def test_cli_unported_raises(extra, match):
     with pytest.raises(NotImplementedError, match=match):

@@ -678,6 +678,89 @@ def test_xc_kernel_matches_plain_on_atomic_grids(cuda_device, name, shape, ns):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("ns", [1, 2])
+@pytest.mark.parametrize("shape", ["n2", "lmax12", "np40", "ar", "xe", "sad_kr"])
+@pytest.mark.parametrize("name", ["dia_xc_fields", "dia_xc_fock"])
+def test_xc_tau_mode_matches_plain_on_card(cuda_device, name, shape, ns):
+    """K4 and K5 in tau mode (meta-GGAs) on diatomic, atomic and SAD grids
+    (the SAD grid's two-shell meta-GGA form) for one and two spins: one
+    launch per call, 1e-12 x max-abs of each output (tau included) against
+    the plain version, the same bits from two calls."""
+    from chip_smoke import atomic_xc_inputs, xc_kernel_inputs
+
+    if shape in XC_SHAPES:
+        inputs = xc_kernel_inputs(DiatomicBasis(**XC_SHAPES[shape]), cuda_device, ns, 71,
+                                  tau=True)
+    else:
+        inputs = atomic_xc_inputs(shape, cuda_device, ns, 73, tau=True)
+    args = inputs[name][0]
+    before = kernels.launches[name]
+    out = _as_tuple(getattr(kernels, name)(*args))
+    again = _as_tuple(getattr(kernels, name)(*args))
+    torch.cuda.synchronize()
+    assert kernels.launches[name] == before + 2
+    ref = _as_tuple(getattr(kernels, name + "_plain")(*args))
+    assert len(out) == len(ref) == (4 if name == "dia_xc_fields" else 1)
+    for o, a, r in zip(out, again, ref):
+        assert o.shape[0] == ns and torch.equal(o, a)
+        assert float((o - r).abs().max()) <= TOL * float(r.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["he_tpss", "li_uks_tpss", "be_scan", "he_b3lyp5"])
+def test_mgga_scf_on_card_matches_cpu(cuda_device, case):
+    """Meta-GGA and B3LYP5 atomic SCFs on the card: the CPU's energy within
+    1e-9 Eh; K4 and K5 once per iteration (tau mode for the meta-GGAs), K1
+    once per iteration for the hybrid."""
+    Z, na, nb, method = {"he_tpss": (2, 1, 1, "TPSS"), "li_uks_tpss": (3, 2, 1, "TPSS"),
+                         "be_scan": (4, 2, 2, "SCAN"), "he_b3lyp5": (2, 1, 1, "B3LYP5")}[case]
+    cfg = dict(Z=Z, lmax=0, mmax=0, rmax=40.0, nelem=5, nnodes=8)
+    cpu = scf_atom(AtomicBasis(**cfg), na, nb, method=method, convthr=1e-10, device="cpu")
+    kernels.reset_launches()
+    gpu = scf_atom(AtomicBasis(**cfg), na, nb, method=method, convthr=1e-10,
+                   device=cuda_device)
+    assert gpu.converged and abs(gpu.E - cpu.E) < 1e-9
+    n = gpu.niter
+    assert kernels.launches["dia_xc_fields"] == kernels.launches["dia_xc_fock"] == n
+    assert kernels.launches["radial_exchange"] == (n if method == "B3LYP5" else 0)
+
+
+@pytest.mark.cuda
+def test_mgga_sad_and_diatomic_on_card_match_cpu(cuda_device):
+    """sad_xc with TPSS on the card (one K4 and one K5 launch per call, the
+    per-l cube within 1e-12 x max-abs of the CPU's), and He as a diatomic
+    (Z2 = 0) with TPSS: the CPU's energy within 1e-9 Eh."""
+    from helfem_tpu_torch.models import sadatom
+    from helfem_tpu_torch.ops.xc import parse_method
+
+    basis = sadatom.SadAtomBasis(**SAD_SHAPES["kr_gensap"])
+    host_ops = basis.host_ops()
+    cpu = sadatom.from_jax_sad_ops(host_ops, "cpu")
+    gpu = sadatom.from_jax_sad_ops(host_ops, cuda_device)
+    funcs = tuple(parse_method("TPSS")[0])
+    rng = np.random.default_rng(79)
+    Pa, Pb = (np.einsum("lik,ljk->lij", X, X) for X in
+              rng.standard_normal((2, basis.lmax + 1, basis.nrad, 4)))
+    for spins in ((Pa,), (Pa, Pb)):
+        t = [torch.tensor(P, device=cuda_device) for P in spins]
+        c = [torch.tensor(P) for P in spins]
+        before = {k: kernels.launches[k] for k in ("dia_xc_fields", "dia_xc_fock")}
+        out = sadatom.sad_xc(funcs, gpu, t[0], t[-1])
+        torch.cuda.synchronize()
+        assert all(kernels.launches[k] == before[k] + 1 for k in before)
+        ref = sadatom.sad_xc(funcs, cpu, c[0], c[-1])
+        assert out[0].shape == (basis.lmax + 1, basis.nrad, basis.nrad)
+        for o, r in zip(out, ref):
+            assert float((o.cpu() - r).abs().max()) <= TOL * float(r.abs().max())
+    cfg = dict(Z1=2, Z2=0, Rbond=2.0, lmax=(4,), rmax=20.0, nelem=4, nnodes=8)
+    cpu_r = scf_diatomic(DiatomicBasis(**cfg), 1, 1, method="TPSS", convthr=1e-8, guess="SAP",
+                         device="cpu")
+    gpu_r = scf_diatomic(DiatomicBasis(**cfg), 1, 1, method="TPSS", convthr=1e-8, guess="SAP",
+                         device=cuda_device)
+    assert gpu_r.converged and abs(gpu_r.E - cpu_r.E) < 1e-9
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("case", ["ne_pbe0", "n_uks_pbe", "n_rohf"])
 def test_atomic_dft_and_open_shells_on_card_match_cpu(cuda_device, case):
     """The atomic SCF with a hybrid, UKS and ROHF on the card: the CPU's

@@ -87,8 +87,8 @@ def test_device_diis_step_matches_jax(count):
 
 
 @pytest.mark.parametrize("nel, kwargs", [
-    ((1, 1), {"method": "TPSS"}),  # meta-GGA
-    ((1, 1), {"method": "BLYP"}),  # LYP correlation
+    ((1, 1), {"method": "mgga_x_br89,gga_c_pbe"}),  # laplacian-level meta-GGA
+    ((1, 1), {"method": "LDAERF"}),  # short-range LDA exchange
     ((1, 1), {"method": "LC-LDA"}),  # range separation
     ((1, 1), {"symmetry": 1}),
     ((1, 1), {"Ez": 0.01}),
@@ -97,7 +97,7 @@ def test_device_diis_step_matches_jax(count):
     ((1, 1), {"maverage": True}),
     ((1, 1), {"dampfock": 0.5}),
     ((1, 1), {"diisthr": 1e-3}),
-], ids=["tpss", "blyp", "lc-lda", "symm1", "field", "ndev", "eigiter",
+], ids=["br89", "ldaerf", "lc-lda", "symm1", "field", "ndev", "eigiter",
         "maverage", "damping", "diisthr"])
 def test_unported_options_raise(nel, kwargs):
     basis = AtomicBasis(Z=sum(nel), lmax=0, mmax=0, rmax=20.0, nelem=2, nnodes=4)
