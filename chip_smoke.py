@@ -146,7 +146,21 @@ Phases, any failure raises and exits non-zero:
      K4 and K5 once per Fock build (the atomic CLI's K5 twice more for its
      grid self-check), K1 or K6 launched for the hybrids; then each cell's
      warm walls (min of 3) and device-time shares of eigh, K4, K5 and
-     xc_eval's autograd ops.
+     xc_eval's autograd ops;
+ 18. range-separated exchange: K10 (radial_erfc_exchange) against its plain
+     version on the erfc tables (omega 0.5) of the Ar and Xe bench bases at
+     one and two spins, and K1 on the Yukawa tables of the Ar bench basis
+     at lambda 0.5 and 5 against the pairwise plain version (1e-12 x
+     max-abs, the same bits twice, one launch per call, CUDA-event,
+     profiler and queued times beside the bound), the tables' setup walls;
+     Ar LC-LDA, SR-PBE0 and LCY-LDA, quartet N UKS LC-LDA and Xe LC-LDA
+     through the port's atomic CLI (TF guess, convthr 1e-8), each within
+     1e-9 Eh of helfem_tpu's f64 value, per Fock build K2 once, K10 once
+     for the erfc methods (both spins in one launch), K1 once for kfull !=
+     0 and once more for the Yukawa kernel, never for SR-PBE0, K4 once and
+     K5 once (twice more for the grid self-check); then the warm walls (min
+     of 3) and device shares (eigh, K1, K2, K10, K4, K5, xc_eval) of Ar and
+     Xe LC-LDA.
 The last two lines are the kernels' JSON record and {"ok": true, ...}.
 """
 
@@ -256,6 +270,8 @@ KERNELS = {  # name -> (source, replaces, shape of its record)
                         "helfem_tpu/models/atomic.py:499", "ar"),
     "radial_coulomb": ("helfem_tpu_torch/csrc/radial_coulomb.cu",
                        "helfem_tpu/models/atomic.py:436", "ar"),
+    "radial_erfc_exchange": ("helfem_tpu_torch/csrc/radial_erfc_exchange.cu",
+                             "helfem_tpu/models/atomic.py:729", "ar"),
     "radial_coulomb_dia": ("helfem_tpu_torch/csrc/radial_coulomb_dia.cu",
                            "helfem_tpu/models/diatomic.py:709", "n2"),
     "dia_xc_fields": ("helfem_tpu_torch/csrc/dia_xc_fields.cu",
@@ -272,8 +288,9 @@ K3 = ("radial_coulomb_dia",)  # one launch per diatomic SCF iteration
 XC_K3 = (*XC, *K3)
 INELEM = "exdia_inelem_kernel"  # the in-element GEMM core of K6 and K7
 RADIAL_SASS = ("radial_exchange_kernel", "radial_coulomb_kernel")  # K1, K2 on DMMA
+K10_SASS = "radial_erfc_exchange_kernel"  # K10 on DMMA
 K3_SASS = "radial_coulomb_dia_kernel"  # K3's instances (columns per lane, channels)
-NO_SPILLS = (*RADIAL_SASS, K3_SASS)  # ptxas must report no spills for these
+NO_SPILLS = (*RADIAL_SASS, K10_SASS, K3_SASS)  # ptxas must report no spills for these
 # K3 past the old nprim 32 (the LiH XC shapes of tests/test_torch_kernels.py)
 # and at the N2 bench with every signed channel (njbd None: +-M share a row)
 K3_SHAPES = {
@@ -354,6 +371,28 @@ MGGA_CELLS = {
     "gensap Kr TPSS": ("gensap", KR_TPSS_CLI, -2753.7109945860525, None),
 }
 MGGA_GATE = 1e-9
+# phase 18: range-separated exchange. K10 on the erfc tables of the Ar and
+# Xe bench bases at omega 0.5 (LC-LDA's), one and two spins; K1 on the
+# Yukawa tables of the Ar bench basis against the pairwise plain version;
+# and SCFs through the port's atomic CLI (TF guess, convthr 1e-8): label ->
+# (arguments, helfem_tpu's energy, its iteration count). Each energy is
+# helfem_tpu's CLI in f64 on the CPU with the same arguments, e.g.
+# `python -m helfem_tpu.cli.atomic --Z Ar --lmax 1 --mmax 1 --nelem 10
+# --nnodes 15 --Rmax 40 --convthr 1e-8 --iguess 3 --method LC-LDA` and
+# `python -m helfem_tpu.cli.atomic --Z Xe --lmax 3 --mmax 3 --nelem 8
+# --nnodes 12 --Rmax 40 --zexp 2.5 --convthr 1e-8 --iguess 3 --method LC-LDA`
+RS_OMEGA = 0.5
+YUKAWA_LAMBDAS = (0.5, 5.0)
+N_RS_CLI = [a if a != "1e-9" else "1e-8" for a in N_CLI]
+XE_RS_CLI = [a if a != "1e-9" else "1e-8" for a in XE_CLI]
+RS_CELLS = {
+    "Ar LC-LDA": (AR_MGGA_CLI + ["--method", "LC-LDA"], -526.2549934771708, 10),
+    "Ar SR-PBE0": (AR_MGGA_CLI + ["--method", "SR-PBE0"], -527.1116876584628, 9),
+    "Ar LCY-LDA": (AR_MGGA_CLI + ["--method", "LCY-LDA"], -525.3580205557585, 10),
+    "N UKS LC-LDA": (N_RS_CLI + ["--method", "LC-LDA"], -54.302778574768233, 10),
+    "Xe LC-LDA": (XE_RS_CLI + ["--method", "LC-LDA"], -7229.3531863185544, 11),
+}
+RS_GATE = 1e-9
 TAU_TRACE_TOL = 1e-10  # sum w tau against tr(P T), relative
 KINETIC_GRID_TOL = 1e-9  # the grid kinetic matrix against the analytic T
 PROBES = {  # name -> (source, {precision: replaces})
@@ -368,8 +407,9 @@ PROBES = {  # name -> (source, {precision: replaces})
 
 def sass_check(build) -> str:
     """cuobjdump's SASS of the built library, instance by instance: the
-    atomic radial kernels, the diatomic exchange in-element kernel and the
-    two XC kernels must issue DMMA (FP64 tensor-core) instructions; every
+    atomic radial kernels (K1, K2, K10), the diatomic exchange in-element
+    kernel and the two XC kernels must issue DMMA (FP64 tensor-core)
+    instructions; every
     "reduced" probe kernel HGMMA (wgmma) with TF32 operands; every "full"
     probe kernel FFMA and no HMMA or HGMMA, since a "full" kernel gone to
     TF32 would pass the 1e-5 gate at small K and be another function."""
@@ -386,7 +426,7 @@ def sass_check(build) -> str:
         def n_op(op, also=""):
             return sum(op in line and also in line for line in lines)
 
-        if INELEM in name or any(k in name for k in XC_SASS + RADIAL_SASS):
+        if INELEM in name or any(k in name for k in (*XC_SASS, *RADIAL_SASS, K10_SASS)):
             counts[name] = {"DMMA": n_op("DMMA")}
             bad += [name] if not counts[name]["DMMA"] else []
         elif PROBE_TF32 in name:
@@ -396,7 +436,7 @@ def sass_check(build) -> str:
             counts[name] = {"FFMA": n_op("FFMA"), "HMMA": n_op("HMMA"), "HGMMA": n_op("HGMMA")}
             c = counts[name]
             bad += [name] if not c["FFMA"] or c["HMMA"] or c["HGMMA"] else []
-    missing = [k for k in (INELEM, *XC_SASS, *RADIAL_SASS, PROBE_TF32, PROBE_FULL)
+    missing = [k for k in (INELEM, *XC_SASS, *RADIAL_SASS, K10_SASS, PROBE_TF32, PROBE_FULL)
                if not any(k in n for n in counts)]
     if bad or missing:
         raise RuntimeError(f"SASS check failed for {bad or missing}: {counts}")
@@ -406,8 +446,8 @@ def sass_check(build) -> str:
 
 def radial_spills(log: str) -> str:
     """The spill bytes (stores + loads) ptxas reports for each instance of
-    the atomic radial kernels and of K3; raises if one spills or a kernel is
-    missing from the log."""
+    the atomic radial kernels (K1, K2, K10) and of K3; raises if one spills
+    or a kernel is missing from the log."""
     lines = log.splitlines()
     spills = {}
     for line, props in zip(lines, lines[1:]):
@@ -521,6 +561,52 @@ def sad_kernel_inputs(basis, ops, seed: int = 53) -> dict:
     x = atomic_kernel_work(at.tei, at.disjL, at.disjm1L, at.Lfac, at.gidx, Paux, Pang)
     c = atomic_kernel_work(at0.tei, at0.disjL, at0.disjm1L, at0.Lfac, at0.gidx, Paux, Pang)
     return {"radial_exchange": x["radial_exchange"], "radial_coulomb": c["radial_coulomb"]}
+
+
+def erfc_exchange_work(tei, gidx, Pd) -> dict:
+    """K10's (inputs, bytes it must move, operations) for the erfc tables tei
+    [NL, nelem, nelem, np^4], gidx and the stacked channels Pd [nch, nrad,
+    nrad]: it reads the table and Pd once (every entry of Pd lies in some
+    element pair's window) and writes KK [NL, nch, nrad, nrad]; 2 np^4
+    flops per slice and channel."""
+    NL, nelem = tei.shape[:2]
+    npr = gidx.shape[1]
+    nch, nrad = Pd.shape[:2]
+    return {"radial_erfc_exchange": ((tei, gidx, Pd), nbytes(tei, gidx, Pd)
+                                     + 8 * NL * nch * nrad * nrad,
+                                     2 * NL * nch * nelem * nelem * npr**4)}
+
+
+def random_channels(n: int, nrad: int, dev, seed: int) -> torch.Tensor:
+    X = np.random.default_rng(seed).standard_normal((n, nrad, nrad))
+    return torch.tensor(X + X.transpose(0, 2, 1), device=dev)
+
+
+def erfc_inputs(shape: str, dev, ns: int, seed: int = 101, rs=None):
+    """erfc_exchange_work at an atomic bench basis (SHAPES) for ns spins'
+    random symmetric channels, on its erfc tables at RS_OMEGA (built here
+    unless given); returns (work, tables)."""
+    from helfem_tpu_torch.models.atomic import AtomicBasis
+
+    basis = AtomicBasis(**SHAPES[shape])
+    rs = rs or basis.build_erfc(RS_OMEGA, dev)
+    gidx = torch.tensor(basis.rb.fem.gidx, dtype=torch.int32, device=dev)
+    Pd = random_channels(ns * basis.nang, basis.nrad, dev, seed)
+    return erfc_exchange_work(rs.tei, gidx, Pd), rs
+
+
+def yukawa_inputs(lam: float, dev, seed: int = 103) -> tuple:
+    """K1's (inputs, bytes, operations) on the Yukawa tables of the Ar bench
+    basis at lam (counted as atomic_kernel_work counts K1's)."""
+    from helfem_tpu_torch.models.atomic import AtomicBasis
+
+    basis = AtomicBasis(**SHAPES["ar"])
+    rs = basis.build_yukawa(lam, dev)
+    gidx = torch.tensor(basis.rb.fem.gidx, dtype=torch.int32, device=dev)
+    Pd = random_channels(basis.nang, basis.nrad, dev, seed)
+    Paux = torch.zeros((rs.tei.shape[0], 1, basis.nrad, basis.nrad), dtype=torch.float64,
+                       device=dev)
+    return atomic_kernel_work(rs.tei, rs.iL, rs.kL, rs.Lfac, gidx, Paux, Pd)["radial_exchange"]
 
 
 def random_atomic_inputs(dev, NL: int, NM: int, nang: int, nelem: int, nnodes: int,
@@ -857,18 +943,19 @@ def same_bits_twice(name: str, args) -> None:
 
 
 def compare(name: str, args, bytes_moved: int, flops: int, warmup: int = 5,
-            reps: int = 50) -> dict:
+            reps: int = 50, plain=None) -> dict:
     """The kernel against its plain version on the same card inputs: gate
     each output at 1e-12 x its max-abs; CUDA-event times in turns (plain,
     kernel, kernel, plain), the kernel's device time per call from
     torch.profiler (the call time less the host's dispatch) and from CUDA
     events around calls queued behind a sleeping kernel (the launches' own
     gaps included, utils/profiling.py:queued_ms), and the least time the
-    card could take."""
+    card could take. plain: the plain version to hold the kernel to (the
+    wrapper's <name>_plain by default)."""
     from helfem_tpu_torch import kernels
     from helfem_tpu_torch.utils.profiling import device_ms, queued_ms
 
-    kern, plain = getattr(kernels, name), getattr(kernels, name + "_plain")
+    kern, plain = getattr(kernels, name), plain or getattr(kernels, name + "_plain")
     out = _outputs(kern(*args))
     torch.cuda.synchronize()
     ref = _outputs(plain(*args))
@@ -1128,15 +1215,17 @@ def dft_phase(dev) -> dict:
     from helfem_tpu_torch import kernels
     from helfem_tpu_torch.cli.atomic import main as atomic_main
     from helfem_tpu_torch.models.atomic import AtomicBasis
-    from helfem_tpu_torch.scf.atomic_scf import atomic_method, scf_atom
+    from helfem_tpu_torch.ops.xc import parse_method_rs
+    from helfem_tpu_torch.scf.atomic_scf import scf_atom
     from helfem_tpu_torch.utils.profiling import profile_scf
 
     phase("15. atomic DFT and open shells through the port's atomic CLI: Ar SVWN, Ar PBE0, "
           "Xe PBE, N UHF, UKS-PBE and ROHF; warm walls and profiles of Ar PBE0 and Xe PBE")
     dft_counts = {}
     for label, (argv, ref, gate) in DFT_CELLS.items():
-        funcs, kfrac = atomic_method(argv[argv.index("--method") + 1] if "--method" in argv
-                                     else "HF")
+        spec = parse_method_rs(argv[argv.index("--method") + 1] if "--method" in argv
+                               else "HF")
+        funcs, kfrac = spec.funcs, spec.kfull
         nel = {"Ar": 18, "Xe": 54, "N": 7}[label.split()[0]]
 
         def check(res, label=label, ref=ref, gate=gate, funcs=funcs, kfrac=kfrac, nel=nel):
@@ -1618,6 +1707,127 @@ def mgga_phase(dev, results: dict) -> dict:
     return counts
 
 
+def rs_kernels(dev, results: dict) -> dict:
+    """K10 against its plain version at the Ar and Xe bench bases on the erfc
+    tables at RS_OMEGA, one and two spins, and K1 on the Yukawa tables of
+    the Ar bench basis at YUKAWA_LAMBDAS against the pairwise plain version
+    (1e-12 x max-abs, the same bits twice, one launch per call), into
+    results[(name, key)]; returns each basis's erfc table setup wall."""
+    from helfem_tpu_torch import kernels
+
+    setup = {}
+    for shape in ("ar", "xe"):
+        t0 = time.perf_counter()
+        rs = None
+        for ns in (1, 2):
+            work, rs = erfc_inputs(shape, dev, ns, rs=rs)
+            if ns == 1:
+                torch.cuda.synchronize()
+                setup[shape] = time.perf_counter() - t0
+                print(f"{shape}: erfc tables {tuple(rs.tei.shape)} "
+                      f"({nbytes(rs.tei) / 2**20:.1f} MiB) built in {setup[shape]:.2f} s")
+            for name, (args, moved, flops) in work.items():
+                same_bits_twice(name, args)
+                results[(name, shape if ns == 1 else f"{shape}_2")] = report(
+                    f"{shape} ns={ns}", name, compare(name, args, moved, flops))
+        del rs, work, args
+        torch.cuda.empty_cache()
+    for lam in YUKAWA_LAMBDAS:
+        args, moved, flops = yukawa_inputs(lam, dev)
+        iL, kL = args[1], args[2]
+        print(f"Yukawa tables at lam {lam:g}: max |iL| {float(iL.abs().max()):.3e}, "
+              f"max |kL| {float(kL.abs().max()):.3e}")
+        same_bits_twice("radial_exchange", args)
+        results[("radial_exchange", f"yukawa_{lam:g}")] = report(
+            f"ar Yukawa lam={lam:g}", "radial_exchange",
+            compare("radial_exchange", args, moved, flops,
+                    plain=kernels.radial_exchange_pairwise_plain))
+    print("K10 at the Ar and Xe bench bases, one and two spins, and K1 on the Yukawa tables: "
+          "one launch per call, the same bits twice")
+    return setup
+
+
+def rs_phase(dev, results: dict) -> dict:
+    """Phase 18: rs_kernels, then the RS_CELLS through the port's atomic CLI,
+    each within RS_GATE of helfem_tpu's energy with, per Fock build, K2
+    once, K10 once for an erfc method, K1 once for a method with kfull != 0
+    and once more for the Yukawa kernel (the Coulomb and the Yukawa tables
+    in two launches), K4 once and K5 once (twice more for the CLI's grid
+    self-check); then the warm walls (min of 3) and device shares of Ar and
+    Xe LC-LDA with their tables prebuilt. Returns each cell's launches."""
+    from helfem_tpu_torch import kernels
+    from helfem_tpu_torch.cli.atomic import main as atomic_main
+    from helfem_tpu_torch.models.atomic import AtomicBasis
+    from helfem_tpu_torch.models.atomic_dft import build_atomic_grid
+    from helfem_tpu_torch.ops.xc import parse_method_rs
+    from helfem_tpu_torch.scf.atomic_scf import scf_atom
+    from helfem_tpu_torch.utils.profiling import profile_scf
+
+    phase("18. range separation: K10 against plain at the Ar and Xe bench bases, K1 on the "
+          "Yukawa tables, Ar LC-LDA/SR-PBE0/LCY-LDA, quartet N UKS LC-LDA and Xe LC-LDA "
+          "through the port's atomic CLI, warm walls and device shares")
+    setup = rs_kernels(dev, results)
+    counts = {}
+    for label, (argv, ref, ref_niter) in RS_CELLS.items():
+        spec = parse_method_rs(argv[argv.index("--method") + 1])
+        erfc = spec.kernel == "erfc"
+
+        def check(res, label=label, ref=ref, ref_niter=ref_niter, spec=spec, erfc=erfc):
+            n = res.niter
+            want = {"radial_coulomb": n,
+                    "radial_exchange": n * (bool(spec.kfull) + (not erfc)),
+                    "radial_erfc_exchange": n if erfc else 0,
+                    "dia_xc_fields": n, "dia_xc_fock": n + 2}
+            got = {name: kernels.launches[name] for name in want}
+            dE = res.E - ref
+            print(f"{label}: E - helfem_tpu = {dE:+.3e} (gate {RS_GATE:g}), {n} iterations "
+                  f"(helfem_tpu {ref_niter}), Exx {res.Exx:.10f}, Exc {res.Exc:.10f}; "
+                  f"launches per Fock build {({k: v / n for k, v in got.items()})}")
+            if got != want:
+                return f"launches {got}, expected {want}"
+            return "" if res.converged and abs(dE) < RS_GATE else \
+                "did not converge within the gate"
+
+        names = ["radial_coulomb", *XC] + (["radial_erfc_exchange"] if erfc else []) + \
+            (["radial_exchange"] if spec.kfull or not erfc else [])
+        counts[label] = run_cli(atomic_main, argv, label, names, check)
+
+    for label, shape, nel in (("Ar LC-LDA", "ar", 9), ("Xe LC-LDA", "xe", 27)):
+        basis = AtomicBasis(**SHAPES[shape])
+        ops, grid = basis.build_operators(dev), build_atomic_grid(basis, dev)
+        t0 = time.perf_counter()
+        rs = basis.build_erfc(RS_OMEGA, dev)
+        torch.cuda.synchronize()
+        print(f"{label}: erfc tables built in {time.perf_counter() - t0:.3f} s (setup, outside "
+              "the warm walls)")
+
+        def run(label=label, basis=basis, ops=ops, grid=grid, rs=rs, nel=nel):
+            kernels.reset_launches()
+            res = scf_atom(basis, nel, nel, method="LC-LDA", convthr=1e-8, guess="TF", ops=ops,
+                           grid=grid, rs=rs)
+            check_per_iteration(f"warm {label}", res, kernels.launches,
+                                ("radial_coulomb", "radial_exchange", "radial_erfc_exchange"))
+            return res
+
+        per = profile_scf(label, run, kernels=(*RADIAL_SASS, K10_SASS, *XC_SASS), ops=(EIGH_OP,),
+                          ranges={"xc_eval": ("xc_eval", "autograd::engine::evaluate")})
+        busy = per["busy"][0]
+        shares = {name: per[key][0] for name, key in
+                  (("eigh", EIGH_OP), ("K1", RADIAL_SASS[0]), ("K2", RADIAL_SASS[1]),
+                   ("K10", K10_SASS), ("K4", XC_SASS[0]), ("K5", XC_SASS[1]),
+                   ("xc_eval", "xc_eval"))}
+        other = busy - sum(shares.values())
+        print(f"{label}: device time per warm SCF {busy:.4f} ms; "
+              + ", ".join(f"{k} {v:.4f} ms ({100 * v / busy:.1f} %)" for k, v in shares.items())
+              + f", the rest {other:.4f} ms ({100 * other / busy:.1f} %); K10 launches "
+              f"{per[K10_SASS][1]}, {per[K10_SASS][0] / max(per[K10_SASS][1], 1):.4f} ms a call")
+        results[("rs_scf", label)] = {"busy_ms": busy, **{f"{k}_ms": v for k, v in shares.items()}}
+        del ops, grid, rs
+        torch.cuda.empty_cache()
+    results[("rs_setup", "erfc_tables_s")] = setup
+    return counts
+
+
 def main() -> None:
     phase("1. device")
     smi = device_facts()
@@ -1995,6 +2205,8 @@ def main() -> None:
     dft_counts = dft_phase(dev)
     open_counts = open_shell_phase(dev, results)
     mgga_counts = mgga_phase(dev, results)
+    rs_counts = rs_phase(dev, results)
+    counts["radial_erfc_exchange"] = rs_counts["Ar LC-LDA"]["radial_erfc_exchange"]
 
     record = []
     for name, (source, replaces, shape) in KERNELS.items():
@@ -2016,6 +2228,16 @@ def main() -> None:
         if name in (*ATOMIC, *XC):
             extra["phase15_launches"] = {label: c.get(name, 0) for label, c in dft_counts.items()}
         extra["phase16_launches"] = {label: c.get(name, 0) for label, c in open_counts.items()}
+        extra["phase18_launches"] = {label: c.get(name, 0) for label, c in rs_counts.items()}
+        for more in {"radial_erfc_exchange": ("ar_2", "xe_2"),
+                     "radial_exchange": tuple(f"yukawa_{lam:g}" for lam in YUKAWA_LAMBDAS)
+                     }.get(name, ()):
+            o = results[(name, more)]
+            extra.update({f"{more}_{k}": o[k] for k in
+                          ("max_abs_err", "rel_err", "ms", "device_ms", "queued_ms", "plain_ms",
+                           "bound_ms")})
+        if name == "radial_erfc_exchange":
+            extra["erfc_tables_setup_s"] = results[("rs_setup", "erfc_tables_s")]
         for more in {"radial_exchange_dia_occ": ("o2_alpha", "o2_beta", "o2_l12_alpha",
                                                  "o2_l12_beta"),
                      "radial_exchange": ("sad_cr2",), **dict.fromkeys(XC, ("sad_cr2",))

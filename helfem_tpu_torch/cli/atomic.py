@@ -1,5 +1,6 @@
 """`python -m helfem_tpu_torch.cli.atomic`: atomic HF/DFT SCF driver of the
-PyTorch/CUDA port (restricted, unrestricted or ROHF).
+PyTorch/CUDA port (restricted, unrestricted or ROHF; global and
+range-separated hybrids).
 
 A subset of helfem_tpu.cli.atomic (flag names mirror the reference `atomic`
 program, src/atomic/main.cpp:63-119), plus --device. Flags of the JAX CLI
@@ -51,8 +52,10 @@ def main(argv=None):
     p.add_argument("--convthr", type=float, default=1e-7)
     p.add_argument("--method", default="HF",
                    help="HF, LDA, SVWN, PBE, revPBE, PBEsol, RPBE, BLYP, TPSS, SCAN, rSCAN, "
-                        "the hybrids PBE0/PBEh, TPSSh and B3LYP5, or an 'x,c' pair of the "
-                        "ported functionals")
+                        "the hybrids PBE0/PBEh, TPSSh and B3LYP5, the range-separated "
+                        "LC-LDA/LDAERF, LCY-LDA and SR-PBE0 (e.g. 'LC-LDA[omega=0.4]', "
+                        "overrides omega, kshort, kfull), or an 'x,c' pair of the ported "
+                        "functionals")
     p.add_argument("--iguess", type=int, default=2,
                    help="0 core, 1 GSZ, 2 SAP, 3 TF")
     p.add_argument("--dftthr", type=float, default=1e-12, help="XC density threshold")
@@ -79,13 +82,15 @@ def main(argv=None):
     from helfem_tpu_torch.models.atomic_dft import (
         build_atomic_grid, eval_kinetic_grid, eval_overlap_grid,
     )
-    from helfem_tpu_torch.scf.atomic_scf import atomic_method, scf_atom
+    from helfem_tpu_torch.ops.xc import parse_method_rs
+    from helfem_tpu_torch.scf.atomic_scf import rs_operators, scf_atom
     from helfem_tpu_torch.utils.elements import HARTREE_IN_EV, get_Z
     from helfem_tpu_torch.utils.timer import Timer
 
     device = open_device(args.device)
     args.method = apply_pars_files(args.method, args.x_pars, args.c_pars)
-    funcs, _ = atomic_method(args.method)  # raises for methods that are not ported
+    spec = parse_method_rs(args.method)  # raises for methods that are not ported
+    funcs = spec.funcs
     Z = get_Z(args.Z)
     nela, nelb = parse_nela_nelb(Z, args.Q, args.M, args.nela, args.nelb)
     guess = {0: "core", 1: "GSZ", 2: "SAP", 3: "TF"}[args.iguess]
@@ -98,8 +103,17 @@ def main(argv=None):
     walls = {"basis": timer.lap("basis set formation")}
     print(f"Running {args.method} on Z={Z} with {nela}+{nelb} electrons, "
           f"{basis.nbf} basis functions ({basis.nang} angular x {basis.nrad} radial)")
+    if spec.omega != 0.0:
+        # reference printout, src/atomic/main.cpp:363-371
+        print(f"Using range-separated exchange with omega = {spec.omega:.3f} "
+              f"({spec.kernel} kernel)")
+        print(f"Using {100 * (spec.kfull + spec.kshort):.3f} % short-range and "
+              f"{100 * spec.kfull:.3f} % long-range exchange.")
     ops = basis.build_operators(device)
     walls["operators"] = timer.lap("operator build")
+    _, _, rs = rs_operators(basis, spec, device)
+    if rs is not None:
+        walls["rs tables"] = timer.lap(f"{spec.kernel} exchange tables")
     grid = None
     if funcs:
         # grid-accuracy self-check, as the reference prints it
@@ -119,7 +133,7 @@ def main(argv=None):
         basis, nela, nelb, method=args.method, maxit=args.maxit,
         convthr=args.convthr, guess=guess, verbose=True, ops=ops, dftthr=args.dftthr,
         restricted=args.restricted, diisorder=args.diisorder, diiseps=args.diiseps,
-        ldft=args.ldft, grid=grid,
+        ldft=args.ldft, grid=grid, rs=rs,
     )
     if device.type == "cuda":
         torch.cuda.synchronize(device)

@@ -1,9 +1,11 @@
-// Building blocks of the atomic radial kernels K1 (radial_exchange.cu) and
-// K2 (radial_coulomb.cu), which share their in-element stage: a row band of
-// one tei[L, e] slice times the element window of every density channel,
+// Building blocks of the atomic radial kernels K1 (radial_exchange.cu), K2
+// (radial_coulomb.cu) and K10 (radial_erfc_exchange.cu), which share their
+// band stage: a row band of one tei slice (K1/K2: [L, e], K10 the element
+// pair [g, e, f]) times the element window of every density channel,
 //
 //   C[row, c] = sum_(u, l) A[row, (u, l)] B[(u, l), c],   (u, l) < nprim^2,
-//   B[(u, l), c] = D_c[gidx[e, u], gidx[e, l]]   (trash slot read as 0),
+//   B[(u, l), c] = D_c[gidx[e, u], gidx[f, l]]   (trash slot read as 0; f = e
+//                                                 for K1 and K2),
 //
 // on the FP64 tensor cores (dmma.cuh). A block stages the band's rows and the
 // windows of all its channels in shared memory with cp.async (8-byte copies:
@@ -81,11 +83,13 @@ __device__ __forceinline__ void stage_rows(double* As, int ld, const Rows& rows,
 }
 
 // Stage B^T for channels [0, ncpad): Bs[c, (u, l)] = D[c][gidx_e[u0 + u],
-// gidx_e[l]] for c < nc (channel stride cstride), 0 for the trash slot, for
-// c >= nc and for the depth padding. One warp per channel row.
+// gidx_f[l]] for c < nc (channel stride cstride), 0 for the trash slot, for
+// c >= nc and for the depth padding: the window of the element pair (e, f).
+// One warp per channel row.
 __device__ __forceinline__ void stage_window(double* Bs, int ld, const double* D, size_t cstride,
-                                             int nc, int ncpad, const int* gidx_e, int u0,
-                                             int nu, int np, int nrad) {
+                                             int nc, int ncpad, const int* gidx_e,
+                                             const int* gidx_f, int u0, int nu, int np,
+                                             int nrad) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int kc = nu * np, kc4 = rb_ceil(kc, 4);
   const FastDiv by_np(np);
@@ -95,7 +99,7 @@ __device__ __forceinline__ void stage_window(double* Bs, int ld, const double* D
       double* dst = Bs + c * ld + kk;
       if (c < nc && kk < kc) {
         const int u = by_np(kk), l = kk - u * np;
-        const int gi = gidx_e[u0 + u], gj = gidx_e[l];
+        const int gi = gidx_e[u0 + u], gj = gidx_f[l];
         if (gi < nrad && gj < nrad) {
           cp_async8(dst, Dc + (size_t)gi * nrad + gj);
           continue;
@@ -104,6 +108,13 @@ __device__ __forceinline__ void stage_window(double* Bs, int ld, const double* D
       *dst = 0.0;
     }
   }
+}
+
+// The in-element window of element e (f == e).
+__device__ __forceinline__ void stage_window(double* Bs, int ld, const double* D, size_t cstride,
+                                             int nc, int ncpad, const int* gidx_e, int u0,
+                                             int nu, int np, int nrad) {
+  stage_window(Bs, ld, D, cstride, nc, ncpad, gidx_e, gidx_e, u0, nu, np, nrad);
 }
 
 // One warp's share of an 8-row tile Arow (stride ld) against NT 8-column

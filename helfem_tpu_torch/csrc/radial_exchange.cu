@@ -54,7 +54,7 @@
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
-#include "radial_band.cuh"
+#include "pair_assembly.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -85,10 +85,8 @@ __host__ __device__ inline int cross_doubles(int AG, int GG, int np) {
 __host__ __device__ inline int rx_smem(const RxLaunch& a) {
   const int band = band_doubles(a.R, a.CG, a.NU, a.nprim);
   const int cross = cross_doubles(a.AG, a.GG, a.nprim);
-  return 8 * (band > cross ? band : cross) + 4 * (5 * a.nrad + 2 * a.nelem * a.nprim);
+  return 8 * (band > cross ? band : cross) + pair_tables_bytes(a.nrad, a.nelem, a.nprim);
 }
-
-#define RX_SINGLE (1 << 30)  // slot table: the radial function has this one slot
 
 // G independent 8 x 8 DMMA chains: tile u multiplies the 8 rows at A[u]
 // (row stride lda, depth contiguous) by the 8 columns of B[u] (B(k, n) at
@@ -143,39 +141,6 @@ struct ExchangeRows {
     return slab + (size_t)u * np3 + row * np;
   }
 };
-
-__device__ __forceinline__ size_t kpair_at(int ga, int e, int i, int f, int j, int nelem,
-                                           int np) {
-  return ((((size_t)ga * nelem + e) * np + i) * nelem + f) * np + j;
-}
-
-// Where Kp[e,f][i,j] goes: straight into KK where its row n = gidx[e,i]
-// and its column m = gidx[f,j] each have one owner slot (the only
-// contribution there), else into the scratch for phase 2; nowhere on the
-// trash slot. sl[e * nprim + i] = n | RX_SINGLE where n has one slot, n
-// where two, -1 on the trash slot. The lookups are made before a tile's
-// products and its stores after them (a store may alias the shared tables,
-// so the compiler would not move a later lookup above it).
-struct KpDest {
-  size_t at;  // element offset, in KK if direct, else in Kpair, for channel pair 0
-  bool direct, live;
-};
-
-__device__ __forceinline__ KpDest kp_dest(const RxLaunch& a, const int* sl, int e, int i, int f,
-                                          int j) {
-  const int ci = sl[e * a.nprim + i], cj = sl[f * a.nprim + j];
-  const int n = ci & (RX_SINGLE - 1), m = cj & (RX_SINGLE - 1);
-  const bool direct = ci & cj & RX_SINGLE;
-  return {direct ? (size_t)n * a.nrad + m : kpair_at(0, e, i, f, j, a.nelem, a.nprim), direct,
-          ci >= 0 && cj >= 0};
-}
-
-// Store Kp of channel pair ga at d.
-__device__ __forceinline__ void put_kp(const RxLaunch& a, const KpDest& d, int ga, double v) {
-  const size_t np1 = (size_t)a.nelem * a.nprim;
-  if (d.live) (d.direct ? a.KK + ((size_t)ga * a.nrad * a.nrad + d.at)
-                        : a.Kpair + ((size_t)ga * np1 * np1 + d.at))[0] = v;
-}
 
 // One cross task: Kp[e, f] for the channels [a0, a0 + na) and the g in
 // [g0, g0 + ng); buffers as cross_doubles lays them out.
@@ -292,17 +257,8 @@ __global__ void __launch_bounds__(RB_THREADS, 2) radial_exchange_kernel(const Rx
   const int gq = lane >> 2, tq = lane & 3;
   const int ld = band_ld(a.NU, np);
   const int nbuf = max(band_doubles(a.R, a.CG, a.NU, np), cross_doubles(a.AG, a.GG, np));
-  int4* own = (int4*)(smem + nbuf);
-  int* gs = (int*)(own + nrad);
-  int* sl = gs + nelem * np;
-  int* bounds = sl + nelem * np;
-  for (int k = tid; k < nelem * np; k += RB_THREADS) {
-    const int n = a.gidx[k];
-    gs[k] = n;
-    sl[k] = n < nrad ? n | (a.owners[2 * n + 1] < 0 ? RX_SINGLE : 0) : -1;
-  }
-  for (int k = tid; k < a.nb; k += RB_THREADS) bounds[k] = a.bounds[k];
-  stage_owners(own, a.owners, nrad, np);
+  const PairTables tab = stage_pair_tables(a, smem + nbuf);
+  const int *gs = tab.gs, *sl = tab.sl;
   __syncthreads();
 
   // ---- phase 1: in-element band tasks, then cross tasks ----
@@ -353,42 +309,8 @@ __global__ void __launch_bounds__(RB_THREADS, 2) radial_exchange_kernel(const Rx
   }
   cg::this_grid().sync();
 
-  // ---- phase 2: the boundary rows and columns, one warp per (g, a,
-  // boundary function, direction), spread over the blocks first ----
-  const int nrows = a.NL * nang * a.nb * 2;
-  for (int t = blockIdx.x + gridDim.x * warp; t < nrows; t += gridDim.x * RB_WARPS) {
-    const int col = t & 1, b = (t >> 1) % a.nb, ga = (t >> 1) / a.nb;
-    const int bn = bounds[b];  // the boundary function: row or column bn
-    const int4 ob = own[bn];
-    const double* Kp = a.Kpair + (size_t)ga * nelem * np * nelem * np;
-    double* out = a.KK + (size_t)ga * nrad * nrad;
-    for (int m0 = lane; m0 < nrad; m0 += 32 * RB_BATCH) {
-      // every load unconditional (a masked pair reads entry 0 and adds 0),
-      // so that a lane's loads all issue before the first sum
-      double v[RB_BATCH];
-#pragma unroll
-      for (int q = 0; q < RB_BATCH; ++q) {
-        const int4 om = own[min(m0 + 32 * q, nrad - 1)];
-        const int4 ru = col ? om : ob, cw = col ? ob : om;  // row and column owners
-        const int u[2] = {ru.x, ru.y}, w[2] = {cw.x, cw.y};
-        double acc = 0.0;
-#pragma unroll
-        for (int x = 0; x < 2; ++x)
-#pragma unroll
-          for (int y = 0; y < 2; ++y) {  // slots e*np+i, f*np+j: row (e,i), column (f,j)
-            const bool live = u[x] >= 0 && w[y] >= 0;
-            const double k = __ldcg(Kp + (live ? (size_t)u[x] * nelem * np + w[y] : 0));
-            acc += live ? k : 0.0;
-          }
-        v[q] = acc;
-      }
-#pragma unroll
-      for (int q = 0; q < RB_BATCH; ++q) {
-        const int m = m0 + 32 * q;
-        if (m < nrad) out[col ? (size_t)m * nrad + bn : (size_t)bn * nrad + m] = v[q];
-      }
-    }
-  }
+  // ---- phase 2: the boundary rows and columns (pair_assembly.cuh) ----
+  assemble_boundaries(a, tab, a.NL * nang);
 }
 
 static CoopOccupancy rx_occupancy = {(const void*)radial_exchange_kernel, {}, {-1, -1, -1, -1,

@@ -27,7 +27,15 @@ from helfem_tpu_torch.kernels.radial_coulomb_dia import (
     radial_coulomb_dia,
     radial_coulomb_dia_plain,
 )
-from helfem_tpu_torch.kernels.radial_exchange import radial_exchange, radial_exchange_plain
+from helfem_tpu_torch.kernels.radial_erfc_exchange import (
+    radial_erfc_exchange,
+    radial_erfc_exchange_plain,
+)
+from helfem_tpu_torch.kernels.radial_exchange import (
+    radial_exchange,
+    radial_exchange_pairwise_plain,
+    radial_exchange_plain,
+)
 from helfem_tpu_torch.kernels.radial_exchange_dia import (
     radial_exchange_dia,
     radial_exchange_dia_occ,
@@ -37,8 +45,9 @@ from helfem_tpu_torch.kernels.radial_exchange_dia import (
 
 __all__ = ["band_table", "check_gidx", "launches", "owner_table", "reset_launches", "radial_coulomb",
            "radial_coulomb_plain", "radial_exchange", "radial_exchange_plain",
-           "radial_coulomb_dia", "radial_coulomb_dia_plain", "dia_xc_fields",
-           "dia_xc_fields_plain", "dia_xc_fock", "dia_xc_fock_plain",
+           "radial_exchange_pairwise_plain", "radial_erfc_exchange",
+           "radial_erfc_exchange_plain", "radial_coulomb_dia", "radial_coulomb_dia_plain",
+           "dia_xc_fields", "dia_xc_fields_plain", "dia_xc_fock", "dia_xc_fock_plain",
            "radial_exchange_dia_occ", "radial_exchange_dia_occ_plain",
            "radial_exchange_dia", "radial_exchange_dia_plain", "matmul_f32",
            "matmul_f32_plain", "matmul_dd", "matmul_dd_plain"]

@@ -30,6 +30,8 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     "radial_exchange_launch": [_P],
     "radial_exchange_smem": [_P],
+    "radial_erfc_exchange_launch": [_P],
+    "radial_erfc_exchange_smem": [_P],
     "radial_coulomb_launch": [_P],
     "radial_coulomb_smem": [_P],
     "radial_coulomb_dia_launch": [_P],

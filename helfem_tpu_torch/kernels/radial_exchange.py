@@ -3,9 +3,15 @@ channel) pair, as a hand-written CUDA kernel (csrc/radial_exchange.cu) and
 its plain PyTorch version.
 
 Replaces helfem_tpu/models/atomic.py:exchange_kernel_L as exchange_general_bd
-vmaps it over (L, channel). The kernel uses the pairwise element-window
-form; the plain version follows the JAX function's prefix-sum form, with
-index_select/index_add_ over gidx in place of the one-hot assembler matmuls.
+vmaps it over (L, channel), and exchange_kernel_L_pairwise on the Yukawa
+tables of the range-separated exchange. The kernel uses the pairwise
+element-window form for both. There are two plain versions, with
+index_select/index_add_ over gidx in place of the one-hot assembler matmuls:
+radial_exchange_plain follows the JAX function's prefix-sum form (what
+helfem_tpu computes on the Coulomb tables), radial_exchange_pairwise_plain
+its pairwise form (atomic.py:468-496), the only one that keeps the Yukawa
+tables' element scales paired: their i_L and k_L span e^(+-lam rmax), and
+the prefix sums lose about 1e-5 of the operator there.
 """
 
 import ctypes
@@ -23,7 +29,7 @@ from helfem_tpu_torch.kernels._radial import (
     band_plan, cross_doubles, cross_plan, fixed_bytes, sm_count,
 )
 
-__all__ = ["radial_exchange", "radial_exchange_plain"]
+__all__ = ["radial_exchange", "radial_exchange_pairwise_plain", "radial_exchange_plain"]
 
 
 class _Launch(ctypes.Structure):
@@ -77,20 +83,23 @@ def _template(tei, U, V, gidx, nang: int, nrad: int):
 
 
 def radial_exchange(tei: torch.Tensor, U: torch.Tensor, V: torch.Tensor,
-                    gidx: torch.Tensor, Pd: torch.Tensor) -> torch.Tensor:
+                    gidx: torch.Tensor, Pd: torch.Tensor, pairwise: bool = False) -> torch.Tensor:
     """KK[g, a] = exchange kernel of channel g applied to Pd[a].
 
-    tei [NL, nelem, np, np, np, np], U = disjL and V = disjm1L
-    [NL, nelem, np, np], gidx [nelem, np] int32 (nrad = trash slot), Pd
-    [nang, nrad, nrad]; returns KK [NL, nang, nrad, nrad] (trash dropped).
-    CPU inputs run the plain version; CUDA inputs launch the kernel, once.
+    tei [NL, nelem, np, np, np, np], U = disjL and V = disjm1L (or the
+    Yukawa tables iL and kL) [NL, nelem, np, np], gidx [nelem, np] int32
+    (nrad = trash slot), Pd [nang, nrad, nrad]; returns KK [NL, nang, nrad,
+    nrad] (trash dropped). CPU inputs run a plain version, the pairwise one
+    when pairwise (the Yukawa tables), else the prefix-sum one; CUDA inputs
+    launch the kernel, once, which computes the pairwise form either way.
     The operators are checked, and the launch arguments that depend on them
     built, once per operator set; per call only Pd is checked. Pass the
     gidx of operators made by AtomicBasis.build_operators or
     from_jax_operators, which check_gidx."""
     name = "radial_exchange"
     if on_cpu(name, tei, U, V, gidx, Pd):
-        return radial_exchange_plain(tei, U, V, gidx, Pd)
+        plain = radial_exchange_pairwise_plain if pairwise else radial_exchange_plain
+        return plain(tei, U, V, gidx, Pd)
     if Pd.dim() != 3:
         raise ValueError(f"{name}: Pd has shape {tuple(Pd.shape)}, expected [nang, nrad, nrad]")
     nang, nrad = Pd.shape[:2]
@@ -160,3 +169,34 @@ def radial_exchange_plain(tei: torch.Tensor, U: torch.Tensor, V: torch.Tensor,
     Kd = torch.einsum("geijkl,aeil->gaejk", tei, Rg)
     K = K.reshape(NL, nang, n1 * n1).index_add_(2, lin, Kd.reshape(NL, nang, -1))
     return K.reshape(NL, nang, n1, n1)[:, :, :nrad, :nrad]
+
+
+def radial_exchange_pairwise_plain(tei: torch.Tensor, U: torch.Tensor, V: torch.Tensor,
+                                   gidx: torch.Tensor, Pd: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of radial_exchange in the pairwise form
+    (atomic.py:468-496), the kernel's own: every element pair's product
+    V[e] W[e,f] U[f]^T (e > f) or U[e] W[e,f] V[f]^T (e < f) on the window
+    W[e,f][p,q] = Pd[gidx[e,p], gidx[f,q]], the in-element term on e == f,
+    then the assembly over gidx. Exact on tables whose element scales span
+    many orders (the Yukawa i_L/k_L), where the prefix sums are not."""
+    NL, nelem, nprim = U.shape[:3]
+    nang, nrad = Pd.shape[:2]
+    n1 = nrad + 1
+    gi = gidx.long()
+    Rp = F.pad(Pd, (0, 1, 0, 1)).reshape(nang, n1 * n1)  # trash row/col zero
+    lin = (gi.reshape(-1)[:, None] * n1 + gi.reshape(-1)[None, :]).reshape(-1)
+    Rw = Rp.index_select(1, lin).reshape(nang, nelem, nprim, nelem, nprim).transpose(2, 3)
+    e = torch.arange(nelem, device=Pd.device)
+    lower = (e[:, None] > e[None, :])[None, :, :, None, None]  # [1, e, f, 1, 1]
+    # the factor on each side of a pair: (V[e], U[f]) below the diagonal,
+    # (U[e], V[f]) above it
+    X = torch.where(lower, V[:, :, None], U[:, :, None])  # [g, e, f, i, p]
+    Y = torch.where(lower, U[:, None], V[:, None])  # [g, e, f, j, q]
+    T = torch.einsum("gefjq,aefpq->gaefpj", Y, Rw)
+    Kp = torch.einsum("gefip,gaefpj->gaefij", X, T)
+    Kd = torch.einsum("geijkl,aeil->gaejk", tei, Rw[:, e, e])
+    Kp[:, :, e, e] = Kd
+    out = torch.zeros((NL, nang, n1 * n1), dtype=Pd.dtype, device=Pd.device)
+    out.index_add_(2, lin.reshape(nelem, nprim, nelem, nprim).transpose(1, 2).reshape(-1),
+                   Kp.reshape(NL, nang, -1))
+    return out.reshape(NL, nang, n1, n1)[:, :, :nrad, :nrad]

@@ -10,9 +10,13 @@ ported from helfem_tpu/models/atomic.py.
   tensor with torch.einsum and hand the radial work to the CUDA kernels
   radial_coulomb and radial_exchange (kernels/), which run their plain
   PyTorch versions on CPU tensors.
+* The range-separated exchange of channel-block-diagonal densities: the
+  Yukawa part through radial_exchange on the Yukawa tables, the erfc part
+  through radial_erfc_exchange on the dense element-pair tables.
 
-Not ported yet: fields, confinement, finite nuclei, the dense
-exchange_general and the range-separated (Yukawa, erfc) exchange.
+Not ported yet: fields, confinement, finite nuclei, and the dense
+exchange_general, rs_exchange and erfc_exchange (symmetry 0/1 and warm
+starts).
 """
 
 from collections.abc import Mapping
@@ -22,15 +26,21 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from helfem_tpu_torch.kernels import check_gidx, radial_coulomb, radial_exchange
+from helfem_tpu_torch.kernels import (
+    check_gidx,
+    radial_coulomb,
+    radial_erfc_exchange,
+    radial_exchange,
+)
 from helfem_tpu_torch.ops.fem import FEMBasis
 from helfem_tpu_torch.ops.gaunt import gaunt_table
 from helfem_tpu_torch.ops.grids import get_grid
 from helfem_tpu_torch.ops.polynomials import get_basis
 from helfem_tpu_torch.ops.radial import RadialBasis
 
-__all__ = ["angular_basis", "AtomicBasis", "AtomicOperators", "coulomb",
-           "exchange_bd", "from_jax_operators"]
+__all__ = ["angular_basis", "AtomicBasis", "AtomicOperators", "ErfcOperators", "RSOperators",
+           "coulomb", "erfc_exchange_bd", "exchange_bd", "from_jax_operators",
+           "from_jax_rs_operators", "rs_exchange_bd"]
 
 
 def angular_basis(lmax: int, mmax: int):
@@ -82,6 +92,31 @@ def from_jax_operators(arrays: Mapping[str, np.ndarray], device) -> AtomicOperat
         dtype = torch.int32 if name == "gidx" else torch.float64
         fields[name] = torch.tensor(np.asarray(arrays[name]), dtype=dtype, device=device)
     return AtomicOperators(**fields)
+
+
+class RSOperators(NamedTuple):
+    """Range-separated (Yukawa) exchange tables (helfem_tpu's RSOperators)."""
+
+    tei: torch.Tensor  # [NL, nelem, np, np, np, np] Yukawa in-element
+    iL: torch.Tensor  # [NL, nelem, np, np] <i_L(lam r)> small side
+    kL: torch.Tensor  # [NL, nelem, np, np] <k_L(lam r)> big side
+    Lfac: torch.Tensor  # [NL] = 4 pi lam
+
+
+class ErfcOperators(NamedTuple):
+    """erfc short-range exchange tables, dense over element pairs
+    (helfem_tpu's ErfcOperators)."""
+
+    tei: torch.Tensor  # [NL, nelem, nelem, np, np, np, np]
+    Lfac: torch.Tensor  # [NL] = 4 pi mu / (2L+1)
+
+
+def from_jax_rs_operators(arrays: Mapping[str, np.ndarray], device):
+    """The port's ErfcOperators or RSOperators (by the fields present) from
+    helfem_tpu's given as numpy arrays."""
+    kind = RSOperators if "iL" in arrays else ErfcOperators
+    return kind(*(torch.tensor(np.asarray(arrays[name]), dtype=torch.float64, device=device)
+                  for name in kind._fields))
 
 
 @dataclass
@@ -216,6 +251,29 @@ class AtomicBasis:
     def build_operators(self, device) -> AtomicOperators:
         return from_jax_operators(self.host_operators(), device)
 
+    def host_erfc(self, mu: float) -> dict[str, np.ndarray]:
+        """erfc short-range TEI tables as numpy arrays (helfem_tpu's
+        build_erfc; reference: TwoDBasis::compute_erfc,
+        src/atomic/TwoDBasis.cpp:781)."""
+        NL = self.NL
+        return dict(tei=self.rb.erfc_integral(NL - 1, mu),
+                    Lfac=4.0 * np.pi * mu / (2.0 * np.arange(NL) + 1.0))
+
+    def host_yukawa(self, lam: float) -> dict[str, np.ndarray]:
+        """Yukawa (screened-Coulomb) TEI tables as numpy arrays (helfem_tpu's
+        build_yukawa; reference: TwoDBasis::compute_yukawa,
+        src/atomic/TwoDBasis.cpp:747)."""
+        NL = self.NL
+        iL, kL = self.rb.yukawa_disjoint(NL - 1, lam)
+        return dict(tei=self.rb.yukawa_integral(NL - 1, lam), iL=iL, kL=kL,
+                    Lfac=np.full(NL, 4.0 * np.pi * lam))
+
+    def build_erfc(self, mu: float, device) -> ErfcOperators:
+        return from_jax_rs_operators(self.host_erfc(mu), device)
+
+    def build_yukawa(self, lam: float, device) -> RSOperators:
+        return from_jax_rs_operators(self.host_yukawa(lam), device)
+
 
 def _blockdiag(blocks: np.ndarray) -> np.ndarray:
     n, r, _ = blocks.shape
@@ -270,8 +328,19 @@ def channel_diag(P: torch.Tensor, nang: int, nrad: int) -> torch.Tensor:
     return _to4(P, nang, nrad)[a, a]
 
 
+def _gaunt_weight(ops: AtomicOperators, Lfacv, KK: torch.Tensor, ns: int) -> torch.Tensor:
+    """-K[s] [ns, nbf, nbf] from the radial results KK [NL, ns * nang, nrad,
+    nrad] of ns spins' channels: K[b, c] = sum_{g,a} wG[g,b,c,a] KK[g,a],
+    wG[g,b,c,a] = Lfac_g sum_M G[g,M,b,a] G[g,M,c,a]."""
+    nang = ops.G.shape[-1]
+    nrad = ops.Sinvh_rad.shape[0]
+    KK = KK.reshape(KK.shape[0], ns, nang, nrad, nrad)
+    wG = torch.einsum("gMba,gMca->gbca", ops.G, ops.G) * Lfacv[:, None, None, None]
+    return -torch.einsum("gbca,gsaNM->sbNcM", wG, KK).reshape(ns, nang * nrad, nang * nrad)
+
+
 def exchange_general_bd(ops: AtomicOperators, tei, U, V, Lfacv,
-                        Pd: torch.Tensor) -> torch.Tensor:
+                        Pd: torch.Tensor, pairwise: bool = False) -> torch.Tensor:
     """Exchange for a density that is BLOCK-DIAGONAL over angular channels,
     P4[a, d] = delta_ad Pd[a] (atomic.py:683-714): the radial kernel runs on
     every (L, channel) pair, KK[g, a] = kernel_L(Pd[a]), then one
@@ -281,14 +350,14 @@ def exchange_general_bd(ops: AtomicOperators, tei, U, V, Lfacv,
 
     Pd [ns, nang, nrad, nrad] holds ns spin densities: their ns * nang
     channels go through ONE radial_exchange launch (the kernel is linear in
-    each channel), and the result is [ns, nbf, nbf]."""
-    nang = ops.G.shape[-1]
+    each channel), and the result is [ns, nbf, nbf]. pairwise selects the
+    pairwise plain form on the CPU (the Yukawa tables; the kernel always
+    runs it)."""
     nrad = ops.Sinvh_rad.shape[0]
     ns = Pd.shape[0] if Pd.dim() == 4 else 1
-    KK = radial_exchange(tei, U, V, ops.gidx, Pd.reshape(-1, nrad, nrad).contiguous())
-    KK = KK.reshape(KK.shape[0], ns, nang, nrad, nrad)
-    wG = torch.einsum("gMba,gMca->gbca", ops.G, ops.G) * Lfacv[:, None, None, None]
-    K = -torch.einsum("gbca,gsaNM->sbNcM", wG, KK).reshape(ns, nang * nrad, nang * nrad)
+    KK = radial_exchange(tei, U, V, ops.gidx, Pd.reshape(-1, nrad, nrad).contiguous(),
+                         pairwise=pairwise)
+    K = _gaunt_weight(ops, Lfacv, KK, ns)
     return K if Pd.dim() == 4 else K[0]
 
 
@@ -297,3 +366,25 @@ def exchange_bd(ops: AtomicOperators, Pd: torch.Tensor) -> torch.Tensor:
     per-channel diagonal radial blocks Pd [nang, nrad, nrad] (or [ns, nang,
     nrad, nrad] for ns spins in one kernel launch)."""
     return exchange_general_bd(ops, ops.tei, ops.disjL, ops.disjm1L, ops.Lfac, Pd)
+
+
+def rs_exchange_bd(ops: AtomicOperators, rs: RSOperators, Pd: torch.Tensor) -> torch.Tensor:
+    """Yukawa short-range exchange for channel-block-diagonal P
+    (atomic.py:723): radial_exchange on the Yukawa tables, Lfac = 4 pi lam.
+    Its i_L/k_L tables span e^(+-lam rmax), which only the pairwise form
+    pairs per element: the kernel's form, and the plain form the CPU runs
+    here. Pd as exchange_bd's, one launch for one or two spins."""
+    return exchange_general_bd(ops, rs.tei, rs.iL, rs.kL, rs.Lfac, Pd, pairwise=True)
+
+
+def erfc_exchange_bd(ops: AtomicOperators, rs: ErfcOperators, Pd: torch.Tensor) -> torch.Tensor:
+    """erfc short-range exchange for channel-block-diagonal P
+    (atomic.py:729-749): KK from radial_erfc_exchange, which contracts the
+    dense element-pair tables with every channel's windows, then the Gaunt
+    weighting with Lfac = 4 pi mu / (2L+1). Pd as exchange_bd's, one launch
+    for one or two spins."""
+    nrad = ops.Sinvh_rad.shape[0]
+    ns = Pd.shape[0] if Pd.dim() == 4 else 1
+    KK = radial_erfc_exchange(rs.tei, ops.gidx, Pd.reshape(-1, nrad, nrad).contiguous())
+    K = _gaunt_weight(ops, rs.Lfac, KK, ns)
+    return K if Pd.dim() == 4 else K[0]

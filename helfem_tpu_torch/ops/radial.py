@@ -2,9 +2,9 @@
 
 Carried over from helfem_tpu/ops/radial.py (numpy/longdouble host setup):
 the one-electron matrices, the disjoint moments and the numpy path of the
-in-element TEI tensor. Not ported yet: the Yukawa, erfc and Bessel tables,
-the origin values used by the post-SCF analysis, and the opt-in native C++
-TEI builder.
+in-element TEI tensor, and the Yukawa and erfc tables of the
+range-separated exchange. Not ported yet: the origin values used by the
+post-SCF analysis, and the opt-in native C++ TEI builder.
 
 Redesign of atomic::basis::RadialBasis (libhelfem/src/RadialBasis.cpp,
 include/RadialBasis.h):
@@ -40,6 +40,8 @@ from dataclasses import dataclass, field
 
 import numpy as np
 
+from helfem_tpu_torch.ops.bessel import bessel_il, bessel_kl
+from helfem_tpu_torch.ops.erfc_expn import phi_table
 from helfem_tpu_torch.ops.fem import FEMBasis
 from helfem_tpu_torch.ops.quadrature import chebyshev
 
@@ -176,6 +178,77 @@ class RadialBasis:
             I = np.einsum("pi,pj,Lpkl->Lijkl", Bw, self.B[e], inner, optimize=True)
             out[:, e] = I + I.transpose(0, 3, 4, 1, 2)
         return out
+
+    def yukawa_disjoint(self, Lmax: int, lam: float):
+        """(i_el, k_el): per-element <B_i B_j i_L(lam r)> and <.. k_L(lam r)>
+        [NL, nelem, nprim, nprim] for the range-separated exchange
+        (reference: RadialBasis::bessel_il/kl_integral). k of element 0 is
+        zeroed (never used; integrand singular at r -> 0)."""
+        nelem, nq = self.r.shape
+        iv = bessel_il(lam * self.r.ravel(), Lmax).reshape(Lmax + 1, nelem, nq)
+        kv = bessel_kl(lam * self.r.ravel(), Lmax).reshape(Lmax + 1, nelem, nq)
+        w = self.wr * self.r**2
+        i_el = np.einsum("eqi,Leq,eq,eqj->Leij", self.b, iv, w, self.b, optimize=True)
+        k_el = np.einsum("eqi,Leq,eq,eqj->Leij", self.b, kv, w, self.b, optimize=True)
+        k_el[:, 0] = 0.0
+        return i_el, k_el
+
+    def yukawa_integral(self, Lmax: int, lam: float) -> np.ndarray:
+        """In-element Yukawa TEI tensor [NL, nelem, np, np, np, np]:
+        int int B_i B_j i_L(lam r<) k_L(lam r>) B_k B_l dr dr'
+        (reference: quadrature::yukawa_integral, quadrature.cpp:128-169)."""
+        nelem, nq = self.r.shape
+        nprim = self.fem.nprim
+        NL = Lmax + 1
+        x, w = self.xq, self.wq
+        out = np.empty((NL, nelem, nprim, nprim, nprim, nprim))
+        for e in range(nelem):
+            rq = self.r[e]
+            lo = np.concatenate([[self.fem.bval[e]], rq[:-1]])
+            hi = rq
+            mid, hlen = 0.5 * (lo + hi), 0.5 * (hi - lo)
+            rp = mid[:, None] + hlen[:, None] * x[None, :]
+            xpoly = (rp - self.fem.mids[e]) / (0.5 * self.fem.lengths[e])
+            Bin = self.fem.eval_element(e, xpoly.ravel(), 0)[0].reshape(nq, nq, nprim)
+            iv_in = bessel_il(lam * rp.ravel(), Lmax).reshape(NL, nq, nq)
+            kv_out = bessel_kl(lam * rq, Lmax)  # [NL, nq]
+            # inner segment weights: w * hlen * i_L(lam r') * k_L(lam r_p)
+            wseg = w[None, None, :] * hlen[None, :, None] * iv_in * kv_out[:, :, None]
+            seg = np.einsum("Lpq,pqk,pql->Lpkl", wseg, Bin, Bin, optimize=True)
+            inner = np.empty_like(seg)
+            inner[:, 0] = seg[:, 0]
+            fac = kv_out[:, 1:] / kv_out[:, :-1]  # [NL, nq-1]
+            for p in range(1, nq):
+                inner[:, p] = seg[:, p] + inner[:, p - 1] * fac[:, p - 1, None, None]
+            Bw = self.B[e] * self.wr[e][:, None]
+            I = np.einsum("pi,pj,Lpkl->Lijkl", Bw, self.B[e], inner, optimize=True)
+            out[:, e] = I + I.transpose(0, 3, 4, 1, 2)
+        return out
+
+    def erfc_integral(self, Lmax: int, mu: float) -> np.ndarray:
+        """Dense short-range (erfc) TEI tensor over ALL element pairs
+        [NL, nelem, nelem, np, np, np, np]:
+        int_e int_f B_i B_j(r) Phi_L(mu r, mu r') B_k B_l(r') dr dr'
+        -- the erfc kernel does not factorize (reference:
+        quadrature::erfc_integral, quadrature.cpp:171-222). Phi is symmetric
+        in its two arguments, so it is evaluated on the upper triangle of the
+        (point, point') grid and mirrored: the same values as on the full
+        grid, in half the host time."""
+        nelem, nq = self.r.shape
+        NL = Lmax + 1
+        rflat = self.r.ravel()
+        npt = rflat.size
+        iu, ju = np.triu_indices(npt)
+        Fu = phi_table(NL - 1, mu * rflat[iu], mu * rflat[ju])
+        F = np.empty((NL, npt, npt))
+        F[:, iu, ju] = Fu
+        F[:, ju, iu] = Fu
+        F = F.reshape(NL, nelem, nq, nelem, nq)
+        Bw = self.B * self.wr[:, :, None]  # [e, q, i]
+        # pair products with outer weights on the bra side only
+        return np.einsum(
+            "eqi,eqj,Leqfp,fpk,fpl->Lefijkl", Bw, self.B, F, Bw, self.B, optimize=True
+        )
 
     def disjoint_integrals(self, Lmax: int):
         """(disjoint_L, disjoint_m1L): per-element moment matrices

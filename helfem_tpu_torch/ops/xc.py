@@ -13,13 +13,15 @@ Ported: Slater exchange, VWN5 and PW92 correlation (LDA); PBE, RPBE and
 B88 exchange, PBE and LYP correlation (GGA), with the revPBE and PBEsol
 parameter variants; TPSS, SCAN and rSCAN exchange and correlation
 (meta-GGA). Methods: HF, lda, svwn/svwn5, pbe, revpbe, pbesol, rpbe, blyp,
-tpss, scan, rscan, the hybrids pbe0/pbeh, tpssh and b3lyp5, and 'x,c' (or
-'x-c') pairs of the catalog's functionals. The laplacian-level BR89
-(ROADMAP.md queue 1 item 6), lda_x_erf and the range-separated methods
-(item 7) raise NotImplementedError. Formulas from the original
-publications (Vosko-Wilk-Nusair 1980; Perdew-Wang 1992;
-Perdew-Burke-Ernzerhof 1996; Becke 1988; Lee-Yang-Parr 1988; Tao et al.
-2003; Sun-Ruzsinszky-Perdew 2015; Bartok-Yates 2019).
+tpss, scan, rscan, the hybrids pbe0/pbeh, tpssh and b3lyp5, the
+range-separated hybrids lc-lda/ldaerf, lcy-lda and sr-pbe0 (with their
+[omega=..,kshort=..,kfull=..] overrides; the short-range LDA exchange
+lda_x_erf), and 'x,c' (or 'x-c') pairs of the catalog's functionals. The
+laplacian-level BR89 (ROADMAP.md queue 1 item 6) raises
+NotImplementedError. Formulas from the original publications
+(Vosko-Wilk-Nusair 1980; Perdew-Wang 1992; Perdew-Burke-Ernzerhof 1996;
+Becke 1988; Lee-Yang-Parr 1988; Tao et al. 2003; Sun-Ruzsinszky-Perdew
+2015; Bartok-Yates 2019; Gill-Adamson-Pople 1996).
 
 Density threshold: points with rho < thr are masked out of energies and
 potentials (libxc's dens_threshold convention, dftgrid.cpp:428).
@@ -77,6 +79,43 @@ class Functional(NamedTuple):
 def _ex_slater(ra, rb, saa, sab, sbb):
     cx = -0.75 * (6.0 / _PI) ** (1.0 / 3.0)
     return cx * (ra ** (4.0 / 3.0) + rb ** (4.0 / 3.0))
+
+
+def _sr_lda_factor(a):
+    """Short-range attenuation of the LDA exchange hole for the erf-split
+    interaction (Gill-Adamson-Pople 1996 / Toulouse-Savin): the kept part is
+    erfc(omega r12)/r12. a = omega / (2 kF). Evaluated directly for small a
+    and by its large-a series (f -> 1/(36 a^2)) where the closed form loses
+    all significance to cancellation. Each branch sees its argument clamped
+    to its own side of a = 8 (asafe, abig), so the branch that torch.where
+    discards has a finite gradient and leaks no NaN into the potential."""
+    a = _max(a, 1e-10)
+    asafe = _min(a, 8.0)
+    t = 1.0 / (2.0 * asafe)
+    direct = 1.0 - (8.0 * asafe / 3.0) * (
+        math.sqrt(_PI) * torch.special.erf(t)
+        + (2.0 * asafe - 4.0 * asafe**3) * torch.exp(-(t * t))
+        - 3.0 * asafe
+        + 4.0 * asafe**3
+    )
+    abig = _max(a, 8.0)
+    series = 1.0 / (36.0 * abig * abig) - 1.0 / (960.0 * abig**4)
+    return torch.where(a < 8.0, direct, series)
+
+
+def _ex_slater_erf(ra, rb, saa, sab, sbb, *, omega=0.5):
+    """Short-range (erfc-kernel) LDA exchange: the semilocal complement used
+    by LC-type range-separated hybrids (libxc lda_x_erf analogue). Exact
+    spin scaling E[ra, rb] = (E[2 ra] + E[2 rb]) / 2."""
+    cx = -0.75 * (3.0 / _PI) ** (1.0 / 3.0)
+
+    def one(r):
+        r2 = 2.0 * r
+        kf = (3.0 * _PI**2 * _max(r2, _TINY)) ** (1.0 / 3.0)
+        f = _sr_lda_factor(omega / (2.0 * kf))
+        return 0.5 * cx * r2 ** (4.0 / 3.0) * f
+
+    return one(ra) + one(rb)
 
 
 # ----------------------------------------------------------------------------
@@ -539,11 +578,12 @@ _CATALOG = {
     "mgga_c_scan": Functional("mgga_c_scan", "mgga", _ec_scan),
     "mgga_x_rscan": Functional("mgga_x_rscan", "mgga", _ex_rscan),
     "mgga_c_rscan": Functional("mgga_c_rscan", "mgga", _ec_rscan),
+    "lda_x_erf": Functional("lda_x_erf", "lda", _ex_slater_erf),
 }
 
 # helfem_tpu catalog entries outside this port's slice, with their ROADMAP
-# item: the laplacian-level BR89 and the short-range LDA exchange
-_UNPORTED_FUNCS = {"mgga_x_br89": 6, "lda_x_erf": 7}
+# item: the laplacian-level BR89
+_UNPORTED_FUNCS = {"mgga_x_br89": 6}
 
 # alias -> (kfrac, [(weight, functional-name, params-dict), ...])
 _ALIASES = {
@@ -572,17 +612,10 @@ _ALIASES = {
                      (1.0, "gga_c_pbe", {"beta": 0.046})]),
 }
 
-# helfem_tpu aliases outside this port's slice: the range-separated methods
-# (ROADMAP.md queue 1 item 7)
-_UNPORTED_METHODS = ("lc-lda", "ldaerf", "lcy-lda", "sr-pbe0")
-
 _MISSING = {
     6: "the laplacian-level meta-GGA (BR89, family mggal) is not ported to helfem_tpu_torch "
        "yet (ROADMAP.md queue 1 item 6)",
-    7: "range separation and lda_x_erf are not ported to helfem_tpu_torch yet "
-       "(ROADMAP.md queue 1 item 7)",
 }
-
 
 def _unported(what: str, item: int) -> NotImplementedError:
     return NotImplementedError(f"{what}: {_MISSING[item]}")
@@ -642,10 +675,9 @@ def _parse_part(part: str) -> Functional:
 
 class MethodSpec(NamedTuple):
     """Parsed method: semilocal functionals plus the exact-exchange mixing
-    kfull * K + kshort * K_sr(omega) (same fields as helfem_tpu's; the port
-    produces the global fractions -- 1 for HF, 0.25 for PBE0, 0.20 for
-    B3LYP5, 0.10 for TPSSh, 0 for pure functionals -- and never a
-    short-range part)."""
+    kfull * K + kshort * K_sr(omega) (helfem_tpu's MethodSpec). K_sr uses
+    the short-range kernel named by `kernel`: 'erfc' for the erf/erfc
+    split, 'yukawa' for exp(-omega r)/r screening."""
 
     funcs: tuple
     kfull: float
@@ -654,17 +686,70 @@ class MethodSpec(NamedTuple):
     kernel: str = "erfc"
 
 
+# range-separated aliases: name -> (kfull, kshort, default omega, kernel,
+# [(weight, func, params, give_omega)]); give_omega passes the (possibly
+# overridden) omega into the functional's own parameter set
+_RS_ALIASES = {
+    # LC-type LDA: full long-range HF + short-range LDA exchange
+    # (Savin's RSH scheme with the erf split)
+    "lc-lda": (1.0, -1.0, 0.5, "erfc",
+               [(1.0, "lda_x_erf", {}, True), (1.0, "lda_c_pw", {}, False)]),
+    "ldaerf": (1.0, -1.0, 0.5, "erfc",
+               [(1.0, "lda_x_erf", {}, True), (1.0, "lda_c_pw", {}, False)]),
+    # Yukawa-kernel variant of the same split; the semilocal part keeps the
+    # erf complement form (the closed-form SR-LDA hole), the HF part is
+    # screened with the Yukawa kernel like the reference's CAMY functionals
+    "lcy-lda": (1.0, -1.0, 0.5, "yukawa",
+                [(1.0, "lda_x_erf", {}, True), (1.0, "lda_c_pw", {}, False)]),
+    # short-range-only exact exchange + PBE correlation (HSE-like mixing
+    # without the wPBE semilocal complement; useful for limit tests)
+    "sr-pbe0": (0.0, 0.25, 0.11, "erfc",
+                [(0.75, "gga_x_pbe", {}, False), (1.0, "gga_c_pbe", {}, False)]),
+}
+
+
+def _split_bracket(m: str):
+    """'name[k=v,...]' -> (name, {k: v}); 'name' -> (name, {})."""
+    if "[" not in m:
+        return m, {}
+    if not m.endswith("]"):
+        raise ValueError(f"malformed method spec '{m}'")
+    base, args = m[:-1].split("[", 1)
+    kv = {}
+    for item in args.split(","):
+        k, v = item.split("=")
+        kv[k.strip()] = float(v)
+    return base, kv
+
+
 @lru_cache(maxsize=None)
 def parse_method_rs(method: str) -> MethodSpec:
-    """'HF', a ported alias ('PBE', 'SVWN', ...) or an 'x_func,c_func' pair
-    (each with optional bracketed parameter overrides), as helfem_tpu parses
-    them."""
+    """'HF', a ported alias ('PBE', 'PBE0', 'LC-LDA[omega=0.4]', ...) or an
+    'x_func,c_func' pair (each with optional bracketed parameter overrides),
+    as helfem_tpu parses them. kshort and omega are zero for global
+    hybrids."""
     m = method.strip().lower()
     if m in ("hf", ""):
         return MethodSpec((), 1.0, 0.0)
-    base = m.split("[", 1)[0]
-    if base in _UNPORTED_METHODS:
-        raise _unported(f"method '{method}'", 7)
+    # an RS alias with overrides is a single 'name[...]' token; anything
+    # else (e.g. 'x[k=v],c' pairs) falls through to the generic parser
+    base, kv = m, {}
+    if "[" in m and m.index("[") > 0 and m[: m.index("[")] in _RS_ALIASES:
+        base, kv = _split_bracket(m)
+    if base in _RS_ALIASES:
+        kfull, kshort, omega, kernel, parts = _RS_ALIASES[base]
+        omega = kv.pop("omega", omega)
+        kfull = kv.pop("kfull", kfull)
+        kshort = kv.pop("kshort", kshort)
+        if kv:
+            raise ValueError(f"unknown method overrides {sorted(kv)} for '{base}'")
+        funcs = tuple(
+            scale_functional(
+                w, with_params(_CATALOG[k], **({**pv, "omega": omega} if go else pv))
+            )
+            for w, k, pv, go in parts
+        )
+        return MethodSpec(funcs, kfull, kshort, omega, kernel)
     if m in _ALIASES:
         kfrac, parts = _ALIASES[m]
         return MethodSpec(
@@ -673,7 +758,9 @@ def parse_method_rs(method: str) -> MethodSpec:
             0.0,
         )
     # reference-compatible 'x-c' pair syntax: split at the FIRST top-level
-    # dash (parse_xc_func, ref src/general/dftfuncs.cpp:99-108)
+    # dash (parse_xc_func, ref src/general/dftfuncs.cpp:99-108); catalog
+    # names use underscores, so a top-level dash is always the pair
+    # separator (dash-named RS aliases were already resolved above)
     if "," not in m:
         depth = 0
         for i, ch in enumerate(m):
@@ -702,8 +789,15 @@ def parse_method_rs(method: str) -> MethodSpec:
 
 
 def parse_method(method: str):
-    """(funcs, kfrac) of a method without range separation."""
+    """(funcs, kfrac) of a method without range separation. A
+    range-separated method raises ValueError, as helfem_tpu's does, so that
+    no caller drops its short-range exchange silently."""
     spec = parse_method_rs(method)
+    if spec.omega != 0.0 or spec.kshort != 0.0:
+        raise ValueError(
+            f"'{method}' is range-separated; use parse_method_rs / the scf "
+            "drivers, which wire kshort*K_sr(omega)"
+        )
     return list(spec.funcs), spec.kfull
 
 

@@ -1,8 +1,10 @@
 """Atomic SCF driver (L7), ported from helfem_tpu/scf/atomic_scf.py.
 
-The port runs HF, the ported LDA, GGA and meta-GGA functionals and their
-global hybrids (PBE0, B3LYP5, TPSSh), restricted (RHF/RKS), unrestricted
-(UHF/UKS) or ROHF, under (l,m) symmetry blocks (symmetry=2):
+The port runs HF, the ported LDA, GGA and meta-GGA functionals, their
+global hybrids (PBE0, B3LYP5, TPSSh) and the range-separated hybrids
+(LC-LDA, LDAERF, LCY-LDA, SR-PBE0: kfull K + kshort K_sr(omega), the erfc
+or Yukawa kernel), restricted (RHF/RKS), unrestricted (UHF/UKS) or ROHF,
+under (l,m) symmetry blocks (symmetry=2):
 
   two host iterations (Fock on the device, host DIIS) ->
   fused device chunks of 4, 8, then 16 iterations: density -> Coulomb,
@@ -13,10 +15,9 @@ global hybrids (PBE0, B3LYP5, TPSSh), restricted (RHF/RKS), unrestricted
 ROHF stays on the host loop (its Fock update is host numpy every
 iteration), as in helfem_tpu. helfem_tpu's lax.while_loop chunk becomes a
 Python loop over tensors that stay on the device; one boolean per iteration
-comes back to stop the chunk. Every other scf_atom option (range
-separation, meta-GGAs, fields, confinement, finite nuclei, --ndev,
---eigiter, m-averaging, damping, ...) raises NotImplementedError: nothing
-falls back silently.
+comes back to stop the chunk. Every other scf_atom option (fields,
+confinement, finite nuclei, --ndev, --eigiter, m-averaging, damping, ...)
+raises NotImplementedError: nothing falls back silently.
 """
 
 from dataclasses import dataclass, field
@@ -27,12 +28,16 @@ import torch
 from helfem_tpu_torch.models.atomic import (
     AtomicBasis,
     AtomicOperators,
+    ErfcOperators,
+    RSOperators,
     channel_diag,
     coulomb,
+    erfc_exchange_bd,
     exchange_bd,
+    rs_exchange_bd,
 )
 from helfem_tpu_torch.models.atomic_dft import AtomGridOps, build_atomic_grid, eval_fxc
-from helfem_tpu_torch.ops.xc import parse_method_rs
+from helfem_tpu_torch.ops.xc import MethodSpec, parse_method_rs
 from helfem_tpu_torch.scf.common import (
     aufbau_blocks,
     diis_error_blocks,
@@ -54,7 +59,7 @@ from helfem_tpu_torch.utils.linalg import (
     scatter_blocks,
 )
 
-__all__ = ["scf_atom", "SCFResult", "aufbau_blocks", "atomic_method", "make_fock"]
+__all__ = ["scf_atom", "SCFResult", "aufbau_blocks", "make_fock", "rs_operators"]
 
 
 @dataclass
@@ -90,28 +95,38 @@ def _diis_error(F, P, S, Sinvh):
 
 
 def make_fock(funcs, kfrac: float, nrad: int, dftthr: float = 1e-12,
-              restricted: bool = False):
+              restricted: bool = False, kshort: float = 0.0, kernel: str = "erfc",
+              rs: ErfcOperators | RSOperators | None = None):
     """Fock builder for channel-block-diagonal densities (helfem_tpu's
-    make_fock with bd=True, atomic_scf.py:149-211; no fields or range
-    separation): fock(ops, g, Pa, Pb) -> (Fa, Fb, Ekin, Enuc, Ecoul, Exx,
-    Exc, Nel), the energies device scalars. Coulomb is one radial_coulomb
-    launch; the exchange kfrac K is one radial_exchange launch, for Pa alone
-    when restricted (Pb is Pa) and for both spins together otherwise; the
-    XC of funcs on the grid g is one launch each of dia_xc_fields and
-    dia_xc_fock (models/atomic_dft.py:eval_fxc)."""
+    make_fock with bd=True, atomic_scf.py:149-211; no fields): fock(ops, g,
+    Pa, Pb) -> (Fa, Fb, Ekin, Enuc, Ecoul, Exx, Exc, Nel), the energies
+    device scalars. Coulomb is one radial_coulomb launch; the exchange
+    kfrac K + kshort K_sr(omega), with the short-range tables rs of
+    `kernel`, is one radial_exchange launch for kfrac K, and one launch for
+    kshort K_sr, radial_erfc_exchange on the erfc tables or radial_exchange
+    on the Yukawa tables; each launch takes Pa alone when restricted (Pb is
+    Pa) and both spins together otherwise. The XC of funcs on the grid g is
+    one launch each of dia_xc_fields and dia_xc_fock
+    (models/atomic_dft.py:eval_fxc)."""
+    if kshort != 0.0 and rs is None:
+        raise ValueError("make_fock: kshort != 0 needs the short-range tables rs")
+    sr_exchange = erfc_exchange_bd if kernel == "erfc" else rs_exchange_bd
 
     def fock(ops: AtomicOperators, g, Pa: torch.Tensor, Pb: torch.Tensor):
         P = Pa + Pb
         J = coulomb(ops, P)
         Fa = Fb = ops.H0 + J
         Exx = Exc = Nel = torch.zeros((), dtype=P.dtype, device=P.device)
-        if kfrac != 0.0:
+        if kfrac != 0.0 or kshort != 0.0:
             nang = ops.G.shape[-1]
-            if restricted:
-                Ka = Kb = kfrac * exchange_bd(ops, channel_diag(Pa, nang, nrad))
-            else:
-                Ka, Kb = kfrac * exchange_bd(ops, torch.stack(
-                    (channel_diag(Pa, nang, nrad), channel_diag(Pb, nang, nrad))))
+            Pd = (channel_diag(Pa, nang, nrad) if restricted else
+                  torch.stack((channel_diag(Pa, nang, nrad), channel_diag(Pb, nang, nrad))))
+            K = 0.0
+            if kfrac != 0.0:
+                K = kfrac * exchange_bd(ops, Pd)
+            if kshort != 0.0:
+                K = K + kshort * sr_exchange(ops, rs, Pd)
+            Ka, Kb = (K, K) if restricted else K
             Fa, Fb = Fa + Ka, Fb + Kb
             Exx = 0.5 * (vdot(Pa, Ka) + vdot(Pb, Kb))
         if funcs:
@@ -130,11 +145,13 @@ def _components(Ekin, Enuc, Ecoul, Exx, Exc):
     return torch.stack([Ekin, Enuc, Ecoul, Exx, Exc, torch.zeros_like(Ekin)])
 
 
-def make_fused_step(funcs, kfrac: float, nrad: int, dftthr: float = 1e-12):
+def make_fused_step(funcs, kfrac: float, nrad: int, dftthr: float = 1e-12,
+                    kshort: float = 0.0, kernel: str = "erfc", rs=None):
     """One restricted SCF iteration on the device: density -> Fock ->
     block-coordinate C2-DIIS (circular history, updated in place) ->
     blocked eigensolve. Only (energy, DIIS error) need to reach the host."""
-    fock = make_fock(funcs, kfrac, nrad, dftthr, restricted=True)
+    fock = make_fock(funcs, kfrac, nrad, dftthr, restricted=True, kshort=kshort,
+                     kernel=kernel, rs=rs)
 
     def step(ops, g, blk_idx, blk_sinvh, Sb, occ, C, histF, histE, count):
         nbf = ops.S.shape[0]
@@ -152,14 +169,15 @@ def make_fused_step(funcs, kfrac: float, nrad: int, dftthr: float = 1e-12):
     return step
 
 
-def make_fused_chunk(funcs, kfrac: float, nrad: int, dftthr: float = 1e-12):
+def make_fused_chunk(funcs, kfrac: float, nrad: int, dftthr: float = 1e-12,
+                     kshort: float = 0.0, kernel: str = "erfc", rs=None):
     """Up to `nrun` fused iterations with the convergence test (err <
     convthr and |dE| < convthr, the host loop's own) on the device after
     each; occupations are frozen within a chunk. Returns the per-iteration
     orbitals, eigenvalues, energies, errors, grid electron counts and
     energy components, the new DIIS count and the number of iterations
     run."""
-    step = make_fused_step(funcs, kfrac, nrad, dftthr)
+    step = make_fused_step(funcs, kfrac, nrad, dftthr, kshort, kernel, rs)
 
     def chunk(ops, g, blk_idx, blk_sinvh, occ, C, histF, histE, count, convthr,
               Eprev, nrun):
@@ -185,7 +203,8 @@ def make_fused_chunk(funcs, kfrac: float, nrad: int, dftthr: float = 1e-12):
     return chunk
 
 
-def make_fused_chunk_u(funcs, kfrac: float, nrad: int, dftthr: float = 1e-12):
+def make_fused_chunk_u(funcs, kfrac: float, nrad: int, dftthr: float = 1e-12,
+                       kshort: float = 0.0, kernel: str = "erfc", rs=None):
     """Unrestricted analogue of make_fused_chunk (atomic_scf.py:317-413):
     the DIIS history stores spin-stacked block-coordinate Fock pairs with
     the combined alpha+beta error vector (the reference's uDIIS
@@ -193,7 +212,8 @@ def make_fused_chunk_u(funcs, kfrac: float, nrad: int, dftthr: float = 1e-12):
     eigensolve. Returns per iteration the orbitals and eigenvalues of both
     spins, energies, errors, grid electron counts and energy components,
     then the new DIIS count and the number of iterations run."""
-    fock = make_fock(funcs, kfrac, nrad, dftthr, restricted=False)
+    fock = make_fock(funcs, kfrac, nrad, dftthr, restricted=False, kshort=kshort,
+                     kernel=kernel, rs=rs)
 
     def chunk(ops, g, blk_idx, blk_sinvh, occa, occb, Ca, Cb, histF, histE, count,
               convthr, Eprev, nrun):
@@ -243,17 +263,18 @@ _UNPORTED = {
 }
 
 
-def atomic_method(method: str):
-    """(funcs, kfrac) of a method the port runs on atoms: HF, the ported
-    LDA, GGA and meta-GGA functionals and their global hybrids. Raises
-    NotImplementedError for the functionals ops/xc.py does not port and for
-    range separation (ROADMAP.md queue 1 items 6 and 7)."""
-    spec = parse_method_rs(method)
-    if spec.kshort:
-        raise NotImplementedError(
-            f"method '{method}' needs the range-separated exchange, which is not ported "
-            "to helfem_tpu_torch yet (ROADMAP.md queue 1 item 7)")
-    return spec.funcs, spec.kfull
+def rs_operators(basis: AtomicBasis, spec: MethodSpec, device):
+    """(kfrac, kshort, rs) of a method: its exact-exchange fractions and its
+    short-range tables, built on `device` (None without range separation).
+    omega = 0 folds kshort into kfrac and builds no tables: the short-range
+    kernel is then the full one (helfem_tpu atomic_scf.py:533-540)."""
+    kfrac, kshort = spec.kfull, spec.kshort
+    if kshort == 0.0:
+        return kfrac, 0.0, None
+    if spec.omega == 0.0:
+        return kfrac + kshort, 0.0, None
+    build = basis.build_erfc if spec.kernel == "erfc" else basis.build_yukawa
+    return kfrac, kshort, build(spec.omega, device)
 
 
 def scf_atom(
@@ -274,18 +295,22 @@ def scf_atom(
     ldft: int = 0,
     device=None,
     grid: AtomGridOps | None = None,
+    rs: ErfcOperators | RSOperators | None = None,
     **unported,
 ) -> SCFResult:
     """Restricted, unrestricted or ROHF SCF of HF, the ported LDA, GGA and
-    meta-GGA functionals and their global hybrids under (l,m) symmetry blocks
+    meta-GGA functionals, their global hybrids and the range-separated
+    hybrids under (l,m) symmetry blocks
     (helfem_tpu's scf_atom at symmetry 2). restricted = -1 restricts
     exactly when nela == nelb, 0 runs UHF/UKS, and 1 with nela != nelb runs
     ROHF through rohf_update on the host loop alone, as helfem_tpu does.
     The operators (and the grid of a functional, ldft theta points, 0 for
-    2 lmax + 12) are built on `device` unless `ops` (and `grid`) are given,
-    in which case the SCF runs on ops' device."""
+    2 lmax + 12, and a range-separated method's short-range tables, see
+    rs_operators) are built on `device` unless `ops` (and `grid`, `rs`)
+    are given, in which case the SCF runs on ops' device."""
     reject_unported(unported, _UNPORTED, "scf_atom")
-    funcs, kfrac = atomic_method(method)
+    spec = parse_method_rs(method)  # raises for the functionals the port lacks
+    funcs = spec.funcs
     if symmetry not in (-1, 2):
         raise NotImplementedError(f"symmetry={symmetry}: only (l,m) blocks "
                                   "(symmetry 2) are ported")
@@ -296,6 +321,9 @@ def scf_atom(
         ops = basis.build_operators(device)
     device = ops.device
     nrad = basis.nrad
+    kfrac, kshort, rs = (rs_operators(basis, spec, device) if rs is None
+                         else (spec.kfull, spec.kshort, rs))
+    kernel = spec.kernel
     g = grid
     if funcs and g is None:
         g = build_atomic_grid(basis, device, ntheta=ldft)
@@ -305,7 +333,8 @@ def scf_atom(
     blk_idx_np, blk_sinvh_np = build_blocks(S_np, basis.sym_blocks(symm))
     blk_idx = torch.as_tensor(blk_idx_np, device=device)
     blk_sinvh = torch.as_tensor(blk_sinvh_np, device=device)
-    fock = make_fock(funcs, kfrac, nrad, dftthr, restricted=restricted)
+    fock = make_fock(funcs, kfrac, nrad, dftthr, restricted=restricted, kshort=kshort,
+                     kernel=kernel, rs=rs)
 
     def as_dev(x) -> torch.Tensor:
         return torch.as_tensor(np.asarray(x), dtype=torch.float64, device=device)
@@ -348,7 +377,7 @@ def scf_atom(
             if fused is None:
                 ns = 1 if restricted else 2
                 fused = (make_fused_chunk if restricted else make_fused_chunk_u)(
-                    funcs, kfrac, nrad, dftthr)
+                    funcs, kfrac, nrad, dftthr, kshort, kernel, rs)
                 histF = torch.zeros((nhist, *(() if restricted else (2,)), nblk, blen, blen),
                                     dtype=torch.float64, device=device)
                 histE = torch.zeros((nhist, ns * nblk * blen * blen), dtype=torch.float64,

@@ -19,9 +19,10 @@ Python loop over tensors that stay on the device; one boolean per iteration
 comes back to stop the chunk. The eigensolve is torch.linalg.eigh per block
 with helfem_tpu's four refinement passes (utils/linalg.py:eigh_refined);
 its warm start is not carried over. Every other scf_diatomic option
-(enforced occupations, range-separated and meta-GGA hybrids, fields, finite
-nuclei, level shifts, --ndev, ...) raises NotImplementedError: nothing
-falls back silently.
+(enforced occupations, fields, finite nuclei, level shifts, --ndev, ...)
+raises NotImplementedError: nothing falls back silently. A range-separated
+method raises ValueError, as helfem_tpu's does (range separation exists on
+atoms only).
 """
 
 from dataclasses import dataclass, field
@@ -38,7 +39,7 @@ from helfem_tpu_torch.models.diatomic import (
 )
 from helfem_tpu_torch.models.diatomic_dft import DiaGridOps, build_dia_grid, eval_fxc_dia
 from helfem_tpu_torch.models.diatomic_tools import guess_hamiltonian_dia
-from helfem_tpu_torch.ops.xc import parse_method_rs
+from helfem_tpu_torch.ops.xc import parse_method
 from helfem_tpu_torch.scf.common import (
     aufbau_blocks,
     diis_error_blocks,
@@ -249,11 +250,10 @@ def scf_diatomic(
     and the grid (none for pure HF) are built on `device` unless `ops` is
     given, in which case the SCF runs on ops' device."""
     reject_unported(unported, _UNPORTED, "scf_diatomic")
-    spec = parse_method_rs(method)
-    funcs, kfrac = spec.funcs, spec.kfull
-    if spec.kshort:
-        raise NotImplementedError(f"method '{method}' needs the range-separated exchange, "
-                                  "which is not ported to helfem_tpu_torch yet")
+    # a range-separated method raises ValueError, as helfem_tpu's does: range
+    # separation exists on atoms only
+    funcs, kfrac = parse_method(method)
+    funcs = tuple(funcs)
     if ops is None:
         if device is None:
             raise ValueError("scf_diatomic needs a device (or prebuilt ops)")

@@ -57,11 +57,11 @@ def test_cli_runs_with_its_default_sap_guess(capsys):
 
 
 @pytest.mark.parametrize("extra, match", [
-    (["--method", "lcy-lda"], "lcy-lda"),
+    (["--method", "mgga_x_br89,gga_c_pbe"], "mgga_x_br89"),
     (["--Ez", "0.01"], "--Ez"),
     (["--ndev", "2"], "--ndev"),
     (["--symmetry", "1"], "--symmetry"),
-], ids=["lcy_lda", "field_flag", "ndev_flag", "symmetry_flag"])
+], ids=["br89", "field_flag", "ndev_flag", "symmetry_flag"])
 def test_cli_unported_raises(extra, match):
     with pytest.raises(NotImplementedError, match=match):
         main(HE + extra + ["--device", "cpu"])

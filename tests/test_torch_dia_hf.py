@@ -112,8 +112,10 @@ def test_fock_exchange_routes_agree(core_state, kfrac):
 
 @pytest.mark.parametrize("method", ["LC-LDA", "sr-PBE0"])
 def test_range_separated_methods_raise(method):
+    """Range separation exists on atoms only: scf_diatomic raises
+    helfem_tpu's ValueError (parse_method's)."""
     cfg, nel = CASES["H2"]
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="is range-separated"):
         diatomic_scf.scf_diatomic(DiatomicBasis(**cfg), nel, nel, method=method, device="cpu")
 
 

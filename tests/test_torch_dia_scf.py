@@ -46,18 +46,21 @@ def test_cli_runs_on_cpu(capsys):
     assert "piu" in out and "occ" in out
 
 
-@pytest.mark.parametrize("extra, match", [
-    (["--method", "LC-LDA"], "LC-LDA"),
-    (["--method", "sr-pbe0"], "sr-pbe0"),
-    (["--method", "mgga_x_br89,gga_c_pbe"], "mgga_x_br89"),
-    (["--Q", "1", "--readocc"], "--readocc"),
-    (["--Ez", "0.01"], "--Ez"),
-    (["--ndev", "2"], "--ndev"),
-    (["--restricted", "0", "--Bz", "0.1"], "--Bz"),
+@pytest.mark.parametrize("extra, error, match", [
+    (["--method", "LC-LDA"], ValueError, "LC-LDA' is range-separated"),
+    (["--method", "sr-pbe0"], ValueError, "sr-pbe0' is range-separated"),
+    (["--method", "mgga_x_br89,gga_c_pbe"], NotImplementedError, "mgga_x_br89"),
+    (["--Q", "1", "--readocc"], NotImplementedError, "--readocc"),
+    (["--Ez", "0.01"], NotImplementedError, "--Ez"),
+    (["--ndev", "2"], NotImplementedError, "--ndev"),
+    (["--restricted", "0", "--Bz", "0.1"], NotImplementedError, "--Bz"),
 ], ids=["range_separated", "sr_hybrid", "br89", "open_shell", "field_flag", "ndev_flag",
         "uhf_flag"])
-def test_cli_unported_raises(extra, match):
-    with pytest.raises(NotImplementedError, match=match):
+def test_cli_unported_raises(extra, error, match):
+    """Unported flags and functionals raise NotImplementedError; a
+    range-separated method raises helfem_tpu's ValueError (range separation
+    exists on atoms only)."""
+    with pytest.raises(error, match=match):
         main(N2_CLI + extra + ["--device", "cpu"])
 
 

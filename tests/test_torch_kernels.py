@@ -79,16 +79,22 @@ def _assemble(Kpair, gidx, nrad):
     return out[:nrad, :nrad]
 
 
-def test_plain_exchange_matches_element_pair_reference(host):
-    """Element-pair loops (the reference's TwoDBasis.cpp:987-1135 layout)."""
-    basis, ops = host
-    args = _inputs(basis, ops, "cpu")["radial_exchange"]
-    got = kernels.radial_exchange_plain(*args).numpy()
+def _close_blocks(got, ref):
+    """Each [nrad, nrad] block within TOL x its max-abs."""
+    for g in range(ref.shape[0]):
+        for a in range(ref.shape[1]):
+            assert np.abs(got[g, a] - ref[g, a]).max() <= TOL * np.abs(ref[g, a]).max()
+
+
+def _exchange_pair_reference(args, nrad):
+    """K1's function by element-pair loops (the reference's
+    TwoDBasis.cpp:987-1135 layout), [NL, nang, nrad, nrad]."""
     tei, U, V, gidx, Pd = (a.numpy() for a in args)
     ne = gidx.shape[0]
+    out = np.zeros((tei.shape[0], Pd.shape[0], nrad, nrad))
     for g in range(tei.shape[0]):
         for a in range(Pd.shape[0]):
-            W = _windows(Pd[a], gidx, basis.nrad)
+            W = _windows(Pd[a], gidx, nrad)
             Kp = np.zeros(W.shape)
             for e in range(ne):
                 for f in range(ne):
@@ -98,8 +104,113 @@ def test_plain_exchange_matches_element_pair_reference(host):
                         Kp[e, f] = V[g, e] @ W[e, f] @ U[g, f].T
                     else:
                         Kp[e, f] = U[g, e] @ W[e, f] @ V[g, f].T
-            ref = _assemble(Kp, gidx, basis.nrad)
-            assert np.abs(got[g, a] - ref).max() <= TOL * np.abs(ref).max()
+            out[g, a] = _assemble(Kp, gidx, nrad)
+    return out
+
+
+def test_plain_pairwise_exchange_matches_element_pair_reference(host):
+    """The pairwise plain form (the Yukawa tables' yardstick) on the same
+    loops."""
+    basis, ops = host
+    args = _inputs(basis, ops, "cpu")["radial_exchange"]
+    _close_blocks(kernels.radial_exchange_pairwise_plain(*args).numpy(),
+                  _exchange_pair_reference(args, basis.nrad))
+
+
+def _random_erfc_inputs(dev, nnodes, ns, nelem=3, NL=3, nang=4, seed=61):
+    """K10's inputs on random tables: the element layout of an FEMBasis of
+    nelem LIP elements on nnodes nodes, random tei [NL, nelem, nelem,
+    np^4] and ns * nang random symmetric channels."""
+    from helfem_tpu_torch.ops.fem import FEMBasis
+    from helfem_tpu_torch.ops.polynomials import get_basis
+
+    fem = FEMBasis(get_basis(4, nnodes), np.linspace(0.0, 10.0, nelem + 1))
+    rng = np.random.default_rng(seed)
+    npr, nrad = fem.nprim, fem.nbf
+    tei = torch.tensor(rng.standard_normal((NL, nelem, nelem) + (npr,) * 4), device=dev)
+    X = rng.standard_normal((ns * nang, nrad, nrad))
+    Pd = torch.tensor(X + X.transpose(0, 2, 1), device=dev)
+    return tei, torch.tensor(fem.gidx, dtype=torch.int32, device=dev), Pd
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ns", [1, 2])
+@pytest.mark.parametrize("nnodes", [8, 15], ids=["np8", "np15"])
+def test_erfc_exchange_kernel_matches_plain_on_card(cuda_device, nnodes, ns):
+    """K10 on random tables: 1e-12 x max-abs of the plain version, equal
+    bits twice, one launch per call."""
+    args = _random_erfc_inputs(cuda_device, nnodes, ns)
+    out = _check_twice("radial_erfc_exchange", args)
+    ref = kernels.radial_erfc_exchange_plain(*args)
+    assert float((out - ref).abs().max()) <= TOL * float(ref.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ns", [1, 2])
+@pytest.mark.parametrize("shape", ["ar", "xe"])
+def test_erfc_exchange_kernel_at_bench_shapes_on_card(cuda_device, shape, ns):
+    """K10 on the erfc tables of the Ar and Xe bench bases (chip_smoke.py's
+    phase 18 inputs)."""
+    import chip_smoke as cs
+
+    work, _ = cs.erfc_inputs(shape, cuda_device, ns)
+    args = work["radial_erfc_exchange"][0]
+    out = _check_twice("radial_erfc_exchange", args)
+    ref = kernels.radial_erfc_exchange_plain(*args)
+    assert float((out - ref).abs().max()) <= TOL * float(ref.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lam", [0.5, 5.0])
+def test_radial_exchange_on_yukawa_tables_on_card(cuda_device, lam):
+    """K1 on Yukawa tables at rmax 40 (i_L reaches ~1e84 at lam = 5 on the
+    Ar bench basis) against the pairwise plain version."""
+    import chip_smoke as cs
+
+    args = cs.yukawa_inputs(lam, cuda_device)[0]
+    out = _check_twice("radial_exchange", args)
+    ref = kernels.radial_exchange_pairwise_plain(*args)
+    assert float((out - ref).abs().max()) <= TOL * float(ref.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nnodes", [8, 15], ids=["np8", "np15"])
+def test_erfc_plan_matches_kernel_smem(cuda_device, nnodes):
+    """K10's wrapper plans its shared memory as the kernel counts it."""
+    from helfem_tpu_torch.kernels import _build, _radial
+
+    kernels.radial_erfc_exchange(*_random_erfc_inputs(cuda_device, nnodes, 2))
+    mod = _wrapper_module("radial_erfc_exchange")
+    for t, *_ in [v[1] for v in mod._templates.values()]:
+        want = (_radial.fixed_bytes(t.nelem, t.nprim, t.nrad)
+                + 4 * (t.nelem * t.nprim + t.nrad)
+                + 8 * _radial.band_doubles(t.R, t.CG, t.NU, t.nprim))
+        assert _build.lib().radial_erfc_exchange_smem(ctypes.byref(t)) == want
+        assert want <= _radial.SMEM_BLOCK
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method, nel", [("LC-LDA", (2, 2)), ("lcy-lda[omega=0.7]", (2, 1)),
+                                         ("SR-PBE0", (2, 1))])
+def test_rs_scf_on_card_matches_cpu(cuda_device, method, nel):
+    """Range-separated SCFs on the card: K10 (erfc) or K1 on the Yukawa
+    tables once per Fock build, the CPU's energy within 1e-10 Eh."""
+    cfg = dict(Z=sum(nel), lmax=1, mmax=1, rmax=15.0, nelem=5, nnodes=8)
+    cpu = scf_atom(AtomicBasis(**cfg), *nel, method=method, convthr=1e-10, device="cpu")
+    kernels.reset_launches()
+    gpu = scf_atom(AtomicBasis(**cfg), *nel, method=method, convthr=1e-10, device=cuda_device)
+    assert gpu.converged and abs(gpu.E - cpu.E) < 1e-10
+    erfc = "lcy" not in method.lower()
+    assert kernels.launches["radial_erfc_exchange"] == (gpu.niter if erfc else 0)
+    assert kernels.launches["radial_exchange"] == gpu.niter * ((method != "SR-PBE0") + (not erfc))
+
+
+def test_plain_exchange_matches_element_pair_reference(host):
+    """Element-pair loops (the reference's TwoDBasis.cpp:987-1135 layout)."""
+    basis, ops = host
+    args = _inputs(basis, ops, "cpu")["radial_exchange"]
+    _close_blocks(kernels.radial_exchange_plain(*args).numpy(),
+                  _exchange_pair_reference(args, basis.nrad))
 
 
 def test_plain_coulomb_matches_element_loop_reference(host):
