@@ -160,7 +160,24 @@ Phases, any failure raises and exits non-zero:
      0 and once more for the Yukawa kernel, never for SR-PBE0, K4 once and
      K5 once (twice more for the grid self-check); then the warm walls (min
      of 3) and device shares (eigh, K1, K2, K10, K4, K5, xc_eval) of Ar and
-     Xe LC-LDA.
+     Xe LC-LDA;
+ 19. the laplacian-level BR89: K4 and K5 in laplacian mode against their
+     plain versions on the N2 bench, N2 lmax=12 (one spin), Ar and Xe
+     atomic grids at one and two spins (1e-12 x max-abs, the same bits
+     twice, one launch per call, CUDA-event, profiler and queued times
+     beside the bound); one BR89 Fock build (K4 and K5 once each) on the
+     converged Ar HF and N2 PBE densities at the bench bases, Exc within
+     1e-10 and tr(Fxc P), ||Fxc|| within 1e-9 (relative) of helfem_tpu's,
+     and the first five BR89 iterations there within 1e-9 Eh of
+     helfem_tpu's (its BR89 does not converge at the bench bases); one BR89
+     xc_eval's launches; H's BR89 exchange on its converged HF density
+     within 1e-7 of the exact -5/16; Ar, Ne, Ne BR89-LYP, quartet N UKS,
+     N2 and H2 BR89, Ne BR89 with Fock damping, N2 BR89 with diisthr and
+     gensap Ne with diisthr through the port's CLIs and N2 BR89 with the
+     level shift 1.0 through scf_diatomic, each within 1e-9 Eh of
+     helfem_tpu's f64 value in its iteration count, K4 and K5 once per Fock
+     build (the atomic CLI's K5 twice more); then the warm walls and device
+     shares (eigh, K4, K5, xc_eval) of Ar and N UKS BR89.
 The last two lines are the kernels' JSON record and {"ok": true, ...}.
 """
 
@@ -393,6 +410,70 @@ RS_CELLS = {
     "Xe LC-LDA": (XE_RS_CLI + ["--method", "LC-LDA"], -7229.3531863185544, 11),
 }
 RS_GATE = 1e-9
+# phase 19: the laplacian-level BR89. K4/K5 in laplacian mode on these grids
+# (the lmax=12 one at one spin)
+LAPL_GRIDS = ("n2", "lmax12", "ar", "xe")
+# helfem_tpu's BR89 does not converge at the bench bases (its DIIS error
+# stays at 0.3-1.4 at Ar, near 5e-3 at N2), so the full-width checks are one
+# BR89 Fock build on the converged Ar HF (bench Ar, TF, convthr 1e-9) and N2
+# PBE (bench N2, core guess, convthr 1e-7) densities -- Exc, tr(Fxc P) and
+# ||Fxc|| of helfem_tpu's eval_fxc / eval_fxc_dia (mgga_x_br89) in f64 on
+# the CPU from its own SCF at the same settings -- and the energies of the
+# first five BR89 iterations at both bench bases (scf_atom TF guess,
+# scf_diatomic core guess, maxit 5), helfem_tpu's verbose lines.
+LAPL_FOCK_REFS = {
+    "ar": {"Exc": -30.546668267754296, "trFP": -20.56157514527068, "Fnorm": 38.156320333904006},
+    "n2": {"Exc": -13.294799188800758, "trFP": -8.851908285187628, "Fnorm": 94.53318056823409},
+}
+LAPL_FIVE_REFS = {
+    "ar": (-526.082300718588, -523.86009660598, -526.966909220955, -527.516676850013,
+           -527.520908829374),
+    "n2": (-92.221153388574, -89.747615702539, -108.79648311108, -108.947663984426,
+           -108.985609809719),
+}
+LAPL_FOCK_TOL = 1e-10  # Exc, relative; tr(Fxc P) and ||Fxc|| 1e-9 relative
+LAPL_FIVE_TOL = 1e-9  # Eh
+# converged BR89 cells and the three SCF controls, through the port's CLIs
+# (TF guess for atoms, core guess for diatomics, convthr 1e-8): label ->
+# (CLI module, arguments, helfem_tpu's energy, its iteration count). Each is
+# helfem_tpu's CLI in f64 on the CPU with the same arguments, e.g.
+# `python -m helfem_tpu.cli.atomic --Z Ar --lmax 1 --mmax 1 --Rmax 30
+# --nelem 6 --nnodes 8 --iguess 3 --convthr 1e-8 --method mgga_x_br89`,
+# `python -m helfem_tpu.cli.diatomic --Z1 N --Z2 N --Rbond 2.0743 --lmax
+# 4,4 --Rmax 15 --nelem 3 --nnodes 6 --convthr 1e-8 --method mgga_x_br89`
+# and `python -m helfem_tpu.cli.gensap --Z Ne --lmax 1 --Rmax 30 --nelem 6
+# --nnodes 8 --method SVWN --nosearch --convthr 1e-8 --diisthr 0.01`
+# (gensap's result has no iteration count); "N2 BR89 shift" is helfem_tpu's
+# scf_diatomic(..., method="mgga_x_br89", convthr=1e-8, shift=1.0) on the
+# same basis (the level shift has no CLI flag there either)
+BR_ATOM = ["--lmax", "1", "--mmax", "1", "--Rmax", "30", "--nelem", "6", "--nnodes", "8",
+           "--iguess", "3", "--convthr", "1e-8", "--method", "mgga_x_br89"]
+BR_N2 = ["--Z1", "N", "--Z2", "N", "--Rbond", "2.0743", "--lmax", "4,4", "--Rmax", "15",
+         "--nelem", "3", "--nnodes", "6", "--convthr", "1e-8", "--method", "mgga_x_br89"]
+BR_N2_BASIS = dict(Z1=7, Z2=7, Rbond=2.0743, lmax=(4, 4), rmax=15.0, nelem=3, nnodes=6)
+LAPL_CELLS = {
+    "Ar BR89": ("atomic", ["--Z", "Ar"] + BR_ATOM, -527.3893273557395, 16),
+    "Ne BR89": ("atomic", ["--Z", "Ne"] + BR_ATOM, -128.92297825020395, 16),
+    "Ne BR89-LYP": ("atomic", ["--Z", "Ne"] + BR_ATOM[:-1] + ["mgga_x_br89,gga_c_lyp"],
+                    -129.30565920773984, 16),
+    "N UKS BR89": ("atomic", ["--Z", "N", "--M", "4"] + BR_ATOM, -54.588885492651755, 18),
+    "N2 BR89": ("diatomic", BR_N2, -103.34609096274556, 17),
+    "H2 BR89": ("diatomic", ["--Z1", "H", "--Z2", "H", "--Rbond", "1.4", "--lmax", "4"]
+                + BR_N2[8:] + ["--maxit", "100"], -1.160565012388095, 50),
+    "Ne BR89 dampfock": ("atomic", ["--Z", "Ne"] + BR_ATOM + ["--dampfock", "0.5",
+                                                              "--dampthr", "0.01"],
+                         -128.92297825020466, 17),
+    "N2 BR89 diisthr": ("diatomic", BR_N2 + ["--diiseps", "5", "--diisthr", "0.01"],
+                        -103.34609096274448, 18),
+    "gensap Ne diisthr": ("gensap", ["--Z", "Ne", "--lmax", "1", "--Rmax", "30", "--nelem", "6",
+                                     "--nnodes", "8", "--method", "SVWN", "--nosearch",
+                                     "--convthr", "1e-8", "--diisthr", "0.01"],
+                          -128.23347675484135, None),
+}
+N2_SHIFT_REF = (-103.34609096274545, 33)
+LAPL_GATE = 1e-9
+H_BR89_EXC = -5.0 / 16.0  # BR89 is exact for a one-electron density
+H_EXC_TOL = 1e-7
 TAU_TRACE_TOL = 1e-10  # sum w tau against tr(P T), relative
 KINETIC_GRID_TOL = 1e-9  # the grid kinetic matrix against the analytic T
 PROBES = {  # name -> (source, {precision: replaces})
@@ -637,18 +718,21 @@ def random_atomic_inputs(dev, NL: int, NM: int, nang: int, nelem: int, nnodes: i
     return atomic_kernel_work(tei, U, V, Lfac, gidx, symmetric(NL, NM), symmetric(nang))
 
 
-def xc_work(g, P, pots, mask, nrad: int, tau: bool = False) -> dict:
+def xc_work(g, P, pots, mask, nrad: int, tau: bool = False, lapl: bool = False) -> dict:
     """Per XC kernel (its inputs, the bytes it must move, the operations it
     does) on the grid g for the densities P [ns, nbf, nbf] (K4) and the
-    weighted grid potentials pots = (wvr, wgu, wgv[, wvt]) with the shell
-    mask (None: no mask) (K5), in tau mode when tau: per spin, K4 reads the
-    windows of the live ordered shell pairs (the only ones it needs) and
-    writes three fields (four in tau mode), K5 reads the element functions
-    Bg and dBg (not the product tables the kernel streams, which are built
-    from them) and writes the dense F; tau mode also reads the pair rows of
-    dTT2 and TTm2 and the tau factors, and K5 wvt; the operations are the
-    folded ones the kernels do (one window or element block per unordered
-    live pair)."""
+    weighted grid potentials pots = (wvr, wgu, wgv[, wvt[, wvl]]) with the
+    shell mask (None: no mask) (K5), in tau mode when tau, in laplacian mode
+    when lapl: per spin, K4 reads the windows of the live ordered shell
+    pairs (the only ones it needs) and writes three fields (four in tau
+    mode, five in laplacian mode), K5 reads the element functions Bg and
+    dBg (not the product tables the kernel streams, which are built from
+    them) and writes the dense F; tau mode also reads the pair rows of dTT2
+    and TTm2 and the tau factors, and K5 wvt; laplacian mode also d2Bg, the
+    pair rows of LLTT and TTmm and the laplacian factors, and K5 wvl; the
+    operations are the folded ones the kernels do (one window or element
+    block per unordered live pair)."""
+    tau = tau or lapl
     wvr, wgu, wgv = pots[:3]
     ns, nbf = P.shape[:2]
     nelem, nq, npr = g.Bg.shape
@@ -656,13 +740,19 @@ def xc_work(g, P, pots, mask, nrad: int, tau: bool = False) -> dict:
     ordered = 2 * npl - int((g.pairs[:, 0] == g.pairs[:, 1]).sum())
     win = window_entries(g.gidx, nrad)
     pair_rows = nbytes(g.pairs, g.TTp, g.dTTp) + (nbytes(g.dTT2p, g.TTm2p, g.tfac) if tau else 0)
+    if lapl:
+        pair_rows += nbytes(g.LLTTp, g.TTmmp, g.lfac, g.d2Bg)
     k4_bytes = (8 * ns * ordered * win + pair_rows + nbytes(g.gidx, g.Bg, g.dBg, g.invh, g.sqeta)
-                + (4 if tau else 3) * nbytes(wvr))
+                + (5 if lapl else 4 if tau else 3) * nbytes(wvr))
     masks = () if mask is None else (mask,)
     k5_bytes = (nbytes(*pots, *masks, g.owners, g.band, g.ijs, g.Bg, g.dBg)
                 + pair_rows + 8 * ns * nbf ** 2)
     nij = npr * (npr + 1) // 2
-    if tau:
+    if lapl:
+        k4_ops = 4 * npr * npr + 8 * npr + 18 * nt
+        k5_ops, k5_args = 18 * nt + 8 * nij, (wvr, wgu, wgv, g, mask, pots[3], pots[4])
+        k4_args = (P, g, True, True)
+    elif tau:
         k4_ops = 4 * npr * npr + 6 * npr + 12 * nt
         k5_ops, k5_args = 12 * nt + 6 * nij, (wvr, wgu, wgv, g, mask, pots[3])
         k4_args = (P, g, True)
@@ -676,21 +766,23 @@ def xc_work(g, P, pots, mask, nrad: int, tau: bool = False) -> dict:
     }
 
 
-def random_potentials(g, ns: int, rng, tau: bool = False):
-    """Random weighted grid potentials (wvr, wgu, wgv[, wvt]) [ns, nelem,
-    nq, nt] for the XC Fock kernel on the grid g."""
+def random_potentials(g, ns: int, rng, tau: bool = False, lapl: bool = False):
+    """Random weighted grid potentials (wvr, wgu, wgv[, wvt[, wvl]]) [ns,
+    nelem, nq, nt] for the XC Fock kernel on the grid g."""
     shape = (ns, *g.w.shape)
     return tuple(torch.tensor(rng.standard_normal(shape), device=g.w.device)
-                 for _ in range(4 if tau else 3))
+                 for _ in range(5 if lapl else 4 if tau else 3))
 
 
-def xc_kernel_inputs(basis, dev, ns: int = 2, seed: int = 11, tau: bool = False):
+def xc_kernel_inputs(basis, dev, ns: int = 2, seed: int = 11, tau: bool = False,
+                     lapl: bool = False):
     """xc_work at a diatomic basis: ns random symmetric
     symmetry-block-diagonal densities for K4, random grid potentials and
-    the basis's shell mask for K5."""
+    the basis's shell mask for K5 (with lapl on a grid with the laplacian
+    tables)."""
     from helfem_tpu_torch.models.diatomic_dft import build_dia_grid
 
-    g = build_dia_grid(basis, dev)
+    g = build_dia_grid(basis, dev, lapl=lapl)
     rng = np.random.default_rng(seed)
     P = np.zeros((ns, basis.nbf, basis.nbf))
     for s in range(ns):
@@ -698,18 +790,20 @@ def xc_kernel_inputs(basis, dev, ns: int = 2, seed: int = 11, tau: bool = False)
             X = rng.standard_normal((len(idx), len(idx)))
             P[s][np.ix_(idx, idx)] = X + X.T
     P = torch.tensor(P, device=dev)
-    pots = random_potentials(g, ns, rng, tau)
+    pots = random_potentials(g, ns, rng, tau, lapl)
     mask = torch.tensor(basis.shell_mask().reshape(-1), device=dev)
-    return xc_work(g, P, pots, mask, basis.nrad, tau)
+    return xc_work(g, P, pots, mask, basis.nrad, tau, lapl)
 
 
-def atomic_xc_inputs(shape: str, dev, ns: int = 2, seed: int = 59, tau: bool = False):
+def atomic_xc_inputs(shape: str, dev, ns: int = 2, seed: int = 59, tau: bool = False,
+                     lapl: bool = False):
     """xc_work on an atomic grid: the atomic grid of SHAPES[shape] (Ar or
     Xe bench basis) with random symmetric densities dense over the same-m
     shell pairs (every live pair carries data), or the SAD grid of
     SAD_SHAPES[shape] or, for "sad_cr", of CR_SHAPE (one shell, one angular
     point; with tau its two-shell meta-GGA form, sadatom.sad_tau_grid) with
-    random symmetric radial densities; random grid potentials, no mask."""
+    random symmetric radial densities; random grid potentials, no mask.
+    lapl (atomic grids only): the grid with its laplacian tables."""
     from helfem_tpu_torch.models import sadatom
     from helfem_tpu_torch.models.atomic import AtomicBasis
     from helfem_tpu_torch.models.atomic_dft import build_atomic_grid
@@ -724,7 +818,7 @@ def atomic_xc_inputs(shape: str, dev, ns: int = 2, seed: int = 59, tau: bool = F
         same_m = np.eye(len(mval), dtype=bool)  # the shells' block-diagonal density
     else:
         basis = AtomicBasis(**SHAPES[shape])
-        g = build_atomic_grid(basis, dev)
+        g = build_atomic_grid(basis, dev, lapl=lapl)
         mval = basis.mval
         same_m = mval[:, None] == mval[None, :]
     nang, nrad = len(mval), basis.nrad
@@ -734,7 +828,7 @@ def atomic_xc_inputs(shape: str, dev, ns: int = 2, seed: int = 59, tau: bool = F
         X = rng.standard_normal((nang, nrad, nang, nrad))
         P[s] = (X + X.transpose(2, 3, 0, 1)) * same_m
     P = torch.tensor(P.reshape(ns, nang * nrad, nang * nrad), device=dev)
-    return xc_work(g, P, random_potentials(g, ns, rng, tau), None, nrad, tau)
+    return xc_work(g, P, random_potentials(g, ns, rng, tau, lapl), None, nrad, tau, lapl)
 
 
 def block_density(basis, dev, seed: int) -> torch.Tensor:
@@ -1574,6 +1668,35 @@ def tau_kernels(dev, results: dict) -> None:
           "call, the same bits twice")
 
 
+def lapl_kernels(dev, results: dict) -> None:
+    """K4 and K5 in laplacian mode against their plain versions on the
+    LAPL_GRIDS at one and two spins (the lmax=12 grid at one), 1e-12 x each
+    output's max-abs, the same bits twice, one launch per call, into
+    results[(name, "lapl_<grid>_<ns>")]."""
+    from helfem_tpu_torch.models.diatomic import DiatomicBasis
+
+    for grid in LAPL_GRIDS:
+        for ns in (1,) if grid == "lmax12" else (1, 2):
+            t0 = time.perf_counter()
+            if grid in ("n2", "lmax12"):
+                cfg = DIA_SHAPES["n2"] if grid == "n2" else N2_L12_SHAPE
+                inputs = xc_kernel_inputs(DiatomicBasis(**cfg), dev, ns, 113, lapl=True)
+            else:
+                inputs = atomic_xc_inputs(grid, dev, ns, 127, lapl=True)
+            torch.cuda.synchronize()
+            print(f"laplacian {grid}, {ns} spin(s): grid and inputs made in "
+                  f"{time.perf_counter() - t0:.2f} s")
+            reps = (2, 10) if grid == "lmax12" else (5, 50)
+            for name, (args, moved, flops) in inputs.items():
+                same_bits_twice(name, args)
+                results[(name, f"lapl_{grid}_{ns}")] = report(
+                    f"laplacian {grid} ns={ns}", name, compare(name, args, moved, flops, *reps))
+            del inputs, args
+            torch.cuda.empty_cache()
+    print(f"XC kernels in laplacian mode on {list(LAPL_GRIDS)}: one launch per call, the same "
+          "bits twice")
+
+
 def tau_identities(dev) -> None:
     """On the card: sum w tau = tr(P T) at the N2 bench basis (a physical
     two-orbital-per-block density through K4's tau mode), and the grid
@@ -1825,6 +1948,216 @@ def rs_phase(dev, results: dict) -> dict:
         del ops, grid, rs
         torch.cuda.empty_cache()
     results[("rs_setup", "erfc_tables_s")] = setup
+    return counts
+
+
+def iteration_energies(text: str) -> list[float]:
+    """The energies of an SCF's verbose "iter k  E = ..." lines."""
+    return [float(m) for m in re.findall(r"iter +\d+ +E = ([-+0-9.]+)", text)]
+
+
+def lapl_full_width(dev, results: dict) -> None:
+    """At the Ar and N2 bench bases: one BR89 Fock build (K4 and K5 once
+    each, laplacian mode) on the converged Ar HF and N2 PBE densities
+    against helfem_tpu's LAPL_FOCK_REFS, and the first five BR89 SCF
+    iterations against LAPL_FIVE_REFS; then the launches of one BR89
+    xc_eval (device kernels and aten operators) at the Ar bench grid."""
+    import contextlib
+    import io
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from helfem_tpu_torch import kernels
+    from helfem_tpu_torch.models.atomic import AtomicBasis
+    from helfem_tpu_torch.models.atomic_dft import build_atomic_grid, eval_fxc
+    from helfem_tpu_torch.models.diatomic import DiatomicBasis
+    from helfem_tpu_torch.models.diatomic_dft import build_dia_grid, eval_fxc_dia
+    from helfem_tpu_torch.ops.xc import parse_method
+    from helfem_tpu_torch.scf.atomic_scf import scf_atom
+    from helfem_tpu_torch.scf.diatomic_scf import scf_diatomic
+    from helfem_tpu_torch.utils.linalg import build_blocks, density_blocks
+
+    funcs = tuple(parse_method("mgga_x_br89")[0])
+    ar = AtomicBasis(**SHAPES["ar"])
+    ar_ops = ar.build_operators(dev)
+    ar_grid = build_atomic_grid(ar, dev, lapl=True)
+    n2 = DiatomicBasis(**DIA_SHAPES["n2"])
+    n2_ops = n2.build_operators(dev)
+    n2_grid = build_dia_grid(n2, dev, lapl=True)
+    res = scf_atom(ar, 9, 9, convthr=1e-9, guess="TF", ops=ar_ops)
+    blk = torch.as_tensor(build_blocks(ar_ops.S.cpu().numpy(), ar.sym_blocks(2))[0], device=dev)
+    P_ar = density_blocks(torch.as_tensor(res.orbs_a, device=dev),
+                          torch.as_tensor(res.occ_a, device=dev), blk, ar_ops.S)
+    res = scf_diatomic(n2, 7, 7, method="PBE", convthr=1e-7, ops=n2_ops)
+    P_n2 = density_blocks(torch.as_tensor(res.orbs_a, device=dev),
+                          torch.as_tensor(res.occ_a, device=dev), n2_ops.blk_idx, n2_ops.S)
+    builds = {"ar": lambda: eval_fxc(funcs, ar_grid, P_ar, P_ar),
+              "n2": lambda: eval_fxc_dia(funcs, n2_grid, n2_ops, P_n2, P_n2)}
+    for shape, build in builds.items():
+        P = P_ar if shape == "ar" else P_n2
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        Fa, _, Exc, Nel = build()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = {"Exc": float(Exc), "trFP": float(torch.sum(Fa * P)), "Fnorm": float(Fa.norm())}
+        launches = {name: kernels.launches[name] for name in XC}
+        ref = LAPL_FOCK_REFS[shape]
+        rel = {k: abs(got[k] - ref[k]) / abs(ref[k]) for k in ref}
+        print(f"{shape} bench basis, BR89 Fock build on the converged density: Exc "
+              f"{got['Exc']:.12f} (helfem_tpu {ref['Exc']:.12f}), relative differences {rel}, "
+              f"Nel {float(Nel):.12f}, {wall * 1e3:.2f} ms, launches {launches}")
+        if launches != {name: 1 for name in XC}:
+            raise RuntimeError(f"{shape} BR89 Fock build: launches {launches}, not one each")
+        if not (rel["Exc"] < LAPL_FOCK_TOL and rel["trFP"] < 1e-9 and rel["Fnorm"] < 1e-9):
+            raise RuntimeError(f"{shape} BR89 Fock build disagrees with helfem_tpu")
+        results[("lapl_fock", shape)] = {**got, "ms": wall * 1e3}
+    five = {"ar": lambda: scf_atom(ar, 9, 9, method="mgga_x_br89", convthr=1e-8, guess="TF",
+                                   maxit=5, verbose=True, ops=ar_ops, grid=ar_grid),
+            "n2": lambda: scf_diatomic(n2, 7, 7, method="mgga_x_br89", convthr=1e-8, maxit=5,
+                                       verbose=True, ops=n2_ops)}
+    for shape, run in five.items():
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            run()
+        got = iteration_energies(buf.getvalue())
+        diffs = [g - r for g, r in zip(got, LAPL_FIVE_REFS[shape])]
+        print(f"{shape} bench basis, first five BR89 iterations: {got}; E - helfem_tpu "
+              + ", ".join(f"{d:+.2e}" for d in diffs))
+        if len(got) != 5 or not all(abs(d) < LAPL_FIVE_TOL for d in diffs):
+            raise RuntimeError(f"{shape}: the first five BR89 iterations part from helfem_tpu's")
+    # the autograd functional's launches: one xc_eval of BR89 on the Ar
+    # bench grid's fields of the converged HF density
+    from helfem_tpu_torch.ops.xc import xc_eval
+
+    fields = kernels.dia_xc_fields(P_ar.contiguous()[None], ar_grid, True, True)
+    rho, du, dv, tau, lap = (f[0] for f in fields)
+    r = ar_grid.r[:, :, None]
+    sig = du * du + (dv / r) ** 2
+    xc_eval(funcs, rho, rho, sig, sig, sig, 1e-12, tau, tau, lap, lap)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        xc_eval(funcs, rho, rho, sig, sig, sig, 1e-12, tau, tau, lap, lap)
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    device = [e for e in events if e.device_type == DeviceType.CUDA]
+    n_kernels = sum(e.count for e in device)
+    n_aten = sum(e.count for e in events if e.device_type != DeviceType.CUDA
+                 and e.key.startswith("aten::"))
+    t0 = time.perf_counter()
+    for _ in range(5):
+        xc_eval(funcs, rho, rho, sig, sig, sig, 1e-12, tau, tau, lap, lap)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / 5 * 1e3
+    print(f"one BR89 xc_eval at the Ar bench grid ({rho.numel()} points): {n_kernels} device "
+          f"kernels, {n_aten} aten operator calls (nested ones included), {ms:.2f} ms a call")
+    results[("lapl_xc_eval", "ar")] = {"kernels": n_kernels, "aten": n_aten, "ms": ms}
+
+
+def lapl_phase(dev, results: dict) -> dict:
+    """Phase 19: lapl_kernels, lapl_full_width, H's BR89 exchange on its
+    converged HF density (-5/16), the LAPL_CELLS through the port's CLIs
+    and N2 BR89 with shift 1.0 through scf_diatomic, each within LAPL_GATE
+    of helfem_tpu's energy in its iteration count, with K4 and K5 once per
+    Fock build (the atomic CLI's K5 twice more, for its grid self-check);
+    then the warm walls and device shares of Ar and N UKS BR89. Returns each
+    cell's launches."""
+    from helfem_tpu_torch import kernels
+    from helfem_tpu_torch.cli.atomic import main as atomic_main
+    from helfem_tpu_torch.cli.diatomic import main as diatomic_main
+    from helfem_tpu_torch.cli.gensap import main as gensap_main
+    from helfem_tpu_torch.models.atomic import AtomicBasis
+    from helfem_tpu_torch.models.atomic_dft import build_atomic_grid, eval_fxc
+    from helfem_tpu_torch.models.diatomic import DiatomicBasis
+    from helfem_tpu_torch.ops.xc import parse_method
+    from helfem_tpu_torch.scf.atomic_scf import scf_atom
+    from helfem_tpu_torch.scf.diatomic_scf import scf_diatomic
+    from helfem_tpu_torch.utils.linalg import density_blocks
+    from helfem_tpu_torch.utils.profiling import profile_scf
+
+    phase("19. laplacian level: K4/K5 in laplacian mode against plain on four grids, BR89 Fock "
+          "builds and first iterations at the Ar and N2 bench bases, H's BR89 exchange, Ar, "
+          "Ne, Ne BR89-LYP, N UKS, N2 and H2 BR89 through the CLIs, N2 BR89 with a level "
+          "shift, Fock damping and diisthr, warm walls and device shares")
+    lapl_kernels(dev, results)
+    lapl_full_width(dev, results)
+
+    h = AtomicBasis(Z=1, lmax=0, mmax=0, rmax=30.0, nelem=8, nnodes=12)
+    h_ops = h.build_operators(dev)
+    res = scf_atom(h, 1, 0, convthr=1e-10, ops=h_ops)
+    blk = torch.arange(h.nrad, dtype=torch.int32, device=dev)[None]
+    Pa = density_blocks(torch.as_tensor(res.orbs_a, device=dev),
+                        torch.as_tensor(res.occ_a, device=dev), blk, h_ops.S)
+    _, _, Exc, Nel = eval_fxc(tuple(parse_method("mgga_x_br89")[0]),
+                              build_atomic_grid(h, dev, lapl=True), Pa, torch.zeros_like(Pa))
+    print(f"H: BR89 exchange on the converged HF density {float(Exc):.10f} (exact -5/16, "
+          f"difference {float(Exc) - H_BR89_EXC:+.2e}), Nel {float(Nel):.12f}")
+    if not abs(float(Exc) - H_BR89_EXC) < H_EXC_TOL:
+        raise RuntimeError("H: BR89 exchange is not -5/16 on the card")
+
+    mains = {"atomic": atomic_main, "diatomic": diatomic_main, "gensap": gensap_main}
+    counts = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for label, (prog, argv, ref, ref_niter) in LAPL_CELLS.items():
+            extra = ["--output", f"{tmp}/result_Ne.dat"] if prog == "gensap" else []
+
+            def check(res, label=label, prog=prog, ref=ref, ref_niter=ref_niter):
+                nfock = res.nfock if prog == "gensap" else res.niter
+                selfcheck = 2 if prog == "atomic" else 0
+                got = {name: kernels.launches[name] for name in XC}
+                want = {"dia_xc_fields": nfock, "dia_xc_fock": nfock + selfcheck}
+                dE = res.E - ref
+                print(f"{label}: E - helfem_tpu = {dE:+.3e} (gate {LAPL_GATE:g}), {res.niter} "
+                      f"iterations (helfem_tpu {ref_niter}), {nfock} Fock builds; launches per "
+                      f"Fock build K4 {got['dia_xc_fields'] / nfock:.3f}, K5 "
+                      f"{(got['dia_xc_fock'] - selfcheck) / nfock:.3f}")
+                if got != want:
+                    return f"launches {got}, expected {want}"
+                if ref_niter is not None and res.niter != ref_niter:
+                    return f"{res.niter} iterations, helfem_tpu {ref_niter}"
+                return "" if res.converged and abs(dE) < LAPL_GATE else \
+                    "did not converge within the gate"
+
+            counts[label] = run_cli(mains[prog], argv + extra, label, list(XC), check)
+
+    n2 = DiatomicBasis(**BR_N2_BASIS)
+    n2_ops = n2.build_operators(dev)
+    kernels.reset_launches()
+    res = scf_diatomic(n2, 7, 7, method="mgga_x_br89", convthr=1e-8, shift=1.0, ops=n2_ops)
+    torch.cuda.synchronize()
+    got = {name: kernels.launches[name] for name in XC}
+    dE = res.E - N2_SHIFT_REF[0]
+    print(f"N2 BR89 shift 1.0: E {res.E:.12f}, E - helfem_tpu = {dE:+.3e}, {res.niter} "
+          f"iterations (helfem_tpu {N2_SHIFT_REF[1]}), launches {got}")
+    if not (res.converged and abs(dE) < LAPL_GATE and res.niter == N2_SHIFT_REF[1]
+            and got == {name: res.niter for name in XC}):
+        raise RuntimeError("N2 BR89 with the level shift disagrees with helfem_tpu")
+    counts["N2 BR89 shift"] = got
+
+    for label, Z, nel in (("Ar BR89", 18, (9, 9)), ("N UKS BR89", 7, (5, 2))):
+        basis = AtomicBasis(Z=Z, lmax=1, mmax=1, rmax=30.0, nelem=6, nnodes=8)
+        ops, grid = basis.build_operators(dev), build_atomic_grid(basis, dev, lapl=True)
+
+        def run(basis=basis, ops=ops, grid=grid, nel=nel):
+            return scf_atom(basis, *nel, method="mgga_x_br89", convthr=1e-8, guess="TF",
+                            ops=ops, grid=grid)
+
+        per = profile_scf(label, run, kernels=XC_SASS + RADIAL_SASS, ops=(EIGH_OP,),
+                          ranges={"xc_eval": ("xc_eval", "autograd::engine::evaluate")})
+        busy = per["busy"][0]
+        shares = {name: per[key][0] for name, key in
+                  (("eigh", EIGH_OP), ("K4", XC_SASS[0]), ("K5", XC_SASS[1]),
+                   ("xc_eval", "xc_eval"))}
+        other = busy - sum(shares.values())
+        print(f"{label}: device time per warm SCF {busy:.4f} ms; "
+              + ", ".join(f"{k} {v:.4f} ms ({100 * v / busy:.1f} %)" for k, v in shares.items())
+              + f", the rest {other:.4f} ms ({100 * other / busy:.1f} %); K4/K5 launches "
+              f"{per[XC_SASS[0]][1]}/{per[XC_SASS[1]][1]}")
+        results[("lapl_scf", label)] = {"busy_ms": busy, **{f"{k}_ms": v for k, v in
+                                                            shares.items()}}
+        del ops, grid
+        torch.cuda.empty_cache()
     return counts
 
 
@@ -2206,6 +2539,7 @@ def main() -> None:
     open_counts = open_shell_phase(dev, results)
     mgga_counts = mgga_phase(dev, results)
     rs_counts = rs_phase(dev, results)
+    lapl_counts = lapl_phase(dev, results)
     counts["radial_erfc_exchange"] = rs_counts["Ar LC-LDA"]["radial_erfc_exchange"]
 
     record = []
@@ -2254,6 +2588,13 @@ def main() -> None:
                                   ("max_abs_err", "rel_err", "ms", "device_ms", "queued_ms",
                                    "plain_ms", "bound_ms")})
             extra["phase17_launches"] = {label: c.get(name, 0) for label, c in mgga_counts.items()}
+            for grid in LAPL_GRIDS:
+                for ns in (1,) if grid == "lmax12" else (1, 2):
+                    o = results[(name, f"lapl_{grid}_{ns}")]
+                    extra.update({f"lapl_{grid}_{ns}_{k}": o[k] for k in
+                                  ("max_abs_err", "rel_err", "ms", "device_ms", "queued_ms",
+                                   "plain_ms", "bound_ms")})
+            extra["phase19_launches"] = {label: c.get(name, 0) for label, c in lapl_counts.items()}
         scf = results.get((name, {"radial_exchange_dia_occ": "o2_l12_scf",
                                   "radial_exchange": "sad_cr2_scf"}.get(name)))
         if scf is not None:

@@ -1,6 +1,7 @@
 """`python -m helfem_tpu_torch.cli.atomic`: atomic HF/DFT SCF driver of the
 PyTorch/CUDA port (restricted, unrestricted or ROHF; global and
-range-separated hybrids).
+range-separated hybrids; the laplacian-level BR89; Fock damping and the
+sliding DIIS/ADIIS blend).
 
 A subset of helfem_tpu.cli.atomic (flag names mirror the reference `atomic`
 program, src/atomic/main.cpp:63-119), plus --device. Flags of the JAX CLI
@@ -24,8 +25,7 @@ _UNPORTED_FLAGS = (
     "Zl", "Zr", "Rmid", "nquad", "nelem0", "grid0",
     "zexp0", "add_conf", "load", "readocc", "Ez", "Qzz", "Bz", "finitenuc",
     "Rrms", "iconf", "conf_N", "conf_R", "conf_barrier", "shift_conf", "save",
-    "symmetry", "maverage", "perturb", "seed",
-    "dampfock", "dampthr", "diag", "eigiter", "diisthr",
+    "symmetry", "maverage", "perturb", "seed", "diag", "eigiter",
     "angstrom", "zeroder", "trace", "ndev", "taylor_order",
 )
 
@@ -54,8 +54,9 @@ def main(argv=None):
                    help="HF, LDA, SVWN, PBE, revPBE, PBEsol, RPBE, BLYP, TPSS, SCAN, rSCAN, "
                         "the hybrids PBE0/PBEh, TPSSh and B3LYP5, the range-separated "
                         "LC-LDA/LDAERF, LCY-LDA and SR-PBE0 (e.g. 'LC-LDA[omega=0.4]', "
-                        "overrides omega, kshort, kfull), or an 'x,c' pair of the ported "
-                        "functionals")
+                        "overrides omega, kshort, kfull), the laplacian-level BR89 "
+                        "exchange mgga_x_br89, or an 'x,c' pair of the ported "
+                        "functionals (e.g. 'mgga_x_br89,gga_c_lyp')")
     p.add_argument("--iguess", type=int, default=2,
                    help="0 core, 1 GSZ, 2 SAP, 3 TF")
     p.add_argument("--dftthr", type=float, default=1e-12, help="XC density threshold")
@@ -68,6 +69,15 @@ def main(argv=None):
     p.add_argument("--diisorder", type=int, default=10, help="DIIS history length")
     p.add_argument("--diiseps", type=float, default=0.1,
                    help="DIIS error below which extrapolation starts mixing in")
+    p.add_argument("--diisthr", type=float, default=None,
+                   help="DIIS error below which extrapolation is pure C2-DIIS; "
+                        "between diisthr and diiseps the DIIS/ADIIS weights are "
+                        "blended on the reference's sliding scale "
+                        "(src/general/diis.cpp:241); unset = hard switch at diiseps")
+    p.add_argument("--dampfock", type=float, default=1.0,
+                   help="damping factor for occupied-virtual MO Fock blocks")
+    p.add_argument("--dampthr", type=float, default=0.5,
+                   help="apply damping while the DIIS error is above this")
     p.add_argument("--device", default="cuda",
                    help="torch device: cuda runs the CUDA kernels, cpu their "
                         "plain PyTorch versions")
@@ -80,7 +90,7 @@ def main(argv=None):
     import numpy as np
 
     from helfem_tpu_torch.models.atomic_dft import (
-        build_atomic_grid, eval_kinetic_grid, eval_overlap_grid,
+        build_atomic_grid, eval_kinetic_grid, eval_overlap_grid, needs_lapl,
     )
     from helfem_tpu_torch.ops.xc import parse_method_rs
     from helfem_tpu_torch.scf.atomic_scf import rs_operators, scf_atom
@@ -118,7 +128,7 @@ def main(argv=None):
     if funcs:
         # grid-accuracy self-check, as the reference prints it
         # (src/atomic/main.cpp:411-441)
-        grid = build_atomic_grid(basis, device, ntheta=args.ldft)
+        grid = build_atomic_grid(basis, device, ntheta=args.ldft, lapl=needs_lapl(funcs))
         S = basis.overlap()
         dS = np.abs(eval_overlap_grid(grid, basis.nrad).cpu().numpy() - S)
         nrm = np.sqrt(np.outer(np.diag(S), np.diag(S)))
@@ -133,7 +143,8 @@ def main(argv=None):
         basis, nela, nelb, method=args.method, maxit=args.maxit,
         convthr=args.convthr, guess=guess, verbose=True, ops=ops, dftthr=args.dftthr,
         restricted=args.restricted, diisorder=args.diisorder, diiseps=args.diiseps,
-        ldft=args.ldft, grid=grid, rs=rs,
+        ldft=args.ldft, grid=grid, rs=rs, dampfock=args.dampfock, dampthr=args.dampthr,
+        diisthr=args.diisthr,
     )
     if device.type == "cuda":
         torch.cuda.synchronize(device)

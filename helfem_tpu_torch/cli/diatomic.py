@@ -3,7 +3,8 @@ the PyTorch/CUDA port.
 
 A subset of helfem_tpu.cli.diatomic (flag names mirror the reference
 `diatomic` program, src/diatomic/main.cpp:89-143), plus --device. The port
-runs HF, LDA, GGA and meta-GGA functionals and their global hybrids,
+runs HF, LDA, GGA, meta-GGA and laplacian-level (BR89) functionals and
+their global hybrids,
 restricted, unrestricted (--restricted 0, the default for nela != nelb) or
 ROHF (--restricted 1 with nela != nelb), from the core, SAP, GSZ or TF
 guess; flags of the JAX CLI that it does not cover are rejected with
@@ -24,7 +25,7 @@ from helfem_tpu_torch.cli._common import (
 
 # helfem_tpu.cli.diatomic flags outside this slice
 _UNPORTED_FLAGS = (
-    "lpad", "diag", "maverage", "save", "load", "Ez", "Qzz", "Bz", "symmetry", "diisthr",
+    "lpad", "diag", "maverage", "save", "load", "Ez", "Qzz", "Bz", "symmetry",
     "readocc", "finitenuc", "trace", "Rrms1", "Rrms2", "ndev",
 )
 
@@ -57,8 +58,9 @@ def main(argv=None):
     p.add_argument("--convthr", type=float, default=1e-7)
     p.add_argument("--method", default="HF",
                    help="HF, LDA, SVWN, PBE, revPBE, PBEsol, RPBE, BLYP, TPSS, SCAN, rSCAN, "
-                        "the hybrids PBE0/PBEh, TPSSh and B3LYP5, or an 'x,c' pair (range "
-                        "separation and BR89: not ported yet)")
+                        "the hybrids PBE0/PBEh, TPSSh and B3LYP5, the laplacian-level BR89 "
+                        "exchange mgga_x_br89, or an 'x,c' pair (e.g. "
+                        "'mgga_x_br89,gga_c_lyp'); range separation exists on atoms only")
     p.add_argument("--guess", default="core", help="core, SAP, TF or GSZ")
     p.add_argument("--iguess", type=int, default=None,
                    help="guess by reference id: 0 core, 1 GSZ, 2 SAP, 3 TF; "
@@ -75,6 +77,11 @@ def main(argv=None):
     p.add_argument("--diisorder", type=int, default=10, help="DIIS history length")
     p.add_argument("--diiseps", type=float, default=0.1,
                    help="DIIS error below which extrapolation starts mixing in")
+    p.add_argument("--diisthr", type=float, default=None,
+                   help="DIIS error below which extrapolation is pure C2-DIIS; "
+                        "between diisthr and diiseps the DIIS/ADIIS weights are "
+                        "blended on the reference's sliding scale "
+                        "(src/general/diis.cpp:241); unset = hard switch at diiseps")
     p.add_argument("--device", default="cuda",
                    help="torch device: cuda runs the CUDA kernels, cpu their "
                         "plain PyTorch versions")
@@ -119,7 +126,7 @@ def main(argv=None):
         basis, nela, nelb, method=args.method, maxit=args.maxit, convthr=args.convthr,
         verbose=True, ops=ops, guess=args.guess, restricted=args.restricted,
         perturb=args.perturb, seed=args.seed, diisorder=args.diisorder,
-        diiseps=args.diiseps, dftthr=args.dftthr, ldft=args.ldft,
+        diiseps=args.diiseps, dftthr=args.dftthr, ldft=args.ldft, diisthr=args.diisthr,
     )
     if device.type == "cuda":
         torch.cuda.synchronize(device)

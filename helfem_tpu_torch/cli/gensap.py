@@ -27,8 +27,7 @@ from helfem_tpu_torch.cli._common import (
 # helfem_tpu.cli.gensap flags outside this slice
 _UNPORTED_FLAGS = (
     "finitenuc", "Rrms", "nelem0", "grid0", "zexp0", "iconf", "conf_N", "conf_R",
-    "conf_barrier", "shift_conf", "add_conf", "zeroder", "completeness", "diisthr",
-    "taylor_order",
+    "conf_barrier", "shift_conf", "add_conf", "zeroder", "completeness", "taylor_order",
 )
 # the unrestricted potential variants: file tag -> potential_table mode
 # (reference: src/sadatom/main.cpp:738-767)
@@ -69,6 +68,9 @@ def main(argv=None):
     p.add_argument("--diisorder", type=int, default=10, help="DIIS history length")
     p.add_argument("--diiseps", type=float, default=0.1,
                    help="DIIS error below which extrapolation starts mixing in")
+    p.add_argument("--diisthr", type=float, default=None,
+                   help="DIIS error below which extrapolation is pure C2-DIIS "
+                        "(unset = hard switch at diiseps)")
     p.add_argument("--nosearch", action="store_true", help="skip occupation search")
     p.add_argument("--occs", default="auto",
                    help="'auto' (search), 'hf' (Saito 2009 table), or per-l electron "
@@ -104,7 +106,7 @@ def main(argv=None):
     args, extra = p.parse_known_args(argv)
     reject_unported(extra, _UNPORTED_FLAGS, p.prog)
 
-    from helfem_tpu_torch.models.sadatom import SadAtomBasis
+    from helfem_tpu_torch.models.sadatom import SadAtomBasis, sad_method
     from helfem_tpu_torch.models.sadconf import get_configuration, hund_rule
     from helfem_tpu_torch.ops.xc import parse_method
     from helfem_tpu_torch.utils.elements import SYMBOLS, get_Z
@@ -120,7 +122,7 @@ def main(argv=None):
     guess = {0: "core", 1: "GSZ", 2: "SAP", 3: "TF"}[args.iguess]
     # --pot computes the exported screening with another functional than
     # the SCF's (reference: main.cpp:672-678)
-    funcs, _ = parse_method(args.method)
+    funcs, _ = sad_method(args.method)  # a laplacian-level functional raises
     pot_funcs = funcs if args.pot == "none" else parse_method(args.pot)[0]
     occs = None
     if args.occs == "hf":
@@ -159,7 +161,7 @@ def main(argv=None):
     walls["operators"] = timer.lap("operator build")
     solver_kw = dict(maxit=args.maxit, convthr=args.convthr, guess=guess, shift=args.shift,
                      dftthr=args.dftthr, diisorder=args.diisorder, diiseps=args.diiseps,
-                     ops=ops)
+                     diisthr=args.diisthr, ops=ops)
     res = None
     if occs_u is None:
         res = restricted_leg(args, basis, Z, nel, occs, funcs, pot_funcs, solver_kw, walls)

@@ -22,6 +22,16 @@
 // with the grid's per-point factors f1, f2, f3 = tfac[0..2, e, q, t]
 // (models/xc_grid.py).
 //
+// In laplacian mode (laplacian-level meta-GGAs, BR89; diatomic_dft.py:
+// 112-123, atomic_dft.py:116-123) a fifth field from a fourth folded
+// product D2 = 2 sum_ij P[..] d2B[e,q,i] B[e,q,j], with the grid's factors
+// g1..g4 = lfac[0..3, e, q, t] and its tables LLTT, TTmm:
+//
+//   lapl = g1 sum_ab TT D2 + g2 sum_ab TT Dmu - g3 sum_ab LLTT D1
+//          - g4 sum_ab TTmm D1 + 4 tau
+//
+// one form for the diatomic and the atomic grid (models/xc_grid.py).
+//
 // Work: only the live shell pairs count (TT or dTT not identically zero:
 // m_a = m_b), and TT, dTT are symmetric in (a, b) (both checked once when
 // the grid is built, models/diatomic_dft.py:pair_tables). So (a, b) and
@@ -39,14 +49,17 @@
 //      memory, four loads in flight per thread; per pair and 8 points a warp
 //      forms U = B S_p (depth nprim), then D1f = sum_j U B and Dmuf =
 //      2 sum_j U dB, summed over its lanes by shuffles; in tau mode also
-//      U' = dB S_p and Dddf = sum_j U' dB. The result [ns, nelem, 2 (3 in
-//      tau mode), npl, nq] stays in L2 (0.2 MB at N2, 2.3 MB at lmax=12).
+//      U' = dB S_p and Dddf = sum_j U' dB, in laplacian mode also D2f =
+//      2 sum_j U d2B (d2B staged beside B and dB). The result [ns, nelem,
+//      nD, npl, nq] (nD 2, 3 in tau mode, 4 in laplacian mode) stays in L2
+//      (0.2 MB at N2, 2.3 MB at lmax=12, for nD 2).
 //   2. items (spin, element, 8 points, 8 eta points): rho = D1f TT, u =
 //      Dmuf TT, v = D1f dTT over the live pairs (depth npl: 70 at N2, 379 at
 //      lmax=12), the pairs split over the block's eight warps and their
 //      partial tiles added in warp order through shared memory; invh and
 //      sqeta in the epilogue. Tau mode adds Dddf TT, D1f dTT2 and D1f TTm2
-//      to each tile and tfac in the epilogue.
+//      to each tile and tfac in the epilogue; laplacian mode D2f TT, D1f
+//      LLTT and D1f TTmm, and lfac in the epilogue.
 // Every sum runs in a fixed order whatever block takes an item: two calls
 // give the same bits, and a spin's fields do not depend on ns.
 //
@@ -69,14 +82,17 @@ namespace cg = cooperative_groups;
 #define XCF_U 4  // staged entries per thread with their loads in flight together
 
 struct XcfGeom {
-  // nD: folded products per pair (2, or 3 in tau mode)
+  // nD: folded products per pair (2, 3 in tau mode, 4 in laplacian mode);
+  // nb: staged element tables (B, dB, and d2B in laplacian mode)
   int ns, nang, nelem, nq, nprim, nrad, nt, npl;
   int pc, qc;        // phase 1: pairs and radial points (a multiple of 8) per item
   int mp, lda, ldq;  // nprim rounded up to 8; row strides of the staged S and B
-  int npc, nqc, nD;
+  int npc, nqc, nD, nb;
 };
 
-template <bool TAU>
+// MODE 0: rho, drho_u, drho_v; 1 (tau) adds tau; 2 (laplacian) adds tau and
+// the density laplacian.
+template <int MODE>
 __global__ void __launch_bounds__(XCF_THREADS, 2)
     xc_fields_kernel(const double* __restrict__ P, const int* __restrict__ pairs,
                      const int* __restrict__ gidx, const double* __restrict__ Bg,
@@ -84,7 +100,10 @@ __global__ void __launch_bounds__(XCF_THREADS, 2)
                      const double* __restrict__ dTTp, const double* __restrict__ dTT2p,
                      const double* __restrict__ TTm2p, const double* __restrict__ invh,
                      const double* __restrict__ sqeta, const double* __restrict__ tfac,
+                     const double* __restrict__ d2Bg, const double* __restrict__ LLTTp,
+                     const double* __restrict__ TTmmp, const double* __restrict__ lfac,
                      double* D, double* __restrict__ out, XcfGeom g) {
+  constexpr bool TAU = MODE >= 1, LAPL = MODE == 2;
   extern __shared__ __align__(16) double sm[];
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int gq = lane >> 2, tq = lane & 3;  // DMMA fragment row / column group
@@ -95,13 +114,15 @@ __global__ void __launch_bounds__(XCF_THREADS, 2)
   // U = B S_p on DMMA (m8n8k4: rows q, columns j, depth i), then
   // D1f[p,q] = sum_j U[q,j] B[q,j], Dmuf = 2 sum_j U[q,j] dB[q,j], the sum
   // over the lanes' column groups by a butterfly of shuffles; in tau mode
-  // also U' = dB S_p and Dddf = sum_j U'[q,j] dB[q,j].
+  // also U' = dB S_p and Dddf = sum_j U'[q,j] dB[q,j]; in laplacian mode
+  // also D2f = 2 sum_j U[q,j] d2B[q,j].
   // D: [ns, nelem, nD, npl, nq] ----
   const int n1 = g.ns * g.nelem * g.npc * g.nqc;
   double* S = sm;                      // [pc][mp][lda] windows S_p = W_ab + W_ba, zero-padded
   double* Bt = S + g.pc * mp * g.lda;  // [mp][ldq] B[q, j] transposed, zero-padded
   double* dBt = Bt + mp * g.ldq;       // [mp][ldq]
-  int* rowoff = reinterpret_cast<int*>(dBt + mp * g.ldq);  // [pc][2]: a nrad, b nrad
+  double* d2Bt = dBt + mp * g.ldq;     // [mp][ldq], laplacian mode only
+  int* rowoff = reinterpret_cast<int*>(Bt + g.nb * mp * g.ldq);  // [pc][2]: a nrad, b nrad
   int* gs = rowoff + 2 * g.pc;                             // [np]: gidx[e, :]
   const int nS = g.pc * mp * g.lda, nB = mp * g.ldq;
   for (int item = blockIdx.x; item < n1; item += gridDim.x) {
@@ -141,7 +162,7 @@ __global__ void __launch_bounds__(XCF_THREADS, 2)
         if (base + u * blockDim.x < nS) S[base + u * blockDim.x] = v[u];
     }
     for (int base = tid; base < nB; base += XCF_U * blockDim.x) {
-      double v[XCF_U], dv[XCF_U];
+      double v[XCF_U], dv[XCF_U], d2v[XCF_U];
 #pragma unroll
       for (int u = 0; u < XCF_U; ++u) {
         const int idx = base + u * blockDim.x;
@@ -150,12 +171,14 @@ __global__ void __launch_bounds__(XCF_THREADS, 2)
         const size_t src = in ? ((size_t)e * g.nq + q0 + ql) * np + j : 0;
         v[u] = in ? Bg[src] : 0.0;
         dv[u] = in ? dBg[src] : 0.0;
+        if constexpr (LAPL) d2v[u] = in ? d2Bg[src] : 0.0;
       }
 #pragma unroll
       for (int u = 0; u < XCF_U; ++u) {
         if (base + u * blockDim.x < nB) {
           Bt[base + u * blockDim.x] = v[u];
           dBt[base + u * blockDim.x] = dv[u];
+          if constexpr (LAPL) d2Bt[base + u * blockDim.x] = d2v[u];
         }
       }
     }
@@ -165,7 +188,7 @@ __global__ void __launch_bounds__(XCF_THREADS, 2)
       const int pl = task / ntile, qt = 8 * (task - pl * ntile);
       const double* Sp = S + pl * mp * g.lda;
       const int q = qt + gq;  // this lane's radial point (row of U)
-      double v1 = 0.0, vm = 0.0, vd = 0.0;
+      double v1 = 0.0, vm = 0.0, vd = 0.0, v2 = 0.0;
       for (int n0 = 0; n0 < mp; n0 += 8) {  // U[q, j] = sum_i B[q, i] S_p[i, j]
         double c0 = 0.0, c1 = 0.0, d0 = 0.0, d1 = 0.0;
         for (int k = 0; k < np; k += 4) {
@@ -182,18 +205,24 @@ __global__ void __launch_bounds__(XCF_THREADS, 2)
           vd = fma(d0, dBt[j * g.ldq + q], vd);
           vd = fma(d1, dBt[(j + 1) * g.ldq + q], vd);
         }
+        if constexpr (LAPL) {
+          v2 = fma(c0, d2Bt[j * g.ldq + q], v2);
+          v2 = fma(c1, d2Bt[(j + 1) * g.ldq + q], v2);
+        }
       }
 #pragma unroll
       for (int k = 1; k < 4; k *= 2) {  // sum over the four column groups tq
         v1 += __shfl_xor_sync(0xffffffffu, v1, k);
         vm += __shfl_xor_sync(0xffffffffu, vm, k);
         if constexpr (TAU) vd += __shfl_xor_sync(0xffffffffu, vd, k);
+        if constexpr (LAPL) v2 += __shfl_xor_sync(0xffffffffu, v2, k);
       }
       if (tq == 0 && q < nqx) {
         double* d1o = D + (((size_t)s * g.nelem + e) * g.nD * g.npl + p0 + pl) * g.nq + q0 + q;
         d1o[0] = v1;
         d1o[(size_t)g.npl * g.nq] = 2.0 * vm;
         if constexpr (TAU) d1o[(size_t)2 * g.npl * g.nq] = vd;
+        if constexpr (LAPL) d1o[(size_t)3 * g.npl * g.nq] = 2.0 * v2;
       }
     }
   }
@@ -201,12 +230,13 @@ __global__ void __launch_bounds__(XCF_THREADS, 2)
   cg::this_grid().sync();
 
   // ---- phase 2: grid contraction rho = D1f TT, u = Dmuf TT, v = D1f dTT
-  // (and in tau mode T1 = Dddf TT, T2 = D1f dTT2, T3 = D1f TTm2) over the
+  // (and in tau mode T1 = Dddf TT, T2 = D1f dTT2, T3 = D1f TTm2; in
+  // laplacian mode also L1 = D2f TT, L3 = D1f LLTT, L4 = D1f TTmm) over the
   // live pairs on DMMA: one 8 x 8 (q, t) tile per block, its eight warps
   // each a share of the pairs, their partial tiles added in warp order
   // through shared memory ----
-  constexpr int NACC = TAU ? 6 : 3;  // partial tiles per warp
-  constexpr int NOUT = TAU ? 4 : 3;  // output fields
+  constexpr int NACC = LAPL ? 9 : TAU ? 6 : 3;  // partial tiles per warp
+  constexpr int NOUT = 3 + MODE;                // output fields
   const int nqt = (g.nq + 7) / 8, ntt = (g.nt + 7) / 8, nks = (g.npl + 3) / 4;
   const int n2 = g.ns * g.nelem * nqt * ntt;
   const size_t nfield = (size_t)g.ns * g.nelem * g.nq * g.nt;
@@ -217,6 +247,7 @@ __global__ void __launch_bounds__(XCF_THREADS, 2)
     const double* D1 = D + (size_t)es * g.nD * g.npl * g.nq;
     const double* Dm = D1 + (size_t)g.npl * g.nq;
     const double* Dd = Dm + (size_t)g.npl * g.nq;  // tau mode only
+    const double* D2 = Dd + (size_t)g.npl * g.nq;  // laplacian mode only
     const int q = qt + gq, t = tt + gq;
     double acc[NACC][2];
 #pragma unroll
@@ -240,6 +271,14 @@ __global__ void __launch_bounds__(XCF_THREADS, 2)
         dmma884(acc[4][0], acc[4][1], a1, b2);
         dmma884(acc[5][0], acc[5][1], a1, b3);
       }
+      if constexpr (LAPL) {
+        const double a2 = qa ? __ldcg(D2 + (size_t)p * g.nq + q) : 0.0;
+        const double bl = ta ? __ldg(LLTTp + (size_t)p * g.nt + t) : 0.0;
+        const double bm = ta ? __ldg(TTmmp + (size_t)p * g.nt + t) : 0.0;
+        dmma884(acc[6][0], acc[6][1], a2, bt);
+        dmma884(acc[7][0], acc[7][1], a1, bl);
+        dmma884(acc[8][0], acc[8][1], a1, bm);
+      }
     }
     __syncthreads();  // the previous item's partial tiles are consumed
     double* rw = red + warp * NACC * 64 + gq * 8 + 2 * tq;
@@ -249,9 +288,10 @@ __global__ void __launch_bounds__(XCF_THREADS, 2)
       rw[f * 64 + 1] = acc[f][1];
     }
     __syncthreads();
-    if (tid < NOUT * 64) {
-      const int f = tid / 64, qq = qt + (tid % 64) / 8, t2 = tt + tid % 8;
-      const int c = tid % 64;
+    // one (field, q, t) slot per thread, a second round for the laplacian
+    for (int slot = tid; slot < NOUT * 64; slot += XCF_THREADS) {
+      const int f = slot / 64, qq = qt + (slot % 64) / 8, t2 = tt + slot % 8;
+      const int c = slot % 64;
       if (qq < g.nq && t2 < g.nt) {
         const int e = es % g.nelem;
         const size_t o = ((size_t)es * g.nq + qq) * g.nt + t2;
@@ -268,6 +308,19 @@ __global__ void __launch_bounds__(XCF_THREADS, 2)
 #pragma unroll
             for (int k = 0; k < 3; ++k) tk[k] += red[(w * NACC + 3 + k) * 64 + c];
           v = 0.5 * (tfac[pt] * tk[0] + tfac[nplane + pt] * tk[1] + tfac[2 * nplane + pt] * tk[2]);
+          if constexpr (LAPL) {
+            if (f == 4) {  // lapl = g1 L1 + g2 (Dmuf TT) - g3 L3 - g4 L4 + 4 tau
+              double lk[4] = {0.0, 0.0, 0.0, 0.0};
+              for (int w = 0; w < XCF_WARPS; ++w) {
+                lk[0] += red[(w * NACC + 6) * 64 + c];
+                lk[1] += red[(w * NACC + 1) * 64 + c];
+                lk[2] += red[(w * NACC + 7) * 64 + c];
+                lk[3] += red[(w * NACC + 8) * 64 + c];
+              }
+              v = lfac[pt] * lk[0] + lfac[nplane + pt] * lk[1] - lfac[2 * nplane + pt] * lk[2] -
+                  lfac[3 * nplane + pt] * lk[3] + 4.0 * v;
+            }
+          }
         }
         out[f * nfield + o] = v;
       }
@@ -275,33 +328,33 @@ __global__ void __launch_bounds__(XCF_THREADS, 2)
   }
 }
 
-// Blocks of the kernel instance `kern` that one SM holds at `smem` bytes of
-// dynamic shared memory, cached per instance, device and size. Each
-// instance is first allowed the whole 227 KB and the largest shared-memory
-// carveout, once per device, so that the occupancy computed here is the one
-// a cooperative launch is held to.
-static int xcf_blocks_per_sm(const void* kern, int tau, int device, int smem) {
-  static bool ready[2][8] = {{false}};
+// Blocks of the kernel instance `kern` (of mode `mode`) that one SM holds at
+// `smem` bytes of dynamic shared memory, cached per instance, device and
+// size. Each instance is first allowed the whole 227 KB and the largest
+// shared-memory carveout, once per device, so that the occupancy computed
+// here is the one a cooperative launch is held to.
+static int xcf_blocks_per_sm(const void* kern, int mode, int device, int smem) {
+  static bool ready[3][8] = {{false}};
   static int cached_dev[8] = {-1, -1, -1, -1, -1, -1, -1, -1}, cached_smem[8], cached_n[8],
-             cached_tau[8];
+             cached_mode[8];
   static int next = 0;
   for (int k = 0; k < 8; ++k)
-    if (cached_dev[k] == device && cached_smem[k] == smem && cached_tau[k] == tau)
+    if (cached_dev[k] == device && cached_smem[k] == smem && cached_mode[k] == mode)
       return cached_n[k];
-  if (!ready[tau][device]) {
+  if (!ready[mode][device]) {
     if (cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, 232448) !=
             cudaSuccess ||
         cudaFuncSetAttribute(kern, cudaFuncAttributePreferredSharedMemoryCarveout,
                              (int)cudaSharedmemCarveoutMaxShared) != cudaSuccess)
       return 0;
-    ready[tau][device] = true;
+    ready[mode][device] = true;
   }
   int n = 0;
   if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kern, XCF_THREADS, smem) != cudaSuccess)
     return 0;
   cached_dev[next] = device;
   cached_smem[next] = smem;
-  cached_tau[next] = tau;
+  cached_mode[next] = mode;
   cached_n[next] = n;
   next = (next + 1) % 8;
   return n;
@@ -309,24 +362,25 @@ static int xcf_blocks_per_sm(const void* kern, int tau, int device, int smem) {
 
 // The launch's arguments, as kernels/dia_xc_fields.py:_Launch lays them out:
 // the pointers first, then the sizes. D: scratch [ns, nelem, nD, npl, nq]
-// (nD = 2, or 3 in tau mode); out: [3 (4 in tau mode), ns, nelem, nq, nt]
-// (rho, drho_u, drho_v[, tau]). pc, qc (a multiple of 8) and smem from the
-// wrapper's plan (fields_plan); dTT2p, TTm2p and tfac are read in tau mode
-// only.
+// (nD = 2 + mode); out: [3 + mode, ns, nelem, nq, nt] (rho, drho_u,
+// drho_v[, tau[, lapl]]). pc, qc (a multiple of 8) and smem from the
+// wrapper's plan (fields_plan); dTT2p, TTm2p and tfac are read in modes 1
+// and 2, d2Bg, LLTTp, TTmmp and lfac in mode 2 (laplacian) only.
 struct XcfLaunch {
   const double* P;
   const int *pairs, *gidx;
   const double *Bg, *dBg, *TTp, *dTTp, *dTT2p, *TTm2p, *invh, *sqeta, *tfac;
+  const double *d2Bg, *LLTTp, *TTmmp, *lfac;
   double *D, *out;
   void* stream;
-  int ns, nang, nelem, nq, nprim, nrad, nt, npl, pc, qc, smem, device, tau;
+  int ns, nang, nelem, nq, nprim, nrad, nt, npl, pc, qc, smem, device, mode;
 };
 
 // Returns a cudaError_t.
 extern "C" int dia_xc_fields_launch(const XcfLaunch* a) {
   const cudaError_t set = cudaSetDevice(a->device);
   if (set != cudaSuccess) return (int)set;
-  if (a->pc < 1 || a->qc < 8 || a->qc % 8 || (a->tau != 0 && a->tau != 1))
+  if (a->pc < 1 || a->qc < 8 || a->qc % 8 || a->mode < 0 || a->mode > 2)
     return (int)cudaErrorInvalidValue;
   static int sm_count[8] = {0};
   if (a->device < 0 || a->device >= 8) return (int)cudaErrorInvalidDevice;
@@ -335,14 +389,16 @@ extern "C" int dia_xc_fields_launch(const XcfLaunch* a) {
         cudaDeviceGetAttribute(&sm_count[a->device], cudaDevAttrMultiProcessorCount, a->device);
     if (err != cudaSuccess) return (int)err;
   }
-  const void* kern =
-      a->tau ? (const void*)xc_fields_kernel<true> : (const void*)xc_fields_kernel<false>;
-  const int per_sm = xcf_blocks_per_sm(kern, a->tau, a->device, a->smem);
+  const void* kern = a->mode == 2   ? (const void*)xc_fields_kernel<2>
+                     : a->mode == 1 ? (const void*)xc_fields_kernel<1>
+                                    : (const void*)xc_fields_kernel<0>;
+  const int per_sm = xcf_blocks_per_sm(kern, a->mode, a->device, a->smem);
   if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
   const int mp = (a->nprim + 7) / 8 * 8;
   XcfGeom g{a->ns,  a->nang, a->nelem, a->nq, a->nprim, a->nrad, a->nt,
             a->npl, a->pc,   a->qc,    mp,    dmma_ld(mp), dmma_ld(a->qc),
-            (a->npl + a->pc - 1) / a->pc, (a->nq + a->qc - 1) / a->qc, a->tau ? 3 : 2};
+            (a->npl + a->pc - 1) / a->pc, (a->nq + a->qc - 1) / a->qc, 2 + a->mode,
+            a->mode == 2 ? 3 : 2};
   const long long n1 = (long long)g.ns * g.nelem * g.npc * g.nqc;
   const long long n2 = (long long)g.ns * g.nelem * ((g.nq + 7) / 8) * ((g.nt + 7) / 8);
   const long long want = n1 > n2 ? n1 : n2;
@@ -351,6 +407,7 @@ extern "C" int dia_xc_fields_launch(const XcfLaunch* a) {
   void* args[] = {(void*)&a->P,     (void*)&a->pairs, (void*)&a->gidx,  (void*)&a->Bg,
                   (void*)&a->dBg,   (void*)&a->TTp,   (void*)&a->dTTp,  (void*)&a->dTT2p,
                   (void*)&a->TTm2p, (void*)&a->invh,  (void*)&a->sqeta, (void*)&a->tfac,
+                  (void*)&a->d2Bg,  (void*)&a->LLTTp, (void*)&a->TTmmp, (void*)&a->lfac,
                   (void*)&a->D,     (void*)&a->out,   &g};
   return (int)cudaLaunchCooperativeKernel(kern, grid, XCF_THREADS, args, (size_t)a->smem,
                                           (cudaStream_t)a->stream);

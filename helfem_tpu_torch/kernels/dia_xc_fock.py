@@ -1,11 +1,13 @@
 """K5 dia_xc_fock: the XC Fock matrices from the weighted grid potentials of
 the XC grids (diatomic, atomic, SAD), for one or two spins, with the vtau
-terms of meta-GGAs in tau mode, as a hand-written CUDA kernel
+terms of meta-GGAs in tau mode and the vtau and vlapl terms of
+laplacian-level meta-GGAs in laplacian mode, as a hand-written CUDA kernel
 (csrc/dia_xc_fock.cu) and its plain PyTorch version.
 
-Replaces the LDA/GGA/tau part of helfem_tpu/models/diatomic_dft.py:
-eval_fxc_dia.fock (diatomic_dft.py:156-181), its scatter-add (:197-200) and
-the shell mask that eval_fxc_dia applies after it (:206-208).
+Replaces helfem_tpu/models/diatomic_dft.py:eval_fxc_dia.fock
+(diatomic_dft.py:155-200), its scatter-add and the shell mask that
+eval_fxc_dia applies after it (:206-208), and models/atomic_dft.py:
+eval_fxc.fock_spin (atomic_dft.py:160-189).
 """
 
 import ctypes
@@ -19,59 +21,77 @@ __all__ = ["dia_xc_fock", "dia_xc_fock_plain"]
 
 _GRID = ("pairs", "band", "owners", "TTp", "dTTp", "dTT2p", "TTm2p", "tfac", "ijs", "BBs", "SSs",
          "DDs")
+_LAPL = ("LLTTp", "TTmmp", "lfac", "S2s")  # the grid tables the laplacian mode reads
 _SMEM = 232448  # one block's shared memory on the H100
 
 
 class _Launch(ctypes.Structure):
     """csrc/dia_xc_fock.cu:XckLaunch: the pointers, then the sizes."""
 
-    _fields_ = ([(n, ctypes.c_void_p) for n in ("wvr", "wgu", "wgv", "wvt", *_GRID, "mask", "XY",
-                                                 "Fel", "F", "stream")]
+    _fields_ = ([(n, ctypes.c_void_p) for n in ("wvr", "wgu", "wgv", "wvt", "wvl", *_GRID, *_LAPL,
+                                                 "mask", "XY", "Fel", "F", "stream")]
                 + [(n, ctypes.c_int) for n in ("ns", "nang", "nelem", "nq", "nprim", "nrad", "nt",
-                                               "npl", "device", "tau")])
+                                               "npl", "device", "mode")])
 
 
 _templates: dict = {}  # _common.launch_template's cache of _template
 
 
-def _template(g, ns: int, tau: bool, dev):
-    """The launch arguments that depend only on the grid and the mode, and
-    the sizes."""
+def _template(g, ns: int, mode: int, dev):
+    """The launch arguments that depend only on the grid and the mode (0
+    GGA, 1 tau, 2 laplacian), and the sizes."""
     nang = g.TT.shape[0]
     nelem, nq, nprim = g.Bg.shape
     nrad, nt, npl = g.owners.shape[0], g.sqeta.shape[0], g.pairs.shape[0]
     if 4 * (4 * nrad + 2 * npl) > _SMEM:  # the kernel's tables in shared memory
         raise ValueError(f"dia_xc_fock: {nrad} radial functions and {npl} live shell pairs "
                          f"need more than the card's {_SMEM} bytes of shared memory")
-    t = _Launch(**{n: getattr(g, n).data_ptr() for n in _GRID}, ns=ns, nang=nang, nelem=nelem,
-                nq=nq, nprim=nprim, nrad=nrad, nt=nt, npl=npl, device=dev.index, tau=int(tau))
+    t = _Launch(**{n: getattr(g, n).data_ptr() for n in _GRID},
+                **{n: getattr(g, n).data_ptr() if mode == 2 else None for n in _LAPL},
+                ns=ns, nang=nang, nelem=nelem, nq=nq, nprim=nprim, nrad=nrad, nt=nt, npl=npl,
+                device=dev.index, mode=mode)
     nbf = nang * nrad
-    sizes = (nbf, (ns, nelem, nq, nt), ns * nbf * nbf, ns * nelem * (3 if tau else 2) * nq * npl,
+    sizes = (nbf, (ns, nelem, nq, nt), ns * nbf * nbf, ns * nelem * (2 + mode) * nq * npl,
              ns * nelem * npl * nprim * nprim)
     return t, sizes
 
 
+def _mode(g, wvt, wvl) -> int:
+    """0 (GGA), 1 (tau) or 2 (laplacian: wvl, which needs wvt and a grid
+    built with its laplacian tables; raises ValueError otherwise)."""
+    if wvl is None:
+        return int(wvt is not None)
+    if wvt is None:
+        raise ValueError("dia_xc_fock: the laplacian terms (wvl) need the tau terms (wvt)")
+    if g.lfac is None:
+        raise ValueError("dia_xc_fock: the laplacian needs a grid built with lapl=True")
+    return 2
+
+
 def dia_xc_fock(wvr: torch.Tensor, wgu: torch.Tensor, wgv: torch.Tensor, g,
-                mask: torch.Tensor | None = None, wvt: torch.Tensor | None = None) -> torch.Tensor:
+                mask: torch.Tensor | None = None, wvt: torch.Tensor | None = None,
+                wvl: torch.Tensor | None = None) -> torch.Tensor:
     """F [ns, nbf, nbf] (bf = a * nrad + n) from wvr = w vr, wgu = w gu invh
-    and wgv = w gv invh sqeta, and in tau mode wvt = w vtau, each [ns,
-    nelem, nq, nt] (ns 1 or 2), on the grid g (a DiaGridOps or AtomGridOps,
-    whose tables were checked when it was built); F[s] * mask[:, None] *
-    mask[None, :] when the 0/1 shell mask [nbf] is given.
+    and wgv = w gv invh sqeta, in tau mode wvt = w vtau and in laplacian
+    mode also wvl = w vlapl, each [ns, nelem, nq, nt] (ns 1 or 2), on the
+    grid g (a DiaGridOps or AtomGridOps, whose tables were checked when it
+    was built; for wvl built with its laplacian tables); F[s] * mask[:,
+    None] * mask[None, :] when the 0/1 shell mask [nbf] is given.
 
     CPU inputs run the plain version; CUDA inputs launch the kernel, one
     launch for all spins and terms. Only the potentials and the mask are
     checked per call."""
     name = "dia_xc_fock"
-    tensors = (wvr, wgu, wgv, g.Bg) + tuple(x for x in (mask, wvt) if x is not None)
+    mode = _mode(g, wvt, wvl)
+    tensors = (wvr, wgu, wgv, g.Bg) + tuple(x for x in (mask, wvt, wvl) if x is not None)
     if on_cpu(name, *tensors):
-        return dia_xc_fock_plain(wvr, wgu, wgv, g, mask, wvt)
+        return dia_xc_fock_plain(wvr, wgu, wgv, g, mask, wvt, wvl)
     ns = wvr.shape[0] if wvr.dim() == 4 else 0
     dev = wvr.device
-    tau = wvt is not None
-    t, (nbf, shape, nF, nXY, nFel) = launch_template(_templates, (g,), (ns, tau),
-                                                     lambda: _template(g, ns, tau, dev))
-    for arg, x in (("wvr", wvr), ("wgu", wgu), ("wgv", wgv), ("wvt", wvt), ("mask", mask)):
+    t, (nbf, shape, nF, nXY, nFel) = launch_template(_templates, (g,), (ns, mode),
+                                                     lambda: _template(g, ns, mode, dev))
+    for arg, x in (("wvr", wvr), ("wgu", wgu), ("wgv", wgv), ("wvt", wvt), ("wvl", wvl),
+                   ("mask", mask)):
         if x is None:
             continue
         if x.dtype != torch.float64:
@@ -82,12 +102,13 @@ def dia_xc_fock(wvr: torch.Tensor, wgu: torch.Tensor, wgv: torch.Tensor, g,
         if ns not in (1, 2) or x.shape != want:
             raise ValueError(f"{name}: {arg} has shape {tuple(x.shape)}, expected {want} "
                              "with ns 1 or 2")
-    # F [ns, nbf, nbf], then the scratch X, Y[, Z] [ns, nelem, nXY, nq, npl] and the
-    # element blocks [ns, nelem, npl, nprim^2]: one allocation
+    # F [ns, nbf, nbf], then the scratch X, Y[, Z[, V]] [ns, nelem, nXY, nq, npl] and
+    # the element blocks [ns, nelem, npl, nprim^2]: one allocation
     buf = torch.empty(nF + nXY + nFel, dtype=torch.float64, device=dev)
     a = _Launch.from_buffer_copy(t)
     a.wvr, a.wgu, a.wgv = wvr.data_ptr(), wgu.data_ptr(), wgv.data_ptr()
     a.wvt = None if wvt is None else wvt.data_ptr()
+    a.wvl = None if wvl is None else wvl.data_ptr()
     a.mask = None if mask is None else mask.data_ptr()
     a.F = buf.data_ptr()
     a.XY = a.F + 8 * nF
@@ -102,16 +123,29 @@ def dia_xc_fock(wvr: torch.Tensor, wgu: torch.Tensor, wgv: torch.Tensor, g,
     return buf[:nF].view(ns, nbf, nbf)
 
 
-def _fock_one(wvr, wgu, wgv, wvt, g, nrad):
+def _fock_one(wvr, wgu, wgv, wvt, wvl, g, nrad):
     """One spin, faithful to diatomic_dft.py:156-181 and :197-200 with
     index_add_ over gidx; the tau factors are the grid's tfac (invh^2,
-    invh^2, invhphi2 on the diatomic grid)."""
+    invh^2, invhphi2 on the diatomic grid), and the laplacian terms are
+    models/xc_grid.py's form with the grid's lfac: the tau terms with wvt +
+    4 wvl, the dB B terms with wgu + g2 wvl, and the d2B B and B B terms."""
     nang = g.TT.shape[0]
     n1 = nrad + 1
     gi = g.gidx.long()
     lin = (gi[:, :, None] * n1 + gi[:, None, :]).reshape(-1)
+    Fel = 0.0
+    if wvl is not None:
+        l1, l2, l3, l4 = g.lfac
+        wvt = wvt + 4.0 * wvl
+        wgu = wgu + wvl * l2
+        L1 = torch.einsum("eqt,abt->abeq", wvl * l1, g.TT)
+        r2 = torch.einsum("abeq,eqi,eqj->abeij", L1, g.d2Bg, g.Bg)
+        L3 = (torch.einsum("eqt,abt->abeq", wvl * l3, g.LLTT)
+              + torch.einsum("eqt,abt->abeq", wvl * l4, g.TTmm))
+        Fel = (r2 + r2.transpose(0, 1).transpose(3, 4)
+               - torch.einsum("abeq,eqi,eqj->abeij", L3, g.Bg, g.Bg))
     A1 = torch.einsum("eqt,abt->abeq", wvr, g.TT)
-    Fel = torch.einsum("abeq,eqi,eqj->abeij", A1, g.Bg, g.Bg)
+    Fel = Fel + torch.einsum("abeq,eqi,eqj->abeij", A1, g.Bg, g.Bg)
     B1 = torch.einsum("eqt,abt->abeq", wgu, g.TT)
     rad = torch.einsum("abeq,eqi,eqj->abeij", B1, g.dBg, g.Bg)
     Fel = Fel + rad + rad.transpose(0, 1).transpose(3, 4)
@@ -130,12 +164,15 @@ def _fock_one(wvr, wgu, wgv, wvt, g, nrad):
     return F4.permute(0, 2, 1, 3).reshape(nang * nrad, nang * nrad)
 
 
-def dia_xc_fock_plain(wvr, wgu, wgv, g, mask=None, wvt=None) -> torch.Tensor:
+def dia_xc_fock_plain(wvr, wgu, wgv, g, mask=None, wvt=None, wvl=None) -> torch.Tensor:
     """Plain PyTorch version of dia_xc_fock: each spin on its own, then the
     mask as eval_fxc_dia applies it (diatomic_dft.py:206-208). Reads only
-    helfem_tpu's tables and tfac, not the live-pair tables."""
+    helfem_tpu's tables, tfac and the laplacian tables (d2Bg, LLTT, TTmm,
+    lfac), not the live-pair tables."""
+    _mode(g, wvt, wvl)
     nrad = g.owners.shape[0]
-    F = torch.stack([_fock_one(wvr[s], wgu[s], wgv[s], None if wvt is None else wvt[s], g, nrad)
+    F = torch.stack([_fock_one(wvr[s], wgu[s], wgv[s], None if wvt is None else wvt[s],
+                               None if wvl is None else wvl[s], g, nrad)
                      for s in range(wvr.shape[0])])
     if mask is not None:
         F = F * mask[None, :, None] * mask[None, None, :]

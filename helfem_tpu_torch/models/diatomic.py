@@ -173,7 +173,17 @@ class DiatomicBasis:
         self.wmu = self.wq[None, :] * (0.5 * self.fem.lengths)[:, None]
         dn = self.fem.eval_dnf(self.xq, 1)
         self.B, self.dB = dn[0], dn[1]
+        self._d2B = None
         self._build_channels()
+
+    @property
+    def d2B(self) -> np.ndarray:
+        """d^2B/dmu^2 at the quadrature points [nelem, nq, nprim], formed at
+        first use (the laplacian meta-GGA's grid alone reads it;
+        diatomic.py:147-152)."""
+        if self._d2B is None:
+            self._d2B = self.fem.eval_dnf(self.xq, 2)[2]
+        return self._d2B
 
     # --- sizes ----------------------------------------------------------------
     @property

@@ -12,9 +12,11 @@ The grid tables are built on the host in numpy, as helfem_tpu builds them.
 The density fields and the XC Fock assembly are the CUDA kernels
 dia_xc_fields and dia_xc_fock (kernels/), whose plain PyTorch versions run
 on CPU tensors, meta-GGAs in the kernels' tau mode (tau factors invh^2,
-invh^2 and invhphi2, diatomic_dft.py:104-110, :174-181); the pointwise
-functional (ops/xc.py:xc_eval) is plain PyTorch with autograd. The
-laplacian branch (BR89) is not ported yet and raises.
+invh^2 and invhphi2, diatomic_dft.py:104-110, :174-181), the
+laplacian-level BR89 in their laplacian mode (factors invh^2, invh^2 coth
+mu, invh^2 and invh^2 / sinh^2 mu, diatomic_dft.py:112-123, :182-203; the
+grid carries its laplacian tables only when built with lapl=True); the
+pointwise functional (ops/xc.py:xc_eval) is plain PyTorch with autograd.
 """
 
 from collections.abc import Mapping
@@ -24,13 +26,14 @@ import numpy as np
 import torch
 
 from helfem_tpu_torch.kernels import dia_xc_fields, dia_xc_fock
+from helfem_tpu_torch.models.atomic_dft import check_lapl
 from helfem_tpu_torch.models.xc_grid import build_grid
 from helfem_tpu_torch.ops.quadrature import gauss_legendre
 from helfem_tpu_torch.ops.spherical import legendre_Pbar, ylm_dtheta
 from helfem_tpu_torch.ops.xc import xc_eval
 
 __all__ = ["DiaGridOps", "build_dia_grid", "dia_grid_tables", "eval_fxc_dia",
-           "eval_overlap_dia", "from_jax_grid"]
+           "eval_overlap_dia", "from_jax_grid", "lapl_factors"]
 
 
 class DiaGridOps(NamedTuple):
@@ -61,13 +64,23 @@ class DiaGridOps(NamedTuple):
     BBs: torch.Tensor  # [nelem, nq, nijp] B_i B_j at i <= j, zero-padded to nijp = 8k
     SSs: torch.Tensor  # [nelem, nq, nijp] dB_i B_j + B_i dB_j
     DDs: torch.Tensor  # [nelem, nq, nijp] dB_i dB_j (tau)
+    # the laplacian tables (models/xc_grid.py), None unless built with lapl=True
+    d2Bg: torch.Tensor | None = None  # [nelem, nq, nprim] d^2 B / dmu^2
+    LLTT: torch.Tensor | None = None  # [nang, nang, nt] (l_a(l_a+1) + l_b(l_b+1)) TT
+    TTmm: torch.Tensor | None = None  # [nang, nang, nt] 2 m_a m_b TT
+    lfac: torch.Tensor | None = None  # [4, nelem, nq, nt] invh^2 (1, coth, 1, 1/sinh^2)
+    LLTTp: torch.Tensor | None = None  # [npl, nt] LLTT rows of the live pairs
+    TTmmp: torch.Tensor | None = None  # [npl, nt]
+    S2s: torch.Tensor | None = None  # [nelem, nq, nijp] d2B_i B_j + B_i d2B_j
 
     def to(self, device) -> "DiaGridOps":
-        return DiaGridOps(*(t.to(device) for t in self))
+        return DiaGridOps(*(None if t is None else t.to(device) for t in self))
 
 
-def dia_grid_tables(basis, neta: int = 0) -> dict[str, np.ndarray]:
-    """The DiaGridOps fields as numpy arrays (diatomic_dft.py:46-92)."""
+def dia_grid_tables(basis, neta: int = 0, lapl: bool = False) -> dict[str, np.ndarray]:
+    """The DiaGridOps fields as numpy arrays (diatomic_dft.py:46-92), with
+    lapl also helfem_tpu's laplacian tables d2Bg, coth, inv_sh2, LLTT and
+    TTmm."""
     lmax = int(basis.lval.max())
     if neta == 0:
         neta = 2 * lmax + 12
@@ -94,8 +107,14 @@ def dia_grid_tables(basis, neta: int = 0) -> dict[str, np.ndarray]:
     vol = ch[:, :, None] ** 2 - eta[None, None, :] ** 2
     w = 2.0 * np.pi * Rh**3 * basis.wmu[:, :, None] * sh[:, :, None] * vol * weta[None, None, :]
     invh = 1.0 / (Rh * np.sqrt(vol))
-    return dict(Bg=basis.B, dBg=basis.dB, w=w, invh=invh, TT=TT, dTT=dTT, dTT2=dTT2,
-                TTm2=TTm2, invhphi2=1.0 / (Rh**2 * sh**2), sqeta=sx, gidx=basis.fem.gidx)
+    out = dict(Bg=basis.B, dBg=basis.dB, w=w, invh=invh, TT=TT, dTT=dTT, dTT2=dTT2,
+               TTm2=TTm2, invhphi2=1.0 / (Rh**2 * sh**2), sqeta=sx, gidx=basis.fem.gidx)
+    if lapl:
+        ll = basis.lval * (basis.lval + 1.0)
+        out.update(d2Bg=basis.d2B, coth=ch / sh, inv_sh2=1.0 / sh**2,
+                   LLTT=(ll[:, None] + ll[None, :])[:, :, None] * TT,
+                   TTmm=2.0 * mm[:, :, None] * same_m[:, :, None] * Th[:, None, :] * Th[None, :, :])
+    return out
 
 
 def tau_factors(invh: np.ndarray, invhphi2: np.ndarray) -> np.ndarray:
@@ -106,55 +125,68 @@ def tau_factors(invh: np.ndarray, invhphi2: np.ndarray) -> np.ndarray:
                                                    invh2.shape)))
 
 
-def from_jax_grid(arrays: Mapping[str, np.ndarray], nrad: int, device) -> DiaGridOps:
+def lapl_factors(invh: np.ndarray, coth: np.ndarray, inv_sh2: np.ndarray) -> np.ndarray:
+    """The diatomic grid's laplacian factors [4, nelem, nq, nt]: invh^2 for
+    the d2B B product and for LLTT, invh^2 coth mu for the dB B product,
+    invh^2 / sinh^2 mu for TTmm (diatomic_dft.py:112-123)."""
+    invh2 = np.asarray(invh) ** 2
+    return np.stack((invh2, invh2 * np.asarray(coth)[:, :, None], invh2,
+                     invh2 * np.asarray(inv_sh2)[:, :, None]))
+
+
+def from_jax_grid(arrays: Mapping[str, np.ndarray], nrad: int, device,
+                  lapl: bool = False) -> DiaGridOps:
     """The port's grid from helfem_tpu's DiaGridOps fields given as numpy
-    arrays (the laplacian tables are not carried); nrad is the basis's
-    radial size, which gidx's checks need."""
-    return build_grid(DiaGridOps, {**arrays, "tfac": tau_factors(arrays["invh"],
-                                                                 arrays["invhphi2"])},
-                      nrad, device)
+    arrays, with lapl also its laplacian tables (d2Bg, coth, inv_sh2, LLTT,
+    TTmm); nrad is the basis's radial size, which gidx's checks need."""
+    tables = {k: v for k, v in arrays.items()
+              if k not in ("d2Bg", "coth", "inv_sh2", "LLTT", "TTmm")}
+    tables["tfac"] = tau_factors(arrays["invh"], arrays["invhphi2"])
+    if lapl:
+        tables.update(d2Bg=arrays["d2Bg"], LLTT=arrays["LLTT"], TTmm=arrays["TTmm"],
+                      lfac=lapl_factors(arrays["invh"], arrays["coth"], arrays["inv_sh2"]))
+    return build_grid(DiaGridOps, tables, nrad, device)
 
 
-def build_dia_grid(basis, device, neta: int = 0) -> DiaGridOps:
-    return from_jax_grid(dia_grid_tables(basis, neta), basis.nrad, device)
-
-
-_ITEM6 = ("laplacian-level meta-GGAs (BR89, family mggal) on the diatomic grid are not "
-          "ported to helfem_tpu_torch yet (ROADMAP.md queue 1 item 6)")
+def build_dia_grid(basis, device, neta: int = 0, lapl: bool = False) -> DiaGridOps:
+    """The diatomic grid on `device`, with the laplacian tables when lapl (a
+    laplacian-level functional needs them; no other method pays for them)."""
+    return from_jax_grid(dia_grid_tables(basis, neta, lapl), basis.nrad, device, lapl)
 
 
 def _fields_dia(g: DiaGridOps, P: torch.Tensor, need_tau: bool = False,
                 need_lapl: bool = False):
-    """(rho, drho_u, drho_v, tau) [nelem, nq, nt] of one density P [nbf,
-    nbf] (diatomic_dft.py:95-110), tau None unless need_tau, through the
-    dia_xc_fields kernel."""
-    if need_lapl:
-        raise NotImplementedError(_ITEM6)
-    fields = tuple(f[0] for f in dia_xc_fields(P.contiguous()[None], g, need_tau))
-    return fields if need_tau else (*fields, None)
+    """(rho, drho_u, drho_v, tau, lapl) [nelem, nq, nt] of one density P
+    [nbf, nbf] (diatomic_dft.py:95-124), tau None unless need_tau or
+    need_lapl, lapl None unless need_lapl (a grid built with lapl=True),
+    through the dia_xc_fields kernel."""
+    mgga = need_tau or need_lapl
+    fields = tuple(f[0] for f in dia_xc_fields(P.contiguous()[None], g, mgga, need_lapl))
+    return fields + (None,) * (5 - len(fields))
 
 
 def eval_fxc_dia(funcs, g: DiaGridOps, ops, Pa: torch.Tensor, Pb: torch.Tensor,
                  thr: float = 1e-12):
     """(Fxca, Fxcb, Exc, Nel) on the diatomic grid (diatomic_dft.py:127-209)
-    for LDA, GGA and meta-GGA functionals. Both spins go through one launch
-    of each kernel, in tau mode for a meta-GGA; when Pb is Pa the fields
-    are formed once and reused (the same bits as forming them twice: the
-    kernel is deterministic per spin)."""
-    families = {f.family for f in funcs}
-    if not families <= {"lda", "gga", "mgga"}:
-        raise NotImplementedError(_ITEM6)
-    mgga = "mgga" in families
+    for LDA, GGA, meta-GGA and laplacian-level functionals. Both spins go
+    through one launch of each kernel, in tau mode for a meta-GGA and in
+    laplacian mode for a laplacian-level one (which needs a grid built with
+    lapl=True); when Pb is Pa the fields are formed once and reused (the
+    same bits as forming them twice: the kernel is deterministic per
+    spin)."""
+    lapl = check_lapl(g, funcs)
+    mgga = lapl or any(f.family == "mgga" for f in funcs)
     same = Pb is Pa
-    fields = dia_xc_fields(Pa.contiguous()[None] if same else torch.stack((Pa, Pb)), g, mgga)
+    fields = dia_xc_fields(Pa.contiguous()[None] if same else torch.stack((Pa, Pb)), g, mgga,
+                           lapl)
     rho, du, dv = fields[:3]
     ra, ua, va = rho[0], du[0], dv[0]
     rb, ub, vb = (ra, ua, va) if same else (rho[1], du[1], dv[1])
     saa = ua * ua + va * va
     sab = ua * ub + va * vb
     sbb = ub * ub + vb * vb
-    tau = (fields[3][0], fields[3][-1]) if mgga else ()
-    out = xc_eval(funcs, ra, rb, saa, sab, sbb, thr, *tau)
+    meta = tuple(f[s] for f in fields[3:] for s in (0, -1))  # ta, tb[, la, lb]
+    out = xc_eval(funcs, ra, rb, saa, sab, sbb, thr, *meta)
     e, vra, vrb, vsaa, vsab, vsbb = out[:6]
     Exc = torch.sum(g.w * e)
     Nel = torch.sum(g.w * (ra + rb))
@@ -162,9 +194,10 @@ def eval_fxc_dia(funcs, g: DiaGridOps, ops, Pa: torch.Tensor, Pb: torch.Tensor,
     gu = torch.stack((2.0 * vsaa * ua + vsab * ub, 2.0 * vsbb * ub + vsab * ua))
     gv = torch.stack((2.0 * vsaa * va + vsab * vb, 2.0 * vsbb * vb + vsab * va))
     wvt = g.w * torch.stack(out[6:8]) if mgga else None
+    wvl = g.w * torch.stack(out[8:10]) if lapl else None
     F = dia_xc_fock(g.w * torch.stack((vra, vrb)), g.w * gu * g.invh,
                     g.w * gv * g.invh * g.sqeta[None, None, :], g, ops.shellmask.reshape(-1),
-                    wvt)
+                    wvt, wvl)
     return F[0], F[1], Exc, Nel
 
 

@@ -34,10 +34,12 @@ switched off on the device once the DIIS error drops below 1e-3, and one
 boolean per iteration back to the host.
 
 Not ported (they raise NotImplementedError): finite nuclei, confinement,
-the nuclear sub-grid and --zeroder (ROADMAP queue 1 item 8), the sliding
-DIIS/ADIIS switch --diisthr, the laplacian-level BR89 (item 6), and the
+the nuclear sub-grid and --zeroder (ROADMAP queue 1 item 8), and the
 multiplicative potential of a meta-GGA (_mult_vxc_radial, as in
-helfem_tpu).
+helfem_tpu). The laplacian-level BR89 raises SadLaplacianError (a
+ValueError): helfem_tpu's SAD atom has no laplacian path. diisthr is taken
+and handed to the DIIS, where it is inert, as in helfem_tpu: its blend
+needs the ADIIS weights, which the SAD solvers switch off.
 """
 
 from collections.abc import Mapping
@@ -60,19 +62,35 @@ from helfem_tpu_torch.ops.grids import form_grid
 from helfem_tpu_torch.ops.polynomials import get_basis
 from helfem_tpu_torch.ops.radial import RadialBasis
 from helfem_tpu_torch.ops.xc import parse_method, xc_eval
-from helfem_tpu_torch.scf.common import reject_unported, vdot
+from helfem_tpu_torch.scf.common import vdot
 from helfem_tpu_torch.scf.diis import DIIS, device_diis_step
 from helfem_tpu_torch.scf.guess import potential
 from helfem_tpu_torch.utils.linalg import eigh_refined, form_sinvh
 
-__all__ = ["SadAtomBasis", "SadOps", "SadResult", "from_jax_sad_ops", "sad_coulomb",
+__all__ = ["SadAtomBasis", "SadLaplacianError", "SadOps", "SadResult", "from_jax_sad_ops",
+           "sad_coulomb", "sad_method",
            "sad_exchange", "sad_xc", "search_sadatom_unrestricted", "solve_sadatom",
            "solve_sadatom_unrestricted", "sap_potential_table", "totcoup_table"]
 
 _ITEM8 = "is not ported to helfem_tpu_torch yet (ROADMAP.md queue 1 item 8)"
-# options of helfem_tpu's unrestricted solver and search that the port does
-# not cover, with the default under which they are inert
-_UNPORTED = {"diisthr": None}
+
+
+class SadLaplacianError(ValueError):
+    """A laplacian-level functional (family mggal, BR89) asked of the
+    spherically averaged atom: helfem_tpu's SAD atom (sadatom.py:sad_xc)
+    forms no density laplacian, so neither does the port's."""
+
+
+def sad_method(method: str):
+    """(funcs, kfrac) of a SAD method; raises SadLaplacianError for a
+    laplacian-level functional."""
+    funcs, kfrac = parse_method(method)
+    if any(f.family == "mggal" for f in funcs):
+        raise SadLaplacianError(
+            f"'{method}' is a laplacian-level functional (family mggal): helfem_tpu's "
+            "spherically averaged atom has no laplacian path, so the SAD solvers and gensap "
+            "take LDA, GGA and meta-GGA functionals only")
+    return funcs, kfrac
 
 
 def totcoup_table(lmax: int) -> np.ndarray:
@@ -550,7 +568,7 @@ def solve_sadatom_unrestricted(
     diisorder: int = 10,
     diiseps: float = 0.1,
     device=None,
-    **unported,
+    diisthr: float | None = None,
 ) -> SadResult:
     """Spin-polarised spherically averaged SCF (helfem_tpu's
     solve_sadatom_unrestricted, sadatom.py:816-992; reference: the uconf_t
@@ -562,12 +580,11 @@ def solve_sadatom_unrestricted(
     K1 once for both spins' stacked cubes (HF and hybrids) and K4/K5 once
     with two spins (functionals). The operators are built on `device`
     unless `ops` is given, in which case the solve runs on ops' device."""
-    reject_unported(unported, _UNPORTED, "solve_sadatom_unrestricted")
     fixed = occs_a is not None and occs_b is not None
     ops = _sad_ops(basis, ops, device, "solve_sadatom_unrestricted")
     device = ops.device
     nl, nrad = basis.lmax + 1, basis.nrad
-    funcs, kfrac = parse_method(method)
+    funcs, kfrac = sad_method(method)
     funcs = tuple(funcs)
     fock = make_sad_fock(funcs, kfrac, nl, dftthr)
     S_np = ops.at.S.cpu().numpy()
@@ -583,7 +600,8 @@ def solve_sadatom_unrestricted(
         occs_a = aufbau_occs(Ea, nela, False)
     if occs_b is None:
         occs_b = aufbau_occs(Eb, nelb, False)
-    diis = DIIS(S_np, Sinvh_np, max_hist=diisorder, diis_eps=diiseps, adiis=False)
+    diis = DIIS(S_np, Sinvh_np, max_hist=diisorder, diis_eps=diiseps, diis_thr=diisthr,
+                adiis=False)
     Eold, Etot, converged = 0.0, 0.0, False
     Ekin = Ecoul = Exx = Exc = 0.0
     out = None
@@ -700,7 +718,7 @@ def search_sadatom_unrestricted(
     diiseps: float = 0.1,
     ops: SadOps | None = None,
     device=None,
-    **unported,
+    diisthr: float | None = None,
 ) -> SadResult:
     """Unrestricted ground-configuration search (helfem_tpu's
     search_sadatom_unrestricted, sadatom.py:1209-1292). mode 'aufbau':
@@ -717,7 +735,7 @@ def search_sadatom_unrestricted(
         search_unrestricted,
     )
 
-    reject_unported(unported, _UNPORTED, "search_sadatom_unrestricted")
+    sad_method(method)
     if nel is None:
         nel = basis.Z
     ops = _sad_ops(basis, ops, device, "search_sadatom_unrestricted")
@@ -730,7 +748,8 @@ def search_sadatom_unrestricted(
                 basis, int(sum(occa)), int(sum(occb)), method=method,
                 occs_a=np.array(occa, dtype=int), occs_b=np.array(occb, dtype=int),
                 maxit=maxit, convthr=convthr, guess=guess, verbose=verbose, ops=ops,
-                shift=shift, dftthr=dftthr, diisorder=diisorder, diiseps=diiseps)
+                shift=shift, dftthr=dftthr, diisorder=diisorder, diiseps=diiseps,
+                diisthr=diisthr)
         r = results[key]
         return r.E, r.converged, r.orbE, r.orbE_b
 
@@ -766,9 +785,10 @@ def solve_sadatom(
     diisorder: int = 10,
     diiseps: float = 0.1,
     device=None,
+    diisthr: float | None = None,
 ) -> SadResult:
-    """Restricted spherically averaged SCF (helfem_tpu's solve_sadatom
-    without --diisthr). occs given -> one fixed-occupation solve;
+    """Restricted spherically averaged SCF (helfem_tpu's solve_sadatom).
+    occs given -> one fixed-occupation solve;
     search=True -> exhaustive ground-configuration search (aufbau self-
     consistency + MoveElectrons neighbours, reference sadatom/main.cpp:280-
     560); else aufbau self-consistency only. `shift` is the level shift
@@ -780,7 +800,7 @@ def solve_sadatom(
     ops = _sad_ops(basis, ops, device, "solve_sadatom")
     device = ops.device
     nl, nrad = basis.lmax + 1, basis.nrad
-    funcs, kfrac = parse_method(method)
+    funcs, kfrac = sad_method(method)
     funcs = tuple(funcs)
     fock = make_sad_fock(funcs, kfrac, nl, dftthr)
     S_np = ops.at.S.cpu().numpy()
@@ -798,7 +818,8 @@ def solve_sadatom(
         # per-iteration (E, err) scalars reach the host
         E_, C_ = E0.copy(), C0
         Eold, Etot = 0.0, 0.0
-        diis = DIIS(S_np, Sinvh_np, max_hist=diisorder, diis_eps=diiseps, adiis=False)
+        diis = DIIS(S_np, Sinvh_np, max_hist=diisorder, diis_eps=diiseps, diis_thr=diisthr,
+                    adiis=False)
         occw_np, angw_np = occ_weight_vectors(occs, nl, nrad)
         occw, angw = as_dev(occw_np), as_dev(angw_np)
         converged = False

@@ -7,21 +7,22 @@ torch.autograd.grad pass in f64, where helfem_tpu takes jax.vjp, so the
 potentials match the energy by construction.
 
 Meta-GGAs (family 'mgga') also take the kinetic energy densities ta, tb
-and give vtau.
+and give vtau; the laplacian-level BR89 (family 'mggal') takes ta, tb and
+the density laplacians la, lb too and gives vtau and vlapl.
 
 Ported: Slater exchange, VWN5 and PW92 correlation (LDA); PBE, RPBE and
 B88 exchange, PBE and LYP correlation (GGA), with the revPBE and PBEsol
 parameter variants; TPSS, SCAN and rSCAN exchange and correlation
-(meta-GGA). Methods: HF, lda, svwn/svwn5, pbe, revpbe, pbesol, rpbe, blyp,
+(meta-GGA); BR89 exchange (laplacian-level meta-GGA). Methods: HF, lda,
+svwn/svwn5, pbe, revpbe, pbesol, rpbe, blyp,
 tpss, scan, rscan, the hybrids pbe0/pbeh, tpssh and b3lyp5, the
 range-separated hybrids lc-lda/ldaerf, lcy-lda and sr-pbe0 (with their
 [omega=..,kshort=..,kfull=..] overrides; the short-range LDA exchange
-lda_x_erf), and 'x,c' (or 'x-c') pairs of the catalog's functionals. The
-laplacian-level BR89 (ROADMAP.md queue 1 item 6) raises
-NotImplementedError. Formulas from the original publications
+lda_x_erf), and 'x,c' (or 'x-c') pairs of the catalog's functionals, BR89
+('mgga_x_br89') among them. Formulas from the original publications
 (Vosko-Wilk-Nusair 1980; Perdew-Wang 1992; Perdew-Burke-Ernzerhof 1996;
-Becke 1988; Lee-Yang-Parr 1988; Tao et al. 2003; Sun-Ruzsinszky-Perdew
-2015; Bartok-Yates 2019; Gill-Adamson-Pople 1996).
+Becke 1988; Lee-Yang-Parr 1988; Becke-Roussel 1989; Tao et al. 2003;
+Sun-Ruzsinszky-Perdew 2015; Bartok-Yates 2019; Gill-Adamson-Pople 1996).
 
 Density threshold: points with rho < thr are masked out of energies and
 potentials (libxc's dens_threshold convention, dftgrid.cpp:428).
@@ -66,8 +67,8 @@ def _clip_zeta(zeta):
 
 class Functional(NamedTuple):
     name: str
-    family: str  # 'lda', 'gga' or 'mgga'
-    f: Callable  # (ra, rb, saa, sab, sbb[, ta, tb], **params) -> energy per volume
+    family: str  # 'lda', 'gga', 'mgga' or 'mggal'
+    f: Callable  # (ra, rb, saa, sab, sbb[, ta, tb[, la, lb]], **params) -> energy per volume
     params: tuple = ()  # sorted ((key, value), ...) overrides, hashable
 
 
@@ -560,6 +561,66 @@ def _ec_rscan(ra, rb, saa, sab, sbb, ta, tb):
 
 
 # ----------------------------------------------------------------------------
+# BR89 exchange (laplacian-level meta-GGA)
+# ----------------------------------------------------------------------------
+
+
+def _br89_g(x):
+    return x * torch.exp(-2.0 * x / 3.0) / (x - 2.0)
+
+
+def _br89_solve_x(y):
+    """Invert y = x exp(-2x/3)/(x-2) (xc.py:633-668): g decreases on both
+    branches, (0,2) -> (-inf, 0) and (2, inf) -> (0, inf), so 80 halvings
+    of the branch's bracket (without autograd) find x, and three Newton
+    steps on ln|g(x)| - ln|y| with autograd on polish it, so that the
+    derivative is the implicit-function one, as in helfem_tpu."""
+    neg = y < 0.0
+    # helfem_tpu's 1e-30 floor, kept so the comparison holds term for term
+    ys = torch.where(torch.abs(y) > 1e-30, y,
+                     torch.where(neg, torch.full_like(y, -1e-30), torch.full_like(y, 1e-30)))
+    with torch.no_grad():
+        yd = ys.detach()
+        lo = torch.where(neg, torch.full_like(yd, 1e-10), torch.full_like(yd, 2.0 + 1e-10))
+        hi = torch.where(neg, torch.full_like(yd, 2.0 - 1e-10), torch.full_like(yd, 600.0))
+        for _ in range(80):
+            mid = 0.5 * (lo + hi)
+            too_small = _br89_g(mid) > yd  # g(mid) > y: x must grow
+            lo = torch.where(too_small, mid, lo)
+            hi = torch.where(too_small, hi, mid)
+        x = 0.5 * (lo + hi)
+    for _ in range(3):
+        h = torch.log(torch.abs(_br89_g(x))) - torch.log(torch.abs(ys))
+        hp = 1.0 / x - 2.0 / 3.0 - 1.0 / (x - 2.0)
+        x = x - h / hp
+    return x
+
+
+def _ex_br89(ra, rb, saa, sab, sbb, ta, tb, la, lb, *, gamma=0.8):
+    """Becke-Roussel 1989 exchange (PRA 38, 3761; xc.py:671-692): the
+    exchange hole modelled by a displaced exponential matched to the exact
+    small-separation expansion; exact for one-electron (hydrogenic)
+    densities. tau carries the 1/2 convention (BR's tau = 2 tau here)."""
+
+    def exs(r, s, t, lap):
+        D = 2.0 * t - 0.25 * s / (r + _TINY)
+        Q = (lap - 2.0 * gamma * D) / 6.0
+        # helfem_tpu's 1e-15 floor on |Q| (far tails only)
+        Qs = torch.where(torch.abs(Q) > 1e-15, Q,
+                         torch.where(Q < 0.0, torch.full_like(Q, -1e-15),
+                                     torch.full_like(Q, 1e-15)))
+        y = (2.0 / 3.0) * _PI ** (2.0 / 3.0) * r ** (5.0 / 3.0) / Qs
+        x = _br89_solve_x(y)
+        ex = torch.exp(-x)
+        b3 = x**3 * ex / (8.0 * _PI * r + _TINY)
+        b = torch.sign(b3) * torch.abs(b3) ** (1.0 / 3.0)  # jnp.cbrt: b3 < 0 where x < 0
+        U = -(1.0 - ex - 0.5 * x * ex) / (b + 1e-15)
+        return 0.5 * r * U
+
+    return exs(ra, saa, ta, la) + exs(rb, sbb, tb, lb)
+
+
+# ----------------------------------------------------------------------------
 # catalog + method parsing
 # ----------------------------------------------------------------------------
 
@@ -578,12 +639,9 @@ _CATALOG = {
     "mgga_c_scan": Functional("mgga_c_scan", "mgga", _ec_scan),
     "mgga_x_rscan": Functional("mgga_x_rscan", "mgga", _ex_rscan),
     "mgga_c_rscan": Functional("mgga_c_rscan", "mgga", _ec_rscan),
+    "mgga_x_br89": Functional("mgga_x_br89", "mggal", _ex_br89),
     "lda_x_erf": Functional("lda_x_erf", "lda", _ex_slater_erf),
 }
-
-# helfem_tpu catalog entries outside this port's slice, with their ROADMAP
-# item: the laplacian-level BR89
-_UNPORTED_FUNCS = {"mgga_x_br89": 6}
 
 # alias -> (kfrac, [(weight, functional-name, params-dict), ...])
 _ALIASES = {
@@ -612,19 +670,9 @@ _ALIASES = {
                      (1.0, "gga_c_pbe", {"beta": 0.046})]),
 }
 
-_MISSING = {
-    6: "the laplacian-level meta-GGA (BR89, family mggal) is not ported to helfem_tpu_torch "
-       "yet (ROADMAP.md queue 1 item 6)",
-}
-
-def _unported(what: str, item: int) -> NotImplementedError:
-    return NotImplementedError(f"{what}: {_MISSING[item]}")
-
 
 def get_functional(name: str) -> Functional:
     key = name.lower()
-    if key in _UNPORTED_FUNCS:
-        raise _unported(f"functional '{name}'", _UNPORTED_FUNCS[key])
     if key not in _CATALOG:
         raise ValueError(f"unknown functional '{name}'")
     return _CATALOG[key]
@@ -801,14 +849,17 @@ def parse_method(method: str):
     return list(spec.funcs), spec.kfull
 
 
-_NARGS = {"lda": 5, "gga": 5, "mgga": 7}
+_NARGS = {"lda": 5, "gga": 5, "mgga": 7, "mggal": 9}
 
 
-def xc_eval(funcs, ra, rb, saa, sab, sbb, thr: float = 1e-12, ta=None, tb=None):
-    """Energy density and potentials on grid tensors (xc.py:932-978 without
-    the laplacian): returns (e, vra, vrb, vsaa, vsab, vsbb[, vta, vtb]), the
-    tau potentials when ta and tb are given. Points where rho < thr give
-    exactly zero.
+def xc_eval(funcs, ra, rb, saa, sab, sbb, thr: float = 1e-12, ta=None, tb=None, la=None,
+            lb=None):
+    """Energy density and potentials on grid tensors (xc.py:932-978):
+    returns (e, vra, vrb, vsaa, vsab, vsbb[, vta, vtb][, vla, vlb]), the tau
+    potentials when ta and tb are given, the density-laplacian potentials
+    when la and lb are given (family 'mggal'; without ta, tb the tau slots
+    are zeros and are dropped from the result, as helfem_tpu drops them).
+    Points where rho < thr give exactly zero.
 
     The inputs are substituted before any functional sees them -- masked
     points by 1.0, each spin density floored at thr, the same-spin sigmas
@@ -825,8 +876,13 @@ def xc_eval(funcs, ra, rb, saa, sab, sbb, thr: float = 1e-12, ta=None, tb=None):
             sab,
             _max(sbb, 0.0),
         ]
-        if ta is not None:
+        with_tau, with_lapl = ta is not None, la is not None
+        if with_tau:
             args += [_max(ta, _TINY), _max(tb, _TINY)]
+        if with_lapl:
+            if not with_tau:
+                args += [torch.zeros_like(la), torch.zeros_like(la)]
+            args += [la, lb]
         args = [a.detach().requires_grad_(True) for a in args]
         with torch.enable_grad():
             e = (sum(f.f(*args[:_NARGS[f.family]], **dict(f.params)) for f in funcs)
@@ -835,4 +891,7 @@ def xc_eval(funcs, ra, rb, saa, sab, sbb, thr: float = 1e-12, ta=None, tb=None):
                                         allow_unused=True)
         z = torch.zeros_like(ra)
         grads = [z if g is None else g for g in grads]
-        return tuple(torch.where(mask, x, z) for x in (e.detach(), *grads))
+        out = [torch.where(mask, x, z) for x in (e.detach(), *grads)]
+        if with_lapl and not with_tau:
+            out = out[:6] + out[8:]  # drop the dummy tau slots
+        return tuple(out)

@@ -1,6 +1,7 @@
 """Atomic SCF driver (L7), ported from helfem_tpu/scf/atomic_scf.py.
 
-The port runs HF, the ported LDA, GGA and meta-GGA functionals, their
+The port runs HF, the ported LDA, GGA and meta-GGA functionals (BR89, the
+laplacian-level one, among them), their
 global hybrids (PBE0, B3LYP5, TPSSh) and the range-separated hybrids
 (LC-LDA, LDAERF, LCY-LDA, SR-PBE0: kfull K + kshort K_sr(omega), the erfc
 or Yukawa kernel), restricted (RHF/RKS), unrestricted (UHF/UKS) or ROHF,
@@ -12,11 +13,14 @@ under (l,m) symmetry blocks (symmetry=2):
   block-coordinate C2-DIIS -> batched whitened eigensolve, with the
   convergence test on the device after every iteration.
 
-ROHF stays on the host loop (its Fock update is host numpy every
-iteration), as in helfem_tpu. helfem_tpu's lax.while_loop chunk becomes a
+ROHF and Fock damping (dampfock/dampthr, the occupied-virtual MO blocks
+scaled while the DIIS error is at least dampthr) stay on the host loop
+(their Fock updates are host numpy every iteration), as in helfem_tpu;
+diisthr blends the host DIIS's C2-DIIS and ADIIS weights between diisthr
+and diiseps. helfem_tpu's lax.while_loop chunk becomes a
 Python loop over tensors that stay on the device; one boolean per iteration
 comes back to stop the chunk. Every other scf_atom option (fields,
-confinement, finite nuclei, --ndev, --eigiter, m-averaging, damping, ...)
+confinement, finite nuclei, --ndev, --eigiter, m-averaging, ...)
 raises NotImplementedError: nothing falls back silently.
 """
 
@@ -36,7 +40,12 @@ from helfem_tpu_torch.models.atomic import (
     exchange_bd,
     rs_exchange_bd,
 )
-from helfem_tpu_torch.models.atomic_dft import AtomGridOps, build_atomic_grid, eval_fxc
+from helfem_tpu_torch.models.atomic_dft import (
+    AtomGridOps,
+    build_atomic_grid,
+    eval_fxc,
+    needs_lapl,
+)
 from helfem_tpu_torch.ops.xc import MethodSpec, parse_method_rs
 from helfem_tpu_torch.scf.common import (
     aufbau_blocks,
@@ -92,6 +101,31 @@ def _diis_error(F, P, S, Sinvh):
     FPS = F @ P @ S
     e = Sinvh.T @ (FPS - FPS.T) @ Sinvh
     return e.reshape(-1)
+
+
+def _damp_fock_mo(F, C_blocks, occ, blk_idx, S, factor: float) -> np.ndarray:
+    """F (host numpy) with the occupied-virtual MO blocks of each symmetry
+    block scaled by `factor` in the previous orbitals C_blocks [nblk, blen,
+    blen] (helfem_tpu atomic_scf.py:431-455; reference: the --dampfock
+    off-diagonal damping, src/atomic/main.cpp:919-935)."""
+    F = np.array(F)
+    S = np.asarray(S)
+    nbf = F.shape[0]
+    for b in range(blk_idx.shape[0]):
+        idx = blk_idx[b]
+        idx = idx[idx < nbf]
+        ni = len(idx)
+        C = np.asarray(C_blocks[b])[:ni, :ni]
+        occm = np.asarray(occ[b])[:ni] > 0
+        if not occm.any() or occm.all():
+            continue
+        Fb = F[np.ix_(idx, idx)]
+        Sb = S[np.ix_(idx, idx)]
+        M = C.T @ Fb @ C
+        M[np.ix_(occm, ~occm)] *= factor
+        M[np.ix_(~occm, occm)] *= factor
+        F[np.ix_(idx, idx)] = Sb @ C @ M @ C.T @ Sb
+    return F
 
 
 def make_fock(funcs, kfrac: float, nrad: int, dftthr: float = 1e-12,
@@ -258,8 +292,7 @@ _UNPORTED = {
     "conf_N": 0, "conf_R": 0.0, "conf_barrier": 0.0, "shift_conf": 0.0,
     "finitenuc": "point", "Rrms": 0.0, "Zl": 0, "Zr": 0, "Rmid": 0.0,
     "occs": None, "perturb": 0.0, "seed": 0, "P0a": None, "P0b": None,
-    "save_cb": None, "maverage": False, "dampfock": 1.0, "dampthr": 0.5,
-    "diag": True, "eigiter": 0, "ndev": 0, "diisthr": None,
+    "save_cb": None, "maverage": False, "diag": True, "eigiter": 0, "ndev": 0,
 }
 
 
@@ -296,6 +329,9 @@ def scf_atom(
     device=None,
     grid: AtomGridOps | None = None,
     rs: ErfcOperators | RSOperators | None = None,
+    dampfock: float = 1.0,
+    dampthr: float = 0.5,
+    diisthr: float | None = None,
     **unported,
 ) -> SCFResult:
     """Restricted, unrestricted or ROHF SCF of HF, the ported LDA, GGA and
@@ -307,7 +343,13 @@ def scf_atom(
     The operators (and the grid of a functional, ldft theta points, 0 for
     2 lmax + 12, and a range-separated method's short-range tables, see
     rs_operators) are built on `device` unless `ops` (and `grid`, `rs`)
-    are given, in which case the SCF runs on ops' device."""
+    are given, in which case the SCF runs on ops' device; a
+    laplacian-level functional needs its grid built with lapl=True.
+    dampfock != 1 scales the occupied-virtual MO blocks of the extrapolated
+    Fock by dampfock while the DIIS error is at least dampthr, and keeps
+    every iteration on the host loop (helfem_tpu atomic_scf.py:692, :871-
+    878); diisthr (not None) blends the host DIIS's C2-DIIS and ADIIS
+    weights between diisthr and diiseps (scf/diis.py)."""
     reject_unported(unported, _UNPORTED, "scf_atom")
     spec = parse_method_rs(method)  # raises for the functionals the port lacks
     funcs = spec.funcs
@@ -326,7 +368,7 @@ def scf_atom(
     kernel = spec.kernel
     g = grid
     if funcs and g is None:
-        g = build_atomic_grid(basis, device, ntheta=ldft)
+        g = build_atomic_grid(basis, device, ntheta=ldft, lapl=needs_lapl(funcs))
     rohf = restricted == 1 and nela != nelb
     restricted = nela == nelb if restricted == -1 else (restricted == 1 and not rohf)
     S_np = ops.S.cpu().numpy()
@@ -348,7 +390,7 @@ def scf_atom(
 
     Sinvh_np = full_sinvh(blk_idx_np, blk_sinvh_np, basis.nbf)
     Sinvh_dev = as_dev(Sinvh_np)
-    diis = DIIS(S_np, Sinvh_np, max_hist=diisorder, diis_eps=diiseps,
+    diis = DIIS(S_np, Sinvh_np, max_hist=diisorder, diis_eps=diiseps, diis_thr=diisthr,
                 blocks=(blk_idx_np, blk_sinvh_np))
     Sh_np = form_sh(S_np) if rohf else None
 
@@ -360,8 +402,9 @@ def scf_atom(
     # fused device chunks engage after TWO host iterations; they are
     # load-bearing (helfem_tpu atomic_scf.py:684-697): the host DIIS handles
     # the large-error regime that the chunks' pure C2-DIIS cannot. ROHF's
-    # Fock update is host work every iteration, so it stays on the host.
-    warmup = maxit if rohf else 2
+    # Fock update and the MO-basis damping are host work every iteration,
+    # so they stay on the host.
+    warmup = maxit if rohf or dampfock != 1.0 else 2
     chunk_len = 4  # chunk schedule 4, 8, 16
     CH = 16
     nhist = 10
@@ -442,6 +485,12 @@ def scf_atom(
                 Fa, Fb = rohf_update(Fa, Fb, Pa + Pb, Sh_np, Sinvh_np, nela, nelb)
             err = diis.update([Fa, Fb], [Pa, Pb])
             Fa_, Fb_ = diis.solve()
+        if dampfock != 1.0 and err >= dampthr:
+            if verbose:
+                print(f"damping off-diagonal Fock elements by {dampfock:.3f}")
+            Fa_ = _damp_fock_mo(Fa_, Ca.cpu().numpy(), occa, blk_idx_np, S_np, dampfock)
+            Fb_ = Fa_ if restricted else _damp_fock_mo(Fb_, Cb.cpu().numpy(), occb, blk_idx_np,
+                                                       S_np, dampfock)
         if verbose:
             print(f"iter {it:3d}  E = {Etot:+.12f}  dE = {dE:+.3e}  diis = {err:.3e}")
         if err < convthr and abs(dE) < convthr and it > 1:

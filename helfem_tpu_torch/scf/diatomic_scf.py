@@ -1,9 +1,10 @@
 """Diatomic SCF driver (L7), ported from helfem_tpu/scf/diatomic_scf.py.
 
-The port runs HF, LDA and GGA functionals and the PBE0 hybrid, restricted
-(RHF/RKS), unrestricted (UHF/UKS) or ROHF, under the diatomic symmetry
-blocks (m, plus g/u for homonuclear), the paths of the N2 HF and N2 PBE
-bench configs and of open shells such as triplet O2 or H2+:
+The port runs HF, LDA, GGA, meta-GGA and laplacian-level (BR89)
+functionals and their global hybrids, restricted (RHF/RKS), unrestricted
+(UHF/UKS) or ROHF, under the diatomic symmetry blocks (m, plus g/u for
+homonuclear), the paths of the N2 HF and N2 PBE bench configs and of open
+shells such as triplet O2 or H2+:
 
   guess (core, or SAP/GSZ/TF of the two atoms) -> two host iterations (Fock
   on the device, host DIIS with ADIIS far from convergence) -> fused device
@@ -13,13 +14,16 @@ bench configs and of open shells such as triplet O2 or H2+:
   block-coordinate C2-DIIS -> one batched blocked eigensolve for both
   spins, with the convergence test on the device after every iteration.
 
-ROHF stays on the host loop (its Fock update is host numpy every
-iteration), as in helfem_tpu. helfem_tpu's lax.while_loop chunk becomes a
+ROHF and the level shift (shift: the previous virtual orbitals pushed up
+while the DIIS error is above 1e-3, for rough-potential functionals such
+as BR89) stay on the host loop, as in helfem_tpu; diisthr blends the host
+DIIS's C2-DIIS and ADIIS weights between diisthr and diiseps.
+helfem_tpu's lax.while_loop chunk becomes a
 Python loop over tensors that stay on the device; one boolean per iteration
 comes back to stop the chunk. The eigensolve is torch.linalg.eigh per block
 with helfem_tpu's four refinement passes (utils/linalg.py:eigh_refined);
 its warm start is not carried over. Every other scf_diatomic option
-(enforced occupations, fields, finite nuclei, level shifts, --ndev, ...)
+(enforced occupations, fields, finite nuclei, --ndev, ...)
 raises NotImplementedError: nothing falls back silently. A range-separated
 method raises ValueError, as helfem_tpu's does (range separation exists on
 atoms only).
@@ -37,6 +41,7 @@ from helfem_tpu_torch.models.diatomic import (
     exchange_dia,
     exchange_dia_occ,
 )
+from helfem_tpu_torch.models.atomic_dft import needs_lapl
 from helfem_tpu_torch.models.diatomic_dft import DiaGridOps, build_dia_grid, eval_fxc_dia
 from helfem_tpu_torch.models.diatomic_tools import guess_hamiltonian_dia
 from helfem_tpu_torch.ops.xc import parse_method
@@ -60,7 +65,23 @@ from helfem_tpu_torch.utils.linalg import (
     scatter_blocks,
 )
 
-__all__ = ["scf_diatomic", "DiaSCFResult", "make_dia_fock", "occ_select", "occupied_dia"]
+__all__ = ["scf_diatomic", "DiaSCFResult", "eig_blocks_dia_shifted", "make_dia_fock",
+           "occ_select", "occupied_dia"]
+
+
+def eig_blocks_dia_shifted(ops: DiatomicOperators, Fb: torch.Tensor, C_prev: torch.Tensor,
+                           occ: torch.Tensor, shift: float) -> torch.Tensor:
+    """The block-coordinate Fock blocks Fb [nblk, blen, blen] with the span of
+    the previous iteration's virtual orbitals (C_prev [nblk, blen, blen],
+    occupations occ [nblk, blen] <= 0) pushed up by `shift` through S Cv
+    Cv^T S per block, ready for the blocked eigensolve (helfem_tpu
+    diatomic_scf.py:200-225; the SAD atom's and the reference's
+    UpdateOrbitalsShifted stabiliser, for rough-potential functionals such
+    as BR89)."""
+    Sb = gather_blocks(ops.S, ops.blk_idx)
+    Cv = C_prev * (occ <= 0.0).to(Fb.dtype)[:, None, :]
+    SC = torch.einsum("bpq,bqk->bpk", Sb, Cv)
+    return Fb + shift * torch.einsum("bpk,brk->bpr", SC, SC)
 
 
 def occ_select(occ: np.ndarray, device) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
@@ -211,8 +232,8 @@ def make_dia_fused_chunk(funcs: tuple, kfrac: float, dftthr: float, njbd: int | 
 # default values under which they are inert
 _UNPORTED = {
     "P0a": None, "P0b": None, "Ez": 0.0, "Qzz": 0.0, "Bz": 0.0, "finitenuc": "point",
-    "Rrms1": 0.0, "Rrms2": 0.0, "shift": 0.0, "occs": None, "readocc_until": 0,
-    "diisthr": None, "save_cb": None, "diag": True, "maverage": False, "ndev": 0,
+    "Rrms1": 0.0, "Rrms2": 0.0, "occs": None, "readocc_until": 0,
+    "save_cb": None, "diag": True, "maverage": False, "ndev": 0,
 }
 # device memory one spin's per-iteration orbitals may take in a fused chunk
 # (helfem_tpu caps its chunk length the same way; two spins hold twice it)
@@ -237,6 +258,8 @@ def scf_diatomic(
     dftthr: float = 1e-12,
     ldft: int = 0,
     device=None,
+    shift: float = 0.0,
+    diisthr: float | None = None,
     **unported,
 ) -> DiaSCFResult:
     """Restricted, unrestricted or ROHF SCF (helfem_tpu's scf_diatomic) for
@@ -248,7 +271,12 @@ def scf_diatomic(
     host loop alone, as helfem_tpu does. perturb rotates the guess orbitals
     of each spin by its own random rotation (seed, seed + 1). The operators
     and the grid (none for pure HF) are built on `device` unless `ops` is
-    given, in which case the SCF runs on ops' device."""
+    given, in which case the SCF runs on ops' device. shift != 0 pushes the
+    previous virtual orbitals up by `shift` in the eigensolve while the
+    DIIS error is above 1e-3 and keeps every iteration on the host loop
+    (helfem_tpu diatomic_scf.py:742-745, :896-905; a keyword without a CLI
+    flag, as there); diisthr (not None) blends the host DIIS's C2-DIIS and
+    ADIIS weights between diisthr and diiseps (scf/diis.py)."""
     reject_unported(unported, _UNPORTED, "scf_diatomic")
     # a range-separated method raises ValueError, as helfem_tpu's does: range
     # separation exists on atoms only
@@ -260,7 +288,7 @@ def scf_diatomic(
         ops = basis.build_operators(device)
     device = ops.device
     nbf = basis.nbf
-    g = build_dia_grid(basis, device, neta=ldft) if funcs else None
+    g = build_dia_grid(basis, device, neta=ldft, lapl=needs_lapl(funcs)) if funcs else None
     Enucrep = basis.Z1 * basis.Z2 / basis.Rbond
     njbd = basis.njbd
     rohf = restricted == 1 and nela != nelb
@@ -276,11 +304,15 @@ def scf_diatomic(
     nblk, blen = blk_idx_np.shape
     idx_s, sinvh_s = ops.blk_idx.repeat(ns, 1), ops.blk_sinvh.repeat(ns, 1, 1)
 
-    def eig_spins(Fs):
+    def eig_spins(Fs, shifted=None):
         """One batched blocked eigensolve of each spin's dense Fock:
-        (host eigenvalues, device orbitals) per spin."""
-        E, C = eig_blocks_b(torch.cat([gather_blocks(as_dev(F), ops.blk_idx) for F in Fs]),
-                            idx_s, sinvh_s, nbf)
+        (host eigenvalues, device orbitals) per spin; shifted = ((C, occ)
+        per spin) applies the level shift to each spin's blocks first."""
+        Fb = [gather_blocks(as_dev(F), ops.blk_idx) for F in Fs]
+        if shifted is not None:
+            Fb = [eig_blocks_dia_shifted(ops, F, C, as_dev(o), shift)
+                  for F, (C, o) in zip(Fb, shifted)]
+        E, C = eig_blocks_b(torch.cat(Fb), idx_s, sinvh_s, nbf)
         E = E.cpu().numpy()
         return [(E[s * nblk:(s + 1) * nblk], C[s * nblk:(s + 1) * nblk]) for s in range(ns)]
 
@@ -300,7 +332,7 @@ def scf_diatomic(
                               as_dev(perturbation_matrix(blen, perturb, seed + 1)))
     Sinvh_np = full_sinvh(blk_idx_np, blk_sinvh_np, nbf)
     diis = DIIS(ops.S.cpu().numpy(), Sinvh_np, max_hist=diisorder, diis_eps=diiseps,
-                blocks=(blk_idx_np, blk_sinvh_np))
+                diis_thr=diisthr, blocks=(blk_idx_np, blk_sinvh_np))
     Sh_np = form_sh(ops.S.cpu().numpy()) if rohf else None
 
     Eold, Etot, converged = 0.0, 0.0, False
@@ -308,8 +340,9 @@ def scf_diatomic(
     # fused device chunks engage after TWO host iterations: the host DIIS's
     # ADIIS weights carry the far-from-converged guess, which the chunks'
     # pure C2-DIIS cannot (helfem_tpu diatomic_scf.py:736-745). ROHF's Fock
-    # update is host work every iteration, so it stays on the host.
-    warmup = maxit if rohf else 2
+    # update and the level shift are host work every iteration, so they stay
+    # on the host.
+    warmup = maxit if rohf or shift != 0.0 else 2
     chunk_len = 4  # chunk schedule 4, 8, 16, capped by the orbitals' memory
     CH = 16
     while CH > 4 and CH * nblk * blen * blen * 8 > _CHUNK_C_BYTES:
@@ -389,7 +422,10 @@ def scf_diatomic(
         if err < convthr and abs(dE) < convthr and it > 1:
             converged = True
             break
-        spins = eig_spins(Fs)
+        shifted = None
+        if err > 1e-3 and shift != 0.0:
+            shifted = ((Ca, occa), (Cb, occb))[:ns]
+        spins = eig_spins(Fs, shifted)
         (Ea, Ca), (Eb, Cb) = spins[0], spins[-1]
 
     labels = basis.sym_labels(True)

@@ -1,6 +1,7 @@
 """DIIS convergence acceleration (L7), ported from helfem_tpu/scf/diis.py:
-the host DIIS/ADIIS class is carried over unchanged (numpy/scipy); the
-fused chunks' device_diis_step runs on torch tensors.
+the host DIIS/ADIIS class is carried over unchanged (numpy/scipy), with
+its sliding DIIS/ADIIS blend (--diisthr); the fused chunks'
+device_diis_step runs on torch tensors.
 
 C2-DIIS (Sorensen-Osterby) with an SVD-based solve, as in the reference
 (src/general/diis.cpp), for restricted and unrestricted SCF. The error vector
@@ -56,10 +57,13 @@ def device_diis_step(histF, histE, count: int, F, errv):
 
 class DIIS:
     def __init__(self, S, Sinvh, max_hist: int = 10, diis_eps: float = 0.1, damp: float = 0.5,
-                 adiis: bool = True, blocks=None):
+                 adiis: bool = True, diis_thr: float | None = None, blocks=None):
         """Errors above diis_eps take ADIIS (or damped Roothaan) weights,
-        errors below it C2-DIIS; helfem_tpu's sliding blend between the two
-        (--diisthr) is not ported.
+        errors below it C2-DIIS. diis_thr (reference --diisthr,
+        src/general/diis.cpp:241; helfem_tpu diis.py:60-70): when set,
+        errors in (diis_thr, diis_eps] with the density history at hand use
+        the sliding DIIS/ADIIS weight blend diisw = 1 - (err - thr)/(eps -
+        thr) instead of pure C2-DIIS; below diis_thr it is pure C2-DIIS.
 
         blocks=(blk_idx, blk_sinvh) (numpy, padded with nbf / zeros as in
         the blocked eigensolves): compute the error commutator PER SYMMETRY
@@ -78,6 +82,7 @@ class DIIS:
             self.blocks = (bi, bs, Sb)
         self.max_hist = max_hist
         self.diis_eps = diis_eps
+        self.diis_thr = diis_thr
         self.damp = damp
         self.adiis = adiis
         self.Fs: list[list[np.ndarray]] = []
@@ -200,6 +205,13 @@ class DIIS:
         if best is None:
             best = np.zeros(n)
             best[-1] = 1.0
+        if (self.diis_thr is not None and err > self.diis_thr
+                and self.diis_eps > self.diis_thr and have_adiis):
+            # sliding DIIS/ADIIS scale between diisthr and diiseps
+            # (reference: src/general/diis.cpp:241-243)
+            diisw = max(min(1.0 - (err - self.diis_thr) / (self.diis_eps - self.diis_thr), 1.0),
+                        0.0)
+            best = diisw * best + (1.0 - diisw) * self._adiis_weights()
         return [
             sum(best[i] * self.Fs[i][ch] for i in range(n))
             for ch in range(len(self.Fs[0]))

@@ -10,6 +10,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from threadpoolctl import threadpool_limits
 
 from helfem_tpu.models import atomic_dft as jdft
 from helfem_tpu.models.atomic import AtomicBasis as JaxBasis
@@ -29,12 +30,15 @@ NE = dict(Z=10, lmax=2, mmax=1, rmax=40.0, nelem=3, nnodes=5)
 
 @pytest.fixture(autouse=True, scope="module")
 def _one_torch_thread():
-    """One intra-op thread for this module: the SCFs are streams of small
-    ops, and the test workers share the machine's cores, which one pool of
-    a thread per core in each worker oversubscribes many times over."""
+    """One intra-op thread for this module: the SCFs are streams of small ops,
+    and the test workers share the machine's cores, which one pool of a thread
+    per core in each worker oversubscribes many times over. BLAS gets one
+    thread too: each worker's own pool of a thread per core would spin against
+    the others' (threadpoolctl)."""
     n = torch.get_num_threads()
     torch.set_num_threads(1)
-    yield
+    with threadpool_limits(1):
+        yield
     torch.set_num_threads(n)
 
 
@@ -61,7 +65,8 @@ def test_grid_tables_match_jax(grids):
         assert np.array_equal(value, np.asarray(getattr(jg, name))), name
     mine = atomic_dft.build_atomic_grid(tb, "cpu")
     for name in atomic_dft.AtomGridOps._fields:
-        assert torch.equal(getattr(mine, name), getattr(g, name)), name
+        a, b = getattr(mine, name), getattr(g, name)
+        assert (a is None and b is None) or torch.equal(a, b), name
     assert torch.equal(g.w, torch.tensor(np.asarray(jg.w2)[:, :, None]
                                          * np.asarray(jg.wth)[None, None, :]))
     assert not (g.invh - 1.0).any() and not (g.sqeta - 1.0).any()
@@ -105,12 +110,14 @@ def test_eval_fxc_matches_jax(grids, method, case):
 
 
 def test_eval_fxc_rejects_meta_gga(grids):
-    """A laplacian-level meta-GGA (family mggal, BR89's) raises, naming its
-    ROADMAP item; the tau level runs (tests/test_torch_mgga.py)."""
+    """A laplacian-level meta-GGA (family mggal, BR89's) raises ValueError on
+    a grid built without the laplacian tables (lapl=True builds them; BR89
+    runs there, tests/test_torch_lapl.py); the tau level runs
+    (tests/test_torch_mgga.py)."""
     *_, g = grids
     tau = Functional("mgga_x_fake", "mggal", lambda *a: a[0])
     P = torch.zeros(g.owners.shape[0] * g.TT.shape[0], g.owners.shape[0] * g.TT.shape[0])
-    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
+    with pytest.raises(ValueError, match="lapl=True"):
         atomic_dft.eval_fxc((tau,), g, P, P)
 
 

@@ -57,11 +57,10 @@ def test_cli_runs_with_its_default_sap_guess(capsys):
 
 
 @pytest.mark.parametrize("extra, match", [
-    (["--method", "mgga_x_br89,gga_c_pbe"], "mgga_x_br89"),
     (["--Ez", "0.01"], "--Ez"),
     (["--ndev", "2"], "--ndev"),
     (["--symmetry", "1"], "--symmetry"),
-], ids=["br89", "field_flag", "ndev_flag", "symmetry_flag"])
+], ids=["field_flag", "ndev_flag", "symmetry_flag"])
 def test_cli_unported_raises(extra, match):
     with pytest.raises(NotImplementedError, match=match):
         main(HE + extra + ["--device", "cpu"])
@@ -105,8 +104,7 @@ def test_dia_cli_open_shell_flags(capsys, one_thread, extra, nela, nelb, kw):
     (["--M", "3", "--symmetry", "1"], "--symmetry"),
     (["--M", "3", "--readocc"], "--readocc"),
     (["--M", "3", "--Bz", "0.1"], "--Bz"),
-    (["--M", "3", "--diisthr", "1e-3"], "--diisthr"),
-], ids=["symmetry", "readocc", "magnetic_field", "diisthr"])
+], ids=["symmetry", "readocc", "magnetic_field"])
 def test_dia_cli_still_rejects_the_rest(extra, match):
     with pytest.raises(NotImplementedError, match=match):
         diatomic.main(O2_CLI + extra)

@@ -214,14 +214,15 @@ def test_xc_eval_potentials_finite_at_tiny_spin_density():
     ("LC-LDA", 7), ("lcy-lda", 7), ("lda_x_erf,lda_c_pw", 7),
 ], ids=["br89_pair", "ldaerf", "br89", "sr_pbe0", "lc_lda", "lcy_lda", "lda_x_erf_pair"])
 def test_unported_methods_raise(method, item):
-    """The laplacian-level BR89 (ROADMAP queue 1 item 6) raises, naming its
-    item. The range-separated methods and lda_x_erf (item 7) are ported:
-    they parse as helfem_tpu parses them, and parse_method, which has no
-    short-range exchange to wire, raises helfem_tpu's ValueError for a
-    range-separated one."""
+    """The laplacian-level BR89 (ROADMAP queue 1 item 6), the
+    range-separated methods and lda_x_erf (item 7) are ported: they parse
+    as helfem_tpu parses them (BR89 as family mggal), and parse_method,
+    which has no short-range exchange to wire, raises helfem_tpu's
+    ValueError for a range-separated one."""
     if item == 6:
-        with pytest.raises(NotImplementedError, match="item 6"):
-            xc.parse_method_rs(method)
+        got, ref = xc.parse_method(method), jxc.parse_method(method)
+        assert [(f.name, f.family) for f in got[0]] == [(f.name, f.family) for f in ref[0]]
+        assert got[0][0].family == "mggal" and got[1] == ref[1] == 0.0
         return
     got, ref = xc.parse_method_rs(method), jxc.parse_method_rs(method)
     assert [f.name for f in got.funcs] == [f.name for f in ref.funcs]

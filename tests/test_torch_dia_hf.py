@@ -7,6 +7,7 @@ CPU."""
 import numpy as np
 import pytest
 import torch
+from threadpoolctl import threadpool_limits
 
 from helfem_tpu.models.diatomic import DiatomicBasis as JaxBasis
 from helfem_tpu.scf import diatomic_scf as jax_scf
@@ -21,6 +22,19 @@ CASES = {
 }
 N2_CLI = ["--Z1", "N", "--Z2", "N", "--Rbond", "2.0743", "--lmax", "2,2", "--nelem", "3",
           "--nnodes", "5", "--Rmax", "15", "--convthr", "1e-9"]
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for this module: the SCFs are streams of small ops,
+    and the test workers share the machine's cores. BLAS gets one thread too:
+    each worker's own pool of a thread per core would spin against the others'
+    (threadpoolctl)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    with threadpool_limits(1):
+        yield
+    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

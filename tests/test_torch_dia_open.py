@@ -9,6 +9,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from threadpoolctl import threadpool_limits
 
 from helfem_tpu.models.diatomic import DiatomicBasis as JaxBasis
 from helfem_tpu.models.diatomic_dft import build_dia_grid as jax_grid
@@ -46,11 +47,14 @@ SCF_CASES = {
 
 @pytest.fixture(autouse=True, scope="module")
 def _one_torch_thread():
-    """One intra-op thread for this module: the SCFs are streams of small
-    ops, and the test workers share the machine's cores."""
+    """One intra-op thread for this module: the SCFs are streams of small ops,
+    and the test workers share the machine's cores. BLAS gets one thread too:
+    each worker's own pool of a thread per core would spin against the others'
+    (threadpoolctl)."""
     n = torch.get_num_threads()
     torch.set_num_threads(1)
-    yield
+    with threadpool_limits(1):
+        yield
     torch.set_num_threads(n)
 
 

@@ -49,12 +49,11 @@ def test_cli_runs_on_cpu(capsys):
 @pytest.mark.parametrize("extra, error, match", [
     (["--method", "LC-LDA"], ValueError, "LC-LDA' is range-separated"),
     (["--method", "sr-pbe0"], ValueError, "sr-pbe0' is range-separated"),
-    (["--method", "mgga_x_br89,gga_c_pbe"], NotImplementedError, "mgga_x_br89"),
     (["--Q", "1", "--readocc"], NotImplementedError, "--readocc"),
     (["--Ez", "0.01"], NotImplementedError, "--Ez"),
     (["--ndev", "2"], NotImplementedError, "--ndev"),
     (["--restricted", "0", "--Bz", "0.1"], NotImplementedError, "--Bz"),
-], ids=["range_separated", "sr_hybrid", "br89", "open_shell", "field_flag", "ndev_flag",
+], ids=["range_separated", "sr_hybrid", "open_shell", "field_flag", "ndev_flag",
         "uhf_flag"])
 def test_cli_unported_raises(extra, error, match):
     """Unported flags and functionals raise NotImplementedError; a
@@ -70,8 +69,8 @@ def test_cli_unknown_flag_exits():
 
 
 @pytest.mark.parametrize("kwargs", [
-    {"Ez": 0.01}, {"Bz": 0.1}, {"shift": 0.1}, {"restricted": 0, "Bz": 0.1},
-    {"maverage": True}, {"diag": False}, {"ndev": 1}, {"diisthr": 1e-3},
+    {"Ez": 0.01}, {"Bz": 0.1}, {"restricted": 0, "Bz": 0.1},
+    {"maverage": True}, {"diag": False}, {"ndev": 1},
     {"perturb": 0.1, "P0a": np.zeros((1, 1))},
 ], ids=lambda kw: next(iter(kw)))
 def test_unported_options_raise(kwargs):

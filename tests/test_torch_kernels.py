@@ -818,6 +818,80 @@ def test_xc_tau_mode_matches_plain_on_card(cuda_device, name, shape, ns):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("ns", [1, 2])
+@pytest.mark.parametrize("shape", ["n2", "lmax12", "np40", "ar", "xe"])
+@pytest.mark.parametrize("name", ["dia_xc_fields", "dia_xc_fock"])
+def test_xc_lapl_mode_matches_plain_on_card(cuda_device, name, shape, ns):
+    """K4 and K5 in laplacian mode (BR89) on diatomic and atomic grids built
+    with their laplacian tables, for one and two spins: one launch per
+    call, 1e-12 x max-abs of each output (tau and the laplacian included)
+    against the plain version, the same bits from two calls."""
+    from chip_smoke import atomic_xc_inputs, xc_kernel_inputs
+
+    if shape in XC_SHAPES:
+        inputs = xc_kernel_inputs(DiatomicBasis(**XC_SHAPES[shape]), cuda_device, ns, 131,
+                                  lapl=True)
+    else:
+        inputs = atomic_xc_inputs(shape, cuda_device, ns, 137, lapl=True)
+    args = inputs[name][0]
+    before = kernels.launches[name]
+    out = _as_tuple(getattr(kernels, name)(*args))
+    again = _as_tuple(getattr(kernels, name)(*args))
+    torch.cuda.synchronize()
+    assert kernels.launches[name] == before + 2
+    ref = _as_tuple(getattr(kernels, name + "_plain")(*args))
+    assert len(out) == len(ref) == (5 if name == "dia_xc_fields" else 1)
+    for o, a, r in zip(out, again, ref):
+        assert o.shape[0] == ns and torch.equal(o, a)
+        assert float((o - r).abs().max()) <= TOL * float(r.abs().max())
+
+
+@pytest.mark.parametrize("nprim, nq", [(8, 40), (15, 75), (40, 200), (120, 600)])
+def test_fields_plan_lapl_mode(nprim, nq):
+    """K4's plan in laplacian mode: the windows and the three staged element
+    tables (B, dB, d2B) each within 64 KB, room for phase 2's nine partial
+    tiles, and within the card's shared memory."""
+    from helfem_tpu_torch.kernels.dia_xc_fields import _ld, fields_plan
+
+    pc, qc, smem = fields_plan(nprim, nq, True, True)
+    mp = -(-nprim // 8) * 8
+    assert pc >= 1 and 8 <= qc <= 128 and qc % 8 == 0
+    assert 3 * mp * _ld(qc) <= 8192 or qc == 8
+    assert smem >= 8 * 9 * 8 * 64 and smem <= 232448
+    assert smem >= 8 * (pc * mp * _ld(mp) + 3 * mp * _ld(qc)) + 4 * (2 * pc + nprim)
+    assert fields_plan(nprim, nq, True)[2] <= smem
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["he", "n_uks", "ne_lyp_dampfock", "h2_shift_diisthr"])
+def test_br89_scf_on_card_matches_cpu(cuda_device, case):
+    """BR89 SCFs on the card (K4 and K5 in laplacian mode): the CPU's energy
+    within 1e-9 Eh in its iteration count, K4 and K5 once per iteration;
+    with Fock damping, and with the level shift and the DIIS/ADIIS blend."""
+    atom = dict(lmax=1, mmax=1, rmax=30.0, nelem=6, nnodes=8)
+    kind, cfg, na, nb, kw = {
+        "he": ("atomic", dict(Z=2, lmax=0, mmax=0, rmax=25.0, nelem=8, nnodes=10), 1, 1,
+               dict(method="mgga_x_br89", convthr=1e-6, maxit=160)),
+        "n_uks": ("atomic", dict(atom, Z=7), 5, 2, dict(method="mgga_x_br89", convthr=1e-8)),
+        "ne_lyp_dampfock": ("atomic", dict(atom, Z=10), 5, 5,
+                            dict(method="mgga_x_br89,gga_c_lyp", convthr=1e-8, dampfock=0.5,
+                                 dampthr=0.01)),
+        "h2_shift_diisthr": ("diatomic", dict(Z1=1, Z2=1, Rbond=1.4, lmax=(2,), rmax=10.0,
+                                              nelem=2, nnodes=6), 1, 1,
+                             dict(method="mgga_x_br89", convthr=1e-8, maxit=100, shift=1.0,
+                                  diiseps=5.0, diisthr=0.01)),
+    }[case]
+    run = (lambda dev: scf_atom(AtomicBasis(**cfg), na, nb, device=dev, **kw)) \
+        if kind == "atomic" else \
+        (lambda dev: scf_diatomic(DiatomicBasis(**cfg), na, nb, device=dev, **kw))
+    cpu = run("cpu")
+    kernels.reset_launches()
+    gpu = run(cuda_device)
+    assert gpu.converged and abs(gpu.E - cpu.E) < 1e-9 and gpu.niter == cpu.niter
+    assert kernels.launches["dia_xc_fields"] == kernels.launches["dia_xc_fock"] == gpu.niter
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("case", ["he_tpss", "li_uks_tpss", "be_scan", "he_b3lyp5"])
 def test_mgga_scf_on_card_matches_cpu(cuda_device, case):
     """Meta-GGA and B3LYP5 atomic SCFs on the card: the CPU's energy within

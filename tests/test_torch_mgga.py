@@ -15,6 +15,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from threadpoolctl import threadpool_limits
 
 from helfem_tpu.cli.atomic import _apply_pars_files as jax_apply_pars_files
 from helfem_tpu.models import atomic_dft as jadft
@@ -45,11 +46,14 @@ METHODS = ["gga_x_rpbe,gga_c_pbe", "gga_x_b88", "gga_c_lyp", "mgga_x_tpss", "mgg
 
 @pytest.fixture(autouse=True, scope="module")
 def _one_torch_thread():
-    """One intra-op thread for this module: the SCFs are streams of small
-    ops, and the test workers share the machine's cores."""
+    """One intra-op thread for this module: the SCFs are streams of small ops,
+    and the test workers share the machine's cores. BLAS gets one thread too:
+    each worker's own pool of a thread per core would spin against the others'
+    (threadpoolctl)."""
     n = torch.get_num_threads()
     torch.set_num_threads(1)
-    yield
+    with threadpool_limits(1):
+        yield
     torch.set_num_threads(n)
 
 

@@ -16,6 +16,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from threadpoolctl import threadpool_limits
 
 from helfem_tpu.models import atomic as jatomic
 from helfem_tpu.ops import bessel as jbessel
@@ -43,10 +44,13 @@ EPS = np.finfo(np.float64).eps
 @pytest.fixture(autouse=True, scope="module")
 def _one_torch_thread():
     """One intra-op thread: the SCFs are streams of small ops, and the test
-    workers share the machine's cores."""
+    workers share the machine's cores. BLAS gets one thread too: each worker's
+    own pool of a thread per core would spin against the others'
+    (threadpoolctl)."""
     n = torch.get_num_threads()
     torch.set_num_threads(1)
-    yield
+    with threadpool_limits(1):
+        yield
     torch.set_num_threads(n)
 
 

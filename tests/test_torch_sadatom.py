@@ -16,6 +16,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from threadpoolctl import threadpool_limits
 
 from helfem_tpu.cli import gensap as jax_gensap
 from helfem_tpu.models import sadatom as jsad
@@ -45,11 +46,14 @@ N2 = dict(Z1=7, Z2=7, Rbond=2.0743, lmax=(2, 2), rmax=15.0, nelem=3, nnodes=5)
 @pytest.fixture(autouse=True, scope="module")
 def _one_torch_thread():
     """One intra-op thread for this module: the solves are streams of small
-    ops, and the test workers share the machine's cores, which one pool of
-    a thread per core in each worker oversubscribes many times over."""
+    ops, and the test workers share the machine's cores, which one pool of a
+    thread per core in each worker oversubscribes many times over. BLAS gets
+    one thread too: each worker's own pool of a thread per core would spin
+    against the others' (threadpoolctl)."""
     n = torch.get_num_threads()
     torch.set_num_threads(1)
-    yield
+    with threadpool_limits(1):
+        yield
     torch.set_num_threads(n)
 
 
@@ -355,15 +359,14 @@ def test_gensap_cli_matches_jax(tmp_path, monkeypatch, capsys):
 
 
 @pytest.mark.parametrize("extra, match", [
-    (["--unrestricted", "--diisthr", "1e-3"], "--diisthr"),
     (["--finitenuc", "gaussian"], "--finitenuc"),
     (["--iconf", "1"], "--iconf"),
     (["--Q", "1", "--conf_R", "5"], "--conf_R"),
-], ids=["unrestricted", "finite_nucleus", "confinement", "charge"])
+], ids=["finite_nucleus", "confinement", "charge"])
 def test_gensap_cli_unported_flags_raise(extra, match):
-    """Flags the port does not cover raise; --unrestricted and --Q run
-    (tests/test_torch_cli.py), with the sliding DIIS switch or a confined
-    ion they still raise."""
+    """Flags the port does not cover raise; --unrestricted, --diisthr and
+    --Q run (tests/test_torch_cli.py, tests/test_torch_lapl.py), a confined
+    ion still raises."""
     with pytest.raises(NotImplementedError, match=match):
         gensap.main(["--Z", "He", "--lmax", "0", "--device", "cpu", *extra])
 
@@ -378,9 +381,10 @@ def test_unported_basis_options_raise(kwargs):
 
 def test_unrestricted_solver_raises():
     """The unrestricted solver and search run (tests/test_torch_sadatom_open.py);
-    an option of helfem_tpu's that the port does not cover still raises."""
+    a laplacian-level functional, which helfem_tpu's SAD atom has no path
+    for, raises SadLaplacianError (a ValueError) before any solve."""
     basis = sadatom.SadAtomBasis(Z=3, lmax=1)
-    with pytest.raises(NotImplementedError, match="diisthr"):
-        sadatom.solve_sadatom_unrestricted(basis, 2, 1, device="cpu", diisthr=1e-3)
-    with pytest.raises(NotImplementedError, match="diisthr"):
-        sadatom.search_sadatom_unrestricted(basis, device="cpu", diisthr=1e-3)
+    with pytest.raises(sadatom.SadLaplacianError, match="no laplacian path"):
+        sadatom.solve_sadatom_unrestricted(basis, 2, 1, method="mgga_x_br89", device="cpu")
+    with pytest.raises(ValueError, match="no laplacian path"):
+        sadatom.search_sadatom_unrestricted(basis, method="mgga_x_br89", device="cpu")

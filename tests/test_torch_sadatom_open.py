@@ -12,6 +12,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from threadpoolctl import threadpool_limits
 
 from helfem_tpu.models import sadatom as jsad
 from helfem_tpu.ops.xc import parse_method as jax_parse_method
@@ -33,10 +34,13 @@ SOLVES = {
 @pytest.fixture(autouse=True, scope="module")
 def _one_torch_thread():
     """One intra-op thread for this module: the solves are streams of small
-    ops, and the test workers share the machine's cores."""
+    ops, and the test workers share the machine's cores. BLAS gets one thread
+    too: each worker's own pool of a thread per core would spin against the
+    others' (threadpoolctl)."""
     n = torch.get_num_threads()
     torch.set_num_threads(1)
-    yield
+    with threadpool_limits(1):
+        yield
     torch.set_num_threads(n)
 
 
