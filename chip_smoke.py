@@ -177,7 +177,24 @@ Phases, any failure raises and exits non-zero:
      level shift 1.0 through scf_diatomic, each within 1e-9 Eh of
      helfem_tpu's f64 value in its iteration count, K4 and K5 once per Fock
      build (the atomic CLI's K5 twice more); then the warm walls and device
-     shares (eigh, K4, K5, xc_eval) of Ar and N UKS BR89.
+     shares (eigh, K4, K5, xc_eval) of Ar and N UKS BR89;
+ 20. fields, finite nuclei, confinement, off-centre nuclei and symmetry
+     0/1: K1 on the non-symmetric channel-pair windows of the Ar lmax=3
+     field basis (symmetry 1: the same-m pairs; symmetry 0: all of them;
+     the Coulomb and the Yukawa tables), K10 on the Ne LC-LDA basis's
+     windows, K4/K5 on the Ar lmax=3 grid with same-m cross-l densities
+     (one and two spins), K3 and K6 on N2's merged g/u blocks, each against
+     its plain version (1e-12 x max-abs, the same bits twice, one launch per
+     call); then 24 cells through the port's CLIs (Ar HF at Ez = 0 and
+     +-0.001, Ne PBE and Ne LC-LDA in Ez, Ar HF at symmetry 0, C UHF in Bz
+     at symmetry 1, He in Bz, Xe HF with a Gaussian nucleus, Ar HF with
+     the spherical, hollow and regularized nucleus and confined by iconf 1
+     and 3, H2 as a single-centre expansion, N2 HF and PBE at Ez = 0 and
+     +-0.001, N2 HF in Qzz and with Gaussian nuclei, H2+ in Bz), each
+     within 1e-8 Eh of helfem_tpu's f64 value in its iteration count with
+     K1/K2/K10 or K3/K6 and K4/K5 once per Fock build, its warm wall and
+     device-busy share; Ar's E(+F) and E(-F) within 1e-10 Eh, and the Ar
+     HF, N2 HF and N2 PBE finite-field polarizabilities.
 The last two lines are the kernels' JSON record and {"ok": true, ...}.
 """
 
@@ -476,6 +493,121 @@ H_BR89_EXC = -5.0 / 16.0  # BR89 is exact for a one-electron density
 H_EXC_TOL = 1e-7
 TAU_TRACE_TOL = 1e-10  # sum w tau against tr(P T), relative
 KINETIC_GRID_TOL = 1e-9  # the grid kinetic matrix against the analytic T
+# phase 20: external fields, finite nuclei, confinement and off-centre
+# nuclei. The kernels on this slice's new inputs: K1 on the non-symmetric
+# channel-pair windows of the Ar lmax=3 field basis (symmetry 1: the same-m
+# pairs; symmetry 0: all of them; the Coulomb and the Yukawa tables), K10
+# on the windows of the Ne LC-LDA field basis, K4/K5 on the Ar field grid
+# with same-m cross-l blocks, K3 and K6 on N2's merged g/u blocks (Ez).
+FIELD_SHAPES = {  # AtomicBasis arguments
+    "ar_l3": dict(Z=18, lmax=3, mmax=1, rmax=40.0, nelem=10, nnodes=15),
+    "ne_l2": dict(Z=10, lmax=2, mmax=1, rmax=30.0, nelem=6, nnodes=8),
+}
+FIELD_LAMBDA = 0.5  # the Yukawa tables of the K1 check
+# full-width cells through the port's CLIs (TF guess for atoms, core guess
+# for diatomics): label -> (CLI module, arguments, helfem_tpu's energy, its
+# iteration count). Each energy is helfem_tpu's CLI in f64 on the CPU with
+# the same arguments and --save "", e.g. `python -m helfem_tpu.cli.atomic
+# --Z Ar --lmax 3 --mmax 1 --nelem 10 --nnodes 15 --Rmax 40 --iguess 3
+# --convthr 1e-10 --Ez 0.001 --save ""` and `python -m helfem_tpu.cli.diatomic
+# --Z1 N --Z2 N --Rbond 2.068 --lmax 6,6 --Rmax 25 --nelem 5 --nnodes 8
+# --method HF --convthr 8e-8 --guess core --Ez 0.001 --save ""`; "H2
+# single-centre" is helfem_tpu's scf_atom with the CLI's arguments (its CLI
+# stops after the SCF, in the cusp analysis, at Z = 0). Each convergence
+# threshold lies between the DIIS errors of helfem_tpu's last two
+# iterations, at least twice the one and half the other: near the
+# threshold the DIIS solve's ill-conditioned history amplifies the last
+# bits (N2 PBE at Ez=+0.001 and convthr 1e-8 took one iteration more on the
+# card than on the CPU, DIIS error 2.16e-8 against 5.32e-9 at iteration
+# 12, the same energy within 1e-12).
+F_AR = ["--Z", "Ar", "--lmax", "3", "--mmax", "1", "--nelem", "10", "--nnodes", "15",
+        "--Rmax", "40", "--iguess", "3"]
+F_SMALL = ["--Rmax", "30", "--nelem", "6", "--nnodes", "8", "--iguess", "3"]
+
+
+def convthr(argv: list[str], thr: str) -> list[str]:
+    """argv with its --convthr set to thr (added where it has none)."""
+    if "--convthr" not in argv:
+        return argv + ["--convthr", thr]
+    i = argv.index("--convthr") + 1
+    return argv[:i] + [thr] + argv[i + 1:]
+
+
+F_N2_PBE = ["--Z1", "N", "--Z2", "N", "--Rbond", "2.0743", "--lmax", "6,6", "--nelem", "5",
+            "--nnodes", "8", "--Rmax", "25", "--method", "PBE"]
+F_H2P = ["--Z1", "H", "--Z2", "H", "--Rbond", "2.0", "--lmax", "10", "--Rmax", "20", "--nelem",
+         "3", "--nnodes", "14", "--Q", "1"]
+FIELD_CELLS = {
+    "Ar HF Ez=0": ("atomic", convthr(F_AR, "1e-10"), -526.8175128027102, 11),
+    "Ar HF Ez=+0.001": ("atomic", convthr(F_AR, "1e-10") + ["--Ez", "0.001"],
+                        -526.8175181817528, 12),
+    "Ar HF Ez=-0.001": ("atomic", convthr(F_AR, "1e-10") + ["--Ez", "-0.001"],
+                        -526.8175181817528, 12),
+    "Ne PBE Ez=0.001": ("atomic", convthr(["--Z", "Ne"] + F_AR[2:], "4e-9")
+                        + ["--method", "PBE", "--Ez", "0.001"], -128.8664317849206, 10),
+    "Ne LC-LDA Ez=0.001": ("atomic", convthr(["--Z", "Ne", "--lmax", "2", "--mmax", "1"]
+                                             + F_SMALL, "3e-9")
+                           + ["--method", "LC-LDA", "--Ez", "0.001"], -128.454483990331, 10),
+    "Ar HF symmetry 0 Ez=0.001": ("atomic", convthr(["--Z", "Ar", "--lmax", "3", "--mmax", "1"]
+                                                    + F_SMALL, "1.5e-8")
+                                  + ["--Ez", "0.001", "--symmetry", "0"],
+                                  -526.8170548253172, 10),
+    "C UHF Bz=0.1": ("atomic", convthr(["--Z", "C", "--M", "3", "--lmax", "4", "--mmax", "2"]
+                                       + F_SMALL, "2e-8") + ["--Bz", "0.1", "--symmetry", "1"],
+                     -37.83014604372427, 11),
+    "He Bz=0.5": ("atomic", convthr(["--Z", "He", "--lmax", "2", "--mmax", "1"] + F_SMALL, "1e-8")
+                  + ["--Bz", "0.5"], -2.814088696367728, 7),
+    "Xe HF gaussian": ("atomic", convthr(XE_CLI, "1e-7") + ["--finitenuc", "2", "--Rrms", "1e-4",
+                                                           "--nelem0", "2"],
+                       -7232.013765253448, 10),
+    "Ar HF spherical": ("atomic", convthr(AR_CLI, "2e-7") + ["--finitenuc", "3", "--Rrms", "1e-4",
+                                                            "--nelem0", "2"],
+                        -526.816069525503, 8),
+    "Ar HF hollow": ("atomic", convthr(AR_CLI, "2e-7") + ["--finitenuc", "4", "--Rrms", "1e-4",
+                                                         "--nelem0", "2"],
+                     -526.816069423491, 8),
+    "Ar HF regularized": ("atomic", convthr(AR_CLI, "1.5e-9") + ["--finitenuc", "5", "--Rrms",
+                                                                "3"],
+                          -526.8130061082214, 10),
+    "Ar HF iconf 1": ("atomic", AR_CLI + ["--iconf", "1", "--conf_N", "10", "--conf_R", "5",
+                                          "--shift_conf", "1"], -526.8141021753888, 10),
+    "Ar HF iconf 3": ("atomic", convthr(AR_CLI, "2e-10") + ["--iconf", "3", "--conf_R", "4",
+                                                           "--conf_barrier", "1", "--shift_conf",
+                                                           "4"], -526.7878766432044, 10),
+    "H2 single-centre": ("atomic", convthr(["--Z", "0", "--Zl", "1", "--Zr", "1", "--Rmid",
+                                            "0.7", "--lmax", "8", "--mmax", "0", "--nelem0",
+                                            "3"] + F_SMALL, "5e-8"),
+                         -1.8468642861623992, 7),
+    "N2 HF Ez=0": ("diatomic", convthr(N2_HF_CLI, "4e-8"), -108.5312159188064, 11),
+    "N2 HF Ez=+0.001": ("diatomic", convthr(N2_HF_CLI, "8e-8") + ["--Ez", "0.001"],
+                        -108.5312233837794, 12),
+    "N2 HF Ez=-0.001": ("diatomic", convthr(N2_HF_CLI, "8e-8") + ["--Ez", "-0.001"],
+                        -108.53122338378031, 12),
+    "N2 PBE Ez=0": ("diatomic", convthr(F_N2_PBE, "3e-8"), -108.97870843727404, 10),
+    "N2 PBE Ez=+0.001": ("diatomic", convthr(F_N2_PBE, "5e-8") + ["--Ez", "0.001"],
+                         -108.9787161292133, 12),
+    "N2 PBE Ez=-0.001": ("diatomic", convthr(F_N2_PBE, "5e-8") + ["--Ez", "-0.001"],
+                         -108.97871612921239, 12),
+    "N2 HF Qzz=0.001": ("diatomic", convthr(N2_HF_CLI, "4e-8") + ["--Qzz", "0.001"],
+                        -108.5259197338141, 11),
+    "N2 HF gaussian": ("diatomic", convthr(N2_HF_CLI, "4e-8")
+                       + ["--finitenuc", "gaussian", "--Rrms1", "0.01", "--Rrms2", "0.01"],
+                       -108.07705147029037, 11),
+    "H2+ Bz=0.1": ("diatomic", convthr(F_H2P, "1e-9") + ["--Bz", "0.1"], -0.6510350658619463, 2),
+}
+FIELD_GATE = 1e-8
+# the records of phase 20's kernel checks, by kernel (field_kernels)
+FIELD_KEYS = {"radial_exchange": ("field_s1", "field_s0", "field_yukawa"),
+              "radial_erfc_exchange": ("field_ne",),
+              **dict.fromkeys(("dia_xc_fields", "dia_xc_fock"), ("field_ar_l3_1", "field_ar_l3_2")),
+              **dict.fromkeys(("radial_coulomb_dia", "radial_exchange_dia_occ"),
+                              ("field_n2_merged",))}
+FIELD_F = 0.001  # the finite field of the polarizabilities
+FIELD_PM_TOL = 1e-10  # E(+F) against E(-F) of an atom
+# the polarizability triples (E(0), E(+F), E(-F)) among FIELD_CELLS
+ALPHA_CELLS = {"Ar HF alpha": ("Ar HF Ez=0", "Ar HF Ez=+0.001", "Ar HF Ez=-0.001"),
+               "N2 HF alpha_zz": ("N2 HF Ez=0", "N2 HF Ez=+0.001", "N2 HF Ez=-0.001"),
+               "N2 PBE alpha_zz": ("N2 PBE Ez=0", "N2 PBE Ez=+0.001", "N2 PBE Ez=-0.001")}
 PROBES = {  # name -> (source, {precision: replaces})
     "matmul_f32": ("helfem_tpu_torch/csrc/matmul_probe.cu",
                    {"full": "scripts/pallas_f64_ablation.py:50",
@@ -798,7 +930,7 @@ def xc_kernel_inputs(basis, dev, ns: int = 2, seed: int = 11, tau: bool = False,
 def atomic_xc_inputs(shape: str, dev, ns: int = 2, seed: int = 59, tau: bool = False,
                      lapl: bool = False):
     """xc_work on an atomic grid: the atomic grid of SHAPES[shape] (Ar or
-    Xe bench basis) with random symmetric densities dense over the same-m
+    Xe bench basis) or FIELD_SHAPES[shape] with random symmetric densities dense over the same-m
     shell pairs (every live pair carries data), or the SAD grid of
     SAD_SHAPES[shape] or, for "sad_cr", of CR_SHAPE (one shell, one angular
     point; with tau its two-shell meta-GGA form, sadatom.sad_tau_grid) with
@@ -817,7 +949,7 @@ def atomic_xc_inputs(shape: str, dev, ns: int = 2, seed: int = 59, tau: bool = F
         mval = np.zeros(g.TT.shape[0], dtype=int)
         same_m = np.eye(len(mval), dtype=bool)  # the shells' block-diagonal density
     else:
-        basis = AtomicBasis(**SHAPES[shape])
+        basis = AtomicBasis(**{**SHAPES, **FIELD_SHAPES}[shape])
         g = build_atomic_grid(basis, dev, lapl=lapl)
         mval = basis.mval
         same_m = mval[:, None] == mval[None, :]
@@ -831,12 +963,12 @@ def atomic_xc_inputs(shape: str, dev, ns: int = 2, seed: int = 59, tau: bool = F
     return xc_work(g, P, random_potentials(g, ns, rng, tau, lapl), None, nrad, tau, lapl)
 
 
-def block_density(basis, dev, seed: int) -> torch.Tensor:
+def block_density(basis, dev, seed: int, parity: bool = True) -> torch.Tensor:
     """A random symmetric symmetry-block-diagonal density of a diatomic
-    basis (numpy seed)."""
+    basis (numpy seed); parity False: over the merged g/u blocks."""
     rng = np.random.default_rng(seed)
     P = np.zeros((basis.nbf, basis.nbf))
-    for idx in basis.sym_blocks():
+    for idx in basis.sym_blocks(parity):
         X = rng.standard_normal((len(idx), len(idx)))
         P[np.ix_(idx, idx)] = X + X.T
     return torch.tensor(P, device=dev)
@@ -2161,6 +2293,219 @@ def lapl_phase(dev, results: dict) -> dict:
     return counts
 
 
+def pair_window_inputs(basis, ops, symm: int, seed: int) -> torch.Tensor:
+    """The channel-pair windows [npairs, nrad, nrad] that the exchange of
+    symmetry `symm` (0 or 1) hands its kernel, of a random symmetric
+    density over the symmetry's blocks (numpy seed); the off-diagonal
+    pairs' windows are not symmetric."""
+    from helfem_tpu_torch.models.atomic import _pair_windows, channel_pairs
+
+    rng = np.random.default_rng(seed)
+    X = rng.standard_normal((basis.nbf, basis.nbf))
+    P = np.zeros_like(X)
+    for idx in basis.sym_blocks(symm):
+        P[np.ix_(idx, idx)] = (X + X.T)[np.ix_(idx, idx)]
+    pairs = channel_pairs(basis.mval, symm)
+    Pw = _pair_windows(torch.tensor(P, device=ops.device), basis.nang, basis.nrad, pairs)
+    Pw = Pw.reshape(-1, basis.nrad, basis.nrad).contiguous()
+    if not float((Pw - Pw.transpose(1, 2)).abs().max()) > 0.0:
+        raise RuntimeError("pair_window_inputs: the channel-pair windows came out symmetric")
+    return Pw
+
+
+def field_kernels(dev, results: dict) -> None:
+    """The kernels on phase 20's new inputs against their plain versions
+    (1e-12 x max-abs, the same bits twice, one launch per call), into
+    results[(name, key)]: K1 on the channel-pair windows of the Ar lmax=3
+    field basis at symmetry 1 (the same-m pairs) and 0 (all nang^2), on
+    the Coulomb tables and (symmetry 1) on the Yukawa tables at
+    FIELD_LAMBDA against the pairwise plain version; K10 on the symmetry-1
+    windows of the Ne LC-LDA field basis at RS_OMEGA; K4/K5 on the Ar field
+    grid with same-m cross-l densities, one and two spins; K3 and K6 on
+    N2's merged g/u blocks (the bench basis under Ez)."""
+    from helfem_tpu_torch import kernels
+    from helfem_tpu_torch.models.atomic import AtomicBasis
+    from helfem_tpu_torch.models.diatomic import DiatomicBasis
+
+    def check(key, name, args, moved, flops, plain=None):
+        same_bits_twice(name, args)
+        results[(name, key)] = report(key, name, compare(name, args, moved, flops, plain=plain))
+
+    t0 = time.perf_counter()
+    ar = AtomicBasis(**FIELD_SHAPES["ar_l3"])
+    ops = ar.build_operators(dev)
+    yuk = ar.build_yukawa(FIELD_LAMBDA, dev)
+    torch.cuda.synchronize()
+    print(f"ar_l3: nang {ar.nang}, nrad {ar.nrad}, NL {ar.NL}; operators and Yukawa tables "
+          f"built in {time.perf_counter() - t0:.2f} s")
+    zero = torch.zeros((ar.NL, 1, ar.nrad, ar.nrad), dtype=torch.float64, device=dev)
+    for symm in (1, 0):
+        Pw = pair_window_inputs(ar, ops, symm, 211 + symm)
+        print(f"ar_l3 symmetry {symm}: {Pw.shape[0]} channel-pair windows")
+        args, moved, flops = atomic_kernel_work(ops.tei, ops.disjL, ops.disjm1L, ops.Lfac,
+                                                ops.gidx, zero, Pw)["radial_exchange"]
+        check(f"field_s{symm}", "radial_exchange", args, moved, flops)
+        if symm == 1:
+            args, moved, flops = atomic_kernel_work(yuk.tei, yuk.iL, yuk.kL, yuk.Lfac, ops.gidx,
+                                                    zero, Pw)["radial_exchange"]
+            check("field_yukawa", "radial_exchange", args, moved, flops,
+                  plain=kernels.radial_exchange_pairwise_plain)
+    del ops, yuk, args
+    ne = AtomicBasis(**FIELD_SHAPES["ne_l2"])
+    ops = ne.build_operators(dev)
+    rs = ne.build_erfc(RS_OMEGA, dev)
+    Pw = pair_window_inputs(ne, ops, 1, 223)
+    args, moved, flops = erfc_exchange_work(rs.tei, ops.gidx, Pw)["radial_erfc_exchange"]
+    check("field_ne", "radial_erfc_exchange", args, moved, flops)
+    del ops, rs, args
+    for ns in (1, 2):
+        for name, (args, moved, flops) in atomic_xc_inputs("ar_l3", dev, ns).items():
+            check(f"field_ar_l3_{ns}", name, args, moved, flops)
+    n2 = DiatomicBasis(**DIA_SHAPES["n2"])
+    ops = n2.build_operators(dev, parity=False)
+    args, moved, flops = coulomb_dia_inputs(n2, ops, block_density(n2, dev, 227, parity=False),
+                                            n2.njbd)
+    check("field_n2_merged", "radial_coulomb_dia", args, moved, flops)
+    rng = np.random.default_rng(229)
+    Co = np.zeros((n2.nbf, 7))
+    for k, idx in enumerate(n2.sym_blocks(False)[:3]):  # columns of one merged block each
+        Co[idx, 2 * k:2 * k + 2 + (k == 2)] = rng.standard_normal((len(idx), 2 + (k == 2)))
+    Co = torch.tensor(Co, device=dev)
+    for name, (args, moved, flops) in exchange_inputs(n2, ops, Co, dense=False).items():
+        results[(name, "field_n2_merged")] = report(
+            "field_n2_merged", name, compare(name, args, moved, flops))
+    del ops, args
+    torch.cuda.empty_cache()
+    print("phase 20 kernels: one launch per call, the same bits twice")
+
+
+def field_launches(prog: str, argv: list[str], n: int, spins: int = 1) -> dict:
+    """The launches a field cell's SCF of n iterations must make: K2 (atoms)
+    or K3 (diatomics) once per iteration; an atom's K1 once per Fock build
+    for kfull != 0 and once more for the Yukawa kernel, K10 once for an
+    erfc method (both spins in one launch); a diatomic's K6 once per spin
+    with electrons (`spins`; once when restricted) for HF; K4 and K5 once
+    for a functional (the atomic CLI's K5 twice more, for its grid
+    self-check)."""
+    from helfem_tpu_torch.ops.xc import parse_method_rs
+
+    spec = parse_method_rs(argv[argv.index("--method") + 1] if "--method" in argv else "HF")
+    xc = {"dia_xc_fields": n, "dia_xc_fock": n + (2 if prog == "atomic" else 0)} \
+        if spec.funcs else {}
+    if prog == "atomic":
+        erfc = spec.kshort != 0.0 and spec.kernel == "erfc"
+        yukawa = spec.kshort != 0.0 and not erfc
+        return {"radial_coulomb": n, "radial_exchange": n * (bool(spec.kfull) + yukawa),
+                "radial_erfc_exchange": n if erfc else 0, **xc}
+    return {"radial_coulomb_dia": n, "radial_exchange_dia_occ": n * spins if spec.kfull else 0,
+            **xc}
+
+
+def diatomic_spins(res) -> int:
+    """The spins with electrons a diatomic SCF builds an exchange for (one
+    when restricted)."""
+    return 1 if res.orbs_b is None else 1 + int(np.sum(res.occ_b) > 0)
+
+
+class ScfCapture:
+    """Records the last call of an SCF entry point that a CLI looks up in its
+    module at call time (scf_atom, scf_diatomic), so that the same call can
+    run again warm on the CLI's own operators, grid and tables."""
+
+    def __init__(self, module, name: str):
+        self.module, self.name = module, name
+        self.fn = getattr(module, name)
+        self.call = None
+
+    def __enter__(self):
+        def record(*args, **kwargs):
+            self.call = (args, kwargs)
+            return self.fn(*args, **kwargs)
+
+        setattr(self.module, self.name, record)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.fn)
+
+    def run(self):
+        args, kwargs = self.call
+        return self.fn(*args, **{**kwargs, "verbose": False})
+
+
+def field_phase(dev, results: dict) -> dict:
+    """Phase 20: field_kernels, then the FIELD_CELLS through the port's
+    atomic and diatomic CLIs, each within FIELD_GATE of helfem_tpu's energy
+    in its iteration count with field_launches' launches, each cell's warm
+    wall (the same SCF call again on the CLI's operators) and its
+    device-busy share (one more SCF under torch.profiler); E(+F) and E(-F)
+    of Ar within FIELD_PM_TOL, and the finite-field polarizabilities of
+    ALPHA_CELLS beside helfem_tpu's. Returns each cell's launches."""
+    from helfem_tpu_torch import kernels
+    from helfem_tpu_torch.cli.atomic import main as atomic_main
+    from helfem_tpu_torch.cli.diatomic import main as diatomic_main
+    from helfem_tpu_torch.scf import atomic_scf, diatomic_scf
+    from helfem_tpu_torch.utils.profiling import busy_wall
+
+    phase("20. fields, finite nuclei, confinement and off-centre nuclei: K1 and K10 on "
+          "channel-pair windows, K4/K5 on cross-l densities, K3/K6 on merged g/u blocks, then "
+          "atoms and diatomics in Ez/Qzz/Bz, with finite nuclei, confined and off-centre "
+          "through the CLIs")
+    t_phase = time.perf_counter()
+    field_kernels(dev, results)
+    mains = {"atomic": (atomic_main, atomic_scf, "scf_atom"),
+             "diatomic": (diatomic_main, diatomic_scf, "scf_diatomic")}
+    counts, energies, warm = {}, {}, {}
+    for label, (prog, argv, ref, ref_niter) in FIELD_CELLS.items():
+        main, module, entry = mains[prog]
+
+        def check(res, label=label, prog=prog, argv=argv, ref=ref, ref_niter=ref_niter):
+            want = field_launches(prog, argv, res.niter,
+                                  diatomic_spins(res) if prog == "diatomic" else 1)
+            got = {name: kernels.launches[name] for name in want}
+            dE = res.E - ref
+            print(f"{label}: E - helfem_tpu = {dE:+.3e} (gate {FIELD_GATE:g}), {res.niter} "
+                  f"iterations (helfem_tpu {ref_niter}), Efield {res.Efield:+.10e}; launches "
+                  f"per iteration {({k: v / res.niter for k, v in got.items()})}")
+            energies[label] = res.E
+            if got != want:
+                return f"launches {got}, expected {want}"
+            if res.niter != ref_niter:
+                return f"{res.niter} iterations, helfem_tpu {ref_niter}"
+            return "" if res.converged and abs(dE) < FIELD_GATE else \
+                "did not converge within the gate"
+
+        names = [k for k, v in field_launches(prog, argv, 1).items() if v]
+        with ScfCapture(module, entry) as cap:
+            counts[label] = run_cli(main, argv, label, names, check)
+        t0 = time.perf_counter()
+        res = cap.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        pwall, busy = busy_wall(cap.run)
+        warm[label] = {"wall_s": wall, "niter": res.niter, "busy_share": busy / pwall}
+        print(f"{label}: warm SCF wall {wall:.4f} s in {res.niter} iterations "
+              f"({1e3 * wall / res.niter:.2f} ms each); device busy {busy:.4f} s of the "
+              f"profiled {pwall:.4f} s ({100 * busy / pwall:.1f} %)")
+        if abs(res.E - energies[label]) > FIELD_GATE:
+            raise RuntimeError(f"{label}: the warm SCF's energy moved by "
+                               f"{res.E - energies[label]:+.3e}")
+    dpm = energies["Ar HF Ez=+0.001"] - energies["Ar HF Ez=-0.001"]
+    print(f"Ar HF: E(+F) - E(-F) = {dpm:+.3e} (gate {FIELD_PM_TOL:g})")
+    if not abs(dpm) < FIELD_PM_TOL:
+        raise RuntimeError("Ar HF: E(+F) and E(-F) disagree")
+    for name, (zero, plus, minus) in ALPHA_CELLS.items():
+        alpha = -(energies[plus] + energies[minus] - 2.0 * energies[zero]) / FIELD_F**2
+        ref = -(FIELD_CELLS[plus][2] + FIELD_CELLS[minus][2] - 2.0 * FIELD_CELLS[zero][2]) \
+            / FIELD_F**2
+        print(f"{name} = {alpha:.6f} au (helfem_tpu {ref:.6f}; F = {FIELD_F:g}); "
+              f"E(+F) - E(-F) = {energies[plus] - energies[minus]:+.3e}")
+        results[("field_alpha", name)] = alpha
+    results[("field_warm", "cells")] = warm
+    print(f"phase 20: {time.perf_counter() - t_phase:.1f} s")
+    return counts
+
+
 def main() -> None:
     phase("1. device")
     smi = device_facts()
@@ -2540,6 +2885,7 @@ def main() -> None:
     mgga_counts = mgga_phase(dev, results)
     rs_counts = rs_phase(dev, results)
     lapl_counts = lapl_phase(dev, results)
+    field_counts = field_phase(dev, results)
     counts["radial_erfc_exchange"] = rs_counts["Ar LC-LDA"]["radial_erfc_exchange"]
 
     record = []
@@ -2595,6 +2941,12 @@ def main() -> None:
                                   ("max_abs_err", "rel_err", "ms", "device_ms", "queued_ms",
                                    "plain_ms", "bound_ms")})
             extra["phase19_launches"] = {label: c.get(name, 0) for label, c in lapl_counts.items()}
+        for key in FIELD_KEYS.get(name, ()):
+            o = results[(name, key)]
+            extra.update({f"{key}_{k}": o[k] for k in
+                          ("max_abs_err", "rel_err", "ms", "device_ms", "queued_ms", "plain_ms",
+                           "bound_ms")})
+        extra["phase20_launches"] = {label: c.get(name, 0) for label, c in field_counts.items()}
         scf = results.get((name, {"radial_exchange_dia_occ": "o2_l12_scf",
                                   "radial_exchange": "sad_cr2_scf"}.get(name)))
         if scf is not None:

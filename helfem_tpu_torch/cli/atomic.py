@@ -1,7 +1,8 @@
 """`python -m helfem_tpu_torch.cli.atomic`: atomic HF/DFT SCF driver of the
 PyTorch/CUDA port (restricted, unrestricted or ROHF; global and
 range-separated hybrids; the laplacian-level BR89; Fock damping and the
-sliding DIIS/ADIIS blend).
+sliding DIIS/ADIIS blend; electric and magnetic fields, confinement, finite
+nuclei, off-centre nuclei and the symmetry blocks 0/1/2).
 
 A subset of helfem_tpu.cli.atomic (flag names mirror the reference `atomic`
 program, src/atomic/main.cpp:63-119), plus --device. Flags of the JAX CLI
@@ -22,18 +23,22 @@ from helfem_tpu_torch.cli._common import (
 
 # helfem_tpu.cli.atomic flags outside this slice
 _UNPORTED_FLAGS = (
-    "Zl", "Zr", "Rmid", "nquad", "nelem0", "grid0",
-    "zexp0", "add_conf", "load", "readocc", "Ez", "Qzz", "Bz", "finitenuc",
-    "Rrms", "iconf", "conf_N", "conf_R", "conf_barrier", "shift_conf", "save",
-    "symmetry", "maverage", "perturb", "seed", "diag", "eigiter",
-    "angstrom", "zeroder", "trace", "ndev", "taylor_order",
+    "nquad", "load", "readocc", "save", "maverage", "perturb", "seed", "diag", "eigiter",
+    "zeroder", "trace", "ndev", "taylor_order",
 )
+# --finitenuc: the reference's nuclear model numbers
+NUCLEAR_MODELS = {0: "point", 1: "point", 2: "gaussian", 3: "spherical", 4: "hollow",
+                  5: "regularized"}
 
 
 def main(argv=None):
     p = argparse.ArgumentParser(prog="helfem_tpu_torch.cli.atomic", description=__doc__,
                                 allow_abbrev=False)
     p.add_argument("--Z", required=True, help="nuclear charge (number or symbol)")
+    p.add_argument("--Zl", default="", help="left off-centre charge (at -Rmid z)")
+    p.add_argument("--Zr", default="", help="right off-centre charge (at +Rmid z)")
+    p.add_argument("--Rmid", type=float, default=0.0, help="off-centre distance")
+    p.add_argument("--angstrom", action="store_true", help="Rmid given in angstrom")
     p.add_argument("--nela", type=int, default=0)
     p.add_argument("--nelb", type=int, default=0)
     p.add_argument("--Q", type=int, default=0, help="charge state")
@@ -48,6 +53,30 @@ def main(argv=None):
     p.add_argument("--primbas", type=int, default=4,
                    help="primitive polynomial basis id (3 Legendre, 4 LIP, "
                         "5 HIP, 6-11 general HIP, 100/101 Chebyshev nodes)")
+    p.add_argument("--nelem0", type=int, default=0,
+                   help="elements in the finite-nucleus sub-grid / per off-centre grid "
+                        "section (0 = plain grid)")
+    p.add_argument("--grid0", type=int, default=2, help="finite-nucleus sub-grid type")
+    p.add_argument("--zexp0", type=float, default=2.0)
+    p.add_argument("--Ez", type=float, default=0.0, help="electric field along z")
+    p.add_argument("--Qzz", type=float, default=0.0, help="quadrupole field strength")
+    p.add_argument("--Bz", type=float, default=0.0, help="magnetic field along z")
+    p.add_argument("--finitenuc", type=int, default=0,
+                   help="0 point, 2 gaussian, 3 spherical, 4 hollow, 5 regularized "
+                        "(Gygi; Rrms = a)")
+    p.add_argument("--Rrms", type=float, default=0.0, help="nuclear rms charge radius")
+    p.add_argument("--iconf", type=int, default=0,
+                   help="confinement: 0 none, 1 polynomial, 2 exponential, 3 barrier, "
+                        "4 Junquera")
+    p.add_argument("--conf_N", type=int, default=0)
+    p.add_argument("--conf_R", type=float, default=0.0)
+    p.add_argument("--conf_barrier", type=float, default=0.0)
+    p.add_argument("--shift_conf", type=float, default=0.0)
+    p.add_argument("--add_conf", type=int, default=1,
+                   help="insert an element boundary at the confinement onset radius")
+    p.add_argument("--symmetry", type=int, default=-1,
+                   help="symmetry blocks: 0 none, 1 m, 2 (l,m); -1 auto (1 under Ez, Qzz "
+                        "or off-centre nuclei, else 2)")
     p.add_argument("--maxit", type=int, default=50)
     p.add_argument("--convthr", type=float, default=1e-7)
     p.add_argument("--method", default="HF",
@@ -94,7 +123,7 @@ def main(argv=None):
     )
     from helfem_tpu_torch.ops.xc import parse_method_rs
     from helfem_tpu_torch.scf.atomic_scf import rs_operators, scf_atom
-    from helfem_tpu_torch.utils.elements import HARTREE_IN_EV, get_Z
+    from helfem_tpu_torch.utils.elements import ANGSTROM_IN_BOHR, HARTREE_IN_EV, get_Z
     from helfem_tpu_torch.utils.timer import Timer
 
     device = open_device(args.device)
@@ -102,13 +131,21 @@ def main(argv=None):
     spec = parse_method_rs(args.method)  # raises for methods that are not ported
     funcs = spec.funcs
     Z = get_Z(args.Z)
-    nela, nelb = parse_nela_nelb(Z, args.Q, args.M, args.nela, args.nelb)
+    Zl = get_Z(args.Zl) if args.Zl else 0
+    Zr = get_Z(args.Zr) if args.Zr else 0
+    if args.angstrom:
+        args.Rmid *= ANGSTROM_IN_BOHR
+    nela, nelb = parse_nela_nelb(Z + Zl + Zr, args.Q, args.M, args.nela, args.nelb)
     guess = {0: "core", 1: "GSZ", 2: "SAP", 3: "TF"}[args.iguess]
+    nucmodel = NUCLEAR_MODELS[args.finitenuc]
 
     timer = Timer()
     basis = AtomicBasis(
         Z=Z, lmax=args.lmax, mmax=args.mmax, rmax=args.Rmax, nelem=args.nelem,
         nnodes=args.nnodes, igrid=args.grid, zexp=args.zexp, primbas=args.primbas,
+        finitenuc=nucmodel, Rrms=args.Rrms, nelem0=args.nelem0, igrid0=args.grid0,
+        zexp0=args.zexp0, Zl=Zl, Zr=Zr, Rmid=args.Rmid,
+        conf_boundary=args.shift_conf if (args.add_conf and args.iconf) else 0.0,
     )
     walls = {"basis": timer.lap("basis set formation")}
     print(f"Running {args.method} on Z={Z} with {nela}+{nelb} electrons, "
@@ -144,7 +181,10 @@ def main(argv=None):
         convthr=args.convthr, guess=guess, verbose=True, ops=ops, dftthr=args.dftthr,
         restricted=args.restricted, diisorder=args.diisorder, diiseps=args.diiseps,
         ldft=args.ldft, grid=grid, rs=rs, dampfock=args.dampfock, dampthr=args.dampthr,
-        diisthr=args.diisthr,
+        diisthr=args.diisthr, Ez=args.Ez, Qzz=args.Qzz, Bz=args.Bz, iconf=args.iconf,
+        conf_N=args.conf_N, conf_R=args.conf_R, conf_barrier=args.conf_barrier,
+        shift_conf=args.shift_conf, finitenuc=nucmodel, Rrms=args.Rrms, Zl=Zl, Zr=Zr,
+        Rmid=args.Rmid, symmetry=args.symmetry,
     )
     if device.type == "cuda":
         torch.cuda.synchronize(device)

@@ -7,7 +7,9 @@ runs HF, LDA, GGA, meta-GGA and laplacian-level (BR89) functionals and
 their global hybrids,
 restricted, unrestricted (--restricted 0, the default for nela != nelb) or
 ROHF (--restricted 1 with nela != nelb), from the core, SAP, GSZ or TF
-guess; flags of the JAX CLI that it does not cover are rejected with
+guess, in axial electric (--Ez), quadrupole (--Qzz) and magnetic (--Bz)
+fields and with finite nuclei (--finitenuc, --Rrms1, --Rrms2); flags of the
+JAX CLI that it does not cover are rejected with
 NotImplementedError. The per-iteration and final-energy lines match the JAX
 CLI's.
 """
@@ -25,8 +27,7 @@ from helfem_tpu_torch.cli._common import (
 
 # helfem_tpu.cli.diatomic flags outside this slice
 _UNPORTED_FLAGS = (
-    "lpad", "diag", "maverage", "save", "load", "Ez", "Qzz", "Bz", "symmetry",
-    "readocc", "finitenuc", "trace", "Rrms1", "Rrms2", "ndev",
+    "lpad", "diag", "maverage", "save", "load", "symmetry", "readocc", "trace", "ndev",
 )
 
 
@@ -82,6 +83,13 @@ def main(argv=None):
                         "between diisthr and diiseps the DIIS/ADIIS weights are "
                         "blended on the reference's sliding scale "
                         "(src/general/diis.cpp:241); unset = hard switch at diiseps")
+    p.add_argument("--Ez", type=float, default=0.0, help="electric field along the bond")
+    p.add_argument("--Qzz", type=float, default=0.0, help="quadrupole field strength")
+    p.add_argument("--Bz", type=float, default=0.0, help="magnetic field along the bond")
+    p.add_argument("--finitenuc", default="point",
+                   help="nuclear model: point|gaussian|spherical|hollow|regularized")
+    p.add_argument("--Rrms1", type=float, default=0.0, help="nucleus 1 rms radius")
+    p.add_argument("--Rrms2", type=float, default=0.0, help="nucleus 2 rms radius")
     p.add_argument("--device", default="cuda",
                    help="torch device: cuda runs the CUDA kernels, cpu their "
                         "plain PyTorch versions")
@@ -119,7 +127,8 @@ def main(argv=None):
     print(f"Running {args.method} on Z1={Z1} Z2={Z2} R={R} with {nela}+{nelb} electrons")
     print(f"{basis.nang} angular shells x {basis.nrad} radial functions; "
           f"{len(basis.lm_map)} (L,|M|) channels")
-    ops = basis.build_operators(device)
+    # an axial electric field couples even and odd l: no g/u blocks
+    ops = basis.build_operators(device, parity=args.Ez == 0.0)
     walls["operators"] = timer.lap("operator build")
     t0 = time.perf_counter()
     res = scf_diatomic(
@@ -127,6 +136,8 @@ def main(argv=None):
         verbose=True, ops=ops, guess=args.guess, restricted=args.restricted,
         perturb=args.perturb, seed=args.seed, diisorder=args.diisorder,
         diiseps=args.diiseps, dftthr=args.dftthr, ldft=args.ldft, diisthr=args.diisthr,
+        Ez=args.Ez, Qzz=args.Qzz, Bz=args.Bz, finitenuc=args.finitenuc, Rrms1=args.Rrms1,
+        Rrms2=args.Rrms2,
     )
     if device.type == "cuda":
         torch.cuda.synchronize(device)

@@ -10,15 +10,19 @@ ported from helfem_tpu/models/atomic.py.
   tensor with torch.einsum and hand the radial work to the CUDA kernels
   radial_coulomb and radial_exchange (kernels/), which run their plain
   PyTorch versions on CPU tensors.
-* The range-separated exchange of channel-block-diagonal densities: the
-  Yukawa part through radial_exchange on the Yukawa tables, the erfc part
-  through radial_erfc_exchange on the dense element-pair tables.
+* The range-separated exchange: the Yukawa part through radial_exchange on
+  the Yukawa tables, the erfc part through radial_erfc_exchange on the
+  dense element-pair tables.
+* The exchange of a density with cross-channel blocks (symmetry 0 and 1:
+  fields and off-centre nuclei) runs the same kernels on the channel-pair
+  windows P4[a, d], a != d included (exchange_general and its erfc form).
+* The one-electron field, confinement, finite-nucleus and off-centre
+  nucleus operators, and the grid variants of form_grid, on the host.
 
-Not ported yet: fields, confinement, finite nuclei, and the dense
-exchange_general, rs_exchange and erfc_exchange (symmetry 0/1 and warm
-starts).
+zeroder and an explicit bval (checkpoint bases) are not ported.
 """
 
+import math
 from collections.abc import Mapping
 from dataclasses import dataclass, field
 from typing import NamedTuple
@@ -33,14 +37,16 @@ from helfem_tpu_torch.kernels import (
     radial_exchange,
 )
 from helfem_tpu_torch.ops.fem import FEMBasis
-from helfem_tpu_torch.ops.gaunt import gaunt_table
-from helfem_tpu_torch.ops.grids import get_grid
+from helfem_tpu_torch.ops.gaunt import cosk_coupling, gaunt_coefficient, gaunt_table, sine2_coupling
+from helfem_tpu_torch.ops.grids import form_grid
+from helfem_tpu_torch.ops.gygi import gygi_V
 from helfem_tpu_torch.ops.polynomials import get_basis
 from helfem_tpu_torch.ops.radial import RadialBasis
 
 __all__ = ["angular_basis", "AtomicBasis", "AtomicOperators", "ErfcOperators", "RSOperators",
-           "coulomb", "erfc_exchange_bd", "exchange_bd", "from_jax_operators",
-           "from_jax_rs_operators", "rs_exchange_bd"]
+           "channel_pairs", "confinement_Vr", "coulomb", "erfc_exchange", "erfc_exchange_bd",
+           "exchange", "exchange_bd", "exchange_general", "from_jax_operators",
+           "from_jax_rs_operators", "nuclear_model_V", "rs_exchange", "rs_exchange_bd"]
 
 
 def angular_basis(lmax: int, mmax: int):
@@ -119,10 +125,72 @@ def from_jax_rs_operators(arrays: Mapping[str, np.ndarray], device):
                   for name in kind._fields))
 
 
+def confinement_Vr(r: np.ndarray, rmax: float, N, R: float, iconf: int = 1,
+                   shift: float = 0.0) -> np.ndarray:
+    """Confinement potentials on radial points (helfem_tpu atomic.py:69-106;
+    reference: RadialBasis.cpp:361-455): 1 polynomial ((r-shift)/R)^N, 2
+    exponential N! (e^x - sum_{k<N} x^k/k!) with x = (r-shift)/R, 3 barrier
+    V0 theta(r-R) (N is the height V0), 4 Junquera V0
+    e^{-(rmax-shift)/(r-shift)} / (rmax-r)^N (V0 in the R slot), capped at
+    1e8 so that quadrature points at or past rmax give a huge finite wall."""
+    if iconf == 1:
+        Vr = np.where(r > shift, ((r - shift) / R) ** int(N), 0.0)
+    elif iconf == 2:
+        x = np.where(r > shift, (r - shift) / R, 0.0)
+        s = np.zeros_like(x)
+        fact = 1.0
+        xk = np.ones_like(x)
+        for k in range(int(N)):
+            s += xk / fact
+            fact *= k + 1
+            xk = xk * x
+        Vr = np.where(r > shift, fact * (np.exp(x) - s), 0.0)
+    elif iconf == 3:
+        Vr = np.where(r > R, float(N), 0.0)
+    elif iconf == 4:
+        with np.errstate(over="ignore", divide="ignore"):
+            Vr = np.where(
+                r > shift,
+                R * np.exp(-(rmax - shift) / np.maximum(r - shift, 1e-300))
+                / np.maximum(rmax - r, 1e-300) ** int(N),
+                0.0,
+            )
+        Vr = np.minimum(Vr, 1e8)
+    else:
+        raise NotImplementedError(f"confinement type {iconf}")
+    return Vr
+
+
+def nuclear_model_V(model: str, Z: float, Rrms: float):
+    """V(r) callable of a finite-nucleus charge model (helfem_tpu
+    atomic.py:109-140; reference: libhelfem {Gaussian,Spherical,Hollow,
+    Regularized}Nucleus.cpp): 'point', 'gaussian', 'spherical', 'hollow' or
+    'regularized'; Rrms is the rms charge radius (the Gygi width a for
+    'regularized')."""
+    if model == "point":
+        return lambda r: -Z / r
+    if model == "gaussian":
+        mu = math.sqrt(1.5) / Rrms
+        erf = np.vectorize(math.erf)
+        return lambda r: -Z * erf(mu * r) / r
+    if model == "spherical":
+        # uniformly charged ball (Visscher-Dyall 1997 eq. 7)
+        R0 = math.sqrt(5.0 / 3.0) * Rrms
+        return lambda r: np.where(r >= R0, -Z / r, -Z * (3.0 - (r / R0) ** 2) / (2.0 * R0))
+    if model == "hollow":
+        return lambda r: np.where(r >= Rrms, -Z / r, -Z / Rrms)
+    if model == "regularized":
+        return lambda r: gygi_V(Z, Rrms, r)
+    raise ValueError(model)
+
+
 @dataclass
 class AtomicBasis:
     """Host-side setup: builds all constant tensors for an atomic calculation
-    (the point-nucleus grid of helfem_tpu's AtomicBasis)."""
+    (helfem_tpu's AtomicBasis). nelem0 > 0 adds the finite-nucleus sub-grid
+    (with finitenuc/Rrms) or the off-centre sections (with Zl/Zr/Rmid);
+    conf_boundary inserts an element boundary at the confinement onset
+    (ops/grids.py:form_grid; reference: src/atomic/basis.cpp:56-167)."""
 
     Z: int
     lmax: int
@@ -134,17 +202,36 @@ class AtomicBasis:
     igrid: int = 4
     zexp: float = 2.0
     primbas: int = 4
+    finitenuc: str = "point"
+    Rrms: float = 0.0
+    nelem0: int = 0
+    igrid0: int = 2
+    zexp0: float = 2.0
+    Zl: int = 0
+    Zr: int = 0
+    Rmid: float = 0.0
+    conf_boundary: float = 0.0
+    # helfem_tpu's derivative DOF dropped at rmax (Hermite bases) and its
+    # explicit element boundaries (checkpoint bases): not ported, they raise
+    zeroder: bool = False
+    bval: np.ndarray | None = None
 
     lval: np.ndarray = field(init=False)
     mval: np.ndarray = field(init=False)
     rb: RadialBasis = field(init=False)
 
     def __post_init__(self):
+        for name, inert in (("zeroder", False), ("bval", None)):
+            if getattr(self, name) is not inert:
+                raise NotImplementedError(f"AtomicBasis option {name} is not ported to "
+                                          "helfem_tpu_torch yet (see ROADMAP.md)")
         self.lval, self.mval = angular_basis(self.lmax, self.mmax)
         poly = get_basis(self.primbas, self.nnodes)
         if self.nquad == 0:
             self.nquad = 5 * self.nnodes
-        bval = get_grid(self.rmax, self.nelem, self.igrid, self.zexp)
+        bval = form_grid(self.finitenuc, self.Rrms, self.nelem, self.rmax, self.igrid,
+                         self.zexp, self.nelem0, self.igrid0, self.zexp0, self.Z, self.Zl,
+                         self.Zr, self.Rmid, self.conf_boundary)
         fem = FEMBasis(poly, bval, drop_first=True, drop_last=True)
         self.rb = RadialBasis(fem, self.nquad)
 
@@ -182,6 +269,67 @@ class AtomicBasis:
     def model_potential(self, V) -> np.ndarray:
         """Guess Hamiltonian potential from V(r) callable (spherical)."""
         Vr = V(self.rb.r)
+        return np.kron(np.eye(self.nang), self.rb.model_potential(Vr))
+
+    # --- field, confinement and nuclear-model operators (atomic.py:230-316) ----
+    def _angular_matrix(self, coupling) -> np.ndarray:
+        """[nang, nang] table of an angular coupling function (la,ma,lb,mb)."""
+        A = np.zeros((self.nang, self.nang))
+        for a in range(self.nang):
+            for b in range(self.nang):
+                A[a, b] = coupling(int(self.lval[a]), int(self.mval[a]), int(self.lval[b]),
+                                   int(self.mval[b]))
+        return A
+
+    def dipole_z(self) -> np.ndarray:
+        """<z> = <r cos theta> (reference: TwoDBasis::dipole_z,
+        src/atomic/TwoDBasis.cpp:508-545)."""
+        A = self._angular_matrix(lambda la, ma, lb, mb: cosk_coupling(1, la, ma, lb, mb))
+        return np.kron(A, self.rb.radial_integral(1))
+
+    def quadrupole_zz(self) -> np.ndarray:
+        """<(3 z^2 - r^2)/2> (reference: TwoDBasis::quadrupole_zz)."""
+        A2 = self._angular_matrix(lambda la, ma, lb, mb: cosk_coupling(2, la, ma, lb, mb))
+        return np.kron(1.5 * A2 - 0.5 * np.eye(self.nang), self.rb.radial_integral(2))
+
+    def Bz_field(self, B: float) -> np.ndarray:
+        """Orbital Zeeman B/2 L_z + diamagnetic B^2/8 r^2 sin^2(theta)
+        (reference: TwoDBasis::Bz_field, src/atomic/TwoDBasis.cpp:591-636).
+        The spin Zeeman -+ B/2 S is added per spin in the SCF."""
+        S2 = self._angular_matrix(sine2_coupling)
+        out = np.kron(np.diag(self.mval * B / 2.0), self.rb.overlap())
+        out += B * B / 8.0 * np.kron(S2, self.rb.radial_integral(2))
+        return out
+
+    def confinement(self, N, R: float, iconf: int = 1, shift: float = 0.0) -> np.ndarray:
+        Vr = confinement_Vr(self.rb.r, self.rmax, N, R, iconf, shift)
+        return np.kron(np.eye(self.nang), self.rb.model_potential(Vr))
+
+    def nuclear_offcenter(self, Zl: int, Zr: int, Rhalf: float) -> np.ndarray:
+        """Attraction to the off-centre charges Zr at +Rhalf z and Zl at
+        -Rhalf z by multipole expansion (reference: TwoDBasis::nuclear's
+        off-centre path, src/atomic/TwoDBasis.cpp:378-454), most accurate with
+        an element boundary at r = Rhalf (form_grid inserts one)."""
+        out = np.zeros((self.nbf, self.nbf))
+        r = self.rb.r
+        for L in range(0, 2 * self.lmax + 1):
+            zfac = Zr + (-1) ** L * Zl
+            if zfac == 0:
+                continue
+            with np.errstate(over="ignore", divide="ignore"):
+                fr = np.where(r <= Rhalf, r**L / Rhalf ** (L + 1), Rhalf**L / r ** (L + 1))
+            rad = -np.sqrt(4.0 * np.pi / (2 * L + 1)) * zfac * self.rb.model_potential(fr)
+            A = self._angular_matrix(
+                lambda la, ma, lb, mb, L=L: gaunt_coefficient(la, ma, L, 0, lb, mb))
+            out += np.kron(A, rad)
+        return out
+
+    def nuclear_model(self, model: str, Rrms: float) -> np.ndarray:
+        """Finite-nucleus attraction (nuclear_model_V's models; 'point' is
+        nuclear())."""
+        if model == "point":
+            return self.nuclear() * 1.0
+        Vr = nuclear_model_V(model, self.Z, Rrms)(self.rb.r)
         return np.kron(np.eye(self.nang), self.rb.model_potential(Vr))
 
     def sinvh_rad(self) -> np.ndarray:
@@ -388,3 +536,98 @@ def erfc_exchange_bd(ops: AtomicOperators, rs: ErfcOperators, Pd: torch.Tensor) 
     KK = radial_erfc_exchange(rs.tei, ops.gidx, Pd.reshape(-1, nrad, nrad).contiguous())
     K = _gaunt_weight(ops, rs.Lfac, KK, ns)
     return K if Pd.dim() == 4 else K[0]
+
+
+# ----------------------------------------------------------------------------
+# Exchange of a density with cross-channel blocks (symmetry 0 and 1)
+# ----------------------------------------------------------------------------
+
+
+def channel_pairs(mval: np.ndarray, symm: int) -> tuple[np.ndarray, np.ndarray]:
+    """The channel pairs (a, d) whose radial windows P4[a, d] a density of
+    symmetry `symm` may hold nonzero: every one of the nang^2 under
+    symmetry 0, the pairs with m_a = m_d under symmetry 1 (the density is
+    block-diagonal over m), the diagonal a = d under symmetry 2."""
+    m = np.asarray(mval)
+    a, d = np.meshgrid(np.arange(len(m)), np.arange(len(m)), indexing="ij")
+    keep = {0: np.ones_like(a, dtype=bool), 1: m[a] == m[d], 2: a == d}[symm]
+    return a[keep], d[keep]
+
+
+def _pair_windows(P: torch.Tensor, nang: int, nrad: int, pairs) -> torch.Tensor:
+    """The windows P4[a_p, d_p] [..., npairs, nrad, nrad] of P [..., nbf,
+    nbf] (not symmetric for a_p != d_p: P4[d, a] = P4[a, d]^T)."""
+    pa, pd = (torch.as_tensor(x, dtype=torch.long, device=P.device) for x in pairs)
+    P4 = P.reshape(*P.shape[:-2], nang, nrad, nang, nrad).transpose(-3, -2)
+    return P4[..., pa, pd, :, :]
+
+
+def _pair_weight(ops: AtomicOperators, Lfacv, KK: torch.Tensor, ns: int, pairs) -> torch.Tensor:
+    """-K[s] [ns, nbf, nbf] from the radial results KK [NL, ns * npairs,
+    nrad, nrad] of ns spins' channel-pair windows: K[b, c] = sum_{g,p}
+    W[g,b,c,p] KK[g,p], W[g,b,c,p] = Lfac_g sum_M G[g,M,b,a_p] G[g,M,c,d_p]
+    (helfem_tpu atomic.py:612-614, with the kernel moved in front of the
+    Gaunt weighting: it is linear in its window)."""
+    nang = ops.G.shape[-1]
+    nrad = ops.Sinvh_rad.shape[0]
+    pa, pd = (torch.as_tensor(x, dtype=torch.long, device=KK.device) for x in pairs)
+    W = torch.einsum("gMbp,gMcp->gbcp", ops.G[:, :, :, pa], ops.G[:, :, :, pd])
+    W = W * Lfacv[:, None, None, None]
+    KK = KK.reshape(KK.shape[0], ns, len(pa), nrad, nrad)
+    return -torch.einsum("gbcp,gspNM->sbNcM", W, KK).reshape(ns, nang * nrad, nang * nrad)
+
+
+def _spins_and_pairs(P: torch.Tensor, pairs, nang: int):
+    """(the spins of P [nbf, nbf] or [ns, nbf, nbf], the channel pairs: all
+    nang^2 when None)."""
+    if pairs is None:
+        pairs = channel_pairs(np.zeros(nang), 0)
+    return (P.shape[0] if P.dim() == 3 else 1), pairs
+
+
+def exchange_general(ops: AtomicOperators, tei, U, V, Lfacv, P: torch.Tensor, pairs=None,
+                     pairwise: bool = False) -> torch.Tensor:
+    """Exchange of a density with cross-channel blocks (helfem_tpu's
+    exchange_general, atomic.py:556-619): ONE radial_exchange launch on the
+    channel-pair windows P4[a, d] of every pair in `pairs` (channel_pairs;
+    all nang^2 when None), KK[g, p] = kernel_L(P4[a_p, d_p]), then the
+    Gaunt weighting K[b, c] = sum_{g,p} W[g,b,c,p] KK[g,p] (_pair_weight).
+    A pair left out must have a zero window: channel_pairs(mval, 1) is
+    exact for the m-block-diagonal densities of symmetry 1. Returns the
+    NEGATIVE exchange contribution to F. P [nbf, nbf], or [ns, nbf, nbf]
+    for ns spins in the same launch (the result then [ns, nbf, nbf]);
+    pairwise as exchange_general_bd's."""
+    nang = ops.G.shape[-1]
+    nrad = ops.Sinvh_rad.shape[0]
+    ns, pairs = _spins_and_pairs(P, pairs, nang)
+    Pw = _pair_windows(P, nang, nrad, pairs).reshape(-1, nrad, nrad).contiguous()
+    KK = radial_exchange(tei, U, V, ops.gidx, Pw, pairwise=pairwise)
+    K = _pair_weight(ops, Lfacv, KK, ns, pairs)
+    return K if P.dim() == 3 else K[0]
+
+
+def exchange(ops: AtomicOperators, P: torch.Tensor, pairs=None) -> torch.Tensor:
+    """Full-range exchange K(P) of a density with cross-channel blocks."""
+    return exchange_general(ops, ops.tei, ops.disjL, ops.disjm1L, ops.Lfac, P, pairs)
+
+
+def rs_exchange(ops: AtomicOperators, rs: RSOperators, P: torch.Tensor,
+                pairs=None) -> torch.Tensor:
+    """Yukawa short-range exchange of a density with cross-channel blocks
+    (atomic.py:636): radial_exchange on the Yukawa tables, pairwise form."""
+    return exchange_general(ops, rs.tei, rs.iL, rs.kL, rs.Lfac, P, pairs, pairwise=True)
+
+
+def erfc_exchange(ops: AtomicOperators, rs: ErfcOperators, P: torch.Tensor,
+                  pairs=None) -> torch.Tensor:
+    """erfc short-range exchange of a density with cross-channel blocks
+    (atomic.py:650-680): ONE radial_erfc_exchange launch on the channel-pair
+    windows, then the Gaunt weighting with Lfac = 4 pi mu / (2L+1). P and
+    pairs as exchange_general's."""
+    nang = ops.G.shape[-1]
+    nrad = ops.Sinvh_rad.shape[0]
+    ns, pairs = _spins_and_pairs(P, pairs, nang)
+    Pw = _pair_windows(P, nang, nrad, pairs).reshape(-1, nrad, nrad).contiguous()
+    KK = radial_erfc_exchange(rs.tei, ops.gidx, Pw)
+    K = _pair_weight(ops, rs.Lfac, KK, ns, pairs)
+    return K if P.dim() == 3 else K[0]

@@ -23,8 +23,12 @@ masked (shell_mask).
   radial_exchange_dia_occ and radial_exchange_dia (kernels/), which read
   the same teiJ3 table through the exchange index permutation.
 
-Not ported yet: electric and magnetic fields, multipoles, explicit element
-boundaries (bval) and inverse-Cholesky whitening.
+* The axial field operators (dipole_z, quadrupole_zz, Bz_field) are host
+  numpy; the SCF folds them into H0. Under Ez the g/u split of the
+  symmetry blocks is dropped (build_operators(parity=False)).
+
+Not ported yet: explicit element boundaries (bval) and inverse-Cholesky
+whitening.
 """
 
 from collections.abc import Mapping
@@ -44,9 +48,11 @@ from helfem_tpu_torch.kernels import (
 )
 from helfem_tpu_torch.ops.fem import FEMBasis
 from helfem_tpu_torch.ops.gaunt import (
+    cos2sin2_coupling,
     cosk_coupling,
     gaunt_coefficient,
     modified_gaunt_coefficient,
+    sine2_coupling,
 )
 from helfem_tpu_torch.ops.grids import get_grid
 from helfem_tpu_torch.ops.legendreq import legendre_PQ
@@ -292,15 +298,71 @@ class DiatomicBasis:
             {"delta": (self.Z1 + self.Z2) * I11, ("cos", 1): (self.Z2 - self.Z1) * I10}
         )
 
-    def dipole_z(self):
-        raise NotImplementedError("diatomic multipoles and electric fields are not "
-                                  "ported to helfem_tpu_torch yet (see ROADMAP.md)")
+    def dipole_z(self) -> np.ndarray:
+        """<z> in prolate coordinates (diatomic.py:262-265)."""
+        I11 = self.radial_integral(1, 1)
+        I13 = self.radial_integral(1, 3)
+        return self.Rhalf**4 * self._couple({("cos", 1): I13, ("cos", 3): -I11})
 
-    quadrupole_zz = dipole_z
+    def quadrupole_zz(self) -> np.ndarray:
+        """z^2 - (x^2 + y^2)/2 in prolate coordinates (reference: diatomic
+        TwoDBasis::quadrupole_zz, src/diatomic/basis.cpp:857-900)."""
+        I10 = self.radial_integral(1, 0)
+        I12 = self.radial_integral(1, 2)
+        I14 = self.radial_integral(1, 4)
+        return (self.Rhalf**5 / 2.0) * self._couple(
+            {
+                ("cos", 4): I10 - 3.0 * I12,
+                ("cos", 2): 3.0 * I14 - I10,
+                "delta": I12 - I14,
+            }
+        )
 
-    def Bz_field(self, B: float):
-        raise NotImplementedError("diatomic magnetic fields are not ported to "
-                                  "helfem_tpu_torch yet (see ROADMAP.md)")
+    def Bz_field(self, B: float) -> np.ndarray:
+        """Orbital Zeeman and diamagnetic operator of a uniform field B
+        along the bond, -B/2 L_z + B^2/8 (x^2 + y^2), shell-masked (reference:
+        diatomic TwoDBasis::Bz_field, src/diatomic/basis.cpp:902-953). The
+        spin term -+ B/2 is applied by the SCF."""
+        Rh = self.Rhalf
+        I10 = self.radial_integral(1, 0) * Rh**3
+        I12 = self.radial_integral(1, 2) * Rh**3
+        I30 = self.radial_integral(3, 0) * Rh**5
+        I32 = self.radial_integral(3, 2) * Rh**5
+        nang, nrad = self.nang, self.nrad
+        out = np.zeros((nang * nrad, nang * nrad))
+        cs = B * B / 8.0
+        for a in range(nang):
+            la, ma = int(self.lval[a]), int(self.mval[a])
+            for b in range(nang):
+                lb, mb = int(self.lval[b]), int(self.mval[b])
+                if ma != mb:
+                    continue
+                blk = np.zeros((nrad, nrad))
+                use = False
+                # diamagnetic rho^2 = Rh^2 sinh^2 mu sin^2 nu: the sinh^2
+                # cosh^2-weighted sin^2 and the sinh^2-weighted cos^2 sin^2
+                c2 = sine2_coupling(lb, mb, la, ma)
+                if c2 != 0.0:
+                    blk += cs * c2 * I32
+                    use = True
+                c22 = cos2sin2_coupling(lb, mb, la, ma)
+                if c22 != 0.0:
+                    blk -= cs * c22 * I30
+                    use = True
+                # paramagnetic -B/2 m <chi|chi>
+                ds = -0.5 * ma * B
+                if ds != 0.0:
+                    if la == lb:
+                        blk += ds * I12
+                        use = True
+                    c = cosk_coupling(2, lb, mb, la, ma)
+                    if c != 0.0:
+                        blk -= ds * c * I10
+                        use = True
+                if use:
+                    out[a * nrad : (a + 1) * nrad, b * nrad : (b + 1) * nrad] = blk
+        m2 = self.shell_mask().reshape(-1)
+        return out * m2[:, None] * m2[None, :]
 
     # --- symmetry blocks -----------------------------------------------------------
     def sym_blocks(self, parity: bool = True):

@@ -1,7 +1,7 @@
 """Gaunt coefficients (L4), carried over from helfem_tpu/ops/gaunt.py: the
 exact 3j symbols, the dense table of the atomic Coulomb/exchange builds, and
-the cos^k and modified (cos^2) couplings of the diatomic operators. The
-sin^2 couplings (diatomic magnetic field) are not ported yet.
+the cos^k, sin^2 and cos^2 sin^2 couplings of the field operators and the
+modified (cos^2) couplings of the diatomic operators.
 
 The reference computes Wigner-3j symbols with GSL and caches dense cubes
 (src/general/gaunt.{cpp,h}). Here 3j symbols are evaluated EXACTLY in integer
@@ -21,7 +21,7 @@ from functools import lru_cache
 import numpy as np
 
 __all__ = ["wigner3j", "gaunt_coefficient", "gaunt_table", "modified_gaunt_coefficient",
-           "cosk_coupling"]
+           "cosk_coupling", "sine2_coupling", "cos2sin2_coupling"]
 
 
 @lru_cache(maxsize=None)
@@ -126,6 +126,17 @@ def cosk_coupling(k: int, la: int, ma: int, lb: int, mb: int) -> float:
             la, ma, n, 0, lb, mb
         )
     return val
+
+
+def sine2_coupling(la, ma, lb, mb) -> float:
+    """<Y_la,ma | sin^2(theta) | Y_lb,mb> = delta - <cos^2>."""
+    d = 1.0 if (la == lb and ma == mb) else 0.0
+    return d - cosk_coupling(2, la, ma, lb, mb)
+
+
+def cos2sin2_coupling(la, ma, lb, mb) -> float:
+    """<Y_la,ma | cos^2(theta) sin^2(theta) | Y_lb,mb> = <cos^2> - <cos^4>."""
+    return cosk_coupling(2, la, ma, lb, mb) - cosk_coupling(4, la, ma, lb, mb)
 
 
 def gaunt_table(lval: np.ndarray, mval: np.ndarray, Lmax: int) -> np.ndarray:

@@ -5,13 +5,24 @@ laplacian-level one, among them), their
 global hybrids (PBE0, B3LYP5, TPSSh) and the range-separated hybrids
 (LC-LDA, LDAERF, LCY-LDA, SR-PBE0: kfull K + kshort K_sr(omega), the erfc
 or Yukawa kernel), restricted (RHF/RKS), unrestricted (UHF/UKS) or ROHF,
-under (l,m) symmetry blocks (symmetry=2):
+with the one-electron extras of helfem_tpu (axial electric field Ez and
+quadrupole Qzz, magnetic field Bz with its spin Zeeman term, confinement,
+finite nuclei and off-centre nuclei):
 
   two host iterations (Fock on the device, host DIIS) ->
   fused device chunks of 4, 8, then 16 iterations: density -> Coulomb,
-  block-diagonal exchange and the XC grid (CUDA kernels on the card) ->
+  exchange and the XC grid (CUDA kernels on the card) ->
   block-coordinate C2-DIIS -> batched whitened eigensolve, with the
   convergence test on the device after every iteration.
+
+The symmetry blocks are (l,m) (symmetry 2) unless Ez, Qzz or off-centre
+nuclei couple l channels, then m blocks (symmetry 1); `symmetry` 0/1/2
+overrides. Under (l,m) blocks every density is channel-block-diagonal and
+the exchange runs on the channel diagonals (exchange_bd); under 0/1 it runs
+on the channel-pair windows (exchange_general: all nang^2 pairs, or the
+same-m ones). The DIIS side works in block coordinates in both: the Fock
+matrices of symmetry 0 and 1 are block-diagonal over their blocks, as
+those of symmetry 2 are.
 
 ROHF and Fock damping (dampfock/dampthr, the occupied-virtual MO blocks
 scaled while the DIIS error is at least dampthr) stay on the host loop
@@ -19,8 +30,8 @@ scaled while the DIIS error is at least dampthr) stay on the host loop
 diisthr blends the host DIIS's C2-DIIS and ADIIS weights between diisthr
 and diiseps. helfem_tpu's lax.while_loop chunk becomes a
 Python loop over tensors that stay on the device; one boolean per iteration
-comes back to stop the chunk. Every other scf_atom option (fields,
-confinement, finite nuclei, --ndev, --eigiter, m-averaging, ...)
+comes back to stop the chunk. Every other scf_atom option (--ndev,
+--eigiter, m-averaging, enforced occupations, warm starts, ...)
 raises NotImplementedError: nothing falls back silently.
 """
 
@@ -35,9 +46,13 @@ from helfem_tpu_torch.models.atomic import (
     ErfcOperators,
     RSOperators,
     channel_diag,
+    channel_pairs,
     coulomb,
+    erfc_exchange,
     erfc_exchange_bd,
+    exchange,
     exchange_bd,
+    rs_exchange,
     rs_exchange_bd,
 )
 from helfem_tpu_torch.models.atomic_dft import (
@@ -68,7 +83,8 @@ from helfem_tpu_torch.utils.linalg import (
     scatter_blocks,
 )
 
-__all__ = ["scf_atom", "SCFResult", "aufbau_blocks", "make_fock", "rs_operators"]
+__all__ = ["scf_atom", "SCFResult", "aufbau_blocks", "extra_operators", "make_fock",
+           "rs_operators"]
 
 
 @dataclass
@@ -130,96 +146,108 @@ def _damp_fock_mo(F, C_blocks, occ, blk_idx, S, factor: float) -> np.ndarray:
 
 def make_fock(funcs, kfrac: float, nrad: int, dftthr: float = 1e-12,
               restricted: bool = False, kshort: float = 0.0, kernel: str = "erfc",
-              rs: ErfcOperators | RSOperators | None = None):
-    """Fock builder for channel-block-diagonal densities (helfem_tpu's
-    make_fock with bd=True, atomic_scf.py:149-211; no fields): fock(ops, g,
-    Pa, Pb) -> (Fa, Fb, Ekin, Enuc, Ecoul, Exx, Exc, Nel), the energies
-    device scalars. Coulomb is one radial_coulomb launch; the exchange
-    kfrac K + kshort K_sr(omega), with the short-range tables rs of
-    `kernel`, is one radial_exchange launch for kfrac K, and one launch for
-    kshort K_sr, radial_erfc_exchange on the erfc tables or radial_exchange
-    on the Yukawa tables; each launch takes Pa alone when restricted (Pb is
-    Pa) and both spins together otherwise. The XC of funcs on the grid g is
-    one launch each of dia_xc_fields and dia_xc_fock
-    (models/atomic_dft.py:eval_fxc)."""
+              rs: ErfcOperators | RSOperators | None = None, Bz: float = 0.0, pairs=None):
+    """Fock builder (helfem_tpu's make_fock, atomic_scf.py:149-211):
+    fock(ops, g, Vextra, Pa, Pb) -> (Fa, Fb, Ekin, Enuc, Ecoul, Exx, Exc,
+    Nel, Efield), the energies device scalars; Vextra (the one-electron
+    extras, or None) is added to H0 and Efield = <P, Vextra>. Coulomb is
+    one radial_coulomb launch; the exchange kfrac K + kshort K_sr(omega),
+    with the short-range tables rs of `kernel`, is one radial_exchange
+    launch for kfrac K, and one launch for kshort K_sr, radial_erfc_exchange
+    on the erfc tables or radial_exchange on the Yukawa tables; each launch
+    takes Pa alone when restricted (Pb is Pa) and both spins together
+    otherwise. pairs None runs the exchange on the channel diagonals of a
+    channel-block-diagonal density (exchange_bd: symmetry 2); else on the
+    windows of those channel pairs (exchange_general: symmetry 0 and 1,
+    models/atomic.py:channel_pairs). The XC of funcs on the grid g is one
+    launch each of dia_xc_fields and dia_xc_fock
+    (models/atomic_dft.py:eval_fxc). Bz != 0 adds the spin Zeeman term -+
+    Bz/2 S to Fa and Fb after the energies."""
     if kshort != 0.0 and rs is None:
         raise ValueError("make_fock: kshort != 0 needs the short-range tables rs")
-    sr_exchange = erfc_exchange_bd if kernel == "erfc" else rs_exchange_bd
+    erfc = kernel == "erfc"
+    if pairs is None:  # on the channel diagonals
+        full, short, extra = exchange_bd, erfc_exchange_bd if erfc else rs_exchange_bd, ()
+    else:  # on the channel-pair windows
+        full, short, extra = exchange, erfc_exchange if erfc else rs_exchange, (pairs,)
 
-    def fock(ops: AtomicOperators, g, Pa: torch.Tensor, Pb: torch.Tensor):
+    def K_of(ops, Ps):
+        """kfrac K + kshort K_sr of the stacked (or single) spin densities."""
+        if pairs is None:
+            nang = ops.G.shape[-1]
+            Ps = channel_diag(Ps, nang, nrad) if Ps.dim() == 2 else torch.stack(
+                [channel_diag(P, nang, nrad) for P in Ps])
+        K = 0.0
+        if kfrac != 0.0:
+            K = kfrac * full(ops, Ps, *extra)
+        if kshort != 0.0:
+            K = K + kshort * short(ops, rs, Ps, *extra)
+        return K
+
+    def fock(ops: AtomicOperators, g, Vextra, Pa: torch.Tensor, Pb: torch.Tensor):
         P = Pa + Pb
         J = coulomb(ops, P)
-        Fa = Fb = ops.H0 + J
-        Exx = Exc = Nel = torch.zeros((), dtype=P.dtype, device=P.device)
+        H = ops.H0 if Vextra is None else ops.H0 + Vextra
+        Fa = Fb = H + J
+        Exx = Exc = Nel = Efield = torch.zeros((), dtype=P.dtype, device=P.device)
         if kfrac != 0.0 or kshort != 0.0:
-            nang = ops.G.shape[-1]
-            Pd = (channel_diag(Pa, nang, nrad) if restricted else
-                  torch.stack((channel_diag(Pa, nang, nrad), channel_diag(Pb, nang, nrad))))
-            K = 0.0
-            if kfrac != 0.0:
-                K = kfrac * exchange_bd(ops, Pd)
-            if kshort != 0.0:
-                K = K + kshort * sr_exchange(ops, rs, Pd)
+            K = K_of(ops, Pa if restricted else torch.stack((Pa, Pb)))
             Ka, Kb = (K, K) if restricted else K
             Fa, Fb = Fa + Ka, Fb + Kb
             Exx = 0.5 * (vdot(Pa, Ka) + vdot(Pb, Kb))
         if funcs:
             XCa, XCb, Exc, Nel = eval_fxc(funcs, g, Pa, Pa if restricted else Pb, dftthr)
             Fa, Fb = Fa + XCa, Fb + XCb
+        if Bz != 0.0:
+            Fa, Fb = Fa - 0.5 * Bz * ops.S, Fb + 0.5 * Bz * ops.S
         Ekin = vdot(P, ops.T)
         Enuc = vdot(P, ops.Vnuc)
         Ecoul = 0.5 * vdot(P, J)
-        return Fa, Fb, Ekin, Enuc, Ecoul, Exx, Exc, Nel
+        if Vextra is not None:
+            Efield = vdot(P, Vextra)
+        return Fa, Fb, Ekin, Enuc, Ecoul, Exx, Exc, Nel, Efield
 
     return fock
 
 
-def _components(Ekin, Enuc, Ecoul, Exx, Exc):
-    """[Ekin, Enuc, Ecoul, Exx, Exc, Efield] (no field terms here)."""
-    return torch.stack([Ekin, Enuc, Ecoul, Exx, Exc, torch.zeros_like(Ekin)])
-
-
-def make_fused_step(funcs, kfrac: float, nrad: int, dftthr: float = 1e-12,
-                    kshort: float = 0.0, kernel: str = "erfc", rs=None):
+def make_fused_step(fock):
     """One restricted SCF iteration on the device: density -> Fock ->
     block-coordinate C2-DIIS (circular history, updated in place) ->
     blocked eigensolve. Only (energy, DIIS error) need to reach the host."""
-    fock = make_fock(funcs, kfrac, nrad, dftthr, restricted=True, kshort=kshort,
-                     kernel=kernel, rs=rs)
 
-    def step(ops, g, blk_idx, blk_sinvh, Sb, occ, C, histF, histE, count):
+    def step(ops, g, Vextra, blk_idx, blk_sinvh, Sb, occ, C, histF, histE, count):
         nbf = ops.S.shape[0]
         Pab = torch.einsum("bpk,bk,bqk->bpq", C, occ, C)
         Pa = scatter_blocks(Pab, blk_idx, nbf)
-        Fa, _, Ekin, Enuc, Ecoul, Exx, Exc, Nel = fock(ops, g, Pa, Pa)
-        Etot = Ekin + Enuc + Ecoul + Exx + Exc
+        Fa, _, Ekin, Enuc, Ecoul, Exx, Exc, Nel, Efield = fock(ops, g, Vextra, Pa, Pa)
+        Etot = Ekin + Enuc + Ecoul + Exx + Exc + Efield
         Fab = gather_blocks(Fa, blk_idx)
         err = diis_error_blocks(Fab, Pab, Sb, blk_sinvh)
         errmax = torch.max(torch.abs(err))
         Fuse, count = device_diis_step(histF, histE, count, Fab, err)
         E, Cn = eig_blocks_b(Fuse, blk_idx, blk_sinvh, nbf)
-        return Cn, E, count, Etot, errmax, Nel, _components(Ekin, Enuc, Ecoul, Exx, Exc)
+        return Cn, E, count, Etot, errmax, Nel, torch.stack([Ekin, Enuc, Ecoul, Exx, Exc,
+                                                             Efield])
 
     return step
 
 
-def make_fused_chunk(funcs, kfrac: float, nrad: int, dftthr: float = 1e-12,
-                     kshort: float = 0.0, kernel: str = "erfc", rs=None):
-    """Up to `nrun` fused iterations with the convergence test (err <
-    convthr and |dE| < convthr, the host loop's own) on the device after
-    each; occupations are frozen within a chunk. Returns the per-iteration
-    orbitals, eigenvalues, energies, errors, grid electron counts and
-    energy components, the new DIIS count and the number of iterations
-    run."""
-    step = make_fused_step(funcs, kfrac, nrad, dftthr, kshort, kernel, rs)
+def make_fused_chunk(fock):
+    """Up to `nrun` fused iterations of the restricted Fock builder `fock`
+    (make_fock) with the convergence test (err < convthr and |dE| <
+    convthr, the host loop's own) on the device after each; occupations are
+    frozen within a chunk. Returns the per-iteration orbitals, eigenvalues,
+    energies, errors, grid electron counts and energy components, the new
+    DIIS count and the number of iterations run."""
+    step = make_fused_step(fock)
 
-    def chunk(ops, g, blk_idx, blk_sinvh, occ, C, histF, histE, count, convthr,
+    def chunk(ops, g, Vextra, blk_idx, blk_sinvh, occ, C, histF, histE, count, convthr,
               Eprev, nrun):
         Sb = gather_blocks(ops.S, blk_idx)
         Ep = torch.tensor(Eprev, dtype=torch.float64, device=C.device)
         Cs, Es, Etots, errs, Nels, comps = [], [], [], [], [], []
         for _ in range(nrun):
-            C, E, count, Etot, errmax, Nel, comp = step(ops, g, blk_idx, blk_sinvh, Sb,
+            C, E, count, Etot, errmax, Nel, comp = step(ops, g, Vextra, blk_idx, blk_sinvh, Sb,
                                                         occ, C, histF, histE, count)
             Cs.append(C)
             Es.append(E)
@@ -237,19 +265,17 @@ def make_fused_chunk(funcs, kfrac: float, nrad: int, dftthr: float = 1e-12,
     return chunk
 
 
-def make_fused_chunk_u(funcs, kfrac: float, nrad: int, dftthr: float = 1e-12,
-                       kshort: float = 0.0, kernel: str = "erfc", rs=None):
-    """Unrestricted analogue of make_fused_chunk (atomic_scf.py:317-413):
-    the DIIS history stores spin-stacked block-coordinate Fock pairs with
-    the combined alpha+beta error vector (the reference's uDIIS
-    combined-error mode); both spins' blocks go through one batched
-    eigensolve. Returns per iteration the orbitals and eigenvalues of both
-    spins, energies, errors, grid electron counts and energy components,
-    then the new DIIS count and the number of iterations run."""
-    fock = make_fock(funcs, kfrac, nrad, dftthr, restricted=False, kshort=kshort,
-                     kernel=kernel, rs=rs)
+def make_fused_chunk_u(fock):
+    """Unrestricted analogue of make_fused_chunk (atomic_scf.py:317-413) for
+    the two-spin Fock builder `fock`: the DIIS history stores spin-stacked
+    block-coordinate Fock pairs with the combined alpha+beta error vector
+    (the reference's uDIIS combined-error mode); both spins' blocks go
+    through one batched eigensolve. Returns per iteration the orbitals and
+    eigenvalues of both spins, energies (without the constant spin Zeeman
+    energy), errors, grid electron counts and energy components, then the
+    new DIIS count and the number of iterations run."""
 
-    def chunk(ops, g, blk_idx, blk_sinvh, occa, occb, Ca, Cb, histF, histE, count,
+    def chunk(ops, g, Vextra, blk_idx, blk_sinvh, occa, occb, Ca, Cb, histF, histE, count,
               convthr, Eprev, nrun):
         nbf = ops.S.shape[0]
         nblk = blk_idx.shape[0]
@@ -262,8 +288,8 @@ def make_fused_chunk_u(funcs, kfrac: float, nrad: int, dftthr: float = 1e-12,
             Pbb = torch.einsum("bpk,bk,bqk->bpq", Cb, occb, Cb)
             Pa = scatter_blocks(Pab, blk_idx, nbf)
             Pb = scatter_blocks(Pbb, blk_idx, nbf)
-            Fa, Fb, Ekin, Enuc, Ecoul, Exx, Exc, Nel = fock(ops, g, Pa, Pb)
-            Etot = Ekin + Enuc + Ecoul + Exx + Exc
+            Fa, Fb, Ekin, Enuc, Ecoul, Exx, Exc, Nel, Efield = fock(ops, g, Vextra, Pa, Pb)
+            Etot = Ekin + Enuc + Ecoul + Exx + Exc + Efield
             Fab = gather_blocks(Fa, blk_idx)
             Fbb = gather_blocks(Fb, blk_idx)
             err = torch.cat((diis_error_blocks(Fab, Pab, Sb, blk_sinvh),
@@ -273,7 +299,7 @@ def make_fused_chunk_u(funcs, kfrac: float, nrad: int, dftthr: float = 1e-12,
             E, C = eig_blocks_b(Fuse.reshape(2 * nblk, *Fuse.shape[2:]), idx2, sinvh2, nbf)
             Ea, Eb, Ca, Cb = E[:nblk], E[nblk:], C[:nblk], C[nblk:]
             out.append((Ca, Cb, Ea, Eb, Etot, errmax, Nel,
-                        _components(Ekin, Enuc, Ecoul, Exx, Exc)))
+                        torch.stack([Ekin, Enuc, Ecoul, Exx, Exc, Efield])))
             done = (errmax < convthr) & (torch.abs(Etot - Ep) < convthr)
             Ep = Etot
             if bool(done):
@@ -288,9 +314,6 @@ def make_fused_chunk_u(funcs, kfrac: float, nrad: int, dftthr: float = 1e-12,
 # scf_atom options of helfem_tpu that the port does not cover, with the
 # default values under which they are inert
 _UNPORTED = {
-    "Ez": 0.0, "Qzz": 0.0, "Bz": 0.0, "iconf": 0,
-    "conf_N": 0, "conf_R": 0.0, "conf_barrier": 0.0, "shift_conf": 0.0,
-    "finitenuc": "point", "Rrms": 0.0, "Zl": 0, "Zr": 0, "Rmid": 0.0,
     "occs": None, "perturb": 0.0, "seed": 0, "P0a": None, "P0b": None,
     "save_cb": None, "maverage": False, "diag": True, "eigiter": 0, "ndev": 0,
 }
@@ -310,6 +333,38 @@ def rs_operators(basis: AtomicBasis, spec: MethodSpec, device):
     return kfrac, kshort, build(spec.omega, device)
 
 
+def extra_operators(basis: AtomicBasis, Ez: float = 0.0, Qzz: float = 0.0, Bz: float = 0.0,
+                    iconf: int = 0, conf_N: int = 0, conf_R: float = 0.0,
+                    conf_barrier: float = 0.0, shift_conf: float = 0.0,
+                    finitenuc: str = "point", Rrms: float = 0.0, Zl: int = 0, Zr: int = 0,
+                    Rmid: float = 0.0):
+    """The one-electron extras Vextra [nbf, nbf] (host numpy) of scf_atom,
+    or None when there are none (helfem_tpu atomic_scf.py:543-558): the
+    finite nucleus less the point nucleus, Ez z, Qzz/3 times the quadrupole,
+    the orbital Zeeman and diamagnetic Bz terms, the confinement (iconf 3
+    takes conf_barrier as its height) and the off-centre nuclei."""
+    terms = []
+    if finitenuc != "point":
+        terms.append(basis.nuclear_model(finitenuc, Rrms) - basis.nuclear())
+    if Ez != 0.0:
+        terms.append(Ez * basis.dipole_z())
+    if Qzz != 0.0:
+        terms.append(Qzz * basis.quadrupole_zz() / 3.0)
+    if Bz != 0.0:
+        terms.append(basis.Bz_field(Bz))
+    if iconf:
+        N = conf_N if iconf != 3 else conf_barrier
+        terms.append(basis.confinement(N, conf_R, iconf, shift_conf))
+    if (Zl or Zr) and Rmid > 0.0:
+        terms.append(basis.nuclear_offcenter(Zl, Zr, Rmid))
+    if not terms:
+        return None
+    Vextra = np.zeros((basis.nbf, basis.nbf))
+    for t in terms:
+        Vextra += t
+    return Vextra
+
+
 def scf_atom(
     basis: AtomicBasis,
     nela: int,
@@ -322,6 +377,19 @@ def scf_atom(
     ops: AtomicOperators | None = None,
     dftthr: float = 1e-12,
     restricted: int = -1,
+    Ez: float = 0.0,
+    Qzz: float = 0.0,
+    Bz: float = 0.0,
+    iconf: int = 0,
+    conf_N: int = 0,
+    conf_R: float = 0.0,
+    conf_barrier: float = 0.0,
+    shift_conf: float = 0.0,
+    finitenuc: str = "point",
+    Rrms: float = 0.0,
+    Zl: int = 0,
+    Zr: int = 0,
+    Rmid: float = 0.0,
     symmetry: int = -1,
     diisorder: int = 10,
     diiseps: float = 0.1,
@@ -336,27 +404,35 @@ def scf_atom(
 ) -> SCFResult:
     """Restricted, unrestricted or ROHF SCF of HF, the ported LDA, GGA and
     meta-GGA functionals, their global hybrids and the range-separated
-    hybrids under (l,m) symmetry blocks
-    (helfem_tpu's scf_atom at symmetry 2). restricted = -1 restricts
-    exactly when nela == nelb, 0 runs UHF/UKS, and 1 with nela != nelb runs
-    ROHF through rohf_update on the host loop alone, as helfem_tpu does.
-    The operators (and the grid of a functional, ldft theta points, 0 for
-    2 lmax + 12, and a range-separated method's short-range tables, see
-    rs_operators) are built on `device` unless `ops` (and `grid`, `rs`)
-    are given, in which case the SCF runs on ops' device; a
-    laplacian-level functional needs its grid built with lapl=True.
-    dampfock != 1 scales the occupied-virtual MO blocks of the extrapolated
-    Fock by dampfock while the DIIS error is at least dampthr, and keeps
-    every iteration on the host loop (helfem_tpu atomic_scf.py:692, :871-
-    878); diisthr (not None) blends the host DIIS's C2-DIIS and ADIIS
-    weights between diisthr and diiseps (scf/diis.py)."""
+    hybrids (helfem_tpu's scf_atom). restricted = -1 restricts exactly when
+    nela == nelb and Bz == 0, 0 runs UHF/UKS, and 1 with nela != nelb runs
+    ROHF through rohf_update on the host loop alone, as helfem_tpu does;
+    Bz != 0 never runs restricted. Ez, Qzz, Bz, the confinement (iconf 1-4
+    with conf_N, conf_R, conf_barrier, shift_conf), the finite nucleus
+    (finitenuc 'gaussian', 'spherical', 'hollow' or 'regularized' with
+    Rrms) and the off-centre charges Zl at -Rmid z and Zr at +Rmid z add
+    one-electron terms (extra_operators; their energy is Efield), Bz also
+    the spin Zeeman -+ Bz/2 S and Emag = -Bz/2 (nela - nelb). symmetry -1
+    picks m blocks (1) under Ez, Qzz or off-centre nuclei, else (l,m)
+    blocks (2); 0, 1 or 2 forces them. The operators (and the grid of a
+    functional, ldft theta points, 0 for 2 lmax + 12, and a range-separated
+    method's short-range tables, see rs_operators) are built on `device`
+    unless `ops` (and `grid`, `rs`) are given, in which case the SCF runs on
+    ops' device; a laplacian-level functional needs its grid built with
+    lapl=True. dampfock != 1 scales the occupied-virtual MO blocks of the
+    extrapolated Fock by dampfock while the DIIS error is at least dampthr,
+    and keeps every iteration on the host loop (helfem_tpu
+    atomic_scf.py:692, :871-878); diisthr (not None) blends the host DIIS's
+    C2-DIIS and ADIIS weights between diisthr and diiseps (scf/diis.py)."""
     reject_unported(unported, _UNPORTED, "scf_atom")
     spec = parse_method_rs(method)  # raises for the functionals the port lacks
     funcs = spec.funcs
-    if symmetry not in (-1, 2):
-        raise NotImplementedError(f"symmetry={symmetry}: only (l,m) blocks "
-                                  "(symmetry 2) are ported")
-    symm = 2
+    if symmetry not in (-1, 0, 1, 2):
+        raise ValueError(f"symmetry={symmetry}: 0 (none), 1 (m), 2 (l,m) or -1 (auto)")
+    offcentre = bool(Zl or Zr) and Rmid > 0.0
+    symm = 1 if (Ez != 0.0 or Qzz != 0.0 or offcentre) else 2
+    if symmetry >= 0:
+        symm = symmetry
     if ops is None:
         if device is None:
             raise ValueError("scf_atom needs a device (or prebuilt ops)")
@@ -369,22 +445,33 @@ def scf_atom(
     g = grid
     if funcs and g is None:
         g = build_atomic_grid(basis, device, ntheta=ldft, lapl=needs_lapl(funcs))
-    rohf = restricted == 1 and nela != nelb
-    restricted = nela == nelb if restricted == -1 else (restricted == 1 and not rohf)
-    S_np = ops.S.cpu().numpy()
-    blk_idx_np, blk_sinvh_np = build_blocks(S_np, basis.sym_blocks(symm))
-    blk_idx = torch.as_tensor(blk_idx_np, device=device)
-    blk_sinvh = torch.as_tensor(blk_sinvh_np, device=device)
-    fock = make_fock(funcs, kfrac, nrad, dftthr, restricted=restricted, kshort=kshort,
-                     kernel=kernel, rs=rs)
 
     def as_dev(x) -> torch.Tensor:
         return torch.as_tensor(np.asarray(x), dtype=torch.float64, device=device)
 
-    # guess: model-potential Hamiltonian, the same orbitals for both spins
-    Hg = as_dev(basis.kinetic()
-                + basis.model_potential(potential(guess, basis.Z, device=device)))
-    Ea, Ca = eig_blocks(Hg, blk_idx, blk_sinvh)
+    Vextra_np = extra_operators(basis, Ez, Qzz, Bz, iconf, conf_N, conf_R, conf_barrier,
+                                shift_conf, finitenuc, Rrms, Zl, Zr, Rmid)
+    Vextra = None if Vextra_np is None else as_dev(Vextra_np)
+    rohf = restricted == 1 and nela != nelb
+    restricted = ((nela == nelb and Bz == 0.0) if restricted == -1
+                  else (restricted == 1 and not rohf and Bz == 0.0))
+    S_np = ops.S.cpu().numpy()
+    blk_idx_np, blk_sinvh_np = build_blocks(S_np, basis.sym_blocks(symm))
+    blk_idx = torch.as_tensor(blk_idx_np, device=device)
+    blk_sinvh = torch.as_tensor(blk_sinvh_np, device=device)
+    # (l,m) blocks keep every density channel-block-diagonal: the exchange
+    # runs on the channel diagonals; else on the windows of the channel
+    # pairs the blocks let through
+    pairs = None if symm == 2 else channel_pairs(basis.mval, symm)
+    fock = make_fock(funcs, kfrac, nrad, dftthr, restricted=restricted, kshort=kshort,
+                     kernel=kernel, rs=rs, Bz=Bz, pairs=pairs)
+
+    # guess: model-potential Hamiltonian with the extras, the same orbitals
+    # for both spins
+    Hg = basis.kinetic() + basis.model_potential(potential(guess, basis.Z, device=device))
+    if Vextra_np is not None:
+        Hg = Hg + Vextra_np
+    Ea, Ca = eig_blocks(as_dev(Hg), blk_idx, blk_sinvh)
     Ea = Ea.cpu().numpy()
     Eb, Cb = Ea.copy(), Ca
 
@@ -393,6 +480,7 @@ def scf_atom(
     diis = DIIS(S_np, Sinvh_np, max_hist=diisorder, diis_eps=diiseps, diis_thr=diisthr,
                 blocks=(blk_idx_np, blk_sinvh_np))
     Sh_np = form_sh(S_np) if rohf else None
+    Emag = -0.5 * Bz * (nela - nelb)
 
     Eold = 0.0
     Etot = 0.0
@@ -419,8 +507,7 @@ def scf_atom(
             nblk, blen = blk_idx_np.shape
             if fused is None:
                 ns = 1 if restricted else 2
-                fused = (make_fused_chunk if restricted else make_fused_chunk_u)(
-                    funcs, kfrac, nrad, dftthr, kshort, kernel, rs)
+                fused = (make_fused_chunk if restricted else make_fused_chunk_u)(fock)
                 histF = torch.zeros((nhist, *(() if restricted else (2,)), nblk, blen, blen),
                                     dtype=torch.float64, device=device)
                 histE = torch.zeros((nhist, ns * nblk * blen * blen), dtype=torch.float64,
@@ -430,19 +517,20 @@ def scf_atom(
             chunk_len = min(2 * chunk_len, CH)
             if restricted:
                 Cs, Es, count, Etots, errs, Nels, comps, kmax = fused(
-                    ops, g, blk_idx, blk_sinvh, as_dev(occa), Ca, histF, histE, count,
+                    ops, g, Vextra, blk_idx, blk_sinvh, as_dev(occa), Ca, histF, histE, count,
                     float(convthr), Eold, nrun,
                 )
             else:
+                # the chunk's energies leave out the constant Emag
                 Cs, Cbs, Es, Ebs, count, Etots, errs, Nels, comps, kmax = fused(
-                    ops, g, blk_idx, blk_sinvh, as_dev(occa), as_dev(occb), Ca, Cb, histF,
-                    histE, count, float(convthr), Eold, nrun,
+                    ops, g, Vextra, blk_idx, blk_sinvh, as_dev(occa), as_dev(occb), Ca, Cb,
+                    histF, histE, count, float(convthr), Eold - Emag, nrun,
                 )
             Etots = Etots.cpu().numpy()
             errs = errs.cpu().numpy()
             k = 0
             for k in range(kmax):
-                Etot = float(Etots[k])
+                Etot = float(Etots[k]) + Emag
                 err = float(errs[k])
                 dE = Etot - Eold
                 Eold = Etot
@@ -468,9 +556,8 @@ def scf_atom(
 
         Pa = density_blocks(Ca, as_dev(occa), blk_idx, ops.S)
         Pb = Pa if restricted else density_blocks(Cb, as_dev(occb), blk_idx, ops.S)
-        Fa, Fb, Ekin, Enuc, Ecoul, Exx, Exc, Nel = fock(ops, g, Pa, Pb)
-        Efield = 0.0
-        Etot = float(Ekin + Enuc + Ecoul + Exx + Exc)
+        Fa, Fb, Ekin, Enuc, Ecoul, Exx, Exc, Nel, Efield = fock(ops, g, Vextra, Pa, Pb)
+        Etot = float(Ekin + Enuc + Ecoul + Exx + Exc + Efield) + Emag
         Nel = float(Nel)
         dE = Etot - Eold
         Eold = Etot

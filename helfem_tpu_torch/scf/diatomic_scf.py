@@ -14,6 +14,11 @@ shells such as triplet O2 or H2+:
   block-coordinate C2-DIIS -> one batched blocked eigensolve for both
   spins, with the convergence test on the device after every iteration.
 
+An axial electric field Ez, a quadrupole field Qzz, a magnetic field Bz
+(orbital and diamagnetic terms, and the spin Zeeman -+ Bz/2 per spin) and
+finite nuclei add one-electron terms folded into H0 (their energy is
+Efield); under Ez the g/u split of the blocks is dropped.
+
 ROHF and the level shift (shift: the previous virtual orbitals pushed up
 while the DIIS error is above 1e-3, for rough-potential functionals such
 as BR89) stay on the host loop, as in helfem_tpu; diisthr blends the host
@@ -23,7 +28,7 @@ Python loop over tensors that stay on the device; one boolean per iteration
 comes back to stop the chunk. The eigensolve is torch.linalg.eigh per block
 with helfem_tpu's four refinement passes (utils/linalg.py:eigh_refined);
 its warm start is not carried over. Every other scf_diatomic option
-(enforced occupations, fields, finite nuclei, --ndev, ...)
+(enforced occupations, warm starts, --ndev, ...)
 raises NotImplementedError: nothing falls back silently. A range-separated
 method raises ValueError, as helfem_tpu's does (range separation exists on
 atoms only).
@@ -43,7 +48,7 @@ from helfem_tpu_torch.models.diatomic import (
 )
 from helfem_tpu_torch.models.atomic_dft import needs_lapl
 from helfem_tpu_torch.models.diatomic_dft import DiaGridOps, build_dia_grid, eval_fxc_dia
-from helfem_tpu_torch.models.diatomic_tools import guess_hamiltonian_dia
+from helfem_tpu_torch.models.diatomic_tools import finite_nucleus_Vnuc, guess_hamiltonian_dia
 from helfem_tpu_torch.ops.xc import parse_method
 from helfem_tpu_torch.scf.common import (
     aufbau_blocks,
@@ -134,6 +139,7 @@ class DiaSCFResult:
     orbE_blocks_a: np.ndarray | None = None  # [nblk, blen] block eigenvalues
     orbE_blocks_b: np.ndarray | None = None
     Nelgrid: float = 0.0  # electrons counted on the DFT grid
+    Efield: float = 0.0  # <P, Vextra>: fields and the finite nuclei
     walls: dict = field(default_factory=dict)  # phase -> seconds (CLI)
 
 
@@ -178,9 +184,10 @@ def make_dia_fock(funcs: tuple, kfrac: float = 0.0, dftthr: float = 1e-12,
     return fock
 
 
-def make_dia_fused_chunk(funcs: tuple, kfrac: float, dftthr: float, njbd: int | None):
+def make_dia_fused_chunk(funcs: tuple, kfrac: float, dftthr: float, njbd: int | None,
+                         Bz: float = 0.0):
     """Up to `nrun` SCF iterations on the device (helfem_tpu's
-    make_dia_fused_chunk, no fields): densities and occupied columns ->
+    make_dia_fused_chunk): densities and occupied columns ->
     Fock -> block C2-DIIS (circular history, updated in place) -> blocked
     eigensolve, with the convergence test (err < convthr and |dE| <
     convthr) on the device after each. occ, sel and C are tuples with one
@@ -192,10 +199,13 @@ def make_dia_fused_chunk(funcs: tuple, kfrac: float, dftthr: float, njbd: int | 
     within a chunk. Returns per iteration the orbitals and eigenvalues of
     each spin, energies, errors, grid electron counts and energy
     components, then the new DIIS count and the number of iterations run.
-    Energies leave out the nuclear repulsion, as helfem_tpu's do."""
+    Energies leave out the nuclear repulsion and the spin Zeeman energy, as
+    helfem_tpu's do; they hold Efield = <P, Vextra> of the extras Vextra
+    (None: none) that ops.H0 carries, and Bz adds the spin Zeeman term -+
+    Bz/2 S to each spin's Fock."""
     fock = make_dia_fock(funcs, kfrac, dftthr, njbd)
 
-    def chunk(ops, g, occ, sel, C, histF, histE, count, convthr, Eprev, nrun):
+    def chunk(ops, g, Vextra, occ, sel, C, histF, histE, count, convthr, Eprev, nrun):
         nbf = ops.S.shape[0]
         ns, nblk = len(C), ops.blk_idx.shape[0]
         Sb = gather_blocks(ops.S, ops.blk_idx)
@@ -207,7 +217,10 @@ def make_dia_fused_chunk(funcs: tuple, kfrac: float, dftthr: float, njbd: int | 
             P = [scatter_blocks(p, ops.blk_idx, nbf) for p in Pbk]
             Co = [None if s is None else occupied_dia(ops, c, s) for c, s in zip(C, sel)]
             Fa, Fb, Ekin, Enuc, Ecoul, Exx, Exc, Nel = fock(ops, g, P[0], P[-1], Co[0], Co[-1])
-            Etot = Ekin + Enuc + Ecoul + Exx + Exc
+            Efield = torch.zeros_like(Ekin) if Vextra is None else vdot(P[0] + P[-1], Vextra)
+            Etot = Ekin + Enuc + Ecoul + Exx + Exc + Efield
+            if Bz != 0.0:
+                Fa, Fb = Fa - 0.5 * Bz * ops.S, Fb + 0.5 * Bz * ops.S
             Fbk = [gather_blocks(F, ops.blk_idx) for F in (Fa, Fb)[:ns]]
             err = torch.cat([diis_error_blocks(F, p, Sb, ops.blk_sinvh)
                              for F, p in zip(Fbk, Pbk)])
@@ -216,7 +229,8 @@ def make_dia_fused_chunk(funcs: tuple, kfrac: float, dftthr: float, njbd: int | 
                                            Fbk[0] if ns == 1 else torch.stack(Fbk), err)
             E, Cn = eig_blocks_b(Fuse.reshape(ns * nblk, *Fuse.shape[-2:]), idx, sinvh, nbf)
             C, E = Cn.split(nblk), E.split(nblk)
-            out.append((C, E, Etot, errmax, Nel, torch.stack([Ekin, Enuc, Ecoul, Exx, Exc])))
+            out.append((C, E, Etot, errmax, Nel, torch.stack([Ekin, Enuc, Ecoul, Exx, Exc,
+                                                              Efield])))
             done = (errmax < convthr) & (torch.abs(Etot - Ep) < convthr)
             Ep = Etot
             if bool(done):
@@ -231,8 +245,7 @@ def make_dia_fused_chunk(funcs: tuple, kfrac: float, dftthr: float, njbd: int | 
 # scf_diatomic options of helfem_tpu that the port does not cover, with the
 # default values under which they are inert
 _UNPORTED = {
-    "P0a": None, "P0b": None, "Ez": 0.0, "Qzz": 0.0, "Bz": 0.0, "finitenuc": "point",
-    "Rrms1": 0.0, "Rrms2": 0.0, "occs": None, "readocc_until": 0,
+    "P0a": None, "P0b": None, "occs": None, "readocc_until": 0,
     "save_cb": None, "diag": True, "maverage": False, "ndev": 0,
 }
 # device memory one spin's per-iteration orbitals may take in a fused chunk
@@ -250,6 +263,12 @@ def scf_diatomic(
     verbose: bool = False,
     ops: DiatomicOperators | None = None,
     guess: str = "core",
+    Ez: float = 0.0,
+    Qzz: float = 0.0,
+    Bz: float = 0.0,
+    finitenuc: str = "point",
+    Rrms1: float = 0.0,
+    Rrms2: float = 0.0,
     restricted: int = -1,
     perturb: float = 0.0,
     seed: int = 0,
@@ -268,7 +287,14 @@ def scf_diatomic(
     TF guess of the two atoms (a SAP atom is solved on the operators'
     device). restricted = -1 restricts exactly when nela == nelb, 0 runs
     UHF/UKS, and 1 with nela != nelb runs ROHF through rohf_update on the
-    host loop alone, as helfem_tpu does. perturb rotates the guess orbitals
+    host loop alone, as helfem_tpu does; Bz != 0 never runs restricted.
+    Ez, Qzz (its quadrupole operator over 3) and Bz add the field
+    operators, finitenuc ('gaussian', 'spherical', 'hollow' or
+    'regularized', nuclei rms radii Rrms1, Rrms2) replaces the point nuclei
+    on the 2D quadrature grid: all folded into H0 (their energy is Efield),
+    Bz also the spin Zeeman -+ Bz/2 S and Emag = -Bz/2 (nela - nelb)
+    (helfem_tpu diatomic_scf.py:566-606). Operators built here drop the g/u
+    blocks under Ez; prebuilt `ops` are taken as they are. perturb rotates the guess orbitals
     of each spin by its own random rotation (seed, seed + 1). The operators
     and the grid (none for pure HF) are built on `device` unless `ops` is
     given, in which case the SCF runs on ops' device. shift != 0 pushes the
@@ -285,19 +311,37 @@ def scf_diatomic(
     if ops is None:
         if device is None:
             raise ValueError("scf_diatomic needs a device (or prebuilt ops)")
-        ops = basis.build_operators(device)
+        # an axial electric field couples even and odd l: no g/u blocks
+        ops = basis.build_operators(device, parity=Ez == 0.0)
     device = ops.device
     nbf = basis.nbf
     g = build_dia_grid(basis, device, neta=ldft, lapl=needs_lapl(funcs)) if funcs else None
     Enucrep = basis.Z1 * basis.Z2 / basis.Rbond
     njbd = basis.njbd
     rohf = restricted == 1 and nela != nelb
-    restricted = nela == nelb if restricted == -1 else (restricted == 1 and not rohf)
+    restricted = ((nela == nelb and Bz == 0.0) if restricted == -1
+                  else (restricted == 1 and not rohf and Bz == 0.0))
     ns = 1 if restricted else 2
     fock = make_dia_fock(funcs, kfrac, dftthr, njbd)
 
     def as_dev(x) -> torch.Tensor:
         return torch.as_tensor(np.asarray(x), dtype=torch.float64, device=device)
+
+    # the one-electron extras, folded into H0 (diatomic_scf.py:587-604)
+    Vextra = np.zeros((nbf, nbf))
+    mv = basis.shell_mask().reshape(-1)
+    if finitenuc != "point":
+        Vextra += finite_nucleus_Vnuc(basis, finitenuc, Rrms1, Rrms2) - ops.Vnuc.cpu().numpy()
+    if Ez != 0.0:
+        Vextra += Ez * basis.dipole_z() * mv[:, None] * mv[None, :]
+    if Qzz != 0.0:
+        Vextra += (Qzz / 3.0) * basis.quadrupole_zz() * mv[:, None] * mv[None, :]
+    if Bz != 0.0:
+        Vextra += basis.Bz_field(Bz)
+    Vextra = as_dev(Vextra) if np.abs(Vextra).max() > 0.0 else None
+    if Vextra is not None:
+        ops = ops._replace(H0=ops.H0 + Vextra)
+    Emag = -0.5 * Bz * (nela - nelb)
 
     blk_idx_np = ops.blk_idx.cpu().numpy()
     blk_sinvh_np = ops.blk_sinvh.cpu().numpy()
@@ -336,7 +380,7 @@ def scf_diatomic(
     Sh_np = form_sh(ops.S.cpu().numpy()) if rohf else None
 
     Eold, Etot, converged = 0.0, 0.0, False
-    Ekin = Enuc = Ecoul = Exx = Exc = Nel = 0.0
+    Ekin = Enuc = Ecoul = Exx = Exc = Nel = Efield = 0.0
     # fused device chunks engage after TWO host iterations: the host DIIS's
     # ADIIS weights carry the far-from-converged guess, which the chunks'
     # pure C2-DIIS cannot (helfem_tpu diatomic_scf.py:736-745). ROHF's Fock
@@ -361,7 +405,7 @@ def scf_diatomic(
         if it > warmup:
             if fused is None:
                 nhist = 10
-                fused = make_dia_fused_chunk(funcs, kfrac, dftthr, njbd)
+                fused = make_dia_fused_chunk(funcs, kfrac, dftthr, njbd, Bz)
                 histF = torch.zeros((nhist, *(() if restricted else (2,)), nblk, blen, blen),
                                     dtype=torch.float64, device=device)
                 histE = torch.zeros((nhist, ns * nblk * blen * blen), dtype=torch.float64,
@@ -370,15 +414,16 @@ def scf_diatomic(
             nrun = min(chunk_len, CH, maxit - it + 1)
             chunk_len = min(2 * chunk_len, CH)
             occs = (occa, occb)[:ns]
+            # the chunk's energies leave out the constant Enucrep + Emag
             Cs, Es, count, Etots, errs, Nels, comps, kmax = fused(
-                ops, g, tuple(as_dev(o) for o in occs), tuple(select(o) for o in occs),
-                (Ca, Cb)[:ns], histF, histE, count, float(convthr), Eold - Enucrep, nrun,
+                ops, g, Vextra, tuple(as_dev(o) for o in occs), tuple(select(o) for o in occs),
+                (Ca, Cb)[:ns], histF, histE, count, float(convthr), Eold - Enucrep - Emag, nrun,
             )
             Etots = Etots.cpu().numpy()
             errs = errs.cpu().numpy()
             k = 0
             for k in range(kmax):
-                Etot = float(Etots[k]) + Enucrep
+                Etot = float(Etots[k]) + Enucrep + Emag
                 err = float(errs[k])
                 dE = Etot - Eold
                 Eold = Etot
@@ -393,7 +438,7 @@ def scf_diatomic(
             Ca, Cb = Cs[k][0], Cs[k][-1]
             Ea, Eb = Es[k][0].cpu().numpy(), Es[k][-1].cpu().numpy()
             Nel = float(Nels[k])
-            Ekin, Enuc, Ecoul, Exx, Exc = comps[k].cpu().numpy()
+            Ekin, Enuc, Ecoul, Exx, Exc, Efield = comps[k].cpu().numpy()
             if converged or it >= maxit:
                 break
             continue
@@ -404,9 +449,12 @@ def scf_diatomic(
         Coa = None if sela is None else occupied_dia(ops, Ca, sela)
         Cob = None if restricted or sela is None else occupied_dia(ops, Cb, select(occb))
         Fa, Fb, Ekin, Enuc, Ecoul, Exx, Exc, Nel = fock(ops, g, Pa, Pb, Coa, Cob)
+        Efield = 0.0 if Vextra is None else float(vdot(Pa + Pb, Vextra))
+        if Bz != 0.0:
+            Fa, Fb = Fa - 0.5 * Bz * ops.S, Fb + 0.5 * Bz * ops.S
         Ekin, Enuc, Ecoul, Exx, Exc, Nel = (float(x) for x in
                                             (Ekin, Enuc, Ecoul, Exx, Exc, Nel))
-        Etot = Ekin + Enuc + Ecoul + Exx + Exc + Enucrep
+        Etot = float(Ekin + Enuc + Ecoul + Exx + Exc) + Enucrep + Efield + Emag
         dE = Etot - Eold
         Eold = Etot
         if restricted:
@@ -461,4 +509,5 @@ def scf_diatomic(
         orbE_blocks_a=Ea,
         orbE_blocks_b=None if restricted else Eb,
         Nelgrid=float(Nel),
+        Efield=float(Efield),
     )

@@ -6,7 +6,7 @@ import time
 
 import torch
 
-__all__ = ["device_ms", "profile_scf", "queued_ms"]
+__all__ = ["busy_wall", "device_ms", "profile_scf", "queued_ms"]
 
 
 def _kernels(events):
@@ -82,6 +82,21 @@ def profile_scf(label: str, run, rows: int = 20, kernels: tuple = (), ops: tuple
         print(f"{label}: {name} device time {per_kernel[name][0]:.4f} ms in "
               f"{per_kernel[name][1]} host events per SCF")
     return per_kernel
+
+
+def busy_wall(run) -> tuple[float, float]:
+    """(wall s, device-busy s) of one run() under torch.profiler: the wall
+    with the profiler on, and the device time of all the kernels run()
+    launches."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    busy = sum(e.self_device_time_total for e in _kernels(prof.key_averages())) * 1e-6
+    return wall, busy
 
 
 def device_ms(fn, reps: int = 20) -> float:

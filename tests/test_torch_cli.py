@@ -57,11 +57,14 @@ def test_cli_runs_with_its_default_sap_guess(capsys):
 
 
 @pytest.mark.parametrize("extra, match", [
-    (["--Ez", "0.01"], "--Ez"),
+    (["--Ez", "0.01", "--maverage"], "--maverage"),
     (["--ndev", "2"], "--ndev"),
-    (["--symmetry", "1"], "--symmetry"),
+    (["--symmetry", "1", "--eigiter", "4"], "--eigiter"),
 ], ids=["field_flag", "ndev_flag", "symmetry_flag"])
 def test_cli_unported_raises(extra, match):
+    """Unported flags raise naming themselves; the field and symmetry flags
+    run (tests/test_torch_fields.py), beside an unported one the latter
+    raises."""
     with pytest.raises(NotImplementedError, match=match):
         main(HE + extra + ["--device", "cpu"])
 
@@ -103,9 +106,11 @@ def test_dia_cli_open_shell_flags(capsys, one_thread, extra, nela, nelb, kw):
 @pytest.mark.parametrize("extra, match", [
     (["--M", "3", "--symmetry", "1"], "--symmetry"),
     (["--M", "3", "--readocc"], "--readocc"),
-    (["--M", "3", "--Bz", "0.1"], "--Bz"),
+    (["--M", "3", "--Bz", "0.1", "--maverage"], "--maverage"),
 ], ids=["symmetry", "readocc", "magnetic_field"])
 def test_dia_cli_still_rejects_the_rest(extra, match):
+    """--symmetry and --readocc raise; --Bz runs (tests/test_torch_dia_fields.py),
+    beside --maverage the latter raises."""
     with pytest.raises(NotImplementedError, match=match):
         diatomic.main(O2_CLI + extra)
 

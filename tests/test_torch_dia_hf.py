@@ -134,9 +134,10 @@ def test_range_separated_methods_raise(method):
 
 
 def test_open_shell_hf_raises():
-    """Open shells run (tests/test_torch_dia_open.py); under a magnetic
-    field (its spin Zeeman term) they still raise."""
+    """Open shells run (tests/test_torch_dia_open.py), in a magnetic field
+    too (tests/test_torch_dia_fields.py); with Fock m-averaging, which is not
+    ported, they raise."""
     cfg, _ = CASES["H2"]
-    with pytest.raises(NotImplementedError, match="Bz"):
+    with pytest.raises(NotImplementedError, match="maverage"):
         diatomic_scf.scf_diatomic(DiatomicBasis(**cfg), 1, 0, method="HF", device="cpu",
-                                  Bz=0.1)
+                                  Bz=0.1, maverage=True)

@@ -50,15 +50,16 @@ def test_cli_runs_on_cpu(capsys):
     (["--method", "LC-LDA"], ValueError, "LC-LDA' is range-separated"),
     (["--method", "sr-pbe0"], ValueError, "sr-pbe0' is range-separated"),
     (["--Q", "1", "--readocc"], NotImplementedError, "--readocc"),
-    (["--Ez", "0.01"], NotImplementedError, "--Ez"),
+    (["--Ez", "0.01", "--maverage"], NotImplementedError, "--maverage"),
     (["--ndev", "2"], NotImplementedError, "--ndev"),
-    (["--restricted", "0", "--Bz", "0.1"], NotImplementedError, "--Bz"),
+    (["--restricted", "0", "--Bz", "0.1", "--diag", "0"], NotImplementedError, "--diag"),
 ], ids=["range_separated", "sr_hybrid", "open_shell", "field_flag", "ndev_flag",
         "uhf_flag"])
 def test_cli_unported_raises(extra, error, match):
-    """Unported flags and functionals raise NotImplementedError; a
-    range-separated method raises helfem_tpu's ValueError (range separation
-    exists on atoms only)."""
+    """Unported flags and functionals raise NotImplementedError (the field
+    flags run, tests/test_torch_dia_fields.py; beside an unported flag the
+    latter raises); a range-separated method raises helfem_tpu's ValueError
+    (range separation exists on atoms only)."""
     with pytest.raises(error, match=match):
         main(N2_CLI + extra + ["--device", "cpu"])
 
@@ -69,14 +70,15 @@ def test_cli_unknown_flag_exits():
 
 
 @pytest.mark.parametrize("kwargs", [
-    {"Ez": 0.01}, {"Bz": 0.1}, {"restricted": 0, "Bz": 0.1},
+    {"Ez": 0.01, "maverage": True}, {"Bz": 0.1, "ndev": 1},
+    {"restricted": 0, "Bz": 0.1, "diag": False},
     {"maverage": True}, {"diag": False}, {"ndev": 1},
     {"perturb": 0.1, "P0a": np.zeros((1, 1))},
 ], ids=lambda kw: next(iter(kw)))
 def test_unported_options_raise(kwargs):
-    """Unported options raise; UHF and perturbed guesses run
-    (tests/test_torch_dia_open.py), under a field or from a density they
-    still raise."""
+    """Unported options raise; UHF, perturbed guesses and fields run
+    (tests/test_torch_dia_open.py, tests/test_torch_dia_fields.py), beside
+    an unported option or from a density they still raise."""
     cfg, nel = CASES["H2"]
     with pytest.raises(NotImplementedError):
         diatomic_scf.scf_diatomic(DiatomicBasis(**cfg), nel, nel, method="PBE",
@@ -84,7 +86,9 @@ def test_unported_options_raise(kwargs):
 
 
 def test_unported_basis_paths_raise():
-    basis = DiatomicBasis(**CASES["H2"][0])
-    for call in (basis.dipole_z, basis.quadrupole_zz, lambda: basis.Bz_field(0.1)):
-        with pytest.raises(NotImplementedError):
-            call()
+    """The basis's field operators, which raised before they were ported,
+    agree with helfem_tpu's within 1e-12 x max-abs."""
+    basis, jbasis = DiatomicBasis(**CASES["H2"][0]), JaxBasis(**CASES["H2"][0])
+    for name, args in (("dipole_z", ()), ("quadrupole_zz", ()), ("Bz_field", (0.1,))):
+        got, ref = getattr(basis, name)(*args), getattr(jbasis, name)(*args)
+        assert np.abs(got - ref).max() <= 1e-12 * np.abs(ref).max(), name
