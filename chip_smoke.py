@@ -9,8 +9,8 @@ Phases, any failure raises and exits non-zero:
   1. device facts (name, power limit, torch/CUDA/nvcc versions); no card
      -> exit non-zero with no result;
   2. build the CUDA kernels from helfem_tpu_torch/csrc/ (nvcc, sm_90a, one
-     process per source, in parallel), timed against one nvcc call for all
-     sources, with each kernel's registers and spills from ptxas (the two
+     process per source, in parallel), timed, with each kernel's registers
+     and spills from ptxas (the two
      atomic radial kernels and every instance of the diatomic Coulomb
      kernel K3 must not spill); cuobjdump's SASS must show DMMA
      in both atomic radial kernels, in every diatomic exchange in-element
@@ -195,10 +195,28 @@ Phases, any failure raises and exits non-zero:
      K1/K2/K10 or K3/K6 and K4/K5 once per Fock build, its warm wall and
      device-busy share; Ar's E(+F) and E(-F) within 1e-10 Eh, and the Ar
      HF, N2 HF and N2 PBE finite-field polarizabilities.
+ 21. SCF controls, the SAD atom's nuclear models and the post-SCF
+     analysis: K1/K2 on a --zeroder Hermite basis (trash slots in the last
+     element), K1/K2 and K4/K5 on gensap Kr's finite-nucleus sub-grid, K1
+     on all channel-pair windows of the Ar bench basis, each against its
+     plain version; then 15 cells through the port's CLIs (Ar HF with
+     --diag 0, --eigiter 12, --perturb/--seed, --zeroder on HIP, O UHF with
+     --maverage and --readocc, Xe HF, N2 PBE with --diag 0, --symmetry 1,
+     --maverage and --readocc 5, N2 HF, gensap Kr with a Gaussian nucleus
+     and confined), each within 1e-9 Eh of helfem_tpu's f64 value in its
+     iteration count with the kernels once per Fock build, the atomic and
+     diatomic analysis within 1e-9 relative, gensap's Econf and SAP table;
+     the Ar warm start from its density in Ez (one more K1/K2 launch for
+     the guess's Fock on all pair windows); each cell's warm wall and
+     device-busy share; N2 PBE in Ez at convthr 1e-8 with the card's DIIS
+     errors beside helfem_tpu's.
 The last two lines are the kernels' JSON record and {"ok": true, ...}.
 """
 
+import contextlib
+import io
 import json
+import os
 import re
 import subprocess
 import sys
@@ -608,6 +626,160 @@ FIELD_PM_TOL = 1e-10  # E(+F) against E(-F) of an atom
 ALPHA_CELLS = {"Ar HF alpha": ("Ar HF Ez=0", "Ar HF Ez=+0.001", "Ar HF Ez=-0.001"),
                "N2 HF alpha_zz": ("N2 HF Ez=0", "N2 HF Ez=+0.001", "N2 HF Ez=-0.001"),
                "N2 PBE alpha_zz": ("N2 PBE Ez=0", "N2 PBE Ez=+0.001", "N2 PBE Ez=-0.001")}
+# phase 21: the SCF controls (--diag 0, --eigiter, --perturb/--seed,
+# --maverage, --readocc, a warm-start density), --zeroder on a Hermite
+# basis, the SAD atom's finite nucleus and confinement through gensap, the
+# diatomic --symmetry and the post-SCF analysis. The kernels first: K1/K2 on
+# the zeroder Hermite basis (trash slots in the last element) and on the
+# finite-nucleus sub-grid of gensap Kr (whose K4/K5 grid runs too), K1 on
+# the Ar bench basis's windows of all channel pairs (the warm start's one
+# Fock of a density with cross-channel blocks).
+KR_RRMS = "7.9149e-5"  # Kr-84's rms charge radius, 4.1884 fm, in bohr
+CONTROL_SHAPES = {  # AtomicBasis arguments
+    "ar_zeroder": dict(Z=18, lmax=1, mmax=1, rmax=40.0, nelem=10, nnodes=8, primbas=5,
+                       zeroder=True),
+}
+CONTROL_SAD_SHAPES = {  # SadAtomBasis arguments
+    "sad_kr_gauss": dict(Z=36, lmax=2, rmax=40.0, nelem=8, nnodes=12, finitenuc="gaussian",
+                         Rrms=float(KR_RRMS), nelem0=2),
+}
+CONTROL_KEYS = {"radial_exchange": ("ctrl_ar_zeroder", "ctrl_sad_kr_gauss", "ctrl_ar_pairs"),
+                "radial_coulomb": ("ctrl_ar_zeroder", "ctrl_sad_kr_gauss"),
+                **dict.fromkeys(("dia_xc_fields", "dia_xc_fock"), ("ctrl_sad_kr_gauss",))}
+# Cells through the port's CLIs: label -> (CLI module, arguments, helfem_tpu's
+# energy, its iteration count; None for gensap, whose result has none).
+# Each is helfem_tpu's CLI in f64 on the CPU with the same arguments and
+# --save "" (the atomic and diatomic CLIs; gensap with --output), e.g.
+# `python -m helfem_tpu.cli.atomic --Z Ar --lmax 1 --mmax 1 --nelem 10
+# --nnodes 15 --Rmax 40 --convthr 1.6e-9 --iguess 3 --diag 0 --save ""` and
+# `python -m helfem_tpu.cli.gensap --Z Kr --lmax 2 --Rmax 40 --nelem 8
+# --nnodes 12 --method SVWN --convthr 1e-7 --nosearch --iconf 1 --conf_N 2
+# --conf_R 8 --add_conf --output result_Kr.dat`. Each threshold lies
+# between helfem_tpu's last two DIIS errors, at least twice the one and
+# half the other (the warm start's 1e-9 sits 1.8x from both: its errors run
+# 4.6e-9, 1.9e-9, 5.6e-10).
+C_AR = ["--Z", "Ar", "--lmax", "1", "--mmax", "1", "--nelem", "10", "--nnodes", "15", "--Rmax",
+        "40", "--iguess", "3"]
+C_O = ["--Z", "O", "--M", "3"] + C_AR[2:]  # 5 alpha, 3 beta on the Ar bench radial grid
+O_READOCC = "0 0 2 2\n1 0 1 1\n1 1 1 0\n1 -1 1 0\n"  # l m na nb: the beta p in p0
+# per-block na nb of N2 (6,6) with g/u: pi-g pi-u sigma-g sigma-u pi-g pi-u
+N2_READOCC = "0 0\n1 1\n3 3\n2 2\n0 0\n1 1\n"
+CONTROL_CELLS = {
+    "Ar HF": ("atomic", convthr(C_AR, "1.6e-9"), -526.8175128027411, 10),
+    "Ar HF diag 0": ("atomic", convthr(C_AR, "1.6e-9") + ["--diag", "0"],
+                     -526.8175128027245, 10),
+    "Ar HF eigiter 12": ("atomic", convthr(C_AR, "1e-9") + ["--eigiter", "12"],
+                         -526.817512802721, 10),
+    "Ar HF perturb": ("atomic", convthr(C_AR, "4e-9") + ["--perturb", "0.01", "--seed", "3"],
+                      -526.817512802716, 10),
+    "Ar HF zeroder": ("atomic", convthr([a if a != "15" else "8" for a in C_AR], "3.5e-7")
+                      + ["--primbas", "5", "--zeroder"], -526.8175128013844, 8),
+    "O UHF maverage": ("atomic", convthr(C_O, "1.3e-9") + ["--maverage"], -74.62239855080149,
+                       11),
+    "O UHF readocc": ("atomic", convthr(C_O, "2.3e-9") + ["--readocc", "OCCS"],
+                      -74.81405024292772, 12),
+    "Xe HF": ("atomic", convthr(XE_CLI, "2.2e-9"), -7232.138363862154, 11),
+    "N2 PBE diag 0": ("diatomic", convthr(N2_CLI, "5.4e-7") + ["--diag", "0"],
+                      -108.9787084364371, 9),
+    "N2 PBE symmetry 1": ("diatomic", convthr(N2_CLI, "5.4e-7") + ["--symmetry", "1"],
+                          -108.97870843884107, 9),
+    "N2 PBE maverage": ("diatomic", convthr(N2_CLI, "3.6e-7") + ["--maverage"],
+                        -108.97870843727725, 10),
+    "N2 PBE readocc 5": ("diatomic", N2_CLI + ["--readocc", "5"], -108.9787084372787, 11),
+    "N2 HF": ("diatomic", convthr(N2_HF_CLI, "4e-8"), -108.53121591880677, 11),
+    "gensap Kr gaussian": ("gensap", KR_GENSAP_CLI + ["--finitenuc", "gaussian", "--Rrms",
+                                                      KR_RRMS, "--nelem0", "2"],
+                           -2750.132832139385, None),
+    "gensap Kr iconf 1": ("gensap", KR_GENSAP_CLI + ["--iconf", "1", "--conf_N", "2",
+                                                     "--conf_R", "8", "--add_conf"],
+                          -2749.554392903532, None),
+}
+CONTROL_GATE = 1e-9
+# N2 PBE on the merged g/u blocks stops at iteration 9 still 4e-10 Eh from
+# its floor (DIIS error 5.3e-9 from iteration 12 on), and there helfem_tpu's
+# own energy moves in the ninth digit with the CPU's thread count: 1e-8
+CONTROL_GATES = {"N2 PBE symmetry 1": FIELD_GATE}
+ANALYSIS_TOL = 1e-9  # relative; a multipole that vanishes by symmetry: of <r^2>
+# helfem_tpu's atomic_analysis of those cells (its CLI prints them to ten
+# digits after the SCF; here the f64 values of the same call)
+CONTROL_ANALYSIS = {
+    "Ar HF": {"<r^-1>": 69.72544037802683, "<r^1>": 16.07084519196442,
+              "<r^2>": 26.03438972299237, "<r^3>": 55.9879043242741,
+              "density_at_nucleus": 3839.781829694959,
+              "density_gradient_at_nucleus": -138232.14586473227, "cusp": 0.9999999999689925,
+              "dipole_z": -0.0, "quadrupole_zz": -3.241851231905457e-14,
+              "virial_ratio": 0.9999999998762462},
+    "O UHF readocc": {"<r^-1>": 22.25828691549478, "<r^1>": 7.619873320362915,
+                      "<r^2>": 11.227381327748267, "<r^3>": 21.31937898048495,
+                      "density_at_nucleus": 311.61174311266365,
+                      "density_gradient_at_nucleus": -4985.787889508837,
+                      "cusp": 0.9999999999410762, "dipole_z": -0.0,
+                      "quadrupole_zz": -0.9765653806465453, "virial_ratio": 1.0000000003415357},
+    "Xe HF": {"<r^-1>": 317.8740851999029, "<r^1>": 39.060807751390826,
+              "<r^2>": 62.65138527545317, "<r^3>": 152.44809584988147,
+              "density_at_nucleus": 111219.43787462653,
+              "density_gradient_at_nucleus": -12011699.380143275, "cusp": 1.000000007466355,
+              "dipole_z": -0.0, "quadrupole_zz": 7.105427357601002e-15,
+              "virial_ratio": 1.0000000000019065},
+}
+# N2 HF's diatomic analysis: the electronic dipole and quadrupole, the
+# densities at the nuclei, and per occupied alpha orbital (E, 1/<r_l^-1>,
+# <r_l>, sqrt(<r_c^2>), <r_r>). Within DIA_ANALYSIS_TOL: N2 HF's DIIS error
+# floors at 1.06e-9 from iteration 12 on, and a moment is first order in
+# the density's error, so it is settled to about 1e-9 only: helfem_tpu's
+# CLI prints the electronic quadrupole as -1.5904149114e+01 at convthr 4e-8
+# (11 iterations) and -1.5904149075e+01 after 20 iterations at 1e-11
+DIA_ANALYSIS_TOL = 1e-8
+N2_HF_ANALYSIS = {
+    "eldip": -0.0, "elquad": -15.904149113698873,
+    "nucdens": (182.27212989705993, 182.27212989705993),
+    "orbitals": ((-15.654497811193368, 0.2823010798750203, 1.153531892235175,
+                  1.066474909747613, 1.153531892235175),
+                 (-15.506738972234569, 0.2877935916313874, 1.1534139909310959,
+                  1.0644550956408867, 1.1534139909310959),
+                 (-1.4709388780063268, 1.1178996983463636, 1.494353164051198,
+                  1.2497955898950546, 1.494353164051198),
+                 (-0.7781903081313253, 1.4075854632422269, 2.14604375982452,
+                  2.1493197862264073, 2.1460437598245194),
+                 (-0.6370115240500729, 1.418120721869841, 2.107505195216315,
+                  2.1515167762491605, 2.107505195216315),
+                 (-0.6146664024470374, 1.4473098553816566, 1.8930920048606101,
+                  1.7940385034709188, 1.8930920048606101),
+                 (-0.6146664024470354, 1.4473098553816572, 1.893092004860611,
+                  1.7940385034709199, 1.8930920048606112)),
+}
+# gensap: Econf as its CLI prints it, and the SAP table's column sums over
+# the rows at r >= 1e-3 bohr of n, dn/dr, r V_coul, r V_xc and Z_eff (nearer
+# the nucleus the laplacian's 2 n'/r and the sub-grid's steep b' magnify
+# the SCF's last bits); within TABLE_TOL x the sum of |column|
+GENSAP_TABLES = {
+    "gensap Kr gaussian": (None, (376274.3503551722, -25100617.80919921, 13335.350251637266,
+                                  -263.5845389514818, 3812.2342873142143)),
+    "gensap Kr iconf 1": (0.574197454, (358016.73929286277, -23799060.20884043,
+                                        13344.841436901897, -256.5152109356969,
+                                        3759.6737740338003)),
+}
+TABLE_COLUMNS = (1, 2, 5, 6, 8)
+TABLE_TOL = 1e-8  # the table's density is the SCF's at convthr 1e-7
+# the warm start: helfem_tpu's scf_atom at the Ar bench basis (TF guess) in
+# Ez = 0.001 (symmetry 1, convthr 1e-9), then from its alpha density with
+# symmetry 2 (convthr 1e-9): (E, iterations) of each
+WARM_START_REFS = ((-526.8175140450015, 11), (-526.8175128027198, 5))
+WARM_START_ANALYSIS = {
+    "<r^-1>": 69.72544037853449, "<r^1>": 16.070845190816918, "<r^2>": 26.034389718227082,
+    "<r^3>": 55.98790430873708, "density_at_nucleus": 3839.781829685074,
+    "density_gradient_at_nucleus": -138232.14586464988, "cusp": 0.9999999999709708,
+    "dipole_z": -0.0, "quadrupole_zz": 1.2150458417181653e-10,
+    "virial_ratio": 0.9999999998592946}
+# the DIIS B solve's repair, held at phase 20's first threshold: N2 PBE in
+# Ez = +0.001 at convthr 1e-8, and helfem_tpu's DIIS errors per iteration
+# (`python -m helfem_tpu.cli.diatomic --Z1 N --Z2 N --Rbond 2.0743 --lmax
+# 6,6 --nelem 5 --nnodes 8 --Rmax 25 --method PBE --convthr 1e-8 --Ez 0.001
+# --save ""`)
+DIIS_CELL = ("diatomic", F_N2_PBE + ["--convthr", "1e-8", "--Ez", "0.001"], -108.97871612726448,
+             12)
+DIIS_TRACE_REF = (0.4494, 0.3812, 0.05439, 0.04061, 0.0801, 0.001937, 0.0005586, 0.0002955,
+                  2.347e-05, 1.366e-06, 9.903e-08, 3.493e-09)
 PROBES = {  # name -> (source, {precision: replaces})
     "matmul_f32": ("helfem_tpu_torch/csrc/matmul_probe.cu",
                    {"full": "scripts/pallas_f64_ablation.py:50",
@@ -672,7 +844,20 @@ def radial_spills(log: str) -> str:
     return f"radial kernels' spill bytes: {spills}"
 
 
+PHASE_START = [time.perf_counter(), None]  # the script's start, the phase's
+
+
+def phase_wall() -> None:
+    """Print the current phase's wall and the script's so far."""
+    now = time.perf_counter()
+    if PHASE_START[1] is not None:
+        print(f"(the phase took {now - PHASE_START[1]:.1f} s; {now - PHASE_START[0]:.1f} s in all)")
+    PHASE_START[1] = now
+
+
 def phase(title: str) -> None:
+    """Print a phase's title, after the previous phase's wall."""
+    phase_wall()
     print(f"\n== {title}", flush=True)
 
 
@@ -695,7 +880,7 @@ def device_facts() -> str:
     return smi
 
 
-def cuda_ms(fn, warmup: int = 5, reps: int = 50) -> float:
+def cuda_ms(fn, warmup: int = 3, reps: int = 20) -> float:
     """Mean milliseconds per call from CUDA events, after warm-up."""
     for _ in range(warmup):
         fn()
@@ -941,7 +1126,7 @@ def atomic_xc_inputs(shape: str, dev, ns: int = 2, seed: int = 59, tau: bool = F
     from helfem_tpu_torch.models.atomic_dft import build_atomic_grid
 
     rng = np.random.default_rng(seed)
-    sad = {**SAD_SHAPES, "sad_cr": CR_SHAPE}
+    sad = {**SAD_SHAPES, "sad_cr": CR_SHAPE, **CONTROL_SAD_SHAPES}
     if shape in sad:
         basis = sadatom.SadAtomBasis(**sad[shape])
         ops = basis.build_ops(dev)
@@ -1168,8 +1353,8 @@ def same_bits_twice(name: str, args) -> None:
         raise RuntimeError(f"{name}: two calls on the same inputs gave different bits")
 
 
-def compare(name: str, args, bytes_moved: int, flops: int, warmup: int = 5,
-            reps: int = 50, plain=None) -> dict:
+def compare(name: str, args, bytes_moved: int, flops: int, warmup: int = 3,
+            reps: int = 20, plain=None) -> dict:
     """The kernel against its plain version on the same card inputs: gate
     each output at 1e-12 x its max-abs; CUDA-event times in turns (plain,
     kernel, kernel, plain), the kernel's device time per call from
@@ -2445,7 +2630,6 @@ def field_phase(dev, results: dict) -> dict:
     from helfem_tpu_torch.cli.atomic import main as atomic_main
     from helfem_tpu_torch.cli.diatomic import main as diatomic_main
     from helfem_tpu_torch.scf import atomic_scf, diatomic_scf
-    from helfem_tpu_torch.utils.profiling import busy_wall
 
     phase("20. fields, finite nuclei, confinement and off-centre nuclei: K1 and K10 on "
           "channel-pair windows, K4/K5 on cross-l densities, K3/K6 on merged g/u blocks, then "
@@ -2478,18 +2662,7 @@ def field_phase(dev, results: dict) -> dict:
         names = [k for k, v in field_launches(prog, argv, 1).items() if v]
         with ScfCapture(module, entry) as cap:
             counts[label] = run_cli(main, argv, label, names, check)
-        t0 = time.perf_counter()
-        res = cap.run()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        pwall, busy = busy_wall(cap.run)
-        warm[label] = {"wall_s": wall, "niter": res.niter, "busy_share": busy / pwall}
-        print(f"{label}: warm SCF wall {wall:.4f} s in {res.niter} iterations "
-              f"({1e3 * wall / res.niter:.2f} ms each); device busy {busy:.4f} s of the "
-              f"profiled {pwall:.4f} s ({100 * busy / pwall:.1f} %)")
-        if abs(res.E - energies[label]) > FIELD_GATE:
-            raise RuntimeError(f"{label}: the warm SCF's energy moved by "
-                               f"{res.E - energies[label]:+.3e}")
+        warm[label] = warm_wall(label, cap, energies[label], FIELD_GATE)
     dpm = energies["Ar HF Ez=+0.001"] - energies["Ar HF Ez=-0.001"]
     print(f"Ar HF: E(+F) - E(-F) = {dpm:+.3e} (gate {FIELD_PM_TOL:g})")
     if not abs(dpm) < FIELD_PM_TOL:
@@ -2506,6 +2679,268 @@ def field_phase(dev, results: dict) -> dict:
     return counts
 
 
+class Tee(io.TextIOBase):
+    """A stdout that also keeps what passes through it."""
+
+    def __init__(self, out):
+        self.out, self.buf = out, io.StringIO()
+
+    def write(self, text: str) -> int:
+        self.out.write(text)
+        return self.buf.write(text)
+
+    def flush(self) -> None:
+        self.out.flush()
+
+
+def diis_errors(text: str) -> list[float]:
+    """The DIIS errors of an SCF's verbose "iter k ... diis = x" lines."""
+    return [float(m) for m in re.findall(r"iter +\d+ +E = .* diis = ([0-9.e+-]+)", text)]
+
+
+def close_values(label: str, got: dict, ref: dict, scale: float, tol: float = ANALYSIS_TOL) -> str:
+    """'' when every value lies within tol of its pin, relative, or of
+    `scale` where the pin vanishes by symmetry; else the first miss."""
+    for key, want in ref.items():
+        if not abs(got[key] - want) <= tol * max(abs(want), scale):
+            return f"{label} {key}: {got[key]!r}, helfem_tpu {want!r}"
+    return ""
+
+
+def dia_analysis_miss(got: dict) -> str:
+    """'' when N2 HF's diatomic analysis matches N2_HF_ANALYSIS."""
+    ref = N2_HF_ANALYSIS
+    scale = abs(ref["elquad"])
+    flat = {"eldip": (got["eldip"], ref["eldip"]), "elquad": (got["elquad"], ref["elquad"])}
+    flat.update({f"nucdens {i}": (g, r) for i, (g, r) in
+                 enumerate(zip(got["nucdens"], ref["nucdens"]))})
+    if len(got["orbitals"]) != len(ref["orbitals"]):
+        return f"{len(got['orbitals'])} occupied orbitals, helfem_tpu {len(ref['orbitals'])}"
+    flat.update({f"orbital {i} column {j}": (g, r) for i, (grow, rrow) in
+                 enumerate(zip(got["orbitals"], ref["orbitals"]))
+                 for j, (g, r) in enumerate(zip(grow, rrow))})
+    return close_values("N2 HF", {k: g for k, (g, _) in flat.items()},
+                        {k: r for k, (_, r) in flat.items()}, scale, DIA_ANALYSIS_TOL)
+
+
+def control_kernels(dev, results: dict) -> None:
+    """The kernels on phase 21's new inputs against their plain versions
+    (1e-12 x max-abs, the same bits twice, one launch per call), into
+    results[(name, key)]: K1/K2 on the zeroder Hermite basis of Ar (its
+    last element holds trash slots), K1/K2 and K4/K5 (one spin) on the
+    finite-nucleus sub-grid of gensap Kr, K1 on all channel-pair windows of
+    the Ar bench basis (symmetry 0)."""
+    from helfem_tpu_torch.kernels import owner_table
+    from helfem_tpu_torch.models import sadatom
+    from helfem_tpu_torch.models.atomic import AtomicBasis
+
+    def check(key, name, args, moved, flops):
+        same_bits_twice(name, args)
+        results[(name, key)] = report(key, name, compare(name, args, moved, flops))
+
+    zd = AtomicBasis(**CONTROL_SHAPES["ar_zeroder"])
+    gidx = zd.rb.fem.gidx
+    print(f"ar_zeroder: nprim {gidx.shape[1]}, nrad {zd.nrad}, trash slots in the last element "
+          f"{int((gidx[-1] == zd.nrad).sum())}; owners of the last radial index "
+          f"{owner_table(gidx, zd.nrad)[-1].tolist()}")
+    for name, (args, moved, flops) in kernel_inputs(CONTROL_SHAPES["ar_zeroder"], dev).items():
+        check("ctrl_ar_zeroder", name, args, moved, flops)
+    kr = sadatom.SadAtomBasis(**CONTROL_SAD_SHAPES["sad_kr_gauss"])
+    ops = kr.build_ops(dev)
+    print(f"sad_kr_gauss: nrad {kr.nrad}, {kr.rb.fem.nelem} elements, the smallest "
+          f"{kr.rb.fem.lengths.min():.3e} bohr wide")
+    for name, (args, moved, flops) in sad_kernel_inputs(kr, ops).items():
+        check("ctrl_sad_kr_gauss", name, args, moved, flops)
+    for name, (args, moved, flops) in atomic_xc_inputs("sad_kr_gauss", dev, ns=1).items():
+        check("ctrl_sad_kr_gauss", name, args, moved, flops)
+    del ops
+    ar = AtomicBasis(**SHAPES["ar"])
+    ops = ar.build_operators(dev)
+    Pw = pair_window_inputs(ar, ops, 0, 233)
+    zero = torch.zeros((ar.NL, 1, ar.nrad, ar.nrad), dtype=torch.float64, device=dev)
+    args, moved, flops = atomic_kernel_work(ops.tei, ops.disjL, ops.disjm1L, ops.Lfac, ops.gidx,
+                                            zero, Pw)["radial_exchange"]
+    print(f"ar_pairs: {Pw.shape[0]} channel-pair windows")
+    check("ctrl_ar_pairs", "radial_exchange", args, moved, flops)
+    del ops, args
+    torch.cuda.empty_cache()
+    print("phase 21 kernels: one launch per call, the same bits twice")
+
+
+def warm_wall(label: str, cap, energy: float, gate: float = CONTROL_GATE) -> dict:
+    """The warm wall of a captured SCF call, and its device-busy share (one
+    more run under torch.profiler); raises when its energy lies more than
+    gate from `energy`."""
+    from helfem_tpu_torch.utils.profiling import busy_wall
+
+    t0 = time.perf_counter()
+    res = cap.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    pwall, busy = busy_wall(cap.run)
+    n = getattr(res, "niter", 0) or 1
+    print(f"{label}: warm SCF wall {wall:.4f} s in {res.niter} iterations "
+          f"({1e3 * wall / n:.2f} ms each); device busy {busy:.4f} s of the profiled "
+          f"{pwall:.4f} s ({100 * busy / pwall:.1f} %)")
+    if abs(res.E - energy) > gate:
+        raise RuntimeError(f"{label}: the warm SCF's energy is {res.E - energy:+.3e} off")
+    return {"wall_s": wall, "niter": res.niter, "busy_share": busy / pwall}
+
+
+def control_phase(dev, results: dict) -> dict:
+    """Phase 21: control_kernels, then CONTROL_CELLS through the port's CLIs
+    (within CONTROL_GATE of helfem_tpu's energy in its iteration count, with
+    field_launches' launches or sad_launches'; the analysis values within
+    ANALYSIS_TOL of CONTROL_ANALYSIS and N2_HF_ANALYSIS, gensap's Econf and
+    table sums of GENSAP_TABLES), the warm start from a density with
+    cross-channel blocks (one more K1 and K2 launch, for the guess's
+    Fock), each cell's warm wall and device-busy share, and the DIIS
+    repair's cell with its DIIS errors beside helfem_tpu's. Returns each
+    cell's launches."""
+    from helfem_tpu_torch import kernels
+    from helfem_tpu_torch.cli.atomic import main as atomic_main
+    from helfem_tpu_torch.cli.diatomic import main as diatomic_main
+    from helfem_tpu_torch.cli.gensap import main as gensap_main
+    from helfem_tpu_torch.models import sadatom
+    from helfem_tpu_torch.models.atomic import AtomicBasis
+    from helfem_tpu_torch.scf import atomic_scf, diatomic_scf
+    from helfem_tpu_torch.utils.linalg import build_blocks
+
+    phase("21. SCF controls: K1/K2 on a zeroder Hermite basis and on the SAD finite-nucleus "
+          "sub-grid with K4/K5, K1 on all channel-pair windows, then --diag 0, --eigiter, "
+          "--perturb, --maverage, --readocc, --symmetry, --zeroder, a warm start, gensap's "
+          "finite nucleus and confinement and the post-SCF analysis through the CLIs")
+    t_phase = time.perf_counter()
+    control_kernels(dev, results)
+    mains = {"atomic": (atomic_main, atomic_scf, "scf_atom"),
+             "diatomic": (diatomic_main, diatomic_scf, "scf_diatomic"),
+             "gensap": (gensap_main, sadatom, "solve_sadatom")}
+    counts, warm = {}, {}
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        os.chdir(tmp)
+        try:
+            with open("occs_O.txt", "w") as f:
+                f.write(O_READOCC)
+            with open("occs.dat", "w") as f:
+                f.write(N2_READOCC)
+            for label, (prog, argv, ref, ref_niter) in CONTROL_CELLS.items():
+                main, module, entry = mains[prog]
+                argv = ["occs_O.txt" if a == "OCCS" else a for a in argv]
+                if prog == "gensap":
+                    argv = argv + ["--output", f"{tmp}/result_Kr.dat"]
+
+                def check(res, label=label, prog=prog, argv=argv, ref=ref, ref_niter=ref_niter):
+                    dE = res.E - ref
+                    gate = CONTROL_GATES.get(label, CONTROL_GATE)
+                    if prog == "gensap":
+                        sad_launches(label, res, hf=False)
+                        Econf, sums = GENSAP_TABLES[label]
+                        table = np.loadtxt(f"{tmp}/result_Kr.dat")
+                        far = table[:, 0] >= 1e-3
+                        got = table[far][:, TABLE_COLUMNS]
+                        miss = np.abs(got.sum(0) - np.array(sums)) / np.abs(got).sum(0)
+                        print(f"{label}: E - helfem_tpu = {dE:+.3e} (gate {CONTROL_GATE:g}), "
+                              f"{res.niter} iterations, {res.nfock} Fock builds; Econf "
+                              f"{res.Econf:.9f}; the table's column sums against helfem_tpu's, "
+                              f"relative {miss.max():.2e} (gate {TABLE_TOL:g})")
+                        if Econf is not None and abs(res.Econf - Econf) > CONTROL_GATE:
+                            return f"Econf {res.Econf!r}, helfem_tpu {Econf!r}"
+                        if not miss.max() < TABLE_TOL:
+                            return "the SAP table's sums disagree with helfem_tpu's"
+                        return "" if res.converged and abs(dE) < CONTROL_GATE else \
+                            "did not converge within the gate"
+                    want = field_launches(prog, argv, res.niter,
+                                          diatomic_spins(res) if prog == "diatomic" else 1)
+                    got = {name: kernels.launches[name] for name in want}
+                    print(f"{label}: E - helfem_tpu = {dE:+.3e} (gate {gate:g}), "
+                          f"{res.niter} iterations (helfem_tpu {ref_niter}); launches per "
+                          f"iteration {({k: v / res.niter for k, v in got.items()})}")
+                    if got != want:
+                        return f"launches {got}, expected {want}"
+                    if res.niter != ref_niter:
+                        return f"{res.niter} iterations, helfem_tpu {ref_niter}"
+                    if label in CONTROL_ANALYSIS:
+                        ref_ana = CONTROL_ANALYSIS[label]
+                        miss = close_values(label, res.analysis, ref_ana, ref_ana["<r^2>"])
+                        if miss:
+                            return miss
+                        print(f"{label}: the analysis within {ANALYSIS_TOL:g} of helfem_tpu's "
+                              f"(cusp {res.analysis['cusp']:.10f})")
+                    if label == "N2 HF":
+                        miss = dia_analysis_miss(res.analysis)
+                        if miss:
+                            return miss
+                        print(f"{label}: the moments, nuclear densities and occupied orbitals "
+                              f"within {DIA_ANALYSIS_TOL:g} of helfem_tpu's")
+                    return "" if res.converged and abs(dE) < gate else \
+                        "did not converge within the gate"
+
+                names = (["radial_coulomb", *XC] if prog == "gensap" else
+                         [k for k, v in field_launches(prog, argv, 1).items() if v])
+                with ScfCapture(module, entry) as cap:
+                    counts[label] = run_cli(main, argv, label, names, check)
+                warm[label] = warm_wall(label, cap, ref, CONTROL_GATES.get(label, CONTROL_GATE))
+        finally:
+            os.chdir(cwd)
+
+    # the warm start: the Ar density in a field (symmetry 1, s-p0 blocks)
+    # into a symmetry-2 run, whose guess Fock runs K1 on all pair windows
+    basis = AtomicBasis(**SHAPES["ar"])
+    ops = basis.build_operators(dev)
+    (E0, n0), (E1, n1) = WARM_START_REFS
+    res0 = atomic_scf.scf_atom(basis, 9, 9, convthr=1e-9, guess="TF", Ez=0.001, ops=ops)
+    bi = build_blocks(basis.overlap(), basis.sym_blocks(1))[0]
+    Pb = np.einsum("bpk,bk,bqk->bpq", res0.orbs_a, res0.occ_a, res0.orbs_a)
+    P = np.zeros((basis.nbf + 1, basis.nbf + 1))
+    for b in range(bi.shape[0]):
+        P[np.ix_(bi[b], bi[b])] += Pb[b]
+    P = P[:basis.nbf, :basis.nbf]
+    cross = float(np.abs(P.reshape(basis.nang, basis.nrad, basis.nang, basis.nrad)[0, :, 1]).max())
+    kernels.reset_launches()
+    with ScfCapture(atomic_scf, "scf_atom") as cap:
+        res = atomic_scf.scf_atom(basis, 9, 9, convthr=1e-9, guess="TF", P0a=P, ops=ops)
+    torch.cuda.synchronize()
+    got = {name: kernels.launches[name] for name in ATOMIC}
+    ana = atomic_scf.atomic_analysis(basis, res, res.symm_used)
+    print(f"Ar HF in Ez = 0.001: E - helfem_tpu = {res0.E - E0:+.3e} in {res0.niter} iterations "
+          f"(helfem_tpu {n0}); its density's s-p0 block up to {cross:.3e}; the warm start: E - "
+          f"helfem_tpu = {res.E - E1:+.3e} in {res.niter} iterations (helfem_tpu {n1}), "
+          f"launches {got}")
+    miss = close_values("warm start", ana, WARM_START_ANALYSIS, WARM_START_ANALYSIS["<r^2>"])
+    if not (res0.converged and abs(res0.E - E0) < CONTROL_GATE and res0.niter == n0
+            and res.converged and abs(res.E - E1) < CONTROL_GATE and res.niter == n1
+            and cross > 1e-6 and not miss
+            and got == {name: res.niter + 1 for name in ATOMIC}):
+        raise RuntimeError(f"Ar HF warm start disagrees with helfem_tpu, or its launches are "
+                           f"not one per iteration and one for the guess's Fock {miss}")
+    counts["Ar HF warm start"] = got
+    warm["Ar HF warm start"] = warm_wall("Ar HF warm start", cap, E1)
+    del ops
+    torch.cuda.empty_cache()
+
+    # the DIIS B solve's repair at phase 20's first threshold for N2 PBE in Ez
+    prog, argv, ref, ref_niter = DIIS_CELL
+    tee = Tee(sys.stdout)
+    with contextlib.redirect_stdout(tee):
+        res = diatomic_main(argv + ["--device", "cuda"])
+    errs = diis_errors(tee.buf.getvalue())
+    print(f"N2 PBE Ez=+0.001 at convthr 1e-8: E - helfem_tpu = {res.E - ref:+.3e}, "
+          f"{res.niter} iterations (helfem_tpu {ref_niter}); DIIS errors per iteration, the "
+          f"card's then helfem_tpu's:")
+    for i in range(max(len(errs), len(DIIS_TRACE_REF))):
+        card = f"{errs[i]:.3e}" if i < len(errs) else "-"
+        cpu = f"{DIIS_TRACE_REF[i]:.3e}" if i < len(DIIS_TRACE_REF) else "-"
+        print(f"    iteration {i + 1:2d}: {card:>10s} {cpu:>10s}")
+    if not (res.converged and abs(res.E - ref) < FIELD_GATE):
+        raise RuntimeError("N2 PBE Ez=+0.001 at 1e-8 did not converge within 1e-8 Eh")
+    results[("control_diis", "n2_pbe_ez")] = {"niter": res.niter, "ref_niter": ref_niter,
+                                               "diis": errs}
+    results[("control_warm", "cells")] = warm
+    print(f"phase 21: {time.perf_counter() - t_phase:.1f} s")
+    return counts
+
+
 def main() -> None:
     phase("1. device")
     smi = device_facts()
@@ -2515,18 +2950,9 @@ def main() -> None:
     from helfem_tpu_torch.kernels import _build
 
     seconds, log = _build.build(ptxas_verbose=True)
-    # the same sources through one nvcc call, after the parallel build (so
-    # with warm file caches), into a scratch library that is then removed
-    srcs = sorted(str(p) for p in _build.CSRC.glob("*.cu"))
-    single = _build.BUILD_DIR / "single_nvcc_check.so"
-    t0 = time.perf_counter()
-    subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-shared", "-o", str(single),
-                    *srcs], check=True, capture_output=True, timeout=600)
-    serial = time.perf_counter() - t0
-    single.unlink()
-    print(f"built {_build.LIBRARY.name} from {[p.rsplit('/', 1)[-1] for p in srcs]} in "
-          f"{seconds:.2f} s, one nvcc per source in parallel (one nvcc for all sources, "
-          f"for comparison: {serial:.2f} s)")
+    srcs = sorted(p.name for p in _build.CSRC.glob("*.cu"))
+    print(f"built {_build.LIBRARY.name} from {srcs} in {seconds:.2f} s, one nvcc per source "
+          f"in parallel")
     print("\n".join(line for line in log.splitlines()
                     if "registers" in line or "spill" in line or "Compiling entry" in line))
     print(radial_spills(log))
@@ -2886,6 +3312,7 @@ def main() -> None:
     rs_counts = rs_phase(dev, results)
     lapl_counts = lapl_phase(dev, results)
     field_counts = field_phase(dev, results)
+    control_counts = control_phase(dev, results)
     counts["radial_erfc_exchange"] = rs_counts["Ar LC-LDA"]["radial_erfc_exchange"]
 
     record = []
@@ -2947,6 +3374,12 @@ def main() -> None:
                           ("max_abs_err", "rel_err", "ms", "device_ms", "queued_ms", "plain_ms",
                            "bound_ms")})
         extra["phase20_launches"] = {label: c.get(name, 0) for label, c in field_counts.items()}
+        for key in CONTROL_KEYS.get(name, ()):
+            o = results[(name, key)]
+            extra.update({f"{key}_{k}": o[k] for k in
+                          ("max_abs_err", "rel_err", "ms", "device_ms", "queued_ms", "plain_ms",
+                           "bound_ms")})
+        extra["phase21_launches"] = {label: c.get(name, 0) for label, c in control_counts.items()}
         scf = results.get((name, {"radial_exchange_dia_occ": "o2_l12_scf",
                                   "radial_exchange": "sad_cr2_scf"}.get(name)))
         if scf is not None:
@@ -2978,6 +3411,7 @@ def main() -> None:
             rec.update({f"n{n}_{prec}_{k}": o[k] for k in
                         ("max_abs_err", "ms", "plain_ms", "bound_ms", "library_ms")})
         record.append(rec)
+    phase_wall()
     print()
     print(smi)
     print(json.dumps({"kernels": record}))

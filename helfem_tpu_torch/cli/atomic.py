@@ -1,13 +1,16 @@
 """`python -m helfem_tpu_torch.cli.atomic`: atomic HF/DFT SCF driver of the
 PyTorch/CUDA port (restricted, unrestricted or ROHF; global and
-range-separated hybrids; the laplacian-level BR89; Fock damping and the
-sliding DIIS/ADIIS blend; electric and magnetic fields, confinement, finite
-nuclei, off-centre nuclei and the symmetry blocks 0/1/2).
+range-separated hybrids; the laplacian-level BR89; Fock damping, the
+sliding DIIS/ADIIS blend, m-averaging, fixed occupations, a perturbed
+guess, Cholesky whitening and the iterative eigensolve; electric and
+magnetic fields, confinement, finite nuclei, off-centre nuclei and the
+symmetry blocks 0/1/2), followed by the post-SCF analysis.
 
-A subset of helfem_tpu.cli.atomic (flag names mirror the reference `atomic`
-program, src/atomic/main.cpp:63-119), plus --device. Flags of the JAX CLI
-that this slice does not cover are rejected with NotImplementedError. The
-per-iteration and final-energy lines match the JAX CLI's.
+helfem_tpu.cli.atomic's flags (they mirror the reference `atomic` program,
+src/atomic/main.cpp:63-119), plus --device; --trace writes a torch.profiler
+Chrome trace of the SCF. The checkpoint flags (--save, --load) and --ndev
+are rejected with NotImplementedError. The per-iteration, final-energy and
+analysis lines match the JAX CLI's.
 """
 
 import argparse
@@ -21,11 +24,8 @@ from helfem_tpu_torch.cli._common import (
     reject_unported,
 )
 
-# helfem_tpu.cli.atomic flags outside this slice
-_UNPORTED_FLAGS = (
-    "nquad", "load", "readocc", "save", "maverage", "perturb", "seed", "diag", "eigiter",
-    "zeroder", "trace", "ndev", "taylor_order",
-)
+# helfem_tpu.cli.atomic flags outside the port (ROADMAP queue 1 items 9, 10)
+_UNPORTED_FLAGS = ("load", "save", "ndev")
 # --finitenuc: the reference's nuclear model numbers
 NUCLEAR_MODELS = {0: "point", 1: "point", 2: "gaussian", 3: "spherical", 4: "hollow",
                   5: "regularized"}
@@ -50,6 +50,8 @@ def main(argv=None):
     p.add_argument("--zexp", type=float, default=2.0)
     p.add_argument("--nelem", type=int, required=True)
     p.add_argument("--nnodes", type=int, default=15)
+    p.add_argument("--nquad", type=int, default=0,
+                   help="quadrature points per element (0 = 5*nnodes)")
     p.add_argument("--primbas", type=int, default=4,
                    help="primitive polynomial basis id (3 Legendre, 4 LIP, "
                         "5 HIP, 6-11 general HIP, 100/101 Chebyshev nodes)")
@@ -107,6 +109,27 @@ def main(argv=None):
                    help="damping factor for occupied-virtual MO Fock blocks")
     p.add_argument("--dampthr", type=float, default=0.5,
                    help="apply damping while the DIIS error is above this")
+    p.add_argument("--readocc", default="",
+                   help="occupation file: lines 'l m na nb' (fixed per-(l,m) occupations)")
+    p.add_argument("--maverage", action="store_true",
+                   help="average the Fock matrix over m within each l")
+    p.add_argument("--perturb", type=float, default=0.0,
+                   help="random orthogonal rotation amplitude for the guess orbitals")
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--diag", type=int, default=1,
+                   help="1: symmetric inverse square root whitening; 0: inverse Cholesky "
+                        "whitening (reference --diag, src/atomic/main.cpp:88)")
+    p.add_argument("--eigiter", type=int, default=0,
+                   help="when > 0, solve each symmetry block for its lowest N eigenpairs "
+                        "by shift-invert ARPACK on the host (reference: scf::eig_iter)")
+    p.add_argument("--zeroder", action="store_true",
+                   help="drop the derivative DOF at Rmax too (Hermite bases)")
+    p.add_argument("--taylor_order", type=int, default=-1,
+                   help="accepted for reference parity; B(r)/r near the origin is "
+                        "evaluated by exact polynomial division, so it has no effect")
+    p.add_argument("--trace", default="",
+                   help="write a torch.profiler Chrome/Perfetto trace of the SCF to this "
+                        "JSON file")
     p.add_argument("--device", default="cuda",
                    help="torch device: cuda runs the CUDA kernels, cpu their "
                         "plain PyTorch versions")
@@ -122,8 +145,9 @@ def main(argv=None):
         build_atomic_grid, eval_kinetic_grid, eval_overlap_grid, needs_lapl,
     )
     from helfem_tpu_torch.ops.xc import parse_method_rs
-    from helfem_tpu_torch.scf.atomic_scf import rs_operators, scf_atom
+    from helfem_tpu_torch.scf.atomic_scf import atomic_analysis, rs_operators, scf_atom
     from helfem_tpu_torch.utils.elements import ANGSTROM_IN_BOHR, HARTREE_IN_EV, get_Z
+    from helfem_tpu_torch.utils.profiling import trace_scf
     from helfem_tpu_torch.utils.timer import Timer
 
     device = open_device(args.device)
@@ -142,10 +166,11 @@ def main(argv=None):
     timer = Timer()
     basis = AtomicBasis(
         Z=Z, lmax=args.lmax, mmax=args.mmax, rmax=args.Rmax, nelem=args.nelem,
-        nnodes=args.nnodes, igrid=args.grid, zexp=args.zexp, primbas=args.primbas,
-        finitenuc=nucmodel, Rrms=args.Rrms, nelem0=args.nelem0, igrid0=args.grid0,
-        zexp0=args.zexp0, Zl=Zl, Zr=Zr, Rmid=args.Rmid,
+        nnodes=args.nnodes, nquad=args.nquad, igrid=args.grid, zexp=args.zexp,
+        primbas=args.primbas, finitenuc=nucmodel, Rrms=args.Rrms, nelem0=args.nelem0,
+        igrid0=args.grid0, zexp0=args.zexp0, Zl=Zl, Zr=Zr, Rmid=args.Rmid,
         conf_boundary=args.shift_conf if (args.add_conf and args.iconf) else 0.0,
+        zeroder=args.zeroder,
     )
     walls = {"basis": timer.lap("basis set formation")}
     print(f"Running {args.method} on Z={Z} with {nela}+{nelb} electrons, "
@@ -175,20 +200,34 @@ def main(argv=None):
         print(f"Relative error in kinetic matrix evaluated through xc grid is "
               f"{np.linalg.norm(dT):e}")
         walls["grid check"] = timer.lap("XC grid self-check")
+    occs = None
+    if args.readocc:  # lines 'l m na nb'
+        occs = {}
+        with open(args.readocc) as f:
+            for line in f:
+                line = line.split("#")[0].strip()
+                if line:
+                    l_, m_, na_, nb_ = line.split()
+                    occs[(int(l_), int(m_))] = (float(na_), float(nb_))
     t0 = time.perf_counter()
-    res = scf_atom(
-        basis, nela, nelb, method=args.method, maxit=args.maxit,
-        convthr=args.convthr, guess=guess, verbose=True, ops=ops, dftthr=args.dftthr,
-        restricted=args.restricted, diisorder=args.diisorder, diiseps=args.diiseps,
-        ldft=args.ldft, grid=grid, rs=rs, dampfock=args.dampfock, dampthr=args.dampthr,
-        diisthr=args.diisthr, Ez=args.Ez, Qzz=args.Qzz, Bz=args.Bz, iconf=args.iconf,
-        conf_N=args.conf_N, conf_R=args.conf_R, conf_barrier=args.conf_barrier,
-        shift_conf=args.shift_conf, finitenuc=nucmodel, Rrms=args.Rrms, Zl=Zl, Zr=Zr,
-        Rmid=args.Rmid, symmetry=args.symmetry,
-    )
+    with trace_scf(args.trace, device):
+        res = scf_atom(
+            basis, nela, nelb, method=args.method, maxit=args.maxit,
+            convthr=args.convthr, guess=guess, verbose=True, ops=ops, dftthr=args.dftthr,
+            restricted=args.restricted, diisorder=args.diisorder, diiseps=args.diiseps,
+            ldft=args.ldft, grid=grid, rs=rs, dampfock=args.dampfock, dampthr=args.dampthr,
+            diisthr=args.diisthr, Ez=args.Ez, Qzz=args.Qzz, Bz=args.Bz, iconf=args.iconf,
+            conf_N=args.conf_N, conf_R=args.conf_R, conf_barrier=args.conf_barrier,
+            shift_conf=args.shift_conf, finitenuc=nucmodel, Rrms=args.Rrms, Zl=Zl, Zr=Zr,
+            Rmid=args.Rmid, symmetry=args.symmetry, occs=occs, perturb=args.perturb,
+            seed=args.seed, maverage=args.maverage, diag=bool(args.diag),
+            eigiter=args.eigiter,
+        )
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     walls["scf"] = time.perf_counter() - t0
+    if args.trace:
+        print(f"profiler trace written to {args.trace}")
     timer.lap("SCF")
     res.walls = walls
     print()
@@ -211,6 +250,18 @@ def main(argv=None):
             print(f"  {i + 1:3d} {res.orbsym_a[i]:>8s}  % .9f  {tag}" % res.orbE_a[i])
     if not res.converged:
         print("WARNING: SCF did not converge!")
+    # post-SCF analysis (reference: src/atomic/main.cpp:1000-1059)
+    ana = atomic_analysis(basis, res, symm=res.symm_used)
+    res.analysis = ana
+    print()
+    print(f"Virial ratio -E/T     : {ana['virial_ratio']:.10f}")
+    for n in (-1, 1, 2, 3):
+        print(f"<r^{n:+d}>                : {ana[f'<r^{n}>']:.10f}")
+    print(f"Density at nucleus    : {ana['density_at_nucleus']:.10f}")
+    print(f"Density gradient      : {ana['density_gradient_at_nucleus']:.10f}")
+    print(f"Cusp -n'(0)/(2 Z n(0)): {ana['cusp']:.10f}")
+    print(f"Dipole <z>            : {ana['dipole_z']:.10e}")
+    print(f"Quadrupole <zz>       : {ana['quadrupole_zz']:.10e}")
     return res
 
 

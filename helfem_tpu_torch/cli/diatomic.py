@@ -8,10 +8,12 @@ their global hybrids,
 restricted, unrestricted (--restricted 0, the default for nela != nelb) or
 ROHF (--restricted 1 with nela != nelb), from the core, SAP, GSZ or TF
 guess, in axial electric (--Ez), quadrupole (--Qzz) and magnetic (--Bz)
-fields and with finite nuclei (--finitenuc, --Rrms1, --Rrms2); flags of the
-JAX CLI that it does not cover are rejected with
-NotImplementedError. The per-iteration and final-energy lines match the JAX
-CLI's.
+fields and with finite nuclei (--finitenuc, --Rrms1, --Rrms2), with the
+SCF controls (--diag, --maverage, --symmetry, --readocc), followed by the
+post-SCF analysis (multipoles, nuclear densities, occupied orbitals);
+--trace writes a torch.profiler Chrome trace of the SCF. The checkpoint
+flags (--save, --load) and --ndev are rejected with NotImplementedError.
+The per-iteration, final-energy and analysis lines match the JAX CLI's.
 """
 
 import argparse
@@ -25,10 +27,8 @@ from helfem_tpu_torch.cli._common import (
     reject_unported,
 )
 
-# helfem_tpu.cli.diatomic flags outside this slice
-_UNPORTED_FLAGS = (
-    "lpad", "diag", "maverage", "save", "load", "symmetry", "readocc", "trace", "ndev",
-)
+# helfem_tpu.cli.diatomic flags outside the port (ROADMAP queue 1 items 9, 10)
+_UNPORTED_FLAGS = ("save", "load", "ndev")
 
 
 def main(argv=None):
@@ -46,6 +46,9 @@ def main(argv=None):
     p.add_argument("--mmax", type=int, default=-1,
                    help="maximum m; if >= 0, --lmax must be a single value applied "
                         "to every |m| <= mmax")
+    p.add_argument("--lpad", type=int, default=10,
+                   help="accepted for reference parity (Qlm recursion padding); the Q_lm "
+                        "builder pads its downward recursion per point, so it has no effect")
     p.add_argument("--Rmax", type=float, default=40.0)
     p.add_argument("--grid", type=int, default=4)
     p.add_argument("--zexp", type=float, default=2.0)
@@ -90,17 +93,33 @@ def main(argv=None):
                    help="nuclear model: point|gaussian|spherical|hollow|regularized")
     p.add_argument("--Rrms1", type=float, default=0.0, help="nucleus 1 rms radius")
     p.add_argument("--Rrms2", type=float, default=0.0, help="nucleus 2 rms radius")
+    p.add_argument("--diag", type=int, default=1,
+                   help="1: symmetric inverse square root whitening; 0: inverse Cholesky "
+                        "whitening (reference --diag, src/diatomic/main.cpp:111)")
+    p.add_argument("--maverage", action="store_true",
+                   help="average the Fock matrix over +-m symmetry pairs every iteration")
+    p.add_argument("--symmetry", type=int, default=-1,
+                   help="0/1 m blocks only, 2 add gerade/ungerade; -1 auto (g/u for "
+                        "homonuclear without an axial electric field)")
+    p.add_argument("--readocc", type=int, default=0,
+                   help="read per-symmetry-block occupations from occs.dat (lines 'na nb') "
+                        "in the working directory, used until this iteration (<0: always)")
+    p.add_argument("--trace", default="",
+                   help="write a torch.profiler Chrome/Perfetto trace of the SCF to this "
+                        "JSON file")
     p.add_argument("--device", default="cuda",
                    help="torch device: cuda runs the CUDA kernels, cpu their "
                         "plain PyTorch versions")
     args, extra = p.parse_known_args(argv)
     reject_unported(extra, _UNPORTED_FLAGS, p.prog)
 
+    import numpy as np
     import torch
 
     from helfem_tpu_torch.models.diatomic import DiatomicBasis
     from helfem_tpu_torch.scf.diatomic_scf import scf_diatomic
     from helfem_tpu_torch.utils.elements import ANGSTROM_IN_BOHR, HARTREE_IN_EV, get_Z
+    from helfem_tpu_torch.utils.profiling import trace_scf
     from helfem_tpu_torch.utils.timer import Timer
 
     device = open_device(args.device)
@@ -116,6 +135,11 @@ def main(argv=None):
         args.guess = {0: "core", 1: "GSZ", 2: "SAP", 3: "TF"}[args.iguess]
     nela, nelb = parse_nela_nelb(Z1 + Z2, args.Q, args.M, args.nela, args.nelb)
     args.method = apply_pars_files(args.method, args.x_pars, args.c_pars)
+    occs = None
+    if args.readocc:
+        occs = np.loadtxt("occs.dat", ndmin=2)
+        if occs.shape[1] < 2:
+            raise SystemExit("occs.dat needs at least two columns (na nb)")
 
     timer = Timer()
     basis = DiatomicBasis(
@@ -127,21 +151,36 @@ def main(argv=None):
     print(f"Running {args.method} on Z1={Z1} Z2={Z2} R={R} with {nela}+{nelb} electrons")
     print(f"{basis.nang} angular shells x {basis.nrad} radial functions; "
           f"{len(basis.lm_map)} (L,|M|) channels")
-    # an axial electric field couples even and odd l: no g/u blocks
-    ops = basis.build_operators(device, parity=args.Ez == 0.0)
+    # the symmetry blocks (reference: src/diatomic/main.cpp:313-319): g/u
+    # for homonuclear without an axial electric field, which couples even
+    # and odd l; --symmetry 0/1 drop them, 2 keeps them unless Ez
+    parity = args.Ez == 0.0
+    if args.symmetry in (0, 1):
+        parity = False
+    elif args.symmetry == 2:
+        if args.Ez != 0.0:
+            print("Warning - asked for full orbital symmetry in presence of "
+                  "electric field. Relaxing restriction.")
+        else:
+            parity = True
+    ops = basis.build_operators(device, parity=parity, chol=not args.diag)
     walls["operators"] = timer.lap("operator build")
     t0 = time.perf_counter()
-    res = scf_diatomic(
-        basis, nela, nelb, method=args.method, maxit=args.maxit, convthr=args.convthr,
-        verbose=True, ops=ops, guess=args.guess, restricted=args.restricted,
-        perturb=args.perturb, seed=args.seed, diisorder=args.diisorder,
-        diiseps=args.diiseps, dftthr=args.dftthr, ldft=args.ldft, diisthr=args.diisthr,
-        Ez=args.Ez, Qzz=args.Qzz, Bz=args.Bz, finitenuc=args.finitenuc, Rrms1=args.Rrms1,
-        Rrms2=args.Rrms2,
-    )
+    with trace_scf(args.trace, device):
+        res = scf_diatomic(
+            basis, nela, nelb, method=args.method, maxit=args.maxit, convthr=args.convthr,
+            verbose=True, ops=ops, guess=args.guess, restricted=args.restricted,
+            perturb=args.perturb, seed=args.seed, diisorder=args.diisorder,
+            diiseps=args.diiseps, dftthr=args.dftthr, ldft=args.ldft, diisthr=args.diisthr,
+            Ez=args.Ez, Qzz=args.Qzz, Bz=args.Bz, finitenuc=args.finitenuc,
+            Rrms1=args.Rrms1, Rrms2=args.Rrms2, occs=occs, readocc_until=args.readocc,
+            diag=bool(args.diag), maverage=args.maverage,
+        )
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     walls["scf"] = time.perf_counter() - t0
+    if args.trace:
+        print(f"profiler trace written to {args.trace}")
     timer.lap("SCF")
     res.walls = walls
     print()
@@ -153,7 +192,10 @@ def main(argv=None):
     ]:
         print(f"{name:<21s} energy: % .16f" % val)
     print(f"{'Virial ratio':<21s}       : % .16f" % (-res.E / res.Ekin))
+    print(f"{'Hellmann-Feynman':<21s}  force: %e"
+          % ((2 * res.Ekin + res.Enucattr + res.Enucrep + res.Ecoul + res.Exx + res.Exc) / R))
     print(f"{'Electrons on grid':<21s}       : % .16f" % res.Nelgrid)
+    res.analysis = analysis(basis, ops, res, nela)
     spins = [("", nela, res.orbE_a, res.orbsym_a)]
     if res.orbE_b is not None:
         spins = [("alpha ", nela, res.orbE_a, res.orbsym_a),
@@ -170,6 +212,58 @@ def main(argv=None):
     if not res.converged:
         print("WARNING: SCF did not converge!")
     return res
+
+
+def analysis(basis, ops, res, nela: int) -> dict:
+    """The post-SCF analysis of helfem_tpu's diatomic CLI, printed line for
+    line (helfem_tpu/cli/diatomic.py:256-291; reference:
+    src/diatomic/main.cpp:1000-1086): the electronic, nuclear and total
+    dipole and quadrupole moments, the electron density at the nuclei and
+    the alpha occupied orbitals' energies and radial moments. Host numpy;
+    returns the values printed."""
+    import numpy as np
+
+    from helfem_tpu_torch.models.diatomic_tools import (
+        nuclear_densities_dia,
+        occupied_orbital_vectors_dia,
+        orbital_moments_dia,
+    )
+    from helfem_tpu_torch.scf.diatomic_scf import density_dia
+
+    Pa = density_dia(ops, res.orbs_a, res.occ_a)
+    P = Pa + (Pa if res.orbs_b is None else density_dia(ops, res.orbs_b, res.occ_b))
+    mv = basis.shell_mask().reshape(-1)
+    mm = mv[:, None] * mv[None, :]
+    out = {"eldip": -float(np.vdot(P, basis.dipole_z() * mm)),
+           "elquad": -float(np.vdot(P, basis.quadrupole_zz() * mm)),
+           "nucdip": (basis.Z2 - basis.Z1) * basis.Rhalf,
+           "nucquad": (basis.Z1 + basis.Z2) * basis.Rhalf**2}
+    print()
+    print("Electronic dipole     moment % .10e" % out["eldip"])
+    print("Nuclear    dipole     moment % .10e" % out["nucdip"])
+    print("Total      dipole     moment % .10e" % (out["eldip"] + out["nucdip"]))
+    print("Electronic quadrupole moment % .10e" % out["elquad"])
+    print("Nuclear    quadrupole moment % .10e" % out["nucquad"])
+    print("Total      quadrupole moment % .10e" % (out["elquad"] + out["nucquad"]))
+    print("\nNuclear electron densities")
+    out["nucdens"] = nuclear_densities_dia(basis, P)
+    if basis.Z1:
+        print("left : % .10e" % out["nucdens"][0])
+    if basis.Z2:
+        print("right: % .10e" % out["nucdens"][1])
+    rows = []
+    if nela > 0:
+        print("\nOccupied orbital analysis (alpha):")
+        print(f"{'io':>2s} {'energy':>13s} {'1/<rl^-1>':>12s} {'<rl>':>12s} "
+              f"{'sqrt(<rc^2>)':>12s} {'<rr>':>12s}")
+        for io, (E_o, _, c) in enumerate(occupied_orbital_vectors_dia(
+                basis, res.orbs_a, res.occ_a, res.orbE_blocks_a)):
+            m = orbital_moments_dia(basis, c)
+            rows.append((E_o, 1.0 / m["left"][-1], m["left"][1], np.sqrt(m["center"][2]),
+                         m["right"][1]))
+            print(f"{io + 1:2d} % e %e %e %e %e" % rows[-1])
+    out["orbitals"] = rows
+    return out
 
 
 if __name__ == "__main__":

@@ -8,8 +8,10 @@ with its occupation search and writes the SAP table result_<El>.dat;
 the xc ingredients. --unrestricted (or --restricted -1/0) then runs the
 spin-polarised solver, at a fixed multiplicity --M, with the Hund-rule
 aufbau search or with the multiplicity scan (--scan), and writes the five
-potential variants resultU/M/W/S/s_<El>.dat. Flags of the JAX CLI that it
-does not cover (finite nuclei, confinement, ...) are rejected with
+potential variants resultU/M/W/S/s_<El>.dat. Finite nuclei with their
+sub-grid (--finitenuc, --Rrms, --nelem0, --grid0, --zexp0), the
+confinement (--iconf family; Econf printed apart) and --zeroder run as in
+helfem_tpu; --completeness (ROADMAP queue 1 item 9) is rejected with
 NotImplementedError.
 """
 
@@ -24,11 +26,8 @@ from helfem_tpu_torch.cli._common import (
     reject_unported,
 )
 
-# helfem_tpu.cli.gensap flags outside this slice
-_UNPORTED_FLAGS = (
-    "finitenuc", "Rrms", "nelem0", "grid0", "zexp0", "iconf", "conf_N", "conf_R",
-    "conf_barrier", "shift_conf", "add_conf", "zeroder", "completeness", "taylor_order",
-)
+# helfem_tpu.cli.gensap flags outside the port (ROADMAP queue 1 item 9)
+_UNPORTED_FLAGS = ("completeness",)
 # the unrestricted potential variants: file tag -> potential_table mode
 # (reference: src/sadatom/main.cpp:738-767)
 VARIANTS = {"U": "mean", "M": "average", "W": "weighted", "S": "highspin", "s": "lowspin"}
@@ -100,6 +99,27 @@ def main(argv=None):
     p.add_argument("--eps_el", type=float, default=0.073416683704840394115,
                    help="electron count outside the electron-count radius (default: "
                         "H-atom value matching the 1e-3 vdW threshold, Rahm 2016)")
+    p.add_argument("--zeroder", action="store_true",
+                   help="drop the derivative DOF at Rmax too (Hermite bases)")
+    p.add_argument("--taylor_order", type=int, default=-1,
+                   help="accepted for reference parity; B(r)/r near the origin is "
+                        "evaluated by exact polynomial division, so it has no effect")
+    # finite nucleus and its sub-grid (reference: main.cpp:104-110)
+    p.add_argument("--finitenuc", default="point",
+                   help="point|gaussian|spherical|hollow|regularized")
+    p.add_argument("--Rrms", type=float, default=0.0, help="nuclear rms radius")
+    p.add_argument("--nelem0", type=int, default=0, help="nuclear sub-grid elements")
+    p.add_argument("--grid0", type=int, default=2)
+    p.add_argument("--zexp0", type=float, default=2.0)
+    # confinement (reference: main.cpp:138-143)
+    p.add_argument("--iconf", type=int, default=0,
+                   help="1 polynomial, 2 exponential, 3 barrier, 4 Junquera")
+    p.add_argument("--conf_N", type=int, default=0)
+    p.add_argument("--conf_R", type=float, default=0.0)
+    p.add_argument("--conf_barrier", type=float, default=0.0)
+    p.add_argument("--shift_conf", type=float, default=0.0)
+    p.add_argument("--add_conf", action="store_true",
+                   help="insert an element boundary at the confinement onset")
     p.add_argument("--device", default="cuda",
                    help="torch device: cuda runs the CUDA kernels, cpu their plain "
                         "PyTorch versions")
@@ -153,9 +173,14 @@ def main(argv=None):
         print(f"exported potential computed with {args.pot}")
 
     timer = Timer()
-    basis = SadAtomBasis(Z=Z, lmax=args.lmax, rmax=args.Rmax, nelem=args.nelem,
-                         nnodes=args.nnodes, primbas=args.primbas, nquad=args.nquad,
-                         igrid=args.grid, zexp=args.zexp)
+    basis = SadAtomBasis(
+        Z=Z, lmax=args.lmax, rmax=args.Rmax, nelem=args.nelem, nnodes=args.nnodes,
+        primbas=args.primbas, nquad=args.nquad, igrid=args.grid, zexp=args.zexp,
+        finitenuc=args.finitenuc, Rrms=args.Rrms, nelem0=args.nelem0, igrid0=args.grid0,
+        zexp0=args.zexp0, iconf=args.iconf, conf_N=args.conf_N, conf_R=args.conf_R,
+        conf_barrier=args.conf_barrier, shift_conf=args.shift_conf,
+        conf_boundary=args.shift_conf if (args.add_conf and args.iconf) else 0.0,
+        zeroder=args.zeroder)
     walls = {"basis": timer.lap("basis set formation")}
     ops = basis.build_ops(device)
     walls["operators"] = timer.lap("operator build")
@@ -246,10 +271,15 @@ def restricted_leg(args, basis, Z, nel, occs, funcs, pot_funcs, solver_kw, walls
     occstr = " ".join(f"{SHELLS[l]}^{n}" for l, n in enumerate(res.occs) if n)
     print(f"\nConfiguration: {occstr}")
     print_orbitals(basis, res.occs, res.orbE, res.orbs)
+    # the confinement sits in the nuclear slot: Econf = <P, Vconf> apart
+    Econf = 0.0 if basis.Vconf is None else float(np.sum(res.Pl.sum(axis=0) * basis.Vconf))
+    res.Econf = Econf
     print("Etot  = % 18.9f" % res.E)
     print("Ekin  = % 18.9f" % res.Ekin)
     print("Ecoul = % 18.9f" % res.Ecoul)
-    print("Eenuc = % 18.9f" % (res.E - res.Ekin - res.Ecoul - res.Exx - res.Exc))
+    print("Eenuc = % 18.9f" % (res.E - res.Ekin - res.Ecoul - res.Exx - res.Exc - Econf))
+    if basis.Vconf is not None:
+        print("Econf = % 18.9f" % Econf)
     print("Exc   = % 18.9f" % (res.Exx + res.Exc))
 
     Prad = res.Pl.sum(axis=0)

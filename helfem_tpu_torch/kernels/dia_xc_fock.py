@@ -124,40 +124,44 @@ def dia_xc_fock(wvr: torch.Tensor, wgu: torch.Tensor, wgv: torch.Tensor, g,
 
 
 def _fock_one(wvr, wgu, wgv, wvt, wvl, g, nrad):
-    """One spin, faithful to diatomic_dft.py:156-181 and :197-200 with
-    index_add_ over gidx; the tau factors are the grid's tfac (invh^2,
-    invh^2, invhphi2 on the diatomic grid), and the laplacian terms are
-    models/xc_grid.py's form with the grid's lfac: the tau terms with wvt +
-    4 wvl, the dB B terms with wgu + g2 wvl, and the d2B B and B B terms."""
+    """One spin, diatomic_dft.py:156-181 and :197-200 with index_add_ over
+    gidx; the angular weights of each product of element functions summed
+    first, then one two-operand einsum per product (B B, dB B, dB dB: no
+    contraction-path search per call); the tau factors are the grid's tfac
+    (invh^2, invh^2, invhphi2 on the diatomic grid), and the laplacian
+    terms are models/xc_grid.py's form with the grid's lfac: the tau terms
+    with wvt + 4 wvl, the dB B terms with wgu + g2 wvl, and the d2B B and
+    B B terms."""
     nang = g.TT.shape[0]
     n1 = nrad + 1
     gi = g.gidx.long()
     lin = (gi[:, :, None] * n1 + gi[:, None, :]).reshape(-1)
-    Fel = 0.0
+
+    def product(W, Bi, Bj):  # sum_q W[a,b,e,q] Bi[e,q,i] Bj[e,q,j]
+        return torch.einsum("abeqi,eqj->abeij", W[..., None] * Bi[None, None], Bj)
+
     if wvl is not None:
         l1, l2, l3, l4 = g.lfac
         wvt = wvt + 4.0 * wvl
         wgu = wgu + wvl * l2
-        L1 = torch.einsum("eqt,abt->abeq", wvl * l1, g.TT)
-        r2 = torch.einsum("abeq,eqi,eqj->abeij", L1, g.d2Bg, g.Bg)
-        L3 = (torch.einsum("eqt,abt->abeq", wvl * l3, g.LLTT)
-              + torch.einsum("eqt,abt->abeq", wvl * l4, g.TTmm))
-        Fel = (r2 + r2.transpose(0, 1).transpose(3, 4)
-               - torch.einsum("abeq,eqi,eqj->abeij", L3, g.Bg, g.Bg))
-    A1 = torch.einsum("eqt,abt->abeq", wvr, g.TT)
-    Fel = Fel + torch.einsum("abeq,eqi,eqj->abeij", A1, g.Bg, g.Bg)
-    B1 = torch.einsum("eqt,abt->abeq", wgu, g.TT)
-    rad = torch.einsum("abeq,eqi,eqj->abeij", B1, g.dBg, g.Bg)
-    Fel = Fel + rad + rad.transpose(0, 1).transpose(3, 4)
-    C1 = torch.einsum("eqt,abt->abeq", wgv, g.dTT)
-    Fel = Fel + torch.einsum("abeq,eqi,eqj->abeij", C1, g.Bg, g.Bg)
+    # the B_i B_j weights, then the dB_i B_j ones (with their transpose)
+    W = (torch.einsum("eqt,abt->abeq", wvr, g.TT)
+         + torch.einsum("eqt,abt->abeq", wgv, g.dTT))
     if wvt is not None:
         f1, f2, f3 = g.tfac
-        T1 = torch.einsum("eqt,abt->abeq", 0.5 * wvt * f1, g.TT)
-        Fel = Fel + torch.einsum("abeq,eqi,eqj->abeij", T1, g.dBg, g.dBg)
-        T2 = torch.einsum("eqt,abt->abeq", 0.5 * wvt * f2, g.dTT2)
-        T2 = T2 + torch.einsum("eqt,abt->abeq", 0.5 * wvt * f3, g.TTm2)
-        Fel = Fel + torch.einsum("abeq,eqi,eqj->abeij", T2, g.Bg, g.Bg)
+        W = W + (torch.einsum("eqt,abt->abeq", 0.5 * wvt * f2, g.dTT2)
+                 + torch.einsum("eqt,abt->abeq", 0.5 * wvt * f3, g.TTm2))
+    if wvl is not None:
+        W = W - (torch.einsum("eqt,abt->abeq", wvl * l3, g.LLTT)
+                 + torch.einsum("eqt,abt->abeq", wvl * l4, g.TTmm))
+    Fel = product(W, g.Bg, g.Bg)
+    rad = product(torch.einsum("eqt,abt->abeq", wgu, g.TT), g.dBg, g.Bg)
+    if wvl is not None:
+        rad = rad + product(torch.einsum("eqt,abt->abeq", wvl * l1, g.TT), g.d2Bg, g.Bg)
+    Fel = Fel + rad + rad.transpose(0, 1).transpose(3, 4)
+    if wvt is not None:
+        Fel = Fel + product(torch.einsum("eqt,abt->abeq", 0.5 * wvt * f1, g.TT), g.dBg,
+                            g.dBg)
     F4 = torch.zeros((nang, nang, n1 * n1), dtype=Fel.dtype, device=Fel.device)
     F4.index_add_(2, lin, Fel.reshape(nang, nang, -1))
     F4 = F4.reshape(nang, nang, n1, n1)[:, :, :nrad, :nrad]

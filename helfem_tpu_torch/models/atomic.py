@@ -18,8 +18,8 @@ ported from helfem_tpu/models/atomic.py.
   windows P4[a, d], a != d included (exchange_general and its erfc form).
 * The one-electron field, confinement, finite-nucleus and off-centre
   nucleus operators, and the grid variants of form_grid, on the host.
-
-zeroder and an explicit bval (checkpoint bases) are not ported.
+* zeroder drops the derivative DOF at rmax too (Hermite bases); an
+  explicit bval (a checkpoint's element boundaries) replaces form_grid.
 """
 
 import math
@@ -190,7 +190,10 @@ class AtomicBasis:
     (helfem_tpu's AtomicBasis). nelem0 > 0 adds the finite-nucleus sub-grid
     (with finitenuc/Rrms) or the off-centre sections (with Zl/Zr/Rmid);
     conf_boundary inserts an element boundary at the confinement onset
-    (ops/grids.py:form_grid; reference: src/atomic/basis.cpp:56-167)."""
+    (ops/grids.py:form_grid; reference: src/atomic/basis.cpp:56-167).
+    zeroder drops the derivative DOF at rmax too (Hermite bases; reference
+    --zeroder); bval, when given, are the element boundaries, and nelem and
+    rmax follow from them (helfem_tpu atomic.py:165-192)."""
 
     Z: int
     lmax: int
@@ -211,8 +214,6 @@ class AtomicBasis:
     Zr: int = 0
     Rmid: float = 0.0
     conf_boundary: float = 0.0
-    # helfem_tpu's derivative DOF dropped at rmax (Hermite bases) and its
-    # explicit element boundaries (checkpoint bases): not ported, they raise
     zeroder: bool = False
     bval: np.ndarray | None = None
 
@@ -221,18 +222,20 @@ class AtomicBasis:
     rb: RadialBasis = field(init=False)
 
     def __post_init__(self):
-        for name, inert in (("zeroder", False), ("bval", None)):
-            if getattr(self, name) is not inert:
-                raise NotImplementedError(f"AtomicBasis option {name} is not ported to "
-                                          "helfem_tpu_torch yet (see ROADMAP.md)")
         self.lval, self.mval = angular_basis(self.lmax, self.mmax)
         poly = get_basis(self.primbas, self.nnodes)
         if self.nquad == 0:
             self.nquad = 5 * self.nnodes
-        bval = form_grid(self.finitenuc, self.Rrms, self.nelem, self.rmax, self.igrid,
-                         self.zexp, self.nelem0, self.igrid0, self.zexp0, self.Z, self.Zl,
-                         self.Zr, self.Rmid, self.conf_boundary)
-        fem = FEMBasis(poly, bval, drop_first=True, drop_last=True)
+        if self.bval is not None:
+            bval = np.asarray(self.bval, dtype=float)
+            self.nelem = len(bval) - 1
+            self.rmax = float(bval[-1])
+        else:
+            bval = form_grid(self.finitenuc, self.Rrms, self.nelem, self.rmax, self.igrid,
+                             self.zexp, self.nelem0, self.igrid0, self.zexp0, self.Z, self.Zl,
+                             self.Zr, self.Rmid, self.conf_boundary)
+        fem = FEMBasis(poly, bval, drop_first=True, drop_last=True,
+                       drop_last_deriv=self.zeroder)
         self.rb = RadialBasis(fem, self.nquad)
 
     # --- sizes ---------------------------------------------------------------

@@ -27,8 +27,9 @@ masked (shell_mask).
   numpy; the SCF folds them into H0. Under Ez the g/u split of the
   symmetry blocks is dropped (build_operators(parity=False)).
 
-Not ported yet: explicit element boundaries (bval) and inverse-Cholesky
-whitening.
+build_operators(chol=True) whitens the symmetry blocks with the inverse
+Cholesky factor (--diag 0). Not ported yet: explicit element boundaries
+(bval, the checkpoint bases of ROADMAP queue 1 item 9).
 """
 
 from collections.abc import Mapping
@@ -494,9 +495,11 @@ class DiatomicBasis:
         return teiJ3, dP0, dP2, dQ0, dQ2
 
     # --- device constants ----------------------------------------------------------------
-    def host_operators(self, parity: bool = True) -> dict[str, np.ndarray]:
+    def host_operators(self, parity: bool = True, chol: bool = False) -> dict[str, np.ndarray]:
         """The DiatomicOperators fields as numpy arrays, computed as
-        helfem_tpu's DiatomicBasis.build_operators computes them."""
+        helfem_tpu's DiatomicBasis.build_operators computes them; chol=True
+        whitens each symmetry block with the inverse Cholesky factor
+        (reference --diag 0)."""
         nang = self.nang
         nLM = len(self.LM_map)
         GmLM = np.zeros((nLM, nang, nang))
@@ -537,7 +540,7 @@ class DiatomicBasis:
                    for (L, Ma), h in zip(self.lm_map, has_m)]
 
         S = self.overlap()
-        blk_idx, blk_sinvh = build_blocks(S, self.sym_blocks(parity))
+        blk_idx, blk_sinvh = build_blocks(S, self.sym_blocks(parity), chol=chol)
         T = self.kinetic()
         V = self.nuclear()
         mask = self.shell_mask()
@@ -555,8 +558,8 @@ class DiatomicBasis:
             blk_idx=blk_idx, blk_sinvh=blk_sinvh,
         )
 
-    def build_operators(self, device, parity: bool = True) -> DiatomicOperators:
-        return _operators(self.host_operators(parity), device)
+    def build_operators(self, device, parity: bool = True, chol: bool = False) -> DiatomicOperators:
+        return _operators(self.host_operators(parity, chol), device)
 
 
 # --------------------------------------------------------------------------------

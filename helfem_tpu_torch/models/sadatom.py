@@ -33,10 +33,10 @@ DIIS) the SCF runs as steps over device tensors, with the level shift
 switched off on the device once the DIIS error drops below 1e-3, and one
 boolean per iteration back to the host.
 
-Not ported (they raise NotImplementedError): finite nuclei, confinement,
-the nuclear sub-grid and --zeroder (ROADMAP queue 1 item 8), and the
-multiplicative potential of a meta-GGA (_mult_vxc_radial, as in
-helfem_tpu). The laplacian-level BR89 raises SadLaplacianError (a
+SadAtomBasis takes helfem_tpu's finite nuclei with their sub-grid, the
+confinement (folded into the nuclear slot) and --zeroder. Not ported (it
+raises NotImplementedError): the multiplicative potential of a meta-GGA
+(_mult_vxc_radial, as in helfem_tpu). The laplacian-level BR89 raises SadLaplacianError (a
 ValueError): helfem_tpu's SAD atom has no laplacian path. diisthr is taken
 and handed to the DIIS, where it is inert, as in helfem_tpu: its blend
 needs the ADIIS weights, which the SAD solvers switch off.
@@ -50,7 +50,13 @@ import numpy as np
 import torch
 
 from helfem_tpu_torch.kernels import radial_exchange
-from helfem_tpu_torch.models.atomic import AtomicOperators, coulomb, from_jax_operators
+from helfem_tpu_torch.models.atomic import (
+    AtomicOperators,
+    confinement_Vr,
+    coulomb,
+    from_jax_operators,
+    nuclear_model_V,
+)
 from helfem_tpu_torch.kernels import dia_xc_fields, dia_xc_fock
 from helfem_tpu_torch.models.atomic_dft import AtomGridOps, eval_fxc, tau_factors
 from helfem_tpu_torch.models.xc_grid import build_grid
@@ -71,9 +77,6 @@ __all__ = ["SadAtomBasis", "SadLaplacianError", "SadOps", "SadResult", "from_jax
            "sad_coulomb", "sad_method",
            "sad_exchange", "sad_xc", "search_sadatom_unrestricted", "solve_sadatom",
            "solve_sadatom_unrestricted", "sap_potential_table", "totcoup_table"]
-
-_ITEM8 = "is not ported to helfem_tpu_torch yet (ROADMAP.md queue 1 item 8)"
-
 
 class SadLaplacianError(ValueError):
     """A laplacian-level functional (family mggal, BR89) asked of the
@@ -194,6 +197,14 @@ def from_jax_sad_ops(arrays: Mapping, device) -> SadOps:
 
 @dataclass
 class SadAtomBasis:
+    """The radial basis of the spherically averaged atom (helfem_tpu's
+    SadAtomBasis, sadatom.py:79-150): finitenuc/Rrms the nuclear charge
+    model, nelem0/igrid0/zexp0 its sub-grid (reference gensap --finitenuc
+    --Rrms --nelem0 --grid0 --zexp0); iconf with conf_N, conf_R,
+    conf_barrier and shift_conf the confinement (--iconf family), folded
+    into the nuclear slot (Vconf keeps it, for Econf); conf_boundary an
+    element boundary; zeroder drops the derivative DOF at rmax too."""
+
     Z: int
     lmax: int = 3
     rmax: float = 40.0
@@ -203,27 +214,36 @@ class SadAtomBasis:
     igrid: int = 4
     zexp: float = 2.0
     primbas: int = 4
-    # helfem_tpu's finite nuclei, nuclear sub-grid, confinement and
-    # --zeroder: only their inert defaults are accepted
     finitenuc: str = "point"
+    Rrms: float = 0.0
     nelem0: int = 0
+    igrid0: int = 2
+    zexp0: float = 2.0
     iconf: int = 0
+    conf_N: int = 0
+    conf_R: float = 0.0
+    conf_barrier: float = 0.0
+    shift_conf: float = 0.0
+    conf_boundary: float = 0.0
     zeroder: bool = False
 
     rb: RadialBasis = field(init=False)
+    Vconf: np.ndarray | None = field(init=False)
 
     def __post_init__(self):
-        for name, value, default in (("finitenuc", self.finitenuc, "point"),
-                                     ("nelem0", self.nelem0, 0), ("iconf", self.iconf, 0),
-                                     ("zeroder", self.zeroder, False)):
-            if value != default:
-                raise NotImplementedError(f"SadAtomBasis {name}={value!r} {_ITEM8}")
         poly = get_basis(self.primbas, self.nnodes)
         if self.nquad == 0:
             self.nquad = 5 * self.nnodes
-        bval = form_grid("point", 0.0, self.nelem, self.rmax, self.igrid, self.zexp,
-                         0, 2, 2.0, self.Z, 0, 0, 0.0, 0.0)
-        self.rb = RadialBasis(FEMBasis(poly, bval), self.nquad)
+        bval = form_grid(self.finitenuc, self.Rrms, self.nelem, self.rmax, self.igrid, self.zexp,
+                         self.nelem0, self.igrid0, self.zexp0, self.Z, 0, 0, 0.0,
+                         self.conf_boundary)
+        self.rb = RadialBasis(FEMBasis(poly, bval, drop_last_deriv=self.zeroder), self.nquad)
+        self.Vconf = None
+        if self.iconf:
+            N = self.conf_N if self.iconf != 3 else self.conf_barrier
+            self.Vconf = self.rb.model_potential(
+                confinement_Vr(self.rb.r, self.rmax, N, self.conf_R, self.iconf,
+                               self.shift_conf))
 
     @property
     def nrad(self) -> int:
@@ -242,7 +262,14 @@ class SadAtomBasis:
         G = np.zeros((NL, 1, 1, 1))
         G[0, 0, 0, 0] = 1.0 / np.sqrt(4.0 * np.pi)
         T = rb.kinetic()
-        Vnuc = self.Z * rb.nuclear()
+        if self.finitenuc == "point":
+            Vnuc = self.Z * rb.nuclear()
+        else:
+            Vnuc = rb.model_potential(nuclear_model_V(self.finitenuc, self.Z, self.Rrms)(rb.r))
+        if self.Vconf is not None:
+            # folded into the nuclear slot: the Fock build and the total
+            # energy take it; the CLI prints Econf = <P, Vconf> apart
+            Vnuc = Vnuc + self.Vconf
         S = rb.overlap()
         at = dict(gidx=rb.fem.gidx, G=G, Lfac=4.0 * np.pi / (2.0 * np.arange(NL) + 1.0),
                   tei=rb.twoe_integral(NL - 1), disjL=disjL, disjm1L=disjm1L, S=S,
@@ -269,7 +296,7 @@ def sad_exchange(ops: SadOps, Pang: torch.Tensor) -> torch.Tensor:
     KK = radial_exchange(at.tei, at.disjL, at.disjm1L, at.gidx,
                          Pang.reshape(-1, *Pang.shape[-2:]).contiguous())
     KK = KK.reshape(KK.shape[0], *Pang.shape)
-    return -torch.einsum("L,Lok,L...kIJ->...oIJ", at.Lfac, ops.totcoup, KK)
+    return -torch.einsum("Lok,L...kIJ->...oIJ", at.Lfac[:, None, None] * ops.totcoup, KK)
 
 
 def sad_coulomb(ops: SadOps, Pr: torch.Tensor) -> torch.Tensor:
@@ -403,7 +430,7 @@ def occ_weight_vectors(occs: np.ndarray, nl: int, nmo: int, restricted: bool = T
 def eig_channels(Fl: torch.Tensor, Sinvh: torch.Tensor):
     """Batched whitened eigensolve of the channel Fock cube [nl, nrad, nrad]:
     (E [nl, nrad] ascending, C [nl, nrad, nrad])."""
-    Forth = torch.einsum("pi,lpq,qj->lij", Sinvh, Fl, Sinvh)
+    Forth = Sinvh.T @ Fl @ Sinvh
     E, V = eigh_refined(Forth)
     return E, torch.einsum("pi,lij->lpj", Sinvh, V)
 
@@ -425,8 +452,8 @@ def shifted_fock(Fl: np.ndarray, C_prev: np.ndarray, occs, S: np.ndarray, shift:
 
 def _channel_error(Fl, Pl, S, Sinvh):
     """DIIS error Sinvh^T (F P S - its transpose) Sinvh of every channel."""
-    FPS = torch.einsum("lpq,lqr,rs->lps", Fl, Pl, S)
-    return torch.einsum("pi,lpq,qj->lij", Sinvh, FPS - FPS.transpose(1, 2), Sinvh).reshape(-1)
+    FPS = Fl @ Pl @ S
+    return (Sinvh.T @ (FPS - FPS.transpose(1, 2)) @ Sinvh).reshape(-1)
 
 
 def make_sad_step(funcs, kfrac: float, nl: int, dftthr: float = 1e-12, shift: float = 1.0):
@@ -444,8 +471,8 @@ def make_sad_step(funcs, kfrac: float, nl: int, dftthr: float = 1e-12, shift: fl
     def step(ops: SadOps, occw, angw, C, histF, histE, count):
         S, Sinvh = ops.at.S, ops.at.Sinvh_rad
         restricted = len(C) == 1
-        Pl = [torch.einsum("lpk,lk,lqk->lpq", c, w, c) for c, w in zip(C, occw)]
-        Pang = [torch.einsum("lpk,lk,lqk->lpq", c, w, c) for c, w in zip(C, angw)]
+        Pl = [(c * w[:, None, :]) @ c.mT for c, w in zip(C, occw)]
+        Pang = [(c * w[:, None, :]) @ c.mT for c, w in zip(C, angw)]
         if restricted:
             Pl = [Pl[0] / 2.0]
         Fla, Flb, Ekin, Enuc, Ecoul, Exx, Exc, Nel = fock(ops, Pl[0], Pl[-1], Pang[0],
@@ -522,6 +549,7 @@ class SadResult:
     niter: int = 0  # SCF iterations of the reported configuration
     nfock: int = 0  # Fock builds over every configuration solved
     walls: dict = field(default_factory=dict)  # phase -> seconds (CLI)
+    Econf: float = 0.0  # <P, Vconf>, inside Enuc's slot (the gensap CLI's)
 
 
 # ----------------------------------------------------------------------------
@@ -1101,9 +1129,13 @@ def _mult_vxc_radial(funcs, na, nb, dna, dnb, lna, lnb, r, thr: float = 1e-12):
     jax.jvp through xc_eval). The inputs are substituted as ops/xc.py:xc_eval
     substitutes them (masked points by 1, spin densities floored at thr,
     same-spin sigmas at 0), inside the differentiated function. LDA
-    functionals give zero v_sigma; meta-GGAs raise."""
+    functionals give zero v_sigma, and HF (no functional) zero potentials;
+    meta-GGAs raise."""
     if any(f.family not in ("lda", "gga") for f in funcs):
         raise NotImplementedError("multiplicative xc potential: LDA/GGA only")
+    if not funcs:
+        zero = np.zeros(np.shape(na))
+        return zero, zero.copy()
     t = {k: torch.as_tensor(np.asarray(v), dtype=torch.float64)
          for k, v in dict(na=na, nb=nb, dna=dna, dnb=dnb, lna=lna, lnb=lnb, r=r).items()}
     na, nb, dna, dnb, r = t["na"], t["nb"], t["dna"], t["dnb"], t["r"]

@@ -3,8 +3,8 @@
 Carried over from helfem_tpu/ops/radial.py (numpy/longdouble host setup):
 the one-electron matrices, the disjoint moments and the numpy path of the
 in-element TEI tensor, and the Yukawa and erfc tables of the
-range-separated exchange. Not ported yet: the origin values used by the
-post-SCF analysis, and the opt-in native C++ TEI builder.
+range-separated exchange, and the origin values of the post-SCF
+analysis. Not ported: the opt-in native C++ TEI builder.
 
 Redesign of atomic::basis::RadialBasis (libhelfem/src/RadialBasis.cpp,
 include/RadialBasis.h):
@@ -128,6 +128,22 @@ class RadialBasis:
         the 'disjoint' factors of cross-element TEIs
         (reference: RadialBasis::radial_integral(L, iel))."""
         return self._elmat(self.b, self.b, f=self.r ** (n + 2))
+
+    # --- nuclear values --------------------------------------------------------
+    def bf_at_origin(self) -> np.ndarray:
+        """b_i(0) = B_i'(0) of the first element's functions, global [nbf]
+        (helfem_tpu radial.py:125-130)."""
+        g = self.fem.eval_element_div(0, np.array([-1.0]), -1.0, 0)[0, 0]
+        vals = np.zeros((self.fem.nelem, self.fem.nprim))
+        vals[0] = g / (0.5 * self.fem.lengths[0])
+        return self.fem.assemble_vec(vals)
+
+    def dbf_at_origin(self) -> np.ndarray:
+        """b_i'(0), global [nbf], for the cusp (helfem_tpu radial.py:132-138)."""
+        g = self.fem.eval_element_div(0, np.array([-1.0]), -1.0, 1)[1, 0]
+        vals = np.zeros((self.fem.nelem, self.fem.nprim))
+        vals[0] = g / (0.5 * self.fem.lengths[0])
+        return self.fem.assemble_vec(vals)
 
     # --- two-electron integrals --------------------------------------------------
     def twoe_integral(self, Lmax: int) -> np.ndarray:

@@ -24,15 +24,22 @@ same-m ones). The DIIS side works in block coordinates in both: the Fock
 matrices of symmetry 0 and 1 are block-diagonal over their blocks, as
 those of symmetry 2 are.
 
-ROHF and Fock damping (dampfock/dampthr, the occupied-virtual MO blocks
-scaled while the DIIS error is at least dampthr) stay on the host loop
-(their Fock updates are host numpy every iteration), as in helfem_tpu;
-diisthr blends the host DIIS's C2-DIIS and ADIIS weights between diisthr
-and diiseps. helfem_tpu's lax.while_loop chunk becomes a
-Python loop over tensors that stay on the device; one boolean per iteration
-comes back to stop the chunk. Every other scf_atom option (--ndev,
---eigiter, m-averaging, enforced occupations, warm starts, ...)
-raises NotImplementedError: nothing falls back silently.
+ROHF, Fock damping (dampfock/dampthr, the occupied-virtual MO blocks
+scaled while the DIIS error is at least dampthr), the Fock m-average
+(maverage) and the iterative eigensolve (eigiter: host ARPACK per block)
+stay on the host loop (their Fock updates or eigensolves are host work
+every iteration), as in helfem_tpu; diisthr blends the host DIIS's C2-DIIS
+and ADIIS weights between diisthr and diiseps. diag=False whitens the
+blocks with the inverse Cholesky factor. The guess can be a warm-start
+density (P0a/P0b: one Fock of it, on the channel-pair windows when it has
+cross-channel blocks, then the blocked eigensolve), perturbed by a random
+rotation (perturb/seed), and the occupations can be fixed per (l,m) block
+(occs). helfem_tpu's lax.while_loop chunk becomes a Python loop over
+tensors that stay on the device; one boolean per iteration comes back to
+stop the chunk. --ndev and the checkpoint hook (save_cb) raise
+NotImplementedError: nothing falls back silently. atomic_analysis is the
+post-SCF analysis (<r^n>, the density at the nucleus and the cusp, the
+multipoles).
 """
 
 from dataclasses import dataclass, field
@@ -67,6 +74,7 @@ from helfem_tpu_torch.scf.common import (
     diis_error_blocks,
     full_sinvh,
     reject_unported,
+    symmetric_sinvh,
     vdot,
 )
 from helfem_tpu_torch.scf.diis import DIIS, device_diis_step
@@ -77,14 +85,16 @@ from helfem_tpu_torch.utils.linalg import (
     density_blocks,
     eig_blocks,
     eig_blocks_b,
+    eig_blocks_iter,
     form_sh,
     gather_blocks,
+    perturbation_matrix,
     rohf_update,
     scatter_blocks,
 )
 
-__all__ = ["scf_atom", "SCFResult", "aufbau_blocks", "extra_operators", "make_fock",
-           "rs_operators"]
+__all__ = ["scf_atom", "SCFResult", "atomic_analysis", "aufbau_blocks", "extra_operators",
+           "make_fock", "rs_operators"]
 
 
 @dataclass
@@ -111,12 +121,53 @@ class SCFResult:
     orbE_blocks_b: np.ndarray | None = None
     symm_used: int | None = None
     walls: dict = field(default_factory=dict)  # phase -> seconds (CLI)
+    analysis: dict = field(default_factory=dict)  # the CLI's atomic_analysis
 
 
 def _diis_error(F, P, S, Sinvh):
     FPS = F @ P @ S
     e = Sinvh.T @ (FPS - FPS.T) @ Sinvh
     return e.reshape(-1)
+
+
+def _fock_m_average(F: np.ndarray, basis: AtomicBasis) -> np.ndarray:
+    """F (host numpy) with its diagonal (l,m) radial blocks averaged over m
+    for each l (helfem_tpu atomic_scf.py:413-428; reference:
+    scf::fock_symmetry_average, src/general/scf_helpers.cpp:264, the
+    --maverage option)."""
+    F = np.array(F)
+    nrad = basis.nrad
+    for l in np.unique(basis.lval):
+        shells = np.nonzero(basis.lval == l)[0]
+        if len(shells) < 2:
+            continue
+        mean = sum(F[a * nrad:(a + 1) * nrad, a * nrad:(a + 1) * nrad]
+                   for a in shells) / len(shells)
+        for a in shells:
+            F[a * nrad:(a + 1) * nrad, a * nrad:(a + 1) * nrad] = mean
+    return F
+
+
+def _channel_bd(P: np.ndarray, nang: int, nrad: int) -> bool:
+    """Is P block-diagonal over the angular channels (helfem_tpu
+    atomic_scf.py:577-582)?"""
+    P4 = np.asarray(P).reshape(nang, nrad, nang, nrad)
+    off = P4.copy()
+    off[np.arange(nang), :, np.arange(nang), :] = 0.0
+    return float(np.abs(off).max()) <= 1e-12 * max(float(np.abs(P4).max()), 1.0)
+
+
+def fixed_occupations(basis: AtomicBasis, occs: dict, nblk: int, blen: int) -> np.ndarray:
+    """[2, nblk, blen] alpha and beta occupations of the (l,m) blocks from
+    {(l, m): (na, nb)}: the lowest na (nb) orbitals of each named block
+    filled (helfem_tpu atomic_scf.py:628-640; the reference's readocc)."""
+    occ = np.zeros((2, nblk, blen))
+    for a in range(basis.nang):
+        key = (int(basis.lval[a]), int(basis.mval[a]))
+        if key in occs:
+            for spin, nocc in enumerate(occs[key]):
+                occ[spin, a, :int(nocc)] = 1.0
+    return occ
 
 
 def _damp_fock_mo(F, C_blocks, occ, blk_idx, S, factor: float) -> np.ndarray:
@@ -217,7 +268,7 @@ def make_fused_step(fock):
 
     def step(ops, g, Vextra, blk_idx, blk_sinvh, Sb, occ, C, histF, histE, count):
         nbf = ops.S.shape[0]
-        Pab = torch.einsum("bpk,bk,bqk->bpq", C, occ, C)
+        Pab = (C * occ[:, None, :]) @ C.mT
         Pa = scatter_blocks(Pab, blk_idx, nbf)
         Fa, _, Ekin, Enuc, Ecoul, Exx, Exc, Nel, Efield = fock(ops, g, Vextra, Pa, Pa)
         Etot = Ekin + Enuc + Ecoul + Exx + Exc + Efield
@@ -284,8 +335,8 @@ def make_fused_chunk_u(fock):
         Ep = torch.tensor(Eprev, dtype=torch.float64, device=Ca.device)
         out = []
         for _ in range(nrun):
-            Pab = torch.einsum("bpk,bk,bqk->bpq", Ca, occa, Ca)
-            Pbb = torch.einsum("bpk,bk,bqk->bpq", Cb, occb, Cb)
+            Pab = (Ca * occa[:, None, :]) @ Ca.mT
+            Pbb = (Cb * occb[:, None, :]) @ Cb.mT
             Pa = scatter_blocks(Pab, blk_idx, nbf)
             Pb = scatter_blocks(Pbb, blk_idx, nbf)
             Fa, Fb, Ekin, Enuc, Ecoul, Exx, Exc, Nel, Efield = fock(ops, g, Vextra, Pa, Pb)
@@ -313,10 +364,7 @@ def make_fused_chunk_u(fock):
 
 # scf_atom options of helfem_tpu that the port does not cover, with the
 # default values under which they are inert
-_UNPORTED = {
-    "occs": None, "perturb": 0.0, "seed": 0, "P0a": None, "P0b": None,
-    "save_cb": None, "maverage": False, "diag": True, "eigiter": 0, "ndev": 0,
-}
+_UNPORTED = {"save_cb": None, "ndev": 0}
 
 
 def rs_operators(basis: AtomicBasis, spec: MethodSpec, device):
@@ -400,6 +448,14 @@ def scf_atom(
     dampfock: float = 1.0,
     dampthr: float = 0.5,
     diisthr: float | None = None,
+    occs: dict | None = None,
+    perturb: float = 0.0,
+    seed: int = 0,
+    P0a: np.ndarray | None = None,
+    P0b: np.ndarray | None = None,
+    maverage: bool = False,
+    diag: bool = True,
+    eigiter: int = 0,
     **unported,
 ) -> SCFResult:
     """Restricted, unrestricted or ROHF SCF of HF, the ported LDA, GGA and
@@ -423,7 +479,21 @@ def scf_atom(
     extrapolated Fock by dampfock while the DIIS error is at least dampthr,
     and keeps every iteration on the host loop (helfem_tpu
     atomic_scf.py:692, :871-878); diisthr (not None) blends the host DIIS's
-    C2-DIIS and ADIIS weights between diisthr and diiseps (scf/diis.py)."""
+    C2-DIIS and ADIIS weights between diisthr and diiseps (scf/diis.py).
+
+    P0a/P0b (host [nbf, nbf]; P0b None: the same for beta) start from the
+    blocked eigensolve of the Fock of that density instead of the model
+    potential; a density with cross-channel blocks takes the exchange on
+    all channel-pair windows for that one Fock under (l,m) blocks.
+    perturb rotates the alpha guess orbitals by perturbation_matrix(seed),
+    and an unrestricted run's beta ones (of the unperturbed guess) by its
+    own rotation (seed + 1). occs {(l, m): (na, nb)} fixes the occupations
+    of the (l,m) blocks (symmetry 2 only, else ValueError). maverage
+    averages the Fock's (l,m) blocks over m every iteration; eigiter > 0
+    solves each block for its lowest eigiter pairs by shift-invert ARPACK
+    (sigma = -0.6 Z^2 - 10) on the host; both keep every iteration on the
+    host loop (helfem_tpu atomic_scf.py:692). diag=False whitens with the
+    inverse Cholesky factor (reference --diag 0)."""
     reject_unported(unported, _UNPORTED, "scf_atom")
     spec = parse_method_rs(method)  # raises for the functionals the port lacks
     funcs = spec.funcs
@@ -456,7 +526,7 @@ def scf_atom(
     restricted = ((nela == nelb and Bz == 0.0) if restricted == -1
                   else (restricted == 1 and not rohf and Bz == 0.0))
     S_np = ops.S.cpu().numpy()
-    blk_idx_np, blk_sinvh_np = build_blocks(S_np, basis.sym_blocks(symm))
+    blk_idx_np, blk_sinvh_np = build_blocks(S_np, basis.sym_blocks(symm), chol=not diag)
     blk_idx = torch.as_tensor(blk_idx_np, device=device)
     blk_sinvh = torch.as_tensor(blk_sinvh_np, device=device)
     # (l,m) blocks keep every density channel-block-diagonal: the exchange
@@ -466,20 +536,58 @@ def scf_atom(
     fock = make_fock(funcs, kfrac, nrad, dftthr, restricted=restricted, kshort=kshort,
                      kernel=kernel, rs=rs, Bz=Bz, pairs=pairs)
 
-    # guess: model-potential Hamiltonian with the extras, the same orbitals
-    # for both spins
-    Hg = basis.kinetic() + basis.model_potential(potential(guess, basis.Z, device=device))
-    if Vextra_np is not None:
-        Hg = Hg + Vextra_np
-    Ea, Ca = eig_blocks(as_dev(Hg), blk_idx, blk_sinvh)
+    # guess: the Fock of a warm-start density, or the model-potential
+    # Hamiltonian with the extras (the same orbitals for both spins)
+    Cb_w = None
+    if P0a is not None:
+        P0b_ = P0a if P0b is None else P0b
+        gpairs = pairs
+        if pairs is None and not (_channel_bd(P0a, basis.nang, nrad)
+                                  and _channel_bd(P0b_, basis.nang, nrad)):
+            # a lower-symmetry density: its cross-channel blocks would be
+            # dropped by the channel-diagonal exchange
+            gpairs = channel_pairs(basis.mval, 0)
+        fg = make_fock(funcs, kfrac, nrad, dftthr, restricted=P0b is None, kshort=kshort,
+                       kernel=kernel, rs=rs, Bz=Bz, pairs=gpairs)
+        Pg_a = as_dev(P0a)
+        Fg_a, Fg_b, *_ = fg(ops, g, Vextra, Pg_a, Pg_a if P0b is None else as_dev(P0b))
+        Ea, Ca = eig_blocks(Fg_a, blk_idx, blk_sinvh)
+        if P0b is not None:
+            Eb_w, Cb_w = eig_blocks(Fg_b, blk_idx, blk_sinvh)
+    else:
+        Hg = basis.kinetic() + basis.model_potential(potential(guess, basis.Z, device=device))
+        if Vextra_np is not None:
+            Hg = Hg + Vextra_np
+        Ea, Ca = eig_blocks(as_dev(Hg), blk_idx, blk_sinvh)
     Ea = Ea.cpu().numpy()
-    Eb, Cb = Ea.copy(), Ca
+    Ca_unpert = Ca
+    if perturb:
+        Ca = torch.einsum("bpk,kq->bpq", Ca,
+                          as_dev(perturbation_matrix(Ca.shape[-1], perturb, seed)))
+    if Cb_w is not None:
+        Eb, Cb = Eb_w.cpu().numpy(), Cb_w
+    else:
+        Eb, Cb = Ea.copy(), Ca
+        if perturb and not restricted:
+            # an independent beta rotation of the unperturbed guess, so that
+            # a symmetric guess can break spin symmetry
+            Cb = torch.einsum("bpk,kq->bpq", Ca_unpert,
+                              as_dev(perturbation_matrix(Ca.shape[-1], perturb, seed + 1)))
+    occ_fix = None
+    if occs is not None:
+        if symm != 2:
+            raise ValueError("fixed occupations need (l,m) symmetry blocks")
+        occ_fix = fixed_occupations(basis, occs, *blk_idx_np.shape)
 
     Sinvh_np = full_sinvh(blk_idx_np, blk_sinvh_np, basis.nbf)
     Sinvh_dev = as_dev(Sinvh_np)
     diis = DIIS(S_np, Sinvh_np, max_hist=diisorder, diis_eps=diiseps, diis_thr=diisthr,
                 blocks=(blk_idx_np, blk_sinvh_np))
     Sh_np = form_sh(S_np) if rohf else None
+    # the natural orbitals of rohf_update take the symmetric inverse square
+    # root under --diag 0 too (helfem_tpu passes its Cholesky factor there,
+    # and its ROHF then settles 2.7e-5 Eh higher for O at lmax 1)
+    Sinvh_rohf = symmetric_sinvh(S_np, blk_idx_np) if rohf else None
     Emag = -0.5 * Bz * (nela - nelb)
 
     Eold = 0.0
@@ -490,9 +598,9 @@ def scf_atom(
     # fused device chunks engage after TWO host iterations; they are
     # load-bearing (helfem_tpu atomic_scf.py:684-697): the host DIIS handles
     # the large-error regime that the chunks' pure C2-DIIS cannot. ROHF's
-    # Fock update and the MO-basis damping are host work every iteration,
-    # so they stay on the host.
-    warmup = maxit if rohf or dampfock != 1.0 else 2
+    # Fock update, the m-average, the MO-basis damping and the iterative
+    # eigensolve are host work every iteration, so they stay on the host.
+    warmup = maxit if rohf or maverage or dampfock != 1.0 or eigiter > 0 else 2
     chunk_len = 4  # chunk schedule 4, 8, 16
     CH = 16
     nhist = 10
@@ -500,8 +608,12 @@ def scf_atom(
     it = 0
     while it < maxit:
         it += 1
-        occa = aufbau_blocks(Ea, nela)
-        occb = occa if restricted else aufbau_blocks(Eb, nelb)
+        if occ_fix is not None:
+            occa = occ_fix[0]
+            occb = occa if restricted else occ_fix[1]
+        else:
+            occa = aufbau_blocks(Ea, nela)
+            occb = occa if restricted else aufbau_blocks(Eb, nelb)
 
         if it > warmup:
             nblk, blen = blk_idx_np.shape
@@ -561,6 +673,9 @@ def scf_atom(
         Nel = float(Nel)
         dE = Etot - Eold
         Eold = Etot
+        if maverage:
+            Fa = as_dev(_fock_m_average(Fa.cpu().numpy(), basis))
+            Fb = Fa if restricted else as_dev(_fock_m_average(Fb.cpu().numpy(), basis))
         if restricted:
             ev = _diis_error(Fa, Pa, ops.S, Sinvh_dev)
             err = diis.update_with_error([Fa.cpu().numpy()], ev.cpu().numpy())
@@ -569,7 +684,7 @@ def scf_atom(
         else:
             Fa, Fb, Pa, Pb = (x.cpu().numpy() for x in (Fa, Fb, Pa, Pb))
             if rohf:
-                Fa, Fb = rohf_update(Fa, Fb, Pa + Pb, Sh_np, Sinvh_np, nela, nelb)
+                Fa, Fb = rohf_update(Fa, Fb, Pa + Pb, Sh_np, Sinvh_rohf, nela, nelb)
             err = diis.update([Fa, Fb], [Pa, Pb])
             Fa_, Fb_ = diis.solve()
         if dampfock != 1.0 and err >= dampthr:
@@ -583,6 +698,18 @@ def scf_atom(
         if err < convthr and abs(dE) < convthr and it > 1:
             converged = True
             break
+        if eigiter > 0:
+            # the lowest eigiter pairs of each block by shift-invert ARPACK
+            # (reference: scf::eig_iter); orbital energies lie above -Z^2/2
+            sigma = -0.6 * basis.Z**2 - 10.0
+            Ea, Ca = eig_blocks_iter(Fa_, blk_idx_np, blk_sinvh_np, eigiter, sigma)
+            Ca = as_dev(Ca)
+            if restricted:
+                Eb, Cb = Ea, Ca
+            else:
+                Eb, Cb = eig_blocks_iter(Fb_, blk_idx_np, blk_sinvh_np, eigiter, sigma)
+                Cb = as_dev(Cb)
+            continue
         Ea, Ca = eig_blocks(as_dev(Fa_), blk_idx, blk_sinvh)
         Ea = Ea.cpu().numpy()
         if restricted:
@@ -627,3 +754,44 @@ def scf_atom(
         orbE_blocks_b=None if restricted else Eb,
         symm_used=symm,
     )
+
+
+def atomic_analysis(basis: AtomicBasis, res: SCFResult, symm: int = 2) -> dict:
+    """Post-SCF analysis (helfem_tpu atomic_scf.py:952-990; reference:
+    src/atomic/main.cpp:1000-1059), host numpy on the result's block
+    orbitals over the blocks of symmetry `symm` (the run's, res.symm_used):
+    <r^n> for n = -1, 1, 2, 3; the density n(0) and its gradient n'(0) at
+    the nucleus (s shells alone reach it) and the cusp -n'(0)/(2 Z n(0));
+    the dipole -<z> and the quadrupole -<(3 z^2 - r^2)/2>; the virial
+    ratio -E/T."""
+    blk_idx = build_blocks(basis.overlap(), basis.sym_blocks(symm))[0]
+    nbf = basis.nbf
+
+    def full_P(C, occ):
+        P = np.zeros((nbf + 1, nbf + 1))
+        Pb = np.einsum("bpk,bk,bqk->bpq", np.asarray(C), occ, np.asarray(C))
+        for b in range(blk_idx.shape[0]):
+            P[np.ix_(blk_idx[b], blk_idx[b])] += Pb[b]
+        return P[:nbf, :nbf]
+
+    Pa = full_P(res.orbs_a, res.occ_a)
+    P = Pa + (full_P(res.orbs_b, res.occ_b) if res.orbs_b is not None else Pa)
+    out = {}
+    for n in (-1, 1, 2, 3):
+        out[f"<r^{n}>"] = float(np.vdot(P, np.kron(np.eye(basis.nang),
+                                                   basis.rb.radial_integral(n))))
+    B0, dB0 = np.zeros(nbf), np.zeros(nbf)
+    nrad = basis.nrad
+    for a in np.nonzero((basis.lval == 0) & (basis.mval == 0))[0]:
+        B0[a * nrad:(a + 1) * nrad] = basis.rb.bf_at_origin()
+        dB0[a * nrad:(a + 1) * nrad] = basis.rb.dbf_at_origin()
+    y00sq = 1.0 / (4.0 * np.pi)
+    n0 = float(B0 @ P @ B0) * y00sq
+    dn0 = 2.0 * float(dB0 @ P @ B0) * y00sq
+    out["density_at_nucleus"] = n0
+    out["density_gradient_at_nucleus"] = dn0
+    out["cusp"] = -dn0 / (2.0 * basis.Z * n0) if n0 > 0 and basis.Z else 0.0
+    out["dipole_z"] = -float(np.vdot(P, basis.dipole_z()))
+    out["quadrupole_zz"] = -float(np.vdot(P, basis.quadrupole_zz()))
+    out["virial_ratio"] = -res.E / res.Ekin if res.Ekin else 0.0
+    return out

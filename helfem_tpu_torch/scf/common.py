@@ -5,9 +5,10 @@ whitening from its blocks, and the rejection of unported options."""
 import numpy as np
 import torch
 
-from helfem_tpu_torch.utils.linalg import _BIG
+from helfem_tpu_torch.utils.linalg import _BIG, build_blocks
 
-__all__ = ["aufbau_blocks", "diis_error_blocks", "full_sinvh", "reject_unported", "vdot"]
+__all__ = ["aufbau_blocks", "diis_error_blocks", "full_sinvh", "occ_fixed_blocks",
+           "reject_unported", "symmetric_sinvh", "vdot"]
 
 
 def aufbau_blocks(E: np.ndarray, nel: float) -> np.ndarray:
@@ -39,6 +40,16 @@ def aufbau_blocks(E: np.ndarray, nel: float) -> np.ndarray:
     return occ.reshape(nblk, blen)
 
 
+def occ_fixed_blocks(E: np.ndarray, nocc) -> np.ndarray:
+    """Occupations with a FIXED electron count per symmetry block (the
+    reference's --readocc): aufbau within each block on its own
+    (helfem_tpu diatomic_scf.py:308-315)."""
+    occ = np.zeros(E.shape)
+    for b in range(E.shape[0]):
+        occ[b] = aufbau_blocks(E[b:b + 1], float(nocc[b]))[0]
+    return occ
+
+
 def vdot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.dot(a.reshape(-1), b.reshape(-1))
 
@@ -47,9 +58,9 @@ def diis_error_blocks(Fb, Pb, Sb, blk_sinvh):
     """DIIS error Sinvh^T ([F,P]S-commutator) Sinvh per SYMMETRY BLOCK, from
     block-coordinate matrices [nblk, blen, blen]: the reference's error
     metric under --symmetry (helfem_tpu atomic_scf.py:133-145)."""
-    FPS = torch.einsum("bpq,bqr,brs->bps", Fb, Pb, Sb)
+    FPS = Fb @ Pb @ Sb
     M = FPS - FPS.transpose(1, 2)
-    return torch.einsum("bpi,bps,bsj->bij", blk_sinvh, M, blk_sinvh).reshape(-1)
+    return (blk_sinvh.mT @ M @ blk_sinvh).reshape(-1)
 
 
 def full_sinvh(blk_idx: np.ndarray, blk_sinvh: np.ndarray, nbf: int) -> np.ndarray:
@@ -60,6 +71,14 @@ def full_sinvh(blk_idx: np.ndarray, blk_sinvh: np.ndarray, nbf: int) -> np.ndarr
         idx = blk_idx[b]
         out[np.ix_(idx, idx)] += blk_sinvh[b]
     return out[:nbf, :nbf]
+
+
+def symmetric_sinvh(S: np.ndarray, blk_idx: np.ndarray) -> np.ndarray:
+    """The [nbf, nbf] symmetric inverse square root of S over the blocks of
+    blk_idx (padded with nbf), whatever whitening the SCF's blocks use:
+    rohf_update's natural orbitals need it (under --diag 0 too)."""
+    nbf = S.shape[0]
+    return full_sinvh(*build_blocks(S, [row[row < nbf] for row in blk_idx]), nbf)
 
 
 def reject_unported(options: dict, unported: dict, fn: str) -> None:

@@ -19,17 +19,22 @@ An axial electric field Ez, a quadrupole field Qzz, a magnetic field Bz
 finite nuclei add one-electron terms folded into H0 (their energy is
 Efield); under Ez the g/u split of the blocks is dropped.
 
-ROHF and the level shift (shift: the previous virtual orbitals pushed up
+ROHF, the level shift (shift: the previous virtual orbitals pushed up
 while the DIIS error is above 1e-3, for rough-potential functionals such
-as BR89) stay on the host loop, as in helfem_tpu; diisthr blends the host
-DIIS's C2-DIIS and ADIIS weights between diisthr and diiseps.
+as BR89) and the +-m Fock average (maverage) stay on the host loop, as in
+helfem_tpu; diisthr blends the host DIIS's C2-DIIS and ADIIS weights
+between diisthr and diiseps. diag=False whitens the blocks with the
+inverse Cholesky factor; P0a/P0b start from the Fock of a density; occs
+fixes the electron count of each symmetry block until iteration
+readocc_until (for good when negative), on the host loop while it holds.
 helfem_tpu's lax.while_loop chunk becomes a
 Python loop over tensors that stay on the device; one boolean per iteration
 comes back to stop the chunk. The eigensolve is torch.linalg.eigh per block
 with helfem_tpu's four refinement passes (utils/linalg.py:eigh_refined);
-its warm start is not carried over. Every other scf_diatomic option
-(enforced occupations, warm starts, --ndev, ...)
-raises NotImplementedError: nothing falls back silently. A range-separated
+its warm start is not carried over, nor is helfem_tpu's host eigensolve
+of large bases (eig_blocks_dia_host, _dia_host_warm), a workaround for the
+TPU's device eigh that the card does not need. --ndev and the checkpoint
+hook (save_cb) raise NotImplementedError: nothing falls back silently. A range-separated
 method raises ValueError, as helfem_tpu's does (range separation exists on
 atoms only).
 """
@@ -54,7 +59,9 @@ from helfem_tpu_torch.scf.common import (
     aufbau_blocks,
     diis_error_blocks,
     full_sinvh,
+    occ_fixed_blocks,
     reject_unported,
+    symmetric_sinvh,
     vdot,
 )
 from helfem_tpu_torch.scf.diis import DIIS, device_diis_step
@@ -70,8 +77,43 @@ from helfem_tpu_torch.utils.linalg import (
     scatter_blocks,
 )
 
-__all__ = ["scf_diatomic", "DiaSCFResult", "eig_blocks_dia_shifted", "make_dia_fock",
-           "occ_select", "occupied_dia"]
+__all__ = ["scf_diatomic", "DiaSCFResult", "density_dia", "eig_blocks_dia_shifted",
+           "fock_m_average_dia", "make_dia_fock", "occ_select", "occupied_dia"]
+
+
+def fock_m_average_dia(F: np.ndarray, basis: DiatomicBasis) -> np.ndarray:
+    """F (host numpy) with its submatrices over the +m and -m shells
+    averaged, so that pi+/pi-, delta+/delta-, ... stay degenerate
+    (helfem_tpu diatomic_scf.py:173-197; reference --maverage:
+    scf::fock_symmetry_average, src/diatomic/main.cpp:325-332,892-895). The
+    shells pair in ascending l; +-m shells share their l set and radial
+    mask."""
+    F = np.array(F)
+    nrad = basis.nrad
+    for m in sorted(set(basis.mval)):
+        if m <= 0:
+            continue
+        sp = sorted((a for a in range(basis.nang) if basis.mval[a] == m),
+                    key=lambda a: basis.lval[a])
+        sm = sorted((a for a in range(basis.nang) if basis.mval[a] == -m),
+                    key=lambda a: basis.lval[a])
+        if len(sp) != len(sm):
+            continue
+        idxp = np.concatenate([np.arange(a * nrad, (a + 1) * nrad) for a in sp])
+        idxm = np.concatenate([np.arange(a * nrad, (a + 1) * nrad) for a in sm])
+        mean = 0.5 * (F[np.ix_(idxp, idxp)] + F[np.ix_(idxm, idxm)])
+        F[np.ix_(idxp, idxp)] = mean
+        F[np.ix_(idxm, idxm)] = mean
+    return F
+
+
+def density_dia(ops: DiatomicOperators, C, occ) -> np.ndarray:
+    """The host density [nbf, nbf] of block orbitals C [nblk, blen, blen]
+    and occupations occ [nblk, blen] (numpy or tensors)."""
+    C = torch.as_tensor(np.asarray(C), dtype=torch.float64)
+    occ = torch.as_tensor(np.asarray(occ), dtype=torch.float64)
+    blk_idx = ops.blk_idx.cpu()
+    return density_blocks(C, occ, blk_idx, ops.S.cpu()).numpy()
 
 
 def eig_blocks_dia_shifted(ops: DiatomicOperators, Fb: torch.Tensor, C_prev: torch.Tensor,
@@ -141,6 +183,7 @@ class DiaSCFResult:
     Nelgrid: float = 0.0  # electrons counted on the DFT grid
     Efield: float = 0.0  # <P, Vextra>: fields and the finite nuclei
     walls: dict = field(default_factory=dict)  # phase -> seconds (CLI)
+    analysis: dict = field(default_factory=dict)  # the CLI's post-SCF analysis
 
 
 def make_dia_fock(funcs: tuple, kfrac: float = 0.0, dftthr: float = 1e-12,
@@ -213,7 +256,7 @@ def make_dia_fused_chunk(funcs: tuple, kfrac: float, dftthr: float, njbd: int | 
         Ep = torch.tensor(Eprev, dtype=torch.float64, device=C[0].device)
         out = []
         for _ in range(nrun):
-            Pbk = [torch.einsum("bpk,bk,bqk->bpq", c, o, c) for c, o in zip(C, occ)]
+            Pbk = [(c * o[:, None, :]) @ c.mT for c, o in zip(C, occ)]
             P = [scatter_blocks(p, ops.blk_idx, nbf) for p in Pbk]
             Co = [None if s is None else occupied_dia(ops, c, s) for c, s in zip(C, sel)]
             Fa, Fb, Ekin, Enuc, Ecoul, Exx, Exc, Nel = fock(ops, g, P[0], P[-1], Co[0], Co[-1])
@@ -244,10 +287,7 @@ def make_dia_fused_chunk(funcs: tuple, kfrac: float, dftthr: float, njbd: int | 
 
 # scf_diatomic options of helfem_tpu that the port does not cover, with the
 # default values under which they are inert
-_UNPORTED = {
-    "P0a": None, "P0b": None, "occs": None, "readocc_until": 0,
-    "save_cb": None, "diag": True, "maverage": False, "ndev": 0,
-}
+_UNPORTED = {"save_cb": None, "ndev": 0}
 # device memory one spin's per-iteration orbitals may take in a fused chunk
 # (helfem_tpu caps its chunk length the same way; two spins hold twice it)
 _CHUNK_C_BYTES = 256e6
@@ -279,6 +319,12 @@ def scf_diatomic(
     device=None,
     shift: float = 0.0,
     diisthr: float | None = None,
+    P0a: np.ndarray | None = None,
+    P0b: np.ndarray | None = None,
+    occs: np.ndarray | None = None,
+    readocc_until: int = 0,
+    diag: bool = True,
+    maverage: bool = False,
     **unported,
 ) -> DiaSCFResult:
     """Restricted, unrestricted or ROHF SCF (helfem_tpu's scf_diatomic) for
@@ -302,7 +348,19 @@ def scf_diatomic(
     DIIS error is above 1e-3 and keeps every iteration on the host loop
     (helfem_tpu diatomic_scf.py:742-745, :896-905; a keyword without a CLI
     flag, as there); diisthr (not None) blends the host DIIS's C2-DIIS and
-    ADIIS weights between diisthr and diiseps (scf/diis.py)."""
+    ADIIS weights between diisthr and diiseps (scf/diis.py).
+
+    P0a/P0b (host [nbf, nbf]; P0b None: the same for beta) start from the
+    blocked eigensolve of the Fock of that density (its exchange from the
+    density, exchange_dia) instead of the guess Hamiltonian (helfem_tpu
+    diatomic_scf.py:688-708). occs [nblk, 2] fixes each symmetry block's
+    alpha and beta electron counts (aufbau within the block) up to
+    iteration readocc_until, for good when it is negative; a finite
+    boundary keeps the SCF on the host loop until it has passed, so that
+    the release lands on its iteration (:754-769). maverage averages the
+    Fock over the +-m shells every iteration, on the host loop. diag=False
+    builds the operators with the inverse Cholesky whitening (prebuilt ops
+    are taken as they are)."""
     reject_unported(unported, _UNPORTED, "scf_diatomic")
     # a range-separated method raises ValueError, as helfem_tpu's does: range
     # separation exists on atoms only
@@ -312,7 +370,7 @@ def scf_diatomic(
         if device is None:
             raise ValueError("scf_diatomic needs a device (or prebuilt ops)")
         # an axial electric field couples even and odd l: no g/u blocks
-        ops = basis.build_operators(device, parity=Ez == 0.0)
+        ops = basis.build_operators(device, parity=Ez == 0.0, chol=not diag)
     device = ops.device
     nbf = basis.nbf
     g = build_dia_grid(basis, device, neta=ldft, lapl=needs_lapl(funcs)) if funcs else None
@@ -360,13 +418,23 @@ def scf_diatomic(
         E = E.cpu().numpy()
         return [(E[s * nblk:(s + 1) * nblk], C[s * nblk:(s + 1) * nblk]) for s in range(ns)]
 
-    if guess == "core":
-        Hguess = ops.H0
+    if P0a is not None:
+        # the Fock of a density (a loaded checkpoint's, say) as the guess;
+        # its exchange from the density, as helfem_tpu's without orbitals
+        Pg_a = as_dev(P0a)
+        Fg_a, Fg_b, *_ = fock(ops, g, Pg_a, Pg_a if P0b is None else as_dev(P0b))
+        spins = eig_spins([Fg_a.cpu().numpy()] if restricted else
+                          [Fg_a.cpu().numpy(), Fg_b.cpu().numpy()])
+        (Ea, Ca), (Eb, Cb) = spins[0], spins[-1]
     else:
-        Hguess = as_dev(guess_hamiltonian_dia(basis, guess, device))
-    Ea, Ca = eig_blocks(Hguess, ops.blk_idx, ops.blk_sinvh)
-    Ea = Ea.cpu().numpy()
-    Eb, Cb = Ea.copy(), Ca
+        if guess == "core":
+            Hguess = ops.H0
+        else:
+            Hguess = as_dev(guess_hamiltonian_dia(basis, guess, device))
+        Ea, Ca = eig_blocks(Hguess, ops.blk_idx, ops.blk_sinvh)
+        Ea = Ea.cpu().numpy()
+    if P0a is None or restricted:
+        Eb, Cb = Ea.copy(), Ca
     if perturb:
         # an independent rotation per spin (the reference draws a fresh one
         # for beta), so a symmetric guess can break spin symmetry
@@ -378,15 +446,18 @@ def scf_diatomic(
     diis = DIIS(ops.S.cpu().numpy(), Sinvh_np, max_hist=diisorder, diis_eps=diiseps,
                 diis_thr=diisthr, blocks=(blk_idx_np, blk_sinvh_np))
     Sh_np = form_sh(ops.S.cpu().numpy()) if rohf else None
+    # rohf_update's natural orbitals need the symmetric inverse square root
+    # under --diag 0 too
+    Sinvh_rohf = symmetric_sinvh(ops.S.cpu().numpy(), blk_idx_np) if rohf else None
 
     Eold, Etot, converged = 0.0, 0.0, False
     Ekin = Enuc = Ecoul = Exx = Exc = Nel = Efield = 0.0
     # fused device chunks engage after TWO host iterations: the host DIIS's
     # ADIIS weights carry the far-from-converged guess, which the chunks'
     # pure C2-DIIS cannot (helfem_tpu diatomic_scf.py:736-745). ROHF's Fock
-    # update and the level shift are host work every iteration, so they stay
-    # on the host.
-    warmup = maxit if rohf or shift != 0.0 else 2
+    # update, the level shift and the m-average are host work every
+    # iteration, so they stay on the host.
+    warmup = maxit if rohf or shift != 0.0 or maverage else 2
     chunk_len = 4  # chunk schedule 4, 8, 16, capped by the orbitals' memory
     CH = 16
     while CH > 4 and CH * nblk * blen * blen * 8 > _CHUNK_C_BYTES:
@@ -400,9 +471,18 @@ def scf_diatomic(
     it = 0
     while it < maxit:
         it += 1
-        occa = aufbau_blocks(Ea, nela)
-        occb = occa if restricted else aufbau_blocks(Eb, nelb)
-        if it > warmup:
+        if occs is not None and (readocc_until < 0 or it <= readocc_until):
+            # fixed per-block electron counts (reference --readocc occs.dat,
+            # until the readocc_until-th Fock build)
+            occa = occ_fixed_blocks(Ea, np.asarray(occs)[:, 0])
+            occb = occa if restricted else occ_fixed_blocks(Eb, np.asarray(occs)[:, 1])
+        else:
+            occa = aufbau_blocks(Ea, nela)
+            occb = occa if restricted else aufbau_blocks(Eb, nelb)
+        # a finite boundary must land on its iteration: the fused chunks
+        # freeze the occupations for several iterations
+        readocc_hold = occs is not None and 0 < readocc_until and it <= readocc_until
+        if it > warmup and not readocc_hold:
             if fused is None:
                 nhist = 10
                 fused = make_dia_fused_chunk(funcs, kfrac, dftthr, njbd, Bz)
@@ -413,10 +493,11 @@ def scf_diatomic(
                 count = 0
             nrun = min(chunk_len, CH, maxit - it + 1)
             chunk_len = min(2 * chunk_len, CH)
-            occs = (occa, occb)[:ns]
+            spin_occs = (occa, occb)[:ns]
             # the chunk's energies leave out the constant Enucrep + Emag
             Cs, Es, count, Etots, errs, Nels, comps, kmax = fused(
-                ops, g, Vextra, tuple(as_dev(o) for o in occs), tuple(select(o) for o in occs),
+                ops, g, Vextra, tuple(as_dev(o) for o in spin_occs),
+                tuple(select(o) for o in spin_occs),
                 (Ca, Cb)[:ns], histF, histE, count, float(convthr), Eold - Enucrep - Emag, nrun,
             )
             Etots = Etots.cpu().numpy()
@@ -457,12 +538,15 @@ def scf_diatomic(
         Etot = float(Ekin + Enuc + Ecoul + Exx + Exc) + Enucrep + Efield + Emag
         dE = Etot - Eold
         Eold = Etot
+        if maverage:
+            Fa = as_dev(fock_m_average_dia(Fa.cpu().numpy(), basis))
+            Fb = Fa if restricted else as_dev(fock_m_average_dia(Fb.cpu().numpy(), basis))
         if restricted:
             err = diis.update([Fa.cpu().numpy()], [Pa.cpu().numpy()])
         else:
             Fa, Fb, Pa, Pb = (x.cpu().numpy() for x in (Fa, Fb, Pa, Pb))
             if rohf:
-                Fa, Fb = rohf_update(Fa, Fb, Pa + Pb, Sh_np, Sinvh_np, nela, nelb)
+                Fa, Fb = rohf_update(Fa, Fb, Pa + Pb, Sh_np, Sinvh_rohf, nela, nelb)
             err = diis.update([Fa, Fb], [Pa, Pb])
         Fs = diis.solve()
         if verbose:

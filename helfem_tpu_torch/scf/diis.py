@@ -18,6 +18,8 @@ The host class is numpy: its stacks are tiny (history <= ~10 matrices).
 import numpy as np
 import torch
 
+from helfem_tpu_torch.utils.linalg import eigh_refined
+
 __all__ = ["DIIS", "device_diis_step"]
 
 
@@ -42,11 +44,11 @@ def device_diis_step(histF, histE, count: int, F, errv):
     eye = torch.eye(H, dtype=B.dtype, device=B.device)
     bscale = torch.max(torch.where(valid, torch.diagonal(B), 0.0)) + 1e-300
     B = torch.where(valid[:, None] & valid[None, :], B, 1e4 * bscale * eye)
-    w, V = torch.linalg.eigh(B)
+    w, V = eigh_refined(B)
     s = torch.sum(torch.where(valid[:, None], V, 0.0), dim=0)
     safe = torch.abs(s) > 1e-10
     c = V / torch.where(safe, s, 1.0)[None, :]
-    cerr = torch.einsum("ik,ij,jk->k", c, B, c)
+    cerr = torch.sum(c * (B @ c), dim=0)
     bad = (~safe) | (torch.max(torch.abs(c), dim=0).values > 20.0)
     cerr = torch.where(bad, torch.inf, cerr)
     k = torch.argmin(cerr)

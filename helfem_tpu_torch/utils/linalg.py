@@ -11,14 +11,23 @@ residual that stalls the DIIS error of Xe HF at the bench basis at 2.1e-9
 (3.5e-10 with the host's LAPACK eigh on the same card); the passes are
 matmuls and bring the card below the 1e-9 threshold. helfem_tpu's warm
 start (eigh_warm) is not carried over.
+
+The --diag 0 whitening (form_sinvh_chol, build_blocks(chol=True)) is the
+inverse Cholesky factor L^-T: not symmetric, so every use is Sinvh^T X Sinvh
+and C = Sinvh V. The --eigiter solvers (eig_blocks_iter: host scipy ARPACK
+shift-invert per block; eig_iter_gsym: torch.lobpcg on -F) and the
+subspace and m-block solves (eig_gsym_sub, eig_gsym_m, eig_gsym_lm) are
+helfem_tpu's, on tensors.
 """
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
-__all__ = ["form_sinvh", "form_sh", "perturbation_matrix", "rohf_update", "build_blocks", "gather_blocks",
-           "eig_blocks", "eig_blocks_b", "density_blocks", "eigh_refined"]
+__all__ = ["form_sinvh", "form_sinvh_chol", "form_sh", "perturbation_matrix", "rohf_update",
+           "build_blocks", "gather_blocks", "eig_blocks", "eig_blocks_b", "eig_blocks_iter",
+           "eig_gsym_lm", "eig_gsym_m", "eig_gsym_sub", "eig_iter_gsym", "density_blocks",
+           "eigh_refined"]
 
 _BIG = 1e6
 
@@ -28,6 +37,13 @@ def form_sinvh(S: np.ndarray) -> np.ndarray:
     (reference: utils::invh, libhelfem/src/utils.cpp)."""
     w, U = np.linalg.eigh(S)
     return U @ np.diag(w**-0.5) @ U.T
+
+
+def form_sinvh_chol(S: np.ndarray) -> np.ndarray:
+    """Inverse Cholesky factor L^-T, with Sinvh^T S Sinvh = I (reference: the
+    --diag 0 path, TwoDBasis::Sinvh(chol=true), src/atomic/main.cpp:88,446)."""
+    L = np.linalg.cholesky(S)
+    return np.linalg.inv(L).T
 
 
 def form_sh(S: np.ndarray) -> np.ndarray:
@@ -75,18 +91,20 @@ def rohf_update(Fa, Fb, P, Sh, Sinvh, nocca, noccb):
     return Fa + lam_AO, Fb - lam_AO
 
 
-def build_blocks(S: np.ndarray, blocks) -> tuple[np.ndarray, np.ndarray]:
+def build_blocks(S: np.ndarray, blocks, chol: bool = False) -> tuple[np.ndarray, np.ndarray]:
     """Pad a list of index arrays into (blk_idx [nblk, blen] with trash=nbf,
     blk_sinvh [nblk, blen, blen]) for the batched blocked eigensolve (host
-    numpy, as helfem_tpu's)."""
+    numpy, as helfem_tpu's). chol=True whitens with the inverse Cholesky
+    factor instead of the symmetric inverse square root (--diag 0)."""
     nbf = S.shape[0]
     blen = max(len(b) for b in blocks)
     nblk = len(blocks)
     blk_idx = np.full((nblk, blen), nbf, dtype=np.int32)
     blk_sinvh = np.zeros((nblk, blen, blen))
+    inv = form_sinvh_chol if chol else form_sinvh
     for i, idx in enumerate(blocks):
         blk_idx[i, : len(idx)] = idx
-        blk_sinvh[i, : len(idx), : len(idx)] = form_sinvh(S[np.ix_(idx, idx)])
+        blk_sinvh[i, : len(idx), : len(idx)] = inv(S[np.ix_(idx, idx)])
     return blk_idx, blk_sinvh
 
 
@@ -132,7 +150,7 @@ def eig_blocks_b(Fb: torch.Tensor, blk_idx: torch.Tensor, blk_sinvh: torch.Tenso
     [nblk, blen, blen]; padded slots (blk_idx == nbf) get eigenvalue _BIG
     (never occupied). Returns (E [nblk, blen], C [nblk, blen, blen]) in
     block coordinates, E ascending per block."""
-    Forth = torch.einsum("bpi,bpq,bqj->bij", blk_sinvh, Fb, blk_sinvh)
+    Forth = blk_sinvh.mT @ Fb @ blk_sinvh
     pad = (blk_idx == nbf).to(Fb.dtype)
     eye = torch.eye(blk_idx.shape[1], dtype=Fb.dtype, device=Fb.device)
     Forth = Forth + _BIG * eye[None] * pad[:, None, :]
@@ -159,5 +177,97 @@ def scatter_blocks(Pb: torch.Tensor, blk_idx: torch.Tensor, nbf: int) -> torch.T
 def density_blocks(C: torch.Tensor, occ: torch.Tensor, blk_idx: torch.Tensor,
                    S: torch.Tensor) -> torch.Tensor:
     """Scatter block orbitals x occupations into the global density matrix."""
-    Pb = torch.einsum("bpk,bk,bqk->bpq", C, occ, C)
+    Pb = (C * occ[:, None, :]) @ C.mT
     return scatter_blocks(Pb, blk_idx, S.shape[0])
+
+
+def eig_gsym_lm(F_: torch.Tensor, Sinvh_rad: torch.Tensor):
+    """Generalized eigensolve on the (l,m) blocks (symmetry 2): one batched
+    whitened eigh over the angular axis. Returns (E [nang, nrad], C [nang,
+    nrad, nrad]), C[a] the radial coefficients of block a."""
+    nrad = Sinvh_rad.shape[0]
+    nang = F_.shape[0] // nrad
+    a = torch.arange(nang, device=F_.device)
+    Fb = F_.reshape(nang, nrad, nang, nrad)[a, :, a, :]
+    E, V = eigh_refined(Sinvh_rad.T @ Fb @ Sinvh_rad)
+    return E, torch.einsum("pi,aij->apj", Sinvh_rad, V)
+
+
+def eig_gsym_m(F_: torch.Tensor, Sinvh_rad: torch.Tensor, mgroups, nrad: int):
+    """Generalized eigensolve on the m blocks (symmetry 1). mgroups: arrays
+    of the angular shells that share an m. Returns [(idx, E, C)] per group,
+    idx the block's global indices, C [len(idx), len(idx)]."""
+    out = []
+    for shells in mgroups:
+        idx = np.concatenate([a * nrad + np.arange(nrad) for a in shells])
+        it = torch.as_tensor(idx, device=F_.device)
+        Sinvh = torch.kron(torch.eye(len(shells), dtype=F_.dtype, device=F_.device), Sinvh_rad)
+        E, V = eigh_refined(Sinvh.T @ F_[it][:, it] @ Sinvh)
+        out.append((idx, E, Sinvh @ V))
+    return out
+
+
+def eig_gsym_sub(F_: torch.Tensor, C0: torch.Tensor):
+    """Rayleigh-Ritz solution of F in the span of the S-orthonormal columns
+    of C0 (reference: scf::eig_gsym_sub, src/general/scf_helpers.h:37-44).
+    Returns (E [nsub], C = C0 V [n, nsub]), still S-orthonormal."""
+    E, V = eigh_refined(C0.T @ F_ @ C0)
+    return E, C0 @ V
+
+
+def eig_iter_gsym(F_: torch.Tensor, Sinvh: torch.Tensor, neig: int, maxit: int = 100,
+                  tol: float = 1e-9, seed: int = 0):
+    """The lowest neig eigenpairs of the whitened F by LOBPCG (helfem_tpu's
+    eig_iter_gsym, utils/linalg.py:347; reference: scf::eig_iter): the top
+    end of -Sinvh^T F Sinvh by torch.lobpcg, from a QR-orthonormalized
+    random start (numpy seed). Returns (E [neig] ascending, C [n, neig]) in
+    the non-orthonormal basis."""
+    Forth = Sinvh.T @ F_ @ Sinvh
+    X0 = torch.as_tensor(np.random.default_rng(seed).standard_normal((Forth.shape[0], neig)),
+                         dtype=F_.dtype, device=F_.device)
+    X0, _ = torch.linalg.qr(X0)
+    theta, U = torch.lobpcg(-Forth, k=neig, X=X0, niter=maxit, tol=tol, largest=True)
+    E = -theta
+    order = torch.argsort(E)
+    return E[order], Sinvh @ U[:, order]
+
+
+def eig_blocks_iter(F_, blk_idx: np.ndarray, blk_sinvh: np.ndarray, neig: int, sigma: float):
+    """The lowest neig eigenpairs of each symmetry block by shift-invert
+    Lanczos (host scipy ARPACK, helfem_tpu's eig_blocks_iter,
+    utils/linalg.py:370; reference: scf::eig_iter, the --eigiter option).
+    sigma must lie below the spectrum (the SCF passes -0.6 Z^2 - 10). A
+    block with 3 neig >= its size, or where ARPACK fails, takes the dense
+    eigh; uncomputed slots carry _BIG, so aufbau never fills them. Returns
+    host (E [nblk, blen], C [nblk, blen, blen]) in eig_blocks' block
+    coordinates; ARPACK's start vector is random, so the pairs agree with a
+    dense solve to the solver's tolerance, not bit for bit."""
+    from scipy.sparse.linalg import ArpackError, eigsh
+
+    F_ = np.asarray(F_)
+    nbf = F_.shape[0]
+    Fp = np.pad(F_, ((0, 1), (0, 1)))
+    nblk, blen = blk_idx.shape
+    E = np.full((nblk, blen), _BIG)
+    C = np.zeros((nblk, blen, blen))
+    for b in range(nblk):
+        valid = blk_idx[b] < nbf
+        nv = int(valid.sum())
+        idx = blk_idx[b][valid]
+        Sb = blk_sinvh[b][:nv, :nv]
+        Forth = Sb.T @ Fp[np.ix_(idx, idx)] @ Sb
+        k = min(neig, nv)
+        if 3 * k >= nv:
+            w, V = np.linalg.eigh(Forth)
+            E[b, :nv] = w
+            C[b, :nv, :nv] = Sb @ V
+            continue
+        try:
+            w, V = eigsh(Forth, k=k, sigma=sigma, which="LM")
+        except (ArpackError, RuntimeError):  # no convergence, or a singular shift
+            w, V = np.linalg.eigh(Forth)
+            w, V = w[:k], V[:, :k]
+        order = np.argsort(w)
+        E[b, :k] = w[order]
+        C[b, :nv, :k] = Sb @ V[:, order]
+    return E, C

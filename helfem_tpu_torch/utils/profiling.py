@@ -1,12 +1,34 @@
 """Warm SCF walls, a device-time breakdown on the card and a kernel's device
 time per call (torch.profiler, and CUDA events over calls queued behind a
-sleeping kernel), shared by chip_smoke.py and the tools."""
+sleeping kernel), shared by chip_smoke.py and the tools; and the CLIs'
+--trace, a Chrome/Perfetto trace of the SCF."""
 
+import contextlib
 import time
 
 import torch
 
-__all__ = ["busy_wall", "device_ms", "profile_scf", "queued_ms"]
+__all__ = ["busy_wall", "device_ms", "profile_scf", "queued_ms", "trace_scf"]
+
+
+@contextlib.contextmanager
+def trace_scf(path: str, device):
+    """A torch.profiler trace of the block, written to `path` as a Chrome
+    trace JSON (chrome://tracing, ui.perfetto.dev): host operators, and on
+    the card its kernels (the CLIs' --trace; helfem_tpu writes a
+    jax.profiler trace there). An empty path traces nothing."""
+    if not path:
+        yield
+        return
+    from torch.profiler import ProfilerActivity, profile
+
+    cuda = torch.device(device).type == "cuda"
+    activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
+    with profile(activities=activities) as prof:
+        yield
+        if cuda:
+            torch.cuda.synchronize(device)
+    prof.export_chrome_trace(path)
 
 
 def _kernels(events):

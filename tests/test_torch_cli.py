@@ -57,14 +57,15 @@ def test_cli_runs_with_its_default_sap_guess(capsys):
 
 
 @pytest.mark.parametrize("extra, match", [
-    (["--Ez", "0.01", "--maverage"], "--maverage"),
+    (["--Ez", "0.01", "--maverage", "--save", "he.npz"], "--save"),
     (["--ndev", "2"], "--ndev"),
-    (["--symmetry", "1", "--eigiter", "4"], "--eigiter"),
+    (["--symmetry", "1", "--eigiter", "4", "--load", "he.npz"], "--load"),
 ], ids=["field_flag", "ndev_flag", "symmetry_flag"])
 def test_cli_unported_raises(extra, match):
-    """Unported flags raise naming themselves; the field and symmetry flags
-    run (tests/test_torch_fields.py), beside an unported one the latter
-    raises."""
+    """Unported flags (the checkpoints' --save/--load, --ndev) raise naming
+    themselves; the field, symmetry and SCF-control flags run
+    (tests/test_torch_fields.py, tests/test_torch_scf_controls.py), beside
+    an unported one the latter raises."""
     with pytest.raises(NotImplementedError, match=match):
         main(HE + extra + ["--device", "cpu"])
 
@@ -104,13 +105,14 @@ def test_dia_cli_open_shell_flags(capsys, one_thread, extra, nela, nelb, kw):
 
 
 @pytest.mark.parametrize("extra, match", [
-    (["--M", "3", "--symmetry", "1"], "--symmetry"),
-    (["--M", "3", "--readocc"], "--readocc"),
-    (["--M", "3", "--Bz", "0.1", "--maverage"], "--maverage"),
+    (["--M", "3", "--symmetry", "1", "--save", "o2.npz"], "--save"),
+    (["--M", "3", "--readocc", "1", "--load", "o2.npz"], "--load"),
+    (["--M", "3", "--Bz", "0.1", "--maverage", "--ndev", "1"], "--ndev"),
 ], ids=["symmetry", "readocc", "magnetic_field"])
 def test_dia_cli_still_rejects_the_rest(extra, match):
-    """--symmetry and --readocc raise; --Bz runs (tests/test_torch_dia_fields.py),
-    beside --maverage the latter raises."""
+    """--save, --load and --ndev raise; --symmetry, --readocc, --maverage
+    (tests/test_torch_scf_controls.py) and --Bz (tests/test_torch_dia_fields.py)
+    run, beside an unported flag they raise."""
     with pytest.raises(NotImplementedError, match=match):
         diatomic.main(O2_CLI + extra)
 

@@ -135,9 +135,10 @@ def test_range_separated_methods_raise(method):
 
 def test_open_shell_hf_raises():
     """Open shells run (tests/test_torch_dia_open.py), in a magnetic field
-    too (tests/test_torch_dia_fields.py); with Fock m-averaging, which is not
-    ported, they raise."""
+    too (tests/test_torch_dia_fields.py), with Fock m-averaging as well
+    (tests/test_torch_scf_controls.py); over a device mesh (ndev), which is
+    not ported, they raise."""
     cfg, _ = CASES["H2"]
-    with pytest.raises(NotImplementedError, match="maverage"):
+    with pytest.raises(NotImplementedError, match="ndev"):
         diatomic_scf.scf_diatomic(DiatomicBasis(**cfg), 1, 0, method="HF", device="cpu",
-                                  Bz=0.1, maverage=True)
+                                  Bz=0.1, maverage=True, ndev=1)

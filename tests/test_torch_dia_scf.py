@@ -49,16 +49,18 @@ def test_cli_runs_on_cpu(capsys):
 @pytest.mark.parametrize("extra, error, match", [
     (["--method", "LC-LDA"], ValueError, "LC-LDA' is range-separated"),
     (["--method", "sr-pbe0"], ValueError, "sr-pbe0' is range-separated"),
-    (["--Q", "1", "--readocc"], NotImplementedError, "--readocc"),
-    (["--Ez", "0.01", "--maverage"], NotImplementedError, "--maverage"),
+    (["--Q", "1", "--readocc", "1", "--save", "n2.npz"], NotImplementedError, "--save"),
+    (["--Ez", "0.01", "--maverage", "--load", "n2.npz"], NotImplementedError, "--load"),
     (["--ndev", "2"], NotImplementedError, "--ndev"),
-    (["--restricted", "0", "--Bz", "0.1", "--diag", "0"], NotImplementedError, "--diag"),
+    (["--restricted", "0", "--Bz", "0.1", "--diag", "0", "--ndev", "1"], NotImplementedError,
+     "--ndev"),
 ], ids=["range_separated", "sr_hybrid", "open_shell", "field_flag", "ndev_flag",
         "uhf_flag"])
 def test_cli_unported_raises(extra, error, match):
-    """Unported flags and functionals raise NotImplementedError (the field
-    flags run, tests/test_torch_dia_fields.py; beside an unported flag the
-    latter raises); a range-separated method raises helfem_tpu's ValueError
+    """Unported flags (the checkpoints' --save/--load, --ndev) raise
+    NotImplementedError (the field and SCF-control flags run,
+    tests/test_torch_dia_fields.py, tests/test_torch_scf_controls.py;
+    beside an unported flag the latter raises); a range-separated method raises helfem_tpu's ValueError
     (range separation exists on atoms only)."""
     with pytest.raises(error, match=match):
         main(N2_CLI + extra + ["--device", "cpu"])
@@ -70,15 +72,17 @@ def test_cli_unknown_flag_exits():
 
 
 @pytest.mark.parametrize("kwargs", [
-    {"Ez": 0.01, "maverage": True}, {"Bz": 0.1, "ndev": 1},
-    {"restricted": 0, "Bz": 0.1, "diag": False},
-    {"maverage": True}, {"diag": False}, {"ndev": 1},
-    {"perturb": 0.1, "P0a": np.zeros((1, 1))},
+    {"Ez": 0.01, "maverage": True, "ndev": 1}, {"Bz": 0.1, "ndev": 1},
+    {"restricted": 0, "Bz": 0.1, "diag": False, "save_cb": print},
+    {"maverage": True, "save_cb": print}, {"diag": False, "ndev": 1}, {"ndev": 1},
+    {"perturb": 0.1, "P0a": np.zeros((1, 1)), "ndev": 1},
 ], ids=lambda kw: next(iter(kw)))
 def test_unported_options_raise(kwargs):
-    """Unported options raise; UHF, perturbed guesses and fields run
-    (tests/test_torch_dia_open.py, tests/test_torch_dia_fields.py), beside
-    an unported option or from a density they still raise."""
+    """Unported options (ndev, the checkpoint hook save_cb) raise; UHF,
+    perturbed guesses, fields, m-averaging, Cholesky whitening and warm
+    starts run (tests/test_torch_dia_open.py, tests/test_torch_dia_fields.py,
+    tests/test_torch_scf_controls.py), beside an unported option they
+    still raise."""
     cfg, nel = CASES["H2"]
     with pytest.raises(NotImplementedError):
         diatomic_scf.scf_diatomic(DiatomicBasis(**cfg), nel, nel, method="PBE",

@@ -30,6 +30,9 @@ CONFIGS = {
     "he_np15": dict(Z=2, lmax=0, mmax=0, rmax=20.0, nelem=3, nnodes=15),
     # NM = 17 Coulomb (L, M) helpers: 2*NM traces exceed the 32-thread block
     "ar_l4_np5": dict(Z=18, lmax=4, mmax=4, rmax=30.0, nelem=4, nnodes=5),
+    # --zeroder on a Hermite basis: the last element holds two trash slots
+    "ne_hip_zeroder": dict(Z=10, lmax=1, mmax=1, rmax=30.0, nelem=4, nnodes=4, primbas=5,
+                           zeroder=True),
 }
 
 
@@ -232,15 +235,26 @@ def test_plain_coulomb_matches_element_loop_reference(host):
             assert np.abs(got[L, M] - ref).max() <= TOL * max(np.abs(ref).max(), 1e-300)
 
 
-@pytest.mark.parametrize("primbas,nnodes", [(4, 6), (4, 15), (8, 5), (11, 3)],
-                         ids=["lip6", "lip15", "hermite_nder2", "hermite_nder5"])
-def test_owner_table_matches_a_scan_of_gidx(primbas, nnodes):
+@pytest.mark.parametrize("primbas,nnodes,zeroder",
+                         [(4, 6, False), (4, 15, False), (8, 5, False), (11, 3, False),
+                          (5, 6, True), (8, 5, True)],
+                         ids=["lip6", "lip15", "hermite_nder2", "hermite_nder5",
+                              "hermite_zeroder", "hermite_nder2_zeroder"])
+def test_owner_table_matches_a_scan_of_gidx(primbas, nnodes, zeroder):
     """The host-built owner table against a direct scan of gidx: the slots
-    e * nprim + i holding each radial index, in element order."""
+    e * nprim + i holding each radial index, in element order; with
+    zeroder the dropped derivative DOFs at the last boundary are trash slots
+    that no radial index owns."""
     from helfem_tpu_torch.ops.fem import FEMBasis
     from helfem_tpu_torch.ops.polynomials import get_basis
 
-    fem = FEMBasis(get_basis(primbas, nnodes), np.linspace(0.0, 5.0, 5))
+    fem = FEMBasis(get_basis(primbas, nnodes), np.linspace(0.0, 5.0, 5),
+                   drop_last_deriv=zeroder)
+    if zeroder:
+        full = FEMBasis(get_basis(primbas, nnodes), np.linspace(0.0, 5.0, 5))
+        nder = len(fem.poly.right_dofs(deriv=True))
+        assert nder >= 1 and fem.nbf == full.nbf - nder
+        assert (fem.gidx[-1] == fem.nbf).sum() == (full.gidx[-1] == full.nbf).sum() + nder
     got = kernels.owner_table(fem.gidx, fem.nbf)
     flat = fem.gidx.ravel()
     for n in range(fem.nbf):

@@ -359,24 +359,33 @@ def test_gensap_cli_matches_jax(tmp_path, monkeypatch, capsys):
 
 
 @pytest.mark.parametrize("extra, match", [
-    (["--finitenuc", "gaussian"], "--finitenuc"),
-    (["--iconf", "1"], "--iconf"),
-    (["--Q", "1", "--conf_R", "5"], "--conf_R"),
+    (["--finitenuc", "gaussian", "--completeness"], "--completeness"),
+    (["--iconf", "1", "--completeness"], "--completeness"),
+    (["--Q", "1", "--conf_R", "5", "--completeness"], "--completeness"),
 ], ids=["finite_nucleus", "confinement", "charge"])
 def test_gensap_cli_unported_flags_raise(extra, match):
-    """Flags the port does not cover raise; --unrestricted, --diisthr and
-    --Q run (tests/test_torch_cli.py, tests/test_torch_lapl.py), a confined
-    ion still raises."""
+    """--completeness, which the port does not cover, raises; --unrestricted,
+    --diisthr, --Q, the finite nuclei and the confinement run
+    (tests/test_torch_cli.py, tests/test_torch_lapl.py,
+    tests/test_torch_scf_controls.py), beside it they raise."""
     with pytest.raises(NotImplementedError, match=match):
         gensap.main(["--Z", "He", "--lmax", "0", "--device", "cpu", *extra])
 
 
-@pytest.mark.parametrize("kwargs", [dict(finitenuc="gaussian"), dict(nelem0=2),
-                                    dict(iconf=1), dict(zeroder=True)],
+@pytest.mark.parametrize("kwargs", [dict(finitenuc="gaussian", Rrms=1e-2), dict(nelem0=2),
+                                    dict(iconf=1, conf_N=2, conf_R=4.0),
+                                    dict(zeroder=True, primbas=5)],
                          ids=["finitenuc", "nelem0", "iconf", "zeroder"])
 def test_unported_basis_options_raise(kwargs):
-    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
-        sadatom.SadAtomBasis(Z=2, lmax=0, **kwargs)
+    """The finite nucleus, its sub-grid, the confinement and zeroder, which
+    raised before they were ported, give helfem_tpu's operators within
+    1e-12 x max-abs (the confinement folded into the nuclear slot)."""
+    cfg = dict(Z=2, lmax=0, nelem=4, nnodes=6, rmax=20.0, **kwargs)
+    got = sadatom.SadAtomBasis(**cfg).host_ops()["at"]
+    ref = jsad.SadAtomBasis(**cfg).build_ops().at
+    for name in ("S", "T", "Vnuc", "H0", "tei"):
+        want = np.asarray(getattr(ref, name))
+        assert np.abs(got[name] - want).max() <= TOL * np.abs(want).max(), name
 
 
 def test_unrestricted_solver_raises():
