@@ -153,6 +153,11 @@ Phases, any failure raises and exits non-zero:
      at lambda 0.5 and 5 against the pairwise plain version (1e-12 x
      max-abs, the same bits twice, one launch per call, CUDA-event,
      profiler and queued times beside the bound), the tables' setup walls;
+     beside each K10 check the bound on the dense table (the count before
+     the table was packed), the packed table's bytes against those the
+     kernel's bulk copies request (within 10 %: each slab read once), the
+     pack's setup wall, the call time with L2 cold and torch.matmul of the
+     contraction alone on pre-gathered windows as a yardstick;
      Ar LC-LDA, SR-PBE0 and LCY-LDA, quartet N UKS LC-LDA and Xe LC-LDA
      through the port's atomic CLI (TF guess, convthr 1e-8), each within
      1e-9 Eh of helfem_tpu's f64 value, per Fock build K2 once, K10 once
@@ -182,8 +187,9 @@ Phases, any failure raises and exits non-zero:
      0/1: K1 on the non-symmetric channel-pair windows of the Ar lmax=3
      field basis (symmetry 1: the same-m pairs; symmetry 0: all of them;
      the Coulomb and the Yukawa tables), K10 on the Ne LC-LDA basis's
-     windows, K4/K5 on the Ar lmax=3 grid with same-m cross-l densities
-     (one and two spins), K3 and K6 on N2's merged g/u blocks, each against
+     windows (symmetry 1: 17; symmetry 0: 49), K4/K5 on the Ar lmax=3 grid
+     with same-m cross-l densities (one and two spins), K3 and K6 on N2's
+     merged g/u blocks, each against
      its plain version (1e-12 x max-abs, the same bits twice, one launch per
      call); then 24 cells through the port's CLIs (Ar HF at Ez = 0 and
      +-0.001, Ne PBE and Ne LC-LDA in Ez, Ar HF at symmetry 0, C UHF in Bz
@@ -616,7 +622,7 @@ FIELD_CELLS = {
 FIELD_GATE = 1e-8
 # the records of phase 20's kernel checks, by kernel (field_kernels)
 FIELD_KEYS = {"radial_exchange": ("field_s1", "field_s0", "field_yukawa"),
-              "radial_erfc_exchange": ("field_ne",),
+              "radial_erfc_exchange": ("field_ne", "field_ne_s0"),
               **dict.fromkeys(("dia_xc_fields", "dia_xc_fock"), ("field_ar_l3_1", "field_ar_l3_2")),
               **dict.fromkeys(("radial_coulomb_dia", "radial_exchange_dia_occ"),
                               ("field_n2_merged",))}
@@ -961,18 +967,72 @@ def sad_kernel_inputs(basis, ops, seed: int = 53) -> dict:
     return {"radial_exchange": x["radial_exchange"], "radial_coulomb": c["radial_coulomb"]}
 
 
-def erfc_exchange_work(tei, gidx, Pd) -> dict:
+def erfc_unique_entries(tei) -> int:
+    """The entries of the erfc tables tei [NL, nelem, nelem, np^4] that
+    their symmetries (i <-> j, k <-> l, the pair swap) leave unique: e <= f,
+    i <= j, k <= l and (ij) <= (kl) on e = f."""
+    NL, nelem, npr = tei.shape[0], tei.shape[1], tei.shape[3]
+    npk = npr * (npr + 1) // 2
+    return NL * (nelem * (nelem - 1) // 2 * npk**2 + nelem * npk * (npk + 1) // 2)
+
+
+def erfc_exchange_work(tei, gidx, Pd, dense: bool = False) -> dict:
     """K10's (inputs, bytes it must move, operations) for the erfc tables tei
     [NL, nelem, nelem, np^4], gidx and the stacked channels Pd [nch, nrad,
-    nrad]: it reads the table and Pd once (every entry of Pd lies in some
-    element pair's window) and writes KK [NL, nch, nrad, nrad]; 2 np^4
-    flops per slice and channel."""
+    nrad]: it reads each unique entry of the table once (erfc_unique_entries;
+    dense: every entry, the count before the table was packed) and Pd once
+    (every entry of Pd lies in some element pair's window) and writes KK
+    [NL, nch, nrad, nrad]; 2 np^4 flops per slice and channel."""
     NL, nelem = tei.shape[:2]
     npr = gidx.shape[1]
     nch, nrad = Pd.shape[:2]
-    return {"radial_erfc_exchange": ((tei, gidx, Pd), nbytes(tei, gidx, Pd)
+    table = nbytes(tei) if dense else 8 * erfc_unique_entries(tei)
+    return {"radial_erfc_exchange": ((tei, gidx, Pd), table + nbytes(gidx, Pd)
                                      + 8 * NL * nch * nrad * nrad,
                                      2 * NL * nch * nelem * nelem * npr**4)}
+
+
+def erfc_details(label: str, args, r: dict) -> dict:
+    """Beside K10's comparison r at one shape: the bound on the dense table,
+    the packed table's bytes against the bytes the kernel's bulk copies
+    request (within 10 %: each slab is read once; raises otherwise), the
+    pack's setup wall on the card (the symmetry check and the pack), the
+    call time when L2 is cold, and torch.matmul of the contraction alone
+    on pre-gathered windows ([NL nelem^2, np^2, np^2] @ [., np^2, nch]: no
+    gather, no assembly), a yardstick of what cuBLAS streams from the
+    dense table; printed and returned."""
+    import importlib
+
+    from helfem_tpu_torch import kernels
+    from helfem_tpu_torch.tools.erfc_timing import cold_ms
+
+    mod = importlib.import_module("helfem_tpu_torch.kernels.radial_erfc_exchange")
+    tei, gidx, Pd = args
+    dense = erfc_exchange_work(tei, gidx, Pd, dense=True)["radial_erfc_exchange"][1]
+    dense_ms = 1e3 * max(dense / HBM_BYTES_S, r["flops"] / FP64_FLOP_S)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mod.check_symmetric("radial_erfc_exchange", tei)
+    packed = 8 * mod.pack_erfc_table(tei).numel()
+    torch.cuda.synchronize()
+    pack_s = time.perf_counter() - t0
+    issued = mod.issued_bytes(tei, gidx, Pd)
+    if abs(issued - packed) > 0.1 * packed:
+        raise RuntimeError(f"radial_erfc_exchange: {label}: the bulk copies requested {issued} "
+                           f"bytes of a {packed}-byte packed table")
+    cold = cold_ms(lambda: kernels.radial_erfc_exchange(*args), 20)
+    NL, nelem, npr = tei.shape[0], tei.shape[1], tei.shape[3]
+    A = tei.reshape(NL * nelem * nelem, npr * npr, npr * npr)
+    B = torch.randn((A.shape[0], npr * npr, Pd.shape[0]), dtype=torch.float64, device=tei.device)
+    mm = cuda_ms(lambda: torch.matmul(A, B))
+    d = {"dense_bound_ms": dense_ms, "packed_bytes": packed, "issued_bytes": issued,
+         "pack_s": pack_s, "cold_ms": cold, "matmul_yardstick_ms": mm}
+    print(f"{label} K10: packed table {packed} B ({packed / nbytes(tei):.3f} of the dense "
+          f"{nbytes(tei)} B), bulk copies {issued} B; bound {r['bound_ms']:.5f} ms on the unique "
+          f"entries, {dense_ms:.5f} ms on the dense table ({100 * r['bound_ms'] / r['ms']:.1f} "
+          f"and {100 * dense_ms / r['ms']:.1f} % of the call); pack {pack_s:.4f} s; L2 cold "
+          f"{cold:.4f} ms; torch.matmul of the contraction alone {mm:.4f} ms")
+    return d
 
 
 def random_channels(n: int, nrad: int, dev, seed: int) -> torch.Tensor:
@@ -2168,8 +2228,11 @@ def rs_kernels(dev, results: dict) -> dict:
                       f"({nbytes(rs.tei) / 2**20:.1f} MiB) built in {setup[shape]:.2f} s")
             for name, (args, moved, flops) in work.items():
                 same_bits_twice(name, args)
-                results[(name, shape if ns == 1 else f"{shape}_2")] = report(
-                    f"{shape} ns={ns}", name, compare(name, args, moved, flops))
+                key = shape if ns == 1 else f"{shape}_2"
+                results[(name, key)] = report(f"{shape} ns={ns}", name,
+                                              compare(name, args, moved, flops))
+                results[("erfc_details", key)] = erfc_details(f"{shape} ns={ns}", args,
+                                                              results[(name, key)])
         del rs, work, args
         torch.cuda.empty_cache()
     for lam in YUKAWA_LAMBDAS:
@@ -2539,9 +2602,13 @@ def field_kernels(dev, results: dict) -> None:
     ne = AtomicBasis(**FIELD_SHAPES["ne_l2"])
     ops = ne.build_operators(dev)
     rs = ne.build_erfc(RS_OMEGA, dev)
-    Pw = pair_window_inputs(ne, ops, 1, 223)
-    args, moved, flops = erfc_exchange_work(rs.tei, ops.gidx, Pw)["radial_erfc_exchange"]
-    check("field_ne", "radial_erfc_exchange", args, moved, flops)
+    for symm, key in ((1, "field_ne"), (0, "field_ne_s0")):
+        Pw = pair_window_inputs(ne, ops, symm, 223 + 2 * (1 - symm))
+        print(f"ne_l2 symmetry {symm}: {Pw.shape[0]} channel-pair windows")
+        args, moved, flops = erfc_exchange_work(rs.tei, ops.gidx, Pw)["radial_erfc_exchange"]
+        check(key, "radial_erfc_exchange", args, moved, flops)
+        results[("erfc_details", key)] = erfc_details(
+            key, args, results[("radial_erfc_exchange", key)])
     del ops, rs, args
     for ns in (1, 2):
         for name, (args, moved, flops) in atomic_xc_inputs("ar_l3", dev, ns).items():
@@ -3345,6 +3412,8 @@ def main() -> None:
                            "bound_ms")})
         if name == "radial_erfc_exchange":
             extra["erfc_tables_setup_s"] = results[("rs_setup", "erfc_tables_s")]
+            for key in ("ar", "ar_2", "xe", "xe_2", "field_ne", "field_ne_s0"):
+                extra.update({f"{key}_{k}": v for k, v in results[("erfc_details", key)].items()})
         for more in {"radial_exchange_dia_occ": ("o2_alpha", "o2_beta", "o2_l12_alpha",
                                                  "o2_l12_beta"),
                      "radial_exchange": ("sad_cr2",), **dict.fromkeys(XC, ("sad_cr2",))

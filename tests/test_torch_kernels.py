@@ -120,29 +120,57 @@ def test_plain_pairwise_exchange_matches_element_pair_reference(host):
                   _exchange_pair_reference(args, basis.nrad))
 
 
-def _random_erfc_inputs(dev, nnodes, ns, nelem=3, NL=3, nang=4, seed=61):
+def _random_erfc_inputs(dev, nnodes, ns, nelem=3, NL=3, nang=4, seed=61, primbas=4):
     """K10's inputs on random tables: the element layout of an FEMBasis of
-    nelem LIP elements on nnodes nodes, random tei [NL, nelem, nelem,
-    np^4] and ns * nang random symmetric channels."""
+    nelem elements of primbas (LIP by default) on nnodes nodes, random tei
+    [NL, nelem, nelem, np^4] with the erfc tables' symmetries (i <-> j,
+    k <-> l, the pair swap), which the kernel's packed copy relies on, and
+    ns * nang random symmetric channels."""
     from helfem_tpu_torch.ops.fem import FEMBasis
     from helfem_tpu_torch.ops.polynomials import get_basis
 
-    fem = FEMBasis(get_basis(4, nnodes), np.linspace(0.0, 10.0, nelem + 1))
+    fem = FEMBasis(get_basis(primbas, nnodes), np.linspace(0.0, 10.0, nelem + 1))
     rng = np.random.default_rng(seed)
     npr, nrad = fem.nprim, fem.nbf
-    tei = torch.tensor(rng.standard_normal((NL, nelem, nelem) + (npr,) * 4), device=dev)
+    T = rng.standard_normal((NL, nelem, nelem) + (npr,) * 4)
+    T = T + T.transpose(0, 1, 2, 4, 3, 5, 6)
+    T = T + T.transpose(0, 1, 2, 3, 4, 6, 5)
+    tei = torch.tensor(T + T.transpose(0, 2, 1, 5, 6, 3, 4), device=dev)
     X = rng.standard_normal((ns * nang, nrad, nrad))
     Pd = torch.tensor(X + X.transpose(0, 2, 1), device=dev)
     return tei, torch.tensor(fem.gidx, dtype=torch.int32, device=dev), Pd
 
 
+# K10 on random tables: label -> (_random_erfc_inputs keywords, the plan's
+# (MT, NG) and whether it splits the rows), one shape per instance of the
+# kernel (re_kernel) and plan branch
+ERFC_SHAPES = {
+    "np4": (dict(nnodes=4), (1, 8), False),  # KS 1
+    "np8": (dict(nnodes=8), (1, 8), False),  # KS 2
+    "np9_96cols": (dict(nnodes=9, nang=24), (2, 4), False),  # KS 3, 96 columns in one part
+    "np15": (dict(nnodes=15), (2, 4), False),  # KS 4
+    "np18": (dict(nnodes=18), (1, 4), False),  # KS 5
+    "np20": (dict(nnodes=20), (1, 4), False),
+    "np21_24cols": (dict(nnodes=21, nang=12), (1, 4), False),  # run-time depth
+    "hip_np22": (dict(nnodes=11, primbas=5), (1, 1), False),
+    "np40_rows16": (dict(nnodes=40, nelem=2, NL=1, nang=17), (1, 1), True),
+    "np48_rows8": (dict(nnodes=48, nelem=2, NL=1), (1, 1), True),
+}
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("ns", [1, 2])
-@pytest.mark.parametrize("nnodes", [8, 15], ids=["np8", "np15"])
-def test_erfc_exchange_kernel_matches_plain_on_card(cuda_device, nnodes, ns):
-    """K10 on random tables: 1e-12 x max-abs of the plain version, equal
-    bits twice, one launch per call."""
-    args = _random_erfc_inputs(cuda_device, nnodes, ns)
+@pytest.mark.parametrize("shape", list(ERFC_SHAPES))
+def test_erfc_exchange_kernel_matches_plain_on_card(cuda_device, shape, ns):
+    """K10 on random tables at every instance of the kernel and plan
+    branch: 1e-12 x max-abs of the plain version, equal bits twice, one
+    launch per call."""
+    kw, want, rows = ERFC_SHAPES[shape]
+    args = _random_erfc_inputs(cuda_device, ns=ns, **kw)
+    tei, gidx, Pd = args
+    p = _wrapper_module("radial_erfc_exchange").plan(
+        tei.shape[0], Pd.shape[0], tei.shape[1], gidx.shape[1], Pd.shape[1])
+    assert ((p.MT, p.NG), p.JP < gidx.shape[1]) == (want, rows)
     out = _check_twice("radial_erfc_exchange", args)
     ref = kernels.radial_erfc_exchange_plain(*args)
     assert float((out - ref).abs().max()) <= TOL * float(ref.abs().max())
@@ -177,19 +205,84 @@ def test_radial_exchange_on_yukawa_tables_on_card(cuda_device, lam):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("nnodes", [8, 15], ids=["np8", "np15"])
-def test_erfc_plan_matches_kernel_smem(cuda_device, nnodes):
+@pytest.mark.parametrize("shape", list(ERFC_SHAPES))
+def test_erfc_plan_matches_kernel_smem(cuda_device, shape):
     """K10's wrapper plans its shared memory as the kernel counts it."""
     from helfem_tpu_torch.kernels import _build, _radial
 
-    kernels.radial_erfc_exchange(*_random_erfc_inputs(cuda_device, nnodes, 2))
     mod = _wrapper_module("radial_erfc_exchange")
-    for t, *_ in [v[1] for v in mod._templates.values()]:
-        want = (_radial.fixed_bytes(t.nelem, t.nprim, t.nrad)
-                + 4 * (t.nelem * t.nprim + t.nrad)
-                + 8 * _radial.band_doubles(t.R, t.CG, t.NU, t.nprim))
-        assert _build.lib().radial_erfc_exchange_smem(ctypes.byref(t)) == want
-        assert want <= _radial.SMEM_BLOCK
+    mod._templates.clear()
+    kernels.radial_erfc_exchange(*_random_erfc_inputs(cuda_device, ns=2,
+                                                      **ERFC_SHAPES[shape][0]))
+    assert mod._templates
+    for t, *_, (_, _, plan) in [v[1] for v in mod._templates.values()]:
+        assert _build.lib().radial_erfc_exchange_smem(ctypes.byref(t)) == plan.smem
+        assert plan.smem <= _radial.SMEM_BLOCK
+
+
+def _erfc_ne_windows(dev, symm):
+    """The Ne lmax=2, mmax=1 field basis's erfc tables (omega 0.5) and its
+    channel-pair windows at symmetry 1 (17) or 0 (49, more than 32)."""
+    import chip_smoke as cs
+
+    basis = AtomicBasis(**cs.FIELD_SHAPES["ne_l2"])
+    ops = basis.build_operators(dev)
+    rs = basis.build_erfc(cs.RS_OMEGA, dev)
+    return rs.tei, ops.gidx, cs.pair_window_inputs(basis, ops, symm, 41 + symm)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("symm, nwin", [(1, 17), (0, 49)])
+def test_erfc_exchange_kernel_on_ne_windows_on_card(cuda_device, symm, nwin):
+    """K10 on the non-symmetric channel-pair windows of Ne lmax=2, mmax=1:
+    1e-12 x max-abs of the plain version, equal bits twice."""
+    args = _erfc_ne_windows(cuda_device, symm)
+    assert args[2].shape[0] == nwin
+    out = _check_twice("radial_erfc_exchange", args)
+    ref = kernels.radial_erfc_exchange_plain(*args)
+    assert float((out - ref).abs().max()) <= TOL * float(ref.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ns", [1, 2])
+def test_erfc_exchange_kernel_at_one_element_on_card(cuda_device, ns):
+    """K10 at nelem 1: one slab, diagonal, and no boundary function."""
+    args = _random_erfc_inputs(cuda_device, 8, ns, nelem=1)
+    out = _check_twice("radial_erfc_exchange", args)
+    ref = kernels.radial_erfc_exchange_plain(*args)
+    assert float((out - ref).abs().max()) <= TOL * float(ref.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", ["ar", "xe"])
+def test_erfc_table_is_packed_once_and_read_once(cuda_device, shape):
+    """The table set is packed once (a second call, and a call with twice
+    the channels, hit the cache) and each slab is read once per call: the
+    bytes the kernel's bulk copies request are the packed table's within
+    10 %."""
+    import chip_smoke as cs
+
+    mod = _wrapper_module("radial_erfc_exchange")
+    work, rs = cs.erfc_inputs(shape, cuda_device, 1)
+    tei, gidx, Pd = work["radial_erfc_exchange"][0]
+    calls = []
+    pack = mod.pack_erfc_table
+
+    def counted(*a, **k):
+        calls.append(1)
+        return pack(*a, **k)
+
+    mod.pack_erfc_table = counted
+    try:
+        kernels.radial_erfc_exchange(tei, gidx, Pd)
+        kernels.radial_erfc_exchange(tei, gidx, Pd)
+        kernels.radial_erfc_exchange(tei, gidx, torch.cat([Pd, Pd]))
+    finally:
+        mod.pack_erfc_table = pack
+    assert len(calls) == 1
+    packed = mod._packed(tei)
+    issued = mod.issued_bytes(tei, gidx, Pd)
+    assert abs(issued - 8 * packed.numel()) <= 0.1 * 8 * packed.numel()
 
 
 @pytest.mark.cuda
