@@ -145,8 +145,8 @@ Phases, any failure raises and exits non-zero:
      each within 1e-9 Eh of helfem_tpu's f64 value at the same arguments,
      K4 and K5 once per Fock build (the atomic CLI's K5 twice more for its
      grid self-check), K1 or K6 launched for the hybrids; then each cell's
-     warm walls (min of 3) and device-time shares of eigh, K4, K5 and
-     xc_eval's autograd ops;
+     warm wall (one run beside the profiled one) and device-time shares of
+     eigh, K4, K5 and xc_eval's autograd ops;
  18. range-separated exchange: K10 (radial_erfc_exchange) against its plain
      version on the erfc tables (omega 0.5) of the Ar and Xe bench bases at
      one and two spins, and K1 on the Yukawa tables of the Ar bench basis
@@ -163,8 +163,8 @@ Phases, any failure raises and exits non-zero:
      1e-9 Eh of helfem_tpu's f64 value, per Fock build K2 once, K10 once
      for the erfc methods (both spins in one launch), K1 once for kfull !=
      0 and once more for the Yukawa kernel, never for SR-PBE0, K4 once and
-     K5 once (twice more for the grid self-check); then the warm walls (min
-     of 3) and device shares (eigh, K1, K2, K10, K4, K5, xc_eval) of Ar and
+     K5 once (twice more for the grid self-check); then the warm wall (one
+     run) and device shares (eigh, K1, K2, K10, K4, K5, xc_eval) of Ar and
      Xe LC-LDA;
  19. the laplacian-level BR89: K4 and K5 in laplacian mode against their
      plain versions on the N2 bench, N2 lmax=12 (one spin), Ar and Xe
@@ -216,7 +216,25 @@ Phases, any failure raises and exits non-zero:
      the guess's Fock on all pair windows); each cell's warm wall and
      device-busy share; N2 PBE in Ez at convthr 1e-8 with the card's DIIS
      errors beside helfem_tpu's.
-The last two lines are the kernels' JSON record and {"ok": true, ...}.
+ 22. persistence and the programs: Ar HF (the bench config) through the
+     atomic CLI with --save (the crash-recovery hook at helfem_tpu's
+     iterations, its wall per call and the file's bytes, within 1e-10 Eh of
+     phase 4's pin), then --load on the same basis and on nelem 12 (the
+     cross-basis projection); N2 PBE (the bench config) with --save, then
+     --load; each warm start within 1e-9 Eh of helfem_tpu's CPU energy in
+     its iteration count, the atomic (K1/K2) or diatomic (K3, K4, K5)
+     kernels once per iteration and once more for the guess's Fock;
+     diatomic_dline, diatomic_dgrid and diatomic_cpl on the card's N2
+     checkpoint, pinned values within 1e-8 relative of helfem_tpu's output
+     on its own; the hook on N2 HF at the lmax=12 basis (its wall per call
+     and bytes); atomic_1e (hydrogenic within 1e-10 Eh), diatomic_1e,
+     harmonic and softcoulomb within 1e-10 relative of helfem_tpu's,
+     diatomic_cbasis's lmax list as helfem_tpu's and gensap Kr
+     --completeness's profiles; without h5py, --save x.chk raises its
+     ImportError (HDF5 is checked on the CPU).
+The script runs in a temporary working directory, where the CLIs write
+their checkpoints. The last two lines are the kernels' JSON record and
+{"ok": true, ...}.
 """
 
 import contextlib
@@ -786,6 +804,68 @@ DIIS_CELL = ("diatomic", F_N2_PBE + ["--convthr", "1e-8", "--Ez", "0.001"], -108
              12)
 DIIS_TRACE_REF = (0.4494, 0.3812, 0.05439, 0.04061, 0.0801, 0.001937, 0.0005586, 0.0002955,
                   2.347e-05, 1.366e-06, 9.903e-08, 3.493e-09)
+# phase 22: persistence and the programs. The helfem_tpu values below come
+# from its CLIs on the CPU in f64 at the same arguments, in one working
+# directory: `python -m helfem_tpu.cli.atomic <AR_CLI> --save ar.npz`, then
+# `<AR_CLI> --load ar.npz --save ""` and the same with `--nelem 12`;
+# `python -m helfem_tpu.cli.diatomic <N2_CLI> --save n2.npz`, then
+# `<N2_CLI> --load n2.npz`; on that n2.npz `python -m helfem_tpu.cli.
+# diatomic_dline --load n2.npz --npts 101`, `diatomic_dgrid --load n2.npz
+# --nz 60 --nrho 30` and `diatomic_cpl --load n2.npz --nexp 7
+# --completeness 1`; the hook's iterations from helfem_tpu's scf_atom(...,
+# guess="TF", convthr=1e-9, save_cb=...) at the Ar bench basis
+AR_HOOK_ITS = [1, 2, 6, 10]  # two host iterations, then the chunks' reported ones
+AR_FINE_CLI = [a if a != "10" else "12" for a in AR_CLI]  # nelem 12: the cross-basis start
+PERSIST_WARM = {  # label -> (helfem_tpu's energy, its iterations)
+    "Ar HF warm, same basis": (-526.8175128027068, 2),
+    "Ar HF warm, nelem 12": (-526.8175128026938, 2),
+    "N2 PBE warm, same basis": (-108.97870843727705, 2),
+}
+PERSIST_GATE = 1e-9
+# helfem_tpu's output on its own n2.npz: dline's n at rows 25, 50 and 67
+# (the maximum), dgrid's sum of n and its rows 915 and 1234, and diatomic_cpl's
+# (Y, I_a) at exponent rows 1 and 3 of two files
+DLINE_PINS = {25: 0.8401944253118356, 50: 0.7203559362922043, 67: 136.7733295154452}
+DGRID_PINS = {"sum": 1461.7597467234013, 915: 0.19808566006099693, 1234: 2.5712751571459598}
+CPL_PINS = {"cpl_gto_m0_l0_left.dat": {1: (0.9999407031388204, 0.28913607246079065),
+                                       3: (0.9782333150065775, 0.7757863611715836)},
+            "cpl_gto_m1_l1_mid.dat": {1: (0.9997097170300667, 0.06390522217946377),
+                                      3: (0.781057676189357, 0.0008088841994267884)}}
+PROGRAM_TOL = 1e-8  # relative: a card checkpoint differs in its last bits from a CPU one
+# the one-electron programs and gensap Kr --completeness through helfem_tpu's
+# CLIs at the same arguments: `python -m helfem_tpu.cli.atomic_1e --Z 1
+# --nelem 6 --nnodes 15 --lmax 2 --save h1e.npz`, `diatomic_1e --Z1 H --Z2 H
+# --Rbond 2`, `harmonic`, `softcoulomb` (their defaults), `diatomic_cbasis
+# --Z1 N --Z2 N --Rbond 2.0743 --thresh 5` and `gensap <KR_GENSAP_CLI>
+# --completeness`
+ONE_E = {
+    "atomic_1e": (["--Z", "1", "--nelem", "6", "--nnodes", "15", "--lmax", "2", "--save",
+                   "h1e.npz"], [-0.5000000000003149, -0.12499999999949149, -0.05555423472918148,
+                                -0.12499999999977475, -0.05555476995386505]),
+    "diatomic_1e": (["--Z1", "H", "--Z2", "H", "--Rbond", "2"],
+                    [-1.1026342143043504, -0.6675343902989366, -0.36086483827891036,
+                     -0.2554131394914318, -0.23577761941836342, -0.17768097581882716,
+                     -0.13731242664168763, -0.13079168065856195]),
+    "harmonic": ([], [0.4999999999999716, 1.4999999999999698, 2.5000000000000613,
+                      3.5000000000000493, 4.5000000000031255, 5.500000000003088,
+                      6.500000000047753, 7.500000000102192, 8.500000000389502,
+                      9.500000001349965]),
+    "softcoulomb": ([], [-0.6697771351208427, -0.2748913486686634, -0.15145466475683228,
+                         -0.09267932430299994, -0.06352651172491583, -0.045471316168964646,
+                         -0.034299143301493376, -0.024918167018710448]),
+}
+ONE_E_TOL = 1e-10  # relative; the hydrogenic 1s, 2s and 2p within 1e-10 Eh too
+CBASIS_CLI = ["--Z1", "N", "--Z2", "N", "--Rbond", "2.0743", "--thresh", "5"]
+CBASIS_REF = [(0.1, (7, 5)), (0.01, (9, 7)), (0.001, (11, 7)), (0.0001, (11, 9)),
+              (1e-05, (13, 9))]
+# gensap Kr's profiles at exponent rows 250 and 400 (l = 0, 1, 2): the
+# completeness is the basis's alone; the importance reads the SCF's
+# orbitals (convthr 1e-7), held to 1e-6 relative
+KR_COMPLETENESS = {"completeness_GTO_Kr.dat": {400: (0.029589368377933533, 0.04652551777084762,
+                                                     0.061464706815894686)},
+                   "importance_STO_Kr.dat": {250: (0.05338539982370654,
+                                                   0.00027034526510405396)}}
+KR_IMPORTANCE_TOL = 1e-6
 PROBES = {  # name -> (source, {precision: replaces})
     "matmul_f32": ("helfem_tpu_torch/csrc/matmul_probe.cu",
                    {"full": "scripts/pallas_f64_ablation.py:50",
@@ -2118,7 +2198,7 @@ def mgga_phase(dev, results: dict) -> dict:
     two tau identities, and the MGGA_CELLS through the port's CLIs, each
     within MGGA_GATE of helfem_tpu's energy with K4 and K5 once per Fock
     build (the atomic CLI's K5 twice more, for the grid self-check's
-    overlap and kinetic matrices); then each cell's warm walls (min of 3)
+    overlap and kinetic matrices); then each cell's warm wall (one run)
     and the device-time shares of eigh, K4, K5 and xc_eval (its forward
     range and autograd's backward nodes). Returns each cell's launches."""
     from helfem_tpu_torch import kernels
@@ -2168,8 +2248,8 @@ def mgga_phase(dev, results: dict) -> dict:
 
     def warm(label, run):
         per = profile_scf(label, run, kernels=XC_SASS + RADIAL_SASS + (K3_SASS, K6_SASS),
-                          ops=(EIGH_OP,), ranges={"xc_eval": ("xc_eval",
-                                                              "autograd::engine::evaluate")})
+                          ops=(EIGH_OP,), walls=1,
+                          ranges={"xc_eval": ("xc_eval", "autograd::engine::evaluate")})
         busy = per["busy"][0]
         shares = {name: per[key][0] for name, key in
                   (("eigh", EIGH_OP), ("K4", XC_SASS[0]), ("K5", XC_SASS[1]),
@@ -2256,7 +2336,7 @@ def rs_phase(dev, results: dict) -> dict:
     once, K10 once for an erfc method, K1 once for a method with kfull != 0
     and once more for the Yukawa kernel (the Coulomb and the Yukawa tables
     in two launches), K4 once and K5 once (twice more for the CLI's grid
-    self-check); then the warm walls (min of 3) and device shares of Ar and
+    self-check); then the warm wall (one run) and device shares of Ar and
     Xe LC-LDA with their tables prebuilt. Returns each cell's launches."""
     from helfem_tpu_torch import kernels
     from helfem_tpu_torch.cli.atomic import main as atomic_main
@@ -2313,7 +2393,8 @@ def rs_phase(dev, results: dict) -> dict:
             return res
 
         per = profile_scf(label, run, kernels=(*RADIAL_SASS, K10_SASS, *XC_SASS), ops=(EIGH_OP,),
-                          ranges={"xc_eval": ("xc_eval", "autograd::engine::evaluate")})
+                          ranges={"xc_eval": ("xc_eval", "autograd::engine::evaluate")},
+                          walls=1)
         busy = per["busy"][0]
         shares = {name: per[key][0] for name, key in
                   (("eigh", EIGH_OP), ("K1", RADIAL_SASS[0]), ("K2", RADIAL_SASS[1]),
@@ -2524,7 +2605,8 @@ def lapl_phase(dev, results: dict) -> dict:
                             ops=ops, grid=grid)
 
         per = profile_scf(label, run, kernels=XC_SASS + RADIAL_SASS, ops=(EIGH_OP,),
-                          ranges={"xc_eval": ("xc_eval", "autograd::engine::evaluate")})
+                          ranges={"xc_eval": ("xc_eval", "autograd::engine::evaluate")},
+                          walls=1)
         busy = per["busy"][0]
         shares = {name: per[key][0] for name, key in
                   (("eigh", EIGH_OP), ("K4", XC_SASS[0]), ("K5", XC_SASS[1]),
@@ -3008,6 +3090,217 @@ def control_phase(dev, results: dict) -> dict:
     return counts
 
 
+def near(got, ref, tol: float) -> bool:
+    """Every value of got within tol relative of ref's."""
+    got, ref = np.asarray(got, dtype=float), np.asarray(ref, dtype=float)
+    return got.shape == ref.shape and bool((np.abs(got - ref) <= tol * np.abs(ref)).all())
+
+
+def hook_report(label: str, res, path: str) -> dict:
+    """The crash-recovery hook's calls of a CLI run: their iterations, wall
+    per call and the checkpoint's bytes."""
+    its = [it for it, _ in res.checkpoint_writes]
+    walls = [w for _, w in res.checkpoint_writes]
+    size = os.path.getsize(path)
+    print(f"{label}: the hook wrote {path} at iterations {its}, {1e3 * np.mean(walls):.3f} ms "
+          f"a call (max {1e3 * max(walls):.3f} ms), {size} bytes; the final save "
+          f"{1e3 * res.walls['save']:.3f} ms; SCF {res.walls['scf']:.3f} s")
+    return {"its": its, "ms_per_call": 1e3 * float(np.mean(walls)), "bytes": size,
+            "scf_s": res.walls["scf"]}
+
+
+def persistence_phase(dev, results: dict, l12) -> dict:
+    """Phase 22: Ar HF and N2 PBE saved, reloaded and warm-started through the
+    port's CLIs at the bench bases (the Ar warm start also onto nelem 12),
+    within PERSIST_GATE of helfem_tpu's energies in its iteration counts,
+    the hook at helfem_tpu's iterations, K1/K2 and K3-K5 once per iteration
+    and once more for the warm guess's Fock; diatomic_dline, diatomic_dgrid
+    and diatomic_cpl on the card's N2 checkpoint against helfem_tpu's
+    output on its own (PROGRAM_TOL); the hook's cost on N2 HF at the
+    lmax=12 basis (l12: phase 11's basis and operators); the one-electron
+    programs, diatomic_cbasis and gensap Kr --completeness against
+    helfem_tpu's values; and the HDF5 checkpoints' ImportError without
+    h5py. Returns each run's launches."""
+    from helfem_tpu_torch import kernels
+    from helfem_tpu_torch.cli import (
+        atomic_1e,
+        diatomic_1e,
+        diatomic_cbasis,
+        diatomic_cpl,
+        diatomic_dgrid,
+        diatomic_dline,
+        harmonic,
+        softcoulomb,
+    )
+    from helfem_tpu_torch.cli._common import crash_hook
+    from helfem_tpu_torch.cli.atomic import main as atomic_main
+    from helfem_tpu_torch.cli.diatomic import main as diatomic_main
+    from helfem_tpu_torch.cli.gensap import main as gensap_main
+    from helfem_tpu_torch.scf.diatomic_scf import scf_diatomic
+    from helfem_tpu_torch.utils.checkpoint import save_diatomic
+
+    phase("22. persistence and the programs: Ar HF and N2 PBE saved, reloaded and warm-started "
+          "through the CLIs, the post-processing programs on the card's N2 checkpoint, the "
+          "hook's cost at lmax=12, the one-electron programs and gensap --completeness")
+    t_phase = time.perf_counter()
+    counts, report = {}, {}
+    per_iter = {"atomic": ATOMIC, "diatomic": XC_K3}
+    mains = {"atomic": atomic_main, "diatomic": diatomic_main}
+    cold = {}
+
+    def saved(kind, label, argv, path, pin):
+        """A cold run that writes its checkpoint at every hook call."""
+        def check(res):
+            print(f"{label}: E - the port's pin {res.E - pin:+.3e}")
+            return "" if res.converged and abs(res.E - pin) < 1e-10 else \
+                "did not converge within 1e-10 Eh of the port's pinned value"
+
+        kept = {}
+
+        def main(a):
+            kept["res"] = mains[kind](a)
+            return kept["res"]
+
+        counts[label] = run_cli(main, argv + ["--save", path], label, list(per_iter[kind]),
+                                check, per_iter=per_iter[kind])
+        cold[kind] = kept["res"]
+        report[label] = hook_report(label, kept["res"], path)
+        return kept["res"]
+
+    def warm(kind, label, argv):
+        """A warm start: helfem_tpu's energy and iteration count, the kernels
+        once per iteration and once more for the guess's Fock."""
+        E, niter = PERSIST_WARM[label]
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        res = mains[kind](argv + ["--device", "cuda"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = {name: kernels.launches[name] for name in per_iter[kind]}
+        base = cold[kind]
+        print(f"{label}: E - helfem_tpu = {res.E - E:+.3e} (gate {PERSIST_GATE:g}) in "
+              f"{res.niter} iterations (helfem_tpu {niter}; the cold run {base.niter}); load and "
+              f"projection {res.walls['load']:.3f} s, SCF {res.walls['scf']:.3f} s (cold "
+              f"{base.walls['scf']:.3f} s), whole CLI {wall:.3f} s; launches in this warm SCF "
+              f"{got}")
+        if not (res.converged and abs(res.E - E) < PERSIST_GATE and res.niter == niter):
+            raise RuntimeError(f"{label}: not within {PERSIST_GATE:g} Eh of helfem_tpu in its "
+                               "iteration count")
+        if got != {name: res.niter + 1 for name in per_iter[kind]}:
+            raise RuntimeError(f"{label}: launches {got}, not once per iteration and once for "
+                               "the guess's Fock")
+        counts[label] = got
+        report[label] = {"niter": res.niter, "scf_s": res.walls["scf"],
+                         "load_s": res.walls["load"], "cli_s": wall}
+
+    saved("atomic", "Ar HF saved", AR_CLI, "ar.npz", AR_HF_PORT)
+    if report["Ar HF saved"]["its"] != AR_HOOK_ITS:
+        raise RuntimeError(f"Ar HF: the hook ran at {report['Ar HF saved']['its']}, helfem_tpu's "
+                           f"at {AR_HOOK_ITS}")
+    warm("atomic", "Ar HF warm, same basis", AR_CLI + ["--load", "ar.npz", "--save", ""])
+    warm("atomic", "Ar HF warm, nelem 12", AR_FINE_CLI + ["--load", "ar.npz", "--save", ""])
+    saved("diatomic", "N2 PBE saved", N2_CLI, "n2.npz", N2_PBE_PORT)
+    warm("diatomic", "N2 PBE warm, same basis", N2_CLI + ["--load", "n2.npz"])
+
+    # the post-processing programs on the card's checkpoint
+    t0 = time.perf_counter()
+    z, n = diatomic_dline.main(["--load", "n2.npz", "--npts", "101", "--device", "cuda"])
+    _, _, ng = diatomic_dgrid.main(["--load", "n2.npz", "--nz", "60", "--nrho", "30",
+                                    "--device", "cuda"])
+    diatomic_cpl.main(["--load", "n2.npz", "--nexp", "7", "--completeness", "1",
+                       "--device", "cuda"])
+    ng = ng.ravel()
+    got = [n[i] for i in DLINE_PINS] + [ng.sum()] + [ng[i] for i in list(DGRID_PINS)[1:]]
+    ref = list(DLINE_PINS.values()) + list(DGRID_PINS.values())
+    cpl_got, cpl_ref = [], []
+    for name, rows in CPL_PINS.items():
+        table = np.loadtxt(name)
+        for row, vals in rows.items():
+            cpl_got += list(table[row, 1:3])
+            cpl_ref += list(vals)
+    miss = max(np.abs(np.array(got + cpl_got) / np.array(ref + cpl_ref) - 1.0))
+    print(f"dline, dgrid and cpl on the card's n2.npz: {time.perf_counter() - t0:.3f} s; the "
+          f"pinned values within {miss:.2e} relative of helfem_tpu's on its own checkpoint "
+          f"(gate {PROGRAM_TOL:g})")
+    if not (near(got, ref, PROGRAM_TOL) and near(cpl_got, cpl_ref, PROGRAM_TOL)):
+        raise RuntimeError("the post-processing programs disagree with helfem_tpu's output")
+
+    # the hook at the largest supported width: N2 HF lmax=12 from the core guess
+    big, big_ops = l12
+    save_cb, writes = crash_hook("l12.npz", big, save_diatomic)
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    res = scf_diatomic(big, 7, 7, method="HF", convthr=1e-7, maxit=50, ops=big_ops,
+                       save_cb=save_cb)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    check_per_iteration("N2 HF lmax=12 with the hook", res, kernels.launches, K3)
+    hook = [w for _, w in writes]
+    size = os.path.getsize("l12.npz")
+    print(f"N2 HF lmax=12 with the hook: E - CUDA-core value {res.E - N2_L12_CUDA_CORES:+.3e} "
+          f"in {res.niter} iterations, SCF wall {wall:.3f} s; the hook at "
+          f"{[it for it, _ in writes]}, {1e3 * np.mean(hook):.1f} ms a call (max "
+          f"{1e3 * max(hook):.1f} ms, {100 * sum(hook) / wall:.1f} % of the wall), {size} "
+          "bytes a file")
+    if not (res.converged and abs(res.E - N2_L12_CUDA_CORES) < 1e-8):
+        raise RuntimeError("N2 HF lmax=12 with the hook: not within 1e-8 Eh of its pin")
+    report["N2 HF lmax=12 hook"] = {"its": [it for it, _ in writes], "bytes": size,
+                                    "ms_per_call": 1e3 * float(np.mean(hook)), "scf_s": wall}
+    counts["N2 HF lmax=12 hook"] = {name: kernels.launches[name]
+                                    for name in (*K3, "radial_exchange_dia_occ")}
+
+    # the one-electron programs, diatomic_cbasis and gensap Kr --completeness
+    t0 = time.perf_counter()
+    mains_1e = {"atomic_1e": atomic_1e.main, "diatomic_1e": diatomic_1e.main,
+                "harmonic": harmonic.main, "softcoulomb": softcoulomb.main}
+    for name, (argv, ref) in ONE_E.items():
+        out = mains_1e[name](argv + ["--device", "cuda"])
+        got = (list(out["E_0"][:3]) + list(out["E_1"][:2]) if name == "atomic_1e"
+               else list(out))
+        if not near(got, ref, ONE_E_TOL):
+            raise RuntimeError(f"{name}: {got}, helfem_tpu's {ref}")
+        if name == "atomic_1e" and max(abs(got[0] + 0.5), abs(got[1] + 0.125),
+                                       abs(got[3] + 0.125)) > 1e-10:
+            raise RuntimeError("atomic_1e: the hydrogenic 1s, 2s, 2p not within 1e-10 Eh")
+    scan = diatomic_cbasis.main(CBASIS_CLI + ["--device", "cuda"])
+    if scan != CBASIS_REF:
+        raise RuntimeError(f"diatomic_cbasis: {scan}, helfem_tpu's {CBASIS_REF}")
+    res = gensap_main(KR_GENSAP_CLI + ["--completeness", "--output", "result_Kr.dat",
+                                       "--device", "cuda"])
+    for name, rows in KR_COMPLETENESS.items():
+        table = np.loadtxt(name)
+        tol = KR_IMPORTANCE_TOL if name.startswith("importance") else PROGRAM_TOL
+        for row, vals in rows.items():
+            if not near(table[row, 1:1 + len(vals)], vals, tol):
+                raise RuntimeError(f"gensap Kr {name} row {row}: {table[row]}, helfem_tpu's "
+                                   f"{vals}")
+    if abs(res.E - KR_GENSAP_PORT) > 1e-8:
+        raise RuntimeError("gensap Kr --completeness: E off the port's pin")
+    print(f"atomic_1e, diatomic_1e, harmonic, softcoulomb within {ONE_E_TOL:g} relative, "
+          f"diatomic_cbasis's lmax list {scan[-1]} at 1e-5 as helfem_tpu's, gensap Kr's "
+          f"profiles as helfem_tpu's: {time.perf_counter() - t0:.3f} s")
+
+    # HDF5 checkpoints need h5py, which the card machine lacks
+    try:
+        import h5py  # noqa: F401
+        print("h5py is installed here: the HDF5 checkpoints are checked on the CPU "
+              "(tests/test_torch_checkpoint.py)")
+    except ImportError:
+        try:
+            atomic_main(["--Z", "He", "--lmax", "0", "--mmax", "0", "--nelem", "3", "--nnodes",
+                         "5", "--save", "he.chk", "--device", "cuda"])
+        except ImportError as exc:
+            if "h5py" not in str(exc) or os.path.exists("he.chk.crash.npz"):
+                raise
+            print(f"--save he.chk without h5py: ImportError ({exc}); HDF5 is checked on the "
+                  "CPU only (tests/test_torch_checkpoint.py)")
+        else:
+            raise RuntimeError("--save he.chk ran without h5py")
+    results[("persistence", "report")] = report
+    print(f"phase 22: {time.perf_counter() - t_phase:.1f} s")
+    return counts
+
+
 def main() -> None:
     phase("1. device")
     smi = device_facts()
@@ -3336,8 +3629,6 @@ def main() -> None:
         if len(set(sad.values())) != 1 or (label == "cold") != (sad["radial_coulomb"] > 0):
             raise RuntimeError(f"N2 HF lmax=12 from SAP {label}: N's SAD solve did not launch "
                                "K2, K4 and K5 once per Fock build (cold) or never (warm)")
-    del big_ops
-    torch.cuda.empty_cache()
     t0 = time.perf_counter()
     pbe = DiatomicBasis(**N2_PBE_L12_SHAPE)
     pbe_ops = pbe.build_operators(dev)
@@ -3360,6 +3651,7 @@ def main() -> None:
                                              kernels=(*XC_SASS, K3_SASS)))
     del pbe_ops
     torch.cuda.empty_cache()
+    l12 = (big, big_ops)  # phase 22 runs the crash-recovery hook on them
 
     phase("12. Xe HF through the port's atomic CLI on the card, then its warm profile")
 
@@ -3380,6 +3672,8 @@ def main() -> None:
     lapl_counts = lapl_phase(dev, results)
     field_counts = field_phase(dev, results)
     control_counts = control_phase(dev, results)
+    persist_counts = persistence_phase(dev, results, l12)
+    del l12
     counts["radial_erfc_exchange"] = rs_counts["Ar LC-LDA"]["radial_erfc_exchange"]
 
     record = []
@@ -3449,6 +3743,7 @@ def main() -> None:
                           ("max_abs_err", "rel_err", "ms", "device_ms", "queued_ms", "plain_ms",
                            "bound_ms")})
         extra["phase21_launches"] = {label: c.get(name, 0) for label, c in control_counts.items()}
+        extra["phase22_launches"] = {label: c.get(name, 0) for label, c in persist_counts.items()}
         scf = results.get((name, {"radial_exchange_dia_occ": "o2_l12_scf",
                                   "radial_exchange": "sad_cr2_scf"}.get(name)))
         if scf is not None:
@@ -3490,4 +3785,12 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    # the CLIs write their checkpoints (helfem.npz by default) into the
+    # working directory: a temporary one, not the checkout
+    home = os.getcwd()
+    with tempfile.TemporaryDirectory() as work:
+        os.chdir(work)
+        try:
+            main()
+        finally:
+            os.chdir(home)

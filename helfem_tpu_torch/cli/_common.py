@@ -1,9 +1,22 @@
 """Helpers shared by the port's CLIs: electron counts, functional parameter
 files, the rejection of flags of the JAX CLIs that the port does not cover,
-and the device."""
+the device, and the checkpoint formats and crash-recovery hook of --save."""
 
-__all__ = ["add_xc_flags", "apply_pars_files", "open_device", "parse_nela_nelb",
-           "reject_unported"]
+import time
+from types import SimpleNamespace
+
+import numpy as np
+
+__all__ = ["H5_SUFFIXES", "add_xc_flags", "apply_pars_files", "crash_hook", "is_hdf5",
+           "open_device", "parse_nela_nelb", "reject_unported"]
+
+# a checkpoint path with one of these suffixes is a reference-schema HDF5
+# file (utils/checkpoint_h5.py), any other an npz one (utils/checkpoint.py)
+H5_SUFFIXES = (".chk", ".h5", ".hdf5")
+
+
+def is_hdf5(path: str) -> bool:
+    return path.endswith(H5_SUFFIXES)
 
 
 def parse_nela_nelb(Z: int, Q: int, M: int, nela: int, nelb: int):
@@ -83,3 +96,25 @@ def open_device(name: str):
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device cuda: no CUDA device is available")
     return device
+
+
+def crash_hook(save_path: str, basis, save):
+    """The crash-recovery hook of the atomic and diatomic CLIs (helfem_tpu
+    cli/atomic.py:257-281, cli/diatomic.py:205-225): each call's state
+    written by save(path, basis, state) as an npz checkpoint at save_path,
+    or beside it as <save_path>.crash.npz when save_path names an HDF5
+    file (the HDF5 file is written once, at the end). Returns (save_cb,
+    writes), writes the list of (iteration, seconds) of its calls."""
+    path = save_path + ".crash.npz" if is_hdf5(save_path) else save_path
+    writes = []
+
+    def save_cb(it, Etot, Ea, Ca, occa, Eb, Cb, occb):
+        t0 = time.perf_counter()
+        state = SimpleNamespace(
+            converged=False, E=Etot, orbE_a=np.sort(np.asarray(Ea).ravel()), orbs_a=Ca,
+            occ_a=occa, orbE_b=None if Eb is None else np.sort(np.asarray(Eb).ravel()),
+            orbs_b=Cb, occ_b=occb)
+        save(path, basis, state)
+        writes.append((it, time.perf_counter() - t0))
+
+    return save_cb, writes

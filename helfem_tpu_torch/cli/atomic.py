@@ -8,8 +8,13 @@ symmetry blocks 0/1/2), followed by the post-SCF analysis.
 
 helfem_tpu.cli.atomic's flags (they mirror the reference `atomic` program,
 src/atomic/main.cpp:63-119), plus --device; --trace writes a torch.profiler
-Chrome trace of the SCF. The checkpoint flags (--save, --load) and --ndev
-are rejected with NotImplementedError. The per-iteration, final-energy and
+Chrome trace of the SCF. --save (default helfem.npz, as helfem_tpu's)
+writes the checkpoint after every host iteration and fused chunk and once
+at the end (a .chk/.h5/.hdf5 path: the reference HDF5 schema at the end,
+npz crash-recovery files beside it as <save>.crash.npz; HDF5 needs h5py);
+--load warm-starts from a checkpoint, projected onto this basis when the
+discretization differs (an npz file needs (l,m) symmetry blocks). --ndev
+is rejected with NotImplementedError. The per-iteration, final-energy and
 analysis lines match the JAX CLI's.
 """
 
@@ -19,13 +24,15 @@ import time
 from helfem_tpu_torch.cli._common import (
     add_xc_flags,
     apply_pars_files,
+    crash_hook,
+    is_hdf5,
     open_device,
     parse_nela_nelb,
     reject_unported,
 )
 
-# helfem_tpu.cli.atomic flags outside the port (ROADMAP queue 1 items 9, 10)
-_UNPORTED_FLAGS = ("load", "save", "ndev")
+# helfem_tpu.cli.atomic flags outside the port (ROADMAP queue 1 item 10)
+_UNPORTED_FLAGS = ("ndev",)
 # --finitenuc: the reference's nuclear model numbers
 NUCLEAR_MODELS = {0: "point", 1: "point", 2: "gaussian", 3: "spherical", 4: "hollow",
                   5: "regularized"}
@@ -130,6 +137,13 @@ def main(argv=None):
     p.add_argument("--trace", default="",
                    help="write a torch.profiler Chrome/Perfetto trace of the SCF to this "
                         "JSON file")
+    p.add_argument("--save", default="helfem.npz",
+                   help="checkpoint file, written after every host iteration and fused "
+                        "chunk and at the end; a .chk/.h5/.hdf5 extension writes the "
+                        "reference HDF5 schema at the end (needs h5py); '' writes none")
+    p.add_argument("--load", default="",
+                   help="warm start from a checkpoint (cross-basis orbital projection); "
+                        ".chk/.h5/.hdf5 reads the reference HDF5 schema, anything else npz")
     p.add_argument("--device", default="cuda",
                    help="torch device: cuda runs the CUDA kernels, cpu their "
                         "plain PyTorch versions")
@@ -146,11 +160,14 @@ def main(argv=None):
     )
     from helfem_tpu_torch.ops.xc import parse_method_rs
     from helfem_tpu_torch.scf.atomic_scf import atomic_analysis, rs_operators, scf_atom
+    from helfem_tpu_torch.utils import checkpoint, checkpoint_h5
     from helfem_tpu_torch.utils.elements import ANGSTROM_IN_BOHR, HARTREE_IN_EV, get_Z
     from helfem_tpu_torch.utils.profiling import trace_scf
     from helfem_tpu_torch.utils.timer import Timer
 
     device = open_device(args.device)
+    if is_hdf5(args.save) or is_hdf5(args.load):
+        checkpoint_h5.require_h5py()  # before the SCF, not after it
     args.method = apply_pars_files(args.method, args.x_pars, args.c_pars)
     spec = parse_method_rs(args.method)  # raises for methods that are not ported
     funcs = spec.funcs
@@ -200,6 +217,19 @@ def main(argv=None):
         print(f"Relative error in kinetic matrix evaluated through xc grid is "
               f"{np.linalg.norm(dT):e}")
         walls["grid check"] = timer.lap("XC grid self-check")
+    # warm start from a checkpoint (cross-basis orbital projection)
+    P0a = P0b = None
+    if args.load:
+        if is_hdf5(args.load):
+            oldb, d = checkpoint_h5.load_atomic_chk(args.load)
+            P0a, P0b = checkpoint_h5.warm_start_density_atomic_h5(basis, oldb, d)
+            print(f"Warm start from HDF5 checkpoint {args.load}")
+        else:
+            oldb, d = checkpoint.load_atomic(args.load)
+            P0a, P0b = checkpoint.warm_start_density(basis, oldb, d)
+            print(f"Warm start from {args.load} (E = {float(d['E']):.9f})")
+        walls["load"] = timer.lap("checkpoint load and projection")
+    save_cb, writes = crash_hook(args.save, basis, checkpoint.save_atomic)
     occs = None
     if args.readocc:  # lines 'l m na nb'
         occs = {}
@@ -221,7 +251,7 @@ def main(argv=None):
             shift_conf=args.shift_conf, finitenuc=nucmodel, Rrms=args.Rrms, Zl=Zl, Zr=Zr,
             Rmid=args.Rmid, symmetry=args.symmetry, occs=occs, perturb=args.perturb,
             seed=args.seed, maverage=args.maverage, diag=bool(args.diag),
-            eigiter=args.eigiter,
+            eigiter=args.eigiter, P0a=P0a, P0b=P0b, save_cb=save_cb if args.save else None,
         )
     if device.type == "cuda":
         torch.cuda.synchronize(device)
@@ -230,6 +260,7 @@ def main(argv=None):
         print(f"profiler trace written to {args.trace}")
     timer.lap("SCF")
     res.walls = walls
+    res.checkpoint_writes = writes
     print()
     for name, val in [
         ("Kinetic", res.Ekin), ("Nuclear attraction", res.Enuc),
@@ -262,6 +293,14 @@ def main(argv=None):
     print(f"Cusp -n'(0)/(2 Z n(0)): {ana['cusp']:.10f}")
     print(f"Dipole <z>            : {ana['dipole_z']:.10e}")
     print(f"Quadrupole <zz>       : {ana['quadrupole_zz']:.10e}")
+    if args.save:
+        t0 = time.perf_counter()
+        if is_hdf5(args.save):
+            checkpoint_h5.save_atomic_chk(args.save, basis, res, nela, nelb)
+        else:
+            checkpoint.save_atomic(args.save, basis, res)
+        walls["save"] = time.perf_counter() - t0
+        print(f"checkpoint saved to {args.save}")
     return res
 
 

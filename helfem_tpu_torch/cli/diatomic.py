@@ -11,9 +11,14 @@ guess, in axial electric (--Ez), quadrupole (--Qzz) and magnetic (--Bz)
 fields and with finite nuclei (--finitenuc, --Rrms1, --Rrms2), with the
 SCF controls (--diag, --maverage, --symmetry, --readocc), followed by the
 post-SCF analysis (multipoles, nuclear densities, occupied orbitals);
---trace writes a torch.profiler Chrome trace of the SCF. The checkpoint
-flags (--save, --load) and --ndev are rejected with NotImplementedError.
-The per-iteration, final-energy and analysis lines match the JAX CLI's.
+--trace writes a torch.profiler Chrome trace of the SCF. --save writes the
+checkpoint after every host iteration and fused chunk and once at the end
+(a .chk/.h5/.hdf5 path: the reference HDF5 schema at the end, npz
+crash-recovery files beside it as <save>.crash.npz; HDF5 needs h5py);
+--load warm-starts from a checkpoint, projected onto this basis when the
+discretization differs (the same bond length). --ndev is rejected with
+NotImplementedError. The per-iteration, final-energy and analysis lines
+match the JAX CLI's.
 """
 
 import argparse
@@ -22,13 +27,15 @@ import time
 from helfem_tpu_torch.cli._common import (
     add_xc_flags,
     apply_pars_files,
+    crash_hook,
+    is_hdf5,
     open_device,
     parse_nela_nelb,
     reject_unported,
 )
 
-# helfem_tpu.cli.diatomic flags outside the port (ROADMAP queue 1 items 9, 10)
-_UNPORTED_FLAGS = ("save", "load", "ndev")
+# helfem_tpu.cli.diatomic flags outside the port (ROADMAP queue 1 item 10)
+_UNPORTED_FLAGS = ("ndev",)
 
 
 def main(argv=None):
@@ -107,6 +114,13 @@ def main(argv=None):
     p.add_argument("--trace", default="",
                    help="write a torch.profiler Chrome/Perfetto trace of the SCF to this "
                         "JSON file")
+    p.add_argument("--save", default="",
+                   help="write a checkpoint (after every host iteration and fused chunk and "
+                        "at the end); a .chk/.h5/.hdf5 extension writes the reference HDF5 "
+                        "schema at the end (needs h5py), anything else npz")
+    p.add_argument("--load", default="",
+                   help="warm start from a checkpoint (npz or reference-schema HDF5 by "
+                        "extension)")
     p.add_argument("--device", default="cuda",
                    help="torch device: cuda runs the CUDA kernels, cpu their "
                         "plain PyTorch versions")
@@ -118,11 +132,14 @@ def main(argv=None):
 
     from helfem_tpu_torch.models.diatomic import DiatomicBasis
     from helfem_tpu_torch.scf.diatomic_scf import scf_diatomic
+    from helfem_tpu_torch.utils import checkpoint, checkpoint_h5
     from helfem_tpu_torch.utils.elements import ANGSTROM_IN_BOHR, HARTREE_IN_EV, get_Z
     from helfem_tpu_torch.utils.profiling import trace_scf
     from helfem_tpu_torch.utils.timer import Timer
 
     device = open_device(args.device)
+    if is_hdf5(args.save) or is_hdf5(args.load):
+        checkpoint_h5.require_h5py()  # before the SCF, not after it
     Z1, Z2 = get_Z(args.Z1), get_Z(args.Z2)
     R = args.Rbond * (ANGSTROM_IN_BOHR if args.angstrom else 1.0)
     if args.mmax >= 0:
@@ -165,6 +182,27 @@ def main(argv=None):
             parity = True
     ops = basis.build_operators(device, parity=parity, chol=not args.diag)
     walls["operators"] = timer.lap("operator build")
+    P0a = P0b = None
+    if is_hdf5(args.load):
+        bold, d = checkpoint_h5.load_diatomic_chk(args.load)
+        P0a, P0b = checkpoint_h5.warm_start_density_dia_h5(basis, bold, d)
+        print(f"warm start from HDF5 checkpoint {args.load}")
+    elif args.load:
+        bold, d = checkpoint.load_diatomic(args.load)
+        if bold.nbf == basis.nbf and bold.lmax == basis.lmax:
+            # the file's own blocks (helfem_tpu takes this run's, and fails
+            # when --Ez or --symmetry changed them)
+            P0a = checkpoint.density_from_blocks_dia(bold, d["orbs_a"], d["occ_a"])
+            if d["orbs_b"].size:
+                P0b = checkpoint.density_from_blocks_dia(bold, d["orbs_b"], d["occ_b"])
+            print(f"warm start from {args.load} (E = {float(d['E']):.9f})")
+        else:
+            # another discretization: the cross-basis restart projection
+            P0a, P0b = checkpoint.warm_start_density_dia(basis, bold, d)
+            print(f"cross-basis warm start from {args.load} (E = {float(d['E']):.9f})")
+    if args.load:
+        walls["load"] = timer.lap("checkpoint load and projection")
+    save_cb, writes = crash_hook(args.save, basis, checkpoint.save_diatomic)
     t0 = time.perf_counter()
     with trace_scf(args.trace, device):
         res = scf_diatomic(
@@ -174,7 +212,8 @@ def main(argv=None):
             diiseps=args.diiseps, dftthr=args.dftthr, ldft=args.ldft, diisthr=args.diisthr,
             Ez=args.Ez, Qzz=args.Qzz, Bz=args.Bz, finitenuc=args.finitenuc,
             Rrms1=args.Rrms1, Rrms2=args.Rrms2, occs=occs, readocc_until=args.readocc,
-            diag=bool(args.diag), maverage=args.maverage,
+            diag=bool(args.diag), maverage=args.maverage, P0a=P0a, P0b=P0b,
+            save_cb=save_cb if args.save else None,
         )
     if device.type == "cuda":
         torch.cuda.synchronize(device)
@@ -183,6 +222,15 @@ def main(argv=None):
         print(f"profiler trace written to {args.trace}")
     timer.lap("SCF")
     res.walls = walls
+    res.checkpoint_writes = writes
+    if args.save:
+        t0 = time.perf_counter()
+        if is_hdf5(args.save):
+            checkpoint_h5.save_diatomic_chk(args.save, basis, res, nela, nelb)
+        else:
+            checkpoint.save_diatomic(args.save, basis, res)
+        walls["save"] = time.perf_counter() - t0
+        print(f"checkpoint saved to {args.save}")
     print()
     for name, val in [
         ("Kinetic", res.Ekin), ("Nuclear attraction", res.Enucattr),

@@ -11,23 +11,17 @@ aufbau search or with the multiplicity scan (--scan), and writes the five
 potential variants resultU/M/W/S/s_<El>.dat. Finite nuclei with their
 sub-grid (--finitenuc, --Rrms, --nelem0, --grid0, --zexp0), the
 confinement (--iconf family; Econf printed apart) and --zeroder run as in
-helfem_tpu; --completeness (ROADMAP queue 1 item 9) is rejected with
-NotImplementedError.
+helfem_tpu; --completeness writes the GTO and STO completeness and
+importance profiles of every l channel (ops/lcao.py, their solves on the
+device).
 """
 
 import argparse
 
 import numpy as np
 
-from helfem_tpu_torch.cli._common import (
-    add_xc_flags,
-    apply_pars_files,
-    open_device,
-    reject_unported,
-)
+from helfem_tpu_torch.cli._common import add_xc_flags, apply_pars_files, open_device
 
-# helfem_tpu.cli.gensap flags outside the port (ROADMAP queue 1 item 9)
-_UNPORTED_FLAGS = ("completeness",)
 # the unrestricted potential variants: file tag -> potential_table mode
 # (reference: src/sadatom/main.cpp:738-767)
 VARIANTS = {"U": "mean", "M": "average", "W": "weighted", "S": "highspin", "s": "lowspin"}
@@ -85,6 +79,8 @@ def main(argv=None):
                    help="with --unrestricted: full multiplicity scan")
     p.add_argument("--Q", type=int, default=0, help="total charge")
     p.add_argument("--output", default="", help="result_<El>.dat path (default auto)")
+    p.add_argument("--completeness", action="store_true",
+                   help="write GTO/STO completeness + importance profiles")
     p.add_argument("--saveing", action="store_true",
                    help="write the xc-ingredient table xcing_<El>.dat")
     p.add_argument("--saveorb", action="store_true",
@@ -123,8 +119,7 @@ def main(argv=None):
     p.add_argument("--device", default="cuda",
                    help="torch device: cuda runs the CUDA kernels, cpu their plain "
                         "PyTorch versions")
-    args, extra = p.parse_known_args(argv)
-    reject_unported(extra, _UNPORTED_FLAGS, p.prog)
+    args = p.parse_args(argv)
 
     from helfem_tpu_torch.models.sadatom import SadAtomBasis, sad_method
     from helfem_tpu_torch.models.sadconf import get_configuration, hund_rule
@@ -300,6 +295,8 @@ def restricted_leg(args, basis, Z, nel, occs, funcs, pot_funcs, solver_kw, walls
         rp, va, vb = xc_potential_table(basis, res.Pl / 2.0, res.Pl / 2.0, funcs)
         np.savetxt("xcpot.dat", np.column_stack([rp, va, vb]))
         print("xc potential written to xcpot.dat")
+    if args.completeness:
+        completeness_files(args, basis, Z, res, solver_kw["ops"].device)
     if args.saveing:
         ing = xc_ingredients(basis, res.Pl)
         np.savetxt(f"xcing_{SYMBOLS[Z]}.dat", ing[np.argsort(ing[:, 0])])
@@ -311,6 +308,29 @@ def restricted_leg(args, basis, Z, nel, occs, funcs, pot_funcs, solver_kw, walls
     if not res.converged:
         print("WARNING: SCF did not converge!")
     return res
+
+
+def completeness_files(args, basis, Z: int, res, device) -> None:
+    """GTO/STO completeness and importance profiles per l channel on 501
+    exponents in [1e-5, 1e10] (helfem_tpu/cli/gensap.py:275-294; reference:
+    gto/sto_{completeness,importance}_profile, src/sadatom/solver.cpp):
+    completeness_<kind>_<El>.dat and importance_<kind>_<El>.dat, log10 of
+    the exponent then one column per l."""
+    from helfem_tpu_torch.ops.lcao import completeness_profile, importance_profile
+    from helfem_tpu_torch.utils.elements import SYMBOLS
+
+    expn = np.logspace(-5, 10, 501)
+    for kind in ("GTO", "STO"):
+        comp, imp = [np.log10(expn)], [np.log10(expn)]
+        for l in range(args.lmax + 1):
+            comp.append(completeness_profile(basis.rb, l, expn, kind, device))
+            # (partially) occupied radial orbitals: 2(2l+1) electrons each
+            occn = int(np.ceil(res.occs[l] / (2.0 * (2 * l + 1))))
+            imp.append(importance_profile(basis.rb, np.asarray(res.orbs[l])[:, :occn], l,
+                                          expn, kind, device))
+        np.savetxt(f"completeness_{kind}_{SYMBOLS[Z]}.dat", np.column_stack(comp))
+        np.savetxt(f"importance_{kind}_{SYMBOLS[Z]}.dat", np.column_stack(imp))
+        print(f"{kind} completeness + importance profiles written")
 
 
 def unrestricted_leg(args, basis, Z, nel, occs_u, funcs, pot_funcs, solver_kw, walls):

@@ -28,8 +28,8 @@ masked (shell_mask).
   symmetry blocks is dropped (build_operators(parity=False)).
 
 build_operators(chol=True) whitens the symmetry blocks with the inverse
-Cholesky factor (--diag 0). Not ported yet: explicit element boundaries
-(bval, the checkpoint bases of ROADMAP queue 1 item 9).
+Cholesky factor (--diag 0). bval, when given, are the element boundaries in mu (the
+bases of checkpoints, utils/checkpoint.py and utils/checkpoint_h5.py).
 """
 
 from collections.abc import Mapping
@@ -146,7 +146,9 @@ def from_jax_operators(arrays: Mapping[str, np.ndarray], device) -> DiatomicOper
 @dataclass
 class DiatomicBasis:
     """Host-side setup of a diatomic calculation (helfem_tpu's
-    DiatomicBasis with the element boundaries from rmax/nelem/igrid/zexp)."""
+    DiatomicBasis): the element boundaries come from rmax/nelem/igrid/zexp,
+    or are bval (in mu), and then nelem and rmax follow from them
+    (helfem_tpu diatomic.py:112-135)."""
 
     Z1: int
     Z2: int
@@ -159,6 +161,7 @@ class DiatomicBasis:
     igrid: int = 4
     zexp: float = 2.0
     primbas: int = 4
+    bval: np.ndarray | None = None
 
     lval: np.ndarray = field(init=False)
     mval: np.ndarray = field(init=False)
@@ -171,8 +174,13 @@ class DiatomicBasis:
         if self.nquad == 0:
             self.nquad = 5 * self.nnodes
         self.Rhalf = 0.5 * self.Rbond
-        mumax = np.arccosh(self.rmax / self.Rhalf)
-        bval = get_grid(mumax, self.nelem, self.igrid, self.zexp)
+        if self.bval is not None:
+            bval = np.asarray(self.bval, dtype=float)
+            self.nelem = len(bval) - 1
+            self.rmax = float(self.Rhalf * np.cosh(bval[-1]))
+        else:
+            bval = get_grid(np.arccosh(self.rmax / self.Rhalf), self.nelem, self.igrid,
+                            self.zexp)
         poly = get_basis(self.primbas, self.nnodes)
         self.fem = FEMBasis(poly, bval, drop_first=False, drop_last=True)
         self.xq, self.wq = chebyshev(self.nquad)

@@ -1,8 +1,12 @@
 """Model potentials on the diatomic (mu, eta) quadrature grid, the
-finite-nucleus attraction, the SAP/GSZ/TF guess Hamiltonian of two atoms
-and the post-SCF analysis (the density at points and at the nuclei, the
-orbitals' radial moments), ported from helfem_tpu/models/diatomic_tools.py
-(host numpy on the basis and on the grid tables of build_dia_grid).
+finite-nucleus attraction, the SAP/GSZ/TF guess Hamiltonian of two atoms,
+the post-SCF analysis (the density at points and at the nuclei, the
+orbitals' radial moments), the density along the axis and on a (z, rho)
+grid (the diatomic_dline and diatomic_dgrid programs) and the core-basis
+scan (diatomic_cbasis), ported from helfem_tpu/models/diatomic_tools.py.
+Host numpy on the basis and on the grid tables of build_dia_grid; the
+density's contraction at points and the core Hamiltonian's eigensolves run
+in torch on the caller's device.
 """
 
 import numpy as np
@@ -17,7 +21,8 @@ from helfem_tpu_torch.scf.guess import potential
 
 __all__ = ["potential_matrix_dia", "finite_nucleus_Vnuc", "guess_hamiltonian_dia",
            "eval_density_points", "nuclear_densities_dia", "occupied_orbital_vectors_dia",
-           "orbital_moments_dia"]
+           "orbital_moments_dia", "density_line", "density_grid", "num_orbs",
+           "core_channel_energies", "core_basis_scan"]
 
 
 def potential_matrix_dia(basis: DiatomicBasis, g: DiaGridOps, V) -> np.ndarray:
@@ -87,9 +92,12 @@ def _point_to_prolate(basis: DiatomicBasis, z, rho):
     return np.arccosh(xi), eta
 
 
-def eval_density_points(basis: DiatomicBasis, P: np.ndarray, z, rho) -> np.ndarray:
+def eval_density_points(basis: DiatomicBasis, P: np.ndarray, z, rho,
+                        device=None) -> np.ndarray:
     """Electron density at the cylindrical points (z, rho) of the m-block-
-    diagonal density P (helfem_tpu diatomic_tools.py:97-130)."""
+    diagonal density P (helfem_tpu diatomic_tools.py:97-130): the basis
+    values at the points on the host, their contraction with the same-m
+    blocks of P on `device` (None: the CPU)."""
     z = np.atleast_1d(np.asarray(z, dtype=float))
     rho = np.broadcast_to(np.atleast_1d(np.asarray(rho, dtype=float)), z.shape)
     mu, eta = _point_to_prolate(basis, z, rho)
@@ -101,17 +109,14 @@ def eval_density_points(basis: DiatomicBasis, P: np.ndarray, z, rho) -> np.ndarr
         x = (mu[k] - fem.mids[e]) / (0.5 * fem.lengths[e])
         Bv[k][fem.gidx[e]] += fem.eval_element(e, np.array([x]), 0)[0][0]
     Bv = Bv[:, :nrad]
-    Th = _shell_Pbar(basis, eta)
-    mask = basis.shell_mask()
-    P4 = P.reshape(nang, nrad, nang, nrad)
-    dens = np.zeros(len(z))
-    for a in range(nang):
-        for b in range(nang):
-            if basis.mval[a] != basis.mval[b]:
-                continue
-            va, vb = Bv * mask[a][None, :], Bv * mask[b][None, :]
-            dens += Th[a] * Th[b] * np.einsum("kI,IJ,kJ->k", va, P4[a, :, b, :], vb)
-    return dens
+    Th = torch.as_tensor(_shell_Pbar(basis, eta), device=device)
+    Bm = torch.as_tensor(Bv[None] * basis.shell_mask()[:, None, :], device=device)
+    same_m = torch.as_tensor(basis.mval[:, None] == basis.mval[None, :], device=device)
+    P4 = torch.as_tensor(np.asarray(P, dtype=float), device=device).reshape(nang, nrad, nang,
+                                                                             nrad)
+    W = torch.einsum("akI,aIbJ,bkJ->abk", Bm, P4, Bm)  # [nang, nang, npts]
+    dens = torch.einsum("abk,ak,bk->k", W * same_m[:, :, None], Th, Th)
+    return dens.cpu().numpy()
 
 
 def orbital_moments_dia(basis: DiatomicBasis, c: np.ndarray) -> dict:
@@ -176,3 +181,116 @@ def occupied_orbital_vectors_dia(basis: DiatomicBasis, orbs, occ, E_blocks):
             out.append((float(E_blocks[b][k]), float(occ[b][k]), c))
     out.sort(key=lambda t: t[0])
     return out
+
+
+def density_line(basis: DiatomicBasis, P: np.ndarray, npts: int = 200, zmax: float = None,
+                 device=None):
+    """Density along the internuclear axis (reference: diatomic_dline,
+    src/diatomic/density_line.cpp; helfem_tpu diatomic_tools.py:133-140).
+    Returns (z, n(z)); zmax None: 3 Rh."""
+    if zmax is None:
+        zmax = 3.0 * basis.Rhalf
+    z = np.linspace(-zmax, zmax, npts)
+    return z, eval_density_points(basis, P, z, np.zeros_like(z) + 1e-9, device)
+
+
+def density_grid(basis: DiatomicBasis, P: np.ndarray, nz: int = 100, nrho: int = 50,
+                 zmax: float = None, rhomax: float = None, device=None):
+    """Density on a (z, rho) half-plane grid (reference: diatomic_dgrid;
+    helfem_tpu diatomic_tools.py:143-155). Returns (z, rho, n[nz, nrho]);
+    zmax None: 3 Rh, rhomax None: 2 Rh."""
+    if zmax is None:
+        zmax = 3.0 * basis.Rhalf
+    if rhomax is None:
+        rhomax = 2.0 * basis.Rhalf
+    z = np.linspace(-zmax, zmax, nz)
+    rho = np.linspace(1e-9, rhomax, nrho)
+    Z, R = np.meshgrid(z, rho, indexing="ij")
+    n = eval_density_points(basis, P, Z.ravel(), R.ravel(), device).reshape(nz, nrho)
+    return z, rho, n
+
+
+# Z at which each new (n,l) shell opens in the Madelung filling order, with
+# its l (helfem_tpu diatomic_tools.py:163-171)
+_SHELL_OPEN = [
+    (1, 0), (3, 0), (5, 1), (11, 0), (13, 1), (19, 0), (21, 2), (31, 1),
+    (37, 0), (39, 2), (49, 1), (55, 0), (57, 3), (71, 2), (81, 1), (87, 0),
+    (89, 3), (103, 2), (113, 1),
+]
+
+
+def num_orbs(Z1: int, Z2: int) -> list[int]:
+    """Occupied orbitals per m-type (sigma, pi, delta, phi) in the
+    separated-atom limit (reference: num_orbs, src/general/elements.cpp:
+    48-79): each open (n,l) shell of either atom gives one orbital to every
+    m-type <= l."""
+    counts = [0, 0, 0, 0]
+    for Z in (Z1, Z2):
+        for z0, l in _SHELL_OPEN:
+            if Z >= z0:
+                for m in range(l + 1):
+                    counts[m] += 1
+    while counts and counts[-1] == 0:
+        counts.pop()
+    return counts
+
+
+def core_channel_energies(basis: DiatomicBasis, norb_per_m: dict, device=None) -> dict:
+    """{m: the sum of the lowest norb core-Hamiltonian eigenvalues of the
+    |m| = m channel}, from the generalized symmetric eigensolve on the
+    masked channel subspace (helfem_tpu diatomic_tools.py:193-212, there
+    scipy.linalg.eigh), here through the Cholesky factor of the overlap on
+    `device` (None: the CPU)."""
+    H0 = basis.kinetic() + basis.nuclear()
+    S = basis.overlap()
+    mask = basis.shell_mask().reshape(-1) > 0
+    mrow = np.repeat(basis.mval, basis.nrad)
+    out = {}
+    for m, norb in norb_per_m.items():
+        idx = np.nonzero(mask & (mrow == m))[0]
+        L = torch.linalg.cholesky(torch.as_tensor(S[np.ix_(idx, idx)], device=device))
+        Hs = torch.as_tensor(H0[np.ix_(idx, idx)], device=device)
+        A = torch.linalg.solve_triangular(L, Hs, upper=False)
+        A = torch.linalg.solve_triangular(L, A.T, upper=False)
+        w = torch.linalg.eigvalsh(0.5 * (A + A.T))
+        out[m] = float(w[:norb].sum())
+    return out
+
+
+def core_basis_scan(Z1: int, Z2: int, Rbond: float, thresh: int = 8, nadd: int = 2,
+                    rmax: float = 40.0, nelem: int = 1, nnodes: int = 15, igrid: int = 4,
+                    zexp: float = 1.0, verbose: bool = False, device=None):
+    """The per-m lmax that converges the occupied core orbitals to each of
+    the thresholds 1e-1 .. 1e-thresh (reference: corebasis.cpp main loop;
+    helfem_tpu diatomic_tools.py:215-253), the eigensolves on `device`.
+    Returns [(threshold, lmax per m-type tuple)]."""
+    norbs = num_orbs(Z1, Z2)
+    nm = len(norbs)
+    lmax = list(range(nm))  # minimal start: one function per channel
+    results = []
+
+    def energies(lm):
+        b = DiatomicBasis(Z1=Z1, Z2=Z2, Rbond=Rbond, lmax=tuple(lm), rmax=rmax, nelem=nelem,
+                          nnodes=nnodes, igrid=igrid, zexp=zexp)
+        return core_channel_energies(b, {m: norbs[m] for m in range(nm)}, device)
+
+    E = energies(lmax)
+    for ithr in range(1, thresh + 1):
+        thr = 10.0 ** (-ithr)
+        for m in range(nm - 1, -1, -1):
+            while lmax[m] < 60:
+                trial = list(lmax)
+                trial[m] += nadd
+                # channels are nested: lmax must not increase with m-type
+                for mm in range(m):
+                    trial[mm] = max(trial[mm], trial[m])
+                Et = energies(trial)
+                dE = E[m] - Et[m]
+                if verbose:
+                    print(f"thr=1e-{ithr} m={m}: lmax {lmax[m]} -> {trial[m]}, dE = {dE:.3e}")
+                if abs(dE) < thr:
+                    break
+                lmax = trial
+                E = Et
+        results.append((thr, tuple(lmax)))
+    return results

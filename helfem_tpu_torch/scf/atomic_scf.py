@@ -36,8 +36,10 @@ cross-channel blocks, then the blocked eigensolve), perturbed by a random
 rotation (perturb/seed), and the occupations can be fixed per (l,m) block
 (occs). helfem_tpu's lax.while_loop chunk becomes a Python loop over
 tensors that stay on the device; one boolean per iteration comes back to
-stop the chunk. --ndev and the checkpoint hook (save_cb) raise
-NotImplementedError: nothing falls back silently. atomic_analysis is the
+stop the chunk. The crash-recovery hook save_cb gets the state of every
+host iteration and of the reported iteration of every fused chunk, as
+helfem_tpu's does. --ndev raises NotImplementedError: nothing falls back
+silently. atomic_analysis is the
 post-SCF analysis (<r^n>, the density at the nucleus and the cusp, the
 multipoles).
 """
@@ -73,6 +75,7 @@ from helfem_tpu_torch.scf.common import (
     aufbau_blocks,
     diis_error_blocks,
     full_sinvh,
+    hook_state,
     reject_unported,
     symmetric_sinvh,
     vdot,
@@ -364,7 +367,7 @@ def make_fused_chunk_u(fock):
 
 # scf_atom options of helfem_tpu that the port does not cover, with the
 # default values under which they are inert
-_UNPORTED = {"save_cb": None, "ndev": 0}
+_UNPORTED = {"ndev": 0}
 
 
 def rs_operators(basis: AtomicBasis, spec: MethodSpec, device):
@@ -456,6 +459,7 @@ def scf_atom(
     maverage: bool = False,
     diag: bool = True,
     eigiter: int = 0,
+    save_cb=None,
     **unported,
 ) -> SCFResult:
     """Restricted, unrestricted or ROHF SCF of HF, the ported LDA, GGA and
@@ -493,7 +497,14 @@ def scf_atom(
     solves each block for its lowest eigiter pairs by shift-invert ARPACK
     (sigma = -0.6 Z^2 - 10) on the host; both keep every iteration on the
     host loop (helfem_tpu atomic_scf.py:692). diag=False whitens with the
-    inverse Cholesky factor (reference --diag 0)."""
+    inverse Cholesky factor (reference --diag 0).
+
+    save_cb(it, Etot, Ea, Ca, occa, Eb, Cb, occb), when given, is the
+    crash-recovery hook (helfem_tpu atomic_scf.py:770-779, :826-836,
+    :882-886): called after every host iteration and once per fused chunk,
+    on the state of the chunk's reported iteration, with host numpy block
+    eigenvalues, orbitals and occupations (Eb, Cb, occb None when
+    restricted); one card-to-host copy of the orbitals per call."""
     reject_unported(unported, _UNPORTED, "scf_atom")
     spec = parse_method_rs(method)  # raises for the functionals the port lacks
     funcs = spec.funcs
@@ -662,6 +673,8 @@ def scf_atom(
                 Eb = Ebs[k].cpu().numpy()
             Nel = float(Nels[k])
             Ekin, Enuc, Ecoul, Exx, Exc, Efield = comps[k].cpu().numpy()
+            if save_cb is not None:
+                hook_state(save_cb, it, Etot, restricted, Ea, Ca, occa, Eb, Cb, occb)
             if converged or it >= maxit:
                 break
             continue
@@ -695,6 +708,8 @@ def scf_atom(
                                                        S_np, dampfock)
         if verbose:
             print(f"iter {it:3d}  E = {Etot:+.12f}  dE = {dE:+.3e}  diis = {err:.3e}")
+        if save_cb is not None:
+            hook_state(save_cb, it, Etot, restricted, Ea, Ca, occa, Eb, Cb, occb)
         if err < convthr and abs(dE) < convthr and it > 1:
             converged = True
             break

@@ -1,14 +1,15 @@
 """Helpers shared by the atomic and diatomic SCF drivers: aufbau occupations
 over symmetry blocks, the block-coordinate DIIS error, the full-matrix
-whitening from its blocks, and the rejection of unported options."""
+whitening from its blocks, the crash-recovery hook's call and the rejection
+of unported options."""
 
 import numpy as np
 import torch
 
 from helfem_tpu_torch.utils.linalg import _BIG, build_blocks
 
-__all__ = ["aufbau_blocks", "diis_error_blocks", "full_sinvh", "occ_fixed_blocks",
-           "reject_unported", "symmetric_sinvh", "vdot"]
+__all__ = ["aufbau_blocks", "diis_error_blocks", "full_sinvh", "hook_state",
+           "occ_fixed_blocks", "reject_unported", "symmetric_sinvh", "vdot"]
 
 
 def aufbau_blocks(E: np.ndarray, nel: float) -> np.ndarray:
@@ -95,3 +96,14 @@ def reject_unported(options: dict, unported: dict, fn: str) -> None:
                 f"{fn} option {name}={value!r} is not ported to "
                 "helfem_tpu_torch yet (see ROADMAP.md)"
             )
+
+
+def hook_state(save_cb, it: int, Etot: float, restricted: bool, Ea, Ca: torch.Tensor, occa,
+               Eb, Cb: torch.Tensor, occb) -> None:
+    """Call the crash-recovery hook save_cb(it, Etot, Ea, Ca, occa, Eb, Cb,
+    occb) with host numpy arrays, the beta ones None when restricted
+    (helfem_tpu's call): one card-to-host copy of the orbitals per spin."""
+    if restricted:
+        save_cb(it, Etot, Ea, Ca.cpu().numpy(), occa, None, None, None)
+    else:
+        save_cb(it, Etot, Ea, Ca.cpu().numpy(), occa, Eb, Cb.cpu().numpy(), occb)

@@ -33,8 +33,10 @@ comes back to stop the chunk. The eigensolve is torch.linalg.eigh per block
 with helfem_tpu's four refinement passes (utils/linalg.py:eigh_refined);
 its warm start is not carried over, nor is helfem_tpu's host eigensolve
 of large bases (eig_blocks_dia_host, _dia_host_warm), a workaround for the
-TPU's device eigh that the card does not need. --ndev and the checkpoint
-hook (save_cb) raise NotImplementedError: nothing falls back silently. A range-separated
+TPU's device eigh that the card does not need. The crash-recovery hook
+save_cb gets the state of every host iteration and of the reported
+iteration of every fused chunk, as helfem_tpu's does. --ndev raises
+NotImplementedError: nothing falls back silently. A range-separated
 method raises ValueError, as helfem_tpu's does (range separation exists on
 atoms only).
 """
@@ -59,6 +61,7 @@ from helfem_tpu_torch.scf.common import (
     aufbau_blocks,
     diis_error_blocks,
     full_sinvh,
+    hook_state,
     occ_fixed_blocks,
     reject_unported,
     symmetric_sinvh,
@@ -287,7 +290,7 @@ def make_dia_fused_chunk(funcs: tuple, kfrac: float, dftthr: float, njbd: int | 
 
 # scf_diatomic options of helfem_tpu that the port does not cover, with the
 # default values under which they are inert
-_UNPORTED = {"save_cb": None, "ndev": 0}
+_UNPORTED = {"ndev": 0}
 # device memory one spin's per-iteration orbitals may take in a fused chunk
 # (helfem_tpu caps its chunk length the same way; two spins hold twice it)
 _CHUNK_C_BYTES = 256e6
@@ -325,6 +328,7 @@ def scf_diatomic(
     readocc_until: int = 0,
     diag: bool = True,
     maverage: bool = False,
+    save_cb=None,
     **unported,
 ) -> DiaSCFResult:
     """Restricted, unrestricted or ROHF SCF (helfem_tpu's scf_diatomic) for
@@ -360,7 +364,11 @@ def scf_diatomic(
     the release lands on its iteration (:754-769). maverage averages the
     Fock over the +-m shells every iteration, on the host loop. diag=False
     builds the operators with the inverse Cholesky whitening (prebuilt ops
-    are taken as they are)."""
+    are taken as they are). save_cb(it, Etot, Ea, Ca, occa, Eb, Cb, occb),
+    when given, is the crash-recovery hook (helfem_tpu diatomic_scf.py:835,
+    :887): called after every host iteration and once per fused chunk, on
+    the state of the chunk's reported iteration, with host numpy arrays
+    (the beta ones None when restricted)."""
     reject_unported(unported, _UNPORTED, "scf_diatomic")
     # a range-separated method raises ValueError, as helfem_tpu's does: range
     # separation exists on atoms only
@@ -520,6 +528,8 @@ def scf_diatomic(
             Ea, Eb = Es[k][0].cpu().numpy(), Es[k][-1].cpu().numpy()
             Nel = float(Nels[k])
             Ekin, Enuc, Ecoul, Exx, Exc, Efield = comps[k].cpu().numpy()
+            if save_cb is not None:
+                hook_state(save_cb, it, Etot, restricted, Ea, Ca, occa, Eb, Cb, occb)
             if converged or it >= maxit:
                 break
             continue
@@ -551,6 +561,8 @@ def scf_diatomic(
         Fs = diis.solve()
         if verbose:
             print(f"iter {it:3d}  E = {Etot:+.12f}  dE = {dE:+.3e}  diis = {err:.3e}")
+        if save_cb is not None:
+            hook_state(save_cb, it, Etot, restricted, Ea, Ca, occa, Eb, Cb, occb)
         if err < convthr and abs(dE) < convthr and it > 1:
             converged = True
             break

@@ -44,8 +44,8 @@ def _kernels(events):
 
 
 def profile_scf(label: str, run, rows: int = 20, kernels: tuple = (), ops: tuple = (),
-                ranges: dict | None = None) -> dict:
-    """Warm SCF walls (min of three) of run() -> result, and the device time
+                ranges: dict | None = None, walls: int = 3) -> dict:
+    """Warm SCF walls (min of `walls`) of run() -> result, and the device time
     of one more SCF by kernel, from torch.profiler; beside the table, the
     device time and launches of each device kernel whose name contains one
     of `kernels`, which are also returned as {name: (ms, launches)}, and
@@ -61,16 +61,16 @@ def profile_scf(label: str, run, rows: int = 20, kernels: tuple = (), ops: tuple
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    walls = []
-    for _ in range(3):
+    times = []
+    for _ in range(walls):
         t0 = time.perf_counter()
         res = run()
         torch.cuda.synchronize()
-        walls.append(time.perf_counter() - t0)
+        times.append(time.perf_counter() - t0)
     if not res.converged:
         raise RuntimeError(f"warm {label} SCF did not converge")
-    print(f"warm {label} SCF walls: {[round(w, 4) for w in walls]} s, {res.niter} "
-          f"iterations, min {min(walls) / res.niter * 1e3:.2f} ms per iteration")
+    print(f"warm {label} SCF walls: {[round(w, 4) for w in times]} s, {res.niter} "
+          f"iterations, min {min(times) / res.niter * 1e3:.2f} ms per iteration")
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         run()

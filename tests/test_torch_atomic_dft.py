@@ -28,6 +28,13 @@ TOL = 1e-12
 NE = dict(Z=10, lmax=2, mmax=1, rmax=40.0, nelem=3, nnodes=5)
 
 
+@pytest.fixture(autouse=True)
+def _in_tmp_path(tmp_path, monkeypatch):
+    """The atomic CLI writes its checkpoint (helfem.npz by default) into the
+    working directory: each test runs in its own."""
+    monkeypatch.chdir(tmp_path)
+
+
 @pytest.fixture(autouse=True, scope="module")
 def _one_torch_thread():
     """One intra-op thread for this module: the SCFs are streams of small ops,

@@ -1,6 +1,6 @@
 """The port's CLIs (atomic; the open-shell flags of the diatomic CLI and of
-gensap), their isolation from JAX, and the kernel wrappers' routing on CPU
-tensors."""
+gensap; the checkpoint flags --save and --load), their isolation from JAX,
+and the kernel wrappers' routing on CPU tensors."""
 
 import os
 import subprocess
@@ -22,6 +22,7 @@ from helfem_tpu_torch.models.sadatom import (
     solve_sadatom_unrestricted,
 )
 from helfem_tpu_torch.scf.diatomic_scf import scf_diatomic
+from helfem_tpu_torch.utils.checkpoint import load_atomic, load_diatomic
 
 REPO = Path(__file__).resolve().parents[1]
 HE = ["--Z", "He", "--lmax", "0", "--mmax", "0", "--nelem", "5", "--nnodes", "8",
@@ -32,6 +33,16 @@ O2_CLI = ["--Z1", "O", "--Z2", "O", "--Rbond", "2.282", "--lmax", "2,2", "--nele
           "--nnodes", "5", "--Rmax", "15", "--convthr", "1e-8", "--device", "cpu"]
 LI = ["--Z", "Li", "--lmax", "1", "--nelem", "5", "--nnodes", "8", "--nosearch",
       "--device", "cpu"]
+# the triplet's ground-state electrons (na nb) in its blocks pi-g, pi-u (m = -1),
+# sigma-g, sigma-u, pi-g, pi-u (m = +1) at O2_CLI's basis
+O2_OCCS = "1 1\n1 0\n3 3\n2 2\n1 1\n1 0\n"
+
+
+@pytest.fixture(autouse=True)
+def _in_tmp_path(tmp_path, monkeypatch):
+    """The atomic CLI writes its checkpoint (helfem.npz by default) into the
+    working directory: each test runs in its own."""
+    monkeypatch.chdir(tmp_path)
 
 
 def test_cli_runs_on_cpu(capsys):
@@ -57,17 +68,28 @@ def test_cli_runs_with_its_default_sap_guess(capsys):
 
 
 @pytest.mark.parametrize("extra, match", [
-    (["--Ez", "0.01", "--maverage", "--save", "he.npz"], "--save"),
+    (["--Ez", "0.01", "--maverage", "--save", "he.npz"], None),
     (["--ndev", "2"], "--ndev"),
-    (["--symmetry", "1", "--eigiter", "4", "--load", "he.npz"], "--load"),
+    (["--symmetry", "1", "--eigiter", "4", "--load", "he.npz"], None),
 ], ids=["field_flag", "ndev_flag", "symmetry_flag"])
 def test_cli_unported_raises(extra, match):
-    """Unported flags (the checkpoints' --save/--load, --ndev) raise naming
-    themselves; the field, symmetry and SCF-control flags run
-    (tests/test_torch_fields.py, tests/test_torch_scf_controls.py), beside
-    an unported one the latter raises."""
-    with pytest.raises(NotImplementedError, match=match):
-        main(HE + extra + ["--device", "cpu"])
+    """--ndev, which the port does not cover, raises naming itself. The
+    checkpoint flags run beside the field, symmetry and SCF-control flags
+    (tests/test_torch_fields.py, tests/test_torch_scf_controls.py): --save
+    names the file, without it the CLI writes helfem.npz; the file loads
+    back and holds the run's energy. --load reads a checkpoint written by
+    a run before it."""
+    if match is not None:
+        with pytest.raises(NotImplementedError, match=match):
+            main(HE + extra + ["--device", "cpu"])
+        return
+    if "--load" in extra:
+        main(HE + ["--device", "cpu", "--save", extra[extra.index("--load") + 1]])
+    res = main(HE + extra + ["--device", "cpu"])
+    path = extra[extra.index("--save") + 1] if "--save" in extra else "helfem.npz"
+    basis, d = load_atomic(path)
+    assert res.converged and bool(d["converged"]) and float(d["E"]) == res.E
+    assert basis.nbf == res.orbs_a.shape[1] and np.array_equal(d["orbs_a"], res.orbs_a)
 
 
 def test_cli_unknown_flag_exits():
@@ -105,16 +127,33 @@ def test_dia_cli_open_shell_flags(capsys, one_thread, extra, nela, nelb, kw):
 
 
 @pytest.mark.parametrize("extra, match", [
-    (["--M", "3", "--symmetry", "1", "--save", "o2.npz"], "--save"),
-    (["--M", "3", "--readocc", "1", "--load", "o2.npz"], "--load"),
+    (["--M", "3", "--symmetry", "1", "--save", "o2.npz"], None),
+    (["--M", "3", "--readocc", "1", "--load", "o2.npz"], None),
     (["--M", "3", "--Bz", "0.1", "--maverage", "--ndev", "1"], "--ndev"),
 ], ids=["symmetry", "readocc", "magnetic_field"])
-def test_dia_cli_still_rejects_the_rest(extra, match):
-    """--save, --load and --ndev raise; --symmetry, --readocc, --maverage
+def test_dia_cli_still_rejects_the_rest(tmp_path, one_thread, extra, match):
+    """--ndev raises; --symmetry, --readocc, --maverage
     (tests/test_torch_scf_controls.py) and --Bz (tests/test_torch_dia_fields.py)
-    run, beside an unported flag they raise."""
-    with pytest.raises(NotImplementedError, match=match):
-        diatomic.main(O2_CLI + extra)
+    run, and so do the checkpoint flags beside them: the --save file loads
+    back with the run's energy and both spins' orbitals; --load warm-starts
+    from a triplet's file written before it, and writes none itself."""
+    if match is not None:
+        with pytest.raises(NotImplementedError, match=match):
+            diatomic.main(O2_CLI + extra)
+        return
+    (tmp_path / "occs.dat").write_text(O2_OCCS)
+    if "--load" in extra:
+        diatomic.main(O2_CLI + ["--M", "3", "--save", "o2.npz"])
+    mtime = (tmp_path / "o2.npz").stat().st_mtime_ns if "--load" in extra else None
+    res = diatomic.main(O2_CLI + extra)
+    basis, d = load_diatomic(tmp_path / "o2.npz")
+    assert res.converged and res.occ_a.sum() == 9 and res.occ_b.sum() == 7
+    if mtime is None:
+        assert float(d["E"]) == res.E and np.array_equal(d["orbs_b"], res.orbs_b)
+        assert basis.nbf == DiatomicBasis(**O2).nbf
+    else:
+        assert (tmp_path / "o2.npz").stat().st_mtime_ns == mtime
+        assert abs(float(d["E"]) - res.E) < 1e-7
 
 
 @pytest.mark.parametrize("extra, check", [

@@ -17,6 +17,7 @@ from helfem_tpu_torch.cli.diatomic import main
 from helfem_tpu_torch.models.diatomic import DiatomicBasis
 from helfem_tpu_torch.models.diatomic_tools import finite_nucleus_Vnuc
 from helfem_tpu_torch.scf import diatomic_scf
+from helfem_tpu_torch.utils.checkpoint import load_diatomic
 
 TOL = 1e-12
 SCF_TOL = 1e-9
@@ -118,10 +119,27 @@ def test_cli_field_flags(capsys):
 @pytest.mark.parametrize("flag", ["--maverage --save h2.npz", "--readocc 1 --load h2.npz",
                                   "--symmetry 1 --ndev 1", "--diag 0 --save h2.npz"],
                          ids=["--maverage", "--readocc", "--symmetry 1", "--diag 0"])
-def test_cli_unported_flags_still_raise(flag):
+def test_cli_unported_flags_still_raise(tmp_path, monkeypatch, flag):
     """The SCF-control flags run (tests/test_torch_scf_controls.py); beside
-    a flag that is not ported (--save, --load, --ndev) they raise, naming
-    it."""
-    with pytest.raises(NotImplementedError, match=flag.split()[-2]):
-        main(["--Z1", "H", "--Z2", "H", "--Rbond", "2.0", "--lmax", "2", "--nelem", "2",
-              "--Ez", "0.01", "--device", "cpu", *flag.split()])
+    --ndev, which is not ported, they raise, naming it. Beside the
+    checkpoint flags they run in Ez: the --save file loads back with the
+    run's energy; --load (with --readocc 1 and occs.dat's one block)
+    warm-starts from one written before it."""
+    monkeypatch.chdir(tmp_path)
+    h2 = ["--Z1", "H", "--Z2", "H", "--Rbond", "2.0", "--lmax", "2", "--nelem", "2", "--Ez",
+          "0.01", "--device", "cpu"]
+    if "--ndev" in flag:
+        with pytest.raises(NotImplementedError, match="--ndev"):
+            main(h2 + flag.split())
+        return
+    (tmp_path / "occs.dat").write_text("1 1\n")
+    if "--load" in flag:
+        main(h2 + ["--save", "h2.npz"])
+    res = main(h2 + flag.split())
+    basis, d = load_diatomic("h2.npz")
+    assert res.converged and basis.nbf == DiatomicBasis(Z1=1, Z2=1, Rbond=2.0, lmax=(2,),
+                                                        nelem=2, nnodes=15).nbf
+    if "--save" in flag:
+        assert float(d["E"]) == res.E and np.array_equal(d["orbs_a"], res.orbs_a)
+    else:
+        assert abs(float(d["E"]) - res.E) < 1e-9

@@ -1,7 +1,10 @@
 """The port's diatomic PBE SCF against helfem_tpu's scf_diatomic on the same
 basis (core guess, converged energies within 1e-9 Eh, orbital energies
 within 1e-7), and the port's diatomic CLI on the CPU with its rejection of
-unported flags, methods and options."""
+unported flags, methods and options, and its checkpoints (--save, --load,
+the SCF's crash-recovery hook save_cb)."""
+
+import types
 
 import numpy as np
 import pytest
@@ -11,6 +14,7 @@ from helfem_tpu.scf import diatomic_scf as jax_scf
 from helfem_tpu_torch.cli.diatomic import main
 from helfem_tpu_torch.models.diatomic import DiatomicBasis
 from helfem_tpu_torch.scf import diatomic_scf
+from helfem_tpu_torch.utils.checkpoint import load_diatomic, save_diatomic
 
 CASES = {
     "H2": (dict(Z1=1, Z2=1, Rbond=1.4, lmax=(4,), rmax=15.0, nelem=3, nnodes=5), 1),
@@ -19,6 +23,9 @@ CASES = {
 N2_CLI = ["--Z1", "N", "--Z2", "N", "--Rbond", "2.0743", "--lmax", "2,2", "--nelem", "3",
           "--nnodes", "5", "--Rmax", "15", "--method", "PBE", "--convthr", "1e-9"]
 N2_JAX = -79.449353410152  # helfem_tpu scf_diatomic on the same basis
+# N2+ (7 alpha, 6 beta) in the blocks pi-g, pi-u (m = -1), sigma-g, sigma-u,
+# pi-g, pi-u (m = +1) of N2_CLI's basis: the beta hole in sigma-g
+N2P_OCCS = "0 0\n1 1\n3 2\n2 2\n0 0\n1 1\n"
 
 
 @pytest.mark.parametrize("molecule", list(CASES))
@@ -49,21 +56,41 @@ def test_cli_runs_on_cpu(capsys):
 @pytest.mark.parametrize("extra, error, match", [
     (["--method", "LC-LDA"], ValueError, "LC-LDA' is range-separated"),
     (["--method", "sr-pbe0"], ValueError, "sr-pbe0' is range-separated"),
-    (["--Q", "1", "--readocc", "1", "--save", "n2.npz"], NotImplementedError, "--save"),
-    (["--Ez", "0.01", "--maverage", "--load", "n2.npz"], NotImplementedError, "--load"),
+    (["--Q", "1", "--readocc", "1", "--save", "n2.npz"], None, None),
+    (["--Ez", "0.01", "--maverage", "--load", "n2.npz"], None, None),
     (["--ndev", "2"], NotImplementedError, "--ndev"),
     (["--restricted", "0", "--Bz", "0.1", "--diag", "0", "--ndev", "1"], NotImplementedError,
      "--ndev"),
 ], ids=["range_separated", "sr_hybrid", "open_shell", "field_flag", "ndev_flag",
         "uhf_flag"])
-def test_cli_unported_raises(extra, error, match):
-    """Unported flags (the checkpoints' --save/--load, --ndev) raise
-    NotImplementedError (the field and SCF-control flags run,
-    tests/test_torch_dia_fields.py, tests/test_torch_scf_controls.py;
-    beside an unported flag the latter raises); a range-separated method raises helfem_tpu's ValueError
-    (range separation exists on atoms only)."""
-    with pytest.raises(error, match=match):
-        main(N2_CLI + extra + ["--device", "cpu"])
+def test_cli_unported_raises(tmp_path, monkeypatch, capsys, extra, error, match):
+    """--ndev, which the port does not cover, raises NotImplementedError (the
+    field and SCF-control flags run, tests/test_torch_dia_fields.py,
+    tests/test_torch_scf_controls.py; beside it they raise); a
+    range-separated method raises helfem_tpu's ValueError (range separation
+    exists on atoms only). The checkpoint flags run beside the others: the
+    --save file loads back with the run's energy and orbitals; --load of a
+    file written without the field warm-starts the run in Ez (its blocks
+    merge g and u) from the file's energy."""
+    monkeypatch.chdir(tmp_path)
+    if error is not None:
+        with pytest.raises(error, match=match):
+            main(N2_CLI + extra + ["--device", "cpu"])
+        return
+    (tmp_path / "occs.dat").write_text(N2P_OCCS)
+    if "--load" in extra:
+        main(N2_CLI + ["--device", "cpu", "--save", "n2.npz"])
+        capsys.readouterr()
+    res = main(N2_CLI + extra + ["--device", "cpu"])
+    out = capsys.readouterr().out
+    basis, d = load_diatomic("n2.npz")
+    assert res.converged and basis.nbf == DiatomicBasis(**CASES["N2"][0]).nbf
+    if "--save" in extra:
+        assert float(d["E"]) == res.E and np.array_equal(d["orbs_b"], res.orbs_b)
+        assert "checkpoint saved to n2.npz" in out
+    else:
+        assert f"warm start from n2.npz (E = {float(d['E']):.9f})" in out
+        assert abs(float(d["E"]) - N2_JAX) < 1e-9 and len(res.orbE_blocks_a) == 3
 
 
 def test_cli_unknown_flag_exits():
@@ -73,20 +100,40 @@ def test_cli_unknown_flag_exits():
 
 @pytest.mark.parametrize("kwargs", [
     {"Ez": 0.01, "maverage": True, "ndev": 1}, {"Bz": 0.1, "ndev": 1},
-    {"restricted": 0, "Bz": 0.1, "diag": False, "save_cb": print},
-    {"maverage": True, "save_cb": print}, {"diag": False, "ndev": 1}, {"ndev": 1},
+    {"restricted": 0, "Bz": 0.1, "diag": False, "save_cb": "npz"},
+    {"maverage": True, "save_cb": "npz"}, {"diag": False, "ndev": 1}, {"ndev": 1},
     {"perturb": 0.1, "P0a": np.zeros((1, 1)), "ndev": 1},
 ], ids=lambda kw: next(iter(kw)))
-def test_unported_options_raise(kwargs):
-    """Unported options (ndev, the checkpoint hook save_cb) raise; UHF,
-    perturbed guesses, fields, m-averaging, Cholesky whitening and warm
-    starts run (tests/test_torch_dia_open.py, tests/test_torch_dia_fields.py,
-    tests/test_torch_scf_controls.py), beside an unported option they
-    still raise."""
+def test_unported_options_raise(tmp_path, kwargs):
+    """The unported option ndev raises; UHF, perturbed guesses, fields,
+    m-averaging, Cholesky whitening and warm starts run
+    (tests/test_torch_dia_open.py, tests/test_torch_dia_fields.py,
+    tests/test_torch_scf_controls.py), beside it they still raise. The
+    crash-recovery hook save_cb runs beside them: it sees the two host
+    iterations, then rising iterations up to the run's last (the fused
+    chunks' reported ones), and the npz file it writes loads back with the
+    last iteration's energy, the run's."""
     cfg, nel = CASES["H2"]
-    with pytest.raises(NotImplementedError):
-        diatomic_scf.scf_diatomic(DiatomicBasis(**cfg), nel, nel, method="PBE",
-                                  device="cpu", **kwargs)
+    basis = DiatomicBasis(**cfg)
+    if "ndev" in kwargs:
+        with pytest.raises(NotImplementedError):
+            diatomic_scf.scf_diatomic(basis, nel, nel, method="PBE", device="cpu", **kwargs)
+        return
+    path, seen = tmp_path / "h2.npz", []
+
+    def save_cb(it, Etot, Ea, Ca, occa, Eb, Cb, occb):
+        state = types.SimpleNamespace(converged=False, E=Etot, orbE_a=np.sort(Ea.ravel()),
+                                      orbs_a=Ca, occ_a=occa, orbE_b=Eb, orbs_b=Cb, occ_b=occb)
+        save_diatomic(path, basis, state)
+        seen.append(it)
+
+    res = diatomic_scf.scf_diatomic(basis, nel, nel, method="PBE", device="cpu",
+                                    **dict(kwargs, save_cb=save_cb))
+    _, d = load_diatomic(path)
+    assert res.converged and seen[:2] == [1, 2] and seen == sorted(set(seen))
+    assert seen[-1] == res.niter
+    assert float(d["E"]) == res.E
+    assert (d["orbs_b"].size > 0) == (res.orbs_b is not None)
 
 
 def test_unported_basis_paths_raise():

@@ -24,9 +24,17 @@ from helfem_tpu_torch.cli.atomic import main
 from helfem_tpu_torch.models import atomic
 from helfem_tpu_torch.ops import gaunt, grids, gygi
 from helfem_tpu_torch.scf import atomic_scf
+from helfem_tpu_torch.utils.checkpoint import load_atomic
 
 TOL = 1e-12
 SCF_TOL = 1e-9
+
+
+@pytest.fixture(autouse=True)
+def _in_tmp_path(tmp_path, monkeypatch):
+    """The atomic CLI writes its checkpoint (helfem.npz by default) into the
+    working directory: each test runs in its own."""
+    monkeypatch.chdir(tmp_path)
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -256,11 +264,26 @@ def test_cli_field_flags_match_scf_atom(capsys):
                          ids=["--maverage", "--eigiter 4", "--readocc occs.dat", "--zeroder"])
 def test_cli_unported_flags_still_raise(flag):
     """The SCF-control and basis flags run (tests/test_torch_scf_controls.py);
-    beside a flag that is not ported (--save, --load, --ndev) they raise,
-    naming it."""
-    with pytest.raises(NotImplementedError, match=flag.split()[-2]):
-        main(["--Z", "He", "--lmax", "0", "--mmax", "0", "--nelem", "3", "--Ez", "0.01",
-              "--device", "cpu", *flag.split()])
+    beside --ndev, which is not ported, they raise, naming it. Beside the
+    checkpoint flags they run in Ez: the --save file (its m blocks, one for
+    He) loads back with the run's energy and basis; --load warm-starts from
+    one written before it."""
+    he = ["--Z", "He", "--lmax", "0", "--mmax", "0", "--nelem", "3", "--Ez", "0.01",
+          "--device", "cpu"]
+    if "--ndev" in flag:
+        with pytest.raises(NotImplementedError, match="--ndev"):
+            main(he + flag.split())
+        return
+    if "--load" in flag:
+        main(he + ["--save", "he.npz"])
+    res = main(he + flag.split())
+    basis, d = load_atomic("he.npz")
+    assert res.converged and basis.nbf == res.orbs_a.shape[1]
+    assert basis.zeroder == ("--zeroder" in flag)
+    if "--save" in flag:
+        assert float(d["E"]) == res.E and np.array_equal(d["orbs_a"], res.orbs_a)
+    else:
+        assert abs(float(d["E"]) - res.E) < 1e-9
 
 
 @pytest.mark.parametrize("kw", [dict(zeroder=True), dict(bval=np.linspace(0.0, 20.0, 4))],

@@ -44,6 +44,13 @@ METHODS = ["gga_x_rpbe,gga_c_pbe", "gga_x_b88", "gga_c_lyp", "mgga_x_tpss", "mgg
            "TPSSh", "SCAN", "rSCAN", "B3LYP5"]
 
 
+@pytest.fixture(autouse=True)
+def _in_tmp_path(tmp_path, monkeypatch):
+    """The atomic CLI writes its checkpoint (helfem.npz by default) into the
+    working directory: each test runs in its own."""
+    monkeypatch.chdir(tmp_path)
+
+
 @pytest.fixture(autouse=True, scope="module")
 def _one_torch_thread():
     """One intra-op thread for this module: the SCFs are streams of small ops,

@@ -41,6 +41,13 @@ TOL = 1e-12
 EPS = np.finfo(np.float64).eps
 
 
+@pytest.fixture(autouse=True)
+def _in_tmp_path(tmp_path, monkeypatch):
+    """The atomic CLI writes its checkpoint (helfem.npz by default) into the
+    working directory: each test runs in its own."""
+    monkeypatch.chdir(tmp_path)
+
+
 @pytest.fixture(autouse=True, scope="module")
 def _one_torch_thread():
     """One intra-op thread: the SCFs are streams of small ops, and the test

@@ -359,17 +359,31 @@ def test_gensap_cli_matches_jax(tmp_path, monkeypatch, capsys):
 
 
 @pytest.mark.parametrize("extra, match", [
-    (["--finitenuc", "gaussian", "--completeness"], "--completeness"),
+    # He's rms charge radius, 1.68 fm (without one, Rrms 0 divides by zero
+    # in both packages)
+    (["--finitenuc", "gaussian", "--Rrms", "3.18e-5", "--completeness"], "--completeness"),
     (["--iconf", "1", "--completeness"], "--completeness"),
     (["--Q", "1", "--conf_R", "5", "--completeness"], "--completeness"),
 ], ids=["finite_nucleus", "confinement", "charge"])
-def test_gensap_cli_unported_flags_raise(extra, match):
-    """--completeness, which the port does not cover, raises; --unrestricted,
-    --diisthr, --Q, the finite nuclei and the confinement run
+def test_gensap_cli_unported_flags_raise(tmp_path, monkeypatch, capsys, extra, match):
+    """--completeness runs beside --Q, the finite nuclei and the confinement
     (tests/test_torch_cli.py, tests/test_torch_lapl.py,
-    tests/test_torch_scf_controls.py), beside it they raise."""
-    with pytest.raises(NotImplementedError, match=match):
-        gensap.main(["--Z", "He", "--lmax", "0", "--device", "cpu", *extra])
+    tests/test_torch_scf_controls.py): it writes the GTO and STO profiles,
+    log10 of 501 exponents then one column per l, the completeness in
+    [0, 1] and reaching 1 where the basis spans the probe, the importance
+    of the occupied 1s orbital at most 1, beside the SAP table of the run."""
+    monkeypatch.chdir(tmp_path)
+    res = gensap.main(["--Z", "He", "--lmax", "0", "--device", "cpu", *extra])
+    assert res.converged and np.isfinite(res.E)
+    for kind in ("GTO", "STO"):
+        comp = np.loadtxt(f"{match[2:]}_{kind}_He.dat")
+        imp = np.loadtxt(f"importance_{kind}_He.dat")
+        assert comp.shape == imp.shape == (501, 2)
+        assert np.allclose(comp[:, 0], np.linspace(-5, 10, 501)) and (imp[:, 0] == comp[:, 0]).all()
+        assert comp[:, 1].min() >= 0.0 and 0.999 < comp[:, 1].max() <= 1.0 + 1e-10
+        assert imp[:, 1].min() >= 0.0 and 0.5 < imp[:, 1].max() <= comp[:, 1].max() + 1e-10
+    assert f"{kind} completeness + importance profiles written" in capsys.readouterr().out
+    assert np.loadtxt("result_He.dat").shape[1] == 9
 
 
 @pytest.mark.parametrize("kwargs", [dict(finitenuc="gaussian", Rrms=1e-2), dict(nelem0=2),

@@ -2,6 +2,8 @@
 (converged energies within 1e-9 Eh), and its SCF building blocks against
 their JAX counterparts."""
 
+import types
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -14,6 +16,7 @@ from helfem_tpu.scf.diis import device_diis_step as jax_diis_step
 from helfem_tpu_torch.models.atomic import AtomicBasis
 from helfem_tpu_torch.scf import atomic_scf, common
 from helfem_tpu_torch.scf.diis import device_diis_step
+from helfem_tpu_torch.utils.checkpoint import load_atomic, save_atomic
 
 CASES = {
     "He": (dict(Z=2, lmax=0, mmax=0, rmax=40.0, nelem=5, nnodes=8), 1),
@@ -89,17 +92,36 @@ def test_device_diis_step_matches_jax(count):
 @pytest.mark.parametrize("nel, kwargs", [
     # symmetry 0/1, range separation there and fields run
     # (tests/test_torch_fields.py), and so do eigiter, maverage, perturb and
-    # diag (tests/test_torch_scf_controls.py); beside --ndev or the
-    # checkpoint hook save_cb, which are not ported, they raise
+    # diag (tests/test_torch_scf_controls.py); beside --ndev, which is not
+    # ported, they raise. The checkpoint hook save_cb runs beside them
     ((1, 1), {"method": "LDAERF", "symmetry": 1, "eigiter": 4, "ndev": 1}),
-    ((1, 1), {"method": "LC-LDA", "symmetry": 0, "maverage": True, "save_cb": print}),
+    ((1, 1), {"method": "LC-LDA", "symmetry": 0, "maverage": True, "save_cb": "npz"}),
     ((1, 1), {"symmetry": 1, "perturb": 0.1, "ndev": 1}),
-    ((1, 1), {"Ez": 0.01, "diag": False, "save_cb": print}),
+    ((1, 1), {"Ez": 0.01, "diag": False, "save_cb": "npz"}),
     ((1, 1), {"ndev": 1}),
-    ((1, 1), {"eigiter": 4, "save_cb": print}),
+    ((1, 1), {"eigiter": 4, "save_cb": "npz"}),
     ((1, 1), {"maverage": True, "ndev": 2}),
 ], ids=["ldaerf", "lc-lda", "symm1", "field", "ndev", "eigiter", "maverage"])
-def test_unported_options_raise(nel, kwargs):
+def test_unported_options_raise(tmp_path, nel, kwargs):
+    """ndev raises; save_cb sees the two host iterations, then rising ones
+    up to the run's last, and the npz file it writes (as the atomic CLI's
+    hook does) loads back with the run's energy and orbitals."""
     basis = AtomicBasis(Z=sum(nel), lmax=0, mmax=0, rmax=20.0, nelem=2, nnodes=4)
-    with pytest.raises(NotImplementedError):
-        atomic_scf.scf_atom(basis, *nel, device="cpu", **kwargs)
+    if "ndev" in kwargs:
+        with pytest.raises(NotImplementedError):
+            atomic_scf.scf_atom(basis, *nel, device="cpu", **kwargs)
+        return
+    path, seen = str(tmp_path / "he.npz"), []
+
+    def save_cb(it, Etot, Ea, Ca, occa, Eb, Cb, occb):
+        state = types.SimpleNamespace(converged=False, E=Etot, orbE_a=np.sort(Ea.ravel()),
+                                      orbs_a=Ca, occ_a=occa, orbE_b=None, orbs_b=None,
+                                      occ_b=None)
+        save_atomic(path, basis, state)
+        seen.append(it)
+
+    res = atomic_scf.scf_atom(basis, *nel, device="cpu", **dict(kwargs, save_cb=save_cb))
+    _, d = load_atomic(path)
+    assert res.converged and seen[:2] == [1, 2] and seen == sorted(set(seen))
+    assert seen[-1] == res.niter and float(d["E"]) == res.E
+    assert np.array_equal(d["orbs_a"], res.orbs_a)

@@ -44,6 +44,13 @@ SCF_TOL = 1e-9
 ANA_TOL = 1e-10
 
 
+@pytest.fixture(autouse=True)
+def _in_tmp_path(tmp_path, monkeypatch):
+    """The atomic CLI writes its checkpoint (helfem.npz by default) into the
+    working directory: each test runs in its own."""
+    monkeypatch.chdir(tmp_path)
+
+
 @pytest.fixture(autouse=True, scope="module")
 def _one_torch_thread():
     """One intra-op thread and one BLAS thread for this module: the SCFs are
@@ -383,7 +390,8 @@ def test_atomic_cli_flags_and_analysis(tmp_path, extra):
     occs.write_text("0 0 2 2\n1 0 1 1  # p0 doubly occupied\n1 1 1 0\n1 -1 1 0\n")
     extra = [str(occs) if a == "OCCS" else a for a in extra]
     trace = tmp_path / "scf.json"
-    got, out = _run(atomic_cli.main, O_CLI + extra + ["--device", "cpu", "--trace", str(trace)])
+    got, out = _run(atomic_cli.main, O_CLI + extra + ["--save", "", "--device", "cpu",
+                                                      "--trace", str(trace)])
     ref, jout = _run(jax_atomic_cli.main, O_CLI + extra + ["--save", ""])
     assert got.converged and ref.converged and got.niter == ref.niter
     assert abs(got.E - ref.E) < SCF_TOL
