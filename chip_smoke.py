@@ -232,6 +232,19 @@ Phases, any failure raises and exits non-zero:
      diatomic_cbasis's lmax list as helfem_tpu's and gensap Kr
      --completeness's profiles; without h5py, --save x.chk raises its
      ImportError (HDF5 is checked on the CPU).
+ 23. multi-device (helfem_tpu_torch/parallel/): K1/K2 on the L ranges of
+     two ranks at the Ar bench basis, K3 on two ranges of the M = 0
+     channels, K6 on two ranges of the exchange steps and K4/K5 on two
+     element ranges (owners and band rebuilt) at the N2 bench basis, each
+     against its plain version; Ar HF and N2 PBE (the bench configs)
+     through the CLIs with --ndev 1 (one NCCL rank), within 1e-9 Eh of
+     helfem_tpu's --ndev 1 values in their iteration counts; Ar HF, N2 PBE
+     and N2 HF at the lmax=12 basis on two gloo ranks sharing the card,
+     each within 1e-9 Eh of this script's single-device run (phases 4, 6,
+     11) and of helfem_tpu's ndev=2 value where the CPU ran it, both ranks'
+     Fock bits equal, the path's kernels once per iteration on each rank;
+     per rank the launches, each kernel's ms per call on its shard (the
+     ranks in turns), the all_reduce wall per iteration and the SCF wall.
 The script runs in a temporary working directory, where the CLIs write
 their checkpoints. The last two lines are the kernels' JSON record and
 {"ok": true, ...}.
@@ -3301,6 +3314,273 @@ def persistence_phase(dev, results: dict, l12) -> dict:
     return counts
 
 
+# phase 23: helfem_tpu's --ndev values on the CPU in f64, (energy, iterations),
+# made from the repository root with JAX_PLATFORMS=cpu and
+# XLA_FLAGS=--xla_force_host_platform_device_count=2 by
+#   python -m helfem_tpu.cli.atomic --Z Ar --lmax 1 --mmax 1 --nelem 10 --nnodes 15 \
+#       --Rmax 40 --convthr 1e-9 --iguess 3 --ndev N
+#   python -m helfem_tpu.cli.diatomic --Z1 N --Z2 N --Rbond 2.0743 --lmax 6,6 --nelem 5 \
+#       --nnodes 8 --Rmax 25 --method PBE --convthr 1e-7 --ndev N
+# (AR_CLI and N2_CLI) with N = 1 and N = 2. N2 HF at the lmax=12 basis is not
+# run there: its operators alone take 3.59 GiB per device.
+NDEV1_PINS = {"Ar HF": (-526.8175128027123719, 10), "N2 PBE": (-108.9787084372783852, 10)}
+NDEV2_PINS = {"Ar HF": (-526.8175128026996390, 10), "N2 PBE": (-108.9787084372777031, 10)}
+NDEV_GATE = 1e-9
+# two gloo ranks sharing the card: label -> (kind, basis, electrons per spin,
+# SCF keywords), the settings of this script's single-device runs of them
+# (phases 4, 6 and 11)
+GLOO_CELLS = {
+    "Ar HF": ("atomic", SHAPES["ar"], 9, dict(convthr=1e-9, guess="TF")),
+    "N2 PBE": ("diatomic", DIA_SHAPES["n2"], 7, dict(method="PBE", convthr=1e-7, maxit=50)),
+    "N2 HF lmax=12": ("diatomic", N2_L12_SHAPE, 7, dict(method="HF", convthr=1e-7, maxit=50)),
+}
+GLOO_KERNELS = {"Ar HF": ATOMIC, "N2 PBE": (*K3, *XC),
+                "N2 HF lmax=12": (*K3, "radial_exchange_dia_occ")}
+SINGLE = {}  # label -> this script's single-device energy of the same config
+
+
+def shard_inputs(mesh, kind: str, basis, ops, res, method: str) -> tuple:
+    """(the bits of one Fock build over the mesh of the converged density,
+    per kernel of the path its (arguments, bytes, operations) on this
+    rank's shard, and the whole-operator K6 inputs of the diatomic HF path):
+    the density of res's orbitals, its occupied columns for K6, random
+    potentials for K5."""
+    import hashlib
+
+    from helfem_tpu_torch.models.diatomic_dft import build_dia_grid
+    from helfem_tpu_torch.ops.xc import parse_method
+    from helfem_tpu_torch.parallel import mesh as pm
+    from helfem_tpu_torch.scf.diatomic_scf import density_dia, occ_select, occupied_dia
+    from helfem_tpu_torch.utils.linalg import build_blocks, density_blocks
+
+    dev = mesh.device
+    funcs, kfrac = parse_method(method)
+    funcs = tuple(funcs)
+    whole = None
+    if kind == "atomic":
+        blk = torch.as_tensor(build_blocks(ops.S.cpu().numpy(), basis.sym_blocks(2))[0],
+                              device=dev)
+        P = density_blocks(torch.as_tensor(res.orbs_a, device=dev),
+                           torch.as_tensor(res.occ_a, device=dev), blk, ops.S)
+        fock, ol, _ = pm.sharded_atomic_fock(mesh, ops, kfrac=kfrac, restricted=True)
+        F = fock(None, P, P)[0]
+        nang, nrad = basis.nang, basis.nrad
+        P4 = P.reshape(nang, nrad, nang, nrad).permute(0, 2, 1, 3)
+        a = torch.arange(nang, device=dev)
+        Paux = torch.einsum("LMab,abIJ->LMIJ", ol.G, P4).contiguous()
+        inputs = atomic_kernel_work(ol.tei, ol.disjL, ol.disjm1L, ol.Lfac, ol.gidx, Paux,
+                                    P4[a, a].contiguous())
+    else:
+        P = torch.as_tensor(density_dia(ops, res.orbs_a, res.occ_a), device=dev)
+        Co = occupied_dia(ops, torch.as_tensor(res.orbs_a, device=dev),
+                          occ_select(res.occ_a, dev))
+        g = build_dia_grid(basis, dev) if funcs else None
+        fock, _, gl = pm.sharded_dia_scf_fock(mesh, ops, funcs, g, kfrac, restricted=True,
+                                              njbd=basis.njbd)
+        F = fock(P, P, Co if kfrac else None)[0]
+        lo, hi = mesh.range(basis.njbd)
+        oj = ops._replace(GmLM=ops.GmLM[lo:hi], GpLM=ops.GpLM[lo:hi], LM_ilm=ops.LM_ilm[lo:hi])
+        inputs = {"radial_coulomb_dia": coulomb_dia_inputs(basis, oj, P, None)}
+        if kfrac:
+            lo, hi = mesh.range(ops.step_ilm.shape[0])
+            ok = ops._replace(**{k: getattr(ops, k)[lo:hi]
+                                 for k in ("step_ilm", "step_sp", "step_sm", "step_wm")})
+            inputs.update(exchange_inputs(basis, ok, Co, dense=False))
+            if mesh.rank == 0:
+                whole = exchange_inputs(basis, ops, Co, dense=False)["radial_exchange_dia_occ"]
+        if funcs:
+            pots = random_potentials(gl, 1, np.random.default_rng(23))
+            mask = torch.tensor(basis.shell_mask().reshape(-1), device=dev)
+            inputs.update(xc_work(gl, P[None].contiguous(), pots, mask, basis.nrad))
+    torch.cuda.synchronize()
+    return hashlib.sha256(F.cpu().numpy().tobytes()).hexdigest()[:16], inputs, whole
+
+
+def phase23_rank(mesh, cells: dict) -> list:
+    """One rank of phase 23: each cell's SCF over the mesh (every rank
+    building the operators on its device), then its record: energy,
+    iterations, the SCF wall, each kernel's launches in the SCF, the
+    all_reduce calls, bytes and wall (synchronised around each), the bits
+    of one Fock build, and each kernel's CUDA-event ms per call on this
+    rank's shard, the ranks in turns so that each has the card alone (rank
+    0 also times K6 on all the exchange steps). Every rank's records, in
+    rank order."""
+    import torch.distributed as dist
+
+    from helfem_tpu_torch import kernels
+    from helfem_tpu_torch.models.atomic import AtomicBasis
+    from helfem_tpu_torch.models.diatomic import DiatomicBasis
+    from helfem_tpu_torch.scf.atomic_scf import scf_atom
+    from helfem_tpu_torch.scf.diatomic_scf import scf_diatomic
+
+    out = {}
+    for label, (kind, cfg, nel, kw) in cells.items():
+        atom = kind == "atomic"
+        t0 = time.perf_counter()
+        basis = (AtomicBasis if atom else DiatomicBasis)(**cfg)
+        ops = basis.build_operators(mesh.device)
+        torch.cuda.synchronize()
+        setup = time.perf_counter() - t0
+        mesh.timed = True
+        mesh.stats.update(all_reduce=0, all_reduce_bytes=0, all_reduce_s=0.0)
+        kernels.reset_launches()
+        dist.barrier()
+        t0 = time.perf_counter()
+        res = (scf_atom if atom else scf_diatomic)(basis, nel, nel, ops=ops, ndev=mesh.size,
+                                                    **kw)
+        torch.cuda.synchronize()
+        rec = dict(E=res.E, niter=res.niter, converged=res.converged, setup_s=setup,
+                   scf_s=time.perf_counter() - t0,
+                   launches={k: v for k, v in kernels.launches.items() if v}, **mesh.stats)
+        mesh.timed = False
+        rec["bits"], inputs, whole = shard_inputs(mesh, kind, basis, ops, res,
+                                                  kw.get("method", "HF"))
+        rec["ms"], rec["bound_ms"] = {}, {}
+        for turn in range(mesh.size):
+            dist.barrier()
+            if turn != mesh.rank:
+                continue
+            for name, (args, moved, flops) in inputs.items():
+                kern = getattr(kernels, name)
+                rec["ms"][name] = cuda_ms(lambda: kern(*args), 2, 5)
+                rec["bound_ms"][name] = 1e3 * max(moved / HBM_BYTES_S, flops / FP64_FLOP_S)
+            if whole is not None:
+                args = whole[0]
+                rec["whole_k6_ms"] = cuda_ms(lambda: kernels.radial_exchange_dia_occ(*args), 2, 5)
+        dist.barrier()
+        out[label] = rec
+        del ops, inputs, whole
+        torch.cuda.empty_cache()
+    return mesh.gather_objects(out)
+
+
+def shard_kernels(dev, results: dict) -> None:
+    """K1/K2 on the L ranges of two ranks at the Ar bench basis, K3 on two
+    ranges of the M = 0 channels, K6 on two ranges of the exchange steps
+    and K4/K5 on two element ranges of the grid at the N2 bench basis (the
+    owners and band rebuilt from each range's rows), each against its plain
+    version (compare: 1e-12 x max-abs) with the same bits twice."""
+    from helfem_tpu_torch.models.diatomic import DiatomicBasis
+    from helfem_tpu_torch.models.diatomic_dft import build_dia_grid
+    from helfem_tpu_torch.parallel.mesh import shard_grid, split_range
+
+    def check(name, shape, args, moved, flops):
+        same_bits_twice(name, args)
+        results[(name, shape)] = report(shape, name, compare(name, args, moved, flops, 2, 5))
+
+    ar = kernel_inputs(SHAPES["ar"], dev)
+    (tei, U, V, gidx, Pd) = ar["radial_exchange"][0]
+    Paux, Lfac = ar["radial_coulomb"][0][0], ar["radial_coulomb"][0][4]
+    for r in range(2):
+        lo, hi = split_range(tei.shape[0], 2, r)
+        work = atomic_kernel_work(tei[lo:hi], U[lo:hi], V[lo:hi], Lfac[lo:hi], gidx,
+                                  Paux[lo:hi].contiguous(), Pd)
+        for name in ATOMIC:
+            check(name, f"ar_shard{r}", *work[name])
+    basis = DiatomicBasis(**DIA_SHAPES["n2"])
+    ops = basis.build_operators(dev)
+    P = block_density(basis, dev, 41)
+    g = build_dia_grid(basis, dev)
+    rng = np.random.default_rng(43)
+    m2 = torch.tensor(basis.shell_mask().reshape(-1), device=dev)
+    Co = torch.tensor(rng.standard_normal((basis.nbf, 7)), device=dev) * 0.2 * m2[:, None]
+    Ps = torch.stack((P, block_density(basis, dev, 42)))
+    for r in range(2):
+        lo, hi = split_range(basis.njbd, 2, r)
+        oj = ops._replace(GmLM=ops.GmLM[lo:hi], GpLM=ops.GpLM[lo:hi], LM_ilm=ops.LM_ilm[lo:hi])
+        check("radial_coulomb_dia", f"n2_shard{r}", *coulomb_dia_inputs(basis, oj, P, None))
+        lo, hi = split_range(ops.step_ilm.shape[0], 2, r)
+        ok = ops._replace(**{k: getattr(ops, k)[lo:hi]
+                             for k in ("step_ilm", "step_sp", "step_sm", "step_wm")})
+        check("radial_exchange_dia_occ", f"n2_shard{r}",
+              *exchange_inputs(basis, ok, Co, dense=False)["radial_exchange_dia_occ"])
+        gl = shard_grid(g, *split_range(g.gidx.shape[0], 2, r))
+        for name, work in xc_work(gl, Ps, random_potentials(gl, 2, rng), m2,
+                                  basis.nrad).items():
+            check(name, f"n2_shard{r}", *work)
+
+
+def parallel_phase(dev, results: dict) -> dict:
+    """Phase 23: the kernels on shard shapes (shard_kernels); Ar HF and N2
+    PBE (the bench configs) through the CLIs with --ndev 1 (one NCCL rank),
+    within NDEV_GATE of helfem_tpu's --ndev 1 values in their iteration
+    counts with their kernels once per iteration; then the GLOO_CELLS on two
+    gloo ranks sharing the card (launch.spawn, phase23_rank), each within
+    NDEV_GATE of this script's single-device run and of helfem_tpu's ndev=2
+    value where there is one, both ranks' Fock bits equal and the path's
+    kernels once per iteration on each rank; per rank the launches, the
+    kernels' ms per call on its shard, the all_reduce wall per iteration
+    and the SCF wall. Returns the launches by run."""
+    from helfem_tpu_torch.cli.atomic import main as atomic_main
+    from helfem_tpu_torch.cli.diatomic import main as diatomic_main
+    from helfem_tpu_torch.parallel import launch
+
+    phase("23. multi-device: K1-K6 on shard shapes against plain; Ar HF and N2 PBE through the "
+          "CLIs with --ndev 1 (NCCL); Ar HF, N2 PBE and N2 HF lmax=12 on two gloo ranks "
+          "sharing the card")
+    t_phase = time.perf_counter()
+    shard_kernels(dev, results)
+    counts = {}
+
+    def pinned(label):
+        def check(res):
+            E, niter = NDEV1_PINS[label]
+            print(f"{label} --ndev 1: E - helfem_tpu's --ndev 1 value {res.E - E:+.3e}, "
+                  f"{res.niter} iterations against its {niter}")
+            ok = res.converged and abs(res.E - E) < NDEV_GATE and res.niter == niter
+            return "" if ok else f"not within {NDEV_GATE:g} Eh of helfem_tpu in its iterations"
+        return check
+
+    counts["Ar HF --ndev 1"] = run_cli(atomic_main, AR_CLI + ["--ndev", "1", "--save", ""],
+                                       "Ar HF --ndev 1", list(ATOMIC), pinned("Ar HF"),
+                                       per_iter=ATOMIC)
+    counts["N2 PBE --ndev 1"] = run_cli(diatomic_main, N2_CLI + ["--ndev", "1"],
+                                        "N2 PBE --ndev 1", list(XC_K3), pinned("N2 PBE"),
+                                        per_iter=XC_K3)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    records = launch.spawn(phase23_rank, 2, GLOO_CELLS, backend="gloo", device=dev)
+    print(f"two gloo ranks: {time.perf_counter() - t0:.1f} s for the three cells, the ranks' "
+          "start and the kernels' load included")
+    for label in GLOO_CELLS:
+        recs = [rank[label] for rank in records]
+        for r, rec in enumerate(recs):
+            n = rec["niter"]
+            print(f"{label}, gloo rank {r} of 2: E = {rec['E']:.12f} in {n} iterations, "
+                  f"converged {rec['converged']}; operators {rec['setup_s']:.3f} s, SCF "
+                  f"{rec['scf_s']:.3f} s; launches {rec['launches']}; all_reduce "
+                  f"{rec['all_reduce']} calls, {rec['all_reduce_bytes'] / max(n, 1) / 1e6:.1f} MB "
+                  f"and {1e3 * rec['all_reduce_s'] / max(n, 1):.1f} ms per iteration; Fock bits "
+                  f"{rec['bits']}; ms per call on its shard {rec['ms']} (bounds "
+                  f"{ {k: round(v, 5) for k, v in rec['bound_ms'].items()} })")
+            counts[f"{label} gloo rank {r}"] = dict(rec["launches"])
+            wrong = {k: rec["launches"].get(k, 0) for k in GLOO_KERNELS[label]
+                     if rec["launches"].get(k, 0) != n}
+            if wrong:
+                raise RuntimeError(f"{label} rank {r}: launches {wrong}, not one per each of "
+                                   f"the {n} iterations")
+        if "whole_k6_ms" in recs[0]:
+            dev_ms = results[("radial_exchange_dia_occ", "lmax12")]["device_ms"]
+            print(f"{label}: K6 ms per call on each rank's half of the steps "
+                  f"{[rec['ms']['radial_exchange_dia_occ'] for rec in recs]}, on all the steps "
+                  f"{recs[0]['whole_k6_ms']:.4f} (rank 0 alone; phase 3's device ms at the "
+                  f"lmax=12 shapes {dev_ms})")
+        E, single = recs[0]["E"], SINGLE[label]
+        pin = NDEV2_PINS.get(label)
+        print(f"{label} on two gloo ranks: E - single-device run {E - single:+.3e}; E - "
+              f"helfem_tpu's ndev=2 value "
+              f"{'not run on the CPU' if pin is None else f'{E - pin[0]:+.3e}'}")
+        if not (all(rec["converged"] for rec in recs) and abs(E - single) < NDEV_GATE
+                and (pin is None or abs(E - pin[0]) < NDEV_GATE)
+                and len({rec["bits"] for rec in recs}) == 1
+                and len({rec["E"] for rec in recs}) == 1):
+            raise RuntimeError(f"{label} on two gloo ranks: not converged, not within "
+                               f"{NDEV_GATE:g} Eh of the single-device run or of helfem_tpu, "
+                               "or the ranks' Fock bits or energies differ")
+    print(f"phase 23: {time.perf_counter() - t_phase:.1f} s")
+    return counts
+
+
 def main() -> None:
     phase("1. device")
     smi = device_facts()
@@ -3414,6 +3694,7 @@ def main() -> None:
     phase("4. Ar HF through the port's atomic CLI on the card")
 
     def ar_check(res, label="Ar HF"):
+        SINGLE.setdefault(label, res.E)
         dE, dpin = res.E - AR_HF_LIMIT, res.E - AR_HF_PORT
         print(f"{label}: E - HF limit = {dE:+.3e}, E - pinned value = {dpin:+.3e}")
         ok = res.converged and abs(dE) < 1e-6 and abs(dpin) < 1e-10 and np.isfinite(res.E)
@@ -3474,6 +3755,7 @@ def main() -> None:
     phase("6. N2 PBE through the port's diatomic CLI on the card")
 
     def n2_check(res):
+        SINGLE.setdefault("N2 PBE", res.E)
         dE = res.E - N2_PBE_REF
         print(f"N2 PBE: E - reference = {dE:+.3e}, E - the port's value "
               f"{res.E - N2_PBE_PORT:+.3e}, Nel on the grid {res.Nelgrid:.12f}")
@@ -3587,6 +3869,7 @@ def main() -> None:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         core[label] = (res.niter, wall)
+        SINGLE["N2 HF lmax=12"] = res.E
         k6 = kernels.launches["radial_exchange_dia_occ"]
         check_per_iteration(f"N2 HF lmax=12 {label}", res, kernels.launches, K3)
         dE, dcc = res.E - N2_L12_REF, res.E - N2_L12_CUDA_CORES
@@ -3674,6 +3957,7 @@ def main() -> None:
     control_counts = control_phase(dev, results)
     persist_counts = persistence_phase(dev, results, l12)
     del l12
+    parallel_counts = parallel_phase(dev, results)
     counts["radial_erfc_exchange"] = rs_counts["Ar LC-LDA"]["radial_erfc_exchange"]
 
     record = []
@@ -3744,6 +4028,13 @@ def main() -> None:
                            "bound_ms")})
         extra["phase21_launches"] = {label: c.get(name, 0) for label, c in control_counts.items()}
         extra["phase22_launches"] = {label: c.get(name, 0) for label, c in persist_counts.items()}
+        extra["phase23_launches"] = {label: c.get(name, 0)
+                                     for label, c in parallel_counts.items()}
+        for rank in range(2):
+            o = results.get((name, f"{shape}_shard{rank}"))
+            if o is not None:
+                extra.update({f"shard{rank}_{k}": o[k] for k in
+                              ("max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms")})
         scf = results.get((name, {"radial_exchange_dia_occ": "o2_l12_scf",
                                   "radial_exchange": "sad_cr2_scf"}.get(name)))
         if scf is not None:

@@ -1,14 +1,16 @@
 """Helpers shared by the port's CLIs: electron counts, functional parameter
-files, the rejection of flags of the JAX CLIs that the port does not cover,
-the device, and the checkpoint formats and crash-recovery hook of --save."""
+files, the device, the checkpoint formats and crash-recovery hook of
+--save, and the SCF of --ndev over its ranks."""
 
+import contextlib
+import io
 import time
 from types import SimpleNamespace
 
 import numpy as np
 
 __all__ = ["H5_SUFFIXES", "add_xc_flags", "apply_pars_files", "crash_hook", "is_hdf5",
-           "open_device", "parse_nela_nelb", "reject_unported"]
+           "open_device", "parse_nela_nelb", "rank0_only", "scf_on_ranks"]
 
 # a checkpoint path with one of these suffixes is a reference-schema HDF5
 # file (utils/checkpoint_h5.py), any other an npz one (utils/checkpoint.py)
@@ -74,19 +76,6 @@ def apply_pars_files(method: str, x_pars: str, c_pars: str) -> str:
     return ",".join(parts)
 
 
-def reject_unported(extra: list[str], unported: tuple, prog: str) -> None:
-    """Raise NotImplementedError for a flag of the JAX CLI in `unported`,
-    and exit for any other unknown argument."""
-    for arg in extra:
-        name = arg[2:].split("=", 1)[0] if arg.startswith("--") else ""
-        if name in unported:
-            raise NotImplementedError(
-                f"--{name} is not ported to helfem_tpu_torch yet (see ROADMAP.md)"
-            )
-    if extra:
-        raise SystemExit(f"{prog}: unrecognized arguments: {' '.join(extra)}")
-
-
 def open_device(name: str):
     """The torch device of --device; raises for cuda when no card is
     present (nothing falls back to the CPU)."""
@@ -118,3 +107,41 @@ def crash_hook(save_path: str, basis, save):
         writes.append((it, time.perf_counter() - t0))
 
     return save_cb, writes
+
+
+def rank0_only(main, argv):
+    """main(argv, writes): writes is False, and the output is dropped, on the
+    ranks other than 0 of an initialized process group (a CLI started on
+    every rank, e.g. by torchrun), where main must write no file: rank 0
+    alone prints and writes."""
+    from helfem_tpu_torch.parallel.launch import is_rank0
+
+    if is_rank0():
+        return main(argv, True)
+    with contextlib.redirect_stdout(io.StringIO()):
+        return main(argv, False)
+
+
+def scf_on_ranks(scf, ndev: int, basis, nela: int, nelb: int, kwargs: dict, save_path: str,
+                 save, device):
+    """scf(basis, nela, nelb, **kwargs) over ndev ranks (parallel/launch.py:
+    run; spawned ranks get copies of the arguments), the crash-recovery hook
+    of save_path (crash_hook with save) built on rank 0 alone: the ranks
+    other than 0 neither print nor write. Returns rank 0's (result, the
+    hook's writes)."""
+    from helfem_tpu_torch.parallel import launch
+
+    return launch.run(_scf_rank, ndev, (scf, basis, nela, nelb, kwargs, save_path, save),
+                      device)
+
+
+def _scf_rank(mesh, payload):
+    from helfem_tpu_torch.parallel.launch import to_device
+
+    scf, basis, nela, nelb, kwargs, save_path, save = payload
+    save_cb, writes = None, []
+    if save_path and mesh.rank == 0:
+        save_cb, writes = crash_hook(save_path, basis, save)
+    res = scf(basis, nela, nelb, **to_device(kwargs, mesh.device), save_cb=save_cb,
+              ndev=mesh.size)
+    return res, writes

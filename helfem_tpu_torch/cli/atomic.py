@@ -13,9 +13,10 @@ writes the checkpoint after every host iteration and fused chunk and once
 at the end (a .chk/.h5/.hdf5 path: the reference HDF5 schema at the end,
 npz crash-recovery files beside it as <save>.crash.npz; HDF5 needs h5py);
 --load warm-starts from a checkpoint, projected onto this basis when the
-discretization differs (an npz file needs (l,m) symmetry blocks). --ndev
-is rejected with NotImplementedError. The per-iteration, final-energy and
-analysis lines match the JAX CLI's.
+discretization differs (an npz file needs (l,m) symmetry blocks). --ndev N
+runs the SCF over N ranks (parallel/launch.py: gloo ranks on the CPU, NCCL
+with one card per rank on CUDA), rank 0 printing and writing. The
+per-iteration, final-energy and analysis lines match the JAX CLI's.
 """
 
 import argparse
@@ -28,17 +29,20 @@ from helfem_tpu_torch.cli._common import (
     is_hdf5,
     open_device,
     parse_nela_nelb,
-    reject_unported,
+    rank0_only,
+    scf_on_ranks,
 )
 
-# helfem_tpu.cli.atomic flags outside the port (ROADMAP queue 1 item 10)
-_UNPORTED_FLAGS = ("ndev",)
 # --finitenuc: the reference's nuclear model numbers
 NUCLEAR_MODELS = {0: "point", 1: "point", 2: "gaussian", 3: "spherical", 4: "hollow",
                   5: "regularized"}
 
 
 def main(argv=None):
+    return rank0_only(_main, argv)
+
+
+def _main(argv, writes: bool):
     p = argparse.ArgumentParser(prog="helfem_tpu_torch.cli.atomic", description=__doc__,
                                 allow_abbrev=False)
     p.add_argument("--Z", required=True, help="nuclear charge (number or symbol)")
@@ -144,11 +148,19 @@ def main(argv=None):
     p.add_argument("--load", default="",
                    help="warm start from a checkpoint (cross-basis orbital projection); "
                         ".chk/.h5/.hdf5 reads the reference HDF5 schema, anything else npz")
+    p.add_argument("--ndev", type=int, default=0,
+                   help="run the SCF over an N-device mesh: the Fock build shards the TEI L "
+                        "axis and the DFT-grid element axis, the blocked eigensolve shards "
+                        "the symmetry-block axis (the multi-chip replacement for the "
+                        "reference's OpenMP, src/atomic/TwoDBasis.cpp:987)")
     p.add_argument("--device", default="cuda",
                    help="torch device: cuda runs the CUDA kernels, cpu their "
                         "plain PyTorch versions")
     args, extra = p.parse_known_args(argv)
-    reject_unported(extra, _UNPORTED_FLAGS, p.prog)
+    if extra:
+        raise SystemExit(f"{p.prog}: unrecognized arguments: {' '.join(extra)}")
+    if not writes:
+        args.save = ""
 
     import torch
 
@@ -229,7 +241,6 @@ def main(argv=None):
             P0a, P0b = checkpoint.warm_start_density(basis, oldb, d)
             print(f"Warm start from {args.load} (E = {float(d['E']):.9f})")
         walls["load"] = timer.lap("checkpoint load and projection")
-    save_cb, writes = crash_hook(args.save, basis, checkpoint.save_atomic)
     occs = None
     if args.readocc:  # lines 'l m na nb'
         occs = {}
@@ -239,20 +250,25 @@ def main(argv=None):
                 if line:
                     l_, m_, na_, nb_ = line.split()
                     occs[(int(l_), int(m_))] = (float(na_), float(nb_))
+    kwargs = dict(
+        method=args.method, maxit=args.maxit, convthr=args.convthr, guess=guess, verbose=True,
+        ops=ops, dftthr=args.dftthr, restricted=args.restricted, diisorder=args.diisorder,
+        diiseps=args.diiseps, ldft=args.ldft, grid=grid, rs=rs, dampfock=args.dampfock,
+        dampthr=args.dampthr, diisthr=args.diisthr, Ez=args.Ez, Qzz=args.Qzz, Bz=args.Bz,
+        iconf=args.iconf, conf_N=args.conf_N, conf_R=args.conf_R,
+        conf_barrier=args.conf_barrier, shift_conf=args.shift_conf, finitenuc=nucmodel,
+        Rrms=args.Rrms, Zl=Zl, Zr=Zr, Rmid=args.Rmid, symmetry=args.symmetry, occs=occs,
+        perturb=args.perturb, seed=args.seed, maverage=args.maverage, diag=bool(args.diag),
+        eigiter=args.eigiter, P0a=P0a, P0b=P0b,
+    )
     t0 = time.perf_counter()
     with trace_scf(args.trace, device):
-        res = scf_atom(
-            basis, nela, nelb, method=args.method, maxit=args.maxit,
-            convthr=args.convthr, guess=guess, verbose=True, ops=ops, dftthr=args.dftthr,
-            restricted=args.restricted, diisorder=args.diisorder, diiseps=args.diiseps,
-            ldft=args.ldft, grid=grid, rs=rs, dampfock=args.dampfock, dampthr=args.dampthr,
-            diisthr=args.diisthr, Ez=args.Ez, Qzz=args.Qzz, Bz=args.Bz, iconf=args.iconf,
-            conf_N=args.conf_N, conf_R=args.conf_R, conf_barrier=args.conf_barrier,
-            shift_conf=args.shift_conf, finitenuc=nucmodel, Rrms=args.Rrms, Zl=Zl, Zr=Zr,
-            Rmid=args.Rmid, symmetry=args.symmetry, occs=occs, perturb=args.perturb,
-            seed=args.seed, maverage=args.maverage, diag=bool(args.diag),
-            eigiter=args.eigiter, P0a=P0a, P0b=P0b, save_cb=save_cb if args.save else None,
-        )
+        if args.ndev:
+            res, writes = scf_on_ranks(scf_atom, args.ndev, basis, nela, nelb, kwargs,
+                                       args.save, checkpoint.save_atomic, device)
+        else:
+            save_cb, writes = crash_hook(args.save, basis, checkpoint.save_atomic)
+            res = scf_atom(basis, nela, nelb, **kwargs, save_cb=save_cb if args.save else None)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     walls["scf"] = time.perf_counter() - t0

@@ -16,9 +16,10 @@ checkpoint after every host iteration and fused chunk and once at the end
 (a .chk/.h5/.hdf5 path: the reference HDF5 schema at the end, npz
 crash-recovery files beside it as <save>.crash.npz; HDF5 needs h5py);
 --load warm-starts from a checkpoint, projected onto this basis when the
-discretization differs (the same bond length). --ndev is rejected with
-NotImplementedError. The per-iteration, final-energy and analysis lines
-match the JAX CLI's.
+discretization differs (the same bond length). --ndev N runs the SCF over
+N ranks (parallel/launch.py: gloo ranks on the CPU, NCCL with one card per
+rank on CUDA), rank 0 printing and writing. The per-iteration,
+final-energy and analysis lines match the JAX CLI's.
 """
 
 import argparse
@@ -31,14 +32,16 @@ from helfem_tpu_torch.cli._common import (
     is_hdf5,
     open_device,
     parse_nela_nelb,
-    reject_unported,
+    rank0_only,
+    scf_on_ranks,
 )
-
-# helfem_tpu.cli.diatomic flags outside the port (ROADMAP queue 1 item 10)
-_UNPORTED_FLAGS = ("ndev",)
 
 
 def main(argv=None):
+    return rank0_only(_main, argv)
+
+
+def _main(argv, writes: bool):
     p = argparse.ArgumentParser(prog="helfem_tpu_torch.cli.diatomic", description=__doc__,
                                 allow_abbrev=False)
     p.add_argument("--Z1", required=True, help="nuclear charge (number or symbol)")
@@ -121,11 +124,20 @@ def main(argv=None):
     p.add_argument("--load", default="",
                    help="warm start from a checkpoint (npz or reference-schema HDF5 by "
                         "extension)")
+    p.add_argument("--ndev", type=int, default=0,
+                   help="run the SCF over an N-device mesh: the Coulomb (L,M) channel scan, "
+                        "the exchange (L,|M|) step scan, and the XC mu-element axis shard "
+                        "over the mesh; the blocked eigensolve shards the symmetry-block axis "
+                        "(the multi-chip replacement for the reference's OpenMP, "
+                        "src/diatomic/basis.cpp:1560)")
     p.add_argument("--device", default="cuda",
                    help="torch device: cuda runs the CUDA kernels, cpu their "
                         "plain PyTorch versions")
     args, extra = p.parse_known_args(argv)
-    reject_unported(extra, _UNPORTED_FLAGS, p.prog)
+    if extra:
+        raise SystemExit(f"{p.prog}: unrecognized arguments: {' '.join(extra)}")
+    if not writes:
+        args.save = ""
 
     import numpy as np
     import torch
@@ -202,19 +214,23 @@ def main(argv=None):
             print(f"cross-basis warm start from {args.load} (E = {float(d['E']):.9f})")
     if args.load:
         walls["load"] = timer.lap("checkpoint load and projection")
-    save_cb, writes = crash_hook(args.save, basis, checkpoint.save_diatomic)
+    kwargs = dict(
+        method=args.method, maxit=args.maxit, convthr=args.convthr, verbose=True, ops=ops,
+        guess=args.guess, restricted=args.restricted, perturb=args.perturb, seed=args.seed,
+        diisorder=args.diisorder, diiseps=args.diiseps, dftthr=args.dftthr, ldft=args.ldft,
+        diisthr=args.diisthr, Ez=args.Ez, Qzz=args.Qzz, Bz=args.Bz, finitenuc=args.finitenuc,
+        Rrms1=args.Rrms1, Rrms2=args.Rrms2, occs=occs, readocc_until=args.readocc,
+        diag=bool(args.diag), maverage=args.maverage, P0a=P0a, P0b=P0b,
+    )
     t0 = time.perf_counter()
     with trace_scf(args.trace, device):
-        res = scf_diatomic(
-            basis, nela, nelb, method=args.method, maxit=args.maxit, convthr=args.convthr,
-            verbose=True, ops=ops, guess=args.guess, restricted=args.restricted,
-            perturb=args.perturb, seed=args.seed, diisorder=args.diisorder,
-            diiseps=args.diiseps, dftthr=args.dftthr, ldft=args.ldft, diisthr=args.diisthr,
-            Ez=args.Ez, Qzz=args.Qzz, Bz=args.Bz, finitenuc=args.finitenuc,
-            Rrms1=args.Rrms1, Rrms2=args.Rrms2, occs=occs, readocc_until=args.readocc,
-            diag=bool(args.diag), maverage=args.maverage, P0a=P0a, P0b=P0b,
-            save_cb=save_cb if args.save else None,
-        )
+        if args.ndev:
+            res, writes = scf_on_ranks(scf_diatomic, args.ndev, basis, nela, nelb, kwargs,
+                                       args.save, checkpoint.save_diatomic, device)
+        else:
+            save_cb, writes = crash_hook(args.save, basis, checkpoint.save_diatomic)
+            res = scf_diatomic(basis, nela, nelb, **kwargs,
+                               save_cb=save_cb if args.save else None)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     walls["scf"] = time.perf_counter() - t0

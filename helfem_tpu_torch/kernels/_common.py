@@ -49,12 +49,17 @@ def owner_table(gidx: np.ndarray, nrad: int) -> np.ndarray:
 def band_table(gidx: np.ndarray, owners: np.ndarray, nrad: int) -> np.ndarray:
     """[nrad, 2] int32: the first and last radial index of the elements that
     cover n (owner_table's), the columns an element window can reach from
-    row n. Raises unless they form one run of at most 2 nprim - 1 indices,
-    which holds for every FEMBasis layout."""
+    row n; the empty run (n, n - 1) where no element covers n, as on the
+    element shard of a grid (parallel/mesh.py:shard_grid). Raises unless
+    they form one run of at most 2 nprim - 1 indices, which holds for every
+    FEMBasis layout."""
     gidx = np.asarray(gidx)
     nprim = gidx.shape[1]
     band = np.zeros((nrad, 2), dtype=np.int32)
     for n in range(nrad):
+        if owners[n][0] < 0:
+            band[n] = n, n - 1
+            continue
         cover = np.unique(gidx[owners[n][owners[n] >= 0] // nprim])
         cover = cover[cover < nrad]
         band[n] = cover.min(), cover.max()

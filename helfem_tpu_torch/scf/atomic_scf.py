@@ -38,8 +38,10 @@ rotation (perturb/seed), and the occupations can be fixed per (l,m) block
 tensors that stay on the device; one boolean per iteration comes back to
 stop the chunk. The crash-recovery hook save_cb gets the state of every
 host iteration and of the reported iteration of every fused chunk, as
-helfem_tpu's does. --ndev raises NotImplementedError: nothing falls back
-silently. atomic_analysis is the
+helfem_tpu's does. ndev >= 1 runs the SCF over ndev ranks
+(parallel/mesh.py, parallel/launch.py): the Fock build on each rank's L
+range and grid elements, the blocked eigensolve on its symmetry blocks,
+every iteration on the host loop. atomic_analysis is the
 post-SCF analysis (<r^n>, the density at the nucleus and the cusp, the
 multipoles).
 """
@@ -71,12 +73,13 @@ from helfem_tpu_torch.models.atomic_dft import (
     needs_lapl,
 )
 from helfem_tpu_torch.ops.xc import MethodSpec, parse_method_rs
+from helfem_tpu_torch.parallel import launch
+from helfem_tpu_torch.parallel.mesh import make_mesh, sharded_atomic_fock, sharded_eig_blocks
 from helfem_tpu_torch.scf.common import (
     aufbau_blocks,
     diis_error_blocks,
     full_sinvh,
     hook_state,
-    reject_unported,
     symmetric_sinvh,
     vdot,
 )
@@ -365,11 +368,6 @@ def make_fused_chunk_u(fock):
     return chunk
 
 
-# scf_atom options of helfem_tpu that the port does not cover, with the
-# default values under which they are inert
-_UNPORTED = {"ndev": 0}
-
-
 def rs_operators(basis: AtomicBasis, spec: MethodSpec, device):
     """(kfrac, kshort, rs) of a method: its exact-exchange fractions and its
     short-range tables, built on `device` (None without range separation).
@@ -460,7 +458,7 @@ def scf_atom(
     diag: bool = True,
     eigiter: int = 0,
     save_cb=None,
-    **unported,
+    ndev: int = 0,
 ) -> SCFResult:
     """Restricted, unrestricted or ROHF SCF of HF, the ported LDA, GGA and
     meta-GGA functionals, their global hybrids and the range-separated
@@ -504,10 +502,31 @@ def scf_atom(
     :882-886): called after every host iteration and once per fused chunk,
     on the state of the chunk's reported iteration, with host numpy block
     eigenvalues, orbitals and occupations (Eb, Cb, occb None when
-    restricted); one card-to-host copy of the orbitals per call."""
-    reject_unported(unported, _UNPORTED, "scf_atom")
+    restricted); one card-to-host copy of the orbitals per call.
+
+    ndev >= 1 runs the SCF over ndev ranks (helfem_tpu atomic_scf.py:649-666,
+    :692-693): the Fock build on each rank's L range (K1, K2) and grid
+    elements (K4, K5), all-reduced, and the blocked eigensolve on its
+    symmetry blocks, gathered (parallel/mesh.py), with every iteration on
+    the host loop; range-separated exchange raises, as helfem_tpu's does.
+    Inside an initialized process group of ndev ranks the call runs this
+    rank's share (another size raises); outside any, ndev 1 runs over a
+    one-rank group made for the call, and ndev > 1 over ndev spawned ranks
+    on copies of the arguments (launch.call; save_cb must then pickle),
+    returning rank 0's result. Only rank 0 prints and calls save_cb; rank 0
+    broadcasts the occupations and the convergence test's numbers."""
+    call_args = dict(locals())
     spec = parse_method_rs(method)  # raises for the functionals the port lacks
     funcs = spec.funcs
+    if ndev:
+        if spec.kshort != 0.0 and spec.omega != 0.0:
+            raise NotImplementedError("--ndev does not support range-separated exchange yet "
+                                      "(erfc/yukawa tables)")
+        if not launch.in_group():
+            if ops is None and device is None:
+                raise ValueError("scf_atom needs a device (or prebuilt ops)")
+            return launch.call(scf_atom, ndev, (), call_args,
+                               ops.device if ops is not None else device)
     if symmetry not in (-1, 0, 1, 2):
         raise ValueError(f"symmetry={symmetry}: 0 (none), 1 (m), 2 (l,m) or -1 (auto)")
     offcentre = bool(Zl or Zr) and Rmid > 0.0
@@ -519,6 +538,9 @@ def scf_atom(
             raise ValueError("scf_atom needs a device (or prebuilt ops)")
         ops = basis.build_operators(device)
     device = ops.device
+    mesh = make_mesh(ndev, device=device) if ndev else None
+    if mesh is not None and mesh.rank != 0:
+        verbose, save_cb = False, None
     nrad = basis.nrad
     kfrac, kshort, rs = (rs_operators(basis, spec, device) if rs is None
                          else (spec.kfull, spec.kshort, rs))
@@ -546,6 +568,24 @@ def scf_atom(
     pairs = None if symm == 2 else channel_pairs(basis.mval, symm)
     fock = make_fock(funcs, kfrac, nrad, dftthr, restricted=restricted, kshort=kshort,
                      kernel=kernel, rs=rs, Bz=Bz, pairs=pairs)
+
+    def eig(Fs):
+        """(host eigenvalues, device orbitals) of each spin's Fock in Fs."""
+        out = [eig_blocks(F, blk_idx, blk_sinvh) for F in Fs]
+        return [(E.cpu().numpy(), C) for E, C in out]
+
+    if mesh is not None:
+        # the loop's Fock build and eigensolve over the mesh; the guess's
+        # stay single-rank, as helfem_tpu's (atomic_scf.py:649-666)
+        sfock = sharded_atomic_fock(mesh, ops, funcs, g, kfrac, bd=pairs is None, Bz=Bz,
+                                    dftthr=dftthr, restricted=restricted, pairs=pairs)[0]
+        fock = lambda ops_, g_, Vextra_, Pa, Pb: sfock(Vextra_, Pa, Pb)  # noqa: E731
+        seig = sharded_eig_blocks(mesh, blk_idx, blk_sinvh, basis.nbf)
+
+        def eig(Fs):  # noqa: F811 -- both spins in one solve and one gather
+            E, C = seig(torch.stack(Fs))
+            E = E.cpu().numpy()
+            return [(E[s], C[s]) for s in range(len(Fs))]
 
     # guess: the Fock of a warm-start density, or the model-potential
     # Hamiltonian with the extras (the same orbitals for both spins)
@@ -611,7 +651,8 @@ def scf_atom(
     # the large-error regime that the chunks' pure C2-DIIS cannot. ROHF's
     # Fock update, the m-average, the MO-basis damping and the iterative
     # eigensolve are host work every iteration, so they stay on the host.
-    warmup = maxit if rohf or maverage or dampfock != 1.0 or eigiter > 0 else 2
+    warmup = (maxit if rohf or maverage or dampfock != 1.0 or eigiter > 0 or mesh is not None
+              else 2)
     chunk_len = 4  # chunk schedule 4, 8, 16
     CH = 16
     nhist = 10
@@ -625,6 +666,9 @@ def scf_atom(
         else:
             occa = aufbau_blocks(Ea, nela)
             occb = occa if restricted else aufbau_blocks(Eb, nelb)
+        if mesh is not None:  # every rank takes rank 0's decisions
+            occa, occb_ = mesh.bcast(occa, occb)
+            occb = occa if restricted else occb_
 
         if it > warmup:
             nblk, blen = blk_idx_np.shape
@@ -700,6 +744,9 @@ def scf_atom(
                 Fa, Fb = rohf_update(Fa, Fb, Pa + Pb, Sh_np, Sinvh_rohf, nela, nelb)
             err = diis.update([Fa, Fb], [Pa, Pb])
             Fa_, Fb_ = diis.solve()
+        if mesh is not None:
+            err, Etot, dE = (float(x) for x in mesh.bcast(err, Etot, dE))
+            Eold = Etot
         if dampfock != 1.0 and err >= dampthr:
             if verbose:
                 print(f"damping off-diagonal Fock elements by {dampfock:.3f}")
@@ -718,20 +765,19 @@ def scf_atom(
             # (reference: scf::eig_iter); orbital energies lie above -Z^2/2
             sigma = -0.6 * basis.Z**2 - 10.0
             Ea, Ca = eig_blocks_iter(Fa_, blk_idx_np, blk_sinvh_np, eigiter, sigma)
+            if mesh is not None:  # ARPACK's start vector is random: rank 0's pairs
+                Ea, Ca = mesh.bcast(Ea, Ca)
             Ca = as_dev(Ca)
             if restricted:
                 Eb, Cb = Ea, Ca
             else:
                 Eb, Cb = eig_blocks_iter(Fb_, blk_idx_np, blk_sinvh_np, eigiter, sigma)
+                if mesh is not None:
+                    Eb, Cb = mesh.bcast(Eb, Cb)
                 Cb = as_dev(Cb)
             continue
-        Ea, Ca = eig_blocks(as_dev(Fa_), blk_idx, blk_sinvh)
-        Ea = Ea.cpu().numpy()
-        if restricted:
-            Eb, Cb = Ea, Ca
-        else:
-            Eb, Cb = eig_blocks(as_dev(Fb_), blk_idx, blk_sinvh)
-            Eb = Eb.cpu().numpy()
+        spins = eig([as_dev(Fa_)] if restricted else [as_dev(Fa_), as_dev(Fb_)])
+        (Ea, Ca), (Eb, Cb) = spins[0], spins[-1]
 
     labels = basis.sym_labels(symm)
 

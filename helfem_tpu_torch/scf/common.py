@@ -1,7 +1,6 @@
 """Helpers shared by the atomic and diatomic SCF drivers: aufbau occupations
 over symmetry blocks, the block-coordinate DIIS error, the full-matrix
-whitening from its blocks, the crash-recovery hook's call and the rejection
-of unported options."""
+whitening from its blocks and the crash-recovery hook's call."""
 
 import numpy as np
 import torch
@@ -9,7 +8,7 @@ import torch
 from helfem_tpu_torch.utils.linalg import _BIG, build_blocks
 
 __all__ = ["aufbau_blocks", "diis_error_blocks", "full_sinvh", "hook_state",
-           "occ_fixed_blocks", "reject_unported", "symmetric_sinvh", "vdot"]
+           "occ_fixed_blocks", "symmetric_sinvh", "vdot"]
 
 
 def aufbau_blocks(E: np.ndarray, nel: float) -> np.ndarray:
@@ -80,22 +79,6 @@ def symmetric_sinvh(S: np.ndarray, blk_idx: np.ndarray) -> np.ndarray:
     rohf_update's natural orbitals need it (under --diag 0 too)."""
     nbf = S.shape[0]
     return full_sinvh(*build_blocks(S, [row[row < nbf] for row in blk_idx]), nbf)
-
-
-def reject_unported(options: dict, unported: dict, fn: str) -> None:
-    """Raise for an option of helfem_tpu's `fn` that is set away from the
-    default under which it is inert (`unported`: name -> default), and for
-    an unknown keyword."""
-    for name, value in options.items():
-        if name not in unported:
-            raise TypeError(f"{fn}() got an unexpected keyword argument '{name}'")
-        default = unported[name]
-        changed = (value is not None) if default is None else (value != default)
-        if changed:
-            raise NotImplementedError(
-                f"{fn} option {name}={value!r} is not ported to "
-                "helfem_tpu_torch yet (see ROADMAP.md)"
-            )
 
 
 def hook_state(save_cb, it: int, Etot: float, restricted: bool, Ea, Ca: torch.Tensor, occa,

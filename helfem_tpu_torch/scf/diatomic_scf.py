@@ -35,10 +35,12 @@ its warm start is not carried over, nor is helfem_tpu's host eigensolve
 of large bases (eig_blocks_dia_host, _dia_host_warm), a workaround for the
 TPU's device eigh that the card does not need. The crash-recovery hook
 save_cb gets the state of every host iteration and of the reported
-iteration of every fused chunk, as helfem_tpu's does. --ndev raises
-NotImplementedError: nothing falls back silently. A range-separated
-method raises ValueError, as helfem_tpu's does (range separation exists on
-atoms only).
+iteration of every fused chunk, as helfem_tpu's does. ndev >= 1 runs the
+SCF over ndev ranks (parallel/mesh.py, parallel/launch.py): the Coulomb
+channels, the exchange steps and the XC elements split over the ranks and
+the eigensolve over the symmetry blocks, every iteration on the host loop.
+A range-separated method raises ValueError, as helfem_tpu's does (range
+separation exists on atoms only).
 """
 
 from dataclasses import dataclass, field
@@ -57,13 +59,14 @@ from helfem_tpu_torch.models.atomic_dft import needs_lapl
 from helfem_tpu_torch.models.diatomic_dft import DiaGridOps, build_dia_grid, eval_fxc_dia
 from helfem_tpu_torch.models.diatomic_tools import finite_nucleus_Vnuc, guess_hamiltonian_dia
 from helfem_tpu_torch.ops.xc import parse_method
+from helfem_tpu_torch.parallel import launch
+from helfem_tpu_torch.parallel.mesh import make_mesh, sharded_dia_eig, sharded_dia_scf_fock
 from helfem_tpu_torch.scf.common import (
     aufbau_blocks,
     diis_error_blocks,
     full_sinvh,
     hook_state,
     occ_fixed_blocks,
-    reject_unported,
     symmetric_sinvh,
     vdot,
 )
@@ -288,9 +291,6 @@ def make_dia_fused_chunk(funcs: tuple, kfrac: float, dftthr: float, njbd: int | 
     return chunk
 
 
-# scf_diatomic options of helfem_tpu that the port does not cover, with the
-# default values under which they are inert
-_UNPORTED = {"ndev": 0}
 # device memory one spin's per-iteration orbitals may take in a fused chunk
 # (helfem_tpu caps its chunk length the same way; two spins hold twice it)
 _CHUNK_C_BYTES = 256e6
@@ -329,7 +329,7 @@ def scf_diatomic(
     diag: bool = True,
     maverage: bool = False,
     save_cb=None,
-    **unported,
+    ndev: int = 0,
 ) -> DiaSCFResult:
     """Restricted, unrestricted or ROHF SCF (helfem_tpu's scf_diatomic) for
     HF, LDA, GGA and meta-GGA functionals and their global hybrids (PBE0,
@@ -368,18 +368,40 @@ def scf_diatomic(
     when given, is the crash-recovery hook (helfem_tpu diatomic_scf.py:835,
     :887): called after every host iteration and once per fused chunk, on
     the state of the chunk's reported iteration, with host numpy arrays
-    (the beta ones None when restricted)."""
-    reject_unported(unported, _UNPORTED, "scf_diatomic")
+    (the beta ones None when restricted).
+
+    ndev >= 1 runs the SCF over ndev ranks (helfem_tpu diatomic_scf.py:665-688,
+    :744-745): K3 on each rank's range of the M = 0 Coulomb channels, K6 (or
+    K7) on its range of the exchange steps and K4/K5 on its range of the mu
+    elements, all-reduced, and the blocked eigensolve (guess included) on
+    its symmetry blocks, gathered (parallel/mesh.py), with every iteration
+    on the host loop; the level-shifted eigensolve stays whole on each rank,
+    as helfem_tpu's. Inside an initialized process group of ndev ranks the
+    call runs this rank's share (another size raises); outside any, ndev 1
+    runs over a one-rank group made for the call, and ndev > 1 over ndev
+    spawned ranks on copies of the arguments (launch.call; save_cb must
+    then pickle), returning rank 0's result. Only rank 0 prints and calls
+    save_cb; rank 0 broadcasts the occupations and the convergence test's
+    numbers."""
+    call_args = dict(locals())
     # a range-separated method raises ValueError, as helfem_tpu's does: range
     # separation exists on atoms only
     funcs, kfrac = parse_method(method)
     funcs = tuple(funcs)
+    if ndev and not launch.in_group():
+        if ops is None and device is None:
+            raise ValueError("scf_diatomic needs a device (or prebuilt ops)")
+        return launch.call(scf_diatomic, ndev, (), call_args,
+                           ops.device if ops is not None else device)
     if ops is None:
         if device is None:
             raise ValueError("scf_diatomic needs a device (or prebuilt ops)")
         # an axial electric field couples even and odd l: no g/u blocks
         ops = basis.build_operators(device, parity=Ez == 0.0, chol=not diag)
     device = ops.device
+    mesh = make_mesh(ndev, device=device) if ndev else None
+    if mesh is not None and mesh.rank != 0:
+        verbose, save_cb = False, None
     nbf = basis.nbf
     g = build_dia_grid(basis, device, neta=ldft, lapl=needs_lapl(funcs)) if funcs else None
     Enucrep = basis.Z1 * basis.Z2 / basis.Rbond
@@ -408,6 +430,14 @@ def scf_diatomic(
     if Vextra is not None:
         ops = ops._replace(H0=ops.H0 + Vextra)
     Emag = -0.5 * Bz * (nela - nelb)
+    seig = None
+    if mesh is not None:
+        # the Fock build and the eigensolve over the mesh (helfem_tpu
+        # diatomic_scf.py:665-688), of the operators with their extras
+        sfock = sharded_dia_scf_fock(mesh, ops, funcs, g, kfrac, dftthr, restricted, njbd)[0]
+        gfock = fock  # the guess of a two-spin warm start stays single-rank
+        fock = lambda ops_, g_, Pa, Pb, Coa=None, Cob=None: sfock(Pa, Pb, Coa, Cob)  # noqa: E731
+        seig = sharded_dia_eig(mesh, ops)
 
     blk_idx_np = ops.blk_idx.cpu().numpy()
     blk_sinvh_np = ops.blk_sinvh.cpu().numpy()
@@ -418,6 +448,11 @@ def scf_diatomic(
         """One batched blocked eigensolve of each spin's dense Fock:
         (host eigenvalues, device orbitals) per spin; shifted = ((C, occ)
         per spin) applies the level shift to each spin's blocks first."""
+        if seig is not None and shifted is None:
+            E, C = seig(torch.stack([torch.as_tensor(F, dtype=torch.float64, device=device)
+                                     for F in Fs]))
+            E = E.cpu().numpy()
+            return [(E[s], C[s]) for s in range(len(Fs))]
         Fb = [gather_blocks(as_dev(F), ops.blk_idx) for F in Fs]
         if shifted is not None:
             Fb = [eig_blocks_dia_shifted(ops, F, C, as_dev(o), shift)
@@ -430,7 +465,8 @@ def scf_diatomic(
         # the Fock of a density (a loaded checkpoint's, say) as the guess;
         # its exchange from the density, as helfem_tpu's without orbitals
         Pg_a = as_dev(P0a)
-        Fg_a, Fg_b, *_ = fock(ops, g, Pg_a, Pg_a if P0b is None else as_dev(P0b))
+        fg = fock if mesh is None or P0b is None else gfock
+        Fg_a, Fg_b, *_ = fg(ops, g, Pg_a, Pg_a if P0b is None else as_dev(P0b))
         spins = eig_spins([Fg_a.cpu().numpy()] if restricted else
                           [Fg_a.cpu().numpy(), Fg_b.cpu().numpy()])
         (Ea, Ca), (Eb, Cb) = spins[0], spins[-1]
@@ -439,8 +475,11 @@ def scf_diatomic(
             Hguess = ops.H0
         else:
             Hguess = as_dev(guess_hamiltonian_dia(basis, guess, device))
-        Ea, Ca = eig_blocks(Hguess, ops.blk_idx, ops.blk_sinvh)
-        Ea = Ea.cpu().numpy()
+        if seig is None:
+            Ea, Ca = eig_blocks(Hguess, ops.blk_idx, ops.blk_sinvh)
+            Ea = Ea.cpu().numpy()
+        else:
+            (Ea, Ca), = eig_spins([Hguess])
     if P0a is None or restricted:
         Eb, Cb = Ea.copy(), Ca
     if perturb:
@@ -465,7 +504,7 @@ def scf_diatomic(
     # pure C2-DIIS cannot (helfem_tpu diatomic_scf.py:736-745). ROHF's Fock
     # update, the level shift and the m-average are host work every
     # iteration, so they stay on the host.
-    warmup = maxit if rohf or shift != 0.0 or maverage else 2
+    warmup = maxit if rohf or shift != 0.0 or maverage or mesh is not None else 2
     chunk_len = 4  # chunk schedule 4, 8, 16, capped by the orbitals' memory
     CH = 16
     while CH > 4 and CH * nblk * blen * blen * 8 > _CHUNK_C_BYTES:
@@ -487,6 +526,9 @@ def scf_diatomic(
         else:
             occa = aufbau_blocks(Ea, nela)
             occb = occa if restricted else aufbau_blocks(Eb, nelb)
+        if mesh is not None:  # every rank takes rank 0's decisions
+            occa, occb_ = mesh.bcast(occa, occb)
+            occb = occa if restricted else occb_
         # a finite boundary must land on its iteration: the fused chunks
         # freeze the occupations for several iterations
         readocc_hold = occs is not None and 0 < readocc_until and it <= readocc_until
@@ -559,6 +601,9 @@ def scf_diatomic(
                 Fa, Fb = rohf_update(Fa, Fb, Pa + Pb, Sh_np, Sinvh_rohf, nela, nelb)
             err = diis.update([Fa, Fb], [Pa, Pb])
         Fs = diis.solve()
+        if mesh is not None:
+            err, Etot, dE = (float(x) for x in mesh.bcast(err, Etot, dE))
+            Eold = Etot
         if verbose:
             print(f"iter {it:3d}  E = {Etot:+.12f}  dE = {dE:+.3e}  diis = {err:.3e}")
         if save_cb is not None:

@@ -67,22 +67,19 @@ def test_cli_runs_with_its_default_sap_guess(capsys):
     assert "(fused)" in capsys.readouterr().out
 
 
-@pytest.mark.parametrize("extra, match", [
-    (["--Ez", "0.01", "--maverage", "--save", "he.npz"], None),
-    (["--ndev", "2"], "--ndev"),
-    (["--symmetry", "1", "--eigiter", "4", "--load", "he.npz"], None),
+@pytest.mark.parametrize("extra", [
+    ["--Ez", "0.01", "--maverage", "--save", "he.npz"],
+    ["--ndev", "2"],
+    ["--symmetry", "1", "--eigiter", "4", "--load", "he.npz"],
 ], ids=["field_flag", "ndev_flag", "symmetry_flag"])
-def test_cli_unported_raises(extra, match):
-    """--ndev, which the port does not cover, raises naming itself. The
-    checkpoint flags run beside the field, symmetry and SCF-control flags
-    (tests/test_torch_fields.py, tests/test_torch_scf_controls.py): --save
-    names the file, without it the CLI writes helfem.npz; the file loads
-    back and holds the run's energy. --load reads a checkpoint written by
-    a run before it."""
-    if match is not None:
-        with pytest.raises(NotImplementedError, match=match):
-            main(HE + extra + ["--device", "cpu"])
-        return
+def test_cli_unported_raises(extra):
+    """The checkpoint flags run beside the field, symmetry, SCF-control and
+    --ndev flags (tests/test_torch_fields.py, tests/test_torch_scf_controls.py,
+    tests/test_torch_parallel.py): --save names the file, without it the CLI
+    writes helfem.npz (under --ndev 2 its parent process, rank 0's); the file
+    loads back and holds the run's energy. --load reads a checkpoint written
+    by a run before it. --ndev 2 runs the SCF on two gloo ranks to the energy
+    of the run without it, within 1e-9 Eh."""
     if "--load" in extra:
         main(HE + ["--device", "cpu", "--save", extra[extra.index("--load") + 1]])
     res = main(HE + extra + ["--device", "cpu"])
@@ -90,6 +87,8 @@ def test_cli_unported_raises(extra, match):
     basis, d = load_atomic(path)
     assert res.converged and bool(d["converged"]) and float(d["E"]) == res.E
     assert basis.nbf == res.orbs_a.shape[1] and np.array_equal(d["orbs_a"], res.orbs_a)
+    if "--ndev" in extra:
+        assert abs(res.E - main(HE + ["--device", "cpu", "--save", ""]).E) < 1e-9
 
 
 def test_cli_unknown_flag_exits():
@@ -126,20 +125,23 @@ def test_dia_cli_open_shell_flags(capsys, one_thread, extra, nela, nelb, kw):
     assert res.orbE_b is not None and res.occ_b.sum() == nelb
 
 
-@pytest.mark.parametrize("extra, match", [
-    (["--M", "3", "--symmetry", "1", "--save", "o2.npz"], None),
-    (["--M", "3", "--readocc", "1", "--load", "o2.npz"], None),
-    (["--M", "3", "--Bz", "0.1", "--maverage", "--ndev", "1"], "--ndev"),
+@pytest.mark.parametrize("extra", [
+    ["--M", "3", "--symmetry", "1", "--save", "o2.npz"],
+    ["--M", "3", "--readocc", "1", "--load", "o2.npz"],
+    ["--M", "3", "--Bz", "0.1", "--maverage", "--ndev", "1"],
 ], ids=["symmetry", "readocc", "magnetic_field"])
-def test_dia_cli_still_rejects_the_rest(tmp_path, one_thread, extra, match):
-    """--ndev raises; --symmetry, --readocc, --maverage
-    (tests/test_torch_scf_controls.py) and --Bz (tests/test_torch_dia_fields.py)
-    run, and so do the checkpoint flags beside them: the --save file loads
-    back with the run's energy and both spins' orbitals; --load warm-starts
-    from a triplet's file written before it, and writes none itself."""
-    if match is not None:
-        with pytest.raises(NotImplementedError, match=match):
-            diatomic.main(O2_CLI + extra)
+def test_dia_cli_still_rejects_the_rest(tmp_path, one_thread, extra):
+    """--symmetry, --readocc, --maverage (tests/test_torch_scf_controls.py),
+    --Bz (tests/test_torch_dia_fields.py) and --ndev (tests/test_torch_parallel.py)
+    run: --ndev 1 beside --Bz and --maverage to the energy of the same run
+    without it, within 1e-9 Eh; the checkpoint flags run beside them too: the
+    --save file loads back with the run's energy and both spins' orbitals;
+    --load warm-starts from a triplet's file written before it, and writes
+    none itself."""
+    if "--ndev" in extra:
+        res = diatomic.main(O2_CLI + extra)
+        ref = diatomic.main(O2_CLI + extra[:-2])
+        assert res.converged and ref.converged and abs(res.E - ref.E) < 1e-9
         return
     (tmp_path / "occs.dat").write_text(O2_OCCS)
     if "--load" in extra:

@@ -120,17 +120,18 @@ def test_cli_field_flags(capsys):
                                   "--symmetry 1 --ndev 1", "--diag 0 --save h2.npz"],
                          ids=["--maverage", "--readocc", "--symmetry 1", "--diag 0"])
 def test_cli_unported_flags_still_raise(tmp_path, monkeypatch, flag):
-    """The SCF-control flags run (tests/test_torch_scf_controls.py); beside
-    --ndev, which is not ported, they raise, naming it. Beside the
-    checkpoint flags they run in Ez: the --save file loads back with the
-    run's energy; --load (with --readocc 1 and occs.dat's one block)
-    warm-starts from one written before it."""
+    """The SCF-control flags run (tests/test_torch_scf_controls.py), in Ez:
+    beside --ndev 1 (tests/test_torch_parallel.py) within 1e-9 Eh of the same
+    run without it; beside the checkpoint flags the --save file loads back
+    with the run's energy, and --load (with --readocc 1 and occs.dat's one
+    block) warm-starts from one written before it."""
     monkeypatch.chdir(tmp_path)
     h2 = ["--Z1", "H", "--Z2", "H", "--Rbond", "2.0", "--lmax", "2", "--nelem", "2", "--Ez",
           "0.01", "--device", "cpu"]
     if "--ndev" in flag:
-        with pytest.raises(NotImplementedError, match="--ndev"):
-            main(h2 + flag.split())
+        res = main(h2 + flag.split())
+        ref = main(h2 + flag.split()[:-2])
+        assert res.converged and ref.converged and abs(res.E - ref.E) < 1e-9
         return
     (tmp_path / "occs.dat").write_text("1 1\n")
     if "--load" in flag:

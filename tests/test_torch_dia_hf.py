@@ -136,9 +136,11 @@ def test_range_separated_methods_raise(method):
 def test_open_shell_hf_raises():
     """Open shells run (tests/test_torch_dia_open.py), in a magnetic field
     too (tests/test_torch_dia_fields.py), with Fock m-averaging as well
-    (tests/test_torch_scf_controls.py); over a device mesh (ndev), which is
-    not ported, they raise."""
+    (tests/test_torch_scf_controls.py), and over a device mesh (ndev,
+    tests/test_torch_parallel.py): H2+ in Bz with m-averaging on one rank
+    lands within 1e-9 Eh of the same call without ndev."""
     cfg, _ = CASES["H2"]
-    with pytest.raises(NotImplementedError, match="ndev"):
-        diatomic_scf.scf_diatomic(DiatomicBasis(**cfg), 1, 0, method="HF", device="cpu",
-                                  Bz=0.1, maverage=True, ndev=1)
+    kw = dict(method="HF", device="cpu", Bz=0.1, maverage=True)
+    res = diatomic_scf.scf_diatomic(DiatomicBasis(**cfg), 1, 0, ndev=1, **kw)
+    ref = diatomic_scf.scf_diatomic(DiatomicBasis(**cfg), 1, 0, **kw)
+    assert res.converged and ref.converged and abs(res.E - ref.E) < 1e-9

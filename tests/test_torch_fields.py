@@ -263,16 +263,19 @@ def test_cli_field_flags_match_scf_atom(capsys):
                                   "--readocc occs.dat --ndev 1", "--zeroder --save he.npz"],
                          ids=["--maverage", "--eigiter 4", "--readocc occs.dat", "--zeroder"])
 def test_cli_unported_flags_still_raise(flag):
-    """The SCF-control and basis flags run (tests/test_torch_scf_controls.py);
-    beside --ndev, which is not ported, they raise, naming it. Beside the
-    checkpoint flags they run in Ez: the --save file (its m blocks, one for
-    He) loads back with the run's energy and basis; --load warm-starts from
-    one written before it."""
+    """The SCF-control and basis flags run (tests/test_torch_scf_controls.py),
+    in Ez: --readocc beside --ndev 1 (tests/test_torch_parallel.py) within
+    1e-9 Eh of the same run without it; beside the checkpoint flags the
+    --save file (its m blocks, one for He) loads back with the run's energy
+    and basis, and --load warm-starts from one written before it."""
     he = ["--Z", "He", "--lmax", "0", "--mmax", "0", "--nelem", "3", "--Ez", "0.01",
           "--device", "cpu"]
     if "--ndev" in flag:
-        with pytest.raises(NotImplementedError, match="--ndev"):
-            main(he + flag.split())
+        with open("occs.dat", "w") as f:
+            f.write("0 0 1 1\n")
+        res = main(he + ["--symmetry", "2"] + flag.split())
+        ref = main(he + ["--symmetry", "2"] + flag.split()[:-2])
+        assert res.converged and ref.converged and abs(res.E - ref.E) < 1e-9
         return
     if "--load" in flag:
         main(he + ["--save", "he.npz"])

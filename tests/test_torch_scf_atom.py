@@ -8,6 +8,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from threadpoolctl import threadpool_limits
 
 from helfem_tpu.models.atomic import AtomicBasis as JaxBasis
 from helfem_tpu.scf import atomic_scf as jax_scf
@@ -22,6 +23,18 @@ CASES = {
     "He": (dict(Z=2, lmax=0, mmax=0, rmax=40.0, nelem=5, nnodes=8), 1),
     "Ne": (dict(Z=10, lmax=1, mmax=1, rmax=40.0, nelem=5, nnodes=8), 5),
 }
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread and one BLAS thread for this module: the SCFs
+    are streams of small ops, and the test workers share the machine's
+    cores (threadpoolctl)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    with threadpool_limits(1):
+        yield
+    torch.set_num_threads(n)
 
 
 @pytest.mark.parametrize("atom", list(CASES))
@@ -92,8 +105,9 @@ def test_device_diis_step_matches_jax(count):
 @pytest.mark.parametrize("nel, kwargs", [
     # symmetry 0/1, range separation there and fields run
     # (tests/test_torch_fields.py), and so do eigiter, maverage, perturb and
-    # diag (tests/test_torch_scf_controls.py); beside --ndev, which is not
-    # ported, they raise. The checkpoint hook save_cb runs beside them
+    # diag (tests/test_torch_scf_controls.py), beside ndev too
+    # (tests/test_torch_parallel.py) but for range separation, which ndev
+    # refuses as helfem_tpu's does. The checkpoint hook save_cb runs beside them
     ((1, 1), {"method": "LDAERF", "symmetry": 1, "eigiter": 4, "ndev": 1}),
     ((1, 1), {"method": "LC-LDA", "symmetry": 0, "maverage": True, "save_cb": "npz"}),
     ((1, 1), {"symmetry": 1, "perturb": 0.1, "ndev": 1}),
@@ -103,13 +117,22 @@ def test_device_diis_step_matches_jax(count):
     ((1, 1), {"maverage": True, "ndev": 2}),
 ], ids=["ldaerf", "lc-lda", "symm1", "field", "ndev", "eigiter", "maverage"])
 def test_unported_options_raise(tmp_path, nel, kwargs):
-    """ndev raises; save_cb sees the two host iterations, then rising ones
-    up to the run's last, and the npz file it writes (as the atomic CLI's
-    hook does) loads back with the run's energy and orbitals."""
+    """ndev runs to the energy of the same call without it, within 1e-9 Eh,
+    and raises helfem_tpu's reason for range separation; save_cb sees the
+    two host iterations, then rising ones up to the run's last, and the npz
+    file it writes (as the atomic CLI's hook does) loads back with the
+    run's energy and orbitals."""
     basis = AtomicBasis(Z=sum(nel), lmax=0, mmax=0, rmax=20.0, nelem=2, nnodes=4)
     if "ndev" in kwargs:
-        with pytest.raises(NotImplementedError):
-            atomic_scf.scf_atom(basis, *nel, device="cpu", **kwargs)
+        if kwargs.get("method") == "LDAERF":
+            with pytest.raises(NotImplementedError, match="--ndev does not support "
+                                                          "range-separated exchange yet"):
+                atomic_scf.scf_atom(basis, *nel, device="cpu", **kwargs)
+            return
+        res = atomic_scf.scf_atom(basis, *nel, device="cpu", **kwargs)
+        ref = atomic_scf.scf_atom(basis, *nel, device="cpu",
+                                  **{k: v for k, v in kwargs.items() if k != "ndev"})
+        assert res.converged and ref.converged and abs(res.E - ref.E) < 1e-9
         return
     path, seen = str(tmp_path / "he.npz"), []
 
