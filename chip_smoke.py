@@ -75,7 +75,8 @@ Phases, any failure raises and exits non-zero:
      kernels' first, CUDA-core version gave, with the occupied-orbital
      exchange kernel launched and K3 once per iteration; the warm wall and
      tr(P S) - 14 beside the whitening's defect of the overlap blocks (a
-     closed-shell witness for phase 16's spin counts); then the same SCF from the SAP guess (the bench's own start), cold and
+     closed-shell witness for phase 16's spin counts) and one profiled warm
+     SCF; then the same SCF from the SAP guess (the bench's own start), cold and
      warm, within 2e-5 Eh of the bench reference (N's SAD atom, solved in
      the cold run, with K2, K4 and K5 once per Fock build), beside the core-guess
      iterations and walls. Then N2 PBE at the same basis and the PBE bench geometry, cold
@@ -245,6 +246,24 @@ Phases, any failure raises and exits non-zero:
      Fock bits equal, the path's kernels once per iteration on each rank;
      per rank the launches, each kernel's ms per call on its shard (the
      ranks in turns), the all_reduce wall per iteration and the SCF wall.
+ 3b. (run right after phase 3) K11, the warm eigensolve's sweeps, against
+     its plain version at the block shapes of Ar (one and two spins), N2
+     PBE, Xe, gensap Kr's channels and N2 at lmax=12, each from a near seed
+     (accepted) and a rotated one (rejected), two spins also from one of
+     each, Ar also from the identity (the SCF's first seed, rejected; its
+     sweeps diverge, so only the decisions compare): the same certificate
+     decisions, E and V within 1e-12 x max-abs, the residuals within 1e-12
+     x max|E|, the same bits twice; its call,
+     device and plain times, its bound, and torch.linalg.eigh on the same
+     batch beside it as a yardstick (not the same arithmetic). Then on
+     recorded data: the inputs of every warm eigensolve of one Ar HF and
+     one N2 PBE SCF at the bench bases (padded slots included), the same
+     decisions against each SCF's gate, E and the residuals within 1e-12 x
+     the unpadded max|E|, and K11's V as good an eigenbasis as the plain
+     version's. Every warm
+     SCF profile (phases 5, 7, 9, 11-21) splits the eigensolve: the warm
+     acceptances and cold fallbacks per SCF, the residuals per K11 call, K11's and
+     aten::_linalg_eigh's device time and their share of the busy time.
 The script runs in a temporary working directory, where the CLIs write
 their checkpoints. The last two lines are the kernels' JSON record and
 {"ok": true, ...}.
@@ -371,7 +390,28 @@ KERNELS = {  # name -> (source, replaces, shape of its record)
                                 "helfem_tpu/models/diatomic.py:944", "n2"),
     "radial_exchange_dia": ("helfem_tpu_torch/csrc/radial_exchange_dia.cu",
                             "helfem_tpu/models/diatomic.py:799", "n2"),
+    # no Pallas kernel: the lax.scan of _refine_passes under eigh_warm_with
+    "refine_eig": ("helfem_tpu_torch/csrc/refine_eig.cu", "helfem_tpu/utils/linalg.py:21",
+                   "ar"),
 }
+# K11's shapes: label -> (blocks, block size, groups). The whitened blocks
+# of Ar (one and two spins), N2 PBE, Xe and N2 at lmax=12 (10 blocks of 490)
+# in their bench bases, and gensap Kr's three l channels
+REFINE_SHAPES = {"ar": (4, 139, 1), "ar_2": (8, 139, 2), "n2": (6, 140, 1), "xe": (16, 87, 1),
+                 "sad_kr": (3, 87, 1), "lmax12": (10, 490, 1)}
+REFINE_GATE = 1e-9  # the fused chunks' widest certificate gate, min(0.1 convthr, 1e-9)
+# phase 3b's recorded inputs: the warm eigensolves of one SCF each at the Ar HF
+# and N2 PBE bench bases, chip_smoke's settings: cell -> (kind, basis, (nela,
+# nelb), SCF keywords)
+REFINE_REAL = {
+    "ar_scf": ("atomic", SHAPES["ar"], (9, 9), dict(convthr=1e-9, guess="TF")),
+    "n2_scf": ("diatomic", DIA_SHAPES["n2"], (7, 7), dict(method="PBE", convthr=1e-7, maxit=50)),
+}
+# K11's V on recorded data: its defects (eigenbasis_defects) no larger than
+# this many times the plain version's, or than eps n (x the scale for the
+# off-diagonal), whichever is larger
+REFINE_V_SLACK = 4.0
+EPS = 2.0 ** -52
 XC = ("dia_xc_fields", "dia_xc_fock")  # one launch each per SCF iteration
 K3 = ("radial_coulomb_dia",)  # one launch per diatomic SCF iteration
 XC_K3 = (*XC, *K3)
@@ -1473,6 +1513,201 @@ def lmax12_exchange_inputs(dev, seed: int = 17, dense_channels: int = 3):
     return random_exchange_inputs(dev, dense_channels=dense_channels, seed=seed, **LMAX12)
 
 
+def refine_inputs(nblk: int, n: int, dev, seed: int, seeds: tuple) -> tuple:
+    """K11's inputs (A, V0) [nblk, n, n]: A = U diag(w) U^T with U a random
+    orthogonal matrix per block and w evenly spread from -50 to 1e3 (the
+    span of a whitened Fock block's, kept apart by at least 1050 / n, so
+    that eps ||A|| turns no eigenvector by more than about 1e-13 and E and
+    V compare entrywise at 1e-12; near-degenerate pairs would make V as
+    ill-conditioned in both versions); V0 per group of blocks (len(seeds) groups): "near", U
+    rotated by about 1e-6, which the sweeps take below REFINE_GATE;
+    "rotated", U with its columns 2m and 2m+1 turned by 0.5 rad in their
+    plane, a large step that the clipped sweeps cut by at most 0.1 each, so
+    the certificate fails while V stays orthonormal (each plane's diagonal
+    stays between its two eigenvalues, so no two planes come near a
+    degeneracy whose rotation would amplify rounding); "identity", the SCF's
+    first seed, whose sweeps diverge on a dense A (rejected, values not
+    comparable)."""
+    rng = np.random.default_rng(seed)
+    w = -50.0 + 1050.0 * (np.arange(n) + 0.25 * rng.random((nblk, n))) / n
+    U, _ = torch.linalg.qr(torch.tensor(rng.standard_normal((nblk, n, n)), device=dev))
+    A = (U * torch.tensor(w, device=dev)[:, None, :]) @ U.mT
+    A = (0.5 * (A + A.mT)).contiguous()
+    eye = torch.eye(n, dtype=torch.float64, device=dev)
+    R, _ = torch.linalg.qr(eye + 1e-6 * torch.tensor(rng.standard_normal((nblk, n, n)),
+                                                     device=dev))
+    G = eye.clone()
+    c, s = np.cos(0.5), np.sin(0.5)
+    for k in range(0, n - 1, 2):
+        j = k + 1
+        G[k, k], G[j, j], G[k, j], G[j, k] = c, c, -s, s
+    kinds = {"near": lambda: U @ R, "rotated": lambda: U @ G,
+             "identity": lambda: eye.expand(nblk, n, n)}
+    per = nblk // len(seeds)
+    V0 = torch.cat([kinds[kind]()[g * per:(g + 1) * per] for g, kind in enumerate(seeds)])
+    return A, V0.contiguous()
+
+
+def refine_compare(label: str, args, values: bool = True) -> dict:
+    """K11 against refine_eig_plain on the same card inputs: the same
+    decisions against REFINE_GATE and (values) E and V within REL_TOL x
+    max-abs and the residuals within REL_TOL x max|E|; call times in turns,
+    device and queued times, the bound (8 n^3 flops per block and sweep:
+    2 n^3 each for A V, V C and W P, n^3 each for the symmetric V^T (A V)
+    and W^T W, against the FP64 tensor cores' peak; A and V0 read, V, E and
+    off written once) and torch.linalg.eigh on the same batch (a yardstick, not
+    the same arithmetic)."""
+    from helfem_tpu_torch import kernels
+    from helfem_tpu_torch.utils.profiling import device_ms, queued_ms
+
+    A, V0, npass, tau, groups = args
+    out = kernels.refine_eig(*args)
+    torch.cuda.synchronize()
+    ref = kernels.refine_eig_plain(*args)
+    errs = [float((o - r).abs().max()) for o, r in zip(out[:2], ref[:2])]
+    scales = [float(r.abs().max()) for r in ref[:2]]
+    off_err = float((out[2] - ref[2]).abs().max())
+    good, good_plain = (out[2] < REFINE_GATE).tolist(), (ref[2] < REFINE_GATE).tolist()
+    if good != good_plain or values and any(
+            not np.isfinite(e) or e > REL_TOL * s
+            for e, s in zip(errs + [off_err], scales + [scales[0]])):
+        raise RuntimeError(f"{label} refine_eig: kernel disagrees with plain: decisions {good} "
+                           f"against {good_plain}, E/V err {errs} (scales {scales}), off err "
+                           f"{off_err:.3e}")
+    same_bits_twice("refine_eig", args)
+    p1 = cuda_ms(lambda: kernels.refine_eig_plain(*args))
+    k1 = cuda_ms(lambda: kernels.refine_eig(*args))
+    k2 = cuda_ms(lambda: kernels.refine_eig(*args))
+    p2 = cuda_ms(lambda: kernels.refine_eig_plain(*args))
+    eigh = cuda_ms(lambda: torch.linalg.eigh(A))
+    dev_ms = None
+    for _ in range(3):  # the profiler now and then returns no kernel time
+        dev_ms = device_ms(lambda: kernels.refine_eig(*args)) or None
+        if dev_ms:
+            break
+    B, n = A.shape[0], A.shape[1]
+    flops = 8 * (npass + 1) * B * n ** 3
+    moved = 8 * (3 * B * n * n + B * n + groups)
+    t_bytes, t_ops = moved / HBM_BYTES_S, flops / FP64_FLOP_S
+    r = {"max_abs_err": max(errs), "scale": min(scales),
+         "rel_err": max(e / s for e, s in zip(errs, scales)), "off_err": off_err,
+         "off": ref[2].tolist(), "good": good, "ms": 0.5 * (k1 + k2), "device_ms": dev_ms,
+         "queued_ms": queued_ms(lambda: kernels.refine_eig(*args)),
+         "plain_ms": 0.5 * (p1 + p2), "bound_ms": 1e3 * max(t_bytes, t_ops),
+         "bound_by": "bytes" if t_bytes >= t_ops else "operations", "bytes": moved,
+         "flops": flops, "eigh_ms": eigh}
+    report(label, "refine_eig", r)
+    print(f"    decisions {good}, residuals {[f'{x:.2e}' for x in r['off']]} (gate "
+          f"{REFINE_GATE:g}), off err {off_err:.2e}{'' if values else ' (not compared)'}; "
+          f"torch.linalg.eigh on the same batch {eigh:.4f} ms (a yardstick, not the same "
+          f"arithmetic)")
+    return r
+
+
+def refine_phase(dev, results: dict) -> None:
+    """Phase 3b: K11 against its plain version at REFINE_SHAPES from a near
+    seed (accepted) and a rotated one (rejected), two spins also from one
+    of each, Ar also from the identity (decisions only), into results:
+    (refine_eig, shape) from the near seed, (refine_eig, shape_kind)."""
+    phase("3b. K11 refine_eig against its plain version at the SCF block shapes")
+    for shape, (nblk, n, groups) in REFINE_SHAPES.items():
+        kinds = (["near", "rotated"] + (["mixed"] if groups == 2 else [])
+                 + (["identity"] if shape == "ar" else []))
+        for kind in kinds:
+            seeds = ("near", "rotated") if kind == "mixed" else (kind,) * groups
+            A, V0 = refine_inputs(nblk, n, dev, 61, seeds)
+            key = shape if kind == "near" else f"{shape}_{kind}"
+            r = refine_compare(f"{key} ({nblk} x {n}, {groups} groups)",
+                               (A, V0, 3, 1e-9, groups), values=kind != "identity")
+            want = [s == "near" for s in seeds]
+            if r["good"] != want:
+                raise RuntimeError(f"{key} refine_eig: decisions {r['good']}, expected {want}")
+            results[("refine_eig", key)] = r
+        del A, V0
+        torch.cuda.empty_cache()
+
+
+def refine_real_phase(dev, results: dict) -> None:
+    """Phase 3b on recorded data: K11 against its plain version on the
+    inputs of every warm eigensolve of one Ar HF and one N2 PBE SCF at the
+    bench bases (REFINE_REAL; the whitened blocks with their padded slots
+    at eigenvalue 1e6, recorded by utils/profiling.py:capture_warm). Every
+    call: the same decisions against the SCF's own gate. Every call after
+    the first (whose identity seed diverges, as in refine_phase): E and the
+    residuals within REL_TOL x the largest |eigenvalue| of the unpadded
+    slots, the scale of their rounding; V as good an eigenbasis as the
+    plain version's (REFINE_V_SLACK), its entrywise difference printed.
+    Into results: (refine_eig, cell)."""
+    from helfem_tpu_torch import kernels
+    from helfem_tpu_torch.models.atomic import AtomicBasis
+    from helfem_tpu_torch.models.diatomic import DiatomicBasis
+    from helfem_tpu_torch.scf.atomic_scf import scf_atom
+    from helfem_tpu_torch.scf.common import warm_gate
+    from helfem_tpu_torch.scf.diatomic_scf import scf_diatomic
+    from helfem_tpu_torch.tools.warm_floor import unpadded_scale
+    from helfem_tpu_torch.utils.profiling import capture_warm
+
+    for cell, (kind, cfg, nel, kw) in REFINE_REAL.items():
+        basis = (AtomicBasis if kind == "atomic" else DiatomicBasis)(**cfg)
+        ops = basis.build_operators(dev)
+        with capture_warm(keep_inputs=True) as calls:
+            res = (scf_atom if kind == "atomic" else scf_diatomic)(basis, *nel, ops=ops, **kw)
+        gate = warm_gate(kw["convthr"])
+        worst = {"max_abs_err": 0.0, "rel_err": 0.0, "off_err": 0.0, "v_err": 0.0,
+                 "good": [], "off": []}
+        for i, call in enumerate(calls):
+            A, V0, npass, tau, groups = args = call["args"]
+            out = kernels.refine_eig(*args)
+            ref = kernels.refine_eig_plain(*args)
+            good, good_plain = (out[2] < gate).tolist(), (ref[2] < gate).tolist()
+            worst["good"].append(good)
+            worst["off"].append(ref[2].tolist())
+            if good != good_plain:
+                raise RuntimeError(f"{cell} step {i} refine_eig: decisions {good} against the "
+                                   f"plain version's {good_plain} (residuals {out[2].tolist()} "
+                                   f"and {ref[2].tolist()}, gate {gate:g})")
+            if i == 0:
+                continue
+            scale = unpadded_scale(ref[0])
+            e_err = float((out[0] - ref[0]).abs().max())
+            off_err = float((out[2] - ref[2]).abs().max())
+            v_err = float((out[1] - ref[1]).abs().max())
+            quality = [eigenbasis_defects(A, V) for V in (out[1], ref[1])]
+            v_ok = all(k <= REFINE_V_SLACK * max(p, EPS * A.shape[-1] * sc)
+                       for k, p, sc in zip(quality[0], quality[1], (1.0, scale)))
+            print(f"    {cell} step {i}: decisions {good}, residuals K11 "
+                  f"{[f'{x:.3e}' for x in out[2].tolist()]} plain "
+                  f"{[f'{x:.3e}' for x in ref[2].tolist()]} (gate {gate:g}, scale {scale:.4e}); "
+                  f"E err {e_err:.2e}, off err {off_err:.2e}, V err {v_err:.2e}; |V^T V - I| "
+                  f"and the off-diagonal of V^T A V, K11 {[f'{x:.2e}' for x in quality[0]]}, "
+                  f"plain {[f'{x:.2e}' for x in quality[1]]}")
+            if not (e_err <= REL_TOL * scale and off_err <= REL_TOL * scale and v_ok):
+                raise RuntimeError(f"{cell} step {i} refine_eig: kernel disagrees with plain "
+                                   f"on recorded data: E err {e_err:.3e}, off err {off_err:.3e} "
+                                   f"(scale {scale:.4e}), eigenbasis defects {quality}")
+            worst["max_abs_err"] = max(worst["max_abs_err"], e_err)
+            worst["rel_err"] = max(worst["rel_err"], e_err / scale)
+            worst["off_err"] = max(worst["off_err"], off_err)
+            worst["v_err"] = max(worst["v_err"], v_err)
+        print(f"{cell} refine_eig on recorded data ({basis.__class__.__name__}, E = {res.E:.12f} "
+              f"in {res.niter} iterations, {len(calls)} warm attempts of "
+              f"{list(calls[0]['args'][0].shape)}): the same decisions {worst['good']} as the "
+              f"plain version; largest E err {worst['max_abs_err']:.2e}, off err "
+              f"{worst['off_err']:.2e}, V err {worst['v_err']:.2e}")
+        results[("refine_eig", cell)] = worst
+        del calls, ops
+        torch.cuda.empty_cache()
+
+
+def eigenbasis_defects(A: torch.Tensor, V: torch.Tensor) -> tuple[float, float]:
+    """(max |V^T V - I|, max off-diagonal |V^T A V|) of an eigenbasis V of
+    the symmetric A [B, n, n], in plain torch arithmetic."""
+    eye = torch.eye(A.shape[-1], dtype=A.dtype, device=A.device)
+    M = V.mT @ A @ V
+    return (float((V.mT @ V - eye).abs().max()),
+            float((M - torch.diag_embed(torch.diagonal(M, dim1=-2, dim2=-1))).abs().max()))
+
+
 def report(shape: str, name: str, r: dict) -> dict:
     device = "" if "device_ms" not in r else (" (device not measured)" if r["device_ms"] is None
                                               else f" (device {r['device_ms']:.4f})")
@@ -2008,7 +2243,8 @@ def open_shell_phase(dev, results: dict) -> dict:
                 and (O2_L12_PORT is None or abs(res.E - O2_L12_PORT) < 1e-8)):
             raise RuntimeError(f"O2 UHF lmax=12 {label}: not converged, a spin count off by "
                                f"{SPIN_COUNT_TOL:g}, or E off the pinned value by 1e-8 Eh")
-    per = profile_scf("O2 UHF lmax=12", run_big, kernels=(K3_SASS, K6_SASS), ops=(EIGH_OP,))
+    per = profile_scf("O2 UHF lmax=12", run_big, kernels=(K3_SASS, K6_SASS), ops=(EIGH_OP,),
+                      walls=1)
     busy, eigh, k3, k6 = (per[k][0] for k in ("busy", EIGH_OP, K3_SASS, K6_SASS))
     n6 = 2 * res.niter
     results[("radial_exchange_dia_occ", "o2_l12_scf")] = {"device_ms": k6 / n6, "launches": n6}
@@ -3082,14 +3318,18 @@ def control_phase(dev, results: dict) -> dict:
     torch.cuda.empty_cache()
 
     # the DIIS B solve's repair at phase 20's first threshold for N2 PBE in Ez
+    from helfem_tpu_torch.utils.linalg import reset_warm_counts, warm_counts
+
     prog, argv, ref, ref_niter = DIIS_CELL
     tee = Tee(sys.stdout)
+    reset_warm_counts()
     with contextlib.redirect_stdout(tee):
         res = diatomic_main(argv + ["--device", "cuda"])
     errs = diis_errors(tee.buf.getvalue())
     print(f"N2 PBE Ez=+0.001 at convthr 1e-8: E - helfem_tpu = {res.E - ref:+.3e}, "
-          f"{res.niter} iterations (helfem_tpu {ref_niter}); DIIS errors per iteration, the "
-          f"card's then helfem_tpu's:")
+          f"{res.niter} iterations (helfem_tpu {ref_niter}); the warm eigensolve "
+          f"{warm_counts['warm']} warm, {warm_counts['cold']} cold fallbacks; DIIS errors per "
+          f"iteration, the card's then helfem_tpu's:")
     for i in range(max(len(errs), len(DIIS_TRACE_REF))):
         card = f"{errs[i]:.3e}" if i < len(errs) else "-"
         cpu = f"{DIIS_TRACE_REF[i]:.3e}" if i < len(DIIS_TRACE_REF) else "-"
@@ -3680,6 +3920,8 @@ def main() -> None:
           "same bits twice")
     del inputs, args
     torch.cuda.empty_cache()
+    refine_phase(dev, results)
+    refine_real_phase(dev, results)
     probes = {}
     for n in (2048, 4096):
         for (name, prec), r in compare_probes(n, dev).items():
@@ -3701,7 +3943,8 @@ def main() -> None:
         return "" if ok else "did not converge within 1e-6 Eh of the HF limit and 1e-10 Eh " \
             "of the pinned value"
 
-    counts = run_cli(atomic_main, AR_CLI, "Ar HF", list(ATOMIC), ar_check, per_iter=ATOMIC)
+    counts = run_cli(atomic_main, AR_CLI, "Ar HF", [*ATOMIC, "refine_eig"], ar_check,
+                     per_iter=ATOMIC)
     sap_kept = {}
 
     def ar_sap_main(argv):
@@ -3767,6 +4010,7 @@ def main() -> None:
     counts.update(run_cli(diatomic_main, N2_CLI, "N2 PBE",
                           ["radial_coulomb_dia", "dia_xc_fields", "dia_xc_fock"], n2_check,
                           per_iter=XC_K3))
+    print(f"N2 PBE: K11 launched {kernels.launches['refine_eig']} times")
 
     phase("7. warm N2 PBE SCF walls and profile")
     from helfem_tpu_torch.scf.diatomic_scf import scf_diatomic
@@ -3861,9 +4105,12 @@ def main() -> None:
     results[("radial_coulomb_dia", "lmax12")] = report(
         "lmax12", "radial_coulomb_dia", compare("radial_coulomb_dia", args, moved, flops, 2, 10))
     del args
+    from helfem_tpu_torch.utils.linalg import reset_warm_counts, warm_counts
+
     core = {}
     for label in ("cold", "warm"):
         kernels.reset_launches()
+        reset_warm_counts()
         t0 = time.perf_counter()
         res = scf_diatomic(big, 7, 7, method="HF", convthr=1e-7, maxit=50, ops=big_ops)
         torch.cuda.synchronize()
@@ -3878,10 +4125,16 @@ def main() -> None:
               f"converged {res.converged}; wall {wall:.3f} s; radial_exchange_dia_occ "
               f"launches {k6}; E - reference {dE:+.3e}, E - CUDA-core value {dcc:+.3e}; "
               f"tr(P S) - 14 = {2 * na - 14:+.3e} (the whitening's defect "
-              f"{whitening_defect(big_ops):.2e})")
+              f"{whitening_defect(big_ops):.2e}); eigensolve: {warm_counts['warm']} warm, "
+              f"{warm_counts['cold']} cold fallbacks, K11 launches "
+              f"{kernels.launches['refine_eig']}")
         if not (res.converged and abs(dE) < 2e-5 and abs(dcc) < 1e-8 and k6 > 0):
             raise RuntimeError(f"N2 HF lmax=12 {label}: not converged to the reference "
                                "(2e-5) and the CUDA-core value (1e-8), or K6 never launched")
+    # one profiled warm SCF: its eigensolve split into K11, eigh and the rest
+    profile_scf("N2 HF lmax=12", counted("N2 HF lmax=12", lambda: scf_diatomic(
+        big, 7, 7, method="HF", convthr=1e-7, maxit=50, ops=big_ops), K3),
+        kernels=(K3_SASS, K6_SASS), walls=1)
     # from the SAP guess, the bench's start: the cold SCF also solves N's
     # SAD atom on the card and builds the guess Hamiltonian on the host
     from helfem_tpu_torch.models.diatomic_tools import guess_hamiltonian_dia
@@ -3931,7 +4184,7 @@ def main() -> None:
         raise RuntimeError("N2 PBE lmax=12: not converged, Nel off 14 by 1e-6, or E off the "
                            "pinned value by 1e-8 Eh")
     k3_per_scf("N2 PBE lmax=12", profile_scf("N2 PBE lmax=12", run_pbe,
-                                             kernels=(*XC_SASS, K3_SASS)))
+                                             kernels=(*XC_SASS, K3_SASS), walls=1))
     del pbe_ops
     torch.cuda.empty_cache()
     l12 = (big, big_ops)  # phase 22 runs the crash-recovery hook on them
@@ -3944,7 +4197,7 @@ def main() -> None:
         ok = res.converged and abs(dE) < 3e-6 and np.isfinite(res.E)
         return "" if ok else "did not converge within 3e-6 Eh of the Xe HF limit"
 
-    run_cli(atomic_main, XE_CLI, "Xe HF", list(ATOMIC), xe_check, per_iter=ATOMIC)
+    run_cli(atomic_main, XE_CLI, "Xe HF", [*ATOMIC, "refine_eig"], xe_check, per_iter=ATOMIC)
     atomic_profile("Xe HF", SHAPES["xe"], (27, 27))
 
     sad_counts = sad_phases(dev, results)
@@ -4039,6 +4292,16 @@ def main() -> None:
                                   "radial_exchange": "sad_cr2_scf"}.get(name)))
         if scf is not None:
             extra["open_shell_scf_device_ms_per_launch"] = scf["device_ms"]
+        if name == "refine_eig":
+            # the phases' launch tables count their own kernels, not K11
+            extra = {k: v for k, v in extra.items() if not k.startswith("phase")}
+            extra["eigh_ms"] = r["eigh_ms"]  # torch.linalg.eigh on the same batch: a yardstick
+            for (kname, key), o in results.items():
+                if kname == name and key != shape:
+                    extra.update({f"{key}_{k}": o[k] for k in
+                                  ("max_abs_err", "rel_err", "off_err", "v_err", "good", "ms",
+                                   "device_ms", "queued_ms", "plain_ms", "bound_ms",
+                                   "eigh_ms") if k in o})
         for sad in SAD_SHAPES if name in ATOMIC else ():
             o = results[(name, sad)]
             extra.update({f"{sad}_{k}": o[k] for k in

@@ -42,6 +42,7 @@ from helfem_tpu_torch.kernels.radial_exchange_dia import (
     radial_exchange_dia_occ_plain,
     radial_exchange_dia_plain,
 )
+from helfem_tpu_torch.kernels.refine_eig import refine_eig, refine_eig_plain
 
 __all__ = ["band_table", "check_gidx", "launches", "owner_table", "reset_launches", "radial_coulomb",
            "radial_coulomb_plain", "radial_exchange", "radial_exchange_plain",
@@ -50,4 +51,4 @@ __all__ = ["band_table", "check_gidx", "launches", "owner_table", "reset_launche
            "dia_xc_fields", "dia_xc_fields_plain", "dia_xc_fock", "dia_xc_fock_plain",
            "radial_exchange_dia_occ", "radial_exchange_dia_occ_plain",
            "radial_exchange_dia", "radial_exchange_dia_plain", "matmul_f32",
-           "matmul_f32_plain", "matmul_dd", "matmul_dd_plain"]
+           "matmul_f32_plain", "matmul_dd", "matmul_dd_plain", "refine_eig", "refine_eig_plain"]

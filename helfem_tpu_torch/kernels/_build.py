@@ -24,7 +24,7 @@ LIBRARY = BUILD_DIR / "libhelfem_kernels.so"
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = [*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
 # entry point -> argument types (pointers and the stream as c_void_p: a plain
 # int would be cut to 32 bits)
 _SIGNATURES = {
@@ -43,6 +43,7 @@ _SIGNATURES = {
     "radial_exchange_dia_launch": [_P] * 11 + [_I] * 8 + [_P],
     "matmul_probe_launch": [_P] * 5 + [_I] * 5 + [_P],
     "matmul_probe_smem": [_I] * 2,
+    "refine_eig_launch": [_P] * 6 + [_I] * 5 + [_D, _P],
 }
 
 _lib = None

@@ -8,7 +8,7 @@ import torch
 launches = {"radial_exchange": 0, "radial_erfc_exchange": 0, "radial_coulomb": 0,
             "radial_coulomb_dia": 0, "dia_xc_fields": 0, "dia_xc_fock": 0,
             "radial_exchange_dia_occ": 0, "radial_exchange_dia": 0, "matmul_f32": 0,
-            "matmul_dd": 0}
+            "matmul_dd": 0, "refine_eig": 0}
 
 
 def reset_launches() -> None:

@@ -68,10 +68,10 @@ from helfem_tpu_torch.ops.grids import form_grid
 from helfem_tpu_torch.ops.polynomials import get_basis
 from helfem_tpu_torch.ops.radial import RadialBasis
 from helfem_tpu_torch.ops.xc import parse_method, xc_eval
-from helfem_tpu_torch.scf.common import vdot
+from helfem_tpu_torch.scf.common import vdot, warm_gate
 from helfem_tpu_torch.scf.diis import DIIS, device_diis_step
 from helfem_tpu_torch.scf.guess import potential
-from helfem_tpu_torch.utils.linalg import eigh_refined, form_sinvh
+from helfem_tpu_torch.utils.linalg import eigh_refined, eigh_warm, form_sinvh
 
 __all__ = ["SadAtomBasis", "SadLaplacianError", "SadOps", "SadResult", "from_jax_sad_ops",
            "sad_coulomb", "sad_method",
@@ -465,10 +465,14 @@ def make_sad_step(funcs, kfrac: float, nl: int, dftthr: float = 1e-12, shift: fl
     is split evenly over the spins); unrestricted, the DIIS error is both
     spins' concatenated, the history holds the spin-stacked Focks, K1 runs
     once for both spins and both spins' 2 nl channels go through one
-    batched eigensolve."""
+    batched eigensolve. The eigensolve is the warm-started one (eigh_warm,
+    K11 with a certificate per spin against wgate) from Vw [ns nl, nrad,
+    nrad], the previous whitened eigenvectors; the level shift's switch at
+    1e-3 fails the certificate once, as helfem_tpu's comment says
+    (sadatom.py:355-358)."""
     fock = make_sad_fock(funcs, kfrac, nl, dftthr)
 
-    def step(ops: SadOps, occw, angw, C, histF, histE, count):
+    def step(ops: SadOps, occw, angw, C, Vw, histF, histE, count, wgate):
         S, Sinvh = ops.at.S, ops.at.Sinvh_rad
         restricted = len(C) == 1
         Pl = [(c * w[:, None, :]) @ c.mT for c, w in zip(C, occw)]
@@ -487,9 +491,10 @@ def make_sad_step(funcs, kfrac: float, nl: int, dftthr: float = 1e-12, shift: fl
         for f, c, w in zip(Fuse.reshape(-1, nl, *Fuse.shape[-2:]), C, occw):
             SC = torch.einsum("pq,lqk->lpk", S, c * (w <= 0.0).to(c.dtype)[:, None, :])
             Fsh.append(f + shift_eff * torch.einsum("lpk,lrk->lpr", SC, SC))
-        E, Cn = eig_channels(torch.cat(Fsh), Sinvh)
+        E, V, _ = eigh_warm(Sinvh.T @ torch.cat(Fsh) @ Sinvh, Vw, gate=wgate, groups=len(C))
+        Cn = torch.einsum("pi,lij->lpj", Sinvh, V)
         Etot = Ekin + Enuc + Ecoul + Exx + Exc
-        return (Cn.split(nl), E.split(nl), count, Etot, errmax,
+        return (Cn.split(nl), V, E.split(nl), count, Etot, errmax,
                 torch.stack([Ekin, Ecoul, Exx, Exc, Nel]))
 
     return step
@@ -498,16 +503,19 @@ def make_sad_step(funcs, kfrac: float, nl: int, dftthr: float = 1e-12, shift: fl
 def make_sad_chunk(funcs, kfrac: float, nl: int, dftthr: float = 1e-12, shift: float = 1.0):
     """Up to `nrun` device steps with the convergence test (err < convthr
     and |dE| < convthr, the host loop's own) on the device after each; the
-    occupations are fixed. Returns the per-step orbitals and eigenvalues
-    (a tuple per spin), energies, errors and energy components, the new
-    DIIS count and the number of steps run."""
+    occupations are fixed; Vw seeds the warm eigensolve (make_sad_step).
+    Returns the per-step orbitals and eigenvalues (a tuple per spin),
+    energies, errors and energy components, the new DIIS count, the number
+    of steps run and the last step's whitened eigenvectors."""
     step = make_sad_step(funcs, kfrac, nl, dftthr, shift)
 
-    def chunk(ops, occw, angw, C, histF, histE, count, convthr, Eprev, nrun):
+    def chunk(ops, occw, angw, C, Vw, histF, histE, count, convthr, Eprev, nrun):
         Ep = torch.tensor(Eprev, dtype=torch.float64, device=C[0].device)
+        wgate = warm_gate(convthr)
         Cs, Es, Etots, errs, comps = [], [], [], [], []
         for _ in range(nrun):
-            C, E, count, Etot, errmax, comp = step(ops, occw, angw, C, histF, histE, count)
+            C, Vw, E, count, Etot, errmax, comp = step(ops, occw, angw, C, Vw, histF, histE,
+                                                       count, wgate)
             Cs.append(C)
             Es.append(E)
             Etots.append(Etot)
@@ -518,7 +526,7 @@ def make_sad_chunk(funcs, kfrac: float, nl: int, dftthr: float = 1e-12, shift: f
             if bool(done):
                 break
         return (Cs, Es, count, torch.stack(Etots), torch.stack(errs), torch.stack(comps),
-                len(Cs))
+                len(Cs), Vw)
 
     return chunk
 
@@ -646,11 +654,15 @@ def solve_sadatom_unrestricted(
                 histE = torch.zeros((diisorder, 2 * nl * nrad * nrad), dtype=torch.float64,
                                     device=device)
                 count = 0
+                # the warm eigensolve's seed: the identity fails the first
+                # fused step's certificate, which then solves cold; the
+                # whitened eigenvectors persist across chunks, per spin
+                Vw = torch.eye(nrad, dtype=torch.float64, device=device).repeat(2 * nl, 1, 1)
             wa = occ_weight_vectors(occs_a, nl, nrad, False)
             wb = occ_weight_vectors(occs_b, nl, nrad, False)
-            Cs, Es, count, Etots, errs, comps, kmax = chunk(
+            Cs, Es, count, Etots, errs, comps, kmax, Vw = chunk(
                 ops, (as_dev(wa[0]), as_dev(wb[0])), (as_dev(wa[1]), as_dev(wb[1])),
-                (as_dev(Ca), as_dev(Cb)), histF, histE, count, float(convthr), Eold,
+                (as_dev(Ca), as_dev(Cb)), Vw, histF, histE, count, float(convthr), Eold,
                 min(CH, maxit - it + 1))
             Etots = Etots.cpu().numpy()
             errs = errs.cpu().numpy()
@@ -866,11 +878,13 @@ def solve_sadatom(
                     histE = torch.zeros((diisorder, nl * nrad * nrad), dtype=torch.float64,
                                         device=device)
                     count = 0
+                    # the warm eigensolve's seed, as in the unrestricted solver
+                    Vw = torch.eye(nrad, dtype=torch.float64, device=device).repeat(nl, 1, 1)
                 nrun = min(chunk_len, CH, maxit - it + 1)
                 chunk_len = min(2 * chunk_len, CH)
                 Cin = as_dev(C_)
-                Cs, Es, count, Etots, errs, comps, kmax = chunk(
-                    ops, (occw,), (angw,), (Cin,), histF, histE, count, float(convthr), Eold,
+                Cs, Es, count, Etots, errs, comps, kmax, Vw = chunk(
+                    ops, (occw,), (angw,), (Cin,), Vw, histF, histE, count, float(convthr), Eold,
                     nrun)
                 Etots = Etots.cpu().numpy()
                 errs = errs.cpu().numpy()

@@ -82,6 +82,7 @@ from helfem_tpu_torch.scf.common import (
     hook_state,
     symmetric_sinvh,
     vdot,
+    warm_gate,
 )
 from helfem_tpu_torch.scf.diis import DIIS, device_diis_step
 from helfem_tpu_torch.scf.guess import potential
@@ -90,7 +91,7 @@ from helfem_tpu_torch.utils.linalg import (
     build_blocks,
     density_blocks,
     eig_blocks,
-    eig_blocks_b,
+    eig_blocks_b_warm,
     eig_blocks_iter,
     form_sh,
     gather_blocks,
@@ -270,9 +271,12 @@ def make_fock(funcs, kfrac: float, nrad: int, dftthr: float = 1e-12,
 def make_fused_step(fock):
     """One restricted SCF iteration on the device: density -> Fock ->
     block-coordinate C2-DIIS (circular history, updated in place) ->
-    blocked eigensolve. Only (energy, DIIS error) need to reach the host."""
+    warm-started blocked eigensolve (eig_blocks_b_warm: the previous step's
+    whitened eigenvectors Vw seed K11's sweeps; a failed certificate, as
+    after the identity seed or a large DIIS jump, solves cold). Only
+    (energy, DIIS error) and the certificate need to reach the host."""
 
-    def step(ops, g, Vextra, blk_idx, blk_sinvh, Sb, occ, C, histF, histE, count):
+    def step(ops, g, Vextra, blk_idx, blk_sinvh, Sb, occ, C, Vw, histF, histE, count, wgate):
         nbf = ops.S.shape[0]
         Pab = (C * occ[:, None, :]) @ C.mT
         Pa = scatter_blocks(Pab, blk_idx, nbf)
@@ -282,9 +286,9 @@ def make_fused_step(fock):
         err = diis_error_blocks(Fab, Pab, Sb, blk_sinvh)
         errmax = torch.max(torch.abs(err))
         Fuse, count = device_diis_step(histF, histE, count, Fab, err)
-        E, Cn = eig_blocks_b(Fuse, blk_idx, blk_sinvh, nbf)
-        return Cn, E, count, Etot, errmax, Nel, torch.stack([Ekin, Enuc, Ecoul, Exx, Exc,
-                                                             Efield])
+        E, Cn, Vw, _ = eig_blocks_b_warm(Fuse, blk_idx, blk_sinvh, nbf, Vw, wgate)
+        return Cn, Vw, E, count, Etot, errmax, Nel, torch.stack([Ekin, Enuc, Ecoul, Exx, Exc,
+                                                                 Efield])
 
     return step
 
@@ -293,19 +297,23 @@ def make_fused_chunk(fock):
     """Up to `nrun` fused iterations of the restricted Fock builder `fock`
     (make_fock) with the convergence test (err < convthr and |dE| <
     convthr, the host loop's own) on the device after each; occupations are
-    frozen within a chunk. Returns the per-iteration orbitals, eigenvalues,
-    energies, errors, grid electron counts and energy components, the new
-    DIIS count and the number of iterations run."""
+    frozen within a chunk. Vw are the whitened eigenvectors of the previous
+    eigensolve (the identity before the first chunk). Returns the
+    per-iteration orbitals, eigenvalues, energies, errors, grid electron
+    counts and energy components, the new DIIS count, the number of
+    iterations run and the last step's whitened eigenvectors."""
     step = make_fused_step(fock)
 
-    def chunk(ops, g, Vextra, blk_idx, blk_sinvh, occ, C, histF, histE, count, convthr,
+    def chunk(ops, g, Vextra, blk_idx, blk_sinvh, occ, C, Vw, histF, histE, count, convthr,
               Eprev, nrun):
         Sb = gather_blocks(ops.S, blk_idx)
+        wgate = warm_gate(convthr)
         Ep = torch.tensor(Eprev, dtype=torch.float64, device=C.device)
         Cs, Es, Etots, errs, Nels, comps = [], [], [], [], [], []
         for _ in range(nrun):
-            C, E, count, Etot, errmax, Nel, comp = step(ops, g, Vextra, blk_idx, blk_sinvh, Sb,
-                                                        occ, C, histF, histE, count)
+            C, Vw, E, count, Etot, errmax, Nel, comp = step(ops, g, Vextra, blk_idx, blk_sinvh,
+                                                            Sb, occ, C, Vw, histF, histE, count,
+                                                            wgate)
             Cs.append(C)
             Es.append(E)
             Etots.append(Etot)
@@ -317,7 +325,7 @@ def make_fused_chunk(fock):
             if bool(done):
                 break
         return (Cs, Es, count, torch.stack(Etots), torch.stack(errs), torch.stack(Nels),
-                torch.stack(comps), len(Cs))
+                torch.stack(comps), len(Cs), Vw)
 
     return chunk
 
@@ -327,13 +335,16 @@ def make_fused_chunk_u(fock):
     the two-spin Fock builder `fock`: the DIIS history stores spin-stacked
     block-coordinate Fock pairs with the combined alpha+beta error vector
     (the reference's uDIIS combined-error mode); both spins' blocks go
-    through one batched eigensolve. Returns per iteration the orbitals and
+    through one warm-started eigensolve with a certificate per spin (K11 on
+    the spin-stacked blocks, groups=2; Vw [2 nblk, blen, blen] their
+    whitened eigenvectors). Returns per iteration the orbitals and
     eigenvalues of both spins, energies (without the constant spin Zeeman
     energy), errors, grid electron counts and energy components, then the
-    new DIIS count and the number of iterations run."""
+    new DIIS count, the number of iterations run and the last step's Vw."""
 
-    def chunk(ops, g, Vextra, blk_idx, blk_sinvh, occa, occb, Ca, Cb, histF, histE, count,
+    def chunk(ops, g, Vextra, blk_idx, blk_sinvh, occa, occb, Ca, Cb, Vw, histF, histE, count,
               convthr, Eprev, nrun):
+        wgate = warm_gate(convthr)
         nbf = ops.S.shape[0]
         nblk = blk_idx.shape[0]
         Sb = gather_blocks(ops.S, blk_idx)
@@ -353,7 +364,8 @@ def make_fused_chunk_u(fock):
                              diis_error_blocks(Fbb, Pbb, Sb, blk_sinvh)))
             errmax = torch.max(torch.abs(err))
             Fuse, count = device_diis_step(histF, histE, count, torch.stack((Fab, Fbb)), err)
-            E, C = eig_blocks_b(Fuse.reshape(2 * nblk, *Fuse.shape[2:]), idx2, sinvh2, nbf)
+            E, C, Vw, _ = eig_blocks_b_warm(Fuse.reshape(2 * nblk, *Fuse.shape[2:]), idx2,
+                                            sinvh2, nbf, Vw, wgate, groups=2)
             Ea, Eb, Ca, Cb = E[:nblk], E[nblk:], C[:nblk], C[nblk:]
             out.append((Ca, Cb, Ea, Eb, Etot, errmax, Nel,
                         torch.stack([Ekin, Enuc, Ecoul, Exx, Exc, Efield])))
@@ -363,7 +375,7 @@ def make_fused_chunk_u(fock):
                 break
         Cas, Cbs, Eas, Ebs, Etots, errs, Nels, comps = zip(*out)
         return (Cas, Cbs, Eas, Ebs, count, torch.stack(Etots), torch.stack(errs),
-                torch.stack(Nels), torch.stack(comps), len(out))
+                torch.stack(Nels), torch.stack(comps), len(out), Vw)
 
     return chunk
 
@@ -680,17 +692,21 @@ def scf_atom(
                 histE = torch.zeros((nhist, ns * nblk * blen * blen), dtype=torch.float64,
                                     device=device)
                 count = 0
+                # the warm eigensolve's seed: the identity fails the first
+                # fused step's certificate, which then solves cold; the
+                # whitened eigenvectors persist across chunks, per spin
+                Vw = torch.eye(blen, dtype=torch.float64, device=device).repeat(ns * nblk, 1, 1)
             nrun = min(chunk_len, CH, maxit - it + 1)
             chunk_len = min(2 * chunk_len, CH)
             if restricted:
-                Cs, Es, count, Etots, errs, Nels, comps, kmax = fused(
-                    ops, g, Vextra, blk_idx, blk_sinvh, as_dev(occa), Ca, histF, histE, count,
+                Cs, Es, count, Etots, errs, Nels, comps, kmax, Vw = fused(
+                    ops, g, Vextra, blk_idx, blk_sinvh, as_dev(occa), Ca, Vw, histF, histE, count,
                     float(convthr), Eold, nrun,
                 )
             else:
                 # the chunk's energies leave out the constant Emag
-                Cs, Cbs, Es, Ebs, count, Etots, errs, Nels, comps, kmax = fused(
-                    ops, g, Vextra, blk_idx, blk_sinvh, as_dev(occa), as_dev(occb), Ca, Cb,
+                Cs, Cbs, Es, Ebs, count, Etots, errs, Nels, comps, kmax, Vw = fused(
+                    ops, g, Vextra, blk_idx, blk_sinvh, as_dev(occa), as_dev(occb), Ca, Cb, Vw,
                     histF, histE, count, float(convthr), Eold - Emag, nrun,
                 )
             Etots = Etots.cpu().numpy()

@@ -8,7 +8,7 @@ import torch
 from helfem_tpu_torch.utils.linalg import _BIG, build_blocks
 
 __all__ = ["aufbau_blocks", "diis_error_blocks", "full_sinvh", "hook_state",
-           "occ_fixed_blocks", "symmetric_sinvh", "vdot"]
+           "occ_fixed_blocks", "symmetric_sinvh", "vdot", "warm_gate"]
 
 
 def aufbau_blocks(E: np.ndarray, nel: float) -> np.ndarray:
@@ -90,3 +90,11 @@ def hook_state(save_cb, it: int, Etot: float, restricted: bool, Ea, Ca: torch.Te
         save_cb(it, Etot, Ea, Ca.cpu().numpy(), occa, None, None, None)
     else:
         save_cb(it, Etot, Ea, Ca.cpu().numpy(), occa, Eb, Cb.cpu().numpy(), occb)
+
+
+def warm_gate(convthr: float) -> float:
+    """The certificate gate of the fused chunks' warm eigensolve, well below
+    their convergence gate: min(0.1 convthr, 1e-9), as helfem_tpu's atomic,
+    diatomic and SAD chunks take it (atomic_scf.py:285, diatomic_scf.py:423,
+    sadatom.py:891)."""
+    return min(0.1 * convthr, 1e-9)

@@ -29,11 +29,14 @@ fixes the electron count of each symmetry block until iteration
 readocc_until (for good when negative), on the host loop while it holds.
 helfem_tpu's lax.while_loop chunk becomes a
 Python loop over tensors that stay on the device; one boolean per iteration
-comes back to stop the chunk. The eigensolve is torch.linalg.eigh per block
-with helfem_tpu's four refinement passes (utils/linalg.py:eigh_refined);
-its warm start is not carried over, nor is helfem_tpu's host eigensolve
-of large bases (eig_blocks_dia_host, _dia_host_warm), a workaround for the
-TPU's device eigh that the card does not need. The crash-recovery hook
+comes back to stop the chunk. The host iterations' eigensolve is
+torch.linalg.eigh per block with helfem_tpu's four refinement passes
+(utils/linalg.py:eigh_refined); the fused chunks' is helfem_tpu's warm
+start (eig_blocks_dia_b_warm: K11's sweeps from the previous whitened
+eigenvectors, a certificate per spin, eigh_refined where it fails).
+helfem_tpu's host eigensolve of large bases (eig_blocks_dia_host,
+_dia_host_warm) and its workspace-chunked device eigh (_eigh_chunked) are
+workarounds for the TPU's device eigh that the card does not need. The crash-recovery hook
 save_cb gets the state of every host iteration and of the reported
 iteration of every fused chunk, as helfem_tpu's does. ndev >= 1 runs the
 SCF over ndev ranks (parallel/mesh.py, parallel/launch.py): the Coulomb
@@ -69,6 +72,7 @@ from helfem_tpu_torch.scf.common import (
     occ_fixed_blocks,
     symmetric_sinvh,
     vdot,
+    warm_gate,
 )
 from helfem_tpu_torch.scf.diis import DIIS, device_diis_step
 from helfem_tpu_torch.utils.linalg import (
@@ -76,6 +80,7 @@ from helfem_tpu_torch.utils.linalg import (
     density_blocks,
     eig_blocks,
     eig_blocks_b,
+    eig_blocks_b_warm,
     form_sh,
     gather_blocks,
     perturbation_matrix,
@@ -83,8 +88,8 @@ from helfem_tpu_torch.utils.linalg import (
     scatter_blocks,
 )
 
-__all__ = ["scf_diatomic", "DiaSCFResult", "density_dia", "eig_blocks_dia_shifted",
-           "fock_m_average_dia", "make_dia_fock", "occ_select", "occupied_dia"]
+__all__ = ["scf_diatomic", "DiaSCFResult", "density_dia", "eig_blocks_dia_b_warm",
+           "eig_blocks_dia_shifted", "fock_m_average_dia", "make_dia_fock", "occ_select", "occupied_dia"]
 
 
 def fock_m_average_dia(F: np.ndarray, basis: DiatomicBasis) -> np.ndarray:
@@ -135,6 +140,22 @@ def eig_blocks_dia_shifted(ops: DiatomicOperators, Fb: torch.Tensor, C_prev: tor
     Cv = C_prev * (occ <= 0.0).to(Fb.dtype)[:, None, :]
     SC = torch.einsum("bpq,bqk->bpk", Sb, Cv)
     return Fb + shift * torch.einsum("bpk,brk->bpr", SC, SC)
+
+
+def eig_blocks_dia_b_warm(ops: DiatomicOperators, Fb: torch.Tensor, V0: torch.Tensor,
+                          wgate: float, groups: int = 1):
+    """The warm-started blocked eigensolve of block-coordinate Fock matrices
+    Fb [groups nblk, blen, blen], `groups` spins stacked (helfem_tpu's
+    eig_blocks_dia_b_warm, diatomic_scf.py:91-110, one call per spin there):
+    V0 the previous whitened block eigenvectors of the same stacking, a
+    certificate per spin against wgate, and the unchunked eigh_refined as
+    the cold solve; the spins share ops' block maps by broadcasting. Returns
+    (E, C, V, good) as eig_blocks_b_warm's."""
+    shape = Fb.shape
+    E, C, V, good = eig_blocks_b_warm(Fb.reshape(groups, -1, *shape[-2:]), ops.blk_idx,
+                                      ops.blk_sinvh, ops.S.shape[0],
+                                      V0.reshape(groups, -1, *shape[-2:]), wgate, groups)
+    return E.reshape(shape[:-1]), C.reshape(shape), V.reshape(shape), good
 
 
 def occ_select(occ: np.ndarray, device) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
@@ -245,20 +266,23 @@ def make_dia_fused_chunk(funcs: tuple, kfrac: float, dftthr: float, njbd: int | 
     block Focks [nhist, 2, nblk, blen, blen], and both spins' blocks go
     through one batched eigensolve. Occupations (and with them the
     selectors of the occupied columns, None without exchange) are frozen
-    within a chunk. Returns per iteration the orbitals and eigenvalues of
-    each spin, energies, errors, grid electron counts and energy
-    components, then the new DIIS count and the number of iterations run.
+    within a chunk. The eigensolve is the warm-started one
+    (eig_blocks_dia_b_warm, a certificate per spin) from Vw [ns nblk, blen,
+    blen], the previous whitened eigenvectors. Returns per iteration the
+    orbitals and eigenvalues of each spin, energies, errors, grid electron
+    counts and energy components, then the new DIIS count, the number of
+    iterations run and the last step's Vw.
     Energies leave out the nuclear repulsion and the spin Zeeman energy, as
     helfem_tpu's do; they hold Efield = <P, Vextra> of the extras Vextra
     (None: none) that ops.H0 carries, and Bz adds the spin Zeeman term -+
     Bz/2 S to each spin's Fock."""
     fock = make_dia_fock(funcs, kfrac, dftthr, njbd)
 
-    def chunk(ops, g, Vextra, occ, sel, C, histF, histE, count, convthr, Eprev, nrun):
+    def chunk(ops, g, Vextra, occ, sel, C, Vw, histF, histE, count, convthr, Eprev, nrun):
         nbf = ops.S.shape[0]
         ns, nblk = len(C), ops.blk_idx.shape[0]
         Sb = gather_blocks(ops.S, ops.blk_idx)
-        idx, sinvh = ops.blk_idx.repeat(ns, 1), ops.blk_sinvh.repeat(ns, 1, 1)
+        wgate = warm_gate(convthr)
         Ep = torch.tensor(Eprev, dtype=torch.float64, device=C[0].device)
         out = []
         for _ in range(nrun):
@@ -276,7 +300,8 @@ def make_dia_fused_chunk(funcs: tuple, kfrac: float, dftthr: float, njbd: int | 
             errmax = torch.max(torch.abs(err))
             Fuse, count = device_diis_step(histF, histE, count,
                                            Fbk[0] if ns == 1 else torch.stack(Fbk), err)
-            E, Cn = eig_blocks_b(Fuse.reshape(ns * nblk, *Fuse.shape[-2:]), idx, sinvh, nbf)
+            E, Cn, Vw, _ = eig_blocks_dia_b_warm(ops, Fuse.reshape(ns * nblk, *Fuse.shape[-2:]),
+                                                 Vw, wgate, ns)
             C, E = Cn.split(nblk), E.split(nblk)
             out.append((C, E, Etot, errmax, Nel, torch.stack([Ekin, Enuc, Ecoul, Exx, Exc,
                                                               Efield])))
@@ -286,7 +311,7 @@ def make_dia_fused_chunk(funcs: tuple, kfrac: float, dftthr: float, njbd: int | 
                 break
         Cs, Es, Etots, errs, Nels, comps = zip(*out)
         return (Cs, Es, count, torch.stack(Etots), torch.stack(errs), torch.stack(Nels),
-                torch.stack(comps), len(out))
+                torch.stack(comps), len(out), Vw)
 
     return chunk
 
@@ -541,14 +566,18 @@ def scf_diatomic(
                 histE = torch.zeros((nhist, ns * nblk * blen * blen), dtype=torch.float64,
                                     device=device)
                 count = 0
+                # the warm eigensolve's seed: the identity fails the first
+                # fused step's certificate, which then solves cold; the
+                # whitened eigenvectors persist across chunks, per spin
+                Vw = torch.eye(blen, dtype=torch.float64, device=device).repeat(ns * nblk, 1, 1)
             nrun = min(chunk_len, CH, maxit - it + 1)
             chunk_len = min(2 * chunk_len, CH)
             spin_occs = (occa, occb)[:ns]
             # the chunk's energies leave out the constant Enucrep + Emag
-            Cs, Es, count, Etots, errs, Nels, comps, kmax = fused(
+            Cs, Es, count, Etots, errs, Nels, comps, kmax, Vw = fused(
                 ops, g, Vextra, tuple(as_dev(o) for o in spin_occs),
                 tuple(select(o) for o in spin_occs),
-                (Ca, Cb)[:ns], histF, histE, count, float(convthr), Eold - Enucrep - Emag, nrun,
+                (Ca, Cb)[:ns], Vw, histF, histE, count, float(convthr), Eold - Enucrep - Emag, nrun,
             )
             Etots = Etots.cpu().numpy()
             errs = errs.cpu().numpy()

@@ -6,7 +6,10 @@ Rmax 40, zexp 2.5, TF guess) with convthr 1e-12 for 30 iterations three
 times: with the blocked eigensolve as it ships (torch.linalg.eigh on the card
 plus helfem_tpu's four refinement passes, utils/linalg.py:eigh_refined),
 with no refinement pass (the card's eigh alone), and with the eigh taken on
-the host's LAPACK and no refinement pass. Prints the card, then one JSON line
+the host's LAPACK and no refinement pass. The fused chunks' warm start
+(K11, utils/linalg.py:eigh_warm) runs first at every fused step, but its
+certificate gate at convthr 1e-12 is 1e-13, below its floor at Xe, so each
+step takes the cold eigensolve under test. Prints the card, then one JSON line
 per run: the energy, the iterations, and the last three DIIS errors. The
 error stops falling where the eigensolve's residual holds it, and the SCF
 converges at a convthr only above that floor.

@@ -9,8 +9,14 @@ by helfem_tpu's first-order refinement passes (eigh_refined: f64 eigh seed,
 four passes). The card has native IEEE f64, but its batched eigh leaves a
 residual that stalls the DIIS error of Xe HF at the bench basis at 2.1e-9
 (3.5e-10 with the host's LAPACK eigh on the same card); the passes are
-matmuls and bring the card below the 1e-9 threshold. helfem_tpu's warm
-start (eigh_warm) is not carried over.
+matmuls and bring the card below the 1e-9 threshold.
+
+The fused SCF chunks take helfem_tpu's warm start instead (eigh_warm,
+eigh_warm_with, eig_blocks_b_warm): the previous iteration's eigenvectors
+seed the same sweeps, run by one launch of the kernel K11
+(kernels/refine_eig.py) on the card, and a residual certificate per group
+of blocks (per spin) decides whether they stand or the group is solved
+cold by eigh_refined. warm_counts counts both outcomes.
 
 The --diag 0 whitening (form_sinvh_chol, build_blocks(chol=True)) is the
 inverse Cholesky factor L^-T: not symmetric, so every use is Sinvh^T X Sinvh
@@ -24,12 +30,25 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from helfem_tpu_torch.kernels.refine_eig import refine_eig, refine_sweeps
+
 __all__ = ["form_sinvh", "form_sinvh_chol", "form_sh", "perturbation_matrix", "rohf_update",
-           "build_blocks", "gather_blocks", "eig_blocks", "eig_blocks_b", "eig_blocks_iter",
-           "eig_gsym_lm", "eig_gsym_m", "eig_gsym_sub", "eig_iter_gsym", "density_blocks",
-           "eigh_refined"]
+           "build_blocks", "gather_blocks", "eig_blocks", "eig_blocks_b", "eig_blocks_b_warm",
+           "eig_blocks_iter", "eig_gsym_lm", "eig_gsym_m", "eig_gsym_sub", "eig_iter_gsym",
+           "density_blocks", "eigh_refined", "eigh_warm", "eigh_warm_with", "warm_counts",
+           "reset_warm_counts"]
 
 _BIG = 1e6
+
+# decisions of the warm eigensolve, one per group of blocks (spin): "warm",
+# the certificate passed and K11's eigenvectors stand; "cold", it failed and
+# eigh_refined solved the group
+warm_counts = {"warm": 0, "cold": 0}
+
+
+def reset_warm_counts() -> None:
+    for key in warm_counts:
+        warm_counts[key] = 0
 
 
 def form_sinvh(S: np.ndarray) -> np.ndarray:
@@ -120,20 +139,67 @@ def eigh_refined(A: torch.Tensor, npass: int = 4, tau: float = 1e-9):
     left out of C (rotations inside a degenerate cluster do not change the
     density) and C is clipped to [-0.1, 0.1]. Returns (E ascending, V)."""
     E, V = torch.linalg.eigh(A)
-    eye = torch.eye(A.shape[-1], dtype=A.dtype, device=A.device)
-    for _ in range(npass):
-        M = V.mT @ A @ V
-        E = torch.diagonal(M, dim1=-2, dim2=-1)
-        dE = E[..., None, :] - E[..., :, None]
-        scale = torch.maximum(E.abs()[..., None, :], E.abs()[..., :, None]) + 1.0
-        mask = dE.abs() > tau * scale
-        C = torch.where(mask, M / torch.where(mask, dE, torch.ones_like(dE)),
-                        torch.zeros_like(M)).clamp(-0.1, 0.1)
-        V = V + V @ C
-        V = V @ (1.5 * eye - 0.5 * (V.mT @ V))
+    if npass:
+        E, V, _ = refine_sweeps(A, V, npass, tau, groups=0)
+    return _sort_eigs(E, V)
+
+
+def _sort_eigs(E: torch.Tensor, V: torch.Tensor):
+    """E ascending along its last axis, V's columns in the same order."""
     order = torch.argsort(E, dim=-1)
     return (torch.take_along_dim(E, order, dim=-1),
             torch.take_along_dim(V, order[..., None, :], dim=-1))
+
+
+def eigh_warm(A: torch.Tensor, V0: torch.Tensor, npass: int = 3, tau: float = 1e-9,
+              gate: float = 1e-10, groups: int = 1):
+    """Warm-started symmetric eigendecomposition (helfem_tpu's eigh_warm and
+    eigh_warm_with, utils/linalg.py:105-149): refine the previous
+    iteration's eigenvectors V0 instead of solving A from scratch. Inside an
+    SCF the Fock matrix moves by about the DIIS error between iterations,
+    so V0^T A V0 is nearly diagonal and a few sweeps recover the new
+    eigensystem. npass + 1 sweeps run (K11 on the card); the largest
+    |off-diagonal| of V^T A V in the last one, the residual after npass
+    sweeps in the units of the DIIS error, is the certificate. The blocks of
+    A [..., n, n] (leading axes flattened) split into `groups` equal runs,
+    each with its own certificate: one K11 launch for all of them, one host
+    read of the groups' residuals, and one eigh_refined call on the blocks
+    of the groups whose residual is not below `gate`, as helfem_tpu's
+    lax.cond does per call (per spin); the fused SCF chunks pass gate =
+    min(0.1 convthr, 1e-9). On the card that read stands in for the
+    synchronisation torch.linalg.eigh makes anyway. Returns (E ascending,
+    V, good), good a tuple of one host bool per group; V0 must be
+    orthonormal (the identity is safe: its certificate fails and the cold
+    path runs)."""
+    shape = A.shape
+    n = shape[-1]
+    A3 = A.reshape(-1, n, n).contiguous()
+    V3 = V0.reshape(-1, n, n).contiguous()
+    E, V, off = refine_eig(A3, V3, npass, tau, groups)
+    good = tuple(bool(x) for x in (off < gate).tolist())
+    nwarm = sum(good)
+    warm_counts["warm"] += nwarm
+    warm_counts["cold"] += groups - nwarm
+    if nwarm == 0:
+        E, V = eigh_refined(A3, tau=tau)
+    else:
+        E, V = _sort_eigs(E, V)
+        if nwarm < groups:
+            nb = A3.shape[0] // groups
+            rows = torch.cat([torch.arange(g * nb, (g + 1) * nb) for g in range(groups)
+                              if not good[g]]).to(A.device)
+            Ec, Vc = eigh_refined(A3[rows], tau=tau)
+            E, V = E.index_copy(0, rows, Ec), V.index_copy(0, rows, Vc)
+    return E.reshape(shape[:-1]), V.reshape(shape), good
+
+
+def eigh_warm_with(A: torch.Tensor, V0: torch.Tensor, gate: float, npass: int = 3,
+                   tau: float = 1e-9, groups: int = 1):
+    """eigh_warm with its gate first, under helfem_tpu's name for it
+    (utils/linalg.py:134). helfem_tpu's cold_fn argument, which put the
+    TPU's workspace-chunked eigh in place of eigh_refined, has no
+    counterpart: the card's eigh needs no chunking."""
+    return eigh_warm(A, V0, npass, tau, gate, groups)
 
 
 def gather_blocks(F_: torch.Tensor, blk_idx: torch.Tensor) -> torch.Tensor:
@@ -144,19 +210,41 @@ def gather_blocks(F_: torch.Tensor, blk_idx: torch.Tensor) -> torch.Tensor:
     return Fp[bi[:, :, None], bi[:, None, :]]
 
 
+def _whitened(Fb: torch.Tensor, blk_idx: torch.Tensor, blk_sinvh: torch.Tensor,
+              nbf: int) -> torch.Tensor:
+    """Sinvh^T Fb Sinvh per block, its padded slots (blk_idx == nbf) set to
+    eigenvalue _BIG (never occupied)."""
+    Forth = blk_sinvh.mT @ Fb @ blk_sinvh
+    pad = (blk_idx == nbf).to(Fb.dtype)
+    eye = torch.eye(blk_idx.shape[1], dtype=Fb.dtype, device=Fb.device)
+    return Forth + _BIG * eye[None] * pad[:, None, :]
+
+
 def eig_blocks_b(Fb: torch.Tensor, blk_idx: torch.Tensor, blk_sinvh: torch.Tensor,
                  nbf: int):
     """Batched whitened eigensolve from BLOCK-coordinate Fock matrices
     [nblk, blen, blen]; padded slots (blk_idx == nbf) get eigenvalue _BIG
     (never occupied). Returns (E [nblk, blen], C [nblk, blen, blen]) in
     block coordinates, E ascending per block."""
-    Forth = blk_sinvh.mT @ Fb @ blk_sinvh
-    pad = (blk_idx == nbf).to(Fb.dtype)
-    eye = torch.eye(blk_idx.shape[1], dtype=Fb.dtype, device=Fb.device)
-    Forth = Forth + _BIG * eye[None] * pad[:, None, :]
-    E, V = eigh_refined(Forth)
+    E, V = eigh_refined(_whitened(Fb, blk_idx, blk_sinvh, nbf))
     C = torch.einsum("bpi,bij->bpj", blk_sinvh, V)
     return E, C
+
+
+def eig_blocks_b_warm(Fb: torch.Tensor, blk_idx: torch.Tensor, blk_sinvh: torch.Tensor,
+                      nbf: int, V0: torch.Tensor, gate: float, groups: int = 1):
+    """eig_blocks_b with the warm-started eigensolve (helfem_tpu's
+    eig_blocks_b_warm, utils/linalg.py:229-243): V0 [nblk, blen, blen] are
+    the previous iteration's whitened block eigenvectors (the identity on
+    the first call: the certificate then fails and the cold solve runs),
+    `gate` the absolute residual tolerance, `groups` the number of equal
+    runs of blocks with a certificate each (the spins, stacked in blk_idx
+    and blk_sinvh or on a leading axis of Fb and V0 [ns, nblk, blen, blen],
+    over which blk_idx and blk_sinvh broadcast). Returns (E, C, V, good) of
+    Fb's shape; V seeds the next call."""
+    E, V, good = eigh_warm(_whitened(Fb, blk_idx, blk_sinvh, nbf), V0, gate=gate,
+                           groups=groups)
+    return E, blk_sinvh @ V, V, good
 
 
 def eig_blocks(F_: torch.Tensor, blk_idx: torch.Tensor, blk_sinvh: torch.Tensor):

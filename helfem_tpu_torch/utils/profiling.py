@@ -8,7 +8,11 @@ import time
 
 import torch
 
-__all__ = ["busy_wall", "device_ms", "profile_scf", "queued_ms", "trace_scf"]
+__all__ = ["busy_wall", "capture_warm", "device_ms", "eig_split", "profile_scf", "queued_ms",
+           "trace_scf"]
+
+K11 = "refine_eig_kernel"  # the warm eigensolve's sweeps (kernels/refine_eig.py)
+EIGH = "aten::_linalg_eigh"  # the cold eigensolve: the cuSOLVER kernels it launches
 
 
 @contextlib.contextmanager
@@ -43,6 +47,62 @@ def _kernels(events):
             and not getattr(e, "is_user_annotation", False)]
 
 
+def _busy_s(prof) -> float:
+    """Device seconds of the kernels of a finished torch.profiler session,
+    the rows _kernels keeps, summed over its raw events: building the
+    function-event tree (key_averages) takes seconds for the tens of
+    thousands of events of one SCF, this sum milliseconds. A torch whose
+    raw events lack these accessors gets the tree's sum."""
+    from torch.autograd import DeviceType
+
+    try:
+        events = prof.profiler.kineto_results.events()
+        host = {e.name() for e in events if e.device_type() != DeviceType.CUDA}
+        return 1e-9 * sum(e.duration_ns() for e in events
+                          if e.device_type() == DeviceType.CUDA and e.name() not in host
+                          and not e.is_user_annotation())
+    except AttributeError:
+        return sum(e.self_device_time_total for e in _kernels(prof.key_averages())) * 1e-6
+
+
+@contextlib.contextmanager
+def capture_warm(keep_inputs: bool = False):
+    """Record every K11 call of the warm eigensolve (utils/linalg.py:
+    eigh_warm) made inside the block: yields a list that gains one dict per
+    call, {"off": its residuals per group (a device tensor, read after the
+    block, so that recording adds no synchronisation)} and with
+    keep_inputs "args": copies of (A, V0, npass, tau, groups), the inputs
+    that chip_smoke.py and tools/warm_floor.py hold K11 against its plain
+    version on."""
+    from helfem_tpu_torch.utils import linalg
+
+    calls, inner = [], linalg.refine_eig
+
+    def recording(A, V0, npass=3, tau=1e-9, groups=1):
+        out = inner(A, V0, npass, tau, groups)
+        calls.append({"off": out[2], **({"args": (A.clone(), V0.clone(), npass, tau, groups)}
+                                        if keep_inputs else {})})
+        return out
+
+    linalg.refine_eig = recording
+    try:
+        yield calls
+    finally:
+        linalg.refine_eig = inner
+
+
+def eig_split(events) -> dict:
+    """The eigensolve's device time among profiler events: {K11: (ms,
+    launches), EIGH: (ms, calls)}, EIGH's the self time of the operator
+    (the cuSOLVER kernels it launches)."""
+    from torch.autograd import DeviceType
+
+    k11 = [e for e in _kernels(events) if K11 in e.key]
+    eigh = [e for e in events if e.device_type != DeviceType.CUDA and e.key == EIGH]
+    return {name: (sum(e.self_device_time_total for e in hits) * 1e-3,
+                   sum(e.count for e in hits)) for name, hits in ((K11, k11), (EIGH, eigh))}
+
+
 def profile_scf(label: str, run, rows: int = 20, kernels: tuple = (), ops: tuple = (),
                 ranges: dict | None = None, walls: int = 3) -> dict:
     """Warm SCF walls (min of `walls`) of run() -> result, and the device time
@@ -57,9 +117,16 @@ def profile_scf(label: str, run, rows: int = 20, kernels: tuple = (), ops: tuple
     their number. `ranges` maps a name to key prefixes of host events
     (record_function ranges, autograd's evaluate_function nodes): the total
     device time of the kernels launched inside them, returned the same
-    way."""
+    way. Every profile also splits the eigensolve: the profiled SCF's warm
+    acceptances and cold solves (utils/linalg.py:warm_counts, returned
+    under "warm" and "cold"), the residual of each group at each warm
+    attempt (returned under "residuals", a list per K11 call), K11's
+    device time and launches and aten::_linalg_eigh's (eig_split, returned
+    under K11 and EIGH) and their share of the busy time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+
+    from helfem_tpu_torch.utils.linalg import reset_warm_counts, warm_counts
 
     times = []
     for _ in range(walls):
@@ -71,20 +138,27 @@ def profile_scf(label: str, run, rows: int = 20, kernels: tuple = (), ops: tuple
         raise RuntimeError(f"warm {label} SCF did not converge")
     print(f"warm {label} SCF walls: {[round(w, 4) for w in times]} s, {res.niter} "
           f"iterations, min {min(times) / res.niter * 1e3:.2f} ms per iteration")
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    reset_warm_counts()
+    with capture_warm() as calls, profile(
+            activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+    warm = dict(warm_counts)
+    residuals = [c["off"].tolist() for c in calls]
     events = prof.key_averages()
     key = "self_device_time_total"
     # device kernels only: operator rows repeat the time of their kernels
     device = _kernels(events)
     busy = sum(getattr(e, key) for e in device) * 1e-6
+    raw = _busy_s(prof)
     print(f"profiled {label} SCF: wall {wall:.4f} s (profiler on), device busy "
-          f"{busy:.4f} s = {100 * busy / wall:.1f} % of the wall")
+          f"{busy:.4f} s = {100 * busy / wall:.1f} % of the wall (busy_wall's sum of the raw "
+          f"events {raw:.4f} s{'' if abs(raw - busy) <= 0.01 * busy else ', DISAGREES'})")
     print(events.table(sort_by=key, row_limit=rows))
-    per_kernel = {"busy": (busy * 1e3, sum(e.count for e in device))}
+    per_kernel = {"busy": (busy * 1e3, sum(e.count for e in device)), **warm,
+                  "residuals": residuals}
     for name in kernels:
         hits = [e for e in device if name in e.key]
         per_kernel[name] = (sum(getattr(e, key) for e in hits) * 1e-3, sum(e.count for e in hits))
@@ -103,6 +177,15 @@ def profile_scf(label: str, run, rows: int = 20, kernels: tuple = (), ops: tuple
                             sum(e.count for e in hits))
         print(f"{label}: {name} device time {per_kernel[name][0]:.4f} ms in "
               f"{per_kernel[name][1]} host events per SCF")
+    per_kernel.update(eig_split(events))
+    k11, eigh = per_kernel[K11][0], per_kernel[EIGH][0]
+    print(f"{label}: eigensolve per SCF: {warm['warm']} warm acceptances, {warm['cold']} cold "
+          f"fallbacks of the warm path, residuals per K11 call "
+          f"{[[float(f'{x:.2e}') for x in r] for r in residuals]}; "
+          f"K11 {k11:.4f} ms in {per_kernel[K11][1]} launches, "
+          f"eigh {eigh:.4f} ms in {per_kernel[EIGH][1]} calls, together "
+          f"{100 * (k11 + eigh) / max(busy * 1e3, 1e-12):.1f} % of the busy time; the rest "
+          f"{busy * 1e3 - k11 - eigh:.4f} ms")
     return per_kernel
 
 
@@ -117,8 +200,7 @@ def busy_wall(run) -> tuple[float, float]:
         run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    busy = sum(e.self_device_time_total for e in _kernels(prof.key_averages())) * 1e-6
-    return wall, busy
+    return wall, _busy_s(prof)
 
 
 def device_ms(fn, reps: int = 20) -> float:

@@ -1412,3 +1412,48 @@ def test_unrestricted_sad_on_card_matches_cpu(cuda_device, method):
     assert kernels.launches["radial_exchange"] == (n if hf else 0)
     assert kernels.launches["dia_xc_fields"] == kernels.launches["dia_xc_fock"] == (
         0 if hf else n)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("groups", [1, 2])
+@pytest.mark.parametrize("seed", ["near", "rotated"])
+@pytest.mark.parametrize("shape", [(4, 139), (6, 140)], ids=["ar", "n2"])
+def test_refine_eig_kernel_matches_plain_on_card(cuda_device, shape, seed, groups):
+    """K11 at the Ar and N2 bench block shapes (chip_smoke.py's inputs), one
+    and two spins, from a near seed (accepted) and a rotated one
+    (rejected): the same certificate decisions, E and V within TOL x max-abs of the plain version, the
+    residuals within TOL x max|E|, one launch per call and the same bits
+    twice."""
+    import chip_smoke as cs
+
+    nblk, n = shape
+    A, V0 = cs.refine_inputs(nblk * groups, n, cuda_device, 67, (seed,) * groups)
+    args = (A, V0, 3, 1e-9, groups)
+    before = kernels.launches["refine_eig"]
+    out, again = kernels.refine_eig(*args), kernels.refine_eig(*args)
+    torch.cuda.synchronize()
+    assert kernels.launches["refine_eig"] == before + 2
+    assert all(torch.equal(x, y) for x, y in zip(out, again))
+    ref = kernels.refine_eig_plain(*args)
+    for got, want in zip(out[:2], ref[:2]):
+        assert float((got - want).abs().max()) <= TOL * float(want.abs().max())
+    assert float((out[2] - ref[2]).abs().max()) <= TOL * float(ref[0].abs().max())
+    good = (out[2] < cs.REFINE_GATE).tolist()
+    assert good == (ref[2] < cs.REFINE_GATE).tolist() == [seed == "near"] * groups
+
+
+@pytest.mark.cuda
+def test_refine_eig_kernel_propagates_nan_on_card(cuda_device):
+    """A NaN in one off-diagonal pair of A reaches K11's outputs as it
+    reaches the plain version's: the same NaN entries in E, V and the
+    residual (a NaN residual fails the certificate). K11's clip of C passes
+    NaN, as torch.clamp does."""
+    n = 16
+    A = torch.diag(torch.arange(1.0, n + 1, dtype=torch.float64, device=cuda_device))[None]
+    A[0, 0, 1] = A[0, 1, 0] = float("nan")
+    V0 = torch.eye(n, dtype=torch.float64, device=cuda_device)[None]
+    out = kernels.refine_eig(A, V0, 3, 1e-9, 1)
+    ref = kernels.refine_eig_plain(A, V0, 3, 1e-9, 1)
+    for got, want in zip(out, ref):
+        assert torch.equal(got.isnan(), want.isnan())
+    assert bool(out[2].isnan().all()) and not bool(out[2] < 1e-9)
